@@ -1,0 +1,370 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (glt_tpu_torch) on one NVIDIA GPU.
+
+Builds the port's CUDA kernels from csrc/, holds each against its plain
+PyTorch version at the shapes the serving path gives it, then serves a
+seeded 3-layer GraphSAGE (hidden 256, 47 classes, 100 features, fanouts
+[15, 10, 5]) over a products-shaped graph (2.45M nodes, 62M edges)
+through InferenceEngine.infer, and checks what comes out.
+
+Usage, from the repository root, on a machine with a card:
+
+    python3 chip_smoke.py
+
+Prints one line per phase with its seconds, the card's name and power
+limit, one JSON line of per-kernel numbers ({"kernels": [...]}) and, as
+the last line, {"ok": true, "device": {...}}. Exits non-zero, with no
+result line, when there is no card, when the package is missing, or when
+any check fails. Imports nothing of JAX.
+"""
+import json
+import subprocess
+import sys
+import time
+
+NUM_NODES, NUM_EDGES, FEAT_DIM = 2_450_000, 62_000_000, 100
+HIDDEN, CLASSES, FANOUTS, BUCKETS = 256, 47, (15, 10, 5), (8, 64, 256)
+REQUESTS = (1, 7, 64, 200, 256)
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
+LOGIT_TOL = 1e-4  # same batch bit for bit; index_add_ float atomics
+                  # sum in another order from run to run
+
+
+class Phase:
+  def __init__(self, name):
+    self.name = name
+
+  def __enter__(self):
+    self.t0 = time.perf_counter()
+    return self
+
+  def __exit__(self, *exc):
+    if exc[0] is None:
+      print(f'[phase] {self.name}: {time.perf_counter() - self.t0:.3f} s',
+            flush=True)
+
+
+def cuda_ms(torch, fn, iters, warmup=2):
+  """Mean milliseconds per call over ``iters`` calls, CUDA events."""
+  for _ in range(warmup):
+    fn()
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for i in range(iters):
+    fn(i)
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / iters
+
+
+def bytes_ms(nbytes):
+  return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def main() -> int:
+  import numpy as np
+  import torch
+  if not torch.cuda.is_available():
+    print('chip_smoke: no CUDA device', file=sys.stderr)
+    return 1
+  from glt_tpu_torch.data import Dataset
+  from glt_tpu_torch.models import GraphSAGE
+  from glt_tpu_torch.ops import build
+  from glt_tpu_torch.ops import cuda_kernels as K
+  from glt_tpu_torch.ops.pipeline import _fused_seed_hop, sample_budget
+  from glt_tpu_torch.ops.sample import walk_geometry, walk_hop_uniforms
+  from glt_tpu_torch.serving import InferenceEngine
+
+  dev = torch.device('cuda', 0)
+  torch.cuda.set_device(dev)
+  torch.backends.cuda.matmul.allow_tf32 = False   # float32 throughout
+  torch.backends.cudnn.allow_tf32 = False
+
+  with Phase('device'):
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f'torch {torch.__version__} cuda {torch.version.cuda} '
+          f'python {sys.version.split()[0]}')
+
+  with Phase('build'):
+    for name, path in build.build_all().items():
+      with open(path + '.log') as f:
+        regs = [ln.strip() for ln in f if 'registers' in ln or 'spill' in ln]
+      print(f'built {name}: ' + ' | '.join(regs[:6]))
+    for name in build.SOURCES:
+      build.kernel_library(name)
+
+  with Phase('data'):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # out-degrees ~Poisson(25) (products' mean); in-degrees skewed by a
+    # squared-uniform draw, as bench.py builds its graph
+    src = torch.randint(0, NUM_NODES, (NUM_EDGES,), generator=gen,
+                        device=dev)
+    dst = (torch.rand(NUM_EDGES, generator=gen, device=dev) ** 2
+           * NUM_NODES).long() % NUM_NODES
+    ds = Dataset().init_graph(torch.stack([src, dst]), num_nodes=NUM_NODES)
+    del src, dst
+    ds.init_node_features(torch.randn((NUM_NODES, FEAT_DIM), generator=gen,
+                                      device=dev))
+    engine = InferenceEngine(
+        ds, GraphSAGE(FEAT_DIM, HIDDEN, CLASSES, num_layers=3), None,
+        list(FANOUTS), buckets=BUCKETS, seed=0)
+    engine.init_params(0)
+    g = ds.get_graph()
+    torch.cuda.synchronize()
+    print(f'graph: {g.num_nodes} nodes, {g.num_edges} edges, max degree '
+          f'{g.topo.max_degree}; features {tuple(ds.get_node_feature().shape)}')
+
+  rows = {}
+  with Phase('kernel checks'):
+    seeds_np = torch.randint(0, NUM_NODES, (1024,), generator=gen,
+                             device=dev)
+    walk = {}
+    for b in (256, 1024):
+      seeds = seeds_np[:b].to(torch.int32)
+      d, _ = _fused_seed_hop(seeds, b)
+      u = walk_hop_uniforms(gen, b, FANOUTS, False, dev)
+      args = (g.indptr_pad, g.indices, d['ids3'], d['new_head3'],
+              torch.where(d['new_head3'], d['ids3'],
+                          torch.full_like(d['ids3'], -1)),
+              d['labels3'], d['count2'], u)
+      kw = dict(fanouts=FANOUTS, replace=False,
+                table_slots=K.walk_table_slots(sample_budget(b, FANOUTS)))
+      got = K.sample_walk_dedup(*args, **kw)
+      want = K.sample_walk_dedup_plain(*args, **kw)
+      err = 0
+      for h, (x, y) in enumerate(zip(got, want)):
+        for key in ('picks', 'mask', 'labels', 'new_head'):
+          if not torch.equal(x[key], y[key]):
+            raise AssertionError(f'walk B={b} hop {h} {key} differs')
+          err = max(err, int((x[key].long() - y[key].long()).abs().max()))
+      ms = cuda_ms(torch, lambda i=0: K.sample_walk_dedup(*args, **kw), 10)
+      plain = cuda_ms(torch, lambda i=0: K.sample_walk_dedup_plain(
+          *args, **kw), 3, warmup=1)
+      # bytes the walk must move: uniforms and frontier in, two indptr
+      # entries per live row, one index per valid pick, and per slot the
+      # outputs (pick, label: 4 B; mask, head: 1 B)
+      nbytes = 12 * b
+      frontier_ok = d['new_head3']
+      for (s, k), uh, hop in zip(walk_geometry(b, FANOUTS), u, got):
+        nbytes += uh.numel() * 4 + s * 4 + int(frontier_ok.sum()) * 8
+        nbytes += int(hop['mask'].sum()) * 4 + s * k * 10
+        frontier_ok = hop['new_head']
+      walk[b] = dict(ms=ms, plain_ms=plain, err=err,
+                     bound_ms=bytes_ms(nbytes),
+                     nodes=int(sum(int(h['new_head'].sum()) for h in got)
+                               + int(d['count2'])))
+      print(f'sample_walk_dedup B={b}: equal to plain on every surface; '
+            f'{ms:.4f} ms (plain {plain:.4f} ms, bound {bytes_ms(nbytes):.6f} '
+            f'ms, {walk[b]["nodes"]} distinct nodes)')
+    rows['sample_walk_dedup'] = walk[256]
+
+    # dedup_table_insert: the walk's seed phase at bucket 256
+    seeds = seeds_np[:256].to(torch.int32)
+    d, _ = _fused_seed_hop(seeds, 256)
+    ids = torch.where(d['new_head3'], d['ids3'],
+                      torch.full_like(d['ids3'], -1))
+    valid = ids >= 0
+    slots = K.walk_table_slots(sample_budget(256, FANOUTS))
+    tables = [K.make_dedup_table(slots, dev)[:2] for _ in range(24)]
+    K.dedup_table_insert(*tables[0], ids, d['labels3'], valid)
+    plain_tab = K.make_dedup_table(slots, dev)[:2]
+    K.dedup_table_insert_plain(*plain_tab, ids, d['labels3'], valid)
+    probe = torch.cat([d['ids3'], torch.arange(NUM_NODES, NUM_NODES + 64,
+                                               device=dev)])
+    a = K.dedup_table_lookup(*tables[0], probe)
+    b_ = K.dedup_table_lookup(*plain_tab, probe)
+    if not torch.equal(a, b_):
+      raise AssertionError('dedup_table_insert lookups differ from plain')
+    # every live seed (duplicates included) finds its exact-dedup label
+    want = torch.cat([torch.where(d['ids3'] < K.BIG, d['labels3'], -1),
+                      torch.full((64,), -1, device=dev)])
+    if not torch.equal(a, want.long()):
+      raise AssertionError('dedup_table_insert lookups miss seed labels')
+    ms = cuda_ms(torch, lambda i=0: K.dedup_table_insert(
+        *tables[1 + i % 23], ids, d['labels3'], valid), 20, warmup=0)
+    ptables = [K.make_dedup_table(slots, dev)[:2] for _ in range(4)]
+    plain = cuda_ms(torch, lambda i=0: K.dedup_table_insert_plain(
+        *ptables[i % 4], ids, d['labels3'], valid), 3, warmup=0)
+    n_ins = int(valid.sum())
+    rows['dedup_table_insert'] = dict(
+        ms=ms, plain_ms=plain, err=int((a - b_).abs().max()),
+        bound_ms=bytes_ms(12 * ids.numel() + 8 * n_ins))
+    print(f'dedup_table_insert: {n_ins} seeds, lookups equal; {ms:.4f} ms '
+          f'(plain {plain:.4f} ms)')
+
+    # gather_rows: bucket 256's node list (234,496 rows x 100 float32)
+    out = engine.sampler.sample_from_nodes(seeds)
+    node = out.node
+    table = ds.get_node_feature().table
+    got = K.gather_rows(table, node)
+    want = K.gather_rows_plain(table, node)
+    if not torch.equal(got, want):
+      raise AssertionError('gather_rows differs from plain')
+    clamped = node.long().clamp(0, NUM_NODES - 1)
+    ms = cuda_ms(torch, lambda i=0: K.gather_rows(table, node), 50)
+    plain = cuda_ms(torch, lambda i=0: K.gather_rows_plain(table, node), 50)
+    lib = cuda_ms(torch, lambda i=0: torch.index_select(table, 0, clamped),
+                  50)
+    nb = node.numel()
+    rows['gather_rows'] = dict(
+        ms=ms, plain_ms=plain, library_ms=lib, err=float(
+            (got - want).abs().max()),
+        bound_ms=bytes_ms(2 * nb * FEAT_DIM * 4 + nb * 4))
+    print(f'gather_rows: {nb} x {FEAT_DIM} float32 equal; {ms:.4f} ms '
+          f'(plain {plain:.4f}, index_select {lib:.4f}, bound '
+          f'{rows["gather_rows"]["bound_ms"]:.4f} ms)')
+
+    # launches of one sample + gather at each batch size (the serving
+    # bucket 256 and the training batch 1024), counted by the wrappers
+    for b in (256, 1024):
+      K.reset_launch_counts()
+      out = engine.sampler.sample_from_nodes(seeds_np[:b])
+      ds.get_node_feature().device_gather(out.node)
+      torch.cuda.synchronize()
+      print(f'launches per sample + gather, batch {b}: '
+            f'{ {fn.__name__: fn.launches for fn in K.KERNELS} }')
+
+  with Phase('main path'):
+    engine.warmup()
+    rng = torch.Generator().manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    # two passes of fresh ids, each ending with a repeat that must hit
+    # the cache; host clock around infer, which ends in a device sync
+    for rep in range(2):
+      requests = [torch.randint(0, NUM_NODES, (n,), generator=rng).numpy()
+                  for n in REQUESTS]
+      hits0, lat = engine.cache.hits, []
+      for ids in requests + [requests[2]]:
+        t0 = time.perf_counter()
+        logits = engine.infer(ids)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if logits.shape != (ids.size, CLASSES):
+          raise AssertionError(f'logits shape {logits.shape}')
+        if not torch.isfinite(torch.as_tensor(logits)).all():
+          raise AssertionError('non-finite logits')
+      if engine.cache.hits - hits0 < REQUESTS[2]:
+        raise AssertionError('the repeated request missed the cache')
+      print(f'pass {rep} request ms ' + ', '.join(
+          f'{n}: {ms:.3f}' for n, ms in zip(REQUESTS + ('repeat 64',),
+                                            lat)))
+    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in launches.items():
+      if n == 0:
+        raise AssertionError(f'{name} never launched on the main path')
+    print(f'launches {launches}; cache hits {engine.cache.hits}; peak '
+          f'memory {peak / 2**30:.3f} GiB')
+
+  with Phase('main path vs plain'):
+    # one bucket through the kernels and through the plain versions on
+    # the card, same seeds and uniforms
+    ids = requests[3]
+    seeds = np.concatenate([ids, np.full(256 - ids.size, ids[0])])
+    u = engine.sampler.hop_uniforms(256)
+    with torch.no_grad():
+      bk = engine.make_batch(seeds, ids.size, 256, uniforms=u)
+      yk = engine.model(bk)
+      kernels = {n: getattr(K, n) for n in
+                 ('sample_walk_dedup', 'dedup_table_insert', 'gather_rows')}
+      try:
+        for n in kernels:
+          setattr(K, n, getattr(K, n + '_plain'))
+        bp = engine.make_batch(seeds, ids.size, 256, uniforms=u)
+        yp = engine.model(bp)
+      finally:
+        for n, fn in kernels.items():
+          setattr(K, n, fn)
+    for f in ('node', 'node_count', 'row', 'col', 'edge_mask', 'x'):
+      if not torch.equal(getattr(bk, f), getattr(bp, f)):
+        raise AssertionError(f'batch.{f} differs between kernels and plain')
+    diff = float((yk - yp).abs().max())
+    if not torch.allclose(yk, yp, rtol=LOGIT_TOL, atol=LOGIT_TOL):
+      raise AssertionError(f'logits differ from plain by {diff}')
+    print(f'bucket 256: batch bit-identical, logits max |diff| {diff:.3e} '
+          f'(tolerance {LOGIT_TOL})')
+
+  with Phase('profile'):
+    # device time by serving stage and by kernel over 3 fresh requests of
+    # 256 ids (bucket 256), from torch.profiler's CUDA trace
+    from torch.profiler import ProfilerActivity, profile
+    reqs = [torch.randint(0, NUM_NODES, (256,), generator=rng).numpy()
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      t0 = time.perf_counter()
+      for ids in reqs:
+        engine.infer(ids)
+      wall = (time.perf_counter() - t0) * 1e3 / len(reqs)
+    # kernels are the CUDA events other than the stages' own GPU-side
+    # range markers; a stage's kernel time is that of the kernels inside
+    # its marker's extent on the device timeline (the ctypes-launched
+    # kernels carry no aten op to attribute them to)
+    stages = ('sample.multihop', 'gather.features', 'serve.forward')
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    kern = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in events
+                  if e.device_type == cuda and e.name not in stages)
+    busy, end = 0.0, float('-inf')
+    for t0_, t1_, _ in kern:   # union of kernel intervals, us
+      busy += max(0.0, t1_ - max(t0_, end))
+      end = max(end, t1_)
+    n = len(reqs)
+    print(f'profile: {wall:.3f} ms wall per request, device busy '
+          f'{busy / 1e3 / n:.3f} ms ({busy / 1e3 / n / wall * 100:.1f}%)')
+    for st in stages:
+      cpu = [e for e in events if e.name == st and e.device_type != cuda]
+      gpu = [e.time_range for e in events
+             if e.name == st and e.device_type == cuda]
+      dev_us = sum(t1_ - t0_ for t0_, t1_, _ in kern
+                   if any(r.start <= t0_ and t1_ <= r.end for r in gpu))
+      span_us = sum(r.elapsed_us() for r in gpu)
+      host_us = sum(e.time_range.elapsed_us() for e in cpu)
+      print(f'  stage {st}: kernels {dev_us / 1e3 / n:.4f} ms, device span '
+            f'{span_us / 1e3 / n:.4f} ms, host {host_us / 1e3 / n:.4f} ms '
+            'per request')
+    by_name = {}
+    for t0_, t1_, name in kern:
+      tot, cnt = by_name.get(name, (0.0, 0))
+      by_name[name] = (tot + t1_ - t0_, cnt + 1)
+    for name, (tot, cnt) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][0])[:12]:
+      print(f'  kernel {name[:80]}: {tot / 1e3 / n:.4f} ms, '
+            f'{cnt / n:g} per request')
+
+  replaces = {
+      'sample_walk_dedup': ('glt_tpu_torch/csrc/sample_walk_dedup.cu',
+                            'glt_tpu/ops/pallas_kernels.py:998'),
+      'dedup_table_insert': ('glt_tpu_torch/csrc/dedup_table_insert.cu',
+                             'glt_tpu/ops/pallas_kernels.py:588'),
+      'gather_rows': ('glt_tpu_torch/csrc/gather_rows.cu',
+                      'glt_tpu/ops/pallas_kernels.py:236'),
+  }
+  print(f'walk B=1024: {walk[1024]["ms"]:.4f} ms, plain '
+        f'{walk[1024]["plain_ms"]:.4f} ms, bound '
+        f'{walk[1024]["bound_ms"]:.6f} ms')
+  print(smi)
+  print(json.dumps({'kernels': [
+      dict(name=n, route='cuda', source=src, replaces=rep,
+           launches=launches[n], max_abs_err=rows[n]['err'],
+           ms=rows[n]['ms'], plain_ms=rows[n]['plain_ms'],
+           bound_ms=rows[n]['bound_ms'], bound_by='bytes',
+           library_ms=rows[n].get('library_ms'))
+      for n, (src, rep) in replaces.items()]}))
+  print(json.dumps({'ok': True, 'device': {
+      'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))
+  return 0
+
+
+if __name__ == '__main__':
+  sys.exit(main())

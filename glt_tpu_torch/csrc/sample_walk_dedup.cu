@@ -1,0 +1,219 @@
+// sample_walk_dedup: the uniform multi-hop walk with exact dedup/relabel.
+//
+// Replaces: glt_tpu/ops/pallas_kernels.py sample_walk_dedup (:998) and the
+// relabel epilogue of glt_tpu/ops/pipeline.py _multihop_sample_walk
+// (:584-633). The seed phase is dedup_table_insert.cu, called first by the
+// wrapper (glt_tpu_torch/ops/cuda_kernels.py).
+//
+// Bound on this card: latency, not bytes. A hop reads two indptr entries
+// and K neighbour ids per frontier row and writes a few int32 per pick --
+// about 20 MB for the whole walk at batch 1024, fanouts [15, 10, 5], i.e.
+// a few microseconds of the 3.35 TB/s -- but every pick is a dependent
+// random read (indptr -> indices -> hash table probe) and hop h+1 cannot
+// start before hop h's picks are deduplicated.
+// Design: three launches per hop on one stream, no host synchronisation.
+//   sample  -- one thread per frontier row: degree from indptr_pad (an
+//              invalid id INT32_MAX clamps to row N, degree 0), Floyd or
+//              with-replacement offsets from the injected uniforms in the
+//              exact float32 arithmetic of the TPU draw, direct reads of
+//              indices[start + offset] (no windows and no hub lists: a
+//              thread reads any element), and a lock-free probe/insert of
+//              every valid pick; an id new in this hop records its minimum
+//              slot with atomicMin.
+//   heads   -- one thread per slot: seen ids take their stored label; the
+//              minimum slot of a new id is its head, and heads form the next
+//              frontier where(new_head, pick, INT32_MAX).
+//   labels  -- after one sort of the next frontier (torch.sort in the
+//              wrapper, as the TPU path sorts in XLA), each new slot's label
+//              is count + its id's rank among the hop's new ids (binary
+//              search), and the head writes that label into the table.
+// The TPU kernel gets first-occurrence order from its sequential grid;
+// blocks here run in no order, so the order comes from atomicMin and the
+// value-order labels from the sort, which is the label contract the TPU
+// path restores in its epilogue anyway.
+#include <climits>
+
+#include "dedup_table.cuh"
+
+namespace {
+
+constexpr int kMaxFanout = 64;
+
+__global__ void walk_sample_kernel(
+    const int* __restrict__ indptr_pad, int num_nodes,
+    const int* __restrict__ indices, const int* __restrict__ frontier,
+    const int* __restrict__ frontier_ok, int s, int k,
+    const float* __restrict__ u, int replace, int* keys,
+    const int* __restrict__ vals, int* first, int mask,
+    int* __restrict__ picks, int* __restrict__ slots,
+    unsigned char* __restrict__ valid, int* __restrict__ tslot) {
+  int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= s) return;
+  const int fid = frontier[r];
+  const bool ok = frontier_ok ? frontier_ok[r] != 0 : fid != INT_MAX;
+  const int addr = fid < 0 ? 0 : (fid > num_nodes ? num_nodes : fid);
+  const int start = indptr_pad[addr];
+  const int deg = ok ? indptr_pad[addr + 1] - start : 0;
+  const float* ur = u + static_cast<int64_t>(r) * k;
+
+  int off[kMaxFanout];
+  int n_valid;
+  if (replace) {
+    // offsets = min(int(u * deg), max(deg - 1, 0)); every lane valid iff
+    // deg > 0 (ops/sample.py _draw_hop, replace branch)
+    for (int j = 0; j < k; ++j) {
+      int t = __float2int_rz(__fmul_rn(ur[j], __int2float_rn(deg)));
+      off[j] = min(t, max(deg - 1, 0));
+    }
+    n_valid = deg > 0 ? k : 0;
+  } else if (deg <= k) {
+    for (int j = 0; j < k; ++j) off[j] = j;
+    n_valid = deg;
+  } else {
+    // Floyd: draw t in [0, bound], take bound on a collision with an
+    // earlier column (ops/sample.py _floyd_offsets)
+    for (int j = 0; j < k; ++j) {
+      const int bound = max(deg - k + j, 0);
+      int t = __float2int_rz(__fmul_rn(ur[j], __int2float_rn(bound + 1)));
+      t = min(t, bound);
+      bool dup = false;
+      for (int q = 0; q < j; ++q) dup |= off[q] == t;
+      off[j] = dup ? bound : t;
+    }
+    n_valid = k;
+  }
+
+  for (int j = 0; j < k; ++j) {
+    const int e = r * k + j;
+    if (j >= n_valid) {
+      picks[e] = -1;
+      valid[e] = 0;
+      tslot[e] = -1;
+      if (slots) slots[e] = -1;
+      continue;
+    }
+    const int slot = start + off[j];
+    const int x = indices[slot];
+    picks[e] = x;
+    valid[e] = 1;
+    if (slots) slots[e] = slot;
+    bool inserted;
+    const int ts = glt::table_probe_insert(keys, mask, x, &inserted);
+    tslot[e] = ts;
+    // labels are written only by walk_labels_kernel, in a later launch:
+    // an unlabelled slot therefore holds an id first seen in this hop
+    if (__ldcg(vals + ts) < 0) atomicMin(first + ts, e);
+  }
+}
+
+__global__ void walk_heads_kernel(const int* __restrict__ picks,
+                                  const unsigned char* __restrict__ valid,
+                                  const int* __restrict__ tslot,
+                                  const int* __restrict__ vals,
+                                  const int* __restrict__ first, int m,
+                                  int* __restrict__ labels,
+                                  unsigned char* __restrict__ new_head,
+                                  int* __restrict__ next_frontier) {
+  int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= m) return;
+  int lab = -1;
+  bool head = false;
+  if (valid[e]) {
+    const int ts = tslot[e];
+    const int v = vals[ts];
+    if (v >= 0) {
+      lab = v;
+    } else {
+      lab = -2;  // new in this hop: labelled by walk_labels_kernel
+      head = first[ts] == e;
+    }
+  }
+  labels[e] = lab;
+  new_head[e] = head ? 1 : 0;
+  next_frontier[e] = head ? picks[e] : INT_MAX;
+}
+
+__global__ void walk_labels_kernel(const int* __restrict__ picks,
+                                   const unsigned char* __restrict__ new_head,
+                                   const int* __restrict__ tslot,
+                                   const int* __restrict__ sorted_new,
+                                   const int* __restrict__ count, int m,
+                                   int* __restrict__ labels,
+                                   int* __restrict__ vals) {
+  int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= m || labels[e] != -2) return;
+  const int x = picks[e];
+  int lo = 0, hi = m;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sorted_new[mid] < x) lo = mid + 1; else hi = mid;
+  }
+  const int lab = *count + lo;
+  labels[e] = lab;
+  if (new_head[e]) vals[tslot[e]] = lab;
+}
+
+inline unsigned blocks_for(int n, int threads) {
+  return static_cast<unsigned>((n + threads - 1) / threads);
+}
+
+}  // namespace
+
+extern "C" int glt_walk_sample(const void* indptr_pad, int num_nodes,
+                               const void* indices, const void* frontier,
+                               const void* frontier_ok, int s, int k,
+                               const void* u, int replace, void* keys,
+                               const void* vals, void* first, int slots_n,
+                               void* picks, void* slots, void* valid,
+                               void* tslot, void* stream) {
+  if (k > kMaxFanout) return static_cast<int>(cudaErrorInvalidValue);
+  if (s > 0) {
+    const int threads = 128;
+    walk_sample_kernel<<<blocks_for(s, threads), threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(indptr_pad), num_nodes,
+        static_cast<const int*>(indices), static_cast<const int*>(frontier),
+        static_cast<const int*>(frontier_ok), s, k,
+        static_cast<const float*>(u), replace, static_cast<int*>(keys),
+        static_cast<const int*>(vals), static_cast<int*>(first), slots_n - 1,
+        static_cast<int*>(picks), static_cast<int*>(slots),
+        static_cast<unsigned char*>(valid), static_cast<int*>(tslot));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int glt_walk_heads(const void* picks, const void* valid,
+                              const void* tslot, const void* vals,
+                              const void* first, int m, void* labels,
+                              void* new_head, void* next_frontier,
+                              void* stream) {
+  if (m > 0) {
+    const int threads = 256;
+    walk_heads_kernel<<<blocks_for(m, threads), threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(picks),
+        static_cast<const unsigned char*>(valid),
+        static_cast<const int*>(tslot), static_cast<const int*>(vals),
+        static_cast<const int*>(first), m, static_cast<int*>(labels),
+        static_cast<unsigned char*>(new_head),
+        static_cast<int*>(next_frontier));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int glt_walk_labels(const void* picks, const void* new_head,
+                               const void* tslot, const void* sorted_new,
+                               const void* count, int m, void* labels,
+                               void* vals, void* stream) {
+  if (m > 0) {
+    const int threads = 256;
+    walk_labels_kernel<<<blocks_for(m, threads), threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(picks),
+        static_cast<const unsigned char*>(new_head),
+        static_cast<const int*>(tslot), static_cast<const int*>(sorted_new),
+        static_cast<const int*>(count), m, static_cast<int*>(labels),
+        static_cast<int*>(vals));
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,6 @@
+from .dataset import Dataset
+from .feature import Feature, gather_features
+from .graph import Graph
+from .topology import Topology
+
+__all__ = ['Dataset', 'Feature', 'Graph', 'Topology', 'gather_features']

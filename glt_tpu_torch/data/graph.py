@@ -1,0 +1,39 @@
+"""Device-resident graph storage (counterpart of glt_tpu/data/graph.py).
+
+The CUDA walk reads elements directly, so the TPU's W-padded window
+copies (``window_arrays``) and hub counts have no counterpart: the device
+holds the CSR once, plus ``indptr_pad`` ([N + 2] int32 with a trailing
+``num_edges`` sentinel) so an invalid frontier id reads degree 0.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..utils import resolve_device
+from .topology import Topology
+
+
+class Graph:
+  """Binds a :class:`Topology` to ``device`` (default: the card; raises
+  when there is none)."""
+
+  def __init__(self, topo: Topology, device=None):
+    self.topo = topo
+    self.device = resolve_device(device)
+    if topo.num_edges >= torch.iinfo(torch.int32).max:
+      raise ValueError('the walk kernels address edges with int32')
+    self.indptr = topo.indptr.to(self.device, torch.int32)
+    self.indices = topo.indices.to(self.device)
+    self.edge_ids = topo.edge_ids.to(self.device)
+    self.indptr_pad = torch.cat([
+        self.indptr,
+        torch.full((1,), topo.num_edges, dtype=torch.int32,
+                   device=self.device)])
+
+  @property
+  def num_nodes(self) -> int:
+    return self.topo.num_nodes
+
+  @property
+  def num_edges(self) -> int:
+    return self.topo.num_edges

@@ -1,0 +1,76 @@
+"""COO -> CSR topology (counterpart of glt_tpu/data/topology.py).
+
+The compressed order is the JAX package's exactly -- slots sorted by
+(row, col), ties in input order -- because the walk's picks index into it.
+The build runs on the device the edge tensors are on (one stable sort of
+a (row, col) key), so a large graph compresses on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def _as_tensor(x, device=None) -> Optional[torch.Tensor]:
+  if x is None:
+    return None
+  if isinstance(x, torch.Tensor):
+    return x if device is None else x.to(device)
+  return torch.as_tensor(np.asarray(x), device=device)
+
+
+class Topology:
+  """Square CSR of a homogeneous graph ('out' edges, indptr over src),
+  built from a [2, E] COO ``edge_index`` (row=src, col=dst).
+
+  ``indptr`` is int64 (graphs past 2^31 edges must not wrap; the device
+  copy narrows it), ``indices`` int32, and ``edge_ids[k]`` the original
+  id of compressed slot k (the input position unless ``edge_ids`` are
+  given). ``num_nodes`` defaults to one past the largest id. Arrays live
+  on ``device`` (default: where ``edge_index`` is).
+  """
+
+  def __init__(self, edge_index, edge_ids=None,
+               num_nodes: Optional[int] = None, device=None):
+    edge_index = _as_tensor(edge_index, device).long()
+    row, col = edge_index[0], edge_index[1]
+    if num_nodes is None:
+      num_nodes = int(edge_index.max()) + 1 if edge_index.numel() else 0
+    self._num_nodes = int(num_nodes)
+    self.indptr, self.indices, perm = _compress(row, col, self._num_nodes)
+    edge_ids = _as_tensor(edge_ids, row.device)
+    self.edge_ids = edge_ids.long()[perm] if edge_ids is not None else perm
+
+  @property
+  def num_nodes(self) -> int:
+    return self._num_nodes
+
+  @property
+  def num_edges(self) -> int:
+    return int(self.indices.numel())
+
+  @property
+  def degrees(self) -> torch.Tensor:
+    return self.indptr[1:] - self.indptr[:-1]
+
+  @property
+  def max_degree(self) -> int:
+    d = self.degrees
+    return int(d.max()) if d.numel() else 0
+
+
+def _compress(row: torch.Tensor, col: torch.Tensor, num_nodes: int):
+  """COO -> CSR, sorted by (row, col) with ties in input order
+  (``np.lexsort((col, row))``); returns (indptr int64, indices int32,
+  perm: compressed slot -> input position)."""
+  for name, x in (('row', row), ('col', col)):
+    if x.numel() and num_nodes <= int(x.max()):
+      raise ValueError(f'{name} id {int(x.max())} out of range for '
+                       f'num_nodes={num_nodes}')
+  perm = torch.sort(row * max(num_nodes, 1) + col, stable=True).indices
+  counts = torch.bincount(row, minlength=num_nodes)
+  indptr = torch.zeros(num_nodes + 1, dtype=torch.int64, device=row.device)
+  torch.cumsum(counts, 0, out=indptr[1:])
+  return indptr, col[perm].to(torch.int32), perm

@@ -1,0 +1,344 @@
+"""The port's kernels: Python wrappers over ``csrc/*.cu`` and, beside
+each, its plain PyTorch version (counterpart of
+glt_tpu/ops/pallas_kernels.py).
+
+A wrapper runs the plain version only for tensors on the CPU. For CUDA
+tensors it launches its kernel (built on first use by ops/build.py) on
+the current stream or raises; nothing falls back. Each wrapper counts its
+kernel launches in ``<wrapper>.launches``, a plain int, so a run can show
+that it went through the kernels.
+
+============================  ================================  ==========
+wrapper                       replaces (glt_tpu/ops/...)        source
+============================  ================================  ==========
+``gather_rows``               pallas_kernels.py:236             csrc/gather_rows.cu
+``dedup_table_insert``        pallas_kernels.py:588             csrc/dedup_table_insert.cu
+``sample_walk_dedup``         pallas_kernels.py:998 + the       csrc/sample_walk_dedup.cu
+                              epilogue of pipeline.py:584-633
+============================  ================================  ==========
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from .sample import _hop_degrees, draw_offsets, walk_geometry
+
+BIG = torch.iinfo(torch.int32).max
+
+
+def walk_table_slots(budget: int) -> int:
+  """Dedup-table slots for a walk of ``budget`` worst-case distinct nodes:
+  the power of two >= 2 * budget (load factor <= 1/2, so probes stay
+  short and always terminate)."""
+  return 1 << max(2 * int(budget) - 1, 1).bit_length()
+
+
+def make_dedup_table(slots: int, device) -> Tuple[torch.Tensor, ...]:
+  """Fresh (keys, vals, first) planes: -1 keys are free, -1 vals are
+  unlabelled, INT32_MAX firsts are untouched."""
+  if slots & (slots - 1):
+    raise ValueError(f'table slots must be a power of two, got {slots}')
+  return (torch.full((slots,), -1, dtype=torch.int32, device=device),
+          torch.full((slots,), -1, dtype=torch.int32, device=device),
+          torch.full((slots,), BIG, dtype=torch.int32, device=device))
+
+
+def reset_launch_counts() -> None:
+  for fn in KERNELS:
+    fn.launches = 0
+
+
+# -- plumbing ---------------------------------------------------------------
+
+def _ptr(t: Optional[torch.Tensor]):
+  return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+def _stream(device: torch.device):
+  return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _check(err: int, what: str) -> None:
+  if err != 0:
+    raise RuntimeError(f'{what}: CUDA launch failed with cudaError {err}')
+
+
+def _lib(name: str):
+  from .build import kernel_library
+  return kernel_library(name)
+
+
+def _i32(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+  return t.to(device=device, dtype=torch.int32).contiguous()
+
+
+# -- K3: gather_rows ----------------------------------------------------------
+
+def gather_rows_plain(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+  """``out[i] = table[clamp(rows[i], 0, N-1)]``. JAX clips out-of-range
+  rows where torch indexing would wrap (``x[-1]`` is the last row): the
+  padded node lanes are -1 and must read row 0."""
+  n = table.shape[0]
+  return table.index_select(0, rows.long().clamp(0, max(n - 1, 0)))
+
+
+def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+  """Feature row gather, ``table [N, D]``, ``rows [B]`` -> ``[B, D]``,
+  rows clamped to ``[0, N-1]``. On the card a row must be a whole number
+  of 4-byte words (float32, or bf16 of even width)."""
+  if not table.is_cuda:
+    return gather_rows_plain(table, rows)
+  if table.dim() != 2 or not table.is_contiguous():
+    raise ValueError('gather_rows needs a contiguous [N, D] table')
+  n, d = table.shape
+  if n == 0 and rows.numel():
+    raise ValueError('gather_rows from an empty table')
+  rows = _i32(rows.reshape(-1), table.device)
+  b = rows.numel()
+  out = torch.empty((b, d), dtype=table.dtype, device=table.device)
+  row_bytes = d * table.element_size()
+  if row_bytes % 4 or table.data_ptr() % 4:
+    raise ValueError(f'gather_rows copies 4-byte words; a row is '
+                     f'{row_bytes} bytes')
+  unit = 16 if row_bytes % 16 == 0 and table.data_ptr() % 16 == 0 else 4
+  if b:
+    _check(_lib('gather_rows').glt_gather_rows(
+        _ptr(table), _ptr(rows), _ptr(out), n, row_bytes, b, unit,
+        _stream(table.device)), 'gather_rows')
+    gather_rows.launches += 1
+  return out
+
+
+# -- K2: dedup_table_insert ---------------------------------------------------
+
+def _table_hash(x: torch.Tensor, mask: int) -> torch.Tensor:
+  h = (x.long() & 0xFFFFFFFF) * 0x9E3779B9 & 0xFFFFFFFF
+  return (h ^ (h >> 16)) & mask
+
+
+def dedup_table_insert_plain(keys: torch.Tensor, vals: torch.Tensor,
+                             ids: torch.Tensor, labs: torch.Tensor,
+                             valid: torch.Tensor) -> None:
+  """Insert ``(id, label)`` pairs in place; ids < 0 and invalid slots are
+  skipped and an id already present keeps its label. Linear probing in
+  rounds: each round every pending id looks at its slot, the lowest
+  pending slot claims a free one."""
+  mask = keys.numel() - 1
+  x = ids.long()
+  pend = (valid != 0) & (x >= 0)
+  slot = _table_hash(x, mask)
+  idx = torch.arange(x.numel(), device=x.device)
+  while bool(pend.any()):
+    k = keys[slot].long()
+    free = pend & (k == -1)
+    claim = torch.full((mask + 2,), x.numel(), dtype=torch.long,
+                       device=x.device)
+    claim.scatter_reduce_(0, torch.where(free, slot, mask + 1), idx, 'amin')
+    won = free & (claim[slot] == idx)
+    keys[slot[won]] = x[won].to(keys.dtype)
+    vals[slot[won]] = labs[won].to(vals.dtype)
+    pend &= ~won & (k != x)
+    k = keys[slot].long()
+    slot = torch.where(pend & (k != x), (slot + 1) & mask, slot)
+
+
+def dedup_table_insert(keys: torch.Tensor, vals: torch.Tensor,
+                       ids: torch.Tensor, labs: torch.Tensor,
+                       valid: torch.Tensor) -> None:
+  """Insert pre-labelled ids into the (keys, vals) table in place (the
+  walk's seed phase): ids < 0 and invalid slots are no-ops, present ids
+  keep their labels. Valid ids are distinct within one call (the walk
+  inserts the seed uniques); the kernel inserts in no fixed order, so an
+  id repeated with two labels would keep either."""
+  if not keys.is_cuda:
+    return dedup_table_insert_plain(keys, vals, ids, labs, valid)
+  slots = keys.numel()
+  if (slots & (slots - 1) or vals.numel() != slots
+      or keys.dtype != torch.int32 or vals.dtype != torch.int32):
+    raise ValueError('dedup table planes must be int32 [2^p]')
+  dev = keys.device
+  ids, labs, valid = _i32(ids, dev), _i32(labs, dev), _i32(valid, dev)
+  m = ids.numel()
+  if m:
+    _check(_lib('dedup_table_insert').glt_dedup_table_insert(
+        _ptr(keys), _ptr(vals), slots, _ptr(ids), _ptr(labs), _ptr(valid),
+        m, _stream(dev)), 'dedup_table_insert')
+    dedup_table_insert.launches += 1
+
+
+def dedup_table_lookup(keys: torch.Tensor, vals: torch.Tensor,
+                       ids: torch.Tensor) -> torch.Tensor:
+  """Label of each id in the table, -1 where absent (plain PyTorch; the
+  walk never looks up, tests and chip_smoke.py read tables with it)."""
+  mask = keys.numel() - 1
+  x = ids.long()
+  out = torch.full_like(x, -1)
+  active = x >= 0
+  slot = _table_hash(x, mask)
+  for _ in range(mask + 1):
+    if not bool(active.any()):
+      break
+    k = keys[slot].long()
+    hit = active & (k == x)
+    out = torch.where(hit, vals[slot].long(), out)
+    active &= ~hit & (k != -1)
+    slot = (slot + 1) & mask
+  return out
+
+
+# -- K1: sample_walk_dedup ----------------------------------------------------
+
+def _check_walk_inputs(indptr_pad, indices, seed_ids, u_hops, fanouts):
+  hops = walk_geometry(seed_ids.numel(), fanouts)
+  if len(u_hops) != len(hops):
+    raise ValueError(f'{len(u_hops)} uniform planes for {len(hops)} hops')
+  for (s, k), u in zip(hops, u_hops):
+    if tuple(u.shape) != (s, k):
+      raise ValueError(f'hop uniforms {tuple(u.shape)}, expected {(s, k)}')
+  if indptr_pad.numel() < 2:
+    raise ValueError('indptr_pad needs [N + 2] entries')
+  return hops
+
+
+def sample_walk_dedup_plain(indptr_pad, indices, seed_ids, seed_ok,
+                            stab_ids, stab_labs, seed_count, u_hops, *,
+                            fanouts, replace=False, table_slots=0,
+                            with_slots=False) -> List[Dict[str, torch.Tensor]]:
+  """The walk in plain PyTorch (same signature and outputs as
+  :func:`sample_walk_dedup`; ``table_slots`` is unused). Dedup is a
+  sorted seen-set: ``searchsorted`` finds seen ids, ``unique`` ranks the
+  new ones by value, a scatter-min finds each new id's first slot."""
+  hops = _check_walk_inputs(indptr_pad, indices, seed_ids, u_hops, fanouts)
+  dev = indices.device
+  e = indices.numel()
+  keep = stab_ids >= 0
+  order = torch.argsort(stab_ids[keep].long())
+  seen_ids = stab_ids[keep].long()[order]
+  seen_labs = stab_labs[keep].long()[order]
+  count = int(seed_count)
+  frontier = seed_ids.to(torch.int32)
+  ok = seed_ok != 0
+  out = []
+  for (s, k), u in zip(hops, u_hops):
+    start, deg = _hop_degrees(indptr_pad, frontier, ok)
+    off, mask = draw_offsets(deg, u, k, replace)
+    slot = (start[:, None].long() + off.long()).clamp(0, max(e - 1, 0))
+    ids = torch.where(mask, indices[slot].long(),
+                      torch.full_like(slot, -1)).reshape(-1)
+    valid = mask.reshape(-1)
+    m = ids.numel()
+    pos = torch.searchsorted(seen_ids, ids).clamp(max=max(
+        seen_ids.numel() - 1, 0))
+    found = valid & (seen_ids[pos] == ids) if seen_ids.numel() else \
+        torch.zeros_like(valid)
+    new_el = valid & ~found
+    uniq = torch.unique(ids[new_el])
+    rank = torch.searchsorted(uniq, ids).clamp(max=max(uniq.numel() - 1, 0))
+    first = torch.full((uniq.numel() + 1,), m, dtype=torch.long, device=dev)
+    first.scatter_reduce_(0, torch.where(new_el, rank, uniq.numel()),
+                          torch.arange(m, device=dev), 'amin')
+    new_head = new_el & (first[rank] == torch.arange(m, device=dev))
+    labels = torch.where(found, seen_labs[pos] if seen_ids.numel()
+                         else torch.zeros_like(ids),
+                         torch.where(new_el, count + rank,
+                                     torch.full_like(ids, -1)))
+    merged = torch.cat([seen_ids, uniq])
+    order = torch.argsort(merged)
+    seen_ids = merged[order]
+    seen_labs = torch.cat([seen_labs, count + torch.arange(
+        uniq.numel(), device=dev)])[order]
+    count += uniq.numel()
+    hop = dict(picks=ids.to(torch.int32).view(s, k), mask=mask,
+               labels=labels.to(torch.int32), new_head=new_head)
+    if with_slots:
+      hop['slots'] = torch.where(mask, slot, torch.full_like(slot, -1)).to(
+          torch.int32).view(s, k)
+    out.append(hop)
+    frontier = torch.where(new_head, ids, torch.full_like(ids, BIG)).to(
+        torch.int32)
+    ok = frontier != BIG
+  return out
+
+
+def sample_walk_dedup(indptr_pad, indices, seed_ids, seed_ok, stab_ids,
+                      stab_labs, seed_count, u_hops, *, fanouts,
+                      replace=False, table_slots, with_slots=False
+                      ) -> List[Dict[str, torch.Tensor]]:
+  """The uniform multi-hop walk with dedup/relabel.
+
+  Args:
+    indptr_pad: [N + 2] int32 CSR offsets with a trailing ``num_edges``.
+    indices: [E] int32 neighbour ids.
+    seed_ids / seed_ok: [B] hop 1's frontier and its validity (the exact
+      seed dedup's ``ids3`` / ``new_head3``).
+    stab_ids / stab_labs: [B] the seed uniques (-1 elsewhere) and their
+      labels, inserted into a fresh table before hop 1.
+    seed_count: int32 scalar tensor, labels assigned before hop 1.
+    u_hops: per hop ``[S_h, K_h]`` float32 uniforms.
+    table_slots: dedup-table size, a power of two >= 2x the walk's node
+      budget (:func:`walk_table_slots`).
+    with_slots: also return each pick's CSR slot (the edge position).
+
+  Returns per hop a dict: ``picks`` [S, K] (-1 on invalid lanes),
+  ``mask`` [S, K] bool, ``labels`` [S*K] final labels (seen ids keep
+  theirs, new ids ``count..`` in value order, -1 on invalid lanes),
+  ``new_head`` [S*K] bool (each new id's minimum slot) and, with
+  ``with_slots``, ``slots`` [S, K].
+  """
+  if not indices.is_cuda:
+    return sample_walk_dedup_plain(
+        indptr_pad, indices, seed_ids, seed_ok, stab_ids, stab_labs,
+        seed_count, u_hops, fanouts=fanouts, replace=replace,
+        table_slots=table_slots, with_slots=with_slots)
+  hops = _check_walk_inputs(indptr_pad, indices, seed_ids, u_hops, fanouts)
+  dev = indices.device
+  lib = _lib('sample_walk_dedup')
+  stream = _stream(dev)
+  indptr_pad, indices = _i32(indptr_pad, dev), _i32(indices, dev)
+  keys, vals, first = make_dedup_table(table_slots, dev)
+  dedup_table_insert(keys, vals, stab_ids, stab_labs, stab_ids >= 0)
+  count = _i32(torch.as_tensor(seed_count), dev).reshape(())
+  frontier, ok = _i32(seed_ids, dev), _i32(seed_ok, dev)
+  num_nodes = indptr_pad.numel() - 2
+  out = []
+  for (s, k), u in zip(hops, u_hops):
+    m = s * k
+    u = u.to(device=dev, dtype=torch.float32).contiguous()
+    picks = torch.empty(m, dtype=torch.int32, device=dev)
+    slots = (torch.empty(m, dtype=torch.int32, device=dev) if with_slots
+             else None)
+    mask = torch.empty(m, dtype=torch.bool, device=dev)
+    tslot = torch.empty(m, dtype=torch.int32, device=dev)
+    _check(lib.glt_walk_sample(
+        _ptr(indptr_pad), num_nodes, _ptr(indices), _ptr(frontier),
+        _ptr(ok), s, k, _ptr(u), int(replace), _ptr(keys), _ptr(vals),
+        _ptr(first), table_slots, _ptr(picks), _ptr(slots), _ptr(mask),
+        _ptr(tslot), stream), 'sample_walk_dedup (sample)')
+    labels = torch.empty(m, dtype=torch.int32, device=dev)
+    new_head = torch.empty(m, dtype=torch.bool, device=dev)
+    nxt = torch.empty(m, dtype=torch.int32, device=dev)
+    _check(lib.glt_walk_heads(
+        _ptr(picks), _ptr(mask), _ptr(tslot), _ptr(vals), _ptr(first), m,
+        _ptr(labels), _ptr(new_head), _ptr(nxt), stream),
+        'sample_walk_dedup (heads)')
+    sorted_new = torch.sort(nxt).values
+    _check(lib.glt_walk_labels(
+        _ptr(picks), _ptr(new_head), _ptr(tslot), _ptr(sorted_new),
+        _ptr(count), m, _ptr(labels), _ptr(vals), stream),
+        'sample_walk_dedup (labels)')
+    sample_walk_dedup.launches += 3
+    hop = dict(picks=picks.view(s, k), mask=mask.view(s, k), labels=labels,
+               new_head=new_head)
+    if with_slots:
+      hop['slots'] = slots.view(s, k)
+    out.append(hop)
+    count = count + new_head.sum(dtype=torch.int32)
+    frontier, ok = nxt, None
+  return out
+
+
+KERNELS = (gather_rows, dedup_table_insert, sample_walk_dedup)
+reset_launch_counts()

@@ -1,0 +1,175 @@
+"""Bucketed online inference engine: k-hop sample -> feature gather ->
+model forward (counterpart of glt_tpu/serving/engine.py).
+
+A request for ``n`` embeddings runs in the smallest bucket ``B >= n``,
+padded, so every bucket's walk, gather and forward see fixed shapes.
+Results flow through the LRU :class:`EmbeddingCache` keyed
+``(node_id, model_version)``: cached ids skip the pipeline and partial
+hits shrink the computed batch to the missing unique ids.
+
+``infer`` takes an internal lock, as the JAX engine does. The stages
+carry ``torch.profiler`` ranges named as the JAX engine's spans
+(``sample.multihop``, ``gather.features``, ``serve.forward``), so a
+profile of serving splits its device time by stage.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from ..data import Dataset
+from ..data.feature import gather_features
+from ..loader.transform import Batch, to_batch
+from ..sampler import NeighborSampler
+from ..utils import as_numpy, resolve_device
+from .embedding_cache import EmbeddingCache
+
+
+class InferenceEngine:
+  """Online embedding/logit server over a GNN.
+
+  Args:
+    data: Dataset (graph + node features on ``device``).
+    model: ``nn.Module`` whose ``model(batch)`` returns ``[batch_size, D]``
+      for the seed rows (GraphSAGE style); moved to ``device``.
+    params: a state_dict to load, or None to keep the model's weights.
+    num_neighbors: serving fanout per hop, e.g. ``[15, 10, 5]``.
+    buckets: padded seed-batch sizes, ascending. A request larger than
+      the biggest bucket is served in chunks of it.
+    cache: an EmbeddingCache, or None to build one of ``cache_capacity``
+      entries (0 disables caching).
+    model_version: version tag for cache keys; ``set_params`` bumps it.
+    seed: the sampler's generator seed.
+    device: where serving runs (default: the card; raises when there is
+      none).
+  """
+
+  def __init__(self, data: Dataset, model: nn.Module,
+               params: Optional[Mapping[str, torch.Tensor]],
+               num_neighbors: Sequence[int],
+               buckets: Sequence[int] = (8, 64, 256),
+               cache: Optional[EmbeddingCache] = None,
+               cache_capacity: int = 100_000, model_version: int = 0,
+               seed: Optional[int] = 0, device=None):
+    self.device = resolve_device(device)
+    self.data = data
+    self.model = model.to(self.device).eval()
+    if params is not None:
+      self.model.load_state_dict(params)
+    self.buckets = tuple(sorted({int(b) for b in buckets}))
+    if not self.buckets or self.buckets[0] <= 0:
+      raise ValueError(f'buckets must be positive, got {buckets}')
+    self.model_version = int(model_version)
+    self.cache = cache if cache is not None \
+        else EmbeddingCache(cache_capacity)
+    self.sampler = NeighborSampler(data.get_graph(), list(num_neighbors),
+                                   device=self.device, seed=seed)
+    self.forward_calls = 0
+    self._out_dim: Optional[int] = None
+    self._lock = threading.Lock()
+
+  def warmup(self) -> None:
+    """Run every bucket once on distinct dummy seeds (builds the kernels
+    on first use), through ``np.unique`` as ``infer`` does: its first call
+    imports ``numpy.ma``, tens of ms where Python has no bytecode cache.
+    The cache is left as it was; ``forward_calls`` restarts at 0."""
+    n = self.data.get_graph().num_nodes
+    with self._lock:
+      for b in self.buckets:
+        seeds = np.unique(np.arange(b) % n)
+        self._run_bucket(seeds, seeds.size, b)
+      self.forward_calls = 0
+
+  def bucket_for(self, n: int) -> int:
+    for b in self.buckets:
+      if n <= b:
+        return b
+    return self.buckets[-1]
+
+  def make_batch(self, seeds: np.ndarray, n_valid: int, bucket: int,
+                 uniforms=None) -> Batch:
+    """Sample + gather a bucket-shaped Batch exactly as serving runs it;
+    ``uniforms`` injects the walk's draws (see
+    :meth:`NeighborSampler.sample_from_nodes`)."""
+    with record_function('sample.multihop'):
+      out = self.sampler.sample_from_nodes(seeds, n_valid=n_valid,
+                                           uniforms=uniforms)
+    with record_function('gather.features'):
+      x = gather_features(self.data.get_node_feature(), out.node)
+    return to_batch(out, x=x, batch_size=bucket)
+
+  def init_params(self, seed: int) -> Mapping[str, torch.Tensor]:
+    """Install weights drawn from ``seed`` (uniform in +-1/sqrt(fan_in),
+    nn.Linear's default range, drawn on the CPU so a seed gives the same
+    weights on every device) -- fresh or benchmark weights without a
+    training loop."""
+    gen = torch.Generator().manual_seed(int(seed))
+    state = {}
+    for name, p in self.model.state_dict().items():
+      fan_in = p.shape[-1] if name.endswith('weight') else None
+      if fan_in is None:  # a bias: the fan-in of its layer's weight
+        fan_in = self.model.state_dict()[
+            name[:-len('bias')] + 'weight'].shape[-1]
+      bound = 1.0 / float(fan_in) ** 0.5
+      state[name] = (torch.rand(p.shape, generator=gen) * 2 - 1) * bound
+    with self._lock:
+      self.model.load_state_dict(state)
+    return state
+
+  def _run_bucket(self, seeds: np.ndarray, n_valid: int,
+                  bucket: int) -> np.ndarray:
+    """One padded pipeline pass; returns rows [:n_valid]."""
+    padded = seeds
+    if padded.shape[0] < bucket:
+      padded = np.concatenate(
+          [padded, np.full(bucket - padded.shape[0],
+                           padded[0] if padded.size else 0, padded.dtype)])
+    with torch.no_grad():
+      batch = self.make_batch(padded, n_valid, bucket)
+      with record_function('serve.forward'):
+        emb = self.model(batch)
+    self.forward_calls += 1
+    rows = emb[:n_valid].cpu().numpy()
+    if self._out_dim is None:
+      self._out_dim = int(rows.shape[1])
+    return rows
+
+  def infer(self, ids) -> np.ndarray:
+    """Embeddings/logits for ``ids`` (duplicates allowed), aligned with
+    the input order: cache hits served directly, the missing unique ids
+    computed through the smallest fitting bucket (chunked by the largest
+    bucket) and inserted back into the cache."""
+    ids_np = as_numpy(ids).astype(np.int64).reshape(-1)
+    if ids_np.size == 0:
+      return np.zeros((0, self._out_dim or 0), np.float32)
+    with self._lock:
+      version = self.model_version
+      local = self.cache.lookup(ids_np, version)
+      missing = np.unique(ids_np[~np.isin(
+          ids_np, np.fromiter(local, np.int64, len(local)))]) \
+          if local else np.unique(ids_np)
+      lo = 0
+      while lo < missing.size:
+        chunk = missing[lo:lo + self.buckets[-1]]
+        lo += chunk.size
+        rows = self._run_bucket(chunk, chunk.size,
+                                self.bucket_for(chunk.size))
+        self.cache.insert(chunk, rows, version)
+        for i, row in zip(chunk, rows):
+          local[int(i)] = row
+      return np.stack([local[int(i)] for i in ids_np])
+
+  def set_params(self, params: Mapping[str, torch.Tensor],
+                 bump_version: bool = True) -> int:
+    """Hot-swap model parameters; with ``bump_version`` the cache
+    version advances so stale embeddings stop hitting."""
+    with self._lock:
+      self.model.load_state_dict(params)
+      if bump_version:
+        self.model_version += 1
+      return self.model_version

@@ -1,0 +1,30 @@
+"""Helpers shared across the port (counterpart of glt_tpu/utils/common.py
+and the ``as_numpy`` of glt_tpu/utils/tensor.py)."""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+
+def as_numpy(x) -> Optional[np.ndarray]:
+  """Array-like (numpy, tensor on any device, list) -> numpy; None stays
+  None."""
+  if x is None:
+    return None
+  if isinstance(x, torch.Tensor):
+    return x.detach().cpu().numpy()
+  return np.asarray(x)
+
+
+def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
+  """The device an entry point runs on: the caller's, else the card.
+  Without a card and without an explicit device this raises -- the port
+  never carries on on the CPU unasked."""
+  if device is not None:
+    return torch.device(device)
+  if not torch.cuda.is_available():
+    raise RuntimeError(
+        'no CUDA device: pass device="cpu" to run the plain PyTorch path')
+  return torch.device('cuda', torch.cuda.current_device())

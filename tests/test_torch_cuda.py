@@ -1,0 +1,105 @@
+"""On a card: each CUDA kernel of glt_tpu_torch against its plain PyTorch
+version, exactly, and the serving path through the kernels.
+
+Skips without a CUDA device (decided inside each test, never at import,
+so every worker collects the same tests). Imports nothing of JAX, so on
+the machine with the card it runs without the repository's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from glt_tpu_torch.data import Dataset, Topology
+from glt_tpu_torch.models import GraphSAGE
+from glt_tpu_torch.ops import cuda_kernels as K
+from glt_tpu_torch.ops.pipeline import _fused_seed_hop, sample_budget
+from glt_tpu_torch.ops.sample import walk_hop_uniforms
+from glt_tpu_torch.serving import InferenceEngine
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+  if not torch.cuda.is_available():
+    pytest.skip('needs a CUDA device (runs on the card)')
+  return torch.device('cuda')
+
+
+def _graph(dev, n=5000, e=80_000, seed=3):
+  g = torch.Generator(device=dev).manual_seed(seed)
+  ei = torch.stack([torch.randint(0, n, (e,), generator=g, device=dev),
+                    torch.randint(0, n, (e,), generator=g, device=dev)])
+  topo = Topology(ei, num_nodes=n)
+  indptr_pad = torch.cat([topo.indptr, torch.tensor([e], device=dev)])
+  return indptr_pad.to(torch.int32), topo.indices
+
+
+def test_gather_rows_matches_plain(dev):
+  g = torch.Generator(device=dev).manual_seed(0)
+  for d, dtype in ((100, torch.float32), (37, torch.float32),
+                   (64, torch.bfloat16), (38, torch.bfloat16)):
+    table = torch.randn((1000, d), generator=g, device=dev).to(dtype)
+    rows = torch.randint(-5, 1010, (4097,), generator=g, device=dev)
+    before = K.gather_rows.launches
+    got = K.gather_rows(table, rows)
+    assert K.gather_rows.launches == before + 1
+    assert torch.equal(got, K.gather_rows_plain(table, rows))
+  # the kernel copies 4-byte words: an odd-width bf16 row is refused
+  with pytest.raises(ValueError, match='4-byte words'):
+    K.gather_rows(torch.zeros((10, 3), dtype=torch.bfloat16, device=dev),
+                  rows[:4])
+
+
+def test_dedup_table_insert_matches_plain(dev):
+  g = torch.Generator(device=dev).manual_seed(1)
+  ids = torch.randperm(100_000, generator=g, device=dev)[:5000]
+  ids[::13] = -1
+  labs = torch.arange(5000, device=dev, dtype=torch.int32)
+  valid = torch.rand(5000, generator=g, device=dev) < 0.9
+  a = K.make_dedup_table(16384, dev)
+  b = K.make_dedup_table(16384, dev)
+  K.dedup_table_insert(a[0], a[1], ids, labs, valid)
+  K.dedup_table_insert_plain(b[0], b[1], ids, labs, valid)
+  probe = torch.cat([ids, torch.arange(100_000, 100_100, device=dev)])
+  assert torch.equal(K.dedup_table_lookup(a[0], a[1], probe),
+                     K.dedup_table_lookup(b[0], b[1], probe))
+
+
+@pytest.mark.parametrize('replace', [False, True])
+def test_walk_matches_plain(dev, replace):
+  indptr_pad, indices = _graph(dev)
+  seeds = torch.randint(0, 5000, (64,), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+  seeds[:4] = seeds[4]  # duplicate seeds
+  fanouts = (15, 10, 5)
+  d, _ = _fused_seed_hop(seeds.to(torch.int32), 60)
+  u = walk_hop_uniforms(torch.Generator(device=dev).manual_seed(7), 64,
+                        fanouts, replace, dev)
+  args = (indptr_pad, indices, d['ids3'], d['new_head3'],
+          torch.where(d['new_head3'], d['ids3'],
+                      torch.full_like(d['ids3'], -1)),
+          d['labels3'], d['count2'], u)
+  kw = dict(fanouts=fanouts, replace=replace, with_slots=True,
+            table_slots=K.walk_table_slots(sample_budget(64, fanouts)))
+  got = K.sample_walk_dedup(*args, **kw)
+  want = K.sample_walk_dedup_plain(*args, **kw)
+  for h, (a, b) in enumerate(zip(got, want)):
+    for k in ('picks', 'mask', 'labels', 'new_head', 'slots'):
+      assert torch.equal(a[k], b[k]), f'hop {h} {k}'
+
+
+def test_engine_serves_through_the_kernels(dev):
+  rng = np.random.default_rng(0)
+  ei = np.stack([rng.integers(0, 3000, 40_000), rng.integers(0, 3000, 40_000)])
+  ds = Dataset().init_graph(ei, num_nodes=3000)
+  ds.init_node_features(rng.standard_normal((3000, 100)).astype(np.float32))
+  eng = InferenceEngine(ds, GraphSAGE(100, 64, 7), None, [5, 3],
+                        buckets=(16,))
+  eng.init_params(0)
+  K.reset_launch_counts()
+  out = eng.infer(np.arange(20))
+  assert out.shape == (20, 7) and np.isfinite(out).all()
+  assert all(fn.launches > 0 for fn in K.KERNELS)

@@ -1,0 +1,28 @@
+"""The port stands alone: importing every module of ``glt_tpu_torch`` and
+``chip_smoke`` pulls in neither JAX nor the JAX package."""
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r'''
+import importlib, pkgutil, sys
+import glt_tpu_torch
+for m in pkgutil.walk_packages(glt_tpu_torch.__path__, 'glt_tpu_torch.'):
+  importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'glt_tpu'))
+print('LOADED', len([m for m in sys.modules if m.startswith('glt_tpu_torch')]))
+print('BAD', bad)
+'''
+
+
+def test_port_and_chip_smoke_import_no_jax():
+  env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+  out = subprocess.run([sys.executable, '-c', _PROBE], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+  assert out.returncode == 0, out.stderr
+  assert 'BAD []' in out.stdout, out.stdout
+  assert int(out.stdout.split('LOADED ')[1].split()[0]) >= 20

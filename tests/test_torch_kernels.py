@@ -1,0 +1,202 @@
+"""The port's kernels (glt_tpu_torch/ops/cuda_kernels.py) against the JAX
+package's Pallas kernels, run in interpret mode, on the same numpy
+inputs.
+
+On the CPU every wrapper runs its plain PyTorch version (the tensors lie
+on the CPU), so these cases pin the plain versions to the TPU kernels;
+tests/test_torch_cuda.py pins the CUDA kernels to the plain versions on
+a card.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from glt_tpu.data import Topology as JaxTopology
+from glt_tpu.ops import pallas_kernels as jpk
+from glt_tpu.ops.pipeline import sample_budget
+from glt_tpu.ops.sample import hop_valid_mask as jax_hop_valid_mask
+from glt_tpu.ops.sample import walk_hop_uniforms as jax_walk_hop_uniforms
+from glt_tpu.ops.unique import sorted_hop_dedup as jax_sorted_hop_dedup
+from glt_tpu_torch.ops import cuda_kernels as K
+from glt_tpu_torch.ops.sample import walk_geometry
+from glt_tpu_torch.ops.unique import sorted_hop_dedup
+from glt_tpu_torch.utils import resolve_device
+
+W = 8  # JAX window width: small enough that hub rows (deg > W) exist
+
+
+def _graph(n=64, e=600, seed=0):
+  rng = np.random.default_rng(seed)
+  src = rng.integers(0, n, e)
+  dst = rng.integers(0, n, e)
+  t = JaxTopology(edge_index=np.stack([src, dst]), num_nodes=n)
+  indptr = t.indptr.astype(np.int32)
+  indices = t.indices.astype(np.int32)
+  return dict(n=n, e=e, indptr=indptr, indices=indices,
+              indptr_pad=np.concatenate([indptr, [e]]).astype(np.int32))
+
+
+def _seed_hop_np(seeds, nv):
+  """The JAX exact seed hop, as numpy."""
+  zero = jnp.zeros((0,), jnp.int32)
+  mask = jnp.arange(seeds.shape[0]) < nv
+  d = jax_sorted_hop_dedup(zero, zero, jnp.zeros((), jnp.int32),
+                           jnp.asarray(seeds), mask)
+  return {k: np.asarray(v) for k, v in d.items()}
+
+
+# -- gather_rows --------------------------------------------------------------
+
+def test_gather_rows_matches_pallas_kernel_with_clipping():
+  rng = np.random.default_rng(0)
+  table = rng.standard_normal((50, 100)).astype(np.float32)
+  # padded node lanes are -1 and must read row 0 (clip), not the last
+  # row (torch's wrap); ids past N clip to N-1
+  rows = np.concatenate([rng.integers(0, 50, 30), [-1, -7, 50, 99, 0, 49]])
+  rows = rows.astype(np.int32)
+  want = np.asarray(jpk.gather_rows(jnp.asarray(table), jnp.asarray(rows),
+                                    interpret=True))
+  got = K.gather_rows(torch.as_tensor(table), torch.as_tensor(rows))
+  np.testing.assert_array_equal(want, got.numpy())
+  assert K.gather_rows.launches == 0  # the CPU runs the plain version
+
+
+# -- dedup_table_insert -------------------------------------------------------
+
+def _jax_table_dict(tab_ids, tab_labs):
+  ids, labs = np.asarray(tab_ids).ravel(), np.asarray(tab_labs).ravel()
+  return {int(i): int(l) for i, l in zip(ids, labs) if i >= 0}
+
+
+def _port_table_dict(keys, vals):
+  k, v = keys.numpy(), vals.numpy()
+  return {int(i): int(l) for i, l in zip(k, v) if i >= 0}
+
+
+def test_dedup_table_insert_lookup_matches_pallas_kernel():
+  rng = np.random.default_rng(1)
+  first_ids = rng.choice(5000, 300, replace=False).astype(np.int32)
+  first_ids[::17] = -1                     # skipped: negative ids
+  first_labs = rng.integers(0, 1 << 20, 300).astype(np.int32)
+  first_ok = (rng.random(300) < 0.9).astype(np.int32)   # invalid slots
+  # the second insert overlaps the first: present ids keep their labels
+  again = np.concatenate([first_ids[:100],
+                          rng.choice(np.arange(5000, 6000), 50,
+                                     replace=False)]).astype(np.int32)
+  again_labs = rng.integers(0, 1 << 20, again.size).astype(np.int32)
+  again_ok = np.ones(again.size, np.int32)
+
+  jt = jpk.make_dedup_table(1024)
+  jt = jpk.dedup_table_insert(*jt, jnp.asarray(first_ids),
+                              jnp.asarray(first_labs),
+                              jnp.asarray(first_ok), interpret=True)
+  jt = jpk.dedup_table_insert(*jt, jnp.asarray(again),
+                              jnp.asarray(again_labs),
+                              jnp.asarray(again_ok), interpret=True)
+  keys, vals, _ = K.make_dedup_table(1024, 'cpu')
+  for ids, labs, ok in ((first_ids, first_labs, first_ok),
+                        (again, again_labs, again_ok)):
+    K.dedup_table_insert(keys, vals, torch.as_tensor(ids),
+                         torch.as_tensor(labs), torch.as_tensor(ok))
+  want = _jax_table_dict(*jt)
+  assert _port_table_dict(keys, vals) == want
+  probe = np.concatenate([first_ids, again, [7777, -1]])
+  got = K.dedup_table_lookup(keys, vals, torch.as_tensor(probe)).numpy()
+  np.testing.assert_array_equal(
+      got, [want.get(int(i), -1) for i in probe])
+
+
+# -- sample_walk_dedup ----------------------------------------------------------
+
+def _walk_inputs(g, seeds, nv, fanouts, key, replace=False):
+  d = _seed_hop_np(seeds, nv)
+  stab_ids = np.where(d['new_head3'], d['ids3'], -1).astype(np.int32)
+  u = [np.asarray(x) for x in jax_walk_hop_uniforms(
+      key, seeds.shape[0], fanouts, replace)]
+  return d, stab_ids, u
+
+
+def test_walk_picks_and_heads_match_pallas_kernel():
+  g = _graph(seed=2)
+  seeds = np.array([5, 0, 5, 17, 63, 2, 2, 9], np.int32)
+  nv, fanouts, key = 7, (3, 2), jax.random.key(9)
+  b = seeds.shape[0]
+  d, stab_ids, u = _walk_inputs(g, seeds, nv, fanouts, key)
+  jhops, _ = jpk.walk_geometry(b, fanouts)
+  iw = np.concatenate([g['indices'], np.full(W, -1, np.int32)])
+  picks, _, _, newh = jpk.sample_walk_dedup(
+      jnp.asarray(iw), None, jnp.asarray(g['indptr_pad']),
+      jnp.asarray(d['ids3']), jnp.asarray(d['new_head3'].astype(np.int32)),
+      jnp.asarray(stab_ids), jnp.asarray(d['labels3']),
+      jnp.asarray(d['count2']), tuple(jnp.asarray(x) for x in u),
+      fanouts=fanouts, width=W, num_nodes=g['n'], num_edges=g['e'],
+      table_slots=jpk.fused_table_slots(sample_budget(b, list(fanouts))),
+      batch_size=b, replace=False, interpret=True)
+
+  hops = K.sample_walk_dedup(
+      torch.as_tensor(g['indptr_pad']), torch.as_tensor(g['indices']),
+      torch.as_tensor(d['ids3']), torch.as_tensor(d['new_head3']),
+      torch.as_tensor(stab_ids), torch.as_tensor(d['labels3']),
+      torch.as_tensor(d['count2']),
+      [torch.as_tensor(x[:s]) for x, (s, _) in
+       zip(u, walk_geometry(b, fanouts))],
+      fanouts=fanouts, table_slots=K.walk_table_slots(
+          sample_budget(b, list(fanouts))))
+
+  frontier, fmask = d['ids3'], d['new_head3']
+  n_heads = 0
+  for h, (jh, hop) in enumerate(zip(jhops, hops)):
+    s, k = jh['s'], jh['k']
+    mask = np.asarray(jax_hop_valid_mask(
+        jnp.asarray(g['indptr']), jnp.asarray(frontier), k,
+        jnp.asarray(fmask), False))
+    np.testing.assert_array_equal(mask, hop['mask'].numpy(), err_msg=h)
+    jp = np.asarray(picks[h])[:s]
+    np.testing.assert_array_equal(jp[mask], hop['picks'].numpy()[mask],
+                                  err_msg=h)
+    jn = np.asarray(newh[h])[:s].reshape(-1) != 0
+    np.testing.assert_array_equal(jn, hop['new_head'].numpy(), err_msg=h)
+    n_heads += int(jn.sum())
+    frontier = np.where(jn, jp.reshape(-1), np.iinfo(np.int32).max)
+    fmask = jn
+  assert n_heads > 0
+  assert K.sample_walk_dedup.launches == 0
+
+
+def test_seed_dedup_matches_jax_with_seen_set():
+  # the exact sorted dedup, seed hop (empty seen-set) and a hop against
+  # a seen-set: same appearance-grouped order, labels and heads
+  rng = np.random.default_rng(4)
+  seeds = np.array([5, 0, 5, 17, 63, 2, 2, 9], np.int32)
+  for nv in (8, 5, 0):
+    want = _seed_hop_np(seeds, nv)
+    got = sorted_hop_dedup(torch.zeros(0, dtype=torch.int32),
+                           torch.zeros(0, dtype=torch.int32), 0,
+                           torch.as_tensor(seeds),
+                           torch.arange(8) < nv)
+    for k in ('ids3', 'labels3', 'new_head3', 'pos3', 'u_ids2', 'u_labs2',
+              'count2', 'new_count'):
+      np.testing.assert_array_equal(want[k], np.asarray(got[k]),
+                                    err_msg=f'{k} nv={nv}')
+  ids = rng.integers(0, 20, 40).astype(np.int32)
+  valid = rng.random(40) < 0.8
+  u_ids = np.array([3, 7, 11, np.iinfo(np.int32).max], np.int32)
+  u_labs = np.array([0, 1, 2, np.iinfo(np.int32).max], np.int32)
+  want = jax_sorted_hop_dedup(jnp.asarray(u_ids), jnp.asarray(u_labs),
+                              jnp.asarray(3, jnp.int32), jnp.asarray(ids),
+                              jnp.asarray(valid))
+  got = sorted_hop_dedup(torch.as_tensor(u_ids), torch.as_tensor(u_labs),
+                         torch.tensor(3, dtype=torch.int32),
+                         torch.as_tensor(ids), torch.as_tensor(valid))
+  for k in ('ids3', 'labels3', 'new_head3', 'pos3', 'count2', 'new_count'):
+    np.testing.assert_array_equal(np.asarray(want[k]), np.asarray(got[k]),
+                                  err_msg=k)
+
+
+def test_entry_points_need_a_card_or_an_explicit_device(monkeypatch):
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    resolve_device(None)
+  assert resolve_device('cpu') == torch.device('cpu')
