@@ -2,14 +2,21 @@
 """Drive the PyTorch/CUDA port (glt_tpu_torch) on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch version at the shapes the serving path gives it, then serves a
-seeded 3-layer GraphSAGE (hidden 256, 47 classes, 100 features, fanouts
-[15, 10, 5]) over a products-shaped graph (2.45M nodes, 62M edges)
-through InferenceEngine.infer, and checks what comes out.
+PyTorch version at the shapes the serving paths give it, then drives the
+two serving paths through InferenceEngine.infer and checks what comes
+out:
+
+- homogeneous: a seeded 3-layer GraphSAGE (hidden 256, 47 classes, 100
+  features, fanouts [15, 10, 5]) over a products-shaped graph (2.45M
+  nodes, 62M edges);
+- heterogeneous (igbh-rgat): a seeded 3-layer RGAT (1024 -> 512 x 4
+  heads -> 19, fanouts [15, 10, 5] on every edge type) over an
+  IGBH-small-shaped graph (1M papers, 500K authors, 20K institutes, five
+  edge types, 1024 float32 features on every type), seeded on papers.
 
 Usage, from the repository root, on a machine with a card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Prints one line per phase with its seconds, the card's name and power
 limit, one JSON line of per-kernel numbers ({"kernels": [...]}) and, as
@@ -17,6 +24,7 @@ the last line, {"ok": true, "device": {...}}. Exits non-zero, with no
 result line, when there is no card, when the package is missing, or when
 any check fails. Imports nothing of JAX.
 """
+import argparse
 import json
 import subprocess
 import sys
@@ -28,6 +36,9 @@ REQUESTS = (1, 7, 64, 200, 256)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 LOGIT_TOL = 1e-4  # same batch bit for bit; index_add_ float atomics
                   # sum in another order from run to run
+# igbh-rgat: IGBH-small's node counts and widths, MLPerf GNN's RGAT
+IGBH_NODES = {'paper': 1_000_000, 'author': 500_000, 'institute': 20_000}
+IGBH_FEAT, IGBH_HIDDEN, IGBH_HEADS, IGBH_CLASSES = 1024, 512, 4, 19
 
 
 class Phase:
@@ -63,18 +74,134 @@ def bytes_ms(nbytes):
   return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def igbh_edges(torch, counts, gen, dev):
+  """IGBH-shaped relations (the synthetic recipe of
+  examples/igbh/compress_graph.py, drawn on the card): paper-cites-paper
+  (10 per paper), author-writes-paper (3 per paper),
+  author-affiliated-institute (1 per author), each endpoint uniform; then
+  a rev_ relation for each whose two types differ, as
+  examples/igbh/dist_train_rgnn.py adds them."""
+  p, a, i = counts['paper'], counts['author'], counts['institute']
+  draw = lambda n, hi: torch.randint(0, hi, (n,), generator=gen, device=dev)
+  edges = {('paper', 'cites', 'paper'): (draw(10 * p, p), draw(10 * p, p)),
+           ('author', 'writes', 'paper'): (draw(3 * p, a), draw(3 * p, p)),
+           ('author', 'affiliated', 'institute'): (draw(a, a), draw(a, i))}
+  edges = {e: torch.stack(v) for e, v in edges.items()}
+  for (s, r, d), ei in list(edges.items()):
+    if s != d:
+      edges[(d, f'rev_{r}', s)] = ei.flip(0)
+  return edges
+
+
+def profile_requests(torch, engine, reqs):
+  """Device time by serving stage and by kernel over ``reqs``, from
+  torch.profiler's CUDA trace; prints one line per stage and the top
+  kernels."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for ids in reqs:
+      engine.infer(ids)
+    wall = (time.perf_counter() - t0) * 1e3 / len(reqs)
+  # kernels are the CUDA events other than the stages' own GPU-side
+  # range markers; a stage's kernel time is that of the kernels inside
+  # its marker's extent on the device timeline (the ctypes-launched
+  # kernels carry no aten op to attribute them to)
+  stages = ('sample.multihop', 'gather.features', 'serve.forward')
+  cuda = torch.autograd.DeviceType.CUDA
+  events = prof.events()
+  kern = sorted((e.time_range.start, e.time_range.end, e.name)
+                for e in events
+                if e.device_type == cuda and e.name not in stages)
+  busy, end = 0.0, float('-inf')
+  for t0_, t1_, _ in kern:   # union of kernel intervals, us
+    busy += max(0.0, t1_ - max(t0_, end))
+    end = max(end, t1_)
+  n = len(reqs)
+  print(f'profile: {wall:.3f} ms wall per request, device busy '
+        f'{busy / 1e3 / n:.3f} ms ({busy / 1e3 / n / wall * 100:.1f}%)')
+  for st in stages:
+    cpu = [e for e in events if e.name == st and e.device_type != cuda]
+    gpu = [e.time_range for e in events
+           if e.name == st and e.device_type == cuda]
+    dev_us = sum(t1_ - t0_ for t0_, t1_, _ in kern
+                 if any(r.start <= t0_ and t1_ <= r.end for r in gpu))
+    span_us = sum(r.elapsed_us() for r in gpu)
+    host_us = sum(e.time_range.elapsed_us() for e in cpu)
+    print(f'  stage {st}: kernels {dev_us / 1e3 / n:.4f} ms, device span '
+          f'{span_us / 1e3 / n:.4f} ms, host {host_us / 1e3 / n:.4f} ms '
+          'per request')
+  by_name = {}
+  for t0_, t1_, name in kern:
+    tot, cnt = by_name.get(name, (0.0, 0))
+    by_name[name] = (tot + t1_ - t0_, cnt + 1)
+  for name, (tot, cnt) in sorted(by_name.items(),
+                                 key=lambda kv: -kv[1][0])[:12]:
+    print(f'  kernel {name[:80]}: {tot / 1e3 / n:.4f} ms, '
+          f'{cnt / n:g} per request')
+
+
+def plain_swapped(K, engine, names, seeds, n_valid, u):
+  """One bucket-256 batch and its logits with the wrappers ``names`` of
+  the kernel module ``K`` swapped for their plain versions (same seeds
+  and uniforms), restored afterwards."""
+  kernels = {n: getattr(K, n) for n in names}
+  try:
+    for n in kernels:
+      setattr(K, n, getattr(K, n + '_plain'))
+    batch = engine.make_batch(seeds, n_valid, 256, uniforms=u)
+    return batch, engine.model(batch)
+  finally:
+    for n, fn in kernels.items():
+      setattr(K, n, fn)
+
+
+def serve_requests(torch, engine, num_nodes, classes, rng, check=None):
+  """Two passes of fresh requests of REQUESTS ids, each pass ending with a
+  repeat of its 64-id request that the cache must serve; host clock
+  around infer, which ends in a device sync. ``check(n_fresh)`` runs
+  after every request. Returns the last pass's requests."""
+  for rep in range(2):
+    requests = [torch.randint(0, num_nodes, (n,), generator=rng).numpy()
+                for n in REQUESTS]
+    hits0, lat = engine.cache.hits, []
+    for ids in requests + [requests[2]]:
+      calls0 = engine.forward_calls
+      t0 = time.perf_counter()
+      logits = engine.infer(ids)
+      lat.append((time.perf_counter() - t0) * 1e3)
+      if logits.shape != (ids.size, classes):
+        raise AssertionError(f'logits shape {logits.shape}')
+      if not torch.isfinite(torch.as_tensor(logits)).all():
+        raise AssertionError('non-finite logits')
+      if check is not None:
+        check(engine.forward_calls - calls0)
+    if engine.cache.hits - hits0 < REQUESTS[2]:
+      raise AssertionError('the repeated request missed the cache')
+    print(f'pass {rep} request ms ' + ', '.join(
+        f'{n}: {ms:.3f}' for n, ms in zip(REQUESTS + ('repeat 64',), lat)))
+  return requests
+
+
 def main() -> int:
+  ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+  ap.add_argument('--seed', type=int, default=0,
+                  help='seed of the graphs, features, weights and requests')
+  opts = ap.parse_args()
   import numpy as np
   import torch
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device', file=sys.stderr)
     return 1
   from glt_tpu_torch.data import Dataset
-  from glt_tpu_torch.models import GraphSAGE
+  from glt_tpu_torch.models import RGNN, GraphSAGE
   from glt_tpu_torch.ops import build
   from glt_tpu_torch.ops import cuda_kernels as K
   from glt_tpu_torch.ops.pipeline import _fused_seed_hop, sample_budget
   from glt_tpu_torch.ops.sample import walk_geometry, walk_hop_uniforms
+  from glt_tpu_torch.sampler.base import NodeSamplerInput
   from glt_tpu_torch.serving import InferenceEngine
 
   dev = torch.device('cuda', 0)
@@ -101,7 +228,7 @@ def main() -> int:
       build.kernel_library(name)
 
   with Phase('data'):
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(opts.seed)
     # out-degrees ~Poisson(25) (products' mean); in-degrees skewed by a
     # squared-uniform draw, as bench.py builds its graph
     src = torch.randint(0, NUM_NODES, (NUM_EDGES,), generator=gen,
@@ -115,7 +242,7 @@ def main() -> int:
     engine = InferenceEngine(
         ds, GraphSAGE(FEAT_DIM, HIDDEN, CLASSES, num_layers=3), None,
         list(FANOUTS), buckets=BUCKETS, seed=0)
-    engine.init_params(0)
+    engine.init_params(opts.seed)
     g = ds.get_graph()
     torch.cuda.synchronize()
     print(f'graph: {g.num_nodes} nodes, {g.num_edges} edges, max degree '
@@ -233,35 +360,17 @@ def main() -> int:
 
   with Phase('main path'):
     engine.warmup()
-    rng = torch.Generator().manual_seed(1)
+    rng = torch.Generator().manual_seed(opts.seed + 1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
-    # two passes of fresh ids, each ending with a repeat that must hit
-    # the cache; host clock around infer, which ends in a device sync
-    for rep in range(2):
-      requests = [torch.randint(0, NUM_NODES, (n,), generator=rng).numpy()
-                  for n in REQUESTS]
-      hits0, lat = engine.cache.hits, []
-      for ids in requests + [requests[2]]:
-        t0 = time.perf_counter()
-        logits = engine.infer(ids)
-        lat.append((time.perf_counter() - t0) * 1e3)
-        if logits.shape != (ids.size, CLASSES):
-          raise AssertionError(f'logits shape {logits.shape}')
-        if not torch.isfinite(torch.as_tensor(logits)).all():
-          raise AssertionError('non-finite logits')
-      if engine.cache.hits - hits0 < REQUESTS[2]:
-        raise AssertionError('the repeated request missed the cache')
-      print(f'pass {rep} request ms ' + ', '.join(
-          f'{n}: {ms:.3f}' for n, ms in zip(REQUESTS + ('repeat 64',),
-                                            lat)))
-    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    requests = serve_requests(torch, engine, NUM_NODES, CLASSES, rng)
+    homo_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    for name, n in launches.items():
-      if n == 0:
+    for name in ('sample_walk_dedup', 'dedup_table_insert', 'gather_rows'):
+      if homo_launches[name] == 0:
         raise AssertionError(f'{name} never launched on the main path')
-    print(f'launches {launches}; cache hits {engine.cache.hits}; peak '
+    print(f'launches {homo_launches}; cache hits {engine.cache.hits}; peak '
           f'memory {peak / 2**30:.3f} GiB')
 
   with Phase('main path vs plain'):
@@ -273,16 +382,9 @@ def main() -> int:
     with torch.no_grad():
       bk = engine.make_batch(seeds, ids.size, 256, uniforms=u)
       yk = engine.model(bk)
-      kernels = {n: getattr(K, n) for n in
-                 ('sample_walk_dedup', 'dedup_table_insert', 'gather_rows')}
-      try:
-        for n in kernels:
-          setattr(K, n, getattr(K, n + '_plain'))
-        bp = engine.make_batch(seeds, ids.size, 256, uniforms=u)
-        yp = engine.model(bp)
-      finally:
-        for n, fn in kernels.items():
-          setattr(K, n, fn)
+      bp, yp = plain_swapped(K, engine, ('sample_walk_dedup',
+                                         'dedup_table_insert',
+                                         'gather_rows'), seeds, ids.size, u)
     for f in ('node', 'node_count', 'row', 'col', 'edge_mask', 'x'):
       if not torch.equal(getattr(bk, f), getattr(bp, f)):
         raise AssertionError(f'batch.{f} differs between kernels and plain')
@@ -293,55 +395,143 @@ def main() -> int:
           f'(tolerance {LOGIT_TOL})')
 
   with Phase('profile'):
-    # device time by serving stage and by kernel over 3 fresh requests of
-    # 256 ids (bucket 256), from torch.profiler's CUDA trace
-    from torch.profiler import ProfilerActivity, profile
-    reqs = [torch.randint(0, NUM_NODES, (256,), generator=rng).numpy()
-            for _ in range(3)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-      t0 = time.perf_counter()
-      for ids in reqs:
-        engine.infer(ids)
-      wall = (time.perf_counter() - t0) * 1e3 / len(reqs)
-    # kernels are the CUDA events other than the stages' own GPU-side
-    # range markers; a stage's kernel time is that of the kernels inside
-    # its marker's extent on the device timeline (the ctypes-launched
-    # kernels carry no aten op to attribute them to)
-    stages = ('sample.multihop', 'gather.features', 'serve.forward')
-    cuda = torch.autograd.DeviceType.CUDA
-    events = prof.events()
-    kern = sorted((e.time_range.start, e.time_range.end, e.name)
-                  for e in events
-                  if e.device_type == cuda and e.name not in stages)
-    busy, end = 0.0, float('-inf')
-    for t0_, t1_, _ in kern:   # union of kernel intervals, us
-      busy += max(0.0, t1_ - max(t0_, end))
-      end = max(end, t1_)
-    n = len(reqs)
-    print(f'profile: {wall:.3f} ms wall per request, device busy '
-          f'{busy / 1e3 / n:.3f} ms ({busy / 1e3 / n / wall * 100:.1f}%)')
-    for st in stages:
-      cpu = [e for e in events if e.name == st and e.device_type != cuda]
-      gpu = [e.time_range for e in events
-             if e.name == st and e.device_type == cuda]
-      dev_us = sum(t1_ - t0_ for t0_, t1_, _ in kern
-                   if any(r.start <= t0_ and t1_ <= r.end for r in gpu))
-      span_us = sum(r.elapsed_us() for r in gpu)
-      host_us = sum(e.time_range.elapsed_us() for e in cpu)
-      print(f'  stage {st}: kernels {dev_us / 1e3 / n:.4f} ms, device span '
-            f'{span_us / 1e3 / n:.4f} ms, host {host_us / 1e3 / n:.4f} ms '
-            'per request')
-    by_name = {}
-    for t0_, t1_, name in kern:
-      tot, cnt = by_name.get(name, (0.0, 0))
-      by_name[name] = (tot + t1_ - t0_, cnt + 1)
-    for name, (tot, cnt) in sorted(by_name.items(),
-                                   key=lambda kv: -kv[1][0])[:12]:
-      print(f'  kernel {name[:80]}: {tot / 1e3 / n:.4f} ms, '
-            f'{cnt / n:g} per request')
+    # 3 fresh requests of 256 ids (bucket 256)
+    profile_requests(torch, engine, [
+        torch.randint(0, NUM_NODES, (256,), generator=rng).numpy()
+        for _ in range(3)])
 
+  with Phase('hetero data'):
+    hgen = torch.Generator(device=dev).manual_seed(opts.seed + 2)
+    hds = Dataset().init_graph(igbh_edges(torch, IGBH_NODES, hgen, dev),
+                               num_nodes=IGBH_NODES)
+    hds.init_node_features({
+        t: torch.randn((n, IGBH_FEAT), generator=hgen, device=dev)
+        for t, n in IGBH_NODES.items()})
+    etypes = hds.get_edge_types()
+    hengine = InferenceEngine(
+        hds, RGNN(etypes, IGBH_FEAT, IGBH_HIDDEN, IGBH_CLASSES, num_layers=3,
+                  conv='rgat', heads=IGBH_HEADS),
+        None, list(FANOUTS), buckets=BUCKETS, seed=opts.seed,
+        input_type='paper')
+    hengine.init_params(opts.seed)
+    torch.cuda.synchronize()
+    print('igbh-rgat graph: ' + ', '.join(
+        f'{e[1]} {hds.get_graph(e).num_edges}' for e in etypes)
+          + f'; nodes {IGBH_NODES}; features {IGBH_FEAT} float32, '
+          f'{sum(IGBH_NODES.values()) * IGBH_FEAT * 4 / 2**30:.3f} GiB')
+
+  with Phase('hetero kernel checks'):
+    # the three hops of one bucket-256 request, their inputs recorded as
+    # the pipeline hands them over (tables copied before each call); the
+    # recording walk runs the plain version, which leaves every input of
+    # the next hop as the kernel would
+    hops, real = [], K.sample_hop_dedup
+    def record(*a):
+      hops.append((a, [t.clone() for t in a[5:8]]))
+      return K.sample_hop_dedup_plain(*a)
+    K.sample_hop_dedup = record
+    try:
+      hengine.sampler.sample_from_nodes(NodeSamplerInput(torch.randint(
+          0, IGBH_NODES['paper'], (256,), generator=hgen,
+          device=dev).cpu().numpy(), 'paper'))
+    finally:
+      K.sample_hop_dedup = real
+    hop_row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0)
+    for h, (a, table) in enumerate(hops):
+      fresh = lambda: [t.clone() for t in table]
+      kt, pt = fresh(), fresh()
+      got = real(*a[:5], *kt, *a[8:])
+      want = K.sample_hop_dedup_plain(*a[:5], *pt, *a[8:])
+      for key in ('picks', 'labels', 'new_head', 'counts'):
+        if not torch.equal(got[key], want[key]):
+          raise AssertionError(f'sample_hop_dedup hop {h} {key} differs')
+        hop_row['err'] = max(hop_row['err'], int(
+            (got[key].long() - want[key].long()).abs().max()))
+      ok = a[4].reshape(-1)
+      probe = torch.unique(got['picks'].reshape(-1)[ok])
+      if not torch.equal(K.dedup_table_lookup(*kt[:2], probe),
+                         K.dedup_table_lookup(*pt[:2], probe)):
+        raise AssertionError(f'sample_hop_dedup hop {h} tables differ')
+      s, k = a[3].shape
+      tables = [fresh() for _ in range(10)]
+      ms = cuda_ms(torch, lambda i=0: real(*a[:5], *tables[i], *a[8:]), 10,
+                   warmup=0)
+      ptables = [fresh() for _ in range(2)]
+      plain = cuda_ms(torch, lambda i=0: K.sample_hop_dedup_plain(
+          *a[:5], *ptables[i], *a[8:]), 2, warmup=0)
+      # bytes the hop must move: starts, offsets and validity in, one
+      # neighbour id and one table key per valid lane, and per lane the
+      # outputs (pick, label: 4 B; head: 1 B), a key and a label written
+      # per new id
+      n_ok, n_new = int(ok.sum()), int(got['new_head'].sum())
+      nbytes = 4 * s + 5 * s * k + 8 * n_ok + 9 * s * k + 8 * n_new
+      for key, v in (('ms', ms), ('plain_ms', plain),
+                     ('bound_ms', bytes_ms(nbytes))):
+        hop_row[key] += v
+      print(f'sample_hop_dedup hop {h + 1} [{s}, {k}]: {n_ok} valid lanes, '
+            f'{n_new} new ids, equal to plain on every surface; {ms:.4f} ms '
+            f'(plain {plain:.4f} ms, bound {bytes_ms(nbytes):.6f} ms)')
+      del tables, ptables
+    rows['sample_hop_dedup'] = hop_row
+    print(f'sample_hop_dedup per bucket-256 request ({len(hops)} hops): '
+          f'{hop_row["ms"]:.4f} ms (plain {hop_row["plain_ms"]:.4f} ms, '
+          f'bound {hop_row["bound_ms"]:.6f} ms)')
+
+  with Phase('hetero main path'):
+    hengine.warmup()
+    hrng = torch.Generator().manual_seed(opts.seed + 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    last = [0]
+
+    def hop_kernel_ran(n_computed):
+      n = K.sample_hop_dedup.launches
+      if n_computed and n == last[0]:
+        raise AssertionError('a computed request launched no '
+                             'sample_hop_dedup')
+      last[0] = n
+    hrequests = serve_requests(torch, hengine, IGBH_NODES['paper'],
+                               IGBH_CLASSES, hrng, check=hop_kernel_ran)
+    hetero_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    for name in ('sample_hop_dedup', 'dedup_table_insert', 'gather_rows'):
+      if hetero_launches[name] == 0:
+        raise AssertionError(f'{name} never launched on the hetero path')
+    print(f'launches {hetero_launches}; cache hits {hengine.cache.hits}; '
+          f'peak memory {peak / 2**30:.3f} GiB')
+
+  with Phase('hetero main path vs plain'):
+    ids = hrequests[3]
+    seeds = np.concatenate([ids, np.full(256 - ids.size, ids[0])])
+    u = hengine.sampler.hop_uniforms(256, 'paper')
+    with torch.no_grad():
+      bk = hengine.make_batch(seeds, ids.size, 256, uniforms=u)
+      yk = hengine.model(bk)
+      bp, yp = plain_swapped(K, hengine, ('sample_hop_dedup',
+                                          'dedup_table_insert',
+                                          'gather_rows'), seeds, ids.size, u)
+    for f in ('node_dict', 'node_count_dict', 'row_dict', 'col_dict',
+              'edge_mask_dict', 'x_dict'):
+      a, b = getattr(bk, f), getattr(bp, f)
+      if set(a) != set(b) or any(not torch.equal(a[t], b[t]) for t in a):
+        raise AssertionError(f'batch.{f} differs between kernels and plain')
+    diff = float((yk - yp).abs().max())
+    if not torch.allclose(yk, yp, rtol=LOGIT_TOL, atol=LOGIT_TOL):
+      raise AssertionError(f'hetero logits differ from plain by {diff}')
+    print(f'igbh-rgat bucket 256: batch bit-identical ('
+          f'{sum(int(c) for c in bk.node_count_dict.values())} nodes, '
+          f'{sum(int(m.sum()) for m in bk.edge_mask_dict.values())} edges), '
+          f'logits max |diff| {diff:.3e} (tolerance {LOGIT_TOL})')
+    del bk, bp, yk, yp
+
+  with Phase('hetero profile'):
+    profile_requests(torch, hengine, [
+        torch.randint(0, IGBH_NODES['paper'], (256,),
+                      generator=hrng).numpy() for _ in range(3)])
+
+  launches = {n: homo_launches[n] + hetero_launches[n]
+              for n in homo_launches}
   replaces = {
       'sample_walk_dedup': ('glt_tpu_torch/csrc/sample_walk_dedup.cu',
                             'glt_tpu/ops/pallas_kernels.py:998'),
@@ -349,14 +539,22 @@ def main() -> int:
                              'glt_tpu/ops/pallas_kernels.py:588'),
       'gather_rows': ('glt_tpu_torch/csrc/gather_rows.cu',
                       'glt_tpu/ops/pallas_kernels.py:236'),
+      'sample_hop_dedup': ('glt_tpu_torch/csrc/sample_hop_dedup.cu',
+                           'glt_tpu/ops/pallas_kernels.py:653'),
   }
   print(f'walk B=1024: {walk[1024]["ms"]:.4f} ms, plain '
         f'{walk[1024]["plain_ms"]:.4f} ms, bound '
         f'{walk[1024]["bound_ms"]:.6f} ms')
+  print(f'main-path launches: homogeneous {homo_launches}, heterogeneous '
+        f'{hetero_launches}')
   print(smi)
+  # launches: both main paths together; launches_by_path: each path's own
   print(json.dumps({'kernels': [
       dict(name=n, route='cuda', source=src, replaces=rep,
-           launches=launches[n], max_abs_err=rows[n]['err'],
+           launches=launches[n],
+           launches_by_path={'homogeneous': homo_launches[n],
+                             'hetero': hetero_launches[n]},
+           max_abs_err=rows[n]['err'],
            ms=rows[n]['ms'], plain_ms=rows[n]['plain_ms'],
            bound_ms=rows[n]['bound_ms'], bound_by='bytes',
            library_ms=rows[n].get('library_ms'))

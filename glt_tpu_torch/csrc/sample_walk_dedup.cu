@@ -31,8 +31,6 @@
 // blocks here run in no order, so the order comes from atomicMin and the
 // value-order labels from the sort, which is the label contract the TPU
 // path restores in its epilogue anyway.
-#include <climits>
-
 #include "dedup_table.cuh"
 
 namespace {
@@ -97,40 +95,8 @@ __global__ void walk_sample_kernel(
     picks[e] = x;
     valid[e] = 1;
     if (slots) slots[e] = slot;
-    bool inserted;
-    const int ts = glt::table_probe_insert(keys, mask, x, &inserted);
-    tslot[e] = ts;
-    // labels are written only by walk_labels_kernel, in a later launch:
-    // an unlabelled slot therefore holds an id first seen in this hop
-    if (__ldcg(vals + ts) < 0) atomicMin(first + ts, e);
+    tslot[e] = glt::table_claim(keys, vals, first, mask, x, e);
   }
-}
-
-__global__ void walk_heads_kernel(const int* __restrict__ picks,
-                                  const unsigned char* __restrict__ valid,
-                                  const int* __restrict__ tslot,
-                                  const int* __restrict__ vals,
-                                  const int* __restrict__ first, int m,
-                                  int* __restrict__ labels,
-                                  unsigned char* __restrict__ new_head,
-                                  int* __restrict__ next_frontier) {
-  int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= m) return;
-  int lab = -1;
-  bool head = false;
-  if (valid[e]) {
-    const int ts = tslot[e];
-    const int v = vals[ts];
-    if (v >= 0) {
-      lab = v;
-    } else {
-      lab = -2;  // new in this hop: labelled by walk_labels_kernel
-      head = first[ts] == e;
-    }
-  }
-  labels[e] = lab;
-  new_head[e] = head ? 1 : 0;
-  next_frontier[e] = head ? picks[e] : INT_MAX;
 }
 
 __global__ void walk_labels_kernel(const int* __restrict__ picks,
@@ -142,19 +108,9 @@ __global__ void walk_labels_kernel(const int* __restrict__ picks,
                                    int* __restrict__ vals) {
   int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= m || labels[e] != -2) return;
-  const int x = picks[e];
-  int lo = 0, hi = m;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (sorted_new[mid] < x) lo = mid + 1; else hi = mid;
-  }
-  const int lab = *count + lo;
+  const int lab = *count + glt::lower_bound(sorted_new, m, picks[e]);
   labels[e] = lab;
   if (new_head[e]) vals[tslot[e]] = lab;
-}
-
-inline unsigned blocks_for(int n, int threads) {
-  return static_cast<unsigned>((n + threads - 1) / threads);
 }
 
 }  // namespace
@@ -169,7 +125,7 @@ extern "C" int glt_walk_sample(const void* indptr_pad, int num_nodes,
   if (k > kMaxFanout) return static_cast<int>(cudaErrorInvalidValue);
   if (s > 0) {
     const int threads = 128;
-    walk_sample_kernel<<<blocks_for(s, threads), threads, 0,
+    walk_sample_kernel<<<glt::blocks_for(s, threads), threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(indptr_pad), num_nodes,
         static_cast<const int*>(indices), static_cast<const int*>(frontier),
@@ -189,8 +145,8 @@ extern "C" int glt_walk_heads(const void* picks, const void* valid,
                               void* stream) {
   if (m > 0) {
     const int threads = 256;
-    walk_heads_kernel<<<blocks_for(m, threads), threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+    glt::table_heads_kernel<<<glt::blocks_for(m, threads), threads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(picks),
         static_cast<const unsigned char*>(valid),
         static_cast<const int*>(tslot), static_cast<const int*>(vals),
@@ -207,7 +163,7 @@ extern "C" int glt_walk_labels(const void* picks, const void* new_head,
                                void* vals, void* stream) {
   if (m > 0) {
     const int threads = 256;
-    walk_labels_kernel<<<blocks_for(m, threads), threads, 0,
+    walk_labels_kernel<<<glt::blocks_for(m, threads), threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(picks),
         static_cast<const unsigned char*>(new_head),

@@ -1,52 +1,100 @@
 """Dataset: graph + node features + labels (counterpart of
 glt_tpu/data/dataset.py). The graph is the CSR of out-edges (the
-reference's ``edge_dir='out'``): the sampler draws out-neighbours."""
+reference's ``edge_dir='out'``): the sampler draws out-neighbours.
+
+Homogeneous payloads are single objects; heterogeneous ones are dicts
+keyed by EdgeType (graphs) and NodeType (features), as in the
+reference."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Union
 
 import torch
 
+from ..typing import EdgeType, NodeType
 from ..utils import as_numpy, resolve_device
 from .feature import Feature
-from .graph import Graph
+from .graph import Graph, hetero_node_counts
 from .topology import Topology
 
 
 class Dataset:
 
-  def __init__(self, graph: Optional[Graph] = None,
-               node_features: Optional[Feature] = None, node_labels=None):
+  def __init__(self, graph: Union[None, Graph, Dict[EdgeType, Graph]] = None,
+               node_features=None, node_labels=None):
     self.graph = graph
     self.node_features = node_features
     self.node_labels = node_labels
 
-  def init_graph(self, edge_index, edge_ids=None,
-                 num_nodes: Optional[int] = None, device=None) -> 'Dataset':
-    """Build the CSR from a [2, E] COO ``edge_index`` on
-    ``device`` (default: the card)."""
+  def init_graph(self, edge_index, edge_ids=None, num_nodes=None,
+                 device=None) -> 'Dataset':
+    """Build the CSR from a [2, E] COO ``edge_index`` on ``device``
+    (default: the card). Hetero: ``edge_index`` (and ``edge_ids``) are
+    dicts keyed by EdgeType and ``num_nodes`` a dict keyed by NodeType
+    (or one int for every type); each edge type compresses into a
+    rectangular CSR over its (src, dst) node counts."""
     device = resolve_device(device)
-    topo = Topology(edge_index, edge_ids=edge_ids, num_nodes=num_nodes,
-                    device=device)
-    self.graph = Graph(topo, device=device)
+    if not isinstance(edge_index, dict):
+      topo = Topology(edge_index, edge_ids=edge_ids, num_nodes=num_nodes,
+                      device=device)
+      self.graph = Graph(topo, device=device)
+      return self
+    self.graph = {}
+    for etype, ei in edge_index.items():
+      src_t, _, dst_t = etype
+      n_src, n_dst = ((num_nodes.get(src_t), num_nodes.get(dst_t))
+                      if isinstance(num_nodes, dict)
+                      else (num_nodes, num_nodes))
+      eid = edge_ids.get(etype) if isinstance(edge_ids, dict) else None
+      topo = Topology(ei, edge_ids=eid, num_rows=n_src, num_cols=n_dst,
+                      device=device)
+      self.graph[etype] = Graph(topo, device=device)
     return self
 
   def init_node_features(self, node_feature_data,
                          dtype: Optional[torch.dtype] = None,
                          device=None) -> 'Dataset':
-    self.node_features = Feature(node_feature_data, device=device,
-                                 dtype=dtype)
+    """One table, or a dict of per-type tables keyed by NodeType."""
+    if isinstance(node_feature_data, dict):
+      self.node_features = {
+          t: Feature(f, device=device, dtype=dtype)
+          for t, f in node_feature_data.items()}
+    else:
+      self.node_features = Feature(node_feature_data, device=device,
+                                   dtype=dtype)
     return self
 
   def init_node_labels(self, node_label_data) -> 'Dataset':
     self.node_labels = as_numpy(node_label_data)
     return self
 
-  def get_graph(self) -> Graph:
-    return self.graph
+  @property
+  def is_hetero(self) -> bool:
+    return isinstance(self.graph, dict)
 
-  def get_node_feature(self) -> Feature:
+  def get_graph(self, etype: Optional[EdgeType] = None) -> Graph:
+    return self.graph[etype] if self.is_hetero else self.graph
+
+  def get_node_feature(self, ntype: Optional[NodeType] = None) -> Feature:
+    if isinstance(self.node_features, dict):
+      return self.node_features.get(ntype)
     return self.node_features
 
   def get_node_label(self):
     return self.node_labels
+
+  def get_node_types(self):
+    return list(hetero_node_counts(self.graph)) if self.is_hetero else None
+
+  def get_edge_types(self):
+    return list(self.graph) if self.is_hetero else None
+
+  def node_count(self, ntype: Optional[NodeType] = None) -> int:
+    """Node count of ``ntype``: the largest axis any edge type gives it
+    (:func:`hetero_node_counts`, what the sampler reads), or its feature
+    table's rows."""
+    if not self.is_hetero:
+      return self.graph.num_nodes
+    best = hetero_node_counts(self.graph).get(ntype, 0)
+    feat = self.get_node_feature(ntype)
+    return max(best, feat.shape[0]) if feat is not None else best

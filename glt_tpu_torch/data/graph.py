@@ -7,15 +7,19 @@ holds the CSR once, plus ``indptr_pad`` ([N + 2] int32 with a trailing
 """
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
+from ..typing import EdgeType, NodeType
 from ..utils import resolve_device
 from .topology import Topology
 
 
 class Graph:
   """Binds a :class:`Topology` to ``device`` (default: the card; raises
-  when there is none)."""
+  when there is none). A hetero dataset holds one per edge type, its
+  ``indptr_pad`` over the edge type's src (row) node type."""
 
   def __init__(self, topo: Topology, device=None):
     self.topo = topo
@@ -37,3 +41,14 @@ class Graph:
   @property
   def num_edges(self) -> int:
     return self.topo.num_edges
+
+
+def hetero_node_counts(graphs: Dict[EdgeType, Graph]) -> Dict[NodeType, int]:
+  """Per node type, the largest axis any edge type's CSR gives it (rows
+  for its src type, columns for its dst type), in first-appearance order
+  over the edge types' (src, dst)."""
+  counts: Dict[NodeType, int] = {}
+  for (src, _, dst), g in graphs.items():
+    counts[src] = max(counts.get(src, 0), g.topo.num_rows)
+    counts[dst] = max(counts.get(dst, 0), g.topo.num_cols)
+  return counts

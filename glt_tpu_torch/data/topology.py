@@ -22,30 +22,45 @@ def _as_tensor(x, device=None) -> Optional[torch.Tensor]:
 
 
 class Topology:
-  """Square CSR of a homogeneous graph ('out' edges, indptr over src),
-  built from a [2, E] COO ``edge_index`` (row=src, col=dst).
+  """CSR ('out' edges, indptr over src) built from a [2, E] COO
+  ``edge_index`` (row=src, col=dst).
+
+  Bipartite edge types compress with independent axis sizes:
+  ``num_rows`` (the src type, the pointer axis) and ``num_cols`` (the dst
+  type); ``num_nodes`` sets both for a square graph. Given none of the
+  three, the graph is square over one past the largest id; given one
+  axis, the other defaults to one past its largest id.
 
   ``indptr`` is int64 (graphs past 2^31 edges must not wrap; the device
   copy narrows it), ``indices`` int32, and ``edge_ids[k]`` the original
   id of compressed slot k (the input position unless ``edge_ids`` are
-  given). ``num_nodes`` defaults to one past the largest id. Arrays live
-  on ``device`` (default: where ``edge_index`` is).
+  given). Arrays live on ``device`` (default: where ``edge_index`` is).
   """
 
   def __init__(self, edge_index, edge_ids=None,
-               num_nodes: Optional[int] = None, device=None):
-    edge_index = _as_tensor(edge_index, device).long()
+               num_nodes: Optional[int] = None,
+               num_rows: Optional[int] = None,
+               num_cols: Optional[int] = None, device=None):
+    edge_index = _as_tensor(edge_index, device).long().reshape(2, -1)
     row, col = edge_index[0], edge_index[1]
-    if num_nodes is None:
+    if num_nodes is None and num_rows is None and num_cols is None:
       num_nodes = int(edge_index.max()) + 1 if edge_index.numel() else 0
-    self._num_nodes = int(num_nodes)
-    self.indptr, self.indices, perm = _compress(row, col, self._num_nodes)
+    if num_nodes is not None:
+      num_rows = num_nodes if num_rows is None else num_rows
+      num_cols = num_nodes if num_cols is None else num_cols
+    self.num_rows = int(num_rows) if num_rows is not None else (
+        int(row.max()) + 1 if row.numel() else 0)
+    self.num_cols = int(num_cols) if num_cols is not None else (
+        int(col.max()) + 1 if col.numel() else 0)
+    self.indptr, self.indices, perm = _compress(row, col, self.num_rows,
+                                                self.num_cols)
     edge_ids = _as_tensor(edge_ids, row.device)
     self.edge_ids = edge_ids.long()[perm] if edge_ids is not None else perm
 
   @property
   def num_nodes(self) -> int:
-    return self._num_nodes
+    """Node count of the pointer axis (square graphs: the node count)."""
+    return self.num_rows
 
   @property
   def num_edges(self) -> int:
@@ -61,16 +76,17 @@ class Topology:
     return int(d.max()) if d.numel() else 0
 
 
-def _compress(row: torch.Tensor, col: torch.Tensor, num_nodes: int):
+def _compress(row: torch.Tensor, col: torch.Tensor, num_rows: int,
+              num_cols: int):
   """COO -> CSR, sorted by (row, col) with ties in input order
   (``np.lexsort((col, row))``); returns (indptr int64, indices int32,
   perm: compressed slot -> input position)."""
-  for name, x in (('row', row), ('col', col)):
-    if x.numel() and num_nodes <= int(x.max()):
+  for name, x, n in (('row', row, num_rows), ('col', col, num_cols)):
+    if x.numel() and n <= int(x.max()):
       raise ValueError(f'{name} id {int(x.max())} out of range for '
-                       f'num_nodes={num_nodes}')
-  perm = torch.sort(row * max(num_nodes, 1) + col, stable=True).indices
-  counts = torch.bincount(row, minlength=num_nodes)
-  indptr = torch.zeros(num_nodes + 1, dtype=torch.int64, device=row.device)
+                       f'num_{name}s={n}')
+  perm = torch.sort(row * max(num_cols, 1) + col, stable=True).indices
+  counts = torch.bincount(row, minlength=num_rows)
+  indptr = torch.zeros(num_rows + 1, dtype=torch.int64, device=row.device)
   torch.cumsum(counts, 0, out=indptr[1:])
   return indptr, col[perm].to(torch.int32), perm

@@ -1,3 +1,3 @@
-from .transform import Batch, to_batch
+from .transform import Batch, HeteroBatch, to_batch, to_hetero_batch
 
-__all__ = ['Batch', 'to_batch']
+__all__ = ['Batch', 'HeteroBatch', 'to_batch', 'to_hetero_batch']

@@ -1,13 +1,14 @@
-"""Batch structure and SamplerOutput -> Batch (counterpart of
+"""Batch structures and sampler output -> batch (counterpart of
 glt_tpu/loader/transform.py): the fields PyG models read, padded."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..sampler.base import SamplerOutput
+from ..sampler.base import HeteroSamplerOutput, SamplerOutput
+from ..typing import EdgeType, NodeType
 
 
 @dataclasses.dataclass
@@ -40,3 +41,41 @@ def to_batch(out: SamplerOutput, x: Optional[torch.Tensor] = None,
       else (out.batch.shape[0] if out.batch is not None else 0),
       edge_hop_offsets=tuple(out.edge_hop_offsets)
       if out.edge_hop_offsets else None)
+
+
+@dataclasses.dataclass
+class HeteroBatch:
+  """Heterogeneous mini-batch, padded. Edge keys (s, r, d) carry ``row`` =
+  s-type child labels and ``col`` = d-type parent labels (message flow);
+  ``edge_hop_offsets_dict`` gives each key's per-hop slots for
+  hierarchical trimming."""
+  x_dict: Dict[NodeType, torch.Tensor]
+  row_dict: Dict[EdgeType, torch.Tensor]
+  col_dict: Dict[EdgeType, torch.Tensor]
+  edge_mask_dict: Dict[EdgeType, torch.Tensor]
+  node_dict: Dict[NodeType, torch.Tensor]
+  node_count_dict: Dict[NodeType, torch.Tensor]
+  edge_dict: Optional[Dict[EdgeType, torch.Tensor]] = None
+  num_sampled_nodes: Optional[Dict[NodeType, torch.Tensor]] = None
+  num_sampled_edges: Optional[Dict[EdgeType, torch.Tensor]] = None
+  input_type: Optional[NodeType] = None
+  batch_size: int = 0
+  edge_hop_offsets_dict: Optional[Dict[EdgeType, Tuple[int, ...]]] = None
+
+
+def to_hetero_batch(out: HeteroSamplerOutput,
+                    x_dict: Optional[Dict[NodeType, torch.Tensor]] = None,
+                    batch_size: Optional[int] = None) -> HeteroBatch:
+  """Assemble a HeteroBatch from a HeteroSamplerOutput (+ per-type
+  gathered features)."""
+  offs = (out.metadata or {}).get('edge_hop_offsets')
+  return HeteroBatch(
+      x_dict=x_dict or {}, row_dict=out.row, col_dict=out.col,
+      edge_mask_dict=out.edge_mask, node_dict=out.node,
+      node_count_dict=out.node_count, edge_dict=out.edge,
+      num_sampled_nodes=out.num_sampled_nodes,
+      num_sampled_edges=out.num_sampled_edges, input_type=out.input_type,
+      batch_size=batch_size if batch_size is not None
+      else out.batch[out.input_type].shape[0],
+      edge_hop_offsets_dict={k: tuple(v) for k, v in offs.items()}
+      if offs else None)

@@ -1,9 +1,12 @@
 """GNN convolution layers over padded edge lists (counterpart of
 glt_tpu/models/conv.py): invalid edge slots route to a sink segment, so
-aggregation is one masked ``index_add_``."""
+aggregation is one masked ``index_add_`` (a segment max one
+``scatter_reduce``). These are plain PyTorch: the JAX convolutions are
+XLA and reach no Pallas kernel."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -37,3 +40,50 @@ class SAGEConv(nn.Module):
     ok = edge_mask & (row >= 0) & (col >= 0)
     agg = segment_mean(msgs, col.clamp(0, n - 1), ok, n)
     return self.lin_root(x) + self.lin_nbr(agg)
+
+
+class GATConv(nn.Module):
+  """Graph attention (GATv1): per-edge logits (leaky ReLU, slope 0.2)
+  softmax-normalised over each parent's valid incoming edges, multi-head,
+  the heads (each ``out_features`` wide) averaged -- the reference's
+  ``concat=False``, the only form its RGAT layers use. Parameters:
+  ``proj`` (no bias), ``att_src`` and ``att_dst`` [heads, out_features]."""
+
+  def __init__(self, in_features: int, out_features: int, heads: int = 1):
+    super().__init__()
+    self.heads, self.out_features = heads, out_features
+    self.proj = nn.Linear(in_features, heads * out_features, bias=False)
+    self.att_src = nn.Parameter(torch.empty(heads, out_features))
+    self.att_dst = nn.Parameter(torch.empty(heads, out_features))
+    nn.init.xavier_uniform_(self.att_src)
+    nn.init.xavier_uniform_(self.att_dst)
+
+  def forward(self, x: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
+              edge_mask: torch.Tensor) -> torch.Tensor:
+    n, h, f = x.shape[0], self.heads, self.out_features
+    ok = edge_mask & (row >= 0) & (col >= 0)
+    proj = self.proj(x).view(n, h, f)
+    # per-node halves of the logit, gathered per edge (the same products
+    # as gathering the projections first, without two [E, h, f] copies)
+    a_src = (proj * self.att_src).sum(-1)
+    a_dst = (proj * self.att_dst).sum(-1)
+    r = row.long().clamp(0, n - 1)
+    logit = F.leaky_relu(a_src[r] + a_dst[col.long().clamp(0, n - 1)],
+                         0.2)                                     # [E, h]
+    seg = torch.where(ok, col.long(), torch.full_like(col, n, dtype=torch.long))
+    # numerically stable masked segment softmax over each parent; a
+    # segment with no valid edge has max -inf, read as 0
+    neg = torch.full_like(logit, float('-inf'))
+    seg_max = torch.full((n + 1, h), float('-inf'), dtype=logit.dtype,
+                         device=x.device).scatter_reduce(
+        0, seg[:, None].expand(-1, h), torch.where(ok[:, None], logit, neg),
+        'amax')
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max,
+                          torch.zeros_like(seg_max))
+    z = torch.exp(logit - seg_max[seg])
+    z = torch.where(ok[:, None], z, torch.zeros_like(z))
+    denom = z.new_zeros((n + 1, h)).index_add_(0, seg, z)
+    alpha = z / torch.clamp(denom[seg], min=1e-16)
+    out = proj.new_zeros((n + 1, h, f)).index_add_(
+        0, seg, proj[r] * alpha[:, :, None])[:n]
+    return out.mean(1)

@@ -20,7 +20,8 @@ from typing import Dict
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                          '_build')
-SOURCES = ('gather_rows', 'dedup_table_insert', 'sample_walk_dedup')
+SOURCES = ('gather_rows', 'dedup_table_insert', 'sample_walk_dedup',
+           'sample_hop_dedup')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -42,6 +43,14 @@ SIGNATURES = {
         'glt_walk_heads': [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp,
                            _vp],
         'glt_walk_labels': [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp],
+    },
+    'sample_hop_dedup': {
+        'glt_hop_sample': [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _vp,
+                           _vp, _i32, _vp, _vp, _vp, _vp],
+        'glt_hop_heads': [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp,
+                          _vp],
+        'glt_hop_labels': [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _i32, _vp,
+                           _vp, _vp],
     },
 }
 

@@ -15,6 +15,8 @@ wrapper                       replaces (glt_tpu/ops/...)        source
 ``dedup_table_insert``        pallas_kernels.py:588             csrc/dedup_table_insert.cu
 ``sample_walk_dedup``         pallas_kernels.py:998 + the       csrc/sample_walk_dedup.cu
                               epilogue of pipeline.py:584-633
+``sample_hop_dedup``          pallas_kernels.py:653 + the       csrc/sample_hop_dedup.cu
+                              epilogue of pipeline.py:1162-1203
 ============================  ================================  ==========
 """
 from __future__ import annotations
@@ -340,5 +342,135 @@ def sample_walk_dedup(indptr_pad, indices, seed_ids, seed_ok, stab_ids,
   return out
 
 
-KERNELS = (gather_rows, dedup_table_insert, sample_walk_dedup)
+# -- B1: sample_hop_dedup -------------------------------------------------------
+
+def _check_hop_inputs(starts, offsets, valid, type_bounds, counts):
+  if offsets.dim() != 2 or tuple(valid.shape) != tuple(offsets.shape) \
+      or starts.numel() != offsets.shape[0]:
+    raise ValueError(f'hop planes: starts {tuple(starts.shape)}, offsets '
+                     f'{tuple(offsets.shape)}, valid {tuple(valid.shape)}')
+  if type_bounds.numel() != counts.numel() + 1:
+    raise ValueError('type_bounds needs one more entry than counts')
+  if offsets.numel() >= 2 ** 31:
+    raise ValueError('a hop addresses its lanes with int32')
+
+
+def sample_hop_dedup_plain(indices_flat, eids_flat, starts, offsets, valid,
+                           keys, vals, first, type_bounds, counts
+                           ) -> Dict[str, torch.Tensor]:
+  """One hetero hop in plain PyTorch (same signature and outputs as
+  :func:`sample_hop_dedup`; ``first`` is unused). Seen ids are looked up
+  in the table; the hop's new ids are ranked by ``unique`` (sorted, so
+  grouped by type), a scatter-min finds each one's first lane, and they
+  are inserted with their labels."""
+  _check_hop_inputs(starts, offsets, valid, type_bounds, counts)
+  s, k = offsets.shape
+  dev = offsets.device
+  ok = valid.bool()
+  slot = starts.long()[:, None] + offsets.long()
+  picks = torch.full((s, k), -1, dtype=torch.int32, device=dev)
+  picks[ok] = indices_flat[slot[ok]].to(torch.int32)
+  eid_picks = None
+  if eids_flat is not None:
+    eid_picks = torch.full((s, k), -1, dtype=torch.int32, device=dev)
+    eid_picks[ok] = eids_flat[slot[ok]].to(torch.int32)
+  ids, ok = picks.reshape(-1).long(), ok.reshape(-1)
+  m = ids.numel()
+  seen = dedup_table_lookup(keys, vals, ids)
+  new_el = ok & (seen < 0)
+  uniq = torch.unique(ids[new_el])
+  rank = torch.searchsorted(uniq, ids).clamp(max=max(uniq.numel() - 1, 0))
+  first_lane = torch.full((uniq.numel() + 1,), m, dtype=torch.long,
+                          device=dev)
+  first_lane.scatter_reduce_(0, torch.where(new_el, rank, uniq.numel()),
+                             torch.arange(m, device=dev), 'amin')
+  new_head = new_el & (first_lane[rank] == torch.arange(m, device=dev))
+  bounds = type_bounds.long()
+  type_rank = torch.searchsorted(uniq, bounds)      # [T + 1]
+  base = counts.long() - type_rank[:-1]             # label = base[t] + rank
+  utype = torch.searchsorted(bounds, uniq, right=True) - 1
+  ulabs = base[utype] + torch.arange(uniq.numel(), device=dev)
+  labels = torch.where(ok, seen, torch.full_like(seen, -1))
+  labels[new_el] = ulabs[rank[new_el]]
+  dedup_table_insert_plain(keys, vals, uniq, ulabs,
+                           torch.ones_like(uniq, dtype=torch.bool))
+  return dict(picks=picks, eid_picks=eid_picks,
+              labels=labels.to(torch.int32), new_head=new_head,
+              counts=(counts.long() + type_rank[1:] - type_rank[:-1]).to(
+                  torch.int32))
+
+
+def sample_hop_dedup(indices_flat, eids_flat, starts, offsets, valid, keys,
+                     vals, first, type_bounds, counts
+                     ) -> Dict[str, torch.Tensor]:
+  """One hop of the hetero walk over the flat edge-type plane, with
+  dedup/relabel against the shared table of type-tagged ids.
+
+  Args:
+    indices_flat / eids_flat: [E_flat] int32 tagged neighbour ids and edge
+      ids of every edge type (``build_type_plane``); ``eids_flat`` may be
+      None.
+    starts: [S] int32 each row's CSR start in the flat plane.
+    offsets / valid: [S, K] int32 drawn offsets and bool lane validity
+      (lanes past a segment's fanout are invalid).
+    keys / vals / first: the table planes (:func:`make_dedup_table`),
+      updated in place: this hop's new ids are inserted with their final
+      labels.
+    type_bounds: [T + 1] int32, type t's tagged ids are
+      ``[type_bounds[t], type_bounds[t+1])``.
+    counts: [T] int32 labels assigned per type before this hop.
+
+  Returns a dict: ``picks`` and ``eid_picks`` [S, K] (-1 on invalid
+  lanes; ``eid_picks`` None without ``eids_flat``), ``labels`` [S*K]
+  (seen ids keep theirs, a new id of type t gets ``counts[t]`` + its
+  value rank among the hop's new type-t ids, -1 on invalid lanes),
+  ``new_head`` [S*K] bool (each new id's minimum lane) and ``counts``
+  [T] after the hop.
+  """
+  if not offsets.is_cuda:
+    return sample_hop_dedup_plain(indices_flat, eids_flat, starts, offsets,
+                                  valid, keys, vals, first, type_bounds,
+                                  counts)
+  _check_hop_inputs(starts, offsets, valid, type_bounds, counts)
+  s, k = offsets.shape
+  m = s * k
+  dev = offsets.device
+  lib = _lib('sample_hop_dedup')
+  stream = _stream(dev)
+  indices_flat = _i32(indices_flat, dev)
+  eids_flat = _i32(eids_flat, dev) if eids_flat is not None else None
+  starts, offsets = _i32(starts, dev), _i32(offsets, dev)
+  valid = valid.to(device=dev, dtype=torch.bool).contiguous()
+  type_bounds, counts = _i32(type_bounds, dev), _i32(counts, dev)
+  picks = torch.empty((s, k), dtype=torch.int32, device=dev)
+  eid_picks = (torch.empty((s, k), dtype=torch.int32, device=dev)
+               if eids_flat is not None else None)
+  tslot = torch.empty(m, dtype=torch.int32, device=dev)
+  _check(lib.glt_hop_sample(
+      _ptr(indices_flat), _ptr(eids_flat), _ptr(starts), _ptr(offsets),
+      _ptr(valid), s, k, _ptr(keys), _ptr(vals), _ptr(first), keys.numel(),
+      _ptr(picks), _ptr(eid_picks), _ptr(tslot), stream),
+      'sample_hop_dedup (sample)')
+  labels = torch.empty(m, dtype=torch.int32, device=dev)
+  new_head = torch.empty(m, dtype=torch.bool, device=dev)
+  nxt = torch.empty(m, dtype=torch.int32, device=dev)
+  _check(lib.glt_hop_heads(
+      _ptr(picks), _ptr(valid), _ptr(tslot), _ptr(vals), _ptr(first), m,
+      _ptr(labels), _ptr(new_head), _ptr(nxt), stream),
+      'sample_hop_dedup (heads)')
+  sorted_new = torch.sort(nxt).values
+  _check(lib.glt_hop_labels(
+      _ptr(picks), _ptr(new_head), _ptr(tslot), _ptr(sorted_new),
+      _ptr(type_bounds), counts.numel(), _ptr(counts), m, _ptr(labels),
+      _ptr(vals), stream), 'sample_hop_dedup (labels)')
+  sample_hop_dedup.launches += 3
+  type_rank = torch.searchsorted(sorted_new, type_bounds)
+  return dict(picks=picks, eid_picks=eid_picks, labels=labels,
+              new_head=new_head,
+              counts=counts + (type_rank[1:] - type_rank[:-1]).to(
+                  torch.int32))
+
+
+KERNELS = (gather_rows, dedup_table_insert, sample_walk_dedup,
+           sample_hop_dedup)
 reset_launch_counts()

@@ -1,10 +1,14 @@
 """The multi-hop sampling pipeline (counterpart of glt_tpu/ops/pipeline.py).
 
-The port has one engine, the walk: an exact seed dedup, then
-``cuda_kernels.sample_walk_dedup`` for every uniform hop, then the output
-dict. Its outputs are bit-identical to the JAX package's cross-hop walk
-(``GLT_HOP_ENGINE=pallas_fused``, ``GLT_FUSED_WALK=cross``) and to its
-``GLT_DEDUP=sort GLT_FUSED_HOP=1`` reference, given the same uniforms.
+The port has one engine per graph kind. Homogeneous: the walk, an exact
+seed dedup, then ``cuda_kernels.sample_walk_dedup`` for every uniform
+hop, then the output dict; bit-identical to the JAX package's cross-hop
+walk (``GLT_HOP_ENGINE=pallas_fused``, ``GLT_FUSED_WALK=cross``) and to
+its ``GLT_DEDUP=sort GLT_FUSED_HOP=1`` reference, given the same
+uniforms. Heterogeneous: :func:`multihop_sample_hetero`, one
+``cuda_kernels.sample_hop_dedup`` per hop for every edge type,
+bit-identical to the JAX hetero ``GLT_DEDUP=sort GLT_FUSED_HOP=1``
+reference.
 """
 from __future__ import annotations
 
@@ -13,7 +17,8 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from . import cuda_kernels
-from .sample import FusedHopPlan, walk_hop_uniforms
+from .sample import (FusedHopPlan, HeteroFusedPlan, _hop_degrees,
+                     draw_offsets, walk_hop_uniforms)
 from .unique import BIG, sorted_hop_dedup, sorted_nodes_by_label
 
 
@@ -103,6 +108,167 @@ def multihop_sample(plan: FusedHopPlan, seeds: torch.Tensor, n_valid: int,
   )
   if with_edge:
     out['edge'] = torch.cat(eid_list)
+  return out
+
+
+def hetero_edge_hop_offsets(caps, trav, num_neighbors, num_hops):
+  """Per traversal edge type, hop h's slots in its concatenated edge
+  buffers are ``[offs[h], offs[h+1])`` (hierarchical per-layer trimming;
+  counterpart of glt_tpu/ops/pipeline.py :747)."""
+  offs = {e: [0] for e in trav}
+  for h in range(num_hops):
+    for e, (row_t, _) in trav.items():
+      k = num_neighbors[e][h]
+      w = caps[h][row_t] * abs(k) if (caps[h][row_t] and k) else 0
+      offs[e].append(offs[e][-1] + w)
+  return offs
+
+
+def _empty_frontier(c0: int, dev):
+  """Placeholder frontier of a type with no live rows (zero ids, -1
+  labels, all-False mask), the reference's."""
+  return (torch.zeros(c0, dtype=torch.int32, device=dev),
+          torch.full((c0,), -1, dtype=torch.int32, device=dev),
+          torch.zeros(c0, dtype=torch.bool, device=dev))
+
+
+def multihop_sample_hetero(plan: HeteroFusedPlan, table_slots: int,
+                           num_neighbors, num_hops, caps, budgets,
+                           seed_type: str, seeds: torch.Tensor, n_valid: int,
+                           u_hops, with_edge: bool = False):
+  """The hetero walk from ``seeds`` of ``seed_type``: an exact seed hop,
+  then one ``cuda_kernels.sample_hop_dedup`` for every edge type of a hop
+  (counterpart of glt_tpu/ops/pipeline.py
+  ``_multihop_sample_hetero_fused``, bit-identical to its per-edge-type
+  sorted reference ``GLT_DEDUP=sort GLT_FUSED_HOP=1`` given the same
+  uniforms).
+
+  Per hop the segments (traversal edge types with live frontier rows and
+  a non-zero fanout, in traversal order) draw their offsets from
+  ``u_hops[h][i]`` (:func:`hetero_hop_uniforms` shapes), are rebased into
+  the flat edge plane and padded to the hop's widest fanout behind
+  invalid lanes; an edge type with no edges rides along as all-invalid
+  rows. The kernel labels each type's new ids ``count_t..`` in value
+  order; type t's next frontier is every lane of this hop's type-t picks,
+  non-heads carrying INT32_MAX.
+
+  ``table_slots`` sizes the dedup table (a power of two >= 2x the
+  walk's node budget across types).
+
+  Returns the result dict of the reference: per type ``node``,
+  ``node_count``, ``num_sampled_nodes``, ``batch`` and ``seed_labels``
+  (the seed type), per traversal edge type ``row`` (parent labels),
+  ``col`` (child labels), ``edge_mask``, ``num_sampled_edges`` and, with
+  ``with_edge``, ``edge``.
+  """
+  if with_edge and plan.eids_flat is None:
+    raise ValueError('with_edge needs the plan\'s edge-id plane')
+  dev = plan.indices_flat.device
+  types = plan.types
+  zero = torch.zeros((), dtype=torch.int32, device=dev)
+  frontier, u_ids, u_labs, count = {}, {}, {}, {}
+  for t in types:
+    u_ids[t], u_labs[t], count[t] = [], [], zero
+    frontier[t] = _empty_frontier(max(1, caps[0][t]), dev)
+  d, seed_labels = _fused_seed_hop(seeds, n_valid)
+  u_ids[seed_type].append(d['u_ids2'])
+  u_labs[seed_type].append(d['u_labs2'])
+  count[seed_type] = d['count2']
+  frontier[seed_type] = (d['ids3'], d['labels3'], d['new_head3'])
+  keys, vals, first = cuda_kernels.make_dedup_table(table_slots, dev)
+  ids = torch.where(d['new_head3'], d['ids3'] + plan.type_base[seed_type],
+                    torch.full_like(d['ids3'], -1))
+  cuda_kernels.dedup_table_insert(keys, vals, ids, d['labels3'], ids >= 0)
+  counts = torch.stack([count[t] for t in types]).to(torch.int32)
+  hop_nodes = {t: [count[t]] for t in types}
+  rows_d, cols_d, mask_d, eid_d, hop_edges = {}, {}, {}, {}, {}
+  for h in range(num_hops):
+    segs = []
+    for e, (row_t, col_t) in plan.trav.items():
+      k = num_neighbors[e][h]
+      if caps[h][row_t] == 0 or k == 0:
+        continue
+      f_ids, f_labels, f_mask = frontier[row_t]
+      u = u_hops[h][len(segs)]
+      sg = dict(e=e, col_t=col_t, k=k, s=f_ids.numel(), f_labels=f_labels)
+      if plan.num_edges[e] == 0:
+        sg.update(start=torch.zeros(sg['s'], dtype=torch.int32, device=dev),
+                  off=torch.zeros((sg['s'], k), dtype=torch.int32,
+                                  device=dev),
+                  mask=torch.zeros((sg['s'], k), dtype=torch.bool,
+                                   device=dev))
+      else:
+        start, deg = _hop_degrees(plan.indptr_pad[e], f_ids, f_mask)
+        off, mask = draw_offsets(deg, u.to(dev), k, plan.replace)
+        sg.update(start=start + plan.edge_base[e], off=off, mask=mask)
+      segs.append(sg)
+    if segs:
+      k_max = max(sg['k'] for sg in segs)
+      pad = lambda x, k: torch.nn.functional.pad(x, (0, k_max - k))
+      hop = cuda_kernels.sample_hop_dedup(
+          plan.indices_flat, plan.eids_flat if with_edge else None,
+          torch.cat([sg['start'] for sg in segs]),
+          torch.cat([pad(sg['off'], sg['k']) for sg in segs]),
+          torch.cat([pad(sg['mask'], sg['k']) for sg in segs]),
+          keys, vals, first, plan.type_bounds, counts)
+      picks, labels = hop['picks'], hop['labels'].view(-1, k_max)
+      new_head = hop['new_head'].view(-1, k_max)
+      r0 = 0
+      for sg in segs:
+        rows = slice(r0, r0 + sg['s'])
+        k = sg['k']
+        sg['picks'] = picks[rows, :k].reshape(-1)
+        sg['labels'] = labels[rows, :k].reshape(-1)
+        sg['nh'] = new_head[rows, :k].reshape(-1)
+        if with_edge:
+          sg['eid'] = hop['eid_picks'][rows, :k].reshape(-1)
+        r0 += sg['s']
+      counts = hop['counts']
+    for t in types:
+      tsegs = [sg for sg in segs if sg['col_t'] == t]
+      if not tsegs:
+        frontier[t] = _empty_frontier(max(1, caps[h + 1][t]), dev)
+        hop_nodes[t].append(zero)
+        continue
+      nh = torch.cat([sg['nh'] for sg in tsegs])
+      labels_t = torch.cat([sg['labels'] for sg in tsegs])
+      local = torch.where(nh, torch.cat([sg['picks'] for sg in tsegs])
+                          - plan.type_base[t],
+                          torch.full_like(labels_t, BIG))
+      frontier[t] = (local, labels_t, nh)
+      u_ids[t].append(local)
+      u_labs[t].append(torch.where(nh, labels_t,
+                                   torch.full_like(labels_t, BIG)))
+      hop_nodes[t].append(nh.sum(dtype=torch.int32))
+    for sg in segs:
+      e = sg['e']
+      mask = sg['mask'].reshape(-1)
+      rows_d.setdefault(e, []).append(
+          torch.repeat_interleave(sg['f_labels'], sg['k']))
+      cols_d.setdefault(e, []).append(sg['labels'])
+      mask_d.setdefault(e, []).append(mask)
+      if with_edge:
+        eid_d.setdefault(e, []).append(sg['eid'])
+      hop_edges.setdefault(e, []).append(mask.sum(dtype=torch.int32))
+
+  node_count = {t: counts[i] for i, t in enumerate(types)}
+  nodes = {t: sorted_nodes_by_label(torch.cat(u_ids[t]),
+                                    torch.cat(u_labs[t]), node_count[t],
+                                    budgets[t])
+           if u_ids[t] else torch.full((budgets[t],), -1, dtype=torch.int32,
+                                       device=dev)
+           for t in types}
+  out = dict(
+      node=nodes, node_count=node_count,
+      row={e: torch.cat(v) for e, v in rows_d.items()},
+      col={e: torch.cat(v) for e, v in cols_d.items()},
+      edge_mask={e: torch.cat(v) for e, v in mask_d.items()},
+      batch={seed_type: nodes[seed_type][:seeds.numel()]},
+      seed_labels={seed_type: seed_labels},
+      num_sampled_nodes={t: torch.stack(v) for t, v in hop_nodes.items()},
+      num_sampled_edges={e: torch.stack(v) for e, v in hop_edges.items()})
+  if with_edge:
+    out['edge'] = {e: torch.cat(v) for e, v in eid_d.items()}
   return out
 
 

@@ -103,6 +103,108 @@ def walk_hop_uniforms(generator: Optional[torch.Generator],
   return tuple(us)
 
 
+def hetero_hop_uniforms(generator: Optional[torch.Generator], trav,
+                        num_neighbors, caps, replace: bool, device):
+  """Per hop, per segment, the uniforms of a hetero walk, drawn from
+  ``generator`` on ``device``. A segment is one traversal edge type
+  whose frontier type has rows at that hop (``caps[h][row_t] > 0``) and
+  whose fanout is non-zero, in traversal order -- exactly the segments
+  that take a ``split`` of the JAX key sequence (an edge type with no
+  edges still takes one). Each is ``[S, K]`` float32, ``S =
+  caps[h][row_t]``: drawn ``(K, S)`` and transposed without replacement,
+  ``(S, K)`` with, as the JAX draw shapes them."""
+  out = []
+  for h in range(len(caps) - 1):
+    hop = []
+    for e, (row_t, _) in trav.items():
+      k, s = int(num_neighbors[e][h]), int(caps[h][row_t])
+      if s == 0 or k == 0:
+        continue
+      if replace:
+        u = torch.rand((s, k), generator=generator, device=device)
+      else:
+        u = torch.rand((k, s), generator=generator, device=device).T
+      hop.append(u.contiguous())
+    out.append(hop)
+  return out
+
+
+def build_type_plane(etypes, trav, node_counts, graphs, with_eids: bool):
+  """The flat edge-type plane one ``sample_hop_dedup`` launch reads for
+  every edge type of a hop (counterpart of
+  glt_tpu/ops/pallas_kernels.py ``build_type_plane``, without the TPU's
+  W-slot window pad: a thread reads ``indices_flat[start + offset]``).
+
+  Node types share one type-tagged id space: type t's ids occupy
+  ``[type_base[t], type_base[t+1])``, so one dedup table holds every
+  type's seen-set and a sort of tagged ids groups them by type. Each edge
+  type's indices are rebased into its dst type's range and concatenated
+  in traversal order; ``edge_base[e]`` is where its block starts.
+
+  Returns dict(types, type_base, edge_base, indices_flat, eids_flat).
+  Raises ValueError when the tagged ids or the flat edges pass int32
+  (the kernel addresses both with int32) or, with ``with_eids``, when an
+  edge id does.
+  """
+  types = list(node_counts)
+  type_base, base = {}, 0
+  for t in types:
+    type_base[t] = base
+    base += int(node_counts[t])
+  if base >= 2 ** 31:
+    raise ValueError(f'{base} nodes across types exceed the int32 '
+                     'type-tagged id space of the dedup table')
+  edge_base, off, blocks, eid_blocks = {}, 0, [], []
+  for e in etypes:
+    g = graphs[e]
+    edge_base[e] = off
+    off += g.num_edges
+    blocks.append((g.indices.long() + type_base[trav[e][1]]).to(torch.int32))
+    if with_eids:
+      if g.num_edges and int(g.edge_ids.max()) >= 2 ** 31:
+        raise ValueError(f'edge ids of {e} exceed the int32 range of the '
+                         'flat edge-id plane')
+      eid_blocks.append(g.edge_ids.to(torch.int32))
+  if off >= 2 ** 31:
+    raise ValueError(f'{off} flat edge slots exceed the int32 range')
+  device = graphs[etypes[0]].device if etypes else None
+  empty = torch.zeros(0, dtype=torch.int32, device=device)
+  return dict(
+      types=types, type_base=type_base, edge_base=edge_base,
+      indices_flat=torch.cat(blocks) if blocks else empty,
+      eids_flat=(torch.cat(eid_blocks) if eid_blocks else empty)
+      if with_eids else None)
+
+
+class HeteroFusedPlan:
+  """What the hetero walk reads of a graph, built once per sampler
+  (counterpart of glt_tpu/ops/sample.py ``HeteroFusedPlan`` without
+  windows or hub lists, and without the dedup-table size, which the
+  caller passes per batch shape): the flat edge-type plane
+  (:func:`build_type_plane`), each edge type's ``indptr_pad`` and edge
+  count, and the draw mode."""
+
+  def __init__(self, etypes, trav, node_counts, graphs,
+               with_eids: bool = False, replace: bool = False):
+    self.etypes = list(etypes)
+    self.trav = dict(trav)
+    self.replace = bool(replace)
+    self.indptr_pad = {e: graphs[e].indptr_pad for e in self.etypes}
+    self.num_edges = {e: graphs[e].num_edges for e in self.etypes}
+    plane = build_type_plane(self.etypes, self.trav, node_counts, graphs,
+                             with_eids)
+    self.types = plane['types']
+    self.type_base = plane['type_base']
+    self.edge_base = plane['edge_base']
+    self.indices_flat = plane['indices_flat']
+    self.eids_flat = plane['eids_flat']
+    total = sum(int(node_counts[t]) for t in self.types)
+    #: [T + 1] int32 type boundaries, the kernel's type lookup
+    self.type_bounds = torch.tensor(
+        [self.type_base[t] for t in self.types] + [total],
+        dtype=torch.int32, device=self.indices_flat.device)
+
+
 class FusedHopPlan:
   """What the walk reads of a graph, built once per sampler: the CSR with
   its ``indptr_pad`` sentinel, the optional edge-id plane, the draw mode

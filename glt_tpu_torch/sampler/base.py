@@ -10,7 +10,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..typing import NodeType
+from ..typing import EdgeType, NodeType
 
 
 @dataclasses.dataclass
@@ -48,6 +48,27 @@ class SamplerOutput:
   num_sampled_nodes: Optional[torch.Tensor] = None
   num_sampled_edges: Optional[torch.Tensor] = None
   edge_hop_offsets: Optional[List[int]] = None
+  metadata: Optional[Dict] = None
+
+
+@dataclasses.dataclass
+class HeteroSamplerOutput:
+  """Heterogeneous sampling result, padded: every per-type field mirrors
+  :class:`SamplerOutput`. Edge keys are the message-flow types (with
+  ``edge_dir='out'`` the reversed traversal types): ``row`` holds src-type
+  child labels, ``col`` dst-type parent labels. ``metadata`` carries
+  ``seed_labels`` and ``edge_hop_offsets`` (per edge key, hop h's slots
+  are ``[offs[h], offs[h+1])``)."""
+  node: Dict[NodeType, torch.Tensor]
+  node_count: Dict[NodeType, torch.Tensor]
+  row: Dict[EdgeType, torch.Tensor]
+  col: Dict[EdgeType, torch.Tensor]
+  edge_mask: Dict[EdgeType, torch.Tensor]
+  edge: Optional[Dict[EdgeType, torch.Tensor]] = None
+  batch: Optional[Dict[NodeType, torch.Tensor]] = None
+  num_sampled_nodes: Optional[Dict[NodeType, torch.Tensor]] = None
+  num_sampled_edges: Optional[Dict[EdgeType, torch.Tensor]] = None
+  input_type: Optional[NodeType] = None
   metadata: Optional[Dict] = None
 
 

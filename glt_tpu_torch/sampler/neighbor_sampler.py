@@ -1,32 +1,47 @@
-"""NeighborSampler: homogeneous multi-hop sampling on the device
-(counterpart of glt_tpu/sampler/neighbor_sampler.py).
+"""NeighborSampler: multi-hop sampling on the device (counterpart of
+glt_tpu/sampler/neighbor_sampler.py).
 
-This slice serves uniform positive fanouts through the walk
-(ops/pipeline.py); weighted, full-neighbourhood and hetero sampling come
-in later slices and are refused here.
+Uniform positive fanouts, homogeneous through the walk
+(``ops.pipeline.multihop_sample``) and heterogeneous through one
+``sample_hop_dedup`` per hop (``ops.pipeline.multihop_sample_hetero``).
+Weighted and full-neighbourhood sampling come in later slices and are
+refused here.
+
+Orientation contract (the reference's): ``row`` holds message-source
+(child) labels and ``col`` message-destination (parent) labels. The
+hetero output keys are the reversed traversal types (``edge_dir='out'``,
+the 'rev_' convention).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
-from ..data import Graph
+from ..data import Graph, hetero_node_counts
 from ..ops.cuda_kernels import walk_table_slots
-from ..ops.pipeline import edge_hop_offsets, multihop_sample, sample_budget
-from ..ops.sample import FusedHopPlan, walk_hop_uniforms
+from ..ops.pipeline import (edge_hop_offsets, hetero_edge_hop_offsets,
+                            multihop_sample, multihop_sample_hetero,
+                            sample_budget)
+from ..ops.sample import (FusedHopPlan, HeteroFusedPlan, hetero_hop_uniforms,
+                          walk_hop_uniforms)
+from ..typing import EdgeType, NodeType, reverse_edge_type
 from ..utils import as_numpy, make_generator, resolve_device
 from ..utils.rng import RandomSeedManager
-from .base import BaseSampler, NodeSamplerInput, SamplerOutput
+from .base import (BaseSampler, HeteroSamplerOutput, NodeSamplerInput,
+                   SamplerOutput)
 
 
 class NeighborSampler(BaseSampler):
-  """Uniform multi-hop neighbour sampling over a device CSR.
+  """Uniform multi-hop neighbour sampling over device CSRs.
 
   Args:
-    graph: a :class:`Graph` on ``device``.
-    num_neighbors: positive fanout per hop, e.g. ``[15, 10, 5]``.
+    graph: a :class:`Graph`, or a dict of them keyed by EdgeType
+      (hetero), on ``device``.
+    num_neighbors: positive fanout per hop, e.g. ``[15, 10, 5]``; hetero:
+      one list for every edge type or a dict keyed by EdgeType, every
+      list of the same length.
     device: where sampling runs (default: the card; raises when there is
       none). The graph must already live there.
     with_edge: also emit the sampled edges' ids.
@@ -35,17 +50,32 @@ class NeighborSampler(BaseSampler):
       process :class:`RandomSeedManager` seed.
   """
 
-  def __init__(self, graph: Graph, num_neighbors: Sequence[int],
-               device=None, with_edge: bool = False, replace: bool = False,
-               seed: Optional[int] = None):
-    if isinstance(graph, dict) or isinstance(num_neighbors, dict):
-      raise NotImplementedError('hetero sampling is not ported yet')
+  def __init__(self, graph: Union[Graph, Dict[EdgeType, Graph]],
+               num_neighbors, device=None, with_edge: bool = False,
+               replace: bool = False, seed: Optional[int] = None):
     self.device = resolve_device(device)
-    if graph.device != self.device:
-      raise ValueError(f'graph lives on {graph.device}, sampler runs on '
-                       f'{self.device}')
-    self.num_neighbors = [int(f) for f in num_neighbors]
-    if any(f <= 0 for f in self.num_neighbors):
+    self.is_hetero = isinstance(graph, dict)
+    graphs = graph.values() if self.is_hetero else (graph,)
+    for g in graphs:
+      if g.device != self.device:
+        raise ValueError(f'graph lives on {g.device}, sampler runs on '
+                         f'{self.device}')
+    if self.is_hetero:
+      self.edge_types = list(graph)
+      if not isinstance(num_neighbors, dict):
+        num_neighbors = {e: num_neighbors for e in self.edge_types}
+      self.num_neighbors = {e: [int(f) for f in num_neighbors[e]]
+                            for e in self.edge_types}
+      fanouts = sum(self.num_neighbors.values(), [])
+      hops = {len(v) for v in self.num_neighbors.values()}
+      if len(hops) != 1:
+        raise ValueError('all edge types need the same hop count')
+      self.num_hops = hops.pop()
+      self.node_counts = hetero_node_counts(graph)
+    else:
+      self.num_neighbors = fanouts = [int(f) for f in num_neighbors]
+      self.num_hops = len(fanouts)
+    if any(f <= 0 for f in fanouts):
       raise NotImplementedError(
           'the port serves uniform positive fanouts; full-neighbourhood '
           '(-1) hops are not ported yet')
@@ -56,6 +86,14 @@ class NeighborSampler(BaseSampler):
         seed if seed is not None
         else RandomSeedManager.getInstance().getSeed(), self.device)
     self._plans = {}
+    if self.is_hetero:
+      # the flat edge-type plane depends on the graph alone; only the
+      # table size, capacities and budgets change with the batch shape
+      self._hetero_plan = HeteroFusedPlan(
+          self.edge_types, self._traversal_types(), self.node_counts, graph,
+          with_eids=with_edge, replace=replace)
+
+  # -- homogeneous --------------------------------------------------------
 
   def _fused_plan(self, batch_size: int) -> FusedHopPlan:
     if batch_size not in self._plans:
@@ -67,22 +105,35 @@ class NeighborSampler(BaseSampler):
           replace=self.replace)
     return self._plans[batch_size]
 
-  def hop_uniforms(self, batch_size: int):
-    """The next per-hop uniforms of this sampler's stream."""
+  def hop_uniforms(self, batch_size: int,
+                   input_type: Optional[NodeType] = None):
+    """The next per-hop uniforms of this sampler's stream; hetero: for
+    ``batch_size`` seeds of ``input_type``, per hop and per segment
+    (:func:`hetero_hop_uniforms`)."""
+    if self.is_hetero:
+      caps = self._hetero_geometry(input_type, batch_size)[1]
+      return hetero_hop_uniforms(self.generator, self._traversal_types(),
+                                 self.num_neighbors, caps, self.replace,
+                                 self.device)
     return walk_hop_uniforms(self.generator, batch_size, self.num_neighbors,
                              self.replace, self.device)
 
-  def sample_from_nodes(self, inputs, n_valid: Optional[int] = None,
-                        uniforms=None) -> SamplerOutput:
+  def _seeds(self, x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+      return x.to(self.device, torch.int32)
+    return torch.as_tensor(as_numpy(x).astype(np.int32), device=self.device)
+
+  def sample_from_nodes(self, inputs, n_valid=None, uniforms=None):
     """Multi-hop sampling from seed nodes; seeds past ``n_valid`` are
-    padding. ``uniforms`` injects the per-hop draws (default: the next
-    ones of the sampler's generator)."""
+    padding. ``uniforms`` injects the draws (default: the next ones of
+    the sampler's generator, :meth:`hop_uniforms`). Hetero ``inputs``
+    are a :class:`NodeSamplerInput` with its ``input_type``, and the
+    result a :class:`HeteroSamplerOutput`."""
+    if self.is_hetero:
+      return self._hetero_sample_from_nodes(inputs, n_valid, uniforms)
     if isinstance(inputs, NodeSamplerInput):
       inputs = inputs.node
-    seeds = (inputs.to(self.device, torch.int32)
-             if isinstance(inputs, torch.Tensor)
-             else torch.as_tensor(as_numpy(inputs).astype(np.int32),
-                                  device=self.device))
+    seeds = self._seeds(inputs)
     batch_size = seeds.numel()
     n_valid = batch_size if n_valid is None else int(n_valid)
     if uniforms is None:
@@ -98,3 +149,70 @@ class NeighborSampler(BaseSampler):
         edge_hop_offsets=edge_hop_offsets(batch_size, self.num_neighbors),
         metadata={'seed_labels': out['seed_labels'],
                   'seed_count': out['seed_count']})
+
+  # -- heterogeneous ------------------------------------------------------
+
+  def _traversal_types(self):
+    """Per traversal edge type: (expand-from type, neighbour type); the
+    CSR expands src into dst."""
+    return {e: (e[0], e[2]) for e in self.edge_types}
+
+  def _hetero_caps(self, input_type: NodeType, batch_size: int):
+    """Static per-type frontier capacities per hop and node budgets."""
+    caps = [{t: batch_size if t == input_type else 0
+             for t in self.node_counts}]
+    for h in range(self.num_hops):
+      nxt = {t: 0 for t in self.node_counts}
+      for e, (row_t, col_t) in self._traversal_types().items():
+        nxt[col_t] += caps[h][row_t] * self.num_neighbors[e][h]
+      caps.append(nxt)
+    budgets = {t: max(1, sum(c[t] for c in caps))
+               for t in self.node_counts}
+    return caps, budgets
+
+  def _hetero_geometry(self, input_type: NodeType, batch_size: int):
+    """Per seed type and batch size: the dedup-table size, capacities,
+    budgets and per-edge-type hop offsets."""
+    key = (input_type, batch_size)
+    if key not in self._plans:
+      caps, budgets = self._hetero_caps(input_type, batch_size)
+      offs = hetero_edge_hop_offsets(caps, self._traversal_types(),
+                                     self.num_neighbors, self.num_hops)
+      self._plans[key] = (walk_table_slots(sum(budgets.values())), caps,
+                          budgets, offs)
+    return self._plans[key]
+
+  def _hetero_sample_from_nodes(self, inputs, n_valid, uniforms
+                                ) -> HeteroSamplerOutput:
+    if not isinstance(inputs, NodeSamplerInput) or inputs.input_type is None:
+      raise ValueError('hetero sampling takes a NodeSamplerInput with the '
+                       'seeds\' node type')
+    seed_type = inputs.input_type
+    seeds = self._seeds(inputs.node)
+    batch_size = seeds.numel()
+    n_valid = batch_size if n_valid is None else int(n_valid)
+    slots, caps, budgets, offs = self._hetero_geometry(seed_type, batch_size)
+    if uniforms is None:
+      uniforms = self.hop_uniforms(batch_size, seed_type)
+    out = multihop_sample_hetero(self._hetero_plan, slots, self.num_neighbors,
+                                 self.num_hops, caps, budgets, seed_type,
+                                 seeds, n_valid, uniforms,
+                                 with_edge=self.with_edge)
+    # message-flow keys: row carries child labels (the walk's cols), col
+    # parent labels (the walk's rows)
+    rev = reverse_edge_type
+    return HeteroSamplerOutput(
+        node=out['node'], node_count=out['node_count'],
+        row={rev(e): v for e, v in out['col'].items()},
+        col={rev(e): v for e, v in out['row'].items()},
+        edge_mask={rev(e): v for e, v in out['edge_mask'].items()},
+        edge=({rev(e): v for e, v in out['edge'].items()}
+              if self.with_edge else None),
+        batch=out['batch'], num_sampled_nodes=out['num_sampled_nodes'],
+        num_sampled_edges={rev(e): v for e, v in
+                           out['num_sampled_edges'].items()},
+        input_type=seed_type,
+        metadata={'seed_labels': out['seed_labels'],
+                  'edge_hop_offsets': {rev(e): tuple(v)
+                                       for e, v in offs.items()
+                                       if e in out['row']}})

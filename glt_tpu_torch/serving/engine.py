@@ -7,6 +7,11 @@ Results flow through the LRU :class:`EmbeddingCache` keyed
 ``(node_id, model_version)``: cached ids skip the pipeline and partial
 hits shrink the computed batch to the missing unique ids.
 
+A hetero graph (a dict of graphs keyed by edge type) is served the same
+way: requests address one seed type (``input_type``), the sampler walks
+every edge type, features are gathered per node type and the model reads
+a :class:`~glt_tpu_torch.loader.HeteroBatch`.
+
 ``infer`` takes an internal lock, as the JAX engine does. The stages
 carry ``torch.profiler`` ranges named as the JAX engine's spans
 (``sample.multihop``, ``gather.features``, ``serve.forward``), so a
@@ -15,7 +20,7 @@ profile of serving splits its device time by stage.
 from __future__ import annotations
 
 import threading
-from typing import Mapping, Optional, Sequence
+from typing import Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -24,8 +29,9 @@ from torch.profiler import record_function
 
 from ..data import Dataset
 from ..data.feature import gather_features
-from ..loader.transform import Batch, to_batch
+from ..loader.transform import Batch, HeteroBatch, to_batch, to_hetero_batch
 from ..sampler import NeighborSampler
+from ..sampler.base import NodeSamplerInput
 from ..utils import as_numpy, resolve_device
 from .embedding_cache import EmbeddingCache
 
@@ -36,9 +42,10 @@ class InferenceEngine:
   Args:
     data: Dataset (graph + node features on ``device``).
     model: ``nn.Module`` whose ``model(batch)`` returns ``[batch_size, D]``
-      for the seed rows (GraphSAGE style); moved to ``device``.
+      for the seed rows (GraphSAGE / RGNN style); moved to ``device``.
     params: a state_dict to load, or None to keep the model's weights.
-    num_neighbors: serving fanout per hop, e.g. ``[15, 10, 5]``.
+    num_neighbors: serving fanout per hop, e.g. ``[15, 10, 5]``; hetero:
+      one list for every edge type or a dict keyed by EdgeType.
     buckets: padded seed-batch sizes, ascending. A request larger than
       the biggest bucket is served in chunks of it.
     cache: an EmbeddingCache, or None to build one of ``cache_capacity``
@@ -47,6 +54,8 @@ class InferenceEngine:
     seed: the sampler's generator seed.
     device: where serving runs (default: the card; raises when there is
       none).
+    input_type: the seed node type requests address; required for a
+      hetero graph, whose requests are ids of that type.
   """
 
   def __init__(self, data: Dataset, model: nn.Module,
@@ -55,8 +64,13 @@ class InferenceEngine:
                buckets: Sequence[int] = (8, 64, 256),
                cache: Optional[EmbeddingCache] = None,
                cache_capacity: int = 100_000, model_version: int = 0,
-               seed: Optional[int] = 0, device=None):
+               seed: Optional[int] = 0, device=None, input_type=None):
     self.device = resolve_device(device)
+    self.hetero = data.is_hetero
+    if self.hetero and input_type is None:
+      raise ValueError('hetero serving needs input_type (the seed node '
+                       'type requests address)')
+    self.input_type = input_type
     self.data = data
     self.model = model.to(self.device).eval()
     if params is not None:
@@ -67,8 +81,9 @@ class InferenceEngine:
     self.model_version = int(model_version)
     self.cache = cache if cache is not None \
         else EmbeddingCache(cache_capacity)
-    self.sampler = NeighborSampler(data.get_graph(), list(num_neighbors),
-                                   device=self.device, seed=seed)
+    self.sampler = NeighborSampler(
+        data.graph, dict(num_neighbors) if isinstance(num_neighbors, dict)
+        else list(num_neighbors), device=self.device, seed=seed)
     self.forward_calls = 0
     self._out_dim: Optional[int] = None
     self._lock = threading.Lock()
@@ -78,12 +93,20 @@ class InferenceEngine:
     on first use), through ``np.unique`` as ``infer`` does: its first call
     imports ``numpy.ma``, tens of ms where Python has no bytecode cache.
     The cache is left as it was; ``forward_calls`` restarts at 0."""
-    n = self.data.get_graph().num_nodes
+    n = self.num_nodes
     with self._lock:
       for b in self.buckets:
         seeds = np.unique(np.arange(b) % n)
         self._run_bucket(seeds, seeds.size, b)
       self.forward_calls = 0
+
+  @property
+  def num_nodes(self) -> int:
+    """Id space of requests: the seed type's node count on a hetero
+    graph."""
+    if self.hetero:
+      return self.data.node_count(self.input_type)
+    return self.data.get_graph().num_nodes
 
   def bucket_for(self, n: int) -> int:
     for b in self.buckets:
@@ -92,10 +115,21 @@ class InferenceEngine:
     return self.buckets[-1]
 
   def make_batch(self, seeds: np.ndarray, n_valid: int, bucket: int,
-                 uniforms=None) -> Batch:
-    """Sample + gather a bucket-shaped Batch exactly as serving runs it;
-    ``uniforms`` injects the walk's draws (see
+                 uniforms=None) -> Union[Batch, HeteroBatch]:
+    """Sample + gather a bucket-shaped Batch (hetero: a HeteroBatch,
+    features gathered per node type that has a store) exactly as serving
+    runs it; ``uniforms`` injects the walk's draws (see
     :meth:`NeighborSampler.sample_from_nodes`)."""
+    if self.hetero:
+      with record_function('sample.multihop'):
+        out = self.sampler.sample_from_nodes(
+            NodeSamplerInput(seeds, self.input_type), n_valid=n_valid,
+            uniforms=uniforms)
+      with record_function('gather.features'):
+        x_dict = {t: gather_features(self.data.get_node_feature(t), n)
+                  for t, n in out.node.items()
+                  if self.data.get_node_feature(t) is not None}
+      return to_hetero_batch(out, x_dict=x_dict, batch_size=bucket)
     with record_function('sample.multihop'):
       out = self.sampler.sample_from_nodes(seeds, n_valid=n_valid,
                                            uniforms=uniforms)
@@ -109,12 +143,12 @@ class InferenceEngine:
     weights on every device) -- fresh or benchmark weights without a
     training loop."""
     gen = torch.Generator().manual_seed(int(seed))
-    state = {}
-    for name, p in self.model.state_dict().items():
-      fan_in = p.shape[-1] if name.endswith('weight') else None
-      if fan_in is None:  # a bias: the fan-in of its layer's weight
-        fan_in = self.model.state_dict()[
-            name[:-len('bias')] + 'weight'].shape[-1]
+    state, current = {}, self.model.state_dict()
+    for name, p in current.items():
+      # a bias takes the fan-in of its layer's weight; a weight or an
+      # attention vector its last axis
+      fan_in = (current[name[:-len('bias')] + 'weight'].shape[-1]
+                if name.endswith('bias') else p.shape[-1])
       bound = 1.0 / float(fan_in) ** 0.5
       state[name] = (torch.rand(p.shape, generator=gen) * 2 - 1) * bound
     with self._lock:

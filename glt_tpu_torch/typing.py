@@ -2,11 +2,31 @@
 from __future__ import annotations
 
 import enum
-from typing import Tuple
+from typing import Tuple, Union
 
 NodeType = str
 #: (src_node_type, relation, dst_node_type)
 EdgeType = Tuple[str, str, str]
+
+_REV_PREFIX = 'rev_'
+
+
+def as_str(type_: Union[NodeType, EdgeType]) -> str:
+  """A node type as is, an edge type as ``src__rel__dst`` (parameter
+  names of the hetero models)."""
+  return type_ if isinstance(type_, str) else '__'.join(type_)
+
+
+def reverse_edge_type(etype: EdgeType) -> EdgeType:
+  """The 'rev_' naming convention for reversed relations."""
+  src, rel, dst = etype
+  if src != dst:
+    if rel.startswith(_REV_PREFIX):
+      rel = rel[len(_REV_PREFIX):]
+    else:
+      rel = _REV_PREFIX + rel
+  return (dst, rel, src)
+
 
 class Split(enum.Enum):
   train = 'train'

@@ -12,11 +12,12 @@ import pytest
 import torch
 
 from glt_tpu_torch.data import Dataset, Topology
-from glt_tpu_torch.models import GraphSAGE
+from glt_tpu_torch.models import RGNN, GraphSAGE
 from glt_tpu_torch.ops import cuda_kernels as K
 from glt_tpu_torch.ops.pipeline import _fused_seed_hop, sample_budget
 from glt_tpu_torch.ops.sample import walk_hop_uniforms
 from glt_tpu_torch.serving import InferenceEngine
+from glt_tpu_torch.typing import reverse_edge_type
 
 pytestmark = pytest.mark.cuda
 
@@ -102,4 +103,70 @@ def test_engine_serves_through_the_kernels(dev):
   K.reset_launch_counts()
   out = eng.infer(np.arange(20))
   assert out.shape == (20, 7) and np.isfinite(out).all()
-  assert all(fn.launches > 0 for fn in K.KERNELS)
+  assert all(fn.launches > 0 for fn in (K.sample_walk_dedup,
+                                        K.dedup_table_insert, K.gather_rows))
+  assert K.sample_hop_dedup.launches == 0   # the hetero path's kernel
+
+
+def test_sample_hop_dedup_matches_plain(dev):
+  # one hop over a flat plane of three types' tagged ids, K_max = 5 with
+  # shorter segments padded behind invalid lanes, against a seeded table
+  g = torch.Generator(device=dev).manual_seed(11)
+  bounds = torch.tensor([0, 3000, 7000, 7500], dtype=torch.int32, device=dev)
+  indices = torch.randint(0, 7500, (60_000,), generator=g, device=dev,
+                          dtype=torch.int32)
+  eids = torch.randperm(60_000, generator=g, device=dev).to(torch.int32)
+  s, k = 4096, 5
+  starts = torch.randint(0, 60_000 - 64, (s,), generator=g, device=dev,
+                         dtype=torch.int32)
+  deg = torch.randint(0, 64, (s,), generator=g, device=dev)
+  offsets = (torch.rand((s, k), generator=g, device=dev)
+             * deg[:, None]).to(torch.int32)
+  valid = (torch.arange(k, device=dev)[None, :] < deg.clamp(max=k)[:, None])
+  valid[s // 2:, 3:] = False            # a segment of fanout 3
+  pre = torch.unique(indices[::7])
+  slots = K.walk_table_slots(s * k + pre.numel())
+  tables = [K.make_dedup_table(slots, dev) for _ in range(2)]
+  for keys, vals, _ in tables:
+    K.dedup_table_insert(keys, vals, pre, torch.arange(pre.numel(),
+                                                       device=dev),
+                         torch.ones_like(pre, dtype=torch.bool))
+  counts = torch.tensor([0, pre.numel(), 0], dtype=torch.int32, device=dev)
+  before = K.sample_hop_dedup.launches
+  got = K.sample_hop_dedup(indices, eids, starts, offsets, valid,
+                           *tables[0], bounds, counts)
+  assert K.sample_hop_dedup.launches > before
+  want = K.sample_hop_dedup_plain(indices, eids, starts, offsets, valid,
+                                  *tables[1], bounds, counts)
+  for key in ('picks', 'eid_picks', 'labels', 'new_head', 'counts'):
+    assert torch.equal(got[key], want[key]), key
+  assert int(got['new_head'].sum()) > 0
+  probe = torch.arange(7500, device=dev)
+  assert torch.equal(K.dedup_table_lookup(*tables[0][:2], probe),
+                     K.dedup_table_lookup(*tables[1][:2], probe))
+
+
+def test_hetero_engine_serves_through_the_kernels(dev):
+  rng = np.random.default_rng(1)
+  counts = {'paper': 4000, 'author': 2000, 'institute': 100}
+  rel = {('paper', 'cites', 'paper'): ('paper', 'paper', 40_000),
+         ('author', 'writes', 'paper'): ('author', 'paper', 12_000),
+         ('author', 'affiliated', 'institute'): ('author', 'institute', 2000)}
+  ei = {}
+  for e, (s_t, d_t, n) in rel.items():
+    ei[e] = np.stack([rng.integers(0, counts[s_t], n),
+                      rng.integers(0, counts[d_t], n)])
+    if s_t != d_t:
+      ei[reverse_edge_type(e)] = ei[e][::-1].copy()
+  ds = Dataset().init_graph(ei, num_nodes=counts)
+  ds.init_node_features({t: rng.standard_normal((n, 64)).astype(np.float32)
+                         for t, n in counts.items()})
+  eng = InferenceEngine(ds, RGNN(list(ei), 64, 32, 7, num_layers=3,
+                                 conv='rgat', heads=2), None, [5, 3, 2],
+                        buckets=(16,), input_type='paper')
+  eng.init_params(0)
+  K.reset_launch_counts()
+  out = eng.infer(np.arange(20))
+  assert out.shape == (20, 7) and np.isfinite(out).all()
+  assert K.sample_hop_dedup.launches > 0
+  assert K.dedup_table_insert.launches > 0 and K.gather_rows.launches > 0

@@ -1,5 +1,6 @@
-"""The port stands alone: importing every module of ``glt_tpu_torch`` and
-``chip_smoke`` pulls in neither JAX nor the JAX package."""
+"""The port stands alone: importing every module of ``glt_tpu_torch`` (the
+hetero models, loader and typing among them) and ``chip_smoke`` pulls in
+neither JAX nor the JAX package."""
 import os
 import subprocess
 import sys
@@ -16,6 +17,9 @@ bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'glt_tpu'))
 print('LOADED', len([m for m in sys.modules if m.startswith('glt_tpu_torch')]))
 print('BAD', bad)
+print('HETERO', all(m in sys.modules for m in (
+    'glt_tpu_torch.models.rgnn', 'glt_tpu_torch.models.convert',
+    'glt_tpu_torch.loader.transform', 'glt_tpu_torch.typing')))
 '''
 
 
@@ -25,4 +29,5 @@ def test_port_and_chip_smoke_import_no_jax():
                        capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr
   assert 'BAD []' in out.stdout, out.stdout
-  assert int(out.stdout.split('LOADED ')[1].split()[0]) >= 20
+  assert int(out.stdout.split('LOADED ')[1].split()[0]) >= 21
+  assert 'HETERO True' in out.stdout, out.stdout
