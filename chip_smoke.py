@@ -3,7 +3,7 @@
 
 Builds the port's CUDA kernels from csrc/, holds each against its plain
 PyTorch version at the shapes the serving paths give it, then drives the
-two serving paths through InferenceEngine.infer and checks what comes
+three serving paths through InferenceEngine.infer and checks what comes
 out:
 
 - homogeneous: a seeded 3-layer GraphSAGE (hidden 256, 47 classes, 100
@@ -12,7 +12,14 @@ out:
 - heterogeneous (igbh-rgat): a seeded 3-layer RGAT (1024 -> 512 x 4
   heads -> 19, fanouts [15, 10, 5] on every edge type) over an
   IGBH-small-shaped graph (1M papers, 500K authors, 20K institutes, five
-  edge types, 1024 float32 features on every type), seeded on papers.
+  edge types, 1024 float32 features on every type), seeded on papers;
+- live-update (stream): the homogeneous model and graph served through a
+  StreamSampler (delta window 8, delta capacity 4096): requests, then
+  1,000 edge inserts, 500 deletes and 256 feature rows staged (the
+  overlay shows them), requests, a flush that compacts into snapshot
+  version 1 and drops the cache entries of the touched ids and their
+  in-neighbours (expand_invalidation, as examples/stream_updates.py
+  sets it), requests again.
 
 Usage, from the repository root, on a machine with a card:
 
@@ -39,6 +46,10 @@ LOGIT_TOL = 1e-4  # same batch bit for bit; index_add_ float atomics
 # igbh-rgat: IGBH-small's node counts and widths, MLPerf GNN's RGAT
 IGBH_NODES = {'paper': 1_000_000, 'author': 500_000, 'institute': 20_000}
 IGBH_FEAT, IGBH_HIDDEN, IGBH_HEADS, IGBH_CLASSES = 1024, 512, 4, 19
+# stream: the JAX package's defaults (StreamSampler, SnapshotManager) and
+# examples/stream_updates.py's compaction policy and cache invalidation
+DELTA_WINDOW, DELTA_CAPACITY, OCCUPANCY = 8, 4096, 0.5
+N_INSERTS, N_DELETES, N_FEATURE_ROWS = 1000, 500, 256
 
 
 class Phase:
@@ -158,12 +169,13 @@ def plain_swapped(K, engine, names, seeds, n_valid, u):
       setattr(K, n, fn)
 
 
-def serve_requests(torch, engine, num_nodes, classes, rng, check=None):
-  """Two passes of fresh requests of REQUESTS ids, each pass ending with a
-  repeat of its 64-id request that the cache must serve; host clock
-  around infer, which ends in a device sync. ``check(n_fresh)`` runs
+def serve_requests(torch, engine, num_nodes, classes, rng, check=None,
+                   passes=2, label='pass'):
+  """``passes`` passes of fresh requests of REQUESTS ids, each pass ending
+  with a repeat of its 64-id request that the cache must serve; host
+  clock around infer, which ends in a device sync. ``check(n_fresh)`` runs
   after every request. Returns the last pass's requests."""
-  for rep in range(2):
+  for rep in range(passes):
     requests = [torch.randint(0, num_nodes, (n,), generator=rng).numpy()
                 for n in REQUESTS]
     hits0, lat = engine.cache.hits, []
@@ -180,9 +192,255 @@ def serve_requests(torch, engine, num_nodes, classes, rng, check=None):
         check(engine.forward_calls - calls0)
     if engine.cache.hits - hits0 < REQUESTS[2]:
       raise AssertionError('the repeated request missed the cache')
-    print(f'pass {rep} request ms ' + ', '.join(
+    print(f'{label} {rep} request ms ' + ', '.join(
         f'{n}: {ms:.3f}' for n, ms in zip(REQUESTS + ('repeat 64',), lat)))
   return requests
+
+
+def per_request_launches(K, per_request):
+  """A ``check`` for serve_requests: every computed bucket launched
+  ``sample_hop`` ``per_request`` times."""
+  last = [K.sample_hop.launches]
+
+  def check(n_computed):
+    n = K.sample_hop.launches
+    if n - last[0] != per_request * n_computed:
+      raise AssertionError(f'{n - last[0]} sample_hop launches for '
+                           f'{n_computed} computed buckets')
+    last[0] = n
+  return check
+
+
+def stream_phases(torch, np, K, ds, dev, seed, rows):
+  """The live-update serving path over the homogeneous path's graph and
+  features; returns its launches by kernel."""
+  from glt_tpu_torch.data import Dataset
+  from glt_tpu_torch.models import GraphSAGE
+  from glt_tpu_torch.ops.pipeline import sample_budget
+  from glt_tpu_torch.serving import InferenceEngine
+  from glt_tpu_torch.stream import (CompactionPolicy, SnapshotManager,
+                                    StreamIngestor, StreamSampler)
+
+  with Phase('stream data'):
+    g, feat = ds.get_graph(), ds.get_node_feature()
+    mgr = SnapshotManager(g.topo, feat, delta_capacity=DELTA_CAPACITY,
+                          device=dev)
+    sampler = StreamSampler(mgr, list(FANOUTS), delta_window=DELTA_WINDOW,
+                            seed=seed)
+    # its own Dataset object: update_snapshot installs new feature tables
+    # there, the homogeneous engine's stays as it was
+    engine = InferenceEngine(
+        Dataset(graph=g, node_features=feat),
+        GraphSAGE(FEAT_DIM, HIDDEN, CLASSES, num_layers=3), None,
+        list(FANOUTS), buckets=BUCKETS, device=dev, sampler=sampler)
+    engine.init_params(seed)
+    ingestor = StreamIngestor(mgr, sampler=sampler, engine=engine,
+                              policy=CompactionPolicy(
+                                  occupancy_threshold=OCCUPANCY),
+                              expand_invalidation=True)
+    torch.cuda.synchronize()
+    print(f'stream: snapshot v{mgr.current().version}, {g.num_edges} edges '
+          f'in {mgr.edge_capacity} slots; effective widths '
+          f'{sampler.num_neighbors}; bucket-256 node budget '
+          f'{sample_budget(256, sampler.num_neighbors)}')
+
+  with Phase('stream kernel checks'):
+    # the three base hops of one bucket-256 request, their inputs recorded
+    # as delta_one_hop hands them over (the recording run reads through
+    # the plain version)
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    seeds = torch.randint(0, NUM_NODES, (256,), generator=gen, device=dev)
+    hops, real = [], K.sample_hop
+
+    def record(*a):
+      hops.append(a)
+      return K.sample_hop_plain(*a)
+    K.sample_hop = record
+    try:
+      sampler.sample_from_nodes(seeds)
+    finally:
+      K.sample_hop = real
+    want_shapes, s = [], 256
+    for f, width in zip(FANOUTS, sampler.num_neighbors):
+      want_shapes.append((s, f))
+      s *= width
+    if [tuple(a[3].shape) for a in hops] != want_shapes:
+      raise AssertionError(f'hop shapes {[tuple(a[3].shape) for a in hops]}'
+                           f', expected {want_shapes}')
+    row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0)
+    for h, (indices, eids, starts, offsets) in enumerate(hops):
+      got = real(indices, eids, starts, offsets)[0]
+      want = K.sample_hop_plain(indices, eids, starts, offsets)[0]
+      if not torch.equal(got, want):
+        raise AssertionError(f'sample_hop hop {h + 1} differs from plain')
+      row['err'] = max(row['err'], int((got.long() - want.long()).abs()
+                                       .max()))
+      slots = (starts.long()[:, None] + offsets.long()).clamp(
+          0, indices.numel() - 1)
+      ms = cuda_ms(torch, lambda i=0: real(indices, eids, starts, offsets),
+                   50)
+      plain = cuda_ms(torch, lambda i=0: K.sample_hop_plain(
+          indices, eids, starts, offsets), 20)
+      lib = cuda_ms(torch, lambda i=0: torch.take(indices, slots), 50)
+      # bytes the read must move: a start per row; per lane an offset and
+      # a neighbour id in, a pick out
+      s, k = offsets.shape
+      bound = bytes_ms(4 * s + 12 * s * k)
+      for key, v in (('ms', ms), ('plain_ms', plain), ('library_ms', lib),
+                     ('bound_ms', bound)):
+        row[key] += v
+      print(f'sample_hop hop {h + 1} [{s}, {k}] over {indices.numel()} '
+            f'slots: equal to plain; {ms:.4f} ms (plain {plain:.4f} ms, '
+            f'torch.take {lib:.4f} ms, bound {bound:.6f} ms)')
+    rows['sample_hop'] = row
+    print(f'sample_hop per bucket-256 request ({len(hops)} hops): '
+          f'{row["ms"]:.4f} ms (plain {row["plain_ms"]:.4f} ms, torch.take '
+          f'{row["library_ms"]:.4f} ms, bound {row["bound_ms"]:.6f} ms)')
+    # the recorded hops hold v0's padded array: let the swap free it
+    del hops, indices, eids, starts, offsets, slots, got, want
+
+  with Phase('stream main path'):
+    engine.warmup()
+    rng = torch.Generator().manual_seed(seed + 5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    served = serve_requests(torch, engine, NUM_NODES, CLASSES, rng,
+                            check=per_request_launches(K, len(FANOUTS)),
+                            label='stream v0 pass')
+    # stage: inserts (the first from served seeds), deletes of base edges,
+    # new feature rows of served (cached) nodes
+    topo = mgr.current().topo
+    ins_src = np.concatenate([served[4][:64], torch.randint(
+        0, NUM_NODES, (N_INSERTS - 64,), generator=rng).numpy()])
+    ins_dst = torch.randint(0, NUM_NODES, (N_INSERTS,), generator=rng).numpy()
+    slots = torch.randint(0, topo.num_edges, (N_DELETES,), generator=rng)
+    slots = slots.to(dev)
+    del_src = torch.searchsorted(topo.indptr, slots, right=True) - 1
+    del_dst = topo.indices[slots].long()
+    upd = np.unique(np.concatenate(served))[:N_FEATURE_ROWS]
+    before = engine.infer(upd)
+    t0 = time.perf_counter()
+    ingestor.insert_edges(ins_src, ins_dst)
+    ingestor.delete_edges(del_src, del_dst)
+    ingestor.update_features(upd, torch.randn((upd.size, FEAT_DIM),
+                                              generator=rng).numpy())
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    if mgr.current().version != 0:
+      raise AssertionError('staging below the occupancy threshold compacted')
+    print(f'staged {N_INSERTS} inserts, {N_DELETES} deletes, {upd.size} '
+          f'feature rows in {stage_ms:.3f} ms (two overlay refreshes); '
+          f'edge delta {ingestor.edges.size}/{DELTA_CAPACITY}, feature '
+          f'delta {ingestor.features.size}/{DELTA_CAPACITY}')
+    # the overlay is live before compaction: a batch seeded on the
+    # inserts' sources holds every pending insert of its seed rows (the
+    # insert window is exhaustive below 8 per row) and no tombstoned edge
+    pend = ingestor.edges.view()
+    key = lambda a, b: torch.as_tensor(a, device=dev).long() * NUM_NODES \
+        + torch.as_tensor(b, device=dev).long()
+    out = sampler.sample_from_nodes(ins_src[:256])
+    node = out.node.long()
+    m = out.edge_mask
+    pairs = node[out.col.long()[m]] * NUM_NODES + node[out.row.long()[m]]
+    ins_keys = key(pend.ins_src, pend.ins_dst)
+    src_t = torch.as_tensor(pend.ins_src, device=dev)
+    per_row = torch.bincount(src_t, minlength=NUM_NODES)
+    mine = torch.isin(src_t, torch.as_tensor(ins_src[:256], device=dev)) \
+        & (per_row[src_t] <= DELTA_WINDOW)
+    if not bool(torch.isin(ins_keys[mine], pairs).all()):
+      raise AssertionError('an inserted edge of a seed row is missing')
+    del_keys = key(pend.del_src, pend.del_dst)
+    dead = del_keys[~torch.isin(del_keys, ins_keys)]
+    if bool(torch.isin(dead, pairs).any()):
+      raise AssertionError('a tombstoned edge was sampled')
+    print(f'overlay: {int(mine.sum())} inserted edges of the batch\'s seed '
+          f'rows all sampled, none of {dead.numel()} tombstoned edges')
+    serve_requests(torch, engine, NUM_NODES, CLASSES, rng,
+                   check=per_request_launches(K, len(FANOUTS)), passes=1,
+                   label='stream overlay pass')
+    src, dst, _ = topo.to_coo()
+    e0 = topo.num_edges
+    kept = e0 - int(torch.isin(src * NUM_NODES + dst, del_keys).sum())
+    # v0's Topology views v0's padded array: hold neither past the swap
+    del src, dst, topo
+    torch.cuda.synchronize()
+    swap0 = torch.cuda.max_memory_allocated()
+    resident0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    info = ingestor.flush()
+    torch.cuda.synchronize()
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    swap_peak = torch.cuda.max_memory_allocated()
+    resident1 = torch.cuda.memory_allocated()
+    if info is None or info['version'] != 1 or engine.snapshot_version != 1:
+      raise AssertionError(f'flush did not swap to version 1: {info}')
+    if info['invalidated'] <= 0:
+      raise AssertionError('flush dropped no cache entry')
+    if info['num_edges'] != kept + pend.ins_src.size:
+      raise AssertionError(f'compacted {info["num_edges"]} edges, expected '
+                           f'{kept + pend.ins_src.size}')
+    affected = mgr.current().expand_affected(info['touched'])
+    if affected.size <= info['touched'].size:
+      raise AssertionError('the in-neighbour expansion added no node')
+    after = engine.infer(upd)
+    same = np.isclose(before, after).all(axis=1)
+    if same.any():
+      raise AssertionError(f'{int(same.sum())} updated nodes kept their '
+                           'answers')
+    print(f'flush: snapshot v{info["version"]}, {info["num_edges"]} edges '
+          f'({e0} - {e0 - kept} deleted + '
+          f'{pend.ins_src.size} inserted), {info["touched"].size} touched '
+          f'ids, {affected.size} with their in-neighbours, '
+          f'{info["invalidated"]} cache entries dropped, capacity grown '
+          f'{info["capacity_grown"]}; compaction {info["compaction_s"] * 1e3:.3f}'
+          f' ms, flush {flush_ms:.3f} ms (overlay refresh, in-edge CSR build '
+          f'and cache sweep {flush_ms - info["compaction_s"] * 1e3:.3f} ms); '
+          f'memory resident '
+          f'{resident0 / 2**30:.3f} GiB before, peak {swap_peak / 2**30:.3f} '
+          f'GiB during the swap (+{(swap_peak - resident0) / 2**30:.3f}), '
+          f'resident {resident1 / 2**30:.3f} GiB after; serving peak '
+          f'{swap0 / 2**30:.3f} GiB before it; all {upd.size} updated nodes '
+          'answer anew')
+    served = serve_requests(torch, engine, NUM_NODES, CLASSES, rng,
+                            check=per_request_launches(K, len(FANOUTS)),
+                            passes=1, label='stream v1 pass')
+    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    peak = max(torch.cuda.max_memory_allocated(), swap0, swap_peak)
+    for name in ('sample_hop', 'gather_rows'):
+      if launches[name] == 0:
+        raise AssertionError(f'{name} never launched on the stream path')
+    print(f'launches {launches}; cache hits {engine.cache.hits}; peak '
+          f'memory {peak / 2**30:.3f} GiB')
+
+  with Phase('stream main path vs plain'):
+    ids = served[3]
+    seeds = np.concatenate([ids, np.full(256 - ids.size, ids[0])])
+    u = sampler.hop_uniforms(256)
+    with torch.no_grad():
+      bk = engine.make_batch(seeds, ids.size, 256, uniforms=u)
+      yk = engine.model(bk)
+      bp, yp = plain_swapped(K, engine, ('sample_hop', 'gather_rows'), seeds,
+                             ids.size, u)
+    for f in ('node', 'node_count', 'row', 'col', 'edge_mask', 'x'):
+      if not torch.equal(getattr(bk, f), getattr(bp, f)):
+        raise AssertionError(f'stream batch.{f} differs between kernels and '
+                             'plain')
+    diff = float((yk - yp).abs().max())
+    if not torch.allclose(yk, yp, rtol=LOGIT_TOL, atol=LOGIT_TOL):
+      raise AssertionError(f'stream logits differ from plain by {diff}')
+    print(f'stream bucket 256 (snapshot v{mgr.current().version}): batch '
+          f'bit-identical ({int(bk.node_count)} nodes, '
+          f'{int(bk.edge_mask.sum())} edges), logits max |diff| {diff:.3e} '
+          f'(tolerance {LOGIT_TOL})')
+    del bk, bp, yk, yp
+
+  with Phase('stream profile'):
+    profile_requests(torch, engine, [
+        torch.randint(0, NUM_NODES, (256,), generator=rng).numpy()
+        for _ in range(3)])
+  return launches
 
 
 def main() -> int:
@@ -523,15 +781,20 @@ def main() -> int:
           f'{sum(int(c) for c in bk.node_count_dict.values())} nodes, '
           f'{sum(int(m.sum()) for m in bk.edge_mask_dict.values())} edges), '
           f'logits max |diff| {diff:.3e} (tolerance {LOGIT_TOL})')
-    del bk, bp, yk, yp
+    # a is a closure cell of main (the hetero check's timing lambda reads
+    # it): it would keep the batch's feature dict alive to the end
+    del bk, bp, yk, yp, a, b
 
   with Phase('hetero profile'):
     profile_requests(torch, hengine, [
         torch.randint(0, IGBH_NODES['paper'], (256,),
                       generator=hrng).numpy() for _ in range(3)])
+  del hengine, hds
+  torch.cuda.empty_cache()
 
-  launches = {n: homo_launches[n] + hetero_launches[n]
-              for n in homo_launches}
+  stream_launches = stream_phases(torch, np, K, ds, dev, opts.seed, rows)
+  by_path = {'homogeneous': homo_launches, 'hetero': hetero_launches,
+             'stream': stream_launches}
   replaces = {
       'sample_walk_dedup': ('glt_tpu_torch/csrc/sample_walk_dedup.cu',
                             'glt_tpu/ops/pallas_kernels.py:998'),
@@ -541,19 +804,20 @@ def main() -> int:
                       'glt_tpu/ops/pallas_kernels.py:236'),
       'sample_hop_dedup': ('glt_tpu_torch/csrc/sample_hop_dedup.cu',
                            'glt_tpu/ops/pallas_kernels.py:653'),
+      'sample_hop': ('glt_tpu_torch/csrc/sample_hop.cu',
+                     'glt_tpu/ops/pallas_kernels.py:367'),
   }
   print(f'walk B=1024: {walk[1024]["ms"]:.4f} ms, plain '
         f'{walk[1024]["plain_ms"]:.4f} ms, bound '
         f'{walk[1024]["bound_ms"]:.6f} ms')
-  print(f'main-path launches: homogeneous {homo_launches}, heterogeneous '
-        f'{hetero_launches}')
+  print('main-path launches: ' + '; '.join(
+      f'{p} {v}' for p, v in by_path.items()))
   print(smi)
-  # launches: both main paths together; launches_by_path: each path's own
+  # launches: the main paths together; launches_by_path: each path's own
   print(json.dumps({'kernels': [
       dict(name=n, route='cuda', source=src, replaces=rep,
-           launches=launches[n],
-           launches_by_path={'homogeneous': homo_launches[n],
-                             'hetero': hetero_launches[n]},
+           launches=sum(v[n] for v in by_path.values()),
+           launches_by_path={p: v[n] for p, v in by_path.items()},
            max_abs_err=rows[n]['err'],
            ms=rows[n]['ms'], plain_ms=rows[n]['plain_ms'],
            bound_ms=rows[n]['bound_ms'], bound_by='bytes',

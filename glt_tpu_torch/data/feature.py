@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_kernels
-from ..utils import resolve_device
+from ..utils import as_numpy, resolve_device
 
 
 class Feature:
@@ -34,6 +34,27 @@ class Feature:
   @property
   def feature_dim(self) -> int:
     return self.table.shape[1]
+
+  def with_updated_rows(self, ids, values) -> 'Feature':
+    """A new Feature whose table is a copy of this one with rows ``ids``
+    set to ``values`` [len(ids), D] (counterpart of the JAX functional
+    ``.at[].set``): readers of this Feature keep the old rows, the
+    snapshot isolation of the live-update stream. Costs one copy of the
+    table on its device."""
+    ids = torch.as_tensor(as_numpy(ids).astype(np.int64).reshape(-1),
+                          device=self.device)
+    values = torch.as_tensor(as_numpy(values)).reshape(ids.numel(), -1)
+    if values.shape[1] != self.feature_dim:
+      raise ValueError(f'expected {(ids.numel(), self.feature_dim)} update '
+                       f'block, got {tuple(values.shape)}')
+    n = self.table.shape[0]
+    if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= n):
+      raise ValueError(f'feature row out of range [0, {n})')
+    out = Feature.__new__(Feature)
+    out.__dict__.update(self.__dict__)
+    out.table = self.table.clone()
+    out.table[ids] = values.to(self.device, self.table.dtype)
+    return out
 
   def device_gather(self, rows: torch.Tensor) -> torch.Tensor:
     """Rows of the table, ``rows`` clamped to ``[0, N-1]``."""

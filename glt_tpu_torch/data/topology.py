@@ -75,6 +75,15 @@ class Topology:
     d = self.degrees
     return int(d.max()) if d.numel() else 0
 
+  def to_coo(self):
+    """``(row, col, edge_ids)`` in compressed-slot order, int64 on the
+    topology's device (the JAX ``to_coo`` of a CSR: src, dst, eid);
+    ``edge_ids`` is the topology's own tensor, not a copy."""
+    row = torch.repeat_interleave(
+        torch.arange(self.num_rows, device=self.indices.device),
+        self.degrees)
+    return row, self.indices.long(), self.edge_ids
+
 
 def _compress(row: torch.Tensor, col: torch.Tensor, num_rows: int,
               num_cols: int):

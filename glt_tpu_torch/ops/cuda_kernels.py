@@ -17,6 +17,7 @@ wrapper                       replaces (glt_tpu/ops/...)        source
                               epilogue of pipeline.py:584-633
 ``sample_hop_dedup``          pallas_kernels.py:653 + the       csrc/sample_hop_dedup.cu
                               epilogue of pipeline.py:1162-1203
+``sample_hop``                pallas_kernels.py:367             csrc/sample_hop.cu
 ============================  ================================  ==========
 """
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from .sample import _hop_degrees, draw_offsets, walk_geometry
+from .sample import _row_spans, draw_offsets, walk_geometry
 
 BIG = torch.iinfo(torch.int32).max
 
@@ -225,7 +226,7 @@ def sample_walk_dedup_plain(indptr_pad, indices, seed_ids, seed_ok,
   ok = seed_ok != 0
   out = []
   for (s, k), u in zip(hops, u_hops):
-    start, deg = _hop_degrees(indptr_pad, frontier, ok)
+    start, deg = _row_spans(indptr_pad, frontier, ok)
     off, mask = draw_offsets(deg, u, k, replace)
     slot = (start[:, None].long() + off.long()).clamp(0, max(e - 1, 0))
     ids = torch.where(mask, indices[slot].long(),
@@ -471,6 +472,69 @@ def sample_hop_dedup(indices_flat, eids_flat, starts, offsets, valid, keys,
                   torch.int32))
 
 
+# -- B2: sample_hop ------------------------------------------------------------
+
+def _check_pick_inputs(indices, starts, offsets):
+  if offsets.dim() != 2 or starts.numel() != offsets.shape[0]:
+    raise ValueError(f'hop planes: starts {tuple(starts.shape)}, offsets '
+                     f'{tuple(offsets.shape)}')
+  if offsets.numel() and indices.numel() == 0:
+    raise ValueError('sample_hop reads from an empty edge array')
+  if offsets.numel() >= 2 ** 31:
+    raise ValueError('a hop addresses its lanes with int32')
+
+
+def sample_hop_plain(indices: torch.Tensor, eids: Optional[torch.Tensor],
+                     starts: torch.Tensor, offsets: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+  """:func:`sample_hop` in plain PyTorch: one ``torch.take`` over the
+  clipped slots per edge array."""
+  _check_pick_inputs(indices, starts, offsets)
+  slots = (starts.long()[:, None] + offsets.long()).clamp(
+      0, max(indices.numel() - 1, 0))
+  picks = torch.take(indices, slots).to(torch.int32)
+  eid_picks = (torch.take(eids, slots).to(torch.int32)
+               if eids is not None else None)
+  return picks, eid_picks
+
+
+def sample_hop(indices: torch.Tensor, eids: Optional[torch.Tensor],
+               starts: torch.Tensor, offsets: torch.Tensor
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+  """The neighbour read of one uniform hop.
+
+  Args:
+    indices: [E] int32 neighbour ids (a stream snapshot's are padded to
+      its capacity with -1).
+    eids: [E] int32 edge ids read through the same slots, or None.
+    starts: [S] each row's CSR start.
+    offsets: [S, K] int32 drawn offsets within the rows.
+
+  Returns ``(picks, eid_picks)``, [S, K] int32 each (``eid_picks`` None
+  without ``eids``): ``picks[i, k] = indices[clip(starts[i] +
+  offsets[i, k], 0, E - 1)]`` on every lane, valid or not, the clip of
+  ``glt_tpu/ops/sample.py`` ``_slots_i32``.
+  """
+  if not offsets.is_cuda:
+    return sample_hop_plain(indices, eids, starts, offsets)
+  _check_pick_inputs(indices, starts, offsets)
+  s, k = offsets.shape
+  dev = offsets.device
+  indices = _i32(indices, dev)
+  eids = _i32(eids, dev) if eids is not None else None
+  starts, offsets = _i32(starts, dev), _i32(offsets, dev)
+  picks = torch.empty((s, k), dtype=torch.int32, device=dev)
+  eid_picks = (torch.empty((s, k), dtype=torch.int32, device=dev)
+               if eids is not None else None)
+  if s * k:
+    _check(_lib('sample_hop').glt_sample_hop(
+        _ptr(indices), _ptr(eids), indices.numel(), _ptr(starts),
+        _ptr(offsets), s, k, _ptr(picks), _ptr(eid_picks), _stream(dev)),
+        'sample_hop')
+    sample_hop.launches += 1
+  return picks, eid_picks
+
+
 KERNELS = (gather_rows, dedup_table_insert, sample_walk_dedup,
-           sample_hop_dedup)
+           sample_hop_dedup, sample_hop)
 reset_launch_counts()

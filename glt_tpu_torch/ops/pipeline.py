@@ -8,18 +8,27 @@ its ``GLT_DEDUP=sort GLT_FUSED_HOP=1`` reference, given the same
 uniforms. Heterogeneous: :func:`multihop_sample_hetero`, one
 ``cuda_kernels.sample_hop_dedup`` per hop for every edge type,
 bit-identical to the JAX hetero ``GLT_DEDUP=sort GLT_FUSED_HOP=1``
-reference.
+reference. Live-update streams: :func:`multihop_sample_sorted`, a per-hop
+loop over a ``one_hop`` callable (the stream's delta hops) with the
+``sorted_hop_dedup_fused`` inducer, bit-identical to the JAX
+``GLT_DEDUP=sort GLT_FUSED_HOP=1`` hop loop.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from . import cuda_kernels
-from .sample import (FusedHopPlan, HeteroFusedPlan, _hop_degrees,
-                     draw_offsets, walk_hop_uniforms)
-from .unique import BIG, sorted_hop_dedup, sorted_nodes_by_label
+from .sample import (FusedHopPlan, HeteroFusedPlan, NeighborOutput,
+                     _row_spans, draw_offsets, walk_hop_uniforms)
+from .unique import (BIG, sorted_hop_dedup, sorted_hop_dedup_fused,
+                     sorted_nodes_by_label)
+
+#: ``one_hop(h, frontier_ids, frontier_mask, u) -> NeighborOutput`` of
+#: width ``widths[h]``
+OneHopFn = Callable[[int, torch.Tensor, torch.Tensor,
+                     Optional[torch.Tensor]], NeighborOutput]
 
 
 def sample_budget(batch_size: int, fanouts: Sequence[int]) -> int:
@@ -93,8 +102,61 @@ def multihop_sample(plan: FusedHopPlan, seeds: torch.Tensor, n_valid: int,
     frontier_labels = labels
     count = count + new_count
 
-  nodes = sorted_nodes_by_label(u_ids, u_labs, count, budget)
-  out = dict(
+  out = _output_dict(sorted_nodes_by_label(u_ids, u_labs, count, budget),
+                     count, cols_child, rows_parent, emasks, batch_size,
+                     seed_labels, seed_count, hop_node_counts,
+                     hop_edge_counts)
+  if with_edge:
+    out['edge'] = torch.cat(eid_list)
+  return out
+
+
+def multihop_sample_sorted(one_hop: OneHopFn, seeds: torch.Tensor,
+                           n_valid: int, widths: Sequence[int],
+                           u_hops: Sequence[Optional[torch.Tensor]]
+                           ) -> Dict[str, torch.Tensor]:
+  """The per-hop loop (counterpart of the fused branch of
+  glt_tpu/ops/pipeline.py ``_multihop_sample_sorted``): the exact seed
+  hop, then per hop ``one_hop(h, frontier_ids, frontier_mask, u_hops[h])``
+  of width ``widths[h]`` and :func:`sorted_hop_dedup_fused`, whose new
+  heads (each new id's minimum slot, non-heads INT32_MAX) are the next
+  frontier. Returns the output dict of :func:`multihop_sample` without
+  ``edge``."""
+  batch_size = seeds.numel()
+  budget = sample_budget(batch_size, widths)
+  d, seed_labels = _fused_seed_hop(seeds, n_valid)
+  u_ids, u_labs, count = d['u_ids2'], d['u_labs2'], d['count2']
+  seed_count = count
+  frontier_ids, frontier_labels = d['ids3'], d['labels3']
+  frontier_mask = d['new_head3']
+  rows_parent, cols_child, emasks = [], [], []
+  hop_node_counts, hop_edge_counts = [seed_count], []
+  for h, width in enumerate(widths):
+    hop = one_hop(h, frontier_ids, frontier_mask, u_hops[h])
+    ids_flat = hop.nbrs.reshape(-1)
+    mask_flat = hop.mask.reshape(-1)
+    d = sorted_hop_dedup_fused(u_ids, u_labs, count, ids_flat, mask_flat)
+    rows_parent.append(torch.repeat_interleave(frontier_labels, width))
+    cols_child.append(d['labels3'])
+    emasks.append(mask_flat)
+    frontier_ids = torch.where(d['new_head3'], ids_flat.to(torch.int32),
+                               torch.full_like(ids_flat, BIG,
+                                               dtype=torch.int32))
+    u_ids, u_labs, count = d['u_ids2'], d['u_labs2'], d['count2']
+    hop_node_counts.append(d['new_count'])
+    hop_edge_counts.append(mask_flat.sum(dtype=torch.int32))
+    frontier_labels, frontier_mask = d['labels3'], d['new_head3']
+  return _output_dict(sorted_nodes_by_label(u_ids, u_labs, count, budget),
+                      count, cols_child, rows_parent, emasks, batch_size,
+                      seed_labels, seed_count, hop_node_counts,
+                      hop_edge_counts)
+
+
+def _output_dict(nodes, count, cols_child, rows_parent, emasks, batch_size,
+                 seed_labels, seed_count, hop_node_counts, hop_edge_counts):
+  """The homogeneous output surface shared by the walk and the per-hop
+  loop: ``row`` child labels, ``col`` parent labels."""
+  return dict(
       node=nodes,
       node_count=count,
       row=torch.cat(cols_child),
@@ -106,9 +168,6 @@ def multihop_sample(plan: FusedHopPlan, seeds: torch.Tensor, n_valid: int,
       num_sampled_nodes=torch.stack(hop_node_counts),
       num_sampled_edges=torch.stack(hop_edge_counts),
   )
-  if with_edge:
-    out['edge'] = torch.cat(eid_list)
-  return out
 
 
 def hetero_edge_hop_offsets(caps, trav, num_neighbors, num_hops):
@@ -198,7 +257,7 @@ def multihop_sample_hetero(plan: HeteroFusedPlan, table_slots: int,
                   mask=torch.zeros((sg['s'], k), dtype=torch.bool,
                                    device=dev))
       else:
-        start, deg = _hop_degrees(plan.indptr_pad[e], f_ids, f_mask)
+        start, deg = _row_spans(plan.indptr_pad[e], f_ids, f_mask)
         off, mask = draw_offsets(deg, u.to(dev), k, plan.replace)
         sg.update(start=start + plan.edge_base[e], off=off, mask=mask)
       segs.append(sg)

@@ -1,4 +1,5 @@
-"""Uniform neighbour draws (counterpart of glt_tpu/ops/sample.py).
+"""Uniform neighbour draws and one-hop reads (counterpart of
+glt_tpu/ops/sample.py).
 
 The walk's offsets are a pure function of (degree, uniforms): Floyd's
 algorithm without replacement, or ``min(int(u * deg), deg - 1)`` with
@@ -6,12 +7,20 @@ replacement, in float32 with truncation toward zero -- the arithmetic of
 the TPU draw, so injected ``jax.random`` uniforms reproduce its picks bit
 for bit. The CUDA walk computes the same formula per thread; the helpers
 here are the plain version's and the tests'.
+
+:func:`sample_neighbors` and :func:`sample_full_neighbors` are the
+one-hop reads of the per-hop loop (the live-update stream's delta hops):
+the uniform hop draws here and reads its neighbours through the
+``sample_hop`` kernel; the full-neighbourhood window reads plainly, as the
+JAX package reads it with ``jnp.take``.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from . import cuda_kernels
 
 #: the walk kernel keeps one row's offsets in registers (kMaxFanout)
 MAX_FANOUT = 64
@@ -49,16 +58,21 @@ def _floyd_offsets(deg: torch.Tensor, u: torch.Tensor,
   return torch.stack(cols, 1)
 
 
-def _hop_degrees(indptr_pad: torch.Tensor, ids: torch.Tensor,
-                 mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-  """Row start and masked degree per frontier id. ``indptr_pad`` is
-  [N + 2] with a trailing ``num_edges`` sentinel, so an invalid id
-  (INT32_MAX) clamps to row N and reads degree 0."""
-  n = indptr_pad.numel() - 2
-  addr = ids.long().clamp(0, n)
-  start = indptr_pad[addr].to(torch.int32)
-  deg = (indptr_pad[addr + 1] - indptr_pad[addr]).to(torch.int32)
-  return start, torch.where(mask, deg, torch.zeros_like(deg))
+def _row_spans(indptr: torch.Tensor, ids: torch.Tensor,
+               mask: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Row start and masked degree per frontier id. Ids clip into ``[0,
+  len(indptr) - 1]`` as ``jnp.take(mode='clip')`` clips them, so an
+  invalid id (INT32_MAX) starts at the last entry and reads degree 0:
+  ``indptr[N]`` of an [N + 1] CSR pointer, the trailing ``num_edges``
+  sentinel of an [N + 2] ``indptr_pad``."""
+  n = indptr.numel() - 1
+  ids = ids.long()
+  start = indptr[ids.clamp(0, n)]
+  deg = (indptr[(ids + 1).clamp(0, n)] - start).to(torch.int32)
+  if mask is not None:
+    deg = torch.where(mask, deg, torch.zeros_like(deg))
+  return start.to(torch.int32), deg
 
 
 def hop_valid_mask(deg: torch.Tensor, fanout: int,
@@ -83,6 +97,64 @@ def draw_offsets(deg: torch.Tensor, u: torch.Tensor, fanout: int,
     off = torch.where((deg <= fanout)[:, None], iota,
                       _floyd_offsets(deg, u, fanout))
   return off, hop_valid_mask(deg, fanout, replace)
+
+
+class NeighborOutput(NamedTuple):
+  """One-hop result in padded layout, [S, K] each: neighbour ids
+  (undefined where ``~mask``) and validity. The stream, its only caller,
+  samples no edge ids."""
+  nbrs: torch.Tensor
+  mask: torch.Tensor
+
+
+def _empty_output(s: int, width: int, device) -> NeighborOutput:
+  """All-masked output of a graph with no edges."""
+  return NeighborOutput(
+      nbrs=torch.zeros((s, width), dtype=torch.int32, device=device),
+      mask=torch.zeros((s, width), dtype=torch.bool, device=device))
+
+
+def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
+                     seeds: torch.Tensor, fanout: int, u: torch.Tensor,
+                     seed_mask: Optional[torch.Tensor] = None
+                     ) -> NeighborOutput:
+  """Uniformly sample up to ``fanout`` distinct neighbours per seed of a
+  CSR: the draw of ``glt_tpu.ops.sample._draw_hop`` without replacement
+  on the injected uniforms ``u`` ([S, fanout]: drawn ``(fanout, S)`` and
+  transposed), then one ``sample_hop`` launch reads ``indices`` at the
+  drawn slots. Bit-identical on valid lanes to the JAX element, window
+  and ``pallas`` engines; a seed of degree <= fanout is taken whole, in
+  adjacency order. ``indices`` may be padded past the live edges (a
+  snapshot's capacity): slots clip to its length, as ``_slots_i32`` clips
+  them."""
+  if fanout <= 0:
+    raise ValueError(f'fanout must be a positive int, got {fanout}')
+  if indices.numel() == 0:
+    return _empty_output(seeds.numel(), fanout, seeds.device)
+  start, deg = _row_spans(indptr, seeds, seed_mask)
+  offsets, mask = draw_offsets(deg, u, fanout, replace=False)
+  nbrs, _ = cuda_kernels.sample_hop(indices, None, start, offsets)
+  return NeighborOutput(nbrs=nbrs, mask=mask)
+
+
+def sample_full_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
+                          seeds: torch.Tensor, max_degree: int,
+                          seed_mask: Optional[torch.Tensor] = None
+                          ) -> NeighborOutput:
+  """Every neighbour of each seed, in adjacency order, inside a static
+  ``[S, max_degree]`` window (degrees above it truncate): the JAX
+  ``sample_full_neighbors`` read without its ``window_gather`` option."""
+  if max_degree <= 0:
+    raise ValueError(f'max_degree must be positive, got {max_degree}')
+  e = indices.numel()
+  if e == 0:
+    return _empty_output(seeds.numel(), max_degree, seeds.device)
+  start, deg = _row_spans(indptr, seeds, seed_mask)
+  win = torch.arange(max_degree, dtype=torch.int32,
+                     device=seeds.device)[None, :]
+  mask = win < deg.clamp(max=max_degree)[:, None]
+  slots = (start.long()[:, None] + win).clamp(0, e - 1)
+  return NeighborOutput(nbrs=indices[slots].to(torch.int32), mask=mask)
 
 
 def walk_hop_uniforms(generator: Optional[torch.Generator],

@@ -5,7 +5,8 @@ The seed hop must stay bit-identical to every engine of the JAX package:
 ``batch``, ``seed_labels`` and hop 1's frontier order all come from
 :func:`sorted_hop_dedup`. It is two sorts over the batch, as in JAX; the
 per-hop dedup of the walk lives in the walk kernel
-(ops/cuda_kernels.py ``sample_walk_dedup``).
+(ops/cuda_kernels.py ``sample_walk_dedup``). The per-hop loop of the
+live-update stream dedups each hop with :func:`sorted_hop_dedup_fused`.
 """
 from __future__ import annotations
 
@@ -74,6 +75,58 @@ def sorted_hop_dedup(u_ids: torch.Tensor, u_labs: torch.Tensor,
       ids3=ids3, labels3=labels3, new_head3=new_head3, pos3=pos3,
       u_ids2=torch.cat([u_ids.to(torch.int32),
                         torch.where(new_head3, ids3, big)]),
+      u_labs2=torch.cat([u_labs.to(torch.int32),
+                         torch.where(new_head3, labels3, big)]),
+      count2=(count + new_count).to(torch.int32), new_count=new_count)
+
+
+def sorted_hop_dedup_fused(u_ids: torch.Tensor, u_labs: torch.Tensor,
+                           count: Union[int, torch.Tensor], ids: torch.Tensor,
+                           valid: torch.Tensor) -> Dict[str, torch.Tensor]:
+  """One hop of dedup/relabel against the append-form seen-set, outputs in
+  slot order (counterpart of ``glt_tpu.ops.unique.sorted_hop_dedup_fused``,
+  the ``GLT_FUSED_HOP`` contract): seen ids keep their labels, the hop's
+  new ids get ``count..count+n-1`` in value order, and each new id's head
+  is its minimum slot.
+
+  Seen ids are found by a binary search of the sorted seen-set (its
+  ``BIG`` padding never matches a valid id), new ids are ranked by
+  ``unique``, and a scatter-min finds each one's first slot.
+
+  Returns ``labels3`` (-1 at ``~valid``), ``new_head3`` ([M] each),
+  ``u_ids2``/``u_labs2`` (the seen-set with the new ids appended, ``BIG``
+  padded), ``count2`` and ``new_count`` (int32 scalars).
+  """
+  dev = ids.device
+  m = ids.numel()
+  x = torch.where(valid, ids.to(torch.int32),
+                  torch.full_like(ids, BIG, dtype=torch.int32))
+  seen_ids, order = torch.sort(u_ids.to(torch.int32))
+  seen_labs = u_labs.to(torch.int32)[order]
+  if seen_ids.numel():
+    pos = torch.searchsorted(seen_ids, x).clamp(max=seen_ids.numel() - 1)
+    found = valid & (seen_ids[pos] == x)
+    seen_lab = seen_labs[pos]
+  else:
+    found = torch.zeros_like(valid)
+    seen_lab = torch.full_like(x, -1)
+  new_el = valid & ~found
+  uniq = torch.unique(x[new_el])
+  n_new = uniq.numel()
+  rank = torch.searchsorted(uniq, x).clamp(max=max(n_new - 1, 0))
+  iota = torch.arange(m, device=dev)
+  first = torch.full((n_new + 1,), m, dtype=torch.long, device=dev)
+  first.scatter_reduce_(0, torch.where(new_el, rank, n_new), iota, 'amin')
+  new_head3 = new_el & (first[rank] == iota)
+  labels3 = torch.where(found, seen_lab, torch.where(
+      new_el, (count + rank).to(torch.int32),
+      torch.full_like(x, -1))).to(torch.int32)
+  new_count = torch.tensor(n_new, dtype=torch.int32, device=dev)
+  big = torch.full_like(x, BIG)
+  return dict(
+      labels3=labels3, new_head3=new_head3,
+      u_ids2=torch.cat([u_ids.to(torch.int32),
+                        torch.where(new_head3, x, big)]),
       u_labs2=torch.cat([u_labs.to(torch.int32),
                          torch.where(new_head3, labels3, big)]),
       count2=(count + new_count).to(torch.int32), new_count=new_count)

@@ -37,6 +37,8 @@ class SamplerOutput:
   num_sampled_nodes/num_sampled_edges: per-hop counts.
   edge_hop_offsets: hop h's edges occupy slots
   ``[edge_hop_offsets[h], edge_hop_offsets[h+1])``.
+  metadata: ``seed_labels``, ``seed_count`` and, from a StreamSampler,
+  ``snapshot_version`` (the stream snapshot the batch was sampled from).
   """
   node: torch.Tensor
   node_count: torch.Tensor

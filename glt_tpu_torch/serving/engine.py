@@ -12,6 +12,10 @@ way: requests address one seed type (``input_type``), the sampler walks
 every edge type, features are gathered per node type and the model reads
 a :class:`~glt_tpu_torch.loader.HeteroBatch`.
 
+Live-update serving plugs a :class:`~glt_tpu_torch.stream.StreamSampler`
+in through ``sampler=``; ``update_snapshot`` then swaps the features of a
+new stream snapshot in and drops the cache entries it staled.
+
 ``infer`` takes an internal lock, as the JAX engine does. The stages
 carry ``torch.profiler`` ranges named as the JAX engine's spans
 (``sample.multihop``, ``gather.features``, ``serve.forward``), so a
@@ -56,6 +60,9 @@ class InferenceEngine:
       none).
     input_type: the seed node type requests address; required for a
       hetero graph, whose requests are ids of that type.
+    sampler: a pre-built sampler on ``device`` instead of the default
+      NeighborSampler over ``data.graph``: how live-update serving plugs
+      in a StreamSampler (see :meth:`update_snapshot`).
   """
 
   def __init__(self, data: Dataset, model: nn.Module,
@@ -64,7 +71,8 @@ class InferenceEngine:
                buckets: Sequence[int] = (8, 64, 256),
                cache: Optional[EmbeddingCache] = None,
                cache_capacity: int = 100_000, model_version: int = 0,
-               seed: Optional[int] = 0, device=None, input_type=None):
+               seed: Optional[int] = 0, device=None, input_type=None,
+               sampler=None):
     self.device = resolve_device(device)
     self.hetero = data.is_hetero
     if self.hetero and input_type is None:
@@ -81,10 +89,14 @@ class InferenceEngine:
     self.model_version = int(model_version)
     self.cache = cache if cache is not None \
         else EmbeddingCache(cache_capacity)
-    self.sampler = NeighborSampler(
+    if sampler is not None and sampler.device != self.device:
+      raise ValueError(f'sampler runs on {sampler.device}, the engine on '
+                       f'{self.device}')
+    self.sampler = sampler if sampler is not None else NeighborSampler(
         data.graph, dict(num_neighbors) if isinstance(num_neighbors, dict)
         else list(num_neighbors), device=self.device, seed=seed)
     self.forward_calls = 0
+    self._snapshot_version = 0
     self._out_dim: Optional[int] = None
     self._lock = threading.Lock()
 
@@ -207,3 +219,48 @@ class InferenceEngine:
       if bump_version:
         self.model_version += 1
       return self.model_version
+
+  # -- invalidation hooks --------------------------------------------------
+
+  def invalidate_nodes(self, ids) -> int:
+    """Drop the cached embeddings of ``ids`` across all versions, under
+    the engine lock, so an infer in flight cannot insert rows of ids it is
+    computing right after they were dropped. Returns the number of
+    entries dropped."""
+    with self._lock:
+      return self.cache.invalidate(ids=as_numpy(ids).reshape(-1).tolist())
+
+  @property
+  def snapshot_version(self) -> int:
+    """The stream-snapshot version this engine last swapped onto (0: the
+    construction-time graph), read under the engine lock: it is never the
+    version of a swap whose invalidation has not landed."""
+    with self._lock:
+      return self._snapshot_version
+
+  def update_snapshot(self, snapshot, touched_ids=None,
+                      expand_in_neighbors: bool = False,
+                      version: Optional[int] = None) -> int:
+    """Swap serving onto a new stream snapshot: under the engine lock,
+    install the snapshot's Feature as the gather source, stamp its version
+    and drop the cache entries of ``touched_ids`` (None: the whole cache;
+    with ``expand_in_neighbors`` also their in-neighbours, the nodes whose
+    embeddings aggregate over them). ``version`` defaults to one past the
+    last. Returns the number of cache entries dropped."""
+    if self.hetero:
+      raise NotImplementedError('update_snapshot is homogeneous-only: the '
+                                'stream machinery serves one node type')
+    with self._lock:
+      if snapshot.feature is not None:
+        self.data.node_features = snapshot.feature
+      self._snapshot_version = (int(version) if version is not None
+                                else self._snapshot_version + 1)
+      if touched_ids is None:
+        return self.cache.invalidate()
+      ids = as_numpy(touched_ids).astype(np.int64).reshape(-1)
+      if expand_in_neighbors and ids.size:
+        ids = snapshot.expand_affected(ids)
+      ids = ids[(ids >= 0) & (ids < self.num_nodes)]
+      if ids.size == 0:
+        return 0
+      return self.cache.invalidate(ids=ids.tolist())

@@ -21,9 +21,13 @@ def as_numpy(x) -> Optional[np.ndarray]:
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
   """The device an entry point runs on: the caller's, else the card.
   Without a card and without an explicit device this raises -- the port
-  never carries on on the CPU unasked."""
+  never carries on on the CPU unasked. A bare ``'cuda'`` resolves to the
+  current card's index, so it compares equal to a tensor's device."""
   if device is not None:
-    return torch.device(device)
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+      device = torch.device('cuda', torch.cuda.current_device())
+    return device
   if not torch.cuda.is_available():
     raise RuntimeError(
         'no CUDA device: pass device="cpu" to run the plain PyTorch path')

@@ -17,6 +17,8 @@ from glt_tpu_torch.ops import cuda_kernels as K
 from glt_tpu_torch.ops.pipeline import _fused_seed_hop, sample_budget
 from glt_tpu_torch.ops.sample import walk_hop_uniforms
 from glt_tpu_torch.serving import InferenceEngine
+from glt_tpu_torch.stream import (CompactionPolicy, SnapshotManager,
+                                  StreamIngestor, StreamSampler)
 from glt_tpu_torch.typing import reverse_edge_type
 
 pytestmark = pytest.mark.cuda
@@ -170,3 +172,53 @@ def test_hetero_engine_serves_through_the_kernels(dev):
   assert out.shape == (20, 7) and np.isfinite(out).all()
   assert K.sample_hop_dedup.launches > 0
   assert K.dedup_table_insert.launches > 0 and K.gather_rows.launches > 0
+
+
+def test_sample_hop_matches_plain(dev):
+  # a capacity-padded edge array (-1 past the live edges), hub rows of any
+  # degree, lanes whose slot runs past the end (clipped to E - 1)
+  g = torch.Generator(device=dev).manual_seed(13)
+  live, cap = 70_000, 80_000
+  indices = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+  indices[:live] = torch.randint(0, 9000, (live,), generator=g, device=dev,
+                                 dtype=torch.int32)
+  eids = torch.randperm(cap, generator=g, device=dev).to(torch.int32)
+  for s, k in ((256, 15), (5888, 10), (3, 0)):
+    starts = torch.randint(0, live, (s,), generator=g, device=dev,
+                           dtype=torch.int32)
+    offsets = torch.randint(0, 20_000, (s, k), generator=g, device=dev,
+                            dtype=torch.int32)
+    before = K.sample_hop.launches
+    got = K.sample_hop(indices, eids, starts, offsets)
+    assert K.sample_hop.launches == before + (s * k > 0)
+    want = K.sample_hop_plain(indices, eids, starts, offsets)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    picks, none = K.sample_hop(indices, None, starts, offsets)
+    assert none is None and torch.equal(picks, want[0])
+
+
+def test_stream_engine_serves_through_the_kernels(dev):
+  rng = np.random.default_rng(2)
+  ei = np.stack([rng.integers(0, 3000, 40_000), rng.integers(0, 3000, 40_000)])
+  ds = Dataset().init_graph(ei, num_nodes=3000, device=dev)
+  ds.init_node_features(rng.standard_normal((3000, 100)).astype(np.float32),
+                        device=dev)
+  mgr = SnapshotManager(ds.get_graph().topo, ds.get_node_feature(),
+                        delta_capacity=256, device=dev)
+  sampler = StreamSampler(mgr, [5, 3], seed=0)
+  eng = InferenceEngine(ds, GraphSAGE(100, 64, 7), None, [5, 3],
+                        buckets=(16,), device=dev, sampler=sampler)
+  eng.init_params(0)
+  ing = StreamIngestor(mgr, sampler=sampler, engine=eng,
+                       policy=CompactionPolicy(max_staleness_s=0))
+  K.reset_launch_counts()
+  out = eng.infer(np.arange(20))       # two computed requests (16 + 4)
+  assert out.shape == (20, 7) and np.isfinite(out).all()
+  assert K.sample_hop.launches == 2 * 2 and K.gather_rows.launches == 2
+  assert K.sample_walk_dedup.launches == 0
+  ing.insert_edges([1, 2], [2999, 2998])
+  ing.update_features([1], np.zeros((1, 100), np.float32))
+  info = ing.flush()
+  assert info['version'] == 1 and info['invalidated'] >= 2
+  assert eng.snapshot_version == 1
+  assert not np.allclose(eng.infer([1])[0], out[1])

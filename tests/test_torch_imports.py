@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of ``glt_tpu_torch`` (the
-hetero models, loader and typing among them) and ``chip_smoke`` pulls in
-neither JAX nor the JAX package."""
+hetero models, loader and typing, and the live-update stream among them)
+and ``chip_smoke`` pulls in neither JAX nor the JAX package."""
 import os
 import subprocess
 import sys
@@ -20,6 +20,10 @@ print('BAD', bad)
 print('HETERO', all(m in sys.modules for m in (
     'glt_tpu_torch.models.rgnn', 'glt_tpu_torch.models.convert',
     'glt_tpu_torch.loader.transform', 'glt_tpu_torch.typing')))
+print('STREAM', all(m in sys.modules for m in (
+    'glt_tpu_torch.stream', 'glt_tpu_torch.stream.delta',
+    'glt_tpu_torch.stream.snapshot', 'glt_tpu_torch.stream.sampler',
+    'glt_tpu_torch.stream.ingest', 'glt_tpu_torch.ops.delta')))
 '''
 
 
@@ -29,5 +33,6 @@ def test_port_and_chip_smoke_import_no_jax():
                        capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr
   assert 'BAD []' in out.stdout, out.stdout
-  assert int(out.stdout.split('LOADED ')[1].split()[0]) >= 21
+  assert int(out.stdout.split('LOADED ')[1].split()[0]) >= 27
   assert 'HETERO True' in out.stdout, out.stdout
+  assert 'STREAM True' in out.stdout, out.stdout
