@@ -2,9 +2,9 @@
 """Drive the PyTorch/CUDA port (glt_tpu_torch) on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch version at the shapes the serving paths give it, then drives the
-three serving paths through InferenceEngine.infer and checks what comes
-out:
+PyTorch version at the shapes the main paths give it, then drives the
+three serving paths through InferenceEngine.infer and the training path
+through NeighborLoader and SageTrainStep, and checks what comes out:
 
 - homogeneous: a seeded 3-layer GraphSAGE (hidden 256, 47 classes, 100
   features, fanouts [15, 10, 5]) over a products-shaped graph (2.45M
@@ -19,7 +19,15 @@ out:
   overlay shows them), requests, a flush that compacts into snapshot
   version 1 and drops the cache entries of the touched ids and their
   in-neighbours (expand_invalidation, as examples/stream_updates.py
-  sets it), requests again.
+  sets it), requests again;
+- training (examples/train_sage_products.py, the reference's headline
+  workload): NeighborLoader over the homogeneous graph with float32 edge
+  weights in (0, 1], learnable labels argmax(x @ w) and a 0.1/0.1 node
+  split, batch 1024, fanouts [15, 10, 5], with_weight=True (every hop a
+  Gumbel top-k over a gather_windows weight window) -> GraphSAGE 100 ->
+  256 -> 256 -> 47 -> masked cross-entropy -> Adam(1e-3), 30 steps; then
+  10 uniform steps through the walk, and a [10, -1] full-neighbourhood
+  sampler held against its plain route.
 
 Usage, from the repository root, on a machine with a card:
 
@@ -32,6 +40,7 @@ result line, when there is no card, when the package is missing, or when
 any check fails. Imports nothing of JAX.
 """
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -50,6 +59,9 @@ IGBH_FEAT, IGBH_HIDDEN, IGBH_HEADS, IGBH_CLASSES = 1024, 512, 4, 19
 # examples/stream_updates.py's compaction policy and cache invalidation
 DELTA_WINDOW, DELTA_CAPACITY, OCCUPANCY = 8, 4096, 0.5
 N_INSERTS, N_DELETES, N_FEATURE_ROWS = 1000, 500, 256
+# training: examples/train_sage_products.py (batch 1024, Adam 1e-3)
+TRAIN_BATCH, TRAIN_STEPS, UNIFORM_STEPS, LR = 1024, 30, 10, 1e-3
+LOSS_TOL = 1e-4   # same batch bit for bit; index_add_ atomics again
 
 
 class Phase:
@@ -104,23 +116,27 @@ def igbh_edges(torch, counts, gen, dev):
   return edges
 
 
-def profile_requests(torch, engine, reqs):
-  """Device time by serving stage and by kernel over ``reqs``, from
-  torch.profiler's CUDA trace; prints one line per stage and the top
-  kernels."""
+def profile_stages(torch, run, n, stages, unit, host_stages=()):
+  """Device time by stage and by kernel over ``run()``, which does ``n``
+  units of work, from torch.profiler's CUDA trace; prints one line per
+  stage and the top kernels, and returns (wall ms, device busy ms) per
+  unit. ``host_stages``: stages whose ranges start and end in a device
+  sync, so their kernels are those that ran inside the host range,
+  whichever thread launched them (autograd's backward runs on its
+  own)."""
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
-    for ids in reqs:
-      engine.infer(ids)
-    wall = (time.perf_counter() - t0) * 1e3 / len(reqs)
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
   # kernels are the CUDA events other than the stages' own GPU-side
   # range markers; a stage's kernel time is that of the kernels inside
   # its marker's extent on the device timeline (the ctypes-launched
-  # kernels carry no aten op to attribute them to)
-  stages = ('sample.multihop', 'gather.features', 'serve.forward')
+  # kernels carry no aten op to attribute them to), or, for a host stage,
+  # inside its host range
   cuda = torch.autograd.DeviceType.CUDA
   events = prof.events()
   kern = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -130,20 +146,21 @@ def profile_requests(torch, engine, reqs):
   for t0_, t1_, _ in kern:   # union of kernel intervals, us
     busy += max(0.0, t1_ - max(t0_, end))
     end = max(end, t1_)
-  n = len(reqs)
-  print(f'profile: {wall:.3f} ms wall per request, device busy '
+  print(f'profile: {wall:.3f} ms wall per {unit}, device busy '
         f'{busy / 1e3 / n:.3f} ms ({busy / 1e3 / n / wall * 100:.1f}%)')
   for st in stages:
     cpu = [e for e in events if e.name == st and e.device_type != cuda]
     gpu = [e.time_range for e in events
            if e.name == st and e.device_type == cuda]
+    synced = st in host_stages
+    extent = [e.time_range for e in cpu] if synced else gpu
     dev_us = sum(t1_ - t0_ for t0_, t1_, _ in kern
-                 if any(r.start <= t0_ and t1_ <= r.end for r in gpu))
+                 if any(r.start <= t0_ and t1_ <= r.end for r in extent))
     span_us = sum(r.elapsed_us() for r in gpu)
     host_us = sum(e.time_range.elapsed_us() for e in cpu)
-    print(f'  stage {st}: kernels {dev_us / 1e3 / n:.4f} ms, device span '
-          f'{span_us / 1e3 / n:.4f} ms, host {host_us / 1e3 / n:.4f} ms '
-          'per request')
+    span = '' if synced else f'device span {span_us / 1e3 / n:.4f} ms, '
+    print(f'  stage {st}: kernels {dev_us / 1e3 / n:.4f} ms, {span}host '
+          f'{host_us / 1e3 / n:.4f} ms per {unit}')
   by_name = {}
   for t0_, t1_, name in kern:
     tot, cnt = by_name.get(name, (0.0, 0))
@@ -151,22 +168,41 @@ def profile_requests(torch, engine, reqs):
   for name, (tot, cnt) in sorted(by_name.items(),
                                  key=lambda kv: -kv[1][0])[:12]:
     print(f'  kernel {name[:80]}: {tot / 1e3 / n:.4f} ms, '
-          f'{cnt / n:g} per request')
+          f'{cnt / n:g} per {unit}')
+  return wall, busy / 1e3 / n
+
+
+def profile_requests(torch, engine, reqs):
+  """profile_stages over serving requests."""
+  def run():
+    for ids in reqs:
+      engine.infer(ids)
+  profile_stages(torch, run, len(reqs),
+                 ('sample.multihop', 'gather.features', 'serve.forward'),
+                 'request')
+
+
+@contextlib.contextmanager
+def swapped_to_plain(K, names):
+  """The kernel wrappers ``names`` of ``K`` replaced by their plain
+  versions inside the block, restored on exit."""
+  kernels = {n: getattr(K, n) for n in names}
+  try:
+    for n in kernels:
+      setattr(K, n, getattr(K, n + '_plain'))
+    yield
+  finally:
+    for n, fn in kernels.items():
+      setattr(K, n, fn)
 
 
 def plain_swapped(K, engine, names, seeds, n_valid, u):
   """One bucket-256 batch and its logits with the wrappers ``names`` of
   the kernel module ``K`` swapped for their plain versions (same seeds
-  and uniforms), restored afterwards."""
-  kernels = {n: getattr(K, n) for n in names}
-  try:
-    for n in kernels:
-      setattr(K, n, getattr(K, n + '_plain'))
+  and uniforms)."""
+  with swapped_to_plain(K, names):
     batch = engine.make_batch(seeds, n_valid, 256, uniforms=u)
     return batch, engine.model(batch)
-  finally:
-    for n, fn in kernels.items():
-      setattr(K, n, fn)
 
 
 def serve_requests(torch, engine, num_nodes, classes, rng, check=None,
@@ -198,16 +234,17 @@ def serve_requests(torch, engine, num_nodes, classes, rng, check=None,
 
 
 def per_request_launches(K, per_request):
-  """A ``check`` for serve_requests: every computed bucket launched
-  ``sample_hop`` ``per_request`` times."""
-  last = [K.sample_hop.launches]
+  """A ``check`` for serve_requests: every computed bucket launched each
+  kernel ``name`` of ``per_request`` (name -> launches) that many times."""
+  last = {n: getattr(K, n).launches for n in per_request}
 
   def check(n_computed):
-    n = K.sample_hop.launches
-    if n - last[0] != per_request * n_computed:
-      raise AssertionError(f'{n - last[0]} sample_hop launches for '
-                           f'{n_computed} computed buckets')
-    last[0] = n
+    for name, want in per_request.items():
+      n = getattr(K, name).launches
+      if n - last[name] != want * n_computed:
+        raise AssertionError(f'{n - last[name]} {name} launches for '
+                             f'{n_computed} computed buckets')
+      last[name] = n
   return check
 
 
@@ -245,21 +282,34 @@ def stream_phases(torch, np, K, ds, dev, seed, rows):
           f'{sample_budget(256, sampler.num_neighbors)}')
 
   with Phase('stream kernel checks'):
-    # the three base hops of one bucket-256 request, their inputs recorded
-    # as delta_one_hop hands them over (the recording run reads through
-    # the plain version)
+    # the three base hops of one bucket-256 request and its overlay window
+    # reads (tombstones and inserts, gather_windows), their inputs
+    # recorded as delta_one_hop hands them over (the recording run reads
+    # through the plain versions)
     gen = torch.Generator(device=dev).manual_seed(seed + 4)
     seeds = torch.randint(0, NUM_NODES, (256,), generator=gen, device=dev)
-    hops, real = [], K.sample_hop
+    hops, windows = [], []
+    real, real_windows = K.sample_hop, K.gather_windows
 
     def record(*a):
       hops.append(a)
       return K.sample_hop_plain(*a)
-    K.sample_hop = record
+
+    def record_windows(*a):
+      windows.append(a)
+      return K.gather_windows_plain(*a)
+    K.sample_hop, K.gather_windows = record, record_windows
     try:
       sampler.sample_from_nodes(seeds)
     finally:
-      K.sample_hop = real
+      K.sample_hop, K.gather_windows = real, real_windows
+    for arr, starts, width in windows:
+      if not torch.equal(real_windows(arr, starts, width),
+                         K.gather_windows_plain(arr, starts, width)):
+        raise AssertionError(f'gather_windows [{starts.numel()}, {width}] '
+                             'over the overlay differs from plain')
+    print(f'gather_windows over the overlay: {len(windows)} reads '
+          f'{[(int(a[1].numel()), a[2]) for a in windows]} equal to plain')
     want_shapes, s = [], 256
     for f, width in zip(FANOUTS, sampler.num_neighbors):
       want_shapes.append((s, f))
@@ -297,16 +347,20 @@ def stream_phases(torch, np, K, ds, dev, seed, rows):
           f'{row["ms"]:.4f} ms (plain {row["plain_ms"]:.4f} ms, torch.take '
           f'{row["library_ms"]:.4f} ms, bound {row["bound_ms"]:.6f} ms)')
     # the recorded hops hold v0's padded array: let the swap free it
-    del hops, indices, eids, starts, offsets, slots, got, want
+    del hops, windows, indices, eids, starts, offsets, slots, got, want
 
   with Phase('stream main path'):
+    # per computed bucket: a base hop (sample_hop) and a tombstone and an
+    # insert window read (gather_windows) per hop
+    per_request = {'sample_hop': len(FANOUTS),
+                   'gather_windows': 2 * len(FANOUTS)}
     engine.warmup()
     rng = torch.Generator().manual_seed(seed + 5)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     served = serve_requests(torch, engine, NUM_NODES, CLASSES, rng,
-                            check=per_request_launches(K, len(FANOUTS)),
+                            check=per_request_launches(K, per_request),
                             label='stream v0 pass')
     # stage: inserts (the first from served seeds), deletes of base edges,
     # new feature rows of served (cached) nodes
@@ -357,7 +411,7 @@ def stream_phases(torch, np, K, ds, dev, seed, rows):
     print(f'overlay: {int(mine.sum())} inserted edges of the batch\'s seed '
           f'rows all sampled, none of {dead.numel()} tombstoned edges')
     serve_requests(torch, engine, NUM_NODES, CLASSES, rng,
-                   check=per_request_launches(K, len(FANOUTS)), passes=1,
+                   check=per_request_launches(K, per_request), passes=1,
                    label='stream overlay pass')
     src, dst, _ = topo.to_coo()
     e0 = topo.num_edges
@@ -404,11 +458,11 @@ def stream_phases(torch, np, K, ds, dev, seed, rows):
           f'{swap0 / 2**30:.3f} GiB before it; all {upd.size} updated nodes '
           'answer anew')
     served = serve_requests(torch, engine, NUM_NODES, CLASSES, rng,
-                            check=per_request_launches(K, len(FANOUTS)),
+                            check=per_request_launches(K, per_request),
                             passes=1, label='stream v1 pass')
     launches = {fn.__name__: fn.launches for fn in K.KERNELS}
     peak = max(torch.cuda.max_memory_allocated(), swap0, swap_peak)
-    for name in ('sample_hop', 'gather_rows'):
+    for name in ('sample_hop', 'gather_windows', 'gather_rows'):
       if launches[name] == 0:
         raise AssertionError(f'{name} never launched on the stream path')
     print(f'launches {launches}; cache hits {engine.cache.hits}; peak '
@@ -421,8 +475,8 @@ def stream_phases(torch, np, K, ds, dev, seed, rows):
     with torch.no_grad():
       bk = engine.make_batch(seeds, ids.size, 256, uniforms=u)
       yk = engine.model(bk)
-      bp, yp = plain_swapped(K, engine, ('sample_hop', 'gather_rows'), seeds,
-                             ids.size, u)
+      bp, yp = plain_swapped(K, engine, ('sample_hop', 'gather_windows',
+                                         'gather_rows'), seeds, ids.size, u)
     for f in ('node', 'node_count', 'row', 'col', 'edge_mask', 'x'):
       if not torch.equal(getattr(bk, f), getattr(bp, f)):
         raise AssertionError(f'stream batch.{f} differs between kernels and '
@@ -441,6 +495,244 @@ def stream_phases(torch, np, K, ds, dev, seed, rows):
         torch.randint(0, NUM_NODES, (256,), generator=rng).numpy()
         for _ in range(3)])
   return launches
+
+
+def train_phases(torch, np, K, ds, dev, seed, rows, smi):
+  """The training path over the homogeneous graph and features (with the
+  edge weights drawn in the data phase); returns its launches by kernel,
+  weighted and uniform. ``smi`` names the card and its power limit."""
+  from glt_tpu_torch.loader import NeighborLoader
+  from glt_tpu_torch.models import GraphSAGE
+  from glt_tpu_torch.parallel import SageTrainStep, sage_loss
+  from glt_tpu_torch.sampler import NeighborSampler
+  from glt_tpu_torch.typing import Split
+  from glt_tpu_torch.utils.profile import ThroughputMeter
+
+  g = ds.get_graph()
+  with Phase('train data'):
+    # learnable labels as examples/common.py builds them, its 0.1/0.1 split
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    w = torch.randn((FEAT_DIM, CLASSES), generator=gen, device=dev)
+    ds.init_node_labels(torch.argmax(ds.get_node_feature().table @ w, 1)
+                        .to(torch.int32))
+    ds.random_node_split(num_val=0.1, num_test=0.1, seed=seed)
+    train_idx = ds.get_split(Split.train)
+
+    def loader(with_weight):
+      return NeighborLoader(ds, list(FANOUTS), train_idx,
+                            batch_size=TRAIN_BATCH, shuffle=True,
+                            with_weight=with_weight, device=dev, seed=seed,
+                            rng=np.random.default_rng(seed))
+
+    def model():
+      torch.manual_seed(seed)
+      return GraphSAGE(FEAT_DIM, HIDDEN, CLASSES, num_layers=3).to(dev)
+    wl = loader(True)
+    sampler = wl.sampler
+    windows = [sampler._weight_window(f) for f in FANOUTS]
+    print(f'train: {train_idx.size} training seeds, {CLASSES} classes; edge '
+          f'weights {tuple(g.edge_weights.shape)} float32 in '
+          f'[{float(g.edge_weights.min()):.3g}, '
+          f'{float(g.edge_weights.max()):.3g}]; weight windows {windows}')
+
+  with Phase('train kernel checks'):
+    # the three weighted hops of one batch, their inputs recorded as the
+    # sampler hands them over (the recording run reads through the plain
+    # version); each window read once over the weights and once over the
+    # neighbour ids at the same starts
+    seeds = train_idx[:TRAIN_BATCH]
+    calls, real = [], K.gather_windows
+
+    def record(*a):
+      calls.append(a)
+      return K.gather_windows_plain(*a)
+    K.gather_windows = record
+    try:
+      sampler.sample_from_nodes(seeds)
+    finally:
+      K.gather_windows = real
+    shapes = [(int(a[1].numel()), a[2]) for a in calls]
+    want_shapes, s_ = [], TRAIN_BATCH
+    for f, d in zip(FANOUTS, windows):
+      want_shapes.append((s_, d))
+      s_ *= f
+    if shapes != want_shapes:
+      raise AssertionError(f'window shapes {shapes}, expected {want_shapes}')
+    row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
+    for h, (arr, starts, width) in enumerate(calls):
+      for name, src in (('weights', arr), ('indices', g.indices)):
+        got = real(src, starts, width)
+        want = K.gather_windows_plain(src, starts, width)
+        if not torch.equal(got, want):
+          raise AssertionError(f'gather_windows hop {h + 1} {name} differs '
+                               'from plain')
+        err = float((got.double() - want.double()).abs().max())
+        slots = (starts.long()[:, None] + torch.arange(width, device=dev)
+                 ).clamp(0, src.numel() - 1)
+        ms = cuda_ms(torch, lambda i=0: real(src, starts, width), 50)
+        plain = cuda_ms(torch, lambda i=0: K.gather_windows_plain(
+            src, starts, width), 20)
+        lib = cuda_ms(torch, lambda i=0: torch.take(src, slots), 50)
+        # bytes the read must move: a start per row, per lane one element
+        # in and one out
+        s_ = starts.numel()
+        bound = bytes_ms(4 * s_ + 8 * s_ * width)
+        if name == 'weights':
+          for key, v in (('ms', ms), ('plain_ms', plain),
+                         ('library_ms', lib), ('bound_ms', bound)):
+            row[key] += v
+          row['err'] = max(row['err'], err)
+        print(f'gather_windows hop {h + 1} [{s_}, {width}] {name} '
+              f'{str(src.dtype)[6:]}: equal to plain; {ms:.4f} ms (plain '
+              f'{plain:.4f} ms, torch.take {lib:.4f} ms, bound {bound:.6f} '
+              'ms)')
+    rows['gather_windows'] = row
+    print(f'gather_windows per weighted batch ({len(calls)} hops, the weight '
+          f'windows): {row["ms"]:.4f} ms (plain {row["plain_ms"]:.4f} ms, '
+          f'torch.take {row["library_ms"]:.4f} ms, bound '
+          f'{row["bound_ms"]:.6f} ms)')
+    del calls, arr, starts, got, want, slots
+
+  with Phase('train main path vs plain'):
+    # one batch through the kernels and through the plain versions, same
+    # seeds and uniforms, and its loss on the initial weights
+    net = model()
+    u = sampler.hop_uniforms(TRAIN_BATCH)
+    n_valid = TRAIN_BATCH - 1
+    seeds = np.concatenate([train_idx[:n_valid], train_idx[:1]])
+
+    def batch():
+      return wl._collate(sampler.sample_from_nodes(seeds, n_valid,
+                                                   uniforms=u),
+                         seeds, n_valid)
+    with torch.no_grad():
+      bk = batch()
+      lk = float(sage_loss(net, bk))
+      with swapped_to_plain(K, ('gather_windows', 'sample_hop',
+                                'gather_rows')):
+        bp = batch()
+        lp = float(sage_loss(net, bp))
+    for f in ('node', 'node_count', 'row', 'col', 'edge_mask', 'x', 'y',
+              'num_sampled_edges'):
+      if not torch.equal(getattr(bk, f), getattr(bp, f)):
+        raise AssertionError(f'train batch.{f} differs between kernels and '
+                             'plain')
+    if not abs(lk - lp) <= LOSS_TOL * max(1.0, abs(lp)):
+      raise AssertionError(f'first-step loss {lk} vs plain {lp}')
+    print(f'train batch {TRAIN_BATCH} ({n_valid} real seeds): bit-identical '
+          f'({int(bk.node_count)} nodes, {int(bk.edge_mask.sum())} edges), '
+          f'loss {lk:.6f} vs plain {lp:.6f} (|diff| {abs(lk - lp):.3e}, '
+          f'tolerance {LOSS_TOL})')
+    del bk, bp, net
+
+  medians = []
+
+  def train(label, data, steps, net):
+    """``steps`` training steps; returns the losses, the seconds of the
+    steps after the first two and their sampled edges."""
+    step = SageTrainStep(net, lr=LR)
+    losses, secs, edges = [], [], []
+    it = iter(data)
+    for i in range(steps):
+      t0 = time.perf_counter()
+      b = next(it)
+      losses.append(step(b))
+      n_edges = b.num_sampled_edges.sum()
+      torch.cuda.synchronize()
+      secs.append(time.perf_counter() - t0)
+      edges.append(n_edges)
+    losses = [float(v) for v in losses]
+    medians.append(float(np.median(secs[2:])) * 1e3)
+    if not all(np.isfinite(losses)):
+      raise AssertionError(f'{label}: non-finite loss {losses}')
+    tail = float(np.mean(losses[-5:]))
+    if not tail < losses[0]:
+      raise AssertionError(f'{label}: loss did not fall ({losses[0]} -> '
+                           f'mean of the last 5 {tail})')
+    meter = ThroughputMeter('edges')
+    meter.update(int(sum(int(e) for e in edges[2:])), sum(secs[2:]))
+    print(f'{label}: {steps} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}'
+          f' (mean of the last 5 {tail:.4f}); steps 3-{steps}: '
+          f'{(steps - 2) / sum(secs[2:]):.3f} steps/s, median '
+          f'{np.median(secs[2:]) * 1e3:.3f} ms, {meter.report()} '
+          f'({meter.rate:.1f} sampled edges/s); first two steps '
+          f'{secs[0] * 1e3:.3f}, {secs[1] * 1e3:.3f} ms; on {smi}')
+    return losses
+
+  with Phase('train main path'):
+    net = model()
+    torch.cuda.synchronize()
+    print(f'resident before training {torch.cuda.memory_allocated() / 2**30:.3f}'
+          ' GiB')
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    train('weighted training', wl, TRAIN_STEPS, net)
+    median_ms = medians[-1]
+    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(gather_windows=3 * TRAIN_STEPS, sample_hop=3 * TRAIN_STEPS,
+                gather_rows=TRAIN_STEPS, sample_walk_dedup=0)
+    for name, n in want.items():
+      if launches[name] != n:
+        raise AssertionError(f'{name}: {launches[name]} launches on the '
+                             f'weighted training path, expected {n}')
+    print(f'launches {launches}; peak memory {peak / 2**30:.3f} GiB '
+          f'({peak} bytes)')
+
+  with Phase('train uniform path'):
+    net = model()
+    K.reset_launch_counts()
+    train('uniform training', loader(False), UNIFORM_STEPS, net)
+    uniform_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    for name in ('sample_walk_dedup', 'dedup_table_insert', 'gather_rows'):
+      if uniform_launches[name] == 0:
+        raise AssertionError(f'{name} never launched on the uniform '
+                             'training path')
+    if uniform_launches['gather_windows']:
+      raise AssertionError('the uniform training path read windows')
+    print(f'launches {uniform_launches}')
+
+  with Phase('full-neighbour check'):
+    full = NeighborSampler(g, [10, -1], device=dev, seed=seed)
+    seeds = train_idx[:256]
+    u = full.hop_uniforms(256)
+    before = K.gather_windows.launches
+    ok = full.sample_from_nodes(seeds, uniforms=u)
+    if K.gather_windows.launches != before + 1:
+      raise AssertionError('the -1 hop did not read through gather_windows')
+    with swapped_to_plain(K, ('gather_windows', 'sample_hop')):
+      op = full.sample_from_nodes(seeds, uniforms=u)
+    for f in ('node', 'node_count', 'row', 'col', 'edge_mask',
+              'num_sampled_nodes', 'num_sampled_edges'):
+      if not torch.equal(getattr(ok, f), getattr(op, f)):
+        raise AssertionError(f'[10, -1] {f} differs between kernels and '
+                             'plain')
+    print(f'[10, -1] at batch 256 (window {-full.num_neighbors[1]}): '
+          f'bit-identical to plain, {int(ok.node_count)} nodes, '
+          f'{int(ok.num_sampled_edges.sum())} edges')
+    del full, ok, op
+
+  with Phase('train profile'):
+    # 3 weighted steps of the loader and SageTrainStep, the step's stages
+    # synced (sync_stages) so that its kernels (the backward's, launched
+    # by autograd's thread, too) are told apart by their host ranges; the
+    # loader's stages by their device-side extents
+    net = model()
+    step = SageTrainStep(net, lr=LR, sync_stages=True)
+    it = iter(wl)
+    step(next(it))      # warm
+
+    def run():
+      for _ in range(3):
+        step(next(it))
+    step_stages = ('train.forward', 'train.backward', 'train.optimizer')
+    wall, busy = profile_stages(
+        torch, run, 3, ('sample.multihop', 'gather.features') + step_stages,
+        'step', host_stages=step_stages)
+    print(f'train profile: device busy {busy:.3f} ms a step is '
+          f'{busy / median_ms * 100:.1f}% of the unsynchronised median step '
+          f'({median_ms:.3f} ms, train main path)')
+  return launches, uniform_launches
 
 
 def main() -> int:
@@ -493,8 +785,12 @@ def main() -> int:
                         device=dev)
     dst = (torch.rand(NUM_EDGES, generator=gen, device=dev) ** 2
            * NUM_NODES).long() % NUM_NODES
-    ds = Dataset().init_graph(torch.stack([src, dst]), num_nodes=NUM_NODES)
-    del src, dst
+    # edge weights in (0, 1] for weighted training, from their own stream
+    wgen = torch.Generator(device=dev).manual_seed(opts.seed + 6)
+    weights = 1.0 - torch.rand(NUM_EDGES, generator=wgen, device=dev)
+    ds = Dataset().init_graph(torch.stack([src, dst]), edge_weights=weights,
+                              num_nodes=NUM_NODES)
+    del src, dst, weights
     ds.init_node_features(torch.randn((NUM_NODES, FEAT_DIM), generator=gen,
                                       device=dev))
     engine = InferenceEngine(
@@ -793,8 +1089,12 @@ def main() -> int:
   torch.cuda.empty_cache()
 
   stream_launches = stream_phases(torch, np, K, ds, dev, opts.seed, rows)
+  torch.cuda.empty_cache()
+  train_launches, uniform_launches = train_phases(torch, np, K, ds, dev,
+                                                  opts.seed, rows, smi)
   by_path = {'homogeneous': homo_launches, 'hetero': hetero_launches,
-             'stream': stream_launches}
+             'stream': stream_launches, 'train': train_launches,
+             'train_uniform': uniform_launches}
   replaces = {
       'sample_walk_dedup': ('glt_tpu_torch/csrc/sample_walk_dedup.cu',
                             'glt_tpu/ops/pallas_kernels.py:998'),
@@ -806,6 +1106,8 @@ def main() -> int:
                            'glt_tpu/ops/pallas_kernels.py:653'),
       'sample_hop': ('glt_tpu_torch/csrc/sample_hop.cu',
                      'glt_tpu/ops/pallas_kernels.py:367'),
+      'gather_windows': ('glt_tpu_torch/csrc/gather_windows.cu',
+                         'glt_tpu/ops/pallas_kernels.py:165'),
   }
   print(f'walk B=1024: {walk[1024]["ms"]:.4f} ms, plain '
         f'{walk[1024]["plain_ms"]:.4f} ms, bound '

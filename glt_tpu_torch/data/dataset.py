@@ -9,9 +9,10 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
-from ..typing import EdgeType, NodeType
+from ..typing import EdgeType, NodeType, Split
 from ..utils import as_numpy, resolve_device
 from .feature import Feature
 from .graph import Graph, hetero_node_counts
@@ -25,20 +26,25 @@ class Dataset:
     self.graph = graph
     self.node_features = node_features
     self.node_labels = node_labels
+    self.node_split = None   # (train_idx, val_idx, test_idx)
 
-  def init_graph(self, edge_index, edge_ids=None, num_nodes=None,
-                 device=None) -> 'Dataset':
+  def init_graph(self, edge_index, edge_ids=None, edge_weights=None,
+                 num_nodes=None, device=None) -> 'Dataset':
     """Build the CSR from a [2, E] COO ``edge_index`` on ``device``
-    (default: the card). Hetero: ``edge_index`` (and ``edge_ids``) are
-    dicts keyed by EdgeType and ``num_nodes`` a dict keyed by NodeType
-    (or one int for every type); each edge type compresses into a
-    rectangular CSR over its (src, dst) node counts."""
+    (default: the card), with optional per-edge ``edge_weights``
+    (homogeneous; weighted sampling reads them). Hetero: ``edge_index``
+    (and ``edge_ids``) are dicts keyed by EdgeType and ``num_nodes`` a
+    dict keyed by NodeType (or one int for every type); each edge type
+    compresses into a rectangular CSR over its (src, dst) node counts."""
     device = resolve_device(device)
     if not isinstance(edge_index, dict):
-      topo = Topology(edge_index, edge_ids=edge_ids, num_nodes=num_nodes,
+      topo = Topology(edge_index, edge_ids=edge_ids,
+                      edge_weights=edge_weights, num_nodes=num_nodes,
                       device=device)
       self.graph = Graph(topo, device=device)
       return self
+    if edge_weights is not None:
+      raise NotImplementedError('hetero edge weights are not ported')
     self.graph = {}
     for etype, ei in edge_index.items():
       src_t, _, dst_t = etype
@@ -67,6 +73,26 @@ class Dataset:
   def init_node_labels(self, node_label_data) -> 'Dataset':
     self.node_labels = as_numpy(node_label_data)
     return self
+
+  def random_node_split(self, num_val, num_test, seed: int = 0
+                        ) -> 'Dataset':
+    """(train, val, test) id arrays from one ``default_rng(seed)``
+    permutation of the nodes, the JAX package's split exactly: the first
+    ``num_val`` permuted ids validate, the next ``num_test`` test, the
+    rest train; a float is a fraction of the nodes. Homogeneous only (no
+    ported caller splits a hetero dataset)."""
+    if self.is_hetero:
+      raise NotImplementedError('hetero node splits are not ported')
+    n = self.graph.num_nodes
+    perm = np.random.default_rng(seed).permutation(n)
+    nv = int(num_val * n) if isinstance(num_val, float) else num_val
+    nt = int(num_test * n) if isinstance(num_test, float) else num_test
+    self.node_split = (perm[nv + nt:], perm[:nv], perm[nv:nv + nt])
+    return self
+
+  def get_split(self, split: Split) -> np.ndarray:
+    return self.node_split[{Split.train: 0, Split.valid: 1,
+                            Split.test: 2}[Split(split)]]
 
   @property
   def is_hetero(self) -> bool:

@@ -1,9 +1,11 @@
 """Device-resident graph storage (counterpart of glt_tpu/data/graph.py).
 
-The CUDA walk reads elements directly, so the TPU's W-padded window
-copies (``window_arrays``) and hub counts have no counterpart: the device
-holds the CSR once, plus ``indptr_pad`` ([N + 2] int32 with a trailing
-``num_edges`` sentinel) so an invalid frontier id reads degree 0.
+The CUDA kernels read elements directly and clip each one, so the TPU's
+W-padded window copies (``window_arrays``) and hub counts have no
+counterpart: the device holds the CSR once (and the edge weights, when
+the topology has them), plus ``indptr_pad`` ([N + 2] int32 with a
+trailing ``num_edges`` sentinel) so an invalid frontier id reads degree
+0.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ class Graph:
     self.indptr = topo.indptr.to(self.device, torch.int32)
     self.indices = topo.indices.to(self.device)
     self.edge_ids = topo.edge_ids.to(self.device)
+    self.edge_weights = (topo.edge_weights.to(self.device, torch.float32)
+                         if topo.edge_weights is not None else None)
     self.indptr_pad = torch.cat([
         self.indptr,
         torch.full((1,), topo.num_edges, dtype=torch.int32,

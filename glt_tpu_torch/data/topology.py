@@ -34,10 +34,12 @@ class Topology:
   ``indptr`` is int64 (graphs past 2^31 edges must not wrap; the device
   copy narrows it), ``indices`` int32, and ``edge_ids[k]`` the original
   id of compressed slot k (the input position unless ``edge_ids`` are
-  given). Arrays live on ``device`` (default: where ``edge_index`` is).
+  given). ``edge_weights`` (optional, one per input edge) are permuted
+  into the same slot order. Arrays live on ``device`` (default: where
+  ``edge_index`` is).
   """
 
-  def __init__(self, edge_index, edge_ids=None,
+  def __init__(self, edge_index, edge_ids=None, edge_weights=None,
                num_nodes: Optional[int] = None,
                num_rows: Optional[int] = None,
                num_cols: Optional[int] = None, device=None):
@@ -56,6 +58,8 @@ class Topology:
                                                 self.num_cols)
     edge_ids = _as_tensor(edge_ids, row.device)
     self.edge_ids = edge_ids.long()[perm] if edge_ids is not None else perm
+    w = _as_tensor(edge_weights, row.device)
+    self.edge_weights = w[perm] if w is not None else None
 
   @property
   def num_nodes(self) -> int:

@@ -3,7 +3,7 @@ glt_tpu/loader/transform.py): the fields PyG models read, padded."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -26,6 +26,8 @@ class Batch:
   num_sampled_edges: Optional[torch.Tensor] = None
   batch_size: int = 0
   edge_hop_offsets: Optional[Tuple[int, ...]] = None
+  #: the sampler's metadata; a loader adds ``n_valid`` (real seeds)
+  metadata: Optional[Dict[str, Any]] = None
 
 
 def to_batch(out: SamplerOutput, x: Optional[torch.Tensor] = None,
@@ -36,7 +38,7 @@ def to_batch(out: SamplerOutput, x: Optional[torch.Tensor] = None,
       x=x, y=y, row=out.row, col=out.col, edge_mask=out.edge_mask,
       node=out.node, node_count=out.node_count, edge=out.edge,
       num_sampled_nodes=out.num_sampled_nodes,
-      num_sampled_edges=out.num_sampled_edges,
+      num_sampled_edges=out.num_sampled_edges, metadata=out.metadata,
       batch_size=batch_size if batch_size is not None
       else (out.batch.shape[0] if out.batch is not None else 0),
       edge_hop_offsets=tuple(out.edge_hop_offsets)

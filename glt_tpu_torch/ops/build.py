@@ -21,7 +21,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                          '_build')
 SOURCES = ('gather_rows', 'dedup_table_insert', 'sample_walk_dedup',
-           'sample_hop_dedup', 'sample_hop')
+           'sample_hop_dedup', 'sample_hop', 'gather_windows')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -55,6 +55,9 @@ SIGNATURES = {
     'sample_hop': {
         'glt_sample_hop': [_vp, _vp, _i64, _vp, _vp, _i32, _i32, _vp, _vp,
                            _vp],
+    },
+    'gather_windows': {
+        'glt_gather_windows': [_vp, _i64, _vp, _i32, _i32, _vp, _vp],
     },
 }
 

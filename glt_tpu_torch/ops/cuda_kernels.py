@@ -18,6 +18,7 @@ wrapper                       replaces (glt_tpu/ops/...)        source
 ``sample_hop_dedup``          pallas_kernels.py:653 + the       csrc/sample_hop_dedup.cu
                               epilogue of pipeline.py:1162-1203
 ``sample_hop``                pallas_kernels.py:367             csrc/sample_hop.cu
+``gather_windows``            pallas_kernels.py:165             csrc/gather_windows.cu
 ============================  ================================  ==========
 """
 from __future__ import annotations
@@ -535,6 +536,62 @@ def sample_hop(indices: torch.Tensor, eids: Optional[torch.Tensor],
   return picks, eid_picks
 
 
+# -- B3: gather_windows ---------------------------------------------------------
+
+def _check_window_inputs(arr, starts, width):
+  if arr.dim() != 1 or arr.element_size() != 4:
+    raise ValueError(f'gather_windows reads a 1-D array of 4-byte elements, '
+                     f'got {tuple(arr.shape)} {arr.dtype}')
+  if width <= 0:
+    raise ValueError(f'window width must be positive, got {width}')
+  if starts.numel() and arr.numel() == 0:
+    raise ValueError('gather_windows reads from an empty array')
+  if starts.numel() * width >= 2 ** 31:
+    raise ValueError('a window read addresses its lanes with int32')
+
+
+def gather_windows_plain(arr: torch.Tensor, starts: torch.Tensor,
+                         width: int) -> torch.Tensor:
+  """:func:`gather_windows` in plain PyTorch: one ``torch.take`` over the
+  clipped ``[S, width]`` slots."""
+  _check_window_inputs(arr, starts, width)
+  win = torch.arange(width, device=starts.device)
+  slots = (starts.long()[:, None] + win).clamp(0, max(arr.numel() - 1, 0))
+  return torch.take(arr, slots)
+
+
+def gather_windows(arr: torch.Tensor, starts: torch.Tensor,
+                   width: int) -> torch.Tensor:
+  """Contiguous windows of ``arr``: ``out[i, j] = arr[clip(starts[i] + j,
+  0, len - 1)]``.
+
+  Args:
+    arr: [E] float32 or int32 (any 4-byte type): edge weights or
+      neighbour ids.
+    starts: [S] each row's CSR start.
+    width: the static window width (the hop's ``max_degree``).
+
+  Returns ``[S, width]`` of ``arr``'s dtype. The TPU kernel clamps whole
+  windows into an array padded by ``width`` sentinels; this one clips
+  each element, so lanes ``j < deg`` read the row's neighbours and lanes
+  past it read whatever follows, which every caller masks.
+  """
+  if not arr.is_cuda:
+    return gather_windows_plain(arr, starts, width)
+  _check_window_inputs(arr, starts, width)
+  dev = arr.device
+  arr = arr.contiguous()
+  starts = _i32(starts, dev)
+  s = starts.numel()
+  out = torch.empty((s, width), dtype=arr.dtype, device=dev)
+  if s:
+    _check(_lib('gather_windows').glt_gather_windows(
+        _ptr(arr), arr.numel(), _ptr(starts), s, width, _ptr(out),
+        _stream(dev)), 'gather_windows')
+    gather_windows.launches += 1
+  return out
+
+
 KERNELS = (gather_rows, dedup_table_insert, sample_walk_dedup,
-           sample_hop_dedup, sample_hop)
+           sample_hop_dedup, sample_hop, gather_windows)
 reset_launch_counts()

@@ -8,10 +8,10 @@ its ``GLT_DEDUP=sort GLT_FUSED_HOP=1`` reference, given the same
 uniforms. Heterogeneous: :func:`multihop_sample_hetero`, one
 ``cuda_kernels.sample_hop_dedup`` per hop for every edge type,
 bit-identical to the JAX hetero ``GLT_DEDUP=sort GLT_FUSED_HOP=1``
-reference. Live-update streams: :func:`multihop_sample_sorted`, a per-hop
-loop over a ``one_hop`` callable (the stream's delta hops) with the
-``sorted_hop_dedup_fused`` inducer, bit-identical to the JAX
-``GLT_DEDUP=sort GLT_FUSED_HOP=1`` hop loop.
+reference. Weighted, full-neighbourhood and live-update hops:
+:func:`multihop_sample_sorted`, a per-hop loop over a ``one_hop``
+callable with the ``sorted_hop_dedup_fused`` inducer, bit-identical to
+the JAX ``GLT_DEDUP=sort GLT_FUSED_HOP=1`` hop loop.
 """
 from __future__ import annotations
 
@@ -112,17 +112,18 @@ def multihop_sample(plan: FusedHopPlan, seeds: torch.Tensor, n_valid: int,
 
 
 def multihop_sample_sorted(one_hop: OneHopFn, seeds: torch.Tensor,
-                           n_valid: int, widths: Sequence[int],
+                           n_valid: int, fanouts: Sequence[int],
                            u_hops: Sequence[Optional[torch.Tensor]]
                            ) -> Dict[str, torch.Tensor]:
   """The per-hop loop (counterpart of the fused branch of
   glt_tpu/ops/pipeline.py ``_multihop_sample_sorted``): the exact seed
   hop, then per hop ``one_hop(h, frontier_ids, frontier_mask, u_hops[h])``
-  of width ``widths[h]`` and :func:`sorted_hop_dedup_fused`, whose new
-  heads (each new id's minimum slot, non-heads INT32_MAX) are the next
-  frontier. Returns the output dict of :func:`multihop_sample` without
-  ``edge``."""
+  of width ``abs(fanouts[h])`` (a negative fanout is a full-neighbourhood
+  window) and :func:`sorted_hop_dedup_fused`, whose new heads (each new
+  id's minimum slot, non-heads INT32_MAX) are the next frontier. Returns
+  the output dict of :func:`multihop_sample` without ``edge``."""
   batch_size = seeds.numel()
+  widths = [abs(int(f)) for f in fanouts]
   budget = sample_budget(batch_size, widths)
   d, seed_labels = _fused_seed_hop(seeds, n_valid)
   u_ids, u_labs, count = d['u_ids2'], d['u_labs2'], d['count2']

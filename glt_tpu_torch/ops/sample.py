@@ -1,4 +1,4 @@
-"""Uniform neighbour draws and one-hop reads (counterpart of
+"""Neighbour draws and one-hop reads (counterpart of
 glt_tpu/ops/sample.py).
 
 The walk's offsets are a pure function of (degree, uniforms): Floyd's
@@ -8,11 +8,13 @@ the TPU draw, so injected ``jax.random`` uniforms reproduce its picks bit
 for bit. The CUDA walk computes the same formula per thread; the helpers
 here are the plain version's and the tests'.
 
-:func:`sample_neighbors` and :func:`sample_full_neighbors` are the
-one-hop reads of the per-hop loop (the live-update stream's delta hops):
-the uniform hop draws here and reads its neighbours through the
-``sample_hop`` kernel; the full-neighbourhood window reads plainly, as the
-JAX package reads it with ``jnp.take``.
+:func:`sample_neighbors`, :func:`sample_neighbors_weighted` and
+:func:`sample_full_neighbors` are the one-hop reads of the per-hop loop
+(``ops.pipeline.multihop_sample_sorted``): the uniform hop draws here and
+reads its neighbours through the ``sample_hop`` kernel; the weighted and
+the full-neighbourhood hops read their ``[S, max_degree]`` windows through
+the ``gather_windows`` kernel, as the JAX package reads them under
+``GLT_USE_PALLAS=1``.
 """
 from __future__ import annotations
 
@@ -101,8 +103,8 @@ def draw_offsets(deg: torch.Tensor, u: torch.Tensor, fanout: int,
 
 class NeighborOutput(NamedTuple):
   """One-hop result in padded layout, [S, K] each: neighbour ids
-  (undefined where ``~mask``) and validity. The stream, its only caller,
-  samples no edge ids."""
+  (undefined where ``~mask``) and validity. No ported caller samples edge
+  ids on the per-hop loop."""
   nbrs: torch.Tensor
   mask: torch.Tensor
 
@@ -143,18 +145,67 @@ def sample_full_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
                           ) -> NeighborOutput:
   """Every neighbour of each seed, in adjacency order, inside a static
   ``[S, max_degree]`` window (degrees above it truncate): the JAX
-  ``sample_full_neighbors`` read without its ``window_gather`` option."""
+  ``sample_full_neighbors`` with its ``window_gather``, one
+  ``gather_windows`` launch over ``indices``. Lanes past a row's degree
+  are masked; they read what the kernel's clip gives them."""
   if max_degree <= 0:
     raise ValueError(f'max_degree must be positive, got {max_degree}')
-  e = indices.numel()
-  if e == 0:
+  if indices.numel() == 0:
     return _empty_output(seeds.numel(), max_degree, seeds.device)
   start, deg = _row_spans(indptr, seeds, seed_mask)
   win = torch.arange(max_degree, dtype=torch.int32,
                      device=seeds.device)[None, :]
   mask = win < deg.clamp(max=max_degree)[:, None]
-  slots = (start.long()[:, None] + win).clamp(0, e - 1)
-  return NeighborOutput(nbrs=indices[slots].to(torch.int32), mask=mask)
+  nbrs = cuda_kernels.gather_windows(indices, start, max_degree)
+  return NeighborOutput(nbrs=nbrs.to(torch.int32), mask=mask)
+
+
+def sample_neighbors_weighted(indptr: torch.Tensor, indices: torch.Tensor,
+                              weights: torch.Tensor, seeds: torch.Tensor,
+                              fanout: int, u: torch.Tensor, max_degree: int,
+                              seed_mask: Optional[torch.Tensor] = None
+                              ) -> NeighborOutput:
+  """Weight-proportional sampling of up to ``fanout`` distinct neighbours
+  per seed by Gumbel-top-k (the JAX ``sample_neighbors_weighted``): one
+  ``gather_windows`` launch reads each seed's ``[max_degree]`` weight
+  window, lanes past the degree or of weight <= 0 get key -inf, the
+  others ``log(w) - log(-log(u))``, the top ``fanout`` keys are the
+  picks, and one ``sample_hop`` launch reads their neighbour ids. A hub
+  row draws among its first ``max_degree`` neighbours only.
+
+  ``u``: [S, max_degree] float32 in (0, 1) (:func:`weighted_hop_uniforms`
+  shapes them as the JAX draw does). The mask comes from the keys, as
+  ``top_valid`` does: a seed with fewer positive-weight neighbours than
+  ``fanout`` takes them all, and its other lanes are invalid."""
+  if not 0 < fanout <= max_degree:
+    raise ValueError(f'fanout {fanout} must be in [1, max_degree = '
+                     f'{max_degree}]')
+  if indices.numel() == 0:
+    return _empty_output(seeds.numel(), fanout, seeds.device)
+  start, deg = _row_spans(indptr, seeds, seed_mask)
+  win = torch.arange(max_degree, dtype=torch.int32,
+                     device=seeds.device)[None, :]
+  valid = win < deg.clamp(max=max_degree)[:, None]
+  w = cuda_kernels.gather_windows(weights, start, max_degree).float()
+  w = torch.where(valid & (w > 0), w, torch.zeros_like(w))
+  g = -torch.log(-torch.log(u))
+  keys = torch.where(w > 0, torch.log(w) + g,
+                     torch.full_like(w, -float('inf')))
+  top_keys, top = torch.topk(keys, fanout, dim=1)
+  nbrs, _ = cuda_kernels.sample_hop(indices, None, start,
+                                    top.to(torch.int32))
+  return NeighborOutput(nbrs=nbrs, mask=top_keys > -float('inf'))
+
+
+def weighted_hop_uniforms(generator: Optional[torch.Generator], s: int,
+                          max_degree: int, device) -> torch.Tensor:
+  """One weighted hop's ``[S, max_degree]`` float32 uniforms, drawn from
+  ``generator`` on ``device`` and mapped as ``jax.random.uniform(key,
+  (S, max_degree), minval=1e-20, maxval=1.0)`` maps its draws (``u *
+  (maxval - minval) + minval``, then at least ``minval``), so the Gumbel
+  noise never takes the log of 0."""
+  u = torch.rand((s, max_degree), generator=generator, device=device)
+  return (u * (1.0 - 1e-20) + 1e-20).clamp_(min=1e-20)
 
 
 def walk_hop_uniforms(generator: Optional[torch.Generator],

@@ -1,0 +1,70 @@
+"""The GraphSAGE training step on one device (counterpart of
+``_sage_update`` in glt_tpu/parallel/train.py, without its ``pmean``: the
+data-parallel step over several cards waits for the distributed port).
+
+The loss is the masked softmax cross-entropy of the seed rows, averaged
+over the ``n_valid`` real seeds of the batch; autograd through the
+model's ``index_add_`` aggregation carries the gradient (no Pallas kernel
+of the JAX package has a backward); ``torch.optim.Adam`` applies it with
+optax's ``adam`` defaults (b1 0.9, b2 0.999, eps 1e-8, eps_root 0). The
+three stages carry ``torch.profiler`` ranges (``train.forward``,
+``train.backward``, ``train.optimizer``); with ``sync_stages`` each of
+them starts and ends in a device sync, so that a trace can attribute the
+kernels that ran inside a range's host interval to its stage, the
+backward's too (autograd launches those from its own thread, outside the
+range's device-side extent).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.profiler import record_function
+
+from ..loader.transform import Batch
+
+
+def sage_loss(model: nn.Module, batch: Batch) -> torch.Tensor:
+  """Mean cross-entropy of the logits against ``batch.y`` over the first
+  ``batch.metadata['n_valid']`` seeds (padded seeds weigh nothing)."""
+  logits = model(batch)
+  n = logits.shape[0]
+  mask = torch.arange(n, device=logits.device) < batch.metadata['n_valid']
+  losses = F.cross_entropy(logits, batch.y.long(), reduction='none')
+  return (torch.where(mask, losses, torch.zeros_like(losses)).sum()
+          / mask.sum().clamp(min=1))
+
+
+class SageTrainStep:
+  """One forward/backward/Adam update of ``model`` per call.
+
+  Args:
+    model: a module consuming a Batch (e.g. models.GraphSAGE).
+    lr: Adam's learning rate (the reference's 1e-3).
+    sync_stages: synchronise the card around every stage (for profiling;
+      a no-op for a model on the CPU).
+  """
+
+  def __init__(self, model: nn.Module, lr: float = 1e-3,
+               sync_stages: bool = False):
+    self.model = model
+    self.optimizer = torch.optim.Adam(model.parameters(), lr=lr,
+                                      betas=(0.9, 0.999), eps=1e-8)
+    device = next(model.parameters()).device
+    self._sync = (lambda: torch.cuda.synchronize(device)) if (
+        sync_stages and device.type == 'cuda') else (lambda: None)
+
+  def __call__(self, batch: Batch) -> torch.Tensor:
+    """Returns the batch's loss (before the update), detached."""
+    self.optimizer.zero_grad(set_to_none=True)
+    self._sync()
+    with record_function('train.forward'):
+      loss = sage_loss(self.model, batch)
+      self._sync()
+    with record_function('train.backward'):
+      loss.backward()
+      self._sync()
+    with record_function('train.optimizer'):
+      self.optimizer.step()
+      self._sync()
+    return loss.detach()

@@ -1,11 +1,15 @@
 """NeighborSampler: multi-hop sampling on the device (counterpart of
 glt_tpu/sampler/neighbor_sampler.py).
 
-Uniform positive fanouts, homogeneous through the walk
-(``ops.pipeline.multihop_sample``) and heterogeneous through one
+Homogeneous uniform positive fanouts run the walk
+(``ops.pipeline.multihop_sample``); weighted sampling and ``-1``
+(full-neighbourhood) fanouts run the per-hop loop
+(``ops.pipeline.multihop_sample_sorted``), as the JAX sampler demotes
+them from its fused engine to the ``pallas`` per-hop engine: a weighted
+hop reads its weight window and a full hop its neighbour window through
+``gather_windows``, a uniform hop of a mixed list reads through
+``sample_hop``. Heterogeneous graphs take uniform positive fanouts, one
 ``sample_hop_dedup`` per hop (``ops.pipeline.multihop_sample_hetero``).
-Weighted and full-neighbourhood sampling come in later slices and are
-refused here.
 
 Orientation contract (the reference's): ``row`` holds message-source
 (child) labels and ``col`` message-destination (parent) labels. The
@@ -23,9 +27,11 @@ from ..data import Graph, hetero_node_counts
 from ..ops.cuda_kernels import walk_table_slots
 from ..ops.pipeline import (edge_hop_offsets, hetero_edge_hop_offsets,
                             multihop_sample, multihop_sample_hetero,
-                            sample_budget)
+                            multihop_sample_sorted, sample_budget)
 from ..ops.sample import (FusedHopPlan, HeteroFusedPlan, hetero_hop_uniforms,
-                          walk_hop_uniforms)
+                          sample_full_neighbors, sample_neighbors,
+                          sample_neighbors_weighted, walk_hop_uniforms,
+                          weighted_hop_uniforms)
 from ..typing import EdgeType, NodeType, reverse_edge_type
 from ..utils import as_numpy, make_generator, resolve_device
 from ..utils.rng import RandomSeedManager
@@ -34,25 +40,33 @@ from .base import (BaseSampler, HeteroSamplerOutput, NodeSamplerInput,
 
 
 class NeighborSampler(BaseSampler):
-  """Uniform multi-hop neighbour sampling over device CSRs.
+  """Uniform or weighted multi-hop neighbour sampling over device CSRs.
 
   Args:
     graph: a :class:`Graph`, or a dict of them keyed by EdgeType
       (hetero), on ``device``.
-    num_neighbors: positive fanout per hop, e.g. ``[15, 10, 5]``; hetero:
-      one list for every edge type or a dict keyed by EdgeType, every
-      list of the same length.
+    num_neighbors: fanout per hop, e.g. ``[15, 10, 5]``; ``-1`` expands
+      every neighbour inside a static window of the graph's max degree
+      (exact; the frontier grows by the window per ``-1`` hop). Hetero:
+      positive fanouts, one list for every edge type or a dict keyed by
+      EdgeType, every list of the same length.
     device: where sampling runs (default: the card; raises when there is
       none). The graph must already live there.
-    with_edge: also emit the sampled edges' ids.
-    replace: sample with replacement.
+    with_edge: also emit the sampled edges' ids (the walk and the hetero
+      path only).
+    with_weight: edge-weight-biased sampling of positive hops (Gumbel
+      top-k over each row's neighbours, in a window of the graph's max
+      degree and never below the hop's fanout) on a graph with
+      ``edge_weights``; without them the hops stay uniform, as in JAX.
+    replace: sample with replacement (the walk and the hetero path only).
     seed: seed of the sampler's ``torch.Generator``; defaults to the
       process :class:`RandomSeedManager` seed.
   """
 
   def __init__(self, graph: Union[Graph, Dict[EdgeType, Graph]],
                num_neighbors, device=None, with_edge: bool = False,
-               replace: bool = False, seed: Optional[int] = None):
+               with_weight: bool = False, replace: bool = False,
+               seed: Optional[int] = None):
     self.device = resolve_device(device)
     self.is_hetero = isinstance(graph, dict)
     graphs = graph.values() if self.is_hetero else (graph,)
@@ -72,16 +86,26 @@ class NeighborSampler(BaseSampler):
         raise ValueError('all edge types need the same hop count')
       self.num_hops = hops.pop()
       self.node_counts = hetero_node_counts(graph)
+      if with_weight or any(f <= 0 for f in fanouts):
+        raise NotImplementedError(
+            'hetero sampling in the port takes uniform positive fanouts')
     else:
-      self.num_neighbors = fanouts = [int(f) for f in num_neighbors]
-      self.num_hops = len(fanouts)
-    if any(f <= 0 for f in fanouts):
-      raise NotImplementedError(
-          'the port serves uniform positive fanouts; full-neighbourhood '
-          '(-1) hops are not ported yet')
+      self.num_neighbors = [self._resolve_fanout(f, graph)
+                            for f in num_neighbors]
+      self.num_hops = len(self.num_neighbors)
     self.graph = graph
     self.with_edge = with_edge
     self.replace = replace
+    self.with_weight = with_weight
+    #: weighted or full hops run the per-hop loop; uniform positive
+    #: fanouts the walk
+    self._per_hop = not self.is_hetero and (
+        with_weight or any(f < 0 for f in self.num_neighbors))
+    if self._per_hop and (with_edge or replace):
+      raise NotImplementedError(
+          'with_edge and replace are not ported for weighted or -1 hops')
+    self._weighted = (self._per_hop and with_weight
+                      and graph.edge_weights is not None)
     self.generator = make_generator(
         seed if seed is not None
         else RandomSeedManager.getInstance().getSeed(), self.device)
@@ -94,6 +118,38 @@ class NeighborSampler(BaseSampler):
           with_eids=with_edge, replace=replace)
 
   # -- homogeneous --------------------------------------------------------
+
+  @staticmethod
+  def _resolve_fanout(fanout, g: Graph) -> int:
+    """Positive fanouts stay; ``-1`` becomes ``-window``, the full hop's
+    static window (capacity math uses ``abs``), as the JAX sampler
+    encodes it."""
+    fanout = int(fanout)
+    if fanout == -1:
+      cap = int(g.topo.max_degree)
+      if cap <= 0:
+        raise ValueError('graph has no edges; fanout -1 is meaningless')
+      return -cap
+    if fanout <= 0:
+      raise ValueError(f'fanout must be positive or -1, got {fanout}')
+    return fanout
+
+  def _weight_window(self, fanout: int) -> int:
+    return max(self.graph.topo.max_degree, fanout)
+
+  def _one_hop(self, h, ids, mask, u):
+    """One hop of the per-hop loop: full, weighted or uniform (the JAX
+    sampler's ``_one_hop`` dispatch)."""
+    g, fanout = self.graph, self.num_neighbors[h]
+    if fanout < 0:
+      return sample_full_neighbors(g.indptr, g.indices, ids, -fanout,
+                                   seed_mask=mask)
+    if self._weighted:
+      return sample_neighbors_weighted(
+          g.indptr, g.indices, g.edge_weights, ids, fanout, u,
+          self._weight_window(fanout), seed_mask=mask)
+    return sample_neighbors(g.indptr, g.indices, ids, fanout, u,
+                            seed_mask=mask)
 
   def _fused_plan(self, batch_size: int) -> FusedHopPlan:
     if batch_size not in self._plans:
@@ -115,8 +171,24 @@ class NeighborSampler(BaseSampler):
       return hetero_hop_uniforms(self.generator, self._traversal_types(),
                                  self.num_neighbors, caps, self.replace,
                                  self.device)
-    return walk_hop_uniforms(self.generator, batch_size, self.num_neighbors,
-                             self.replace, self.device)
+    if not self._per_hop:
+      return walk_hop_uniforms(self.generator, batch_size,
+                               self.num_neighbors, self.replace, self.device)
+    # the per-hop loop's draws, shaped as the JAX hops draw them from
+    # their keys: a uniform hop (K, S_h) transposed, a weighted hop
+    # (S_h, window); a full hop draws nothing
+    us, s = [], batch_size
+    for f in self.num_neighbors:
+      if f < 0:
+        us.append(None)
+      elif self._weighted:
+        us.append(weighted_hop_uniforms(self.generator, s,
+                                        self._weight_window(f), self.device))
+      else:
+        us.append(torch.rand((f, s), generator=self.generator,
+                             device=self.device).T.contiguous())
+      s *= abs(f)
+    return us
 
   def _seeds(self, x) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
@@ -138,9 +210,13 @@ class NeighborSampler(BaseSampler):
     n_valid = batch_size if n_valid is None else int(n_valid)
     if uniforms is None:
       uniforms = self.hop_uniforms(batch_size)
-    out = multihop_sample(self._fused_plan(batch_size), seeds, n_valid,
-                          self.num_neighbors, u_hops=uniforms,
-                          with_edge=self.with_edge)
+    if self._per_hop:
+      out = multihop_sample_sorted(self._one_hop, seeds, n_valid,
+                                   self.num_neighbors, uniforms)
+    else:
+      out = multihop_sample(self._fused_plan(batch_size), seeds, n_valid,
+                            self.num_neighbors, u_hops=uniforms,
+                            with_edge=self.with_edge)
     return SamplerOutput(
         node=out['node'], node_count=out['node_count'], row=out['row'],
         col=out['col'], edge_mask=out['edge_mask'], edge=out.get('edge'),

@@ -12,10 +12,15 @@ import pytest
 import torch
 
 from glt_tpu_torch.data import Dataset, Topology
+from glt_tpu_torch.loader import NeighborLoader
 from glt_tpu_torch.models import RGNN, GraphSAGE
 from glt_tpu_torch.ops import cuda_kernels as K
 from glt_tpu_torch.ops.pipeline import _fused_seed_hop, sample_budget
-from glt_tpu_torch.ops.sample import walk_hop_uniforms
+from glt_tpu_torch.ops.sample import (sample_full_neighbors,
+                                      sample_neighbors_weighted,
+                                      walk_hop_uniforms,
+                                      weighted_hop_uniforms)
+from glt_tpu_torch.parallel import SageTrainStep
 from glt_tpu_torch.serving import InferenceEngine
 from glt_tpu_torch.stream import (CompactionPolicy, SnapshotManager,
                                   StreamIngestor, StreamSampler)
@@ -222,3 +227,90 @@ def test_stream_engine_serves_through_the_kernels(dev):
   assert info['version'] == 1 and info['invalidated'] >= 2
   assert eng.snapshot_version == 1
   assert not np.allclose(eng.infer([1])[0], out[1])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.int32])
+def test_gather_windows_matches_plain(dev, dtype):
+  g = torch.Generator(device=dev).manual_seed(17)
+  e = 90_000
+  arr = torch.randint(-1000, 1000, (e,), generator=g, device=dev).to(dtype)
+  for s, width in ((4096, 55), (1000, 1), (333, 128), (0, 8)):
+    starts = torch.randint(0, e, (s,), generator=g, device=dev,
+                           dtype=torch.int32)
+    if s:
+      starts[-2:] = torch.tensor([e - 1, e - width // 2 - 1], device=dev)
+    before = K.gather_windows.launches
+    got = K.gather_windows(arr, starts, width)
+    assert K.gather_windows.launches == before + (s > 0)
+    assert got.dtype == dtype and got.shape == (s, width)
+    assert torch.equal(got, K.gather_windows_plain(arr, starts, width))
+  with pytest.raises(ValueError, match='4-byte'):
+    K.gather_windows(arr.double(), starts, 4)
+
+
+def _weighted_csr(dev, n=6000, e=120_000, seed=19):
+  g = torch.Generator(device=dev).manual_seed(seed)
+  ei = torch.stack([torch.randint(0, n, (e,), generator=g, device=dev),
+                    torch.randint(0, n, (e,), generator=g, device=dev)])
+  w = 1.0 - torch.rand(e, generator=g, device=dev)
+  w[::13] = 0.0
+  ds = Dataset().init_graph(ei, edge_weights=w, num_nodes=n, device=dev)
+  return ds.get_graph(), g
+
+
+def _plain_route(monkeypatch):
+  for name in ('gather_windows', 'sample_hop'):
+    monkeypatch.setattr(K, name, getattr(K, name + '_plain'))
+
+
+def test_weighted_hop_matches_plain(dev, monkeypatch):
+  graph, g = _weighted_csr(dev)
+  d = graph.topo.max_degree
+  seeds = torch.randint(0, 6000, (5000,), generator=g, device=dev,
+                        dtype=torch.int32)
+  mask = torch.rand(5000, generator=g, device=dev) < 0.9
+  u = weighted_hop_uniforms(g, 5000, d, dev)
+  args = (graph.indptr, graph.indices, graph.edge_weights, seeds, 10, u, d)
+  before = K.gather_windows.launches
+  got = sample_neighbors_weighted(*args, seed_mask=mask)
+  assert K.gather_windows.launches == before + 1
+  _plain_route(monkeypatch)
+  want = sample_neighbors_weighted(*args, seed_mask=mask)
+  assert torch.equal(got.mask, want.mask)
+  assert torch.equal(got.nbrs, want.nbrs)
+  assert int(got.mask.sum()) > 0
+
+
+def test_full_hop_matches_plain(dev, monkeypatch):
+  graph, g = _weighted_csr(dev, seed=23)
+  seeds = torch.randint(0, 6000, (3000,), generator=g, device=dev,
+                        dtype=torch.int32)
+  seeds[0] = torch.iinfo(torch.int32).max     # an invalid frontier lane
+  args = (graph.indptr, graph.indices, seeds, graph.topo.max_degree)
+  got = sample_full_neighbors(*args)
+  _plain_route(monkeypatch)
+  want = sample_full_neighbors(*args)
+  assert torch.equal(got.mask, want.mask) and torch.equal(got.nbrs, want.nbrs)
+  assert not bool(got.mask[0].any())
+
+
+@pytest.mark.parametrize('sync_stages', [False, True])
+def test_weighted_loader_trains_through_the_kernels(dev, sync_stages):
+  graph, g = _weighted_csr(dev, seed=29)
+  n = graph.num_nodes
+  x = torch.randn((n, 32), generator=g, device=dev)
+  y = torch.argmax(x @ torch.randn((32, 5), generator=g, device=dev), 1)
+  ds = Dataset(graph=graph)
+  ds.init_node_features(x, device=dev)
+  ds.init_node_labels(y.cpu())
+  ds.random_node_split(0.1, 0.1)
+  loader = NeighborLoader(ds, [10, 5], ds.get_split('train'), batch_size=256,
+                          shuffle=True, with_weight=True, device=dev, seed=0)
+  step = SageTrainStep(GraphSAGE(32, 64, 5, num_layers=2).to(dev),
+                       sync_stages=sync_stages)
+  K.reset_launch_counts()
+  losses = [float(step(b)) for _, b in zip(range(4), loader)]
+  assert all(np.isfinite(losses))
+  assert K.gather_windows.launches == 4 * 2
+  assert K.sample_hop.launches == 4 * 2 and K.gather_rows.launches == 4
+  assert K.sample_walk_dedup.launches == 0

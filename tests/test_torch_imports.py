@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``glt_tpu_torch`` (the
-hetero models, loader and typing, and the live-update stream among them)
-and ``chip_smoke`` pulls in neither JAX nor the JAX package."""
+hetero models, loader and typing, the live-update stream, and the
+training slice's loaders, train step and profiling among them) and
+``chip_smoke`` pulls in neither JAX nor the JAX package."""
 import os
 import subprocess
 import sys
@@ -24,6 +25,10 @@ print('STREAM', all(m in sys.modules for m in (
     'glt_tpu_torch.stream', 'glt_tpu_torch.stream.delta',
     'glt_tpu_torch.stream.snapshot', 'glt_tpu_torch.stream.sampler',
     'glt_tpu_torch.stream.ingest', 'glt_tpu_torch.ops.delta')))
+print('TRAIN', all(m in sys.modules for m in (
+    'glt_tpu_torch.loader.node_loader', 'glt_tpu_torch.loader.neighbor_loader',
+    'glt_tpu_torch.loader.device_epoch', 'glt_tpu_torch.parallel.train',
+    'glt_tpu_torch.utils.profile')))
 '''
 
 
@@ -33,6 +38,7 @@ def test_port_and_chip_smoke_import_no_jax():
                        capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr
   assert 'BAD []' in out.stdout, out.stdout
-  assert int(out.stdout.split('LOADED ')[1].split()[0]) >= 27
+  assert int(out.stdout.split('LOADED ')[1].split()[0]) >= 41
   assert 'HETERO True' in out.stdout, out.stdout
   assert 'STREAM True' in out.stdout, out.stdout
+  assert 'TRAIN True' in out.stdout, out.stdout
