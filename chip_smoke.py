@@ -33,6 +33,14 @@ Usage, from the repository root, on a machine with a card:
 
     python3 chip_smoke.py [--seed N]
 
+The hop kernels sample_hop (at the stream request's and the weighted
+training step's hops) and gather_windows (at the weighted batch's
+windows) are timed in turns against torch.take over the same clipped
+slots (kernel, take, kernel, ... over ROUNDS rounds, medians), beside
+their byte bounds and host enqueue times; a "claim:" line compares each
+sum with torch.take's and gives the spread of their ratio over the
+rounds.
+
 Prints one line per phase with its seconds, the card's name and power
 limit, one JSON line of per-kernel numbers ({"kernels": [...]}) and, as
 the last line, {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -62,6 +70,9 @@ N_INSERTS, N_DELETES, N_FEATURE_ROWS = 1000, 500, 256
 # training: examples/train_sage_products.py (batch 1024, Adam 1e-3)
 TRAIN_BATCH, TRAIN_STEPS, UNIFORM_STEPS, LR = 1024, 30, 10, 1e-3
 LOSS_TOL = 1e-4   # same batch bit for bit; index_add_ atomics again
+# B2 and B3 against torch.take: timed in turns (kernel, take, kernel, ...)
+# over ROUNDS rounds, medians reported; host enqueue over HOST_CALLS calls
+ROUNDS, HOST_CALLS = 11, 200
 
 
 class Phase:
@@ -91,6 +102,98 @@ def cuda_ms(torch, fn, iters, warmup=2):
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / iters
+
+
+def in_turns_ms(torch, np, fns, iters=50):
+  """cuda_ms of each callable of ``fns`` (name -> fn) in each of ROUNDS
+  rounds, timed in turns within a round so that host noise hits them
+  alike: name -> array of the rounds' times."""
+  times = {n: [] for n in fns}
+  for _ in range(ROUNDS):
+    for n, fn in fns.items():
+      times[n].append(cuda_ms(torch, lambda i=0, fn=fn: fn(), iters))
+  return {n: np.array(v) for n, v in times.items()}
+
+
+def in_turns_host_us(torch, np, fns, calls=HOST_CALLS):
+  """Host microseconds per call to enqueue each callable of ``fns``: a
+  host clock over ``calls`` calls with no sync among them, the callables
+  in turns over ROUNDS rounds, medians."""
+  times = {n: [] for n in fns}
+  for _ in range(ROUNDS):
+    for n, fn in fns.items():
+      fn()
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      for _ in range(calls):
+        fn()
+      times[n].append((time.perf_counter() - t0) / calls * 1e6)
+      torch.cuda.synchronize()
+  return {n: float(np.median(v)) for n, v in times.items()}
+
+
+def verdict(what, ms, yardstick_ms, label='torch.take', ratios=None):
+  """One "claim:" line: ``ms`` against ``yardstick_ms`` (sums of medians)
+  and, given the per-round ratios of the two, their median and range,
+  which says whether the verdict is inside the host's round-to-round
+  noise."""
+  spread = ''
+  if ratios is not None:
+    lo, mid, hi = min(ratios), sorted(ratios)[len(ratios) // 2], max(ratios)
+    spread = (f'; kernel/{label} per round median {mid:.3f}, range '
+              f'[{lo:.3f}, {hi:.3f}]'
+              + (', level within the rounds\' noise' if lo <= 1 <= hi
+                 else ''))
+  print(f'claim: {what}: {ms:.4f} ms vs {label} {yardstick_ms:.4f} ms: '
+        f'{"no slower" if ms <= yardstick_ms else "SLOWER"}{spread}')
+
+
+def time_picks(torch, np, K, label, hops):
+  """B2 at each recorded hop ``(indices, eids, starts, offsets)``: equal
+  to plain, its time against torch.take over the same clipped slots (in
+  turns), its plain time, bound and host enqueue; returns the row of
+  sums."""
+  row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0)
+  rounds = {'kernel': 0.0, 'take': 0.0}
+  for h, (indices, eids, starts, offsets) in enumerate(hops):
+    got = K.sample_hop(indices, eids, starts, offsets)[0]
+    want = K.sample_hop_plain(indices, eids, starts, offsets)[0]
+    if not torch.equal(got, want):
+      raise AssertionError(f'sample_hop {label} hop {h + 1} differs from '
+                           'plain')
+    row['err'] = max(row['err'], int((got.long() - want.long()).abs().max()))
+    slots = (starts.long()[:, None] + offsets.long()).clamp(
+        0, indices.numel() - 1)
+    fns = {'kernel': lambda: K.sample_hop(indices, eids, starts, offsets),
+           'take': lambda: torch.take(indices, slots)}
+    per_round = in_turns_ms(torch, np, fns)
+    t = {n: float(np.median(v)) for n, v in per_round.items()}
+    for n in rounds:
+      rounds[n] = rounds[n] + per_round[n]
+    host = in_turns_host_us(torch, np, fns)
+    plain = cuda_ms(torch, lambda i=0: K.sample_hop_plain(
+        indices, eids, starts, offsets), 20)
+    # bytes the read must move: a start per row; per lane an offset and
+    # a neighbour id in, a pick out
+    s, k = offsets.shape
+    bound = bytes_ms(4 * s + 12 * s * k)
+    for key, v in (('ms', t['kernel']), ('plain_ms', plain),
+                   ('library_ms', t['take']), ('bound_ms', bound)):
+      row[key] += v
+    print(f'sample_hop {label} hop {h + 1} [{s}, {k}] over '
+          f'{indices.numel()} slots: equal to plain; {t["kernel"]:.4f} ms '
+          f'(torch.take {t["take"]:.4f} ms, in turns, medians of {ROUNDS}; '
+          f'plain {plain:.4f} ms; bound {bound:.6f} ms, '
+          f'{bound / t["kernel"] * 100:.1f}% of it); host enqueue '
+          f'{host["kernel"]:.2f} us a call (torch.take {host["take"]:.2f} '
+          'us)')
+  print(f'sample_hop per {label} ({len(hops)} hops): {row["ms"]:.4f} ms '
+        f'(plain {row["plain_ms"]:.4f} ms, torch.take '
+        f'{row["library_ms"]:.4f} ms, bound {row["bound_ms"]:.6f} ms)')
+  verdict(f'sample_hop summed over a {label}\'s {len(hops)} hops',
+          row['ms'], row['library_ms'],
+          ratios=list(rounds['kernel'] / rounds['take']))
+  return row
 
 
 def bytes_ms(nbytes):
@@ -134,9 +237,9 @@ def profile_stages(torch, run, n, stages, unit, host_stages=()):
     wall = (time.perf_counter() - t0) * 1e3 / n
   # kernels are the CUDA events other than the stages' own GPU-side
   # range markers; a stage's kernel time is that of the kernels inside
-  # its marker's extent on the device timeline (the ctypes-launched
-  # kernels carry no aten op to attribute them to), or, for a host stage,
-  # inside its host range
+  # its marker's extent on the device timeline (the kernels of csrc/ carry
+  # no aten op to attribute them to), or, for a host stage, inside its host
+  # range
   cuda = torch.autograd.DeviceType.CUDA
   events = prof.events()
   kern = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -317,37 +420,19 @@ def stream_phases(torch, np, K, ds, dev, seed, rows):
     if [tuple(a[3].shape) for a in hops] != want_shapes:
       raise AssertionError(f'hop shapes {[tuple(a[3].shape) for a in hops]}'
                            f', expected {want_shapes}')
-    row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0)
-    for h, (indices, eids, starts, offsets) in enumerate(hops):
-      got = real(indices, eids, starts, offsets)[0]
-      want = K.sample_hop_plain(indices, eids, starts, offsets)[0]
-      if not torch.equal(got, want):
-        raise AssertionError(f'sample_hop hop {h + 1} differs from plain')
-      row['err'] = max(row['err'], int((got.long() - want.long()).abs()
-                                       .max()))
-      slots = (starts.long()[:, None] + offsets.long()).clamp(
-          0, indices.numel() - 1)
-      ms = cuda_ms(torch, lambda i=0: real(indices, eids, starts, offsets),
-                   50)
-      plain = cuda_ms(torch, lambda i=0: K.sample_hop_plain(
-          indices, eids, starts, offsets), 20)
-      lib = cuda_ms(torch, lambda i=0: torch.take(indices, slots), 50)
-      # bytes the read must move: a start per row; per lane an offset and
-      # a neighbour id in, a pick out
-      s, k = offsets.shape
-      bound = bytes_ms(4 * s + 12 * s * k)
-      for key, v in (('ms', ms), ('plain_ms', plain), ('library_ms', lib),
-                     ('bound_ms', bound)):
-        row[key] += v
-      print(f'sample_hop hop {h + 1} [{s}, {k}] over {indices.numel()} '
-            f'slots: equal to plain; {ms:.4f} ms (plain {plain:.4f} ms, '
-            f'torch.take {lib:.4f} ms, bound {bound:.6f} ms)')
-    rows['sample_hop'] = row
-    print(f'sample_hop per bucket-256 request ({len(hops)} hops): '
-          f'{row["ms"]:.4f} ms (plain {row["plain_ms"]:.4f} ms, torch.take '
-          f'{row["library_ms"]:.4f} ms, bound {row["bound_ms"]:.6f} ms)')
+    dev_index = dev.index or 0
+    q = in_turns_host_us(torch, np, {
+        'current_stream': lambda: torch.cuda.current_stream(dev).cuda_stream,
+        'raw': lambda: torch._C._cuda_getCurrentRawStream(dev_index)},
+        calls=10_000)
+    print(f'current stream handle, host us a call: '
+          f'torch.cuda.current_stream(dev).cuda_stream '
+          f'{q["current_stream"]:.3f}, torch._C._cuda_getCurrentRawStream '
+          f'{q["raw"]:.3f}')
+    rows['sample_hop'] = time_picks(torch, np, K, 'bucket-256 request',
+                                    hops)
     # the recorded hops hold v0's padded array: let the swap free it
-    del hops, windows, indices, eids, starts, offsets, slots, got, want
+    del hops, windows
 
   with Phase('stream main path'):
     # per computed bucket: a base hop (sample_hop) and a tombstone and an
@@ -541,16 +626,20 @@ def train_phases(torch, np, K, ds, dev, seed, rows, smi):
     # version); each window read once over the weights and once over the
     # neighbour ids at the same starts
     seeds = train_idx[:TRAIN_BATCH]
-    calls, real = [], K.gather_windows
+    calls, picks, real, real_picks = [], [], K.gather_windows, K.sample_hop
 
     def record(*a):
       calls.append(a)
       return K.gather_windows_plain(*a)
-    K.gather_windows = record
+
+    def record_picks(*a):
+      picks.append(a)
+      return K.sample_hop_plain(*a)
+    K.gather_windows, K.sample_hop = record, record_picks
     try:
       sampler.sample_from_nodes(seeds)
     finally:
-      K.gather_windows = real
+      K.gather_windows, K.sample_hop = real, real_picks
     shapes = [(int(a[1].numel()), a[2]) for a in calls]
     want_shapes, s_ = [], TRAIN_BATCH
     for f, d in zip(FANOUTS, windows):
@@ -559,6 +648,8 @@ def train_phases(torch, np, K, ds, dev, seed, rows, smi):
     if shapes != want_shapes:
       raise AssertionError(f'window shapes {shapes}, expected {want_shapes}')
     row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
+    hop_ms, bound_hop = [], []
+    rounds = {'kernel': 0.0, 'take': 0.0}
     for h, (arr, starts, width) in enumerate(calls):
       for name, src in (('weights', arr), ('indices', g.indices)):
         got = real(src, starts, width)
@@ -569,29 +660,46 @@ def train_phases(torch, np, K, ds, dev, seed, rows, smi):
         err = float((got.double() - want.double()).abs().max())
         slots = (starts.long()[:, None] + torch.arange(width, device=dev)
                  ).clamp(0, src.numel() - 1)
-        ms = cuda_ms(torch, lambda i=0: real(src, starts, width), 50)
+        fns = {'kernel': lambda: real(src, starts, width),
+               'take': lambda: torch.take(src, slots)}
+        per_round = in_turns_ms(torch, np, fns)
+        t = {n: float(np.median(v)) for n, v in per_round.items()}
+        host = in_turns_host_us(torch, np, fns)
         plain = cuda_ms(torch, lambda i=0: K.gather_windows_plain(
             src, starts, width), 20)
-        lib = cuda_ms(torch, lambda i=0: torch.take(src, slots), 50)
         # bytes the read must move: a start per row, per lane one element
         # in and one out
         s_ = starts.numel()
         bound = bytes_ms(4 * s_ + 8 * s_ * width)
         if name == 'weights':
-          for key, v in (('ms', ms), ('plain_ms', plain),
-                         ('library_ms', lib), ('bound_ms', bound)):
+          hop_ms.append(t['kernel'])
+          bound_hop.append(bound)
+          for n in rounds:
+            rounds[n] = rounds[n] + per_round[n]
+          for key, v in (('ms', t['kernel']), ('plain_ms', plain),
+                         ('library_ms', t['take']), ('bound_ms', bound)):
             row[key] += v
           row['err'] = max(row['err'], err)
         print(f'gather_windows hop {h + 1} [{s_}, {width}] {name} '
-              f'{str(src.dtype)[6:]}: equal to plain; {ms:.4f} ms (plain '
-              f'{plain:.4f} ms, torch.take {lib:.4f} ms, bound {bound:.6f} '
-              'ms)')
+              f'{str(src.dtype)[6:]}: equal to plain; {t["kernel"]:.4f} ms '
+              f'(torch.take {t["take"]:.4f} ms, in turns, medians of '
+              f'{ROUNDS}; plain {plain:.4f} ms; bound {bound:.6f} ms, '
+              f'{bound / t["kernel"] * 100:.1f}% of it); host enqueue '
+              f'{host["kernel"]:.2f} us a call (torch.take '
+              f'{host["take"]:.2f} us)')
     rows['gather_windows'] = row
     print(f'gather_windows per weighted batch ({len(calls)} hops, the weight '
           f'windows): {row["ms"]:.4f} ms (plain {row["plain_ms"]:.4f} ms, '
           f'torch.take {row["library_ms"]:.4f} ms, bound '
           f'{row["bound_ms"]:.6f} ms)')
-    del calls, arr, starts, got, want, slots
+    verdict('gather_windows summed over a weighted batch\'s weight windows',
+            row['ms'], row['library_ms'],
+            ratios=list(rounds['kernel'] / rounds['take']))
+    verdict('gather_windows hop 3 (weights) against half its byte bound',
+            hop_ms[-1], 2 * bound_hop[-1], label='twice the bound')
+    # B2 at the weighted step's three hops, as the sampler hands them over
+    time_picks(torch, np, K, 'weighted training step', picks)
+    del calls, picks, arr, starts, got, want, slots, fns, per_round
 
   with Phase('train main path vs plain'):
     # one batch through the kernels and through the plain versions, same

@@ -11,6 +11,7 @@
 // keeps its label. The TPU kernel walks the ids in one sequential loop over
 // a VMEM table; here the table is in global memory (it stays in the 50 MB
 // L2 at serving sizes) and every id probes in parallel.
+#include "entry.cuh"
 #include "dedup_table.cuh"
 
 namespace {
@@ -32,17 +33,19 @@ __global__ void dedup_table_insert_kernel(int* __restrict__ keys,
 
 }  // namespace
 
+// Returns the launch's CUresult (entry.cuh).
 extern "C" int glt_dedup_table_insert(void* keys, void* vals, int slots,
                                       const void* ids, const void* labs,
                                       const void* valid, int m,
                                       void* stream) {
-  if (m > 0) {
-    const int threads = 256;
-    dedup_table_insert_kernel<<<(m + threads - 1) / threads, threads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        static_cast<int*>(keys), static_cast<int*>(vals), slots - 1,
-        static_cast<const int*>(ids), static_cast<const int*>(labs),
-        static_cast<const int*>(valid), m);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (m <= 0) return 0;
+  const int threads = 256;
+  return glt::Launch<dedup_table_insert_kernel>::run(
+      dim3(glt::blocks_for(m, threads)), dim3(threads), stream,
+      static_cast<int*>(keys), static_cast<int*>(vals), slots - 1,
+      static_cast<const int*>(ids), static_cast<const int*>(labs),
+      static_cast<const int*>(valid), m);
 }
+
+GLT_MODULE(dedup_table_insert,
+           GLT_ENTRY(glt_dedup_table_insert))

@@ -12,6 +12,7 @@
 // or a bf16 row of even width).
 // The TPU kernel paid one grid step per row; here 8 rows share a block and
 // the row index is loaded once per warp.
+#include "entry.cuh"
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -34,12 +35,12 @@ __global__ void gather_rows_kernel(const Unit* __restrict__ table,
 }
 
 template <typename Unit>
-void launch(const void* table, const void* rows, void* out, int64_t n,
-            int64_t row_bytes, int64_t b, cudaStream_t stream) {
+int launch(const void* table, const void* rows, void* out, int64_t n,
+           int64_t row_bytes, int64_t b, void* stream) {
   const int threads = 256;  // 8 rows per block
   const int64_t blocks = (b + threads / 32 - 1) / (threads / 32);
-  gather_rows_kernel<Unit><<<static_cast<unsigned>(blocks), threads, 0,
-                             stream>>>(
+  return glt::Launch<gather_rows_kernel<Unit>>::run(
+      dim3(static_cast<unsigned>(blocks)), dim3(threads), stream,
       static_cast<const Unit*>(table), static_cast<const int*>(rows),
       static_cast<Unit*>(out), n, row_bytes / sizeof(Unit), b);
 }
@@ -47,17 +48,16 @@ void launch(const void* table, const void* rows, void* out, int64_t n,
 }  // namespace
 
 // row_bytes = D * itemsize; unit is the copy width in bytes (16 or 4),
-// chosen by the wrapper from row_bytes and pointer alignment.
+// chosen by the wrapper from row_bytes and pointer alignment. Returns the
+// launch's CUresult (entry.cuh).
 extern "C" int glt_gather_rows(const void* table, const void* rows, void* out,
                                int64_t n, int64_t row_bytes, int64_t b,
                                int unit, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b > 0) {
-    if (unit == 16) {
-      launch<uint4>(table, rows, out, n, row_bytes, b, s);
-    } else {
-      launch<uint32_t>(table, rows, out, n, row_bytes, b, s);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (b <= 0) return 0;
+  return unit == 16
+             ? launch<uint4>(table, rows, out, n, row_bytes, b, stream)
+             : launch<uint32_t>(table, rows, out, n, row_bytes, b, stream);
 }
+
+GLT_MODULE(gather_rows,
+           GLT_ENTRY(glt_gather_rows))

@@ -35,6 +35,7 @@
 // sequential grid and an XLA remap rewrites them; blocks here run in no
 // order, so the table holds final labels from the start and no remap is
 // needed.
+#include "entry.cuh"
 #include "dedup_table.cuh"
 
 namespace {
@@ -90,36 +91,32 @@ extern "C" int glt_hop_sample(const void* indices_flat, const void* eids_flat,
                               void* picks, void* eid_picks, void* tslot,
                               void* stream) {
   const int m = s * k;
-  if (m > 0) {
-    const int threads = 256;
-    hop_sample_kernel<<<glt::blocks_for(m, threads), threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(indices_flat),
-        static_cast<const int*>(eids_flat), static_cast<const int*>(starts),
-        static_cast<const int*>(offsets),
-        static_cast<const unsigned char*>(valid), m, k,
-        static_cast<int*>(keys), static_cast<const int*>(vals),
-        static_cast<int*>(first), slots_n - 1, static_cast<int*>(picks),
-        static_cast<int*>(eid_picks), static_cast<int*>(tslot));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (m <= 0) return 0;
+  const int threads = 256;
+  return glt::Launch<hop_sample_kernel>::run(
+      dim3(glt::blocks_for(m, threads)), dim3(threads), stream,
+      static_cast<const int*>(indices_flat),
+      static_cast<const int*>(eids_flat), static_cast<const int*>(starts),
+      static_cast<const int*>(offsets),
+      static_cast<const unsigned char*>(valid), m, k,
+      static_cast<int*>(keys), static_cast<const int*>(vals),
+      static_cast<int*>(first), slots_n - 1, static_cast<int*>(picks),
+      static_cast<int*>(eid_picks), static_cast<int*>(tslot));
 }
 
 extern "C" int glt_hop_heads(const void* picks, const void* valid,
                              const void* tslot, const void* vals,
                              const void* first, int m, void* labels,
                              void* new_head, void* next_key, void* stream) {
-  if (m > 0) {
-    const int threads = 256;
-    glt::table_heads_kernel<<<glt::blocks_for(m, threads), threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(picks),
-        static_cast<const unsigned char*>(valid),
-        static_cast<const int*>(tslot), static_cast<const int*>(vals),
-        static_cast<const int*>(first), m, static_cast<int*>(labels),
-        static_cast<unsigned char*>(new_head), static_cast<int*>(next_key));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (m <= 0) return 0;
+  const int threads = 256;
+  return glt::Launch<glt::table_heads_kernel>::run(
+      dim3(glt::blocks_for(m, threads)), dim3(threads), stream,
+      static_cast<const int*>(picks),
+      static_cast<const unsigned char*>(valid),
+      static_cast<const int*>(tslot), static_cast<const int*>(vals),
+      static_cast<const int*>(first), m, static_cast<int*>(labels),
+      static_cast<unsigned char*>(new_head), static_cast<int*>(next_key));
 }
 
 extern "C" int glt_hop_labels(const void* picks, const void* new_head,
@@ -127,16 +124,19 @@ extern "C" int glt_hop_labels(const void* picks, const void* new_head,
                               const void* type_bounds, int num_types,
                               const void* counts, int m, void* labels,
                               void* vals, void* stream) {
-  if (m > 0) {
-    const int threads = 256;
-    hop_labels_kernel<<<glt::blocks_for(m, threads), threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(picks),
-        static_cast<const unsigned char*>(new_head),
-        static_cast<const int*>(tslot), static_cast<const int*>(sorted_new),
-        static_cast<const int*>(type_bounds), num_types,
-        static_cast<const int*>(counts), m, static_cast<int*>(labels),
-        static_cast<int*>(vals));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (m <= 0) return 0;
+  const int threads = 256;
+  return glt::Launch<hop_labels_kernel>::run(
+      dim3(glt::blocks_for(m, threads)), dim3(threads), stream,
+      static_cast<const int*>(picks),
+      static_cast<const unsigned char*>(new_head),
+      static_cast<const int*>(tslot), static_cast<const int*>(sorted_new),
+      static_cast<const int*>(type_bounds), num_types,
+      static_cast<const int*>(counts), m, static_cast<int*>(labels),
+      static_cast<int*>(vals));
 }
+
+GLT_MODULE(sample_hop_dedup,
+           GLT_ENTRY(glt_hop_sample),
+           GLT_ENTRY(glt_hop_heads),
+           GLT_ENTRY(glt_hop_labels))

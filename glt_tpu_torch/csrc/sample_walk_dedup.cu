@@ -31,6 +31,7 @@
 // blocks here run in no order, so the order comes from atomicMin and the
 // value-order labels from the sort, which is the label contract the TPU
 // path restores in its epilogue anyway.
+#include "entry.cuh"
 #include "dedup_table.cuh"
 
 namespace {
@@ -122,20 +123,18 @@ extern "C" int glt_walk_sample(const void* indptr_pad, int num_nodes,
                                const void* vals, void* first, int slots_n,
                                void* picks, void* slots, void* valid,
                                void* tslot, void* stream) {
-  if (k > kMaxFanout) return static_cast<int>(cudaErrorInvalidValue);
-  if (s > 0) {
-    const int threads = 128;
-    walk_sample_kernel<<<glt::blocks_for(s, threads), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(indptr_pad), num_nodes,
-        static_cast<const int*>(indices), static_cast<const int*>(frontier),
-        static_cast<const int*>(frontier_ok), s, k,
-        static_cast<const float*>(u), replace, static_cast<int*>(keys),
-        static_cast<const int*>(vals), static_cast<int*>(first), slots_n - 1,
-        static_cast<int*>(picks), static_cast<int*>(slots),
-        static_cast<unsigned char*>(valid), static_cast<int*>(tslot));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (k > kMaxFanout) return CUDA_ERROR_INVALID_VALUE;
+  if (s <= 0) return 0;
+  const int threads = 128;
+  return glt::Launch<walk_sample_kernel>::run(
+      dim3(glt::blocks_for(s, threads)), dim3(threads), stream,
+      static_cast<const int*>(indptr_pad), num_nodes,
+      static_cast<const int*>(indices), static_cast<const int*>(frontier),
+      static_cast<const int*>(frontier_ok), s, k,
+      static_cast<const float*>(u), replace, static_cast<int*>(keys),
+      static_cast<const int*>(vals), static_cast<int*>(first), slots_n - 1,
+      static_cast<int*>(picks), static_cast<int*>(slots),
+      static_cast<unsigned char*>(valid), static_cast<int*>(tslot));
 }
 
 extern "C" int glt_walk_heads(const void* picks, const void* valid,
@@ -143,33 +142,34 @@ extern "C" int glt_walk_heads(const void* picks, const void* valid,
                               const void* first, int m, void* labels,
                               void* new_head, void* next_frontier,
                               void* stream) {
-  if (m > 0) {
-    const int threads = 256;
-    glt::table_heads_kernel<<<glt::blocks_for(m, threads), threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(picks),
-        static_cast<const unsigned char*>(valid),
-        static_cast<const int*>(tslot), static_cast<const int*>(vals),
-        static_cast<const int*>(first), m, static_cast<int*>(labels),
-        static_cast<unsigned char*>(new_head),
-        static_cast<int*>(next_frontier));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (m <= 0) return 0;
+  const int threads = 256;
+  return glt::Launch<glt::table_heads_kernel>::run(
+      dim3(glt::blocks_for(m, threads)), dim3(threads), stream,
+      static_cast<const int*>(picks),
+      static_cast<const unsigned char*>(valid),
+      static_cast<const int*>(tslot), static_cast<const int*>(vals),
+      static_cast<const int*>(first), m, static_cast<int*>(labels),
+      static_cast<unsigned char*>(new_head),
+      static_cast<int*>(next_frontier));
 }
 
 extern "C" int glt_walk_labels(const void* picks, const void* new_head,
                                const void* tslot, const void* sorted_new,
                                const void* count, int m, void* labels,
                                void* vals, void* stream) {
-  if (m > 0) {
-    const int threads = 256;
-    walk_labels_kernel<<<glt::blocks_for(m, threads), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(picks),
-        static_cast<const unsigned char*>(new_head),
-        static_cast<const int*>(tslot), static_cast<const int*>(sorted_new),
-        static_cast<const int*>(count), m, static_cast<int*>(labels),
-        static_cast<int*>(vals));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (m <= 0) return 0;
+  const int threads = 256;
+  return glt::Launch<walk_labels_kernel>::run(
+      dim3(glt::blocks_for(m, threads)), dim3(threads), stream,
+      static_cast<const int*>(picks),
+      static_cast<const unsigned char*>(new_head),
+      static_cast<const int*>(tslot), static_cast<const int*>(sorted_new),
+      static_cast<const int*>(count), m, static_cast<int*>(labels),
+      static_cast<int*>(vals));
 }
+
+GLT_MODULE(sample_walk_dedup,
+           GLT_ENTRY(glt_walk_sample),
+           GLT_ENTRY(glt_walk_heads),
+           GLT_ENTRY(glt_walk_labels))

@@ -1,20 +1,26 @@
-"""Build the package's CUDA kernels and load them through ``ctypes``.
+"""Build the package's CUDA kernels and import them as Python modules.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
-library with a plain C interface (no PyTorch headers: a build takes
-seconds, not minutes). All sources build in parallel, one ``nvcc`` each,
-the first time any kernel is used; the libraries land in
-``glt_tpu_torch/_build/`` under a name keyed by a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one loads as is.
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a Python extension
+module ``_glt_<name>`` whose functions are the source's C entry points
+(``csrc/entry.cuh``): Python's C API and the CUDA runtime, no PyTorch
+headers, so a build takes seconds, not minutes, and a call costs a
+fast-call parse instead of ctypes' conversion of every argument. All
+sources build in parallel, one ``nvcc`` each, the first time any kernel
+is used; the modules land in ``glt_tpu_torch/_build/`` under a name keyed
+by a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads as is.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
+from types import ModuleType
 from typing import Dict
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), 'csrc')
@@ -22,44 +28,13 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                          '_build')
 SOURCES = ('gather_rows', 'dedup_table_insert', 'sample_walk_dedup',
            'sample_hop_dedup', 'sample_hop', 'gather_windows')
+#: the CUDA runtime is the one PyTorch has loaded (shared); the launches of
+#: csrc/entry.cuh go through libcuda's cuLaunchKernel (LIBS, after the source)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-
-_vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-#: C entry points per library: name -> argtypes (every one returns the
-#: cudaError_t of its launch as an int)
-SIGNATURES = {
-    'gather_rows': {
-        'glt_gather_rows': [_vp, _vp, _vp, _i64, _i64, _i64, _i32, _vp],
-    },
-    'dedup_table_insert': {
-        'glt_dedup_table_insert': [_vp, _vp, _i32, _vp, _vp, _vp, _i32,
-                                   _vp],
-    },
-    'sample_walk_dedup': {
-        'glt_walk_sample': [_vp, _i32, _vp, _vp, _vp, _i32, _i32, _vp,
-                            _i32, _vp, _vp, _vp, _i32, _vp, _vp, _vp, _vp,
-                            _vp],
-        'glt_walk_heads': [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp,
-                           _vp],
-        'glt_walk_labels': [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp],
-    },
-    'sample_hop_dedup': {
-        'glt_hop_sample': [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _vp,
-                           _vp, _i32, _vp, _vp, _vp, _vp],
-        'glt_hop_heads': [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp,
-                          _vp],
-        'glt_hop_labels': [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _i32, _vp,
-                           _vp, _vp],
-    },
-    'sample_hop': {
-        'glt_sample_hop': [_vp, _vp, _i64, _vp, _vp, _i32, _i32, _vp, _vp,
-                           _vp],
-    },
-    'gather_windows': {
-        'glt_gather_windows': [_vp, _i64, _vp, _i32, _i32, _vp, _vp],
-    },
-}
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+              '-cudart', 'shared')
+LIBS = ('-lcuda',)
+PY_INCLUDE = sysconfig.get_paths()['include']
 
 
 def _nvcc() -> str:
@@ -71,7 +46,7 @@ def _nvcc() -> str:
 
 
 def _source_hash(name: str) -> str:
-  h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+  h = hashlib.sha256(' '.join(NVCC_FLAGS + LIBS + (PY_INCLUDE,)).encode())
   for fn in sorted(os.listdir(CSRC)):
     if fn.endswith('.cuh') or fn == f'{name}.cu':
       with open(os.path.join(CSRC, fn), 'rb') as f:
@@ -83,6 +58,9 @@ def build_all() -> Dict[str, str]:
   """Compile every stale source, all ``nvcc`` processes started together;
   returns ``{name: path of the .so}``. The compiler's report (``-Xptxas
   -v``: registers, spills) is kept beside each library as ``.log``."""
+  if not os.path.exists(os.path.join(PY_INCLUDE, 'Python.h')):
+    raise RuntimeError(f'Python.h not found under {PY_INCLUDE}: the kernels '
+                       'build as Python extension modules')
   os.makedirs(BUILD_DIR, exist_ok=True)
   paths, procs = {}, {}
   for name in SOURCES:
@@ -92,8 +70,8 @@ def build_all() -> Dict[str, str]:
       tmp = f'{so}.{os.getpid()}.tmp'
       log = open(f'{so}.log', 'w')
       procs[name] = (subprocess.Popen(
-          [_nvcc(), *NVCC_FLAGS, '-o', tmp,
-           os.path.join(CSRC, f'{name}.cu')],
+          [_nvcc(), *NVCC_FLAGS, '-I', PY_INCLUDE, '-o', tmp,
+           os.path.join(CSRC, f'{name}.cu'), *LIBS],
           stdout=log, stderr=subprocess.STDOUT), tmp, log)
   failed = []
   for name, (proc, tmp, log) in procs.items():
@@ -114,18 +92,19 @@ def build_all() -> Dict[str, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def _libraries() -> Dict[str, ctypes.CDLL]:
-  libs = {}
+def _modules() -> Dict[str, ModuleType]:
+  mods = {}
   for name, path in build_all().items():
-    lib = ctypes.CDLL(path)
-    for fn, argtypes in SIGNATURES[name].items():
-      getattr(lib, fn).argtypes = argtypes
-      getattr(lib, fn).restype = ctypes.c_int
-    libs[name] = lib
-  return libs
+    loader = importlib.machinery.ExtensionFileLoader(f'_glt_{name}', path)
+    mod = importlib.util.module_from_spec(
+        importlib.util.spec_from_loader(loader.name, loader))
+    loader.exec_module(mod)
+    mods[name] = mod
+  return mods
 
 
-def kernel_library(name: str) -> ctypes.CDLL:
-  """The loaded library of ``csrc/<name>.cu``, building every source on
-  first use."""
-  return _libraries()[name]
+def kernel_library(name: str) -> ModuleType:
+  """The module of ``csrc/<name>.cu``, building every source on first
+  use. Its ``glt_*`` functions take pointers as ints (None is NULL) and
+  return the CUDA error of their launch, 0 when it was enqueued."""
+  return _modules()[name]

@@ -23,11 +23,11 @@ wrapper                       replaces (glt_tpu/ops/...)        source
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from .build import SOURCES, kernel_library
 from .sample import _row_spans, draw_offsets, walk_geometry
 
 BIG = torch.iinfo(torch.int32).max
@@ -56,23 +56,55 @@ def reset_launch_counts() -> None:
 
 
 # -- plumbing ---------------------------------------------------------------
+# Each C entry point of the kernel modules (ops/build.py) is a module global
+# of its own name. Until the first launch it is a stand-in that builds
+# every source, binds every entry point in its place and calls through;
+# from then on a launch reads one global, with no import and no library
+# lookup. Pointers go in as plain ints (``data_ptr()``, None is NULL), the
+# stream as the raw handle of the device's current stream, read on every
+# launch: a caller may switch streams.
+
+def _first_call(name: str):
+  def call(*args):
+    for lib in SOURCES:
+      for fn, entry in vars(kernel_library(lib)).items():
+        if fn.startswith('glt_'):
+          globals()[fn] = entry
+    return globals()[name](*args)
+  return call
+
+
+glt_gather_rows = _first_call('glt_gather_rows')
+glt_dedup_table_insert = _first_call('glt_dedup_table_insert')
+glt_walk_sample = _first_call('glt_walk_sample')
+glt_walk_heads = _first_call('glt_walk_heads')
+glt_walk_labels = _first_call('glt_walk_labels')
+glt_hop_sample = _first_call('glt_hop_sample')
+glt_hop_heads = _first_call('glt_hop_heads')
+glt_hop_labels = _first_call('glt_hop_labels')
+glt_sample_hop = _first_call('glt_sample_hop')
+glt_gather_windows = _first_call('glt_gather_windows')
+
+#: the raw handle of a device's current stream, by device index (the call
+#: Triton's launcher makes; chip_smoke.py times it against
+#: ``torch.cuda.current_stream(dev).cuda_stream``, which builds a Stream
+#: object per call). None in a CPU-only build.
+_raw_stream = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+
 
 def _ptr(t: Optional[torch.Tensor]):
-  return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+  return t.data_ptr() if t is not None else None
 
 
-def _stream(device: torch.device):
-  return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def _stream(device: torch.device) -> int:
+  return _raw_stream(device.index)
 
 
 def _check(err: int, what: str) -> None:
+  """Raises on a launch's CUresult (every entry point launches through
+  cuLaunchKernel, csrc/entry.cuh)."""
   if err != 0:
-    raise RuntimeError(f'{what}: CUDA launch failed with cudaError {err}')
-
-
-def _lib(name: str):
-  from .build import kernel_library
-  return kernel_library(name)
+    raise RuntimeError(f'{what}: CUDA launch failed with CUresult {err}')
 
 
 def _i32(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -109,7 +141,7 @@ def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
                      f'{row_bytes} bytes')
   unit = 16 if row_bytes % 16 == 0 and table.data_ptr() % 16 == 0 else 4
   if b:
-    _check(_lib('gather_rows').glt_gather_rows(
+    _check(glt_gather_rows(
         _ptr(table), _ptr(rows), _ptr(out), n, row_bytes, b, unit,
         _stream(table.device)), 'gather_rows')
     gather_rows.launches += 1
@@ -167,7 +199,7 @@ def dedup_table_insert(keys: torch.Tensor, vals: torch.Tensor,
   ids, labs, valid = _i32(ids, dev), _i32(labs, dev), _i32(valid, dev)
   m = ids.numel()
   if m:
-    _check(_lib('dedup_table_insert').glt_dedup_table_insert(
+    _check(glt_dedup_table_insert(
         _ptr(keys), _ptr(vals), slots, _ptr(ids), _ptr(labs), _ptr(valid),
         m, _stream(dev)), 'dedup_table_insert')
     dedup_table_insert.launches += 1
@@ -299,7 +331,6 @@ def sample_walk_dedup(indptr_pad, indices, seed_ids, seed_ok, stab_ids,
         table_slots=table_slots, with_slots=with_slots)
   hops = _check_walk_inputs(indptr_pad, indices, seed_ids, u_hops, fanouts)
   dev = indices.device
-  lib = _lib('sample_walk_dedup')
   stream = _stream(dev)
   indptr_pad, indices = _i32(indptr_pad, dev), _i32(indices, dev)
   keys, vals, first = make_dedup_table(table_slots, dev)
@@ -316,7 +347,7 @@ def sample_walk_dedup(indptr_pad, indices, seed_ids, seed_ok, stab_ids,
              else None)
     mask = torch.empty(m, dtype=torch.bool, device=dev)
     tslot = torch.empty(m, dtype=torch.int32, device=dev)
-    _check(lib.glt_walk_sample(
+    _check(glt_walk_sample(
         _ptr(indptr_pad), num_nodes, _ptr(indices), _ptr(frontier),
         _ptr(ok), s, k, _ptr(u), int(replace), _ptr(keys), _ptr(vals),
         _ptr(first), table_slots, _ptr(picks), _ptr(slots), _ptr(mask),
@@ -324,12 +355,12 @@ def sample_walk_dedup(indptr_pad, indices, seed_ids, seed_ok, stab_ids,
     labels = torch.empty(m, dtype=torch.int32, device=dev)
     new_head = torch.empty(m, dtype=torch.bool, device=dev)
     nxt = torch.empty(m, dtype=torch.int32, device=dev)
-    _check(lib.glt_walk_heads(
+    _check(glt_walk_heads(
         _ptr(picks), _ptr(mask), _ptr(tslot), _ptr(vals), _ptr(first), m,
         _ptr(labels), _ptr(new_head), _ptr(nxt), stream),
         'sample_walk_dedup (heads)')
     sorted_new = torch.sort(nxt).values
-    _check(lib.glt_walk_labels(
+    _check(glt_walk_labels(
         _ptr(picks), _ptr(new_head), _ptr(tslot), _ptr(sorted_new),
         _ptr(count), m, _ptr(labels), _ptr(vals), stream),
         'sample_walk_dedup (labels)')
@@ -437,7 +468,6 @@ def sample_hop_dedup(indices_flat, eids_flat, starts, offsets, valid, keys,
   s, k = offsets.shape
   m = s * k
   dev = offsets.device
-  lib = _lib('sample_hop_dedup')
   stream = _stream(dev)
   indices_flat = _i32(indices_flat, dev)
   eids_flat = _i32(eids_flat, dev) if eids_flat is not None else None
@@ -448,7 +478,7 @@ def sample_hop_dedup(indices_flat, eids_flat, starts, offsets, valid, keys,
   eid_picks = (torch.empty((s, k), dtype=torch.int32, device=dev)
                if eids_flat is not None else None)
   tslot = torch.empty(m, dtype=torch.int32, device=dev)
-  _check(lib.glt_hop_sample(
+  _check(glt_hop_sample(
       _ptr(indices_flat), _ptr(eids_flat), _ptr(starts), _ptr(offsets),
       _ptr(valid), s, k, _ptr(keys), _ptr(vals), _ptr(first), keys.numel(),
       _ptr(picks), _ptr(eid_picks), _ptr(tslot), stream),
@@ -456,12 +486,12 @@ def sample_hop_dedup(indices_flat, eids_flat, starts, offsets, valid, keys,
   labels = torch.empty(m, dtype=torch.int32, device=dev)
   new_head = torch.empty(m, dtype=torch.bool, device=dev)
   nxt = torch.empty(m, dtype=torch.int32, device=dev)
-  _check(lib.glt_hop_heads(
+  _check(glt_hop_heads(
       _ptr(picks), _ptr(valid), _ptr(tslot), _ptr(vals), _ptr(first), m,
       _ptr(labels), _ptr(new_head), _ptr(nxt), stream),
       'sample_hop_dedup (heads)')
   sorted_new = torch.sort(nxt).values
-  _check(lib.glt_hop_labels(
+  _check(glt_hop_labels(
       _ptr(picks), _ptr(new_head), _ptr(tslot), _ptr(sorted_new),
       _ptr(type_bounds), counts.numel(), _ptr(counts), m, _ptr(labels),
       _ptr(vals), stream), 'sample_hop_dedup (labels)')
@@ -474,6 +504,9 @@ def sample_hop_dedup(indices_flat, eids_flat, starts, offsets, valid, keys,
 
 
 # -- B2: sample_hop ------------------------------------------------------------
+
+_I32, _LANES = torch.int32, 2 ** 31   # kernels address lanes with int32
+
 
 def _check_pick_inputs(indices, starts, offsets):
   if offsets.dim() != 2 or starts.numel() != offsets.shape[0]:
@@ -508,8 +541,11 @@ def sample_hop(indices: torch.Tensor, eids: Optional[torch.Tensor],
     indices: [E] int32 neighbour ids (a stream snapshot's are padded to
       its capacity with -1).
     eids: [E] int32 edge ids read through the same slots, or None.
-    starts: [S] each row's CSR start.
+    starts: [S] int32 each row's CSR start.
     offsets: [S, K] int32 drawn offsets within the rows.
+
+  On the card every tensor must be contiguous int32 on one device (the
+  wrapper checks and raises ``ValueError``; it converts nothing).
 
   Returns ``(picks, eid_picks)``, [S, K] int32 each (``eid_picks`` None
   without ``eids``): ``picks[i, k] = indices[clip(starts[i] +
@@ -518,22 +554,53 @@ def sample_hop(indices: torch.Tensor, eids: Optional[torch.Tensor],
   """
   if not offsets.is_cuda:
     return sample_hop_plain(indices, eids, starts, offsets)
-  _check_pick_inputs(indices, starts, offsets)
-  s, k = offsets.shape
-  dev = offsets.device
-  indices = _i32(indices, dev)
-  eids = _i32(eids, dev) if eids is not None else None
-  starts, offsets = _i32(starts, dev), _i32(offsets, dev)
-  picks = torch.empty((s, k), dtype=torch.int32, device=dev)
-  eid_picks = (torch.empty((s, k), dtype=torch.int32, device=dev)
-               if eids is not None else None)
-  if s * k:
-    _check(_lib('sample_hop').glt_sample_hop(
-        _ptr(indices), _ptr(eids), indices.numel(), _ptr(starts),
-        _ptr(offsets), s, k, _ptr(picks), _ptr(eid_picks), _stream(dev)),
-        'sample_hop')
+  dev = offsets.get_device()
+  shape = offsets.shape
+  # one pass over every condition the kernel needs, each tensor property
+  # read once (the launch path's host time is the hop's cost);
+  # _refuse_picks names the condition that failed
+  if not (len(shape) == 2 and offsets.dtype is _I32
+          and starts.dtype is _I32 and indices.dtype is _I32
+          and offsets.is_contiguous() and starts.is_contiguous()
+          and indices.is_contiguous()
+          and starts.get_device() == dev == indices.get_device()
+          and starts.numel() == shape[0]
+          and (m := shape[0] * shape[1]) < _LANES
+          and ((n := indices.numel()) or not m)
+          and (eids is None or (eids.dtype is _I32 and eids.is_contiguous()
+                                and eids.get_device() == dev))):
+    _refuse_picks(indices, eids, starts, offsets)
+  picks = torch.empty_like(offsets)
+  if eids is None:
+    eid_picks = eids_ptr = eid_picks_ptr = None
+  else:
+    eid_picks = torch.empty_like(offsets)
+    eids_ptr, eid_picks_ptr = eids.data_ptr(), eid_picks.data_ptr()
+  if m:
+    _check(glt_sample_hop(
+        indices.data_ptr(), eids_ptr, n, starts.data_ptr(),
+        offsets.data_ptr(), shape[0], shape[1], picks.data_ptr(),
+        eid_picks_ptr, _raw_stream(dev)), 'sample_hop')
     sample_hop.launches += 1
   return picks, eid_picks
+
+
+def _refuse_picks(indices, eids, starts, offsets):
+  """The ValueError for inputs :func:`sample_hop`'s kernel does not take."""
+  _refuse_planes('sample_hop', offsets, indices=indices, eids=eids,
+                 starts=starts, offsets=offsets)
+  _check_pick_inputs(indices, starts, offsets)
+
+
+def _refuse_planes(what, ref, **planes):
+  bad = [f'{n} {t.dtype} on {t.device}'
+         f'{"" if t.is_contiguous() else " (strided)"}'
+         for n, t in planes.items()
+         if t is not None and (t.dtype is not _I32 or not t.is_contiguous()
+                               or t.device != ref.device)]
+  if bad:
+    raise ValueError(f'{what} takes contiguous int32 tensors on one card, '
+                     f'got ' + ', '.join(bad))
 
 
 # -- B3: gather_windows ---------------------------------------------------------
@@ -568,8 +635,11 @@ def gather_windows(arr: torch.Tensor, starts: torch.Tensor,
   Args:
     arr: [E] float32 or int32 (any 4-byte type): edge weights or
       neighbour ids.
-    starts: [S] each row's CSR start.
+    starts: [S] int32 each row's CSR start.
     width: the static window width (the hop's ``max_degree``).
+
+  On the card ``arr`` and ``starts`` must be contiguous, on one device
+  (the wrapper checks and raises ``ValueError``; it converts nothing).
 
   Returns ``[S, width]`` of ``arr``'s dtype. The TPU kernel clamps whole
   windows into an array padded by ``width`` sentinels; this one clips
@@ -578,18 +648,32 @@ def gather_windows(arr: torch.Tensor, starts: torch.Tensor,
   """
   if not arr.is_cuda:
     return gather_windows_plain(arr, starts, width)
-  _check_window_inputs(arr, starts, width)
-  dev = arr.device
-  arr = arr.contiguous()
-  starts = _i32(starts, dev)
-  s = starts.numel()
-  out = torch.empty((s, width), dtype=arr.dtype, device=dev)
+  dev = arr.get_device()
+  if not (starts.dtype is _I32 and starts.dim() == 1
+          and starts.is_contiguous() and arr.is_contiguous()
+          and starts.get_device() == dev and arr.dim() == 1
+          and arr.element_size() == 4 and width > 0
+          and (s := starts.numel()) * width < _LANES
+          and ((n := arr.numel()) or not s)):
+    _refuse_windows(arr, starts, width)
+  out = arr.new_empty(s, width)
   if s:
-    _check(_lib('gather_windows').glt_gather_windows(
-        _ptr(arr), arr.numel(), _ptr(starts), s, width, _ptr(out),
-        _stream(dev)), 'gather_windows')
+    _check(glt_gather_windows(
+        arr.data_ptr(), n, starts.data_ptr(), s, width, out.data_ptr(),
+        _raw_stream(dev)), 'gather_windows')
     gather_windows.launches += 1
   return out
+
+
+def _refuse_windows(arr, starts, width):
+  """The ValueError for inputs :func:`gather_windows`' kernel does not
+  take."""
+  _refuse_planes('gather_windows', arr, starts=starts)
+  if not arr.is_contiguous() or starts.dim() != 1:
+    raise ValueError(f'gather_windows takes a contiguous arr and 1-D '
+                     f'starts, got arr strides {arr.stride()}, starts '
+                     f'{tuple(starts.shape)}')
+  _check_window_inputs(arr, starts, width)
 
 
 KERNELS = (gather_rows, dedup_table_insert, sample_walk_dedup,

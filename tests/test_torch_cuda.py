@@ -179,27 +179,55 @@ def test_hetero_engine_serves_through_the_kernels(dev):
   assert K.dedup_table_insert.launches > 0 and K.gather_rows.launches > 0
 
 
-def test_sample_hop_matches_plain(dev):
+@pytest.mark.parametrize('k', range(1, 16))
+def test_sample_hop_matches_plain(dev, k):
   # a capacity-padded edge array (-1 past the live edges), hub rows of any
-  # degree, lanes whose slot runs past the end (clipped to E - 1)
-  g = torch.Generator(device=dev).manual_seed(13)
+  # degree, lanes whose slot clips at either end (to 0 and to E - 1); the
+  # stream's and the weighted step's hop shapes, 530K lanes at k = 5
+  g = torch.Generator(device=dev).manual_seed(13 + k)
   live, cap = 70_000, 80_000
   indices = torch.full((cap,), -1, dtype=torch.int32, device=dev)
   indices[:live] = torch.randint(0, 9000, (live,), generator=g, device=dev,
                                  dtype=torch.int32)
   eids = torch.randperm(cap, generator=g, device=dev).to(torch.int32)
-  for s, k in ((256, 15), (5888, 10), (3, 0)):
+  shapes = [(256, k), (5888, k), (3, 0)] + [(105_984, 5)] * (k == 5)
+  for s, k_ in shapes:
     starts = torch.randint(0, live, (s,), generator=g, device=dev,
                            dtype=torch.int32)
-    offsets = torch.randint(0, 20_000, (s, k), generator=g, device=dev,
+    offsets = torch.randint(-50, 20_000, (s, k_), generator=g, device=dev,
                             dtype=torch.int32)
+    if s * k_:
+      starts[:2] = torch.tensor([0, cap - 1], device=dev)
+      offsets[0] = -torch.arange(1, k_ + 1, device=dev)   # below slot 0
+      offsets[1] = torch.arange(k_, device=dev) * 7       # past E - 1
     before = K.sample_hop.launches
     got = K.sample_hop(indices, eids, starts, offsets)
-    assert K.sample_hop.launches == before + (s * k > 0)
+    assert K.sample_hop.launches == before + (s * k_ > 0)
     want = K.sample_hop_plain(indices, eids, starts, offsets)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     picks, none = K.sample_hop(indices, None, starts, offsets)
     assert none is None and torch.equal(picks, want[0])
+    if s * k_:
+      assert int(got[0][0, 0]) == int(indices[0])
+      assert int(got[1][1, -1]) == int(eids[-1])
+
+
+def test_sample_hop_rejects_what_it_does_not_take(dev):
+  # the wrapper checks and converts nothing: int32 and contiguous, or
+  # ValueError
+  indices = torch.zeros(100, dtype=torch.int32, device=dev)
+  starts = torch.zeros(8, dtype=torch.int32, device=dev)
+  offsets = torch.zeros((8, 4), dtype=torch.int32, device=dev)
+  for args in ((indices.long(), None, starts, offsets),
+               (indices, indices.float(), starts, offsets),
+               (indices, None, starts.long(), offsets),
+               (indices, None, starts, offsets.long()),
+               (indices, None, starts, torch.zeros(
+                   (4, 8), dtype=torch.int32, device=dev).t()),
+               (indices[::2], None, starts, offsets),
+               (indices, None, starts[:4], offsets)):
+    with pytest.raises(ValueError):
+      K.sample_hop(*args)
 
 
 def test_stream_engine_serves_through_the_kernels(dev):
@@ -230,22 +258,72 @@ def test_stream_engine_serves_through_the_kernels(dev):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.int32])
-def test_gather_windows_matches_plain(dev, dtype):
-  g = torch.Generator(device=dev).manual_seed(17)
+@pytest.mark.parametrize('base', [0, 1])
+def test_gather_windows_matches_plain(dev, dtype, base):
+  # base 1: arr is a view one element into its allocation, so no cover is
+  # 16-byte aligned with the allocation. Widths 56 and 8 (the products
+  # graph's window and the stream's overlay window), 128 and 1000 (a
+  # hub's -1 window: several passes) take the vector path; 57, 55, 7 and
+  # 1 the element kernel. Rows at start 0 and len - 1 and rows whose
+  # window runs past len take the element path inside the vector kernel.
+  g = torch.Generator(device=dev).manual_seed(17 + base)
   e = 90_000
-  arr = torch.randint(-1000, 1000, (e,), generator=g, device=dev).to(dtype)
-  for s, width in ((4096, 55), (1000, 1), (333, 128), (0, 8)):
+  arr = torch.randint(-1000, 1000, (e + base,), generator=g,
+                      device=dev).to(dtype)[base:]
+  for s, width in ((4096, 56), (4096, 8), (4096, 57), (4096, 7),
+                   (4096, 55), (1000, 1), (333, 128), (64, 1000), (0, 8)):
     starts = torch.randint(0, e, (s,), generator=g, device=dev,
                            dtype=torch.int32)
     if s:
-      starts[-2:] = torch.tensor([e - 1, e - width // 2 - 1], device=dev)
+      starts[-4:] = torch.tensor([0, 1, e - 1, e - width // 2 - 1],
+                                 device=dev)
     before = K.gather_windows.launches
     got = K.gather_windows(arr, starts, width)
     assert K.gather_windows.launches == before + (s > 0)
     assert got.dtype == dtype and got.shape == (s, width)
-    assert torch.equal(got, K.gather_windows_plain(arr, starts, width))
+    assert torch.equal(got, K.gather_windows_plain(arr, starts, width)), \
+        (s, width)
   with pytest.raises(ValueError, match='4-byte'):
     K.gather_windows(arr.double(), starts, 4)
+
+
+class _Interface:
+  """A CUDA array at any byte address (``__cuda_array_interface__``)."""
+
+  def __init__(self, ptr, n):
+    self.__cuda_array_interface__ = dict(
+        shape=(n,), typestr='<f4', data=(ptr, False), strides=None,
+        version=2)
+
+
+def test_gather_windows_reads_an_unaligned_base(dev):
+  # an arr two bytes into its allocation: not 4-byte aligned, so every
+  # width takes the element kernel, reading bytes (all below 128: no
+  # float32 NaN, whatever the alignment)
+  g = torch.Generator(device=dev).manual_seed(31)
+  raw = torch.randint(0, 128, (4 * 5000 + 8,), generator=g, device=dev,
+                      dtype=torch.uint8)
+  arr = torch.as_tensor(_Interface(raw.data_ptr() + 2, 5000), device=dev)
+  assert arr.data_ptr() % 4 == 2
+  want_arr = raw[2:2 + 4 * 5000].clone().view(torch.float32)
+  for width in (56, 7):
+    starts = torch.randint(0, 5000, (300,), generator=g, device=dev,
+                           dtype=torch.int32)
+    got = K.gather_windows(arr, starts, width)
+    want = K.gather_windows_plain(want_arr, starts, width)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_gather_windows_rejects_what_it_does_not_take(dev):
+  arr = torch.zeros(100, device=dev)
+  starts = torch.zeros(8, dtype=torch.int32, device=dev)
+  for args in ((arr, starts.long(), 8), (arr[::2], starts, 8),
+               (arr, torch.zeros((8, 2), dtype=torch.int32,
+                                 device=dev)[:, 0], 8),
+               (arr, starts.view(2, 4), 8), (arr.view(10, 10), starts, 8),
+               (arr.double(), starts, 8), (arr, starts, 0)):
+    with pytest.raises(ValueError):
+      K.gather_windows(*args)
 
 
 def _weighted_csr(dev, n=6000, e=120_000, seed=19):
