@@ -3,8 +3,9 @@
 
 Builds the port's CUDA kernels from csrc/, holds each against its plain
 PyTorch version at the shapes the main paths give it, then drives the
-three serving paths through InferenceEngine.infer and the training path
-through NeighborLoader and SageTrainStep, and checks what comes out:
+three serving paths through InferenceEngine.infer, the training path
+through NeighborLoader and SageTrainStep and the two benchmark entry
+points through their main functions, and checks what comes out:
 
 - homogeneous: a seeded 3-layer GraphSAGE (hidden 256, 47 classes, 100
   features, fanouts [15, 10, 5]) over a products-shaped graph (2.45M
@@ -27,7 +28,18 @@ through NeighborLoader and SageTrainStep, and checks what comes out:
   Gumbel top-k over a gather_windows weight window) -> GraphSAGE 100 ->
   256 -> 256 -> 47 -> masked cross-entropy -> Adam(1e-3), 30 steps; then
   10 uniform steps through the walk, and a [10, -1] full-neighbourhood
-  sampler held against its plain route.
+  sampler held against its plain route;
+- repairs: the walk at fanouts [100] and [3, 80] over a graph whose hub
+  rows (degree 200-2000) exceed them, and the feature gather on bf16 rows
+  of width 101 and uint8 rows of width 7, each against its plain version;
+  the device guard's host cost a launch (guard_cost);
+- the compile probe's ladder (glt_tpu_torch.benchmarks.probe_compile:
+  seven rungs, five kernels of csrc/probes.cu, gather_windows and the
+  shared-memory gather of csrc/take2d.cu), its kernels first held against
+  their plain versions and timed beside their library calls;
+- the gather microbench (glt_tpu_torch.benchmarks.microbench_gather) at
+  its published sizes: torch.take, index_select and gather_rows,
+  gather_windows, and the shared-memory gather.
 
 Usage, from the repository root, on a machine with a card:
 
@@ -73,6 +85,11 @@ LOSS_TOL = 1e-4   # same batch bit for bit; index_add_ atomics again
 # B2 and B3 against torch.take: timed in turns (kernel, take, kernel, ...)
 # over ROUNDS rounds, medians reported; host enqueue over HOST_CALLS calls
 ROUNDS, HOST_CALLS = 11, 200
+# repair checks: the walk at fanouts above 64 over a graph whose hub rows
+# (degree 200-2000) exceed them, K3 on rows that are not 4-byte words
+HUB_NODES, HUB_COUNT, HUB_DEGREE = 200_000, 2_000, (200, 2000)
+WIDE_FANOUTS = ((100,), (3, 80))
+NARROW_ROWS = (('bfloat16', 101), ('uint8', 7))
 
 
 class Phase:
@@ -102,6 +119,32 @@ def cuda_ms(torch, fn, iters, warmup=2):
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, calls=50, replays=5):
+  """Device milliseconds a call of ``fn``: ``calls`` calls captured in one
+  CUDA graph, replayed ``replays`` times between CUDA events, so that the
+  host's enqueue time, which bounds back-to-back launches of a small
+  kernel, drops out."""
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    fn()
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    for _ in range(calls):
+      fn()
+  graph.replay()
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(replays):
+    graph.replay()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / (calls * replays)
 
 
 def in_turns_ms(torch, np, fns, iters=50):
@@ -198,6 +241,250 @@ def time_picks(torch, np, K, label, hops):
 
 def bytes_ms(nbytes):
   return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def time_walk(torch, K, g, seeds, fanouts, gen):
+  """K1 over the graph ``g`` from ``seeds`` at ``fanouts``: equal to its
+  plain version on every surface, its time, plain time and byte bound;
+  returns them as a kernel row."""
+  from glt_tpu_torch.ops.pipeline import _fused_seed_hop, sample_budget
+  from glt_tpu_torch.ops.sample import walk_geometry, walk_hop_uniforms
+  b = seeds.numel()
+  d, _ = _fused_seed_hop(seeds.to(torch.int32), b)
+  u = walk_hop_uniforms(gen, b, fanouts, False, seeds.device)
+  args = (g.indptr_pad, g.indices, d['ids3'], d['new_head3'],
+          torch.where(d['new_head3'], d['ids3'],
+                      torch.full_like(d['ids3'], -1)),
+          d['labels3'], d['count2'], u)
+  kw = dict(fanouts=fanouts, replace=False,
+            table_slots=K.walk_table_slots(sample_budget(b, fanouts)))
+  got = K.sample_walk_dedup(*args, **kw)
+  want = K.sample_walk_dedup_plain(*args, **kw)
+  err = 0
+  for h, (x, y) in enumerate(zip(got, want)):
+    for key in ('picks', 'mask', 'labels', 'new_head'):
+      if not torch.equal(x[key], y[key]):
+        raise AssertionError(f'walk B={b} {list(fanouts)} hop {h} {key} '
+                             'differs')
+      err = max(err, int((x[key].long() - y[key].long()).abs().max()))
+  ms = cuda_ms(torch, lambda i=0: K.sample_walk_dedup(*args, **kw), 10)
+  plain = cuda_ms(torch, lambda i=0: K.sample_walk_dedup_plain(
+      *args, **kw), 3, warmup=1)
+  # bytes the walk must move: uniforms and frontier in, two indptr
+  # entries per live row, one index per valid pick, and per slot the
+  # outputs (pick, label: 4 B; mask, head: 1 B)
+  nbytes = 12 * b
+  frontier_ok = d['new_head3']
+  for (s, k), uh, hop in zip(walk_geometry(b, fanouts), u, got):
+    nbytes += uh.numel() * 4 + s * 4 + int(frontier_ok.sum()) * 8
+    nbytes += int(hop['mask'].sum()) * 4 + s * k * 10
+    frontier_ok = hop['new_head']
+  row = dict(ms=ms, plain_ms=plain, err=err, bound_ms=bytes_ms(nbytes),
+             nodes=int(sum(int(h['new_head'].sum()) for h in got)
+                       + int(d['count2'])))
+  print(f'sample_walk_dedup B={b} {list(fanouts)}: equal to plain on every '
+        f'surface; {ms:.4f} ms (plain {plain:.4f} ms, bound '
+        f'{row["bound_ms"]:.6f} ms, {row["nodes"]} distinct nodes)')
+  return row
+
+
+def hub_graph(torch, dev, seed):
+  """HUB_NODES nodes of out-degree 0-50 and HUB_COUNT hubs of degree
+  HUB_DEGREE that receive half of all edges, drawn on the card; returns
+  the graph and the hub ids."""
+  from glt_tpu_torch.data import Dataset
+  gen = torch.Generator(device=dev).manual_seed(seed)
+  deg = torch.randint(0, 51, (HUB_NODES,), generator=gen, device=dev)
+  hubs = torch.randperm(HUB_NODES, generator=gen, device=dev)[:HUB_COUNT]
+  deg[hubs] = torch.randint(HUB_DEGREE[0], HUB_DEGREE[1] + 1, (HUB_COUNT,),
+                            generator=gen, device=dev)
+  src = torch.repeat_interleave(torch.arange(HUB_NODES, device=dev), deg)
+  e = src.numel()
+  to_hub = hubs[torch.randint(0, HUB_COUNT, (e,), generator=gen, device=dev)]
+  dst = torch.where(torch.rand(e, generator=gen, device=dev) < 0.5, to_hub,
+                    torch.randint(0, HUB_NODES, (e,), generator=gen,
+                                  device=dev))
+  ds = Dataset().init_graph(torch.stack([src, dst]), num_nodes=HUB_NODES)
+  return ds.get_graph(), hubs
+
+
+def repair_checks(torch, np, K, ds, dev, seed, host_us):
+  """The walk at fanouts above 64 and K3 on narrow rows, each equal to
+  its plain version (K3 to index_select too) and timed; the float32
+  products table still copies 16-byte units. Returns the printed rows
+  for the summary."""
+  g, hubs = hub_graph(torch, dev, seed + 8)
+  gen = torch.Generator(device=dev).manual_seed(seed + 9)
+  print(f'hub graph: {g.num_nodes} nodes, {g.num_edges} edges, max degree '
+        f'{g.topo.max_degree}, {HUB_COUNT} hubs of degree {HUB_DEGREE}')
+  seeds = torch.cat([hubs[:128], torch.randint(0, HUB_NODES, (128,),
+                                               generator=gen, device=dev)])
+  out = {}
+  for fanouts in WIDE_FANOUTS:
+    out[f'walk {list(fanouts)}'] = time_walk(torch, K, g, seeds, fanouts,
+                                             gen)
+  table = ds.get_node_feature().table
+  if K.row_unit(table) != 16:
+    raise AssertionError(f'the float32 width-{FEAT_DIM} table copies '
+                         f'{K.row_unit(table)}-byte units, not 16')
+  n_rows = 234_496     # bucket 256's node count (kernel checks)
+  rows = torch.randint(-2, NUM_NODES + 2, (n_rows,), generator=gen,
+                       device=dev, dtype=torch.int32)
+  clamped = rows.long().clamp(0, NUM_NODES - 1)
+  for dtype, width in NARROW_ROWS:
+    dt = getattr(torch, dtype)
+    narrow = torch.randint(0, 256, (NUM_NODES, width), generator=gen,
+                           device=dev, dtype=torch.uint8)
+    if dt != torch.uint8:
+      narrow = torch.randn((NUM_NODES, width), generator=gen, device=dev
+                           ).to(dt)
+    got = K.gather_rows(narrow, rows)
+    if not (torch.equal(got, K.gather_rows_plain(narrow, rows))
+            and torch.equal(got, torch.index_select(narrow, 0, clamped))):
+      raise AssertionError(f'gather_rows {dtype} width {width} differs')
+    ms = cuda_ms(torch, lambda i=0: K.gather_rows(narrow, rows), 50)
+    plain = cuda_ms(torch, lambda i=0: K.gather_rows_plain(narrow, rows), 50)
+    lib = cuda_ms(torch, lambda i=0: torch.index_select(narrow, 0, clamped),
+                  50)
+    host = host_us({'kernel': lambda: K.gather_rows(narrow, rows),
+                    'index_select': lambda: torch.index_select(narrow, 0,
+                                                               clamped)})
+    row_bytes = width * got.element_size()
+    bound = bytes_ms(2 * n_rows * row_bytes + 4 * n_rows)
+    out[f'gather_rows {dtype} {width}'] = dict(ms=ms, plain_ms=plain,
+                                               library_ms=lib,
+                                               bound_ms=bound)
+    print(f'gather_rows {n_rows} x {width} {dtype} ({K.row_unit(narrow)}-'
+          f'byte units): equal to plain and index_select; {ms:.4f} ms '
+          f'(plain {plain:.4f}, index_select {lib:.4f}, bound {bound:.6f} '
+          f'ms); host enqueue {host["kernel"]:.2f} us a call (index_select '
+          f'{host["index_select"]:.2f} us)')
+    del narrow, got
+  return out
+
+
+def guard_cost(torch, np, K):
+  """The device guard's host cost (csrc/entry.cuh), in turns over ROUNDS
+  rounds of HOST_CALLS calls, medians: K3's entry point (a 256-row
+  gather) enqueued with its tensors on card 0, the current card (the
+  guard reads the current card and compares), and, with a second card,
+  on card 1 while card 0 stays current (the guard switches there and
+  back); and the wrappers' per-call lookup of card and stream
+  (``_where``) against the stream lookup alone, which it replaced.
+  Returns the medians in us a call."""
+  torch.cuda.set_device(0)
+  cards = [torch.device('cuda', i)
+           for i in range(min(2, torch.cuda.device_count()))]
+  calls, keep = {}, []
+  for d in cards:
+    gen = torch.Generator(device=d).manual_seed(5)
+    table = torch.randn((1000, 100), generator=gen, device=d)
+    rows = torch.randint(0, 1000, (256,), generator=gen, device=d,
+                         dtype=torch.int32)
+    out = torch.empty((256, 100), device=d)
+    keep.append((table, rows, out))
+    args = (table.data_ptr(), rows.data_ptr(), out.data_ptr(), 1000, 400,
+            256, K.row_unit(table), *K._where(d))
+    calls[f'entry on card {d.index}'] = (
+        lambda a=args: K._check(K.glt_gather_rows(*a), 'gather_rows'))
+  d0 = cards[0]
+  calls['_where'] = lambda: K._where(d0)
+  calls['stream lookup'] = lambda: K._raw_stream(d0.index)
+  times = {n: [] for n in calls}
+  for _ in range(ROUNDS):
+    for n, fn in calls.items():
+      fn()
+      for d in cards:
+        torch.cuda.synchronize(d)
+      t0 = time.perf_counter()
+      for _ in range(HOST_CALLS):
+        fn()
+      times[n].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+      for d in cards:
+        torch.cuda.synchronize(d)
+  for (table, rows, out) in keep:
+    if not torch.equal(out, table[rows.long()]):
+      raise AssertionError(f'gather_rows on {table.device} differs')
+  if torch.cuda.current_device() != 0:
+    raise AssertionError('the guard left card '
+                         f'{torch.cuda.current_device()} current')
+  med = {n: float(np.median(v)) for n, v in times.items()}
+  above = lambda a, b: float(np.median(np.subtract(times[a], times[b])))
+  switch = 'not measured: one card'
+  if len(cards) > 1:
+    switch = (f'{med["entry on card 1"]:.3f} us (switch and back; per round '
+              f'median {above("entry on card 1", "entry on card 0"):.3f} us '
+              'above card 0)')
+  print(f'device guard: K3 entry on the current card '
+        f'{med["entry on card 0"]:.3f} us a call; on card 1 from card 0 '
+        f'{switch}; _where {med["_where"]:.3f} us vs stream lookup '
+        f'{med["stream lookup"]:.3f} us (per round median '
+        f'{above("_where", "stream lookup"):.3f} us more)')
+  return med
+
+
+def probe_checks(torch, np, P, dev, seed, rows, host_us):
+  """Each kernel of the probe ladder and the microbench held bit-equal to
+  its plain version at the TPU rungs' shapes (vmem_take also at the
+  microbench's [200, 3840]) and timed beside its library call, where one
+  PyTorch call computes the same function, its byte bound and its host
+  enqueue time."""
+  from glt_tpu_torch.benchmarks import probe_compile
+  t = {k: torch.as_tensor(v, device=dev)
+       for k, v in probe_compile.draw_inputs(seed).items()}
+  gen = torch.Generator(device=dev).manual_seed(seed + 10)
+  big_idx = torch.randint(0, 8192, (200, 3840), generator=gen, device=dev,
+                          dtype=torch.int32)
+  x, s, big, st = t['x'], t['s'], t['big'], t['st']
+  idx_long = (t['idx'].long(), big_idx.long())   # torch.take's index type
+  # name: (wrapper, arguments, library call or None, bytes moved)
+  cases = {
+      'vmem_id': ('vmem_id', (x,), lambda: x.clone(), 2 * x.numel() * 4),
+      'smem_scalar': ('smem_scalar', (x, s), lambda: torch.mul(x, s),
+                      2 * x.numel() * 4 + 4),
+      'dma_fixed': ('dma_fixed', (big, 256, 128),
+                    lambda: big[256:384].clone(), 2 * 128 * 4),
+      'dma_dynamic': ('dma_dynamic', (big, st, 128), None, 2 * 128 * 4 + 4),
+      'prefetch_grid': ('prefetch_grid', (t['tab'], t['rows']),
+                        lambda: torch.index_select(t['tab'], 0, t['rows']),
+                        2 * t['rows'].numel() * 512 + 4 * 16),
+      'vt': ('vt', (t['tab2d'], t['idx']),
+             lambda: torch.take(t['tab2d'], idx_long[0]),
+             8 * t['idx'].numel() + 4 * t['tab2d'].numel()),
+      'vmem_take': ('vmem_take', (t['tab2d'], big_idx),
+                    lambda: torch.take(t['tab2d'], idx_long[1]),
+                    8 * big_idx.numel() + 4 * t['tab2d'].numel()),
+  }
+  for name, (fn, args, lib, nbytes) in cases.items():
+    kernel, plain = getattr(P, fn), getattr(P, fn + '_plain')
+    got, want = kernel(*args), plain(*args)
+    if not torch.equal(got, want):
+      raise AssertionError(f'{name} differs from its plain version')
+    if lib is not None and not torch.equal(got, lib()):
+      raise AssertionError(f'{name} differs from its library call')
+    ms = cuda_ms(torch, lambda i=0: kernel(*args), 200)
+    plain_ms = cuda_ms(torch, lambda i=0: plain(*args), 200)
+    lib_ms = cuda_ms(torch, lambda i=0: lib(), 200) if lib else None
+    fns = {'kernel': lambda: kernel(*args)}
+    if lib:
+      fns['library'] = lib
+    host = host_us(fns)
+    dev_ms = {n: graph_ms(torch, f) for n, f in fns.items()}
+    bound = bytes_ms(nbytes)
+    rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                      bound_ms=bound, err=float(
+                          (got.double() - want.double()).abs().max()),
+                      host_us=host['kernel'], graph_ms=dev_ms['kernel'],
+                      library_graph_ms=dev_ms.get('library'))
+    shapes = [tuple(a.shape) if hasattr(a, 'shape') else a for a in args]
+    print(f'{name} {shapes}: equal to plain'
+          f'{" and its library call" if lib else ""}; {ms:.4f} ms a launch '
+          f'back to back (plain {plain_ms:.4f}, library '
+          f'{"none" if lib is None else f"{lib_ms:.4f}"}, bound {bound:.3e} '
+          f'ms); in a CUDA graph {dev_ms["kernel"]:.4f} ms'
+          + (f' (library {dev_ms["library"]:.4f})' if lib else '')
+          + f'; host enqueue {host["kernel"]:.2f} us a call'
+          + (f' (library {host["library"]:.2f} us)' if lib else ''))
 
 
 def igbh_edges(torch, counts, gen, dev):
@@ -853,12 +1140,13 @@ def main() -> int:
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device', file=sys.stderr)
     return 1
+  from glt_tpu_torch.benchmarks import microbench_gather, probe_compile
   from glt_tpu_torch.data import Dataset
   from glt_tpu_torch.models import RGNN, GraphSAGE
   from glt_tpu_torch.ops import build
   from glt_tpu_torch.ops import cuda_kernels as K
+  from glt_tpu_torch.ops import probe_kernels as P
   from glt_tpu_torch.ops.pipeline import _fused_seed_hop, sample_budget
-  from glt_tpu_torch.ops.sample import walk_geometry, walk_hop_uniforms
   from glt_tpu_torch.sampler.base import NodeSamplerInput
   from glt_tpu_torch.serving import InferenceEngine
 
@@ -880,8 +1168,16 @@ def main() -> int:
   with Phase('build'):
     for name, path in build.build_all().items():
       with open(path + '.log') as f:
-        regs = [ln.strip() for ln in f if 'registers' in ln or 'spill' in ln]
-      print(f'built {name}: ' + ' | '.join(regs[:6]))
+        log = f.read().splitlines()
+      regs = [ln.split('Used ')[1].split(',')[0] for ln in log
+              if 'registers' in ln]
+      spills = [ln.strip() for ln in log if 'spill' in ln
+                and ' 0 bytes spill stores, 0 bytes spill loads' not in ln]
+      stacks = sorted({ln.split(':')[-1].strip().split(',')[0] for ln in log
+                       if 'stack frame' in ln})
+      print(f'built {name}: kernels of {", ".join(regs)}; stack frames '
+            f'{", ".join(stacks)}; '
+            + ('; '.join(spills) if spills else 'no spills'))
     for name in build.SOURCES:
       build.kernel_library(name)
 
@@ -914,44 +1210,8 @@ def main() -> int:
   with Phase('kernel checks'):
     seeds_np = torch.randint(0, NUM_NODES, (1024,), generator=gen,
                              device=dev)
-    walk = {}
-    for b in (256, 1024):
-      seeds = seeds_np[:b].to(torch.int32)
-      d, _ = _fused_seed_hop(seeds, b)
-      u = walk_hop_uniforms(gen, b, FANOUTS, False, dev)
-      args = (g.indptr_pad, g.indices, d['ids3'], d['new_head3'],
-              torch.where(d['new_head3'], d['ids3'],
-                          torch.full_like(d['ids3'], -1)),
-              d['labels3'], d['count2'], u)
-      kw = dict(fanouts=FANOUTS, replace=False,
-                table_slots=K.walk_table_slots(sample_budget(b, FANOUTS)))
-      got = K.sample_walk_dedup(*args, **kw)
-      want = K.sample_walk_dedup_plain(*args, **kw)
-      err = 0
-      for h, (x, y) in enumerate(zip(got, want)):
-        for key in ('picks', 'mask', 'labels', 'new_head'):
-          if not torch.equal(x[key], y[key]):
-            raise AssertionError(f'walk B={b} hop {h} {key} differs')
-          err = max(err, int((x[key].long() - y[key].long()).abs().max()))
-      ms = cuda_ms(torch, lambda i=0: K.sample_walk_dedup(*args, **kw), 10)
-      plain = cuda_ms(torch, lambda i=0: K.sample_walk_dedup_plain(
-          *args, **kw), 3, warmup=1)
-      # bytes the walk must move: uniforms and frontier in, two indptr
-      # entries per live row, one index per valid pick, and per slot the
-      # outputs (pick, label: 4 B; mask, head: 1 B)
-      nbytes = 12 * b
-      frontier_ok = d['new_head3']
-      for (s, k), uh, hop in zip(walk_geometry(b, FANOUTS), u, got):
-        nbytes += uh.numel() * 4 + s * 4 + int(frontier_ok.sum()) * 8
-        nbytes += int(hop['mask'].sum()) * 4 + s * k * 10
-        frontier_ok = hop['new_head']
-      walk[b] = dict(ms=ms, plain_ms=plain, err=err,
-                     bound_ms=bytes_ms(nbytes),
-                     nodes=int(sum(int(h['new_head'].sum()) for h in got)
-                               + int(d['count2'])))
-      print(f'sample_walk_dedup B={b}: equal to plain on every surface; '
-            f'{ms:.4f} ms (plain {plain:.4f} ms, bound {bytes_ms(nbytes):.6f} '
-            f'ms, {walk[b]["nodes"]} distinct nodes)')
+    walk = {b: time_walk(torch, K, g, seeds_np[:b], FANOUTS, gen)
+            for b in (256, 1024)}
     rows['sample_walk_dedup'] = walk[256]
 
     # dedup_table_insert: the walk's seed phase at bucket 256
@@ -1200,39 +1460,102 @@ def main() -> int:
   torch.cuda.empty_cache()
   train_launches, uniform_launches = train_phases(torch, np, K, ds, dev,
                                                   opts.seed, rows, smi)
+  host_us = lambda fns: in_turns_host_us(torch, np, fns)
+  with Phase('repair checks'):
+    repair = repair_checks(torch, np, K, ds, dev, opts.seed, host_us)
+    guard_cost(torch, np, K)
+
+  with Phase('probe kernel checks'):
+    probe_checks(torch, np, P, dev, opts.seed, rows, host_us)
+
+  def launches():
+    return {fn.__name__: fn.launches for fn in K.KERNELS + P.KERNELS}
+
+  with Phase('probe ladder'):
+    K.reset_launch_counts()
+    P.reset_launch_counts()
+    rc = probe_compile.main(['--seed', str(opts.seed)])
+    probe_launches = launches()
+    if rc != 0:
+      raise AssertionError('a rung of the probe ladder failed')
+    for name in ('vmem_id', 'smem_scalar', 'dma_fixed', 'dma_dynamic',
+                 'prefetch_grid', 'gather_windows', 'vt'):
+      if probe_launches[name] == 0:
+        raise AssertionError(f'{name} never launched on the probe ladder')
+    print(f'launches {probe_launches}')
+
+  with Phase('gather microbench'):
+    K.reset_launch_counts()
+    P.reset_launch_counts()
+    microbench_gather.main(['--seed', str(opts.seed)])
+    micro_launches = launches()
+    for name in ('gather_rows', 'gather_windows', 'vmem_take'):
+      if micro_launches[name] == 0:
+        raise AssertionError(f'{name} never launched in the microbench')
+    print(f'launches {micro_launches}')
+
   by_path = {'homogeneous': homo_launches, 'hetero': hetero_launches,
              'stream': stream_launches, 'train': train_launches,
-             'train_uniform': uniform_launches}
+             'train_uniform': uniform_launches, 'probe': probe_launches,
+             'microbench': micro_launches}
+  # row: (its wrapper, source, the TPU kernel it replaces)
   replaces = {
-      'sample_walk_dedup': ('glt_tpu_torch/csrc/sample_walk_dedup.cu',
+      'sample_walk_dedup': ('sample_walk_dedup',
+                            'glt_tpu_torch/csrc/sample_walk_dedup.cu',
                             'glt_tpu/ops/pallas_kernels.py:998'),
-      'dedup_table_insert': ('glt_tpu_torch/csrc/dedup_table_insert.cu',
+      'dedup_table_insert': ('dedup_table_insert',
+                             'glt_tpu_torch/csrc/dedup_table_insert.cu',
                              'glt_tpu/ops/pallas_kernels.py:588'),
-      'gather_rows': ('glt_tpu_torch/csrc/gather_rows.cu',
+      'gather_rows': ('gather_rows', 'glt_tpu_torch/csrc/gather_rows.cu',
                       'glt_tpu/ops/pallas_kernels.py:236'),
-      'sample_hop_dedup': ('glt_tpu_torch/csrc/sample_hop_dedup.cu',
+      'sample_hop_dedup': ('sample_hop_dedup',
+                           'glt_tpu_torch/csrc/sample_hop_dedup.cu',
                            'glt_tpu/ops/pallas_kernels.py:653'),
-      'sample_hop': ('glt_tpu_torch/csrc/sample_hop.cu',
+      'sample_hop': ('sample_hop', 'glt_tpu_torch/csrc/sample_hop.cu',
                      'glt_tpu/ops/pallas_kernels.py:367'),
-      'gather_windows': ('glt_tpu_torch/csrc/gather_windows.cu',
+      'gather_windows': ('gather_windows',
+                         'glt_tpu_torch/csrc/gather_windows.cu',
                          'glt_tpu/ops/pallas_kernels.py:165'),
+      'vmem_id': ('vmem_id', 'glt_tpu_torch/csrc/probes.cu',
+                  'benchmarks/probe_pallas_compile.py:55'),
+      'smem_scalar': ('smem_scalar', 'glt_tpu_torch/csrc/probes.cu',
+                      'benchmarks/probe_pallas_compile.py:65'),
+      'dma_fixed': ('dma_fixed', 'glt_tpu_torch/csrc/probes.cu',
+                    'benchmarks/probe_pallas_compile.py:83'),
+      'dma_dynamic': ('dma_dynamic', 'glt_tpu_torch/csrc/probes.cu',
+                      'benchmarks/probe_pallas_compile.py:102'),
+      'prefetch_grid': ('prefetch_grid', 'glt_tpu_torch/csrc/probes.cu',
+                        'benchmarks/probe_pallas_compile.py:125'),
+      'vt': ('vt', 'glt_tpu_torch/csrc/take2d.cu',
+             'benchmarks/probe_pallas_compile.py:163'),
+      'vmem_take': ('vmem_take', 'glt_tpu_torch/csrc/take2d.cu',
+                    'benchmarks/microbench_pallas_gather.py:129'),
   }
   print(f'walk B=1024: {walk[1024]["ms"]:.4f} ms, plain '
         f'{walk[1024]["plain_ms"]:.4f} ms, bound '
         f'{walk[1024]["bound_ms"]:.6f} ms')
   print('main-path launches: ' + '; '.join(
       f'{p} {v}' for p, v in by_path.items()))
+  for name, row in repair.items():
+    print(f'repair {name}: {row["ms"]:.4f} ms (plain {row["plain_ms"]:.4f}'
+          + (f', index_select {row["library_ms"]:.4f}' if 'library_ms' in row
+             else '') + f', bound {row["bound_ms"]:.6f} ms)')
   print(smi)
-  # launches: the main paths together; launches_by_path: each path's own
+  # launches: the main paths together; launches_by_path: each path's own;
+  # graph_ms: device time a call inside a CUDA graph (the probe rows);
+  # vt and vmem_take launch one kernel through wrappers of their own, so
+  # each row counts only its own shape's launches
   print(json.dumps({'kernels': [
-      dict(name=n, route='cuda', source=src, replaces=rep,
-           launches=sum(v[n] for v in by_path.values()),
-           launches_by_path={p: v[n] for p, v in by_path.items()},
+      dict(name=n, route='cuda', source=src, replaces=rep, wrapper=w,
+           launches=sum(v.get(w, 0) for v in by_path.values()),
+           launches_by_path={p: v.get(w, 0) for p, v in by_path.items()},
            max_abs_err=rows[n]['err'],
            ms=rows[n]['ms'], plain_ms=rows[n]['plain_ms'],
            bound_ms=rows[n]['bound_ms'], bound_by='bytes',
-           library_ms=rows[n].get('library_ms'))
-      for n, (src, rep) in replaces.items()]}))
+           library_ms=rows[n].get('library_ms'),
+           graph_ms=rows[n].get('graph_ms'),
+           library_graph_ms=rows[n].get('library_graph_ms'))
+      for n, (w, src, rep) in replaces.items()]}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))
   return 0

@@ -37,11 +37,11 @@ __global__ void dedup_table_insert_kernel(int* __restrict__ keys,
 extern "C" int glt_dedup_table_insert(void* keys, void* vals, int slots,
                                       const void* ids, const void* labs,
                                       const void* valid, int m,
-                                      void* stream) {
+                                      int device, void* stream) {
   if (m <= 0) return 0;
   const int threads = 256;
   return glt::Launch<dedup_table_insert_kernel>::run(
-      dim3(glt::blocks_for(m, threads)), dim3(threads), stream,
+      dim3(glt::blocks_for(m, threads)), dim3(threads), device, stream,
       static_cast<int*>(keys), static_cast<int*>(vals), slots - 1,
       static_cast<const int*>(ids), static_cast<const int*>(labs),
       static_cast<const int*>(valid), m);

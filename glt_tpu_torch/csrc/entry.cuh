@@ -59,35 +59,48 @@ template <typename... A, int (*Fn)(A...)> struct Entry<Fn> {
   }
 };
 
-// One launch of a __global__ function through cuLaunchKernel. Every
-// entry point of csrc/ launches this way and returns the CUresult, 0 when
-// the launch was enqueued (a refused configuration shows here, with no
-// cudaGetLastError to call).
+// One launch of a __global__ function through cuLaunchKernel on
+// `device`, the card of the caller's tensors. Every entry point of csrc/
+// launches this way and returns the CUresult, 0 when the launch was
+// enqueued (a refused configuration shows here, with no cudaGetLastError
+// to call).
 // A CUfunction belongs to one device's context, so the handle is looked
-// up once per device, for the current device: the kernel runs there, as
-// a <<<>>> launch would, and the caller's stream must be that device's
-// (the wrappers' tensors lie on the current device). The arguments
-// convert to the kernel's own parameter types.
+// up once per device. The launch switches the calling thread to `device`
+// only when that is not already its current device, and back after it:
+// one cudaGetDevice and a compare on the common path. The caller's stream
+// must be `device`'s. The arguments convert to the kernel's own parameter
+// types.
 constexpr int kMaxDevices = 64;
 
 template <auto Kernel> struct Launch;
 template <typename... P, void (*Kernel)(P...)> struct Launch<Kernel> {
-  static int run(dim3 grid, dim3 block, void* stream, P... args) {
+  static int run(dim3 grid, dim3 block, int device, void* stream,
+                 P... args) {
     static std::atomic<CUfunction> fns[kMaxDevices];
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices)
+    int current = 0;
+    if (device < 0 || device >= kMaxDevices
+        || cudaGetDevice(&current) != cudaSuccess)
       return CUDA_ERROR_INVALID_DEVICE;
-    CUfunction fn = fns[dev].load(std::memory_order_relaxed);
+    const bool switched = current != device;
+    if (switched && cudaSetDevice(device) != cudaSuccess)
+      return CUDA_ERROR_INVALID_DEVICE;
+    int err = CUDA_SUCCESS;
+    CUfunction fn = fns[device].load(std::memory_order_relaxed);
     if (!fn) {
       if (cudaGetFuncBySymbol(&fn, reinterpret_cast<const void*>(Kernel))
-          != cudaSuccess)
-        return CUDA_ERROR_NOT_FOUND;
-      fns[dev].store(fn, std::memory_order_relaxed);
+          == cudaSuccess)
+        fns[device].store(fn, std::memory_order_relaxed);
+      else
+        err = CUDA_ERROR_NOT_FOUND;
     }
-    void* params[] = {&args...};
-    return static_cast<int>(cuLaunchKernel(
-        fn, grid.x, grid.y, grid.z, block.x, block.y, block.z, 0,
-        static_cast<CUstream>(stream), params, nullptr));
+    if (err == CUDA_SUCCESS) {
+      void* params[] = {&args...};
+      err = static_cast<int>(cuLaunchKernel(
+          fn, grid.x, grid.y, grid.z, block.x, block.y, block.z, 0,
+          static_cast<CUstream>(stream), params, nullptr));
+    }
+    if (switched) cudaSetDevice(current);
+    return err;
   }
 };
 

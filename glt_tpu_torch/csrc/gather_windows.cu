@@ -196,18 +196,20 @@ using Args = std::tuple<const unsigned char*, int64_t, const int*, int, int,
                         uint32_t*>;
 
 template <auto Kernel>
-int launch(dim3 grid, dim3 block, void* stream, const Args& a) {
-  return std::apply(
-      [&](auto... v) { return glt::Launch<Kernel>::run(grid, block, stream,
-                                                       v...); }, a);
+int launch(dim3 grid, dim3 block, int device, void* stream,
+           const Args& a) {
+  return std::apply([&](auto... v) {
+    return glt::Launch<Kernel>::run(grid, block, device, stream, v...);
+  }, a);
 }
 
 template <int T>
-int launch_vector(void* stream, const Args& a) {
+int launch_vector(int device, void* stream, const Args& a) {
   const int s = std::get<3>(a);
   const int rows_per_block = (kThreads / T) * kSteps;
   return launch<windows_shuffle<T>>(
-      dim3((s - 1) / rows_per_block + 1), dim3(kThreads), stream, a);
+      dim3((s - 1) / rows_per_block + 1), dim3(kThreads), device, stream,
+      a);
 }
 
 }  // namespace
@@ -217,7 +219,7 @@ int launch_vector(void* stream, const Args& a) {
 // (entry.cuh), 0 when it was enqueued.
 extern "C" int glt_gather_windows(const void* arr, int64_t len,
                                   const void* starts, int s, int width,
-                                  void* out, void* stream) {
+                                  void* out, int device, void* stream) {
   if (s <= 0 || width <= 0) return 0;
   const Args a{static_cast<const unsigned char*>(arr), len,
                static_cast<const int*>(starts), s, width,
@@ -227,15 +229,16 @@ extern "C" int glt_gather_windows(const void* arr, int64_t len,
     const int wx = width < kThreads ? width : kThreads;
     const int ry = kThreads / wx;
     const dim3 blocks((s - 1) / ry + 1), block(wx, ry);
-    return base % 4 ? launch<windows_elem<false>>(blocks, block, stream, a)
-                    : launch<windows_elem<true>>(blocks, block, stream, a);
+    return base % 4
+               ? launch<windows_elem<false>>(blocks, block, device, stream, a)
+               : launch<windows_elem<true>>(blocks, block, device, stream, a);
   }
   const int need = width / 4 + 1;
-  if (need <= 2) return launch_vector<2>(stream, a);
-  if (need <= 4) return launch_vector<4>(stream, a);
-  if (need <= 8) return launch_vector<8>(stream, a);
-  if (need <= 16) return launch_vector<16>(stream, a);
-  return launch_vector<32>(stream, a);
+  if (need <= 2) return launch_vector<2>(device, stream, a);
+  if (need <= 4) return launch_vector<4>(device, stream, a);
+  if (need <= 8) return launch_vector<8>(device, stream, a);
+  if (need <= 16) return launch_vector<16>(device, stream, a);
+  return launch_vector<32>(device, stream, a);
 }
 
 GLT_MODULE(gather_windows,

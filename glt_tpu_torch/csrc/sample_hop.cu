@@ -95,12 +95,12 @@ sample_hop_kernel(const int* __restrict__ indices,
 extern "C" int glt_sample_hop(const void* indices, const void* eids,
                               int64_t num_slots, const void* starts,
                               const void* offsets, int s, int k, void* picks,
-                              void* eid_picks, void* stream) {
+                              void* eid_picks, int device, void* stream) {
   if (s <= 0 || k <= 0) return 0;
   const int kx = k < kThreads ? k : kThreads;
   const int ry = kThreads / kx;
   return glt::Launch<sample_hop_kernel>::run(
-      dim3((s - 1) / (ry * kRows) + 1), dim3(kx, ry), stream,
+      dim3((s - 1) / (ry * kRows) + 1), dim3(kx, ry), device, stream,
       static_cast<const int*>(indices), static_cast<const int*>(eids),
       num_slots, static_cast<const int*>(starts),
       static_cast<const int*>(offsets), s, k, static_cast<int*>(picks),

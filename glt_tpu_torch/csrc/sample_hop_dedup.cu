@@ -89,12 +89,12 @@ extern "C" int glt_hop_sample(const void* indices_flat, const void* eids_flat,
                               const void* valid, int s, int k, void* keys,
                               const void* vals, void* first, int slots_n,
                               void* picks, void* eid_picks, void* tslot,
-                              void* stream) {
+                              int device, void* stream) {
   const int m = s * k;
   if (m <= 0) return 0;
   const int threads = 256;
   return glt::Launch<hop_sample_kernel>::run(
-      dim3(glt::blocks_for(m, threads)), dim3(threads), stream,
+      dim3(glt::blocks_for(m, threads)), dim3(threads), device, stream,
       static_cast<const int*>(indices_flat),
       static_cast<const int*>(eids_flat), static_cast<const int*>(starts),
       static_cast<const int*>(offsets),
@@ -107,11 +107,12 @@ extern "C" int glt_hop_sample(const void* indices_flat, const void* eids_flat,
 extern "C" int glt_hop_heads(const void* picks, const void* valid,
                              const void* tslot, const void* vals,
                              const void* first, int m, void* labels,
-                             void* new_head, void* next_key, void* stream) {
+                             void* new_head, void* next_key, int device,
+                             void* stream) {
   if (m <= 0) return 0;
   const int threads = 256;
   return glt::Launch<glt::table_heads_kernel>::run(
-      dim3(glt::blocks_for(m, threads)), dim3(threads), stream,
+      dim3(glt::blocks_for(m, threads)), dim3(threads), device, stream,
       static_cast<const int*>(picks),
       static_cast<const unsigned char*>(valid),
       static_cast<const int*>(tslot), static_cast<const int*>(vals),
@@ -123,11 +124,11 @@ extern "C" int glt_hop_labels(const void* picks, const void* new_head,
                               const void* tslot, const void* sorted_new,
                               const void* type_bounds, int num_types,
                               const void* counts, int m, void* labels,
-                              void* vals, void* stream) {
+                              void* vals, int device, void* stream) {
   if (m <= 0) return 0;
   const int threads = 256;
   return glt::Launch<hop_labels_kernel>::run(
-      dim3(glt::blocks_for(m, threads)), dim3(threads), stream,
+      dim3(glt::blocks_for(m, threads)), dim3(threads), device, stream,
       static_cast<const int*>(picks),
       static_cast<const unsigned char*>(new_head),
       static_cast<const int*>(tslot), static_cast<const int*>(sorted_new),

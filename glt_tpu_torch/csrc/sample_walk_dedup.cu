@@ -19,7 +19,14 @@
 //              indices[start + offset] (no windows and no hub lists: a
 //              thread reads any element), and a lock-free probe/insert of
 //              every valid pick; an id new in this hop records its minimum
-//              slot with atomicMin.
+//              slot with atomicMin. The row's offsets live in a 64-entry
+//              thread-local array for fanouts up to 64 (the main paths'
+//              [15, 10, 5]); a wider fanout has its own instantiation that
+//              keeps them in the row's own span of the tslot output, which
+//              only the owning thread touches (so it stays in L1/L2) and
+//              which the same thread overwrites, column by column, with
+//              the table slots once each offset is read. Every fanout the
+//              JAX walk takes (k > 0) runs, with the same picks.
 //   heads   -- one thread per slot: seen ids take their stored label; the
 //              minimum slot of a new id is its head, and heads form the next
 //              frontier where(new_head, pick, INT32_MAX).
@@ -36,8 +43,10 @@
 
 namespace {
 
-constexpr int kMaxFanout = 64;
+// fanouts up to this keep a row's offsets in a thread-local array
+constexpr int kLocalFanout = 64;
 
+template <bool kWide>
 __global__ void walk_sample_kernel(
     const int* __restrict__ indptr_pad, int num_nodes,
     const int* __restrict__ indices, const int* __restrict__ frontier,
@@ -55,7 +64,8 @@ __global__ void walk_sample_kernel(
   const int deg = ok ? indptr_pad[addr + 1] - start : 0;
   const float* ur = u + static_cast<int64_t>(r) * k;
 
-  int off[kMaxFanout];
+  int local_off[kWide ? 1 : kLocalFanout];
+  int* off = kWide ? tslot + static_cast<int64_t>(r) * k : local_off;
   int n_valid;
   if (replace) {
     // offsets = min(int(u * deg), max(deg - 1, 0)); every lane valid iff
@@ -91,7 +101,7 @@ __global__ void walk_sample_kernel(
       if (slots) slots[e] = -1;
       continue;
     }
-    const int slot = start + off[j];
+    const int slot = start + off[j];   // read before tslot[e] is written
     const int x = indices[slot];
     picks[e] = x;
     valid[e] = 1;
@@ -122,12 +132,13 @@ extern "C" int glt_walk_sample(const void* indptr_pad, int num_nodes,
                                const void* u, int replace, void* keys,
                                const void* vals, void* first, int slots_n,
                                void* picks, void* slots, void* valid,
-                               void* tslot, void* stream) {
-  if (k > kMaxFanout) return CUDA_ERROR_INVALID_VALUE;
+                               void* tslot, int device, void* stream) {
   if (s <= 0) return 0;
   const int threads = 128;
-  return glt::Launch<walk_sample_kernel>::run(
-      dim3(glt::blocks_for(s, threads)), dim3(threads), stream,
+  auto run = k <= kLocalFanout ? glt::Launch<walk_sample_kernel<false>>::run
+                               : glt::Launch<walk_sample_kernel<true>>::run;
+  return run(
+      dim3(glt::blocks_for(s, threads)), dim3(threads), device, stream,
       static_cast<const int*>(indptr_pad), num_nodes,
       static_cast<const int*>(indices), static_cast<const int*>(frontier),
       static_cast<const int*>(frontier_ok), s, k,
@@ -141,11 +152,11 @@ extern "C" int glt_walk_heads(const void* picks, const void* valid,
                               const void* tslot, const void* vals,
                               const void* first, int m, void* labels,
                               void* new_head, void* next_frontier,
-                              void* stream) {
+                              int device, void* stream) {
   if (m <= 0) return 0;
   const int threads = 256;
   return glt::Launch<glt::table_heads_kernel>::run(
-      dim3(glt::blocks_for(m, threads)), dim3(threads), stream,
+      dim3(glt::blocks_for(m, threads)), dim3(threads), device, stream,
       static_cast<const int*>(picks),
       static_cast<const unsigned char*>(valid),
       static_cast<const int*>(tslot), static_cast<const int*>(vals),
@@ -157,11 +168,11 @@ extern "C" int glt_walk_heads(const void* picks, const void* valid,
 extern "C" int glt_walk_labels(const void* picks, const void* new_head,
                                const void* tslot, const void* sorted_new,
                                const void* count, int m, void* labels,
-                               void* vals, void* stream) {
+                               void* vals, int device, void* stream) {
   if (m <= 0) return 0;
   const int threads = 256;
   return glt::Launch<walk_labels_kernel>::run(
-      dim3(glt::blocks_for(m, threads)), dim3(threads), stream,
+      dim3(glt::blocks_for(m, threads)), dim3(threads), device, stream,
       static_cast<const int*>(picks),
       static_cast<const unsigned char*>(new_head),
       static_cast<const int*>(tslot), static_cast<const int*>(sorted_new),

@@ -21,13 +21,14 @@ import shutil
 import subprocess
 import sysconfig
 from types import ModuleType
-from typing import Dict
+from typing import Callable, Dict
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                          '_build')
 SOURCES = ('gather_rows', 'dedup_table_insert', 'sample_walk_dedup',
-           'sample_hop_dedup', 'sample_hop', 'gather_windows')
+           'sample_hop_dedup', 'sample_hop', 'gather_windows', 'probes',
+           'take2d')
 #: the CUDA runtime is the one PyTorch has loaded (shared); the launches of
 #: csrc/entry.cuh go through libcuda's cuLaunchKernel (LIBS, after the source)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -108,3 +109,18 @@ def kernel_library(name: str) -> ModuleType:
   use. Its ``glt_*`` functions take pointers as ints (None is NULL) and
   return the CUDA error of their launch, 0 when it was enqueued."""
   return _modules()[name]
+
+
+def lazy_entry(namespace: dict, name: str) -> Callable[..., int]:
+  """A stand-in for the C entry point ``name``, a global of the wrapper
+  module whose globals are ``namespace``: its first call builds every
+  source, binds each entry point that ``namespace`` names in place of
+  its stand-in and calls through. From then on a launch reads one
+  global, with no import and no library lookup."""
+  def call(*args):
+    for lib in SOURCES:
+      for fn, entry in vars(kernel_library(lib)).items():
+        if fn.startswith('glt_') and fn in namespace:
+          namespace[fn] = entry
+    return namespace[name](*args)
+  return call

@@ -27,7 +27,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from .build import SOURCES, kernel_library
+from .build import lazy_entry
 from .sample import _row_spans, draw_offsets, walk_geometry
 
 BIG = torch.iinfo(torch.int32).max
@@ -57,33 +57,21 @@ def reset_launch_counts() -> None:
 
 # -- plumbing ---------------------------------------------------------------
 # Each C entry point of the kernel modules (ops/build.py) is a module global
-# of its own name. Until the first launch it is a stand-in that builds
-# every source, binds every entry point in its place and calls through;
-# from then on a launch reads one global, with no import and no library
-# lookup. Pointers go in as plain ints (``data_ptr()``, None is NULL), the
-# stream as the raw handle of the device's current stream, read on every
-# launch: a caller may switch streams.
+# of its own name, bound at the first launch (build.lazy_entry); pointers
+# go in as plain ints (``data_ptr()``, None is NULL), then the card's index
+# and the raw handle of its current stream, read on every launch: a
+# caller may switch streams.
 
-def _first_call(name: str):
-  def call(*args):
-    for lib in SOURCES:
-      for fn, entry in vars(kernel_library(lib)).items():
-        if fn.startswith('glt_'):
-          globals()[fn] = entry
-    return globals()[name](*args)
-  return call
-
-
-glt_gather_rows = _first_call('glt_gather_rows')
-glt_dedup_table_insert = _first_call('glt_dedup_table_insert')
-glt_walk_sample = _first_call('glt_walk_sample')
-glt_walk_heads = _first_call('glt_walk_heads')
-glt_walk_labels = _first_call('glt_walk_labels')
-glt_hop_sample = _first_call('glt_hop_sample')
-glt_hop_heads = _first_call('glt_hop_heads')
-glt_hop_labels = _first_call('glt_hop_labels')
-glt_sample_hop = _first_call('glt_sample_hop')
-glt_gather_windows = _first_call('glt_gather_windows')
+glt_gather_rows = lazy_entry(globals(), 'glt_gather_rows')
+glt_dedup_table_insert = lazy_entry(globals(), 'glt_dedup_table_insert')
+glt_walk_sample = lazy_entry(globals(), 'glt_walk_sample')
+glt_walk_heads = lazy_entry(globals(), 'glt_walk_heads')
+glt_walk_labels = lazy_entry(globals(), 'glt_walk_labels')
+glt_hop_sample = lazy_entry(globals(), 'glt_hop_sample')
+glt_hop_heads = lazy_entry(globals(), 'glt_hop_heads')
+glt_hop_labels = lazy_entry(globals(), 'glt_hop_labels')
+glt_sample_hop = lazy_entry(globals(), 'glt_sample_hop')
+glt_gather_windows = lazy_entry(globals(), 'glt_gather_windows')
 
 #: the raw handle of a device's current stream, by device index (the call
 #: Triton's launcher makes; chip_smoke.py times it against
@@ -96,8 +84,11 @@ def _ptr(t: Optional[torch.Tensor]):
   return t.data_ptr() if t is not None else None
 
 
-def _stream(device: torch.device) -> int:
-  return _raw_stream(device.index)
+def _where(device: torch.device) -> Tuple[int, int]:
+  """The last two arguments of every entry point: the card's index, on
+  which csrc/entry.cuh launches (switching the thread's device only when
+  it differs), and the raw handle of that card's current stream."""
+  return device.index, _raw_stream(device.index)
 
 
 def _check(err: int, what: str) -> None:
@@ -123,8 +114,9 @@ def gather_rows_plain(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
   """Feature row gather, ``table [N, D]``, ``rows [B]`` -> ``[B, D]``,
-  rows clamped to ``[0, N-1]``. On the card a row must be a whole number
-  of 4-byte words (float32, or bf16 of even width)."""
+  rows clamped to ``[0, N-1]``; any dtype and width. The kernel copies a
+  row in the widest unit of 16, 4, 2 or 1 bytes that divides the row
+  size and the table's address."""
   if not table.is_cuda:
     return gather_rows_plain(table, rows)
   if table.dim() != 2 or not table.is_contiguous():
@@ -135,17 +127,21 @@ def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
   rows = _i32(rows.reshape(-1), table.device)
   b = rows.numel()
   out = torch.empty((b, d), dtype=table.dtype, device=table.device)
-  row_bytes = d * table.element_size()
-  if row_bytes % 4 or table.data_ptr() % 4:
-    raise ValueError(f'gather_rows copies 4-byte words; a row is '
-                     f'{row_bytes} bytes')
-  unit = 16 if row_bytes % 16 == 0 and table.data_ptr() % 16 == 0 else 4
   if b:
     _check(glt_gather_rows(
-        _ptr(table), _ptr(rows), _ptr(out), n, row_bytes, b, unit,
-        _stream(table.device)), 'gather_rows')
+        _ptr(table), _ptr(rows), _ptr(out), n, d * table.element_size(), b,
+        row_unit(table), *_where(table.device)), 'gather_rows')
     gather_rows.launches += 1
   return out
+
+
+def row_unit(table: torch.Tensor) -> int:
+  """The bytes K3 copies at a time from ``table``'s rows: the widest of
+  16, 4, 2 and 1 that divides both the row size and the table's address
+  (the output is a fresh, aligned allocation)."""
+  row_bytes = table.shape[-1] * table.element_size()
+  return next(u for u in (16, 4, 2, 1)
+              if row_bytes % u == 0 and table.data_ptr() % u == 0)
 
 
 # -- K2: dedup_table_insert ---------------------------------------------------
@@ -201,7 +197,7 @@ def dedup_table_insert(keys: torch.Tensor, vals: torch.Tensor,
   if m:
     _check(glt_dedup_table_insert(
         _ptr(keys), _ptr(vals), slots, _ptr(ids), _ptr(labs), _ptr(valid),
-        m, _stream(dev)), 'dedup_table_insert')
+        m, *_where(dev)), 'dedup_table_insert')
     dedup_table_insert.launches += 1
 
 
@@ -331,7 +327,7 @@ def sample_walk_dedup(indptr_pad, indices, seed_ids, seed_ok, stab_ids,
         table_slots=table_slots, with_slots=with_slots)
   hops = _check_walk_inputs(indptr_pad, indices, seed_ids, u_hops, fanouts)
   dev = indices.device
-  stream = _stream(dev)
+  where = _where(dev)
   indptr_pad, indices = _i32(indptr_pad, dev), _i32(indices, dev)
   keys, vals, first = make_dedup_table(table_slots, dev)
   dedup_table_insert(keys, vals, stab_ids, stab_labs, stab_ids >= 0)
@@ -351,18 +347,18 @@ def sample_walk_dedup(indptr_pad, indices, seed_ids, seed_ok, stab_ids,
         _ptr(indptr_pad), num_nodes, _ptr(indices), _ptr(frontier),
         _ptr(ok), s, k, _ptr(u), int(replace), _ptr(keys), _ptr(vals),
         _ptr(first), table_slots, _ptr(picks), _ptr(slots), _ptr(mask),
-        _ptr(tslot), stream), 'sample_walk_dedup (sample)')
+        _ptr(tslot), *where), 'sample_walk_dedup (sample)')
     labels = torch.empty(m, dtype=torch.int32, device=dev)
     new_head = torch.empty(m, dtype=torch.bool, device=dev)
     nxt = torch.empty(m, dtype=torch.int32, device=dev)
     _check(glt_walk_heads(
         _ptr(picks), _ptr(mask), _ptr(tslot), _ptr(vals), _ptr(first), m,
-        _ptr(labels), _ptr(new_head), _ptr(nxt), stream),
+        _ptr(labels), _ptr(new_head), _ptr(nxt), *where),
         'sample_walk_dedup (heads)')
     sorted_new = torch.sort(nxt).values
     _check(glt_walk_labels(
         _ptr(picks), _ptr(new_head), _ptr(tslot), _ptr(sorted_new),
-        _ptr(count), m, _ptr(labels), _ptr(vals), stream),
+        _ptr(count), m, _ptr(labels), _ptr(vals), *where),
         'sample_walk_dedup (labels)')
     sample_walk_dedup.launches += 3
     hop = dict(picks=picks.view(s, k), mask=mask.view(s, k), labels=labels,
@@ -468,7 +464,7 @@ def sample_hop_dedup(indices_flat, eids_flat, starts, offsets, valid, keys,
   s, k = offsets.shape
   m = s * k
   dev = offsets.device
-  stream = _stream(dev)
+  where = _where(dev)
   indices_flat = _i32(indices_flat, dev)
   eids_flat = _i32(eids_flat, dev) if eids_flat is not None else None
   starts, offsets = _i32(starts, dev), _i32(offsets, dev)
@@ -481,20 +477,20 @@ def sample_hop_dedup(indices_flat, eids_flat, starts, offsets, valid, keys,
   _check(glt_hop_sample(
       _ptr(indices_flat), _ptr(eids_flat), _ptr(starts), _ptr(offsets),
       _ptr(valid), s, k, _ptr(keys), _ptr(vals), _ptr(first), keys.numel(),
-      _ptr(picks), _ptr(eid_picks), _ptr(tslot), stream),
+      _ptr(picks), _ptr(eid_picks), _ptr(tslot), *where),
       'sample_hop_dedup (sample)')
   labels = torch.empty(m, dtype=torch.int32, device=dev)
   new_head = torch.empty(m, dtype=torch.bool, device=dev)
   nxt = torch.empty(m, dtype=torch.int32, device=dev)
   _check(glt_hop_heads(
       _ptr(picks), _ptr(valid), _ptr(tslot), _ptr(vals), _ptr(first), m,
-      _ptr(labels), _ptr(new_head), _ptr(nxt), stream),
+      _ptr(labels), _ptr(new_head), _ptr(nxt), *where),
       'sample_hop_dedup (heads)')
   sorted_new = torch.sort(nxt).values
   _check(glt_hop_labels(
       _ptr(picks), _ptr(new_head), _ptr(tslot), _ptr(sorted_new),
       _ptr(type_bounds), counts.numel(), _ptr(counts), m, _ptr(labels),
-      _ptr(vals), stream), 'sample_hop_dedup (labels)')
+      _ptr(vals), *where), 'sample_hop_dedup (labels)')
   sample_hop_dedup.launches += 3
   type_rank = torch.searchsorted(sorted_new, type_bounds)
   return dict(picks=picks, eid_picks=eid_picks, labels=labels,
@@ -580,7 +576,7 @@ def sample_hop(indices: torch.Tensor, eids: Optional[torch.Tensor],
     _check(glt_sample_hop(
         indices.data_ptr(), eids_ptr, n, starts.data_ptr(),
         offsets.data_ptr(), shape[0], shape[1], picks.data_ptr(),
-        eid_picks_ptr, _raw_stream(dev)), 'sample_hop')
+        eid_picks_ptr, dev, _raw_stream(dev)), 'sample_hop')
     sample_hop.launches += 1
   return picks, eid_picks
 
@@ -660,7 +656,7 @@ def gather_windows(arr: torch.Tensor, starts: torch.Tensor,
   if s:
     _check(glt_gather_windows(
         arr.data_ptr(), n, starts.data_ptr(), s, width, out.data_ptr(),
-        _raw_stream(dev)), 'gather_windows')
+        dev, _raw_stream(dev)), 'gather_windows')
     gather_windows.launches += 1
   return out
 

@@ -14,7 +14,9 @@ import torch
 from glt_tpu_torch.data import Dataset, Topology
 from glt_tpu_torch.loader import NeighborLoader
 from glt_tpu_torch.models import RGNN, GraphSAGE
+from glt_tpu_torch.benchmarks import probe_compile
 from glt_tpu_torch.ops import cuda_kernels as K
+from glt_tpu_torch.ops import probe_kernels as P
 from glt_tpu_torch.ops.pipeline import _fused_seed_hop, sample_budget
 from glt_tpu_torch.ops.sample import (sample_full_neighbors,
                                       sample_neighbors_weighted,
@@ -45,20 +47,47 @@ def _graph(dev, n=5000, e=80_000, seed=3):
   return indptr_pad.to(torch.int32), topo.indices
 
 
+def _signed_or_bytes(shape, dtype, g, dev):
+  """Signed normal values for floating tables (so a lost sign bit shows),
+  every byte value for uint8 ones."""
+  if dtype == torch.uint8:
+    return torch.randint(0, 256, shape, generator=g, device=dev, dtype=dtype)
+  return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
 def test_gather_rows_matches_plain(dev):
+  # every width and dtype: 16-byte units (float32 width 100), 4-byte
+  # (width 37, bf16 64 and 38), 2-byte (odd bf16 and fp16) and 1-byte
+  # (uint8 of odd width) copies
   g = torch.Generator(device=dev).manual_seed(0)
   for d, dtype in ((100, torch.float32), (37, torch.float32),
-                   (64, torch.bfloat16), (38, torch.bfloat16)):
-    table = torch.randn((1000, d), generator=g, device=dev).to(dtype)
+                   (64, torch.bfloat16), (38, torch.bfloat16),
+                   (101, torch.bfloat16), (3, torch.float16),
+                   (7, torch.uint8)):
+    table = _signed_or_bytes((1000, d), dtype, g, dev)
     rows = torch.randint(-5, 1010, (4097,), generator=g, device=dev)
     before = K.gather_rows.launches
     got = K.gather_rows(table, rows)
     assert K.gather_rows.launches == before + 1
     assert torch.equal(got, K.gather_rows_plain(table, rows))
-  # the kernel copies 4-byte words: an odd-width bf16 row is refused
-  with pytest.raises(ValueError, match='4-byte words'):
-    K.gather_rows(torch.zeros((10, 3), dtype=torch.bfloat16, device=dev),
-                  rows[:4])
+
+
+@pytest.mark.parametrize('dtype,width', [(torch.bfloat16, 101),
+                                         (torch.float16, 3),
+                                         (torch.uint8, 7)])
+def test_gather_rows_reads_narrow_rows_at_an_offset_base(dev, dtype, width):
+  # a table one element into its allocation: the unit is chosen by the
+  # table's address too, so these take the 2- or 1-byte copies; equal to
+  # index_select over the clipped rows
+  g = torch.Generator(device=dev).manual_seed(width)
+  n = 5000
+  flat = _signed_or_bytes((n * width + 1,), dtype, g, dev)
+  table = flat[1:].view(n, width)
+  assert table.data_ptr() % 4
+  rows = torch.randint(-3, n + 3, (20_000,), generator=g, device=dev)
+  got = K.gather_rows(table, rows)
+  assert torch.equal(got, torch.index_select(table, 0,
+                                             rows.clamp(0, n - 1)))
 
 
 def test_dedup_table_insert_matches_plain(dev):
@@ -97,6 +126,52 @@ def test_walk_matches_plain(dev, replace):
   for h, (a, b) in enumerate(zip(got, want)):
     for k in ('picks', 'mask', 'labels', 'new_head', 'slots'):
       assert torch.equal(a[k], b[k]), f'hop {h} {k}'
+
+
+def _hub_graph(dev, n=20_000, seed=11):
+  """Rows of degree 0-40, and 200 hubs of degree 200-2000 that receive
+  half of all edges, so that every hop meets rows above the fanout."""
+  g = torch.Generator(device=dev).manual_seed(seed)
+  deg = torch.randint(0, 41, (n,), generator=g, device=dev)
+  hubs = torch.randperm(n, generator=g, device=dev)[:200]
+  deg[hubs] = torch.randint(200, 2001, (200,), generator=g, device=dev)
+  src = torch.repeat_interleave(torch.arange(n, device=dev), deg)
+  e = src.numel()
+  dst = torch.where(torch.rand(e, generator=g, device=dev) < 0.5,
+                    hubs[torch.randint(0, 200, (e,), generator=g,
+                                       device=dev)],
+                    torch.randint(0, n, (e,), generator=g, device=dev))
+  topo = Topology(torch.stack([src, dst]), num_nodes=n)
+  indptr_pad = torch.cat([topo.indptr, torch.tensor([e], device=dev)])
+  return indptr_pad.to(torch.int32), topo.indices, hubs
+
+
+@pytest.mark.parametrize('fanouts', [(100,), (3, 80)])
+def test_walk_matches_plain_at_fanouts_above_64(dev, fanouts):
+  # fanouts past the walk's 64-entry local offsets: the wide instantiation
+  # keeps a row's offsets in its tslot span; half the seeds are hubs, so
+  # Floyd draws (deg > k) on every hop
+  indptr_pad, indices, hubs = _hub_graph(dev)
+  b = 256
+  seeds = torch.cat([hubs[:b // 2], torch.randint(
+      0, 20_000, (b // 2,), device=dev,
+      generator=torch.Generator(device=dev).manual_seed(3))])
+  d, _ = _fused_seed_hop(seeds.to(torch.int32), b)
+  u = walk_hop_uniforms(torch.Generator(device=dev).manual_seed(9), b,
+                        fanouts, False, dev)
+  args = (indptr_pad, indices, d['ids3'], d['new_head3'],
+          torch.where(d['new_head3'], d['ids3'],
+                      torch.full_like(d['ids3'], -1)),
+          d['labels3'], d['count2'], u)
+  kw = dict(fanouts=fanouts, with_slots=True,
+            table_slots=K.walk_table_slots(sample_budget(b, fanouts)))
+  got = K.sample_walk_dedup(*args, **kw)
+  want = K.sample_walk_dedup_plain(*args, **kw)
+  for h, (a, b_) in enumerate(zip(got, want)):
+    for k in ('picks', 'mask', 'labels', 'new_head', 'slots'):
+      assert torch.equal(a[k], b_[k]), f'hop {h} {k}'
+  deg = (indptr_pad[1:-1] - indptr_pad[:-2])[seeds.long()]
+  assert int((deg > fanouts[0]).sum()) >= b // 2
 
 
 def test_engine_serves_through_the_kernels(dev):
@@ -392,3 +467,119 @@ def test_weighted_loader_trains_through_the_kernels(dev, sync_stages):
   assert K.gather_windows.launches == 4 * 2
   assert K.sample_hop.launches == 4 * 2 and K.gather_rows.launches == 4
   assert K.sample_walk_dedup.launches == 0
+
+
+def test_probe_ladder_passes_on_the_card(dev):
+  # every rung's kernel equal to its plain version and the TPU rung's
+  # reference, each launched once; the microbench's vmem_take not at all
+  P.reset_launch_counts()
+  before = K.gather_windows.launches
+  assert probe_compile.main([]) == 0
+  assert {fn.__name__: fn.launches for fn in P.KERNELS} == {
+      fn.__name__: int(fn is not P.vmem_take) for fn in P.KERNELS}
+  assert K.gather_windows.launches == before + 1
+
+
+def test_probe_kernels_match_plain(dev):
+  g = torch.Generator(device=dev).manual_seed(31)
+  x = torch.randn((128, 128), generator=g, device=dev)
+  assert torch.equal(P.vmem_id(x), x)
+  big = torch.randn((1 << 20,), generator=g, device=dev)
+  assert torch.equal(P.vmem_id(big), big)           # 256 blocks
+  for s in (3, -7, 1 << 20):
+    st = torch.tensor([[s]], dtype=torch.int32, device=dev)
+    assert torch.equal(P.smem_scalar(x, st), P.smem_scalar_plain(x, st))
+  tab = torch.randn((64, 1, 128), generator=g, device=dev)
+  rows = torch.randint(-3, 67, (40,), generator=g, device=dev,
+                       dtype=torch.int32)
+  assert torch.equal(P.prefetch_grid(tab, rows),
+                     P.prefetch_grid_plain(tab, rows))
+  wide = torch.randn((300, 1024), generator=g, device=dev)   # 4 KB rows
+  assert torch.equal(P.prefetch_grid(wide, rows),
+                     P.prefetch_grid_plain(wide, rows))
+  with pytest.raises(ValueError):
+    P.prefetch_grid(torch.zeros((8, 3), device=dev), rows)
+  with pytest.raises(ValueError):
+    P.vmem_id(x[:, 1:])
+
+
+@pytest.mark.parametrize('start', [512, 513, 4090, 256, 0, 3, -5, 9000])
+def test_dma_windows_match_plain(dev, start):
+  # aligned (512, 256) and unaligned (513, 3) starts, one near the end
+  # (4090, clamped to 3968), negative and past the end; widths that are
+  # and are not a multiple of 4
+  g = torch.Generator(device=dev).manual_seed(37)
+  big = torch.randint(-99, 99, (4096,), generator=g, device=dev,
+                      dtype=torch.int32)
+  st = torch.tensor([[start]], dtype=torch.int32, device=dev)
+  for width in (128, 1, 7, 1024):
+    got = P.dma_dynamic(big, st, width)
+    assert torch.equal(got, P.dma_dynamic_plain(big, st, width)), width
+    assert torch.equal(P.dma_fixed(big, start, width),
+                       P.dma_fixed_plain(big, start, width)), width
+    assert torch.equal(got, P.dma_fixed_plain(big, start, width))
+  with pytest.raises(ValueError):
+    P.dma_dynamic(big[1:], st)          # not 16-byte aligned
+  with pytest.raises(ValueError):
+    P.dma_fixed(big, 0, 2048)           # wider than a window holds
+
+
+@pytest.mark.parametrize('shape', [(8, 3840), (200, 3840), (5, 7), (1,)])
+def test_vmem_take_matches_plain(dev, shape):
+  # the probe's and the microbench's shapes and two ragged ones, indices
+  # out of range at both ends and negative
+  g = torch.Generator(device=dev).manual_seed(41)
+  tab = torch.randint(0, 1 << 20, (64, 128), generator=g, device=dev,
+                      dtype=torch.int32)
+  idx = torch.randint(-500, 8192 + 500, shape, generator=g, device=dev,
+                      dtype=torch.int32)
+  before = P.vmem_take.launches
+  got = P.vmem_take(tab, idx)
+  assert P.vmem_take.launches == before + 1
+  assert got.shape == idx.shape
+  assert torch.equal(got, P.vmem_take_plain(tab, idx))
+  assert torch.equal(got, torch.take(tab, idx.long().clamp(0, 8191)))
+  # rung 7's wrapper: the same kernel, counted apart from vmem_take's
+  vt_before = P.vt.launches
+  assert torch.equal(P.vt(tab, idx), got)
+  assert P.vt.launches == vt_before + 1
+  assert P.vmem_take.launches == before + 1
+  flat = torch.zeros(8200, dtype=torch.int32, device=dev)
+  view = flat[1:8193].view(64, 128)           # not 16-byte aligned
+  with pytest.raises(ValueError):
+    P.vmem_take(view, idx)
+  odd = torch.arange(101, dtype=torch.int32, device=dev)   # a ragged table
+  assert torch.equal(P.vmem_take(odd, idx), P.vmem_take_plain(odd, idx))
+  unaligned = torch.zeros(idx.numel() + 1, dtype=torch.int32,
+                          device=dev)[1:].view(shape)
+  unaligned.copy_(idx)
+  assert torch.equal(P.vmem_take(tab, unaligned), got)
+
+
+def test_kernels_launch_on_the_device_of_their_tensors(dev):
+  # the launch switches to the tensors' card when it is not the current
+  # one (csrc/entry.cuh), and back
+  if torch.cuda.device_count() < 2:
+    pytest.skip('needs two cards')
+  other = torch.device('cuda', 1)
+  torch.cuda.set_device(0)
+  g = torch.Generator(device=other).manual_seed(43)
+  table = torch.randn((1000, 100), generator=g, device=other)
+  rows = torch.randint(0, 1000, (4096,), generator=g, device=other)
+  got = K.gather_rows(table, rows)
+  assert got.device == other and torch.cuda.current_device() == 0
+  assert torch.equal(got, K.gather_rows_plain(table, rows))
+  indices = torch.randint(0, 900, (5000,), generator=g, device=other,
+                          dtype=torch.int32)
+  starts = torch.randint(0, 4000, (256,), generator=g, device=other,
+                         dtype=torch.int32)
+  offsets = torch.randint(0, 20, (256, 5), generator=g, device=other,
+                          dtype=torch.int32)
+  assert torch.equal(K.sample_hop(indices, None, starts, offsets)[0],
+                     K.sample_hop_plain(indices, None, starts, offsets)[0])
+  assert torch.equal(K.gather_windows(indices, starts, 56),
+                     K.gather_windows_plain(indices, starts, 56))
+  tab = torch.randint(0, 99, (64, 128), generator=g, device=other,
+                      dtype=torch.int32)
+  assert torch.equal(P.vmem_take(tab, starts), P.vmem_take_plain(tab, starts))
+  assert torch.cuda.current_device() == 0

@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of ``glt_tpu_torch`` (the
 hetero models, loader and typing, the live-update stream, and the
-training slice's loaders, train step and profiling among them) and
-``chip_smoke`` pulls in neither JAX nor the JAX package."""
+training slice's loaders, train step and profiling among them, the
+probe and microbench kernels and their benchmark entry points) and
+``chip_smoke`` pulls in neither JAX nor the JAX package, and touches no
+card."""
 import os
 import subprocess
 import sys
@@ -29,6 +31,12 @@ print('TRAIN', all(m in sys.modules for m in (
     'glt_tpu_torch.loader.node_loader', 'glt_tpu_torch.loader.neighbor_loader',
     'glt_tpu_torch.loader.device_epoch', 'glt_tpu_torch.parallel.train',
     'glt_tpu_torch.utils.profile')))
+print('BENCH', all(m in sys.modules for m in (
+    'glt_tpu_torch.benchmarks.probe_compile',
+    'glt_tpu_torch.benchmarks.microbench_gather',
+    'glt_tpu_torch.ops.probe_kernels')))
+import torch
+print('CUDA_INIT', torch.cuda.is_initialized())
 '''
 
 
@@ -38,7 +46,9 @@ def test_port_and_chip_smoke_import_no_jax():
                        capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr
   assert 'BAD []' in out.stdout, out.stdout
-  assert int(out.stdout.split('LOADED ')[1].split()[0]) >= 41
+  assert int(out.stdout.split('LOADED ')[1].split()[0]) >= 45
   assert 'HETERO True' in out.stdout, out.stdout
   assert 'STREAM True' in out.stdout, out.stdout
   assert 'TRAIN True' in out.stdout, out.stdout
+  assert 'BENCH True' in out.stdout, out.stdout
+  assert 'CUDA_INIT False' in out.stdout, out.stdout

@@ -63,6 +63,36 @@ def test_gather_rows_matches_pallas_kernel_with_clipping():
   assert K.gather_rows.launches == 0  # the CPU runs the plain version
 
 
+@pytest.mark.parametrize('dtype,width', [('bfloat16', 101), ('uint8', 7)])
+def test_narrow_rows_match_pallas_kernel(dtype, width):
+  # rows that are not whole 4-byte words (K3's 2- and 1-byte units on the
+  # card): the Feature gather and the plain version equal the TPU kernel,
+  # bit for bit (exact)
+  from glt_tpu_torch.data.feature import Feature
+  rng = np.random.default_rng(3)
+  n = 40
+  rows = np.concatenate([rng.integers(0, n, 30), [-1, n, 0, n - 1]])
+  rows = rows.astype(np.int32)
+  if dtype == 'uint8':
+    table = rng.integers(0, 256, (n, width)).astype(np.uint8)
+    jt, pt = jnp.asarray(table), torch.as_tensor(table)
+  else:   # both sides round the same float32 draw to bf16
+    table = rng.standard_normal((n, width)).astype(np.float32)
+    jt = jnp.asarray(table).astype(jnp.bfloat16)
+    pt = torch.as_tensor(table).to(torch.bfloat16)
+  want = jpk.gather_rows(jt, jnp.asarray(rows), interpret=True)
+  if dtype == 'bfloat16':
+    want = jax.lax.bitcast_convert_type(want, jnp.uint16).astype(jnp.int32)
+  want = np.asarray(want)
+  feat = Feature(pt, device='cpu')
+  for got in (feat.device_gather(torch.as_tensor(rows)),
+              K.gather_rows_plain(pt, torch.as_tensor(rows))):
+    assert got.dtype == pt.dtype and tuple(got.shape) == (rows.size, width)
+    if dtype == 'bfloat16':
+      got = got.view(torch.int16).to(torch.int32) & 0xFFFF
+    np.testing.assert_array_equal(want, got.numpy())
+
+
 # -- dedup_table_insert -------------------------------------------------------
 
 def _jax_table_dict(tab_ids, tab_labs):

@@ -219,3 +219,51 @@ def test_sampler_draws_from_its_own_generator():
   for k in EXACT_KEYS:
     assert torch.equal(outs[0][k], outs[1][k]), k
   assert int(outs[0]['num_sampled_edges'].sum()) > 0
+
+
+def _hub_edges(n=300, seed=7):
+  """COO edges whose 12 hub rows have degree 150-250, above the wide
+  fanouts, and receive half of all edges, so hop 2 meets hubs too."""
+  rng = np.random.default_rng(seed)
+  deg = rng.integers(0, 12, n)
+  hubs = rng.choice(n, 12, replace=False)
+  deg[hubs] = rng.integers(150, 251, hubs.size)
+  src = np.repeat(np.arange(n), deg)
+  dst = np.where(rng.random(src.size) < 0.5, rng.choice(hubs, src.size),
+                 rng.integers(0, n, src.size))
+  return np.stack([src, dst]), hubs
+
+
+@pytest.mark.parametrize('fanouts', [(100,), (3, 80)])
+def test_wide_fanout_sampler_matches_jax_sampler(monkeypatch, fanouts):
+  # fanouts above 64 run the walk too (its kernel keeps a wide row's
+  # offsets in global scratch); Floyd runs on every hub row. The JAX
+  # reference is the sort+fused engine, which the cross-hop walk is
+  # bit-identical to: the interpret-mode walk kernel unrolls block x k
+  # table probes and does not compile in a test's time at k = 100.
+  from glt_tpu.data import Dataset as JaxDataset
+  from glt_tpu.sampler import NeighborSampler as JaxSampler
+  from glt_tpu.utils.rng import make_key
+  ei, hubs = _hub_edges()
+  b = 8
+  geometry = [(b, fanouts[0])] + ([(b * 3, 80)] if len(fanouts) > 1 else [])
+  assert walk_geometry(b, fanouts) == geometry
+  monkeypatch.setenv('GLT_DEDUP', 'sort')
+  monkeypatch.setenv('GLT_FUSED_HOP', '1')
+  js = JaxSampler(JaxDataset().init_graph(edge_index=ei, num_nodes=300)
+                  .get_graph(), list(fanouts), seed=5)
+  ps = NeighborSampler(Dataset().init_graph(ei, num_nodes=300,
+                                            device='cpu').get_graph(),
+                       list(fanouts), device='cpu', seed=5)
+  seeds = np.concatenate([hubs[:5], [5, 0, 5]]).astype(np.int32)
+  want = js.sample_from_nodes(seeds, n_valid=7)
+  u = jax_walk_hop_uniforms(jax.random.fold_in(make_key(5), 1), b, fanouts,
+                            False)
+  got = ps.sample_from_nodes(seeds, n_valid=7, uniforms=[
+      torch.as_tensor(np.array(x)[:s]) for x, (s, _) in zip(u, geometry)])
+  for f in ('node', 'node_count', 'row', 'col', 'edge_mask', 'batch',
+            'num_sampled_nodes', 'num_sampled_edges'):
+    np.testing.assert_array_equal(np.asarray(getattr(want, f)),
+                                  getattr(got, f).numpy(), err_msg=f)
+  # Floyd drew on the hub rows: hop 1 samples 100 (or 3) of each
+  assert int(got.num_sampled_edges[0]) >= 5 * fanouts[0]
