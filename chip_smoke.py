@@ -51,7 +51,10 @@ windows) are timed in turns against torch.take over the same clipped
 slots (kernel, take, kernel, ... over ROUNDS rounds, medians), beside
 their byte bounds and host enqueue times; a "claim:" line compares each
 sum with torch.take's and gives the spread of their ratio over the
-rounds.
+rounds. The walk (sample_walk_dedup, one cooperative launch a walk) and
+the hetero hop (sample_hop_dedup, one a hop) are timed back to back,
+inside a CUDA graph and by their host enqueue, and every main path checks
+that they launch once a walk and once a hop.
 
 Prints one line per phase with its seconds, the card's name and power
 limit, one JSON line of per-kernel numbers ({"kernels": [...]}) and, as
@@ -243,10 +246,11 @@ def bytes_ms(nbytes):
   return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def time_walk(torch, K, g, seeds, fanouts, gen):
-  """K1 over the graph ``g`` from ``seeds`` at ``fanouts``: equal to its
-  plain version on every surface, its time, plain time and byte bound;
-  returns them as a kernel row."""
+def time_walk(torch, K, g, seeds, fanouts, gen, host_us):
+  """K1 over the graph ``g`` from ``seeds`` at ``fanouts``: one launch,
+  equal to its plain version on every surface, its time back to back and
+  in a CUDA graph, its host enqueue, plain time and byte bound; returns
+  them as a kernel row."""
   from glt_tpu_torch.ops.pipeline import _fused_seed_hop, sample_budget
   from glt_tpu_torch.ops.sample import walk_geometry, walk_hop_uniforms
   b = seeds.numel()
@@ -258,11 +262,15 @@ def time_walk(torch, K, g, seeds, fanouts, gen):
           d['labels3'], d['count2'], u)
   kw = dict(fanouts=fanouts, replace=False,
             table_slots=K.walk_table_slots(sample_budget(b, fanouts)))
+  before = K.sample_walk_dedup.launches, K.dedup_table_insert.launches
   got = K.sample_walk_dedup(*args, **kw)
+  if (K.sample_walk_dedup.launches - before[0],
+      K.dedup_table_insert.launches - before[1]) != (1, 0):
+    raise AssertionError('the walk is not one launch of its own')
   want = K.sample_walk_dedup_plain(*args, **kw)
   err = 0
   for h, (x, y) in enumerate(zip(got, want)):
-    for key in ('picks', 'mask', 'labels', 'new_head'):
+    for key in ('picks', 'mask', 'labels', 'new_head', 'new_count'):
       if not torch.equal(x[key], y[key]):
         raise AssertionError(f'walk B={b} {list(fanouts)} hop {h} {key} '
                              'differs')
@@ -270,6 +278,9 @@ def time_walk(torch, K, g, seeds, fanouts, gen):
   ms = cuda_ms(torch, lambda i=0: K.sample_walk_dedup(*args, **kw), 10)
   plain = cuda_ms(torch, lambda i=0: K.sample_walk_dedup_plain(
       *args, **kw), 3, warmup=1)
+  walk = lambda: K.sample_walk_dedup(*args, **kw)
+  dev_ms = graph_ms(torch, walk, calls=20)
+  host = host_us({'kernel': walk})['kernel']
   # bytes the walk must move: uniforms and frontier in, two indptr
   # entries per live row, one index per valid pick, and per slot the
   # outputs (pick, label: 4 B; mask, head: 1 B)
@@ -280,11 +291,14 @@ def time_walk(torch, K, g, seeds, fanouts, gen):
     nbytes += int(hop['mask'].sum()) * 4 + s * k * 10
     frontier_ok = hop['new_head']
   row = dict(ms=ms, plain_ms=plain, err=err, bound_ms=bytes_ms(nbytes),
-             nodes=int(sum(int(h['new_head'].sum()) for h in got)
+             graph_ms=dev_ms, host_us=host,
+             nodes=int(sum(int(h['new_count']) for h in got)
                        + int(d['count2'])))
-  print(f'sample_walk_dedup B={b} {list(fanouts)}: equal to plain on every '
-        f'surface; {ms:.4f} ms (plain {plain:.4f} ms, bound '
-        f'{row["bound_ms"]:.6f} ms, {row["nodes"]} distinct nodes)')
+  print(f'sample_walk_dedup B={b} {list(fanouts)}: one launch, equal to '
+        f'plain on every surface; {ms:.4f} ms back to back, in a CUDA '
+        f'graph {dev_ms:.4f} ms, host enqueue {host:.2f} us a call (plain '
+        f'{plain:.4f} ms, bound {row["bound_ms"]:.6f} ms, {row["nodes"]} '
+        'distinct nodes)')
   return row
 
 
@@ -322,7 +336,7 @@ def repair_checks(torch, np, K, ds, dev, seed, host_us):
   out = {}
   for fanouts in WIDE_FANOUTS:
     out[f'walk {list(fanouts)}'] = time_walk(torch, K, g, seeds, fanouts,
-                                             gen)
+                                             gen, host_us)
   table = ds.get_node_feature().table
   if K.row_unit(table) != 16:
     raise AssertionError(f'the float32 width-{FEAT_DIM} table copies '
@@ -1079,10 +1093,12 @@ def train_phases(torch, np, K, ds, dev, seed, rows, smi):
     K.reset_launch_counts()
     train('uniform training', loader(False), UNIFORM_STEPS, net)
     uniform_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
-    for name in ('sample_walk_dedup', 'dedup_table_insert', 'gather_rows'):
-      if uniform_launches[name] == 0:
-        raise AssertionError(f'{name} never launched on the uniform '
-                             'training path')
+    want = dict(sample_walk_dedup=UNIFORM_STEPS, dedup_table_insert=0,
+                gather_rows=UNIFORM_STEPS)
+    for name, n in want.items():
+      if uniform_launches[name] != n:
+        raise AssertionError(f'{name}: {uniform_launches[name]} launches '
+                             f'on the uniform training path, expected {n}')
     if uniform_launches['gather_windows']:
       raise AssertionError('the uniform training path read windows')
     print(f'launches {uniform_launches}')
@@ -1210,11 +1226,13 @@ def main() -> int:
   with Phase('kernel checks'):
     seeds_np = torch.randint(0, NUM_NODES, (1024,), generator=gen,
                              device=dev)
-    walk = {b: time_walk(torch, K, g, seeds_np[:b], FANOUTS, gen)
+    host_us = lambda fns: in_turns_host_us(torch, np, fns)
+    walk = {b: time_walk(torch, K, g, seeds_np[:b], FANOUTS, gen, host_us)
             for b in (256, 1024)}
     rows['sample_walk_dedup'] = walk[256]
 
-    # dedup_table_insert: the walk's seed phase at bucket 256
+    # dedup_table_insert at a bucket-256 walk's seeds (the hetero path's
+    # seed insert; the homogeneous walk inserts its seeds itself)
     seeds = seeds_np[:256].to(torch.int32)
     d, _ = _fused_seed_hop(seeds, 256)
     ids = torch.where(d['new_head3'], d['ids3'],
@@ -1277,8 +1295,10 @@ def main() -> int:
       out = engine.sampler.sample_from_nodes(seeds_np[:b])
       ds.get_node_feature().device_gather(out.node)
       torch.cuda.synchronize()
-      print(f'launches per sample + gather, batch {b}: '
-            f'{ {fn.__name__: fn.launches for fn in K.KERNELS} }')
+      per = {fn.__name__: fn.launches for fn in K.KERNELS}
+      print(f'launches per sample + gather, batch {b}: {per}')
+      if (per['sample_walk_dedup'], per['dedup_table_insert']) != (1, 0):
+        raise AssertionError('a sample is not one walk launch')
 
   with Phase('main path'):
     engine.warmup()
@@ -1286,10 +1306,13 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
-    requests = serve_requests(torch, engine, NUM_NODES, CLASSES, rng)
+    requests = serve_requests(torch, engine, NUM_NODES, CLASSES, rng,
+                              check=per_request_launches(
+                                  K, {'sample_walk_dedup': 1,
+                                      'dedup_table_insert': 0}))
     homo_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
     peak = torch.cuda.max_memory_allocated()
-    for name in ('sample_walk_dedup', 'dedup_table_insert', 'gather_rows'):
+    for name in ('sample_walk_dedup', 'gather_rows'):
       if homo_launches[name] == 0:
         raise AssertionError(f'{name} never launched on the main path')
     print(f'launches {homo_launches}; cache hits {engine.cache.hits}; peak '
@@ -1348,9 +1371,9 @@ def main() -> int:
     # recording walk runs the plain version, which leaves every input of
     # the next hop as the kernel would
     hops, real = [], K.sample_hop_dedup
-    def record(*a):
-      hops.append((a, [t.clone() for t in a[5:8]]))
-      return K.sample_hop_dedup_plain(*a)
+    def record(*a, **kw):
+      hops.append((a, [t.clone() for t in a[5:8]], kw))
+      return K.sample_hop_dedup_plain(*a, **kw)
     K.sample_hop_dedup = record
     try:
       hengine.sampler.sample_from_nodes(NodeSamplerInput(torch.randint(
@@ -1358,12 +1381,16 @@ def main() -> int:
           device=dev).cpu().numpy(), 'paper'))
     finally:
       K.sample_hop_dedup = real
-    hop_row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0)
-    for h, (a, table) in enumerate(hops):
+    hop_row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0, graph_ms=0.0,
+                   host_us=0.0)
+    for h, (a, table, kw) in enumerate(hops):
       fresh = lambda: [t.clone() for t in table]
       kt, pt = fresh(), fresh()
-      got = real(*a[:5], *kt, *a[8:])
-      want = K.sample_hop_dedup_plain(*a[:5], *pt, *a[8:])
+      before = K.sample_hop_dedup.launches
+      got = real(*a[:5], *kt, *a[8:], **kw)
+      if K.sample_hop_dedup.launches != before + 1:
+        raise AssertionError('a hop is not one launch')
+      want = K.sample_hop_dedup_plain(*a[:5], *pt, *a[8:], **kw)
       for key in ('picks', 'labels', 'new_head', 'counts'):
         if not torch.equal(got[key], want[key]):
           raise AssertionError(f'sample_hop_dedup hop {h} {key} differs')
@@ -1376,11 +1403,23 @@ def main() -> int:
         raise AssertionError(f'sample_hop_dedup hop {h} tables differ')
       s, k = a[3].shape
       tables = [fresh() for _ in range(10)]
-      ms = cuda_ms(torch, lambda i=0: real(*a[:5], *tables[i], *a[8:]), 10,
-                   warmup=0)
+      ms = cuda_ms(torch, lambda i=0: real(*a[:5], *tables[i], *a[8:], **kw),
+                   10, warmup=0)
       ptables = [fresh() for _ in range(2)]
       plain = cuda_ms(torch, lambda i=0: K.sample_hop_dedup_plain(
-          *a[:5], *ptables[i], *a[8:]), 2, warmup=0)
+          *a[:5], *ptables[i], *a[8:], **kw), 2, warmup=0)
+      # in a CUDA graph: each call on a fresh copy of the table, less the
+      # copy's own time; host enqueue on one table (seen ids after the
+      # first call: the enqueue does not depend on them)
+      live = fresh()
+      reset = lambda: [t.copy_(u) for t, u in zip(live, table)]
+      hop = lambda: (reset(), real(*a[:5], *live, *a[8:], **kw))
+      copy_ms = graph_ms(torch, reset)
+      dev_ms = graph_ms(torch, hop) - copy_ms
+      host = host_us({'kernel': lambda: real(*a[:5], *live, *a[8:],
+                                             **kw)})['kernel']
+      hop_row['graph_ms'] += dev_ms
+      hop_row['host_us'] += host
       # bytes the hop must move: starts, offsets and validity in, one
       # neighbour id and one table key per valid lane, and per lane the
       # outputs (pick, label: 4 B; head: 1 B), a key and a label written
@@ -1391,13 +1430,18 @@ def main() -> int:
                      ('bound_ms', bytes_ms(nbytes))):
         hop_row[key] += v
       print(f'sample_hop_dedup hop {h + 1} [{s}, {k}]: {n_ok} valid lanes, '
-            f'{n_new} new ids, equal to plain on every surface; {ms:.4f} ms '
-            f'(plain {plain:.4f} ms, bound {bytes_ms(nbytes):.6f} ms)')
-      del tables, ptables
+            f'{n_new} new ids, one launch, equal to plain on every surface; '
+            f'{ms:.4f} ms back to back, in a CUDA graph {dev_ms:.4f} ms '
+            f'(table copy {copy_ms:.4f} ms taken off), host enqueue '
+            f'{host:.2f} us a call (plain {plain:.4f} ms, bound '
+            f'{bytes_ms(nbytes):.6f} ms)')
+      del tables, ptables, live
     rows['sample_hop_dedup'] = hop_row
     print(f'sample_hop_dedup per bucket-256 request ({len(hops)} hops): '
-          f'{hop_row["ms"]:.4f} ms (plain {hop_row["plain_ms"]:.4f} ms, '
-          f'bound {hop_row["bound_ms"]:.6f} ms)')
+          f'{hop_row["ms"]:.4f} ms back to back, in a CUDA graph '
+          f'{hop_row["graph_ms"]:.4f} ms, host enqueue '
+          f'{hop_row["host_us"]:.2f} us (plain {hop_row["plain_ms"]:.4f} '
+          f'ms, bound {hop_row["bound_ms"]:.6f} ms)')
 
   with Phase('hetero main path'):
     hengine.warmup()
@@ -1405,16 +1449,11 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
-    last = [0]
-
-    def hop_kernel_ran(n_computed):
-      n = K.sample_hop_dedup.launches
-      if n_computed and n == last[0]:
-        raise AssertionError('a computed request launched no '
-                             'sample_hop_dedup')
-      last[0] = n
-    hrequests = serve_requests(torch, hengine, IGBH_NODES['paper'],
-                               IGBH_CLASSES, hrng, check=hop_kernel_ran)
+    # one B1 launch a hop of a computed bucket, one K2 (its seeds)
+    hrequests = serve_requests(
+        torch, hengine, IGBH_NODES['paper'], IGBH_CLASSES, hrng,
+        check=per_request_launches(K, {'sample_hop_dedup': len(FANOUTS),
+                                       'dedup_table_insert': 1}))
     hetero_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
     peak = torch.cuda.max_memory_allocated()
     for name in ('sample_hop_dedup', 'dedup_table_insert', 'gather_rows'):
@@ -1460,7 +1499,6 @@ def main() -> int:
   torch.cuda.empty_cache()
   train_launches, uniform_launches = train_phases(torch, np, K, ds, dev,
                                                   opts.seed, rows, smi)
-  host_us = lambda fns: in_turns_host_us(torch, np, fns)
   with Phase('repair checks'):
     repair = repair_checks(torch, np, K, ds, dev, opts.seed, host_us)
     guard_cost(torch, np, K)
@@ -1531,9 +1569,10 @@ def main() -> int:
       'vmem_take': ('vmem_take', 'glt_tpu_torch/csrc/take2d.cu',
                     'benchmarks/microbench_pallas_gather.py:129'),
   }
-  print(f'walk B=1024: {walk[1024]["ms"]:.4f} ms, plain '
-        f'{walk[1024]["plain_ms"]:.4f} ms, bound '
-        f'{walk[1024]["bound_ms"]:.6f} ms')
+  print(f'walk B=1024: {walk[1024]["ms"]:.4f} ms, in a CUDA graph '
+        f'{walk[1024]["graph_ms"]:.4f} ms, host enqueue '
+        f'{walk[1024]["host_us"]:.2f} us, plain {walk[1024]["plain_ms"]:.4f} '
+        f'ms, bound {walk[1024]["bound_ms"]:.6f} ms')
   print('main-path launches: ' + '; '.join(
       f'{p} {v}' for p, v in by_path.items()))
   for name, row in repair.items():
@@ -1542,7 +1581,8 @@ def main() -> int:
              else '') + f', bound {row["bound_ms"]:.6f} ms)')
   print(smi)
   # launches: the main paths together; launches_by_path: each path's own;
-  # graph_ms: device time a call inside a CUDA graph (the probe rows);
+  # graph_ms: device time a call inside a CUDA graph (the probe rows, K1
+  # at B=256 and B1 per request); host_us: host enqueue a call;
   # vt and vmem_take launch one kernel through wrappers of their own, so
   # each row counts only its own shape's launches
   print(json.dumps({'kernels': [
@@ -1554,7 +1594,8 @@ def main() -> int:
            bound_ms=rows[n]['bound_ms'], bound_by='bytes',
            library_ms=rows[n].get('library_ms'),
            graph_ms=rows[n].get('graph_ms'),
-           library_graph_ms=rows[n].get('library_graph_ms'))
+           library_graph_ms=rows[n].get('library_graph_ms'),
+           host_us=rows[n].get('host_us'))
       for n, (w, src, rep) in replaces.items()]}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
 // The host side every kernel source shares: its Python entry points and
-// a launch through cuLaunchKernel (libcuda).
+// a launch through cuLaunchKernel, or a cooperative one through
+// cuLaunchKernelEx (libcuda).
 //
 // Each csrc/<name>.cu builds into a Python extension module _glt_<name>
 // (Python's C API only, no PyTorch headers: a build takes seconds) whose
@@ -26,7 +27,8 @@
 
 namespace glt {
 
-template <typename T> T from_py(PyObject* o);
+// A parameter type of its own converts through its static from_py.
+template <typename T> T from_py(PyObject* o) { return T::from_py(o); }
 template <> inline void* from_py<void*>(PyObject* o) {
   return o == Py_None ? nullptr : PyLong_AsVoidPtr(o);
 }
@@ -39,6 +41,31 @@ template <> inline int from_py<int>(PyObject* o) {
 template <> inline int64_t from_py<int64_t>(PyObject* o) {
   return PyLong_AsLongLong(o);
 }
+
+// Up to N int64 values from a Python sequence of ints (a pointer is its
+// address, NULL is 0): a parameter whose length varies per call, such as
+// the walk's per-hop planes. More than N raises ValueError.
+template <int N> struct Ints {
+  int n = 0;
+  int64_t v[N];
+  static Ints from_py(PyObject* o) {
+    Ints r;
+    PyObject* seq = PySequence_Fast(o, "expected a sequence of ints");
+    if (!seq) return r;
+    const Py_ssize_t n = PySequence_Fast_GET_SIZE(seq);
+    if (n > N) {
+      PyErr_Format(PyExc_ValueError, "at most %d ints, got %d", N,
+                   static_cast<int>(n));
+    } else {
+      PyObject** items = PySequence_Fast_ITEMS(seq);
+      for (Py_ssize_t i = 0; i < n; ++i)
+        r.v[i] = PyLong_AsLongLong(items[i]);
+      r.n = static_cast<int>(n);
+    }
+    Py_DECREF(seq);
+    return r;
+  }
+};
 
 template <auto Fn> struct Entry;
 template <typename... A, int (*Fn)(A...)> struct Entry<Fn> {
@@ -61,9 +88,9 @@ template <typename... A, int (*Fn)(A...)> struct Entry<Fn> {
 
 // One launch of a __global__ function through cuLaunchKernel on
 // `device`, the card of the caller's tensors. Every entry point of csrc/
-// launches this way and returns the CUresult, 0 when the launch was
-// enqueued (a refused configuration shows here, with no cudaGetLastError
-// to call).
+// launches this way (or through CoopLaunch below) and returns the
+// CUresult, 0 when the launch was enqueued (a refused configuration shows
+// here, with no cudaGetLastError to call).
 // A CUfunction belongs to one device's context, so the handle is looked
 // up once per device. The launch switches the calling thread to `device`
 // only when that is not already its current device, and back after it:
@@ -72,35 +99,109 @@ template <typename... A, int (*Fn)(A...)> struct Entry<Fn> {
 // types.
 constexpr int kMaxDevices = 64;
 
+// Makes `device` current for the scope when it is not; `err` is set when
+// the device is out of range or cannot be made current.
+struct DeviceGuard {
+  int current = 0;
+  bool switched = false;
+  int err = CUDA_SUCCESS;
+  explicit DeviceGuard(int device) {
+    if (device < 0 || device >= kMaxDevices
+        || cudaGetDevice(&current) != cudaSuccess) {
+      err = CUDA_ERROR_INVALID_DEVICE;
+      return;
+    }
+    switched = current != device;
+    if (switched && cudaSetDevice(device) != cudaSuccess) {
+      switched = false;
+      err = CUDA_ERROR_INVALID_DEVICE;
+    }
+  }
+  ~DeviceGuard() {
+    if (switched) cudaSetDevice(current);
+  }
+};
+
+// The kernel's handle in `device`'s context (current), null if missing.
+template <auto Kernel> CUfunction kernel_handle(int device) {
+  static std::atomic<CUfunction> fns[kMaxDevices];
+  CUfunction fn = fns[device].load(std::memory_order_relaxed);
+  if (!fn && cudaGetFuncBySymbol(&fn, reinterpret_cast<const void*>(Kernel))
+                 == cudaSuccess)
+    fns[device].store(fn, std::memory_order_relaxed);
+  return fn;
+}
+
 template <auto Kernel> struct Launch;
 template <typename... P, void (*Kernel)(P...)> struct Launch<Kernel> {
   static int run(dim3 grid, dim3 block, int device, void* stream,
                  P... args) {
-    static std::atomic<CUfunction> fns[kMaxDevices];
-    int current = 0;
-    if (device < 0 || device >= kMaxDevices
-        || cudaGetDevice(&current) != cudaSuccess)
-      return CUDA_ERROR_INVALID_DEVICE;
-    const bool switched = current != device;
-    if (switched && cudaSetDevice(device) != cudaSuccess)
-      return CUDA_ERROR_INVALID_DEVICE;
-    int err = CUDA_SUCCESS;
-    CUfunction fn = fns[device].load(std::memory_order_relaxed);
-    if (!fn) {
-      if (cudaGetFuncBySymbol(&fn, reinterpret_cast<const void*>(Kernel))
-          == cudaSuccess)
-        fns[device].store(fn, std::memory_order_relaxed);
-      else
-        err = CUDA_ERROR_NOT_FOUND;
-    }
-    if (err == CUDA_SUCCESS) {
-      void* params[] = {&args...};
-      err = static_cast<int>(cuLaunchKernel(
-          fn, grid.x, grid.y, grid.z, block.x, block.y, block.z, 0,
-          static_cast<CUstream>(stream), params, nullptr));
-    }
-    if (switched) cudaSetDevice(current);
-    return err;
+    DeviceGuard guard(device);
+    if (guard.err != CUDA_SUCCESS) return guard.err;
+    CUfunction fn = kernel_handle<Kernel>(device);
+    if (!fn) return CUDA_ERROR_NOT_FOUND;
+    void* params[] = {&args...};
+    return static_cast<int>(cuLaunchKernel(
+        fn, grid.x, grid.y, grid.z, block.x, block.y, block.z, 0,
+        static_cast<CUstream>(stream), params, nullptr));
+  }
+};
+
+// A cooperative launch (cuLaunchKernelEx with
+// CU_LAUNCH_ATTRIBUTE_COOPERATIVE) of `Kernel` in blocks of `Threads`
+// threads: every block starts at once or the launch is refused,
+// so the kernel may separate its phases by grid-wide barriers
+// (cooperative_groups::this_grid().sync()). The launch may be captured
+// into a CUDA graph. The device guard and the handle cache are Launch's.
+//
+// blocks(device) is the most blocks that can be resident together on
+// `device` -- the occupancy calculator's blocks per SM times the SM
+// count, cached per device -- or a negative CUresult; a launch takes at
+// most that many, and its phases loop grid-stride over their work.
+template <auto Kernel, int Threads> struct CoopLaunch;
+template <typename... P, void (*Kernel)(P...), int Threads>
+struct CoopLaunch<Kernel, Threads> {
+  static int blocks(int device) {
+    static std::atomic<int> cached[kMaxDevices];
+    if (device < 0 || device >= kMaxDevices)
+      return -CUDA_ERROR_INVALID_DEVICE;
+    int n = cached[device].load(std::memory_order_relaxed);
+    if (n > 0) return n;
+    DeviceGuard guard(device);
+    if (guard.err != CUDA_SUCCESS) return -guard.err;
+    CUfunction fn = kernel_handle<Kernel>(device);
+    if (!fn) return -CUDA_ERROR_NOT_FOUND;
+    int per_sm = 0, sms = 0;
+    int err = cuOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                           Threads, 0);
+    if (err != CUDA_SUCCESS) return -err;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)
+        != cudaSuccess)
+      return -CUDA_ERROR_INVALID_DEVICE;
+    n = per_sm * sms;
+    if (n <= 0) return -CUDA_ERROR_INVALID_VALUE;
+    cached[device].store(n, std::memory_order_relaxed);
+    return n;
+  }
+
+  static int run(int grid, int device, void* stream, P... args) {
+    DeviceGuard guard(device);
+    if (guard.err != CUDA_SUCCESS) return guard.err;
+    CUfunction fn = kernel_handle<Kernel>(device);
+    if (!fn) return CUDA_ERROR_NOT_FOUND;
+    CUlaunchAttribute attr;
+    attr.id = CU_LAUNCH_ATTRIBUTE_COOPERATIVE;
+    attr.value.cooperative = 1;
+    CUlaunchConfig cfg = {};
+    cfg.gridDimX = static_cast<unsigned>(grid);
+    cfg.gridDimY = cfg.gridDimZ = 1;
+    cfg.blockDimX = Threads;
+    cfg.blockDimY = cfg.blockDimZ = 1;
+    cfg.hStream = static_cast<CUstream>(stream);
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    void* params[] = {&args...};
+    return static_cast<int>(cuLaunchKernelEx(&cfg, fn, params, nullptr));
   }
 };
 

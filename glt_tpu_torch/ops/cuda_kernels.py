@@ -23,7 +23,8 @@ wrapper                       replaces (glt_tpu/ops/...)        source
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import functools
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,6 +32,7 @@ from .build import lazy_entry
 from .sample import _row_spans, draw_offsets, walk_geometry
 
 BIG = torch.iinfo(torch.int32).max
+_I32, _LANES = torch.int32, 2 ** 31   # kernels address lanes with int32
 
 
 def walk_table_slots(budget: int) -> int:
@@ -64,12 +66,10 @@ def reset_launch_counts() -> None:
 
 glt_gather_rows = lazy_entry(globals(), 'glt_gather_rows')
 glt_dedup_table_insert = lazy_entry(globals(), 'glt_dedup_table_insert')
-glt_walk_sample = lazy_entry(globals(), 'glt_walk_sample')
-glt_walk_heads = lazy_entry(globals(), 'glt_walk_heads')
-glt_walk_labels = lazy_entry(globals(), 'glt_walk_labels')
-glt_hop_sample = lazy_entry(globals(), 'glt_hop_sample')
-glt_hop_heads = lazy_entry(globals(), 'glt_hop_heads')
-glt_hop_labels = lazy_entry(globals(), 'glt_hop_labels')
+glt_walk_dedup_blocks = lazy_entry(globals(), 'glt_walk_dedup_blocks')
+glt_walk_dedup = lazy_entry(globals(), 'glt_walk_dedup')
+glt_hop_dedup_blocks = lazy_entry(globals(), 'glt_hop_dedup_blocks')
+glt_hop_dedup = lazy_entry(globals(), 'glt_hop_dedup')
 glt_sample_hop = lazy_entry(globals(), 'glt_sample_hop')
 glt_gather_windows = lazy_entry(globals(), 'glt_gather_windows')
 
@@ -98,8 +98,18 @@ def _check(err: int, what: str) -> None:
     raise RuntimeError(f'{what}: CUDA launch failed with CUresult {err}')
 
 
+def _on(t: torch.Tensor, dtype: torch.dtype,
+        device: torch.device) -> torch.Tensor:
+  """``t`` as a contiguous ``dtype`` tensor on ``device``: ``t`` itself
+  when it already is one (three attribute reads, where ``.to`` and
+  ``.contiguous`` cost a dispatch each on the launch path)."""
+  if t.dtype is dtype and t.device == device and t.is_contiguous():
+    return t
+  return t.to(device=device, dtype=dtype).contiguous()
+
+
 def _i32(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-  return t.to(device=device, dtype=torch.int32).contiguous()
+  return _on(t, torch.int32, device)
 
 
 # -- K3: gather_rows ----------------------------------------------------------
@@ -181,7 +191,8 @@ def dedup_table_insert(keys: torch.Tensor, vals: torch.Tensor,
                        ids: torch.Tensor, labs: torch.Tensor,
                        valid: torch.Tensor) -> None:
   """Insert pre-labelled ids into the (keys, vals) table in place (the
-  walk's seed phase): ids < 0 and invalid slots are no-ops, present ids
+  hetero walk's seed phase; the homogeneous walk inserts its seeds in its
+  own launch): ids < 0 and invalid slots are no-ops, present ids
   keep their labels. Valid ids are distinct within one call (the walk
   inserts the seed uniques); the kernel inserts in no fixed order, so an
   id repeated with two labels would keep either."""
@@ -284,7 +295,8 @@ def sample_walk_dedup_plain(indptr_pad, indices, seed_ids, seed_ok,
         uniq.numel(), device=dev)])[order]
     count += uniq.numel()
     hop = dict(picks=ids.to(torch.int32).view(s, k), mask=mask,
-               labels=labels.to(torch.int32), new_head=new_head)
+               labels=labels.to(torch.int32), new_head=new_head,
+               new_count=new_head.sum(dtype=torch.int32))
     if with_slots:
       hop['slots'] = torch.where(mask, slot, torch.full_like(slot, -1)).to(
           torch.int32).view(s, k)
@@ -303,7 +315,7 @@ def sample_walk_dedup(indptr_pad, indices, seed_ids, seed_ok, stab_ids,
 
   Args:
     indptr_pad: [N + 2] int32 CSR offsets with a trailing ``num_edges``.
-    indices: [E] int32 neighbour ids.
+    indices: [E] int32 neighbour ids, each in ``[0, N)``.
     seed_ids / seed_ok: [B] hop 1's frontier and its validity (the exact
       seed dedup's ``ids3`` / ``new_head3``).
     stab_ids / stab_labs: [B] the seed uniques (-1 elsewhere) and their
@@ -317,8 +329,14 @@ def sample_walk_dedup(indptr_pad, indices, seed_ids, seed_ok, stab_ids,
   Returns per hop a dict: ``picks`` [S, K] (-1 on invalid lanes),
   ``mask`` [S, K] bool, ``labels`` [S*K] final labels (seen ids keep
   theirs, new ids ``count..`` in value order, -1 on invalid lanes),
-  ``new_head`` [S*K] bool (each new id's minimum slot) and, with
-  ``with_slots``, ``slots`` [S, K].
+  ``new_head`` [S*K] bool (each new id's minimum slot), ``new_count``
+  (int32 scalar, the hop's new ids) and, with ``with_slots``, ``slots``
+  [S, K].
+
+  On the card the whole walk is one cooperative launch
+  (csrc/sample_walk_dedup.cu) of at most 16 hops; every output is a view
+  of one allocation, and the table, bitmap and other scratch of another,
+  freed on return.
   """
   if not indices.is_cuda:
     return sample_walk_dedup_plain(
@@ -326,49 +344,123 @@ def sample_walk_dedup(indptr_pad, indices, seed_ids, seed_ok, stab_ids,
         seed_count, u_hops, fanouts=fanouts, replace=replace,
         table_slots=table_slots, with_slots=with_slots)
   hops = _check_walk_inputs(indptr_pad, indices, seed_ids, u_hops, fanouts)
+  if len(hops) > _MAX_WALK_HOPS:
+    raise ValueError(f'the walk kernel takes at most {_MAX_WALK_HOPS} '
+                     f'hops, got {len(hops)}')
+  if seed_ids.numel() != hops[0][0]:
+    raise ValueError('the walk needs at least one seed')
+  if table_slots < 1 or table_slots & (table_slots - 1):
+    raise ValueError(f'table slots must be a power of two, got '
+                     f'{table_slots}')
+  if any(s * k >= _LANES for s, k in hops):
+    raise ValueError('a hop addresses its lanes with int32')
   dev = indices.device
-  where = _where(dev)
   indptr_pad, indices = _i32(indptr_pad, dev), _i32(indices, dev)
-  keys, vals, first = make_dedup_table(table_slots, dev)
-  dedup_table_insert(keys, vals, stab_ids, stab_labs, stab_ids >= 0)
-  count = _i32(torch.as_tensor(seed_count), dev).reshape(())
-  frontier, ok = _i32(seed_ids, dev), _i32(seed_ok, dev)
+  seeds, stab_ids = _i32(seed_ids, dev), _i32(stab_ids, dev)
+  stab_labs = _i32(stab_labs, dev)
+  seed_ok = _on(seed_ok, torch.bool, dev)
+  count = _i32(torch.as_tensor(seed_count), dev)
+  u_hops = [_on(u, torch.float32, dev) for u in u_hops]
   num_nodes = indptr_pad.numel() - 2
+  words = _bitmap_words(num_nodes)
+  lay = _walk_layout(tuple(hops), table_slots, words,
+                     _coop_blocks('glt_walk_dedup_blocks', dev.index),
+                     with_slots)
+  # the outputs in one allocation, the kernel's scratch in another, which
+  # is freed on return rather than held by the outputs
+  buf = torch.empty(lay.size, dtype=torch.int32, device=dev)
+  scratch = torch.empty(lay.scratch, dtype=torch.int32, device=dev)
+  base, sbase = buf.data_ptr(), scratch.data_ptr()
+  planes = []
+  for (s, k), u, (picks, slots, mask, tslot, labels, new_head,
+                  new_count) in zip(hops, u_hops, lay.hop_bytes):
+    planes += (s, k, u.data_ptr(), base + picks,
+               base + slots if with_slots else 0, base + mask,
+               sbase + tslot, base + labels, base + new_head,
+               base + new_count)
+  _check(glt_walk_dedup(
+      indptr_pad.data_ptr(), num_nodes, indices.data_ptr(), seeds.data_ptr(),
+      seed_ok.data_ptr(), stab_ids.data_ptr(), stab_labs.data_ptr(),
+      seeds.numel(), count.data_ptr(), int(replace), sbase, table_slots,
+      words, planes, *_where(dev)), 'sample_walk_dedup')
+  sample_walk_dedup.launches += 1
+  ints = buf.split_with_sizes(lay.int_sizes)
+  flags = ints[-1].view(torch.bool).split_with_sizes(lay.flag_sizes)
+  new_counts = ints[0].unbind()
   out = []
-  for (s, k), u in zip(hops, u_hops):
-    m = s * k
-    u = u.to(device=dev, dtype=torch.float32).contiguous()
-    picks = torch.empty(m, dtype=torch.int32, device=dev)
-    slots = (torch.empty(m, dtype=torch.int32, device=dev) if with_slots
-             else None)
-    mask = torch.empty(m, dtype=torch.bool, device=dev)
-    tslot = torch.empty(m, dtype=torch.int32, device=dev)
-    _check(glt_walk_sample(
-        _ptr(indptr_pad), num_nodes, _ptr(indices), _ptr(frontier),
-        _ptr(ok), s, k, _ptr(u), int(replace), _ptr(keys), _ptr(vals),
-        _ptr(first), table_slots, _ptr(picks), _ptr(slots), _ptr(mask),
-        _ptr(tslot), *where), 'sample_walk_dedup (sample)')
-    labels = torch.empty(m, dtype=torch.int32, device=dev)
-    new_head = torch.empty(m, dtype=torch.bool, device=dev)
-    nxt = torch.empty(m, dtype=torch.int32, device=dev)
-    _check(glt_walk_heads(
-        _ptr(picks), _ptr(mask), _ptr(tslot), _ptr(vals), _ptr(first), m,
-        _ptr(labels), _ptr(new_head), _ptr(nxt), *where),
-        'sample_walk_dedup (heads)')
-    sorted_new = torch.sort(nxt).values
-    _check(glt_walk_labels(
-        _ptr(picks), _ptr(new_head), _ptr(tslot), _ptr(sorted_new),
-        _ptr(count), m, _ptr(labels), _ptr(vals), *where),
-        'sample_walk_dedup (labels)')
-    sample_walk_dedup.launches += 3
-    hop = dict(picks=picks.view(s, k), mask=mask.view(s, k), labels=labels,
-               new_head=new_head)
+  for h, (s, k) in enumerate(hops):
+    at = 1 + h * lay.per_hop
+    hop = dict(picks=ints[at].view(s, k), mask=flags[2 * h].view(s, k),
+               labels=ints[at + 1], new_head=flags[2 * h + 1],
+               new_count=new_counts[h])
     if with_slots:
-      hop['slots'] = slots.view(s, k)
+      hop['slots'] = ints[at + 2].view(s, k)
     out.append(hop)
-    count = count + new_head.sum(dtype=torch.int32)
-    frontier, ok = nxt, None
   return out
+
+
+#: csrc/sample_walk_dedup.cu's kMaxHops
+_MAX_WALK_HOPS = 16
+
+
+def _bitmap_words(n_ids: int) -> int:
+  """int32 words of a bitmap over ids ``[0, n_ids)``, at least one."""
+  return max(1, (int(n_ids) + 31) // 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _coop_blocks(entry: str, device: int) -> int:
+  """The most blocks of a cooperative kernel resident at once on card
+  ``device``, asked of its entry point ``entry`` (``glt_*_blocks``) once
+  per card: the length of the kernel's per-block scratch."""
+  n = globals()[entry](device)
+  if n <= 0:
+    raise RuntimeError(f'{entry}: occupancy query failed with CUresult '
+                       f'{-n}')
+  return n
+
+
+class _WalkLayout(NamedTuple):
+  scratch: int                # int32 words of the kernel's scratch
+  size: int                   # int32 words of the outputs
+  int_sizes: List[int]        # the outputs' split (the flags last)
+  per_hop: int                # its pieces a hop: picks, labels[, slots]
+  flag_sizes: List[int]       # the flags' split: per hop mask, new_head
+  hop_bytes: List[Tuple[int, ...]]   # byte offsets in csrc's field order
+
+
+@functools.lru_cache(maxsize=64)
+def _walk_layout(hops, table_slots, words, blocks, with_slots):
+  """Where each plane of a walk lies. The kernel's scratch, one int32
+  allocation: the table's keys, vals and first (``table_slots`` each),
+  the bitmap and word ranks (``words`` each), the per-block counts
+  (``blocks``), then every hop's tslot. The outputs, another: every hop's
+  new_count, then per hop picks, labels and slots (``with_slots``), then
+  every hop's mask and new_head bytes. ``hop_bytes`` gives each hop's
+  byte offsets of picks, slots (-1 without), mask, tslot (in the
+  scratch), labels, new_head and new_count."""
+  scratch = 3 * table_slots + 2 * words + blocks
+  sizes, off = [len(hops)], len(hops)
+  per_hop = 3 if with_slots else 2
+  flags, hop_bytes = [], []
+  for h, (s, k) in enumerate(hops):
+    m = s * k
+    hop_bytes.append([off * 4, (off + 2 * m) * 4 if with_slots else -1,
+                      None, scratch * 4, (off + m) * 4, None, h * 4])
+    sizes += [m] * per_hop
+    off += per_hop * m
+    scratch += m
+    flags += [m, m]
+  fo = off * 4
+  for hb, (s, k) in zip(hop_bytes, hops):
+    hb[2], hb[5] = fo, fo + s * k
+    fo += 2 * s * k
+  flag_words = (sum(flags) + 3) // 4
+  pad = flag_words * 4 - sum(flags)
+  sizes.append(flag_words)
+  return _WalkLayout(scratch, off + flag_words, sizes, per_hop,
+                     flags + ([pad] if pad else []),
+                     [tuple(hb) for hb in hop_bytes])
 
 
 # -- B1: sample_hop_dedup -------------------------------------------------------
@@ -385,13 +477,13 @@ def _check_hop_inputs(starts, offsets, valid, type_bounds, counts):
 
 
 def sample_hop_dedup_plain(indices_flat, eids_flat, starts, offsets, valid,
-                           keys, vals, first, type_bounds, counts
-                           ) -> Dict[str, torch.Tensor]:
+                           keys, vals, first, type_bounds, counts, *,
+                           num_ids=None) -> Dict[str, torch.Tensor]:
   """One hetero hop in plain PyTorch (same signature and outputs as
-  :func:`sample_hop_dedup`; ``first`` is unused). Seen ids are looked up
-  in the table; the hop's new ids are ranked by ``unique`` (sorted, so
-  grouped by type), a scatter-min finds each one's first lane, and they
-  are inserted with their labels."""
+  :func:`sample_hop_dedup`; ``first`` and ``num_ids`` are unused). Seen
+  ids are looked up in the table; the hop's new ids are ranked by
+  ``unique`` (sorted, so grouped by type), a scatter-min finds each one's
+  first lane, and they are inserted with their labels."""
   _check_hop_inputs(starts, offsets, valid, type_bounds, counts)
   s, k = offsets.shape
   dev = offsets.device
@@ -430,7 +522,7 @@ def sample_hop_dedup_plain(indices_flat, eids_flat, starts, offsets, valid,
 
 
 def sample_hop_dedup(indices_flat, eids_flat, starts, offsets, valid, keys,
-                     vals, first, type_bounds, counts
+                     vals, first, type_bounds, counts, *, num_ids=None
                      ) -> Dict[str, torch.Tensor]:
   """One hop of the hetero walk over the flat edge-type plane, with
   dedup/relabel against the shared table of type-tagged ids.
@@ -448,6 +540,9 @@ def sample_hop_dedup(indices_flat, eids_flat, starts, offsets, valid, keys,
     type_bounds: [T + 1] int32, type t's tagged ids are
       ``[type_bounds[t], type_bounds[t+1])``.
     counts: [T] int32 labels assigned per type before this hop.
+    num_ids: ``type_bounds[T]`` as a host int, the tagged ids' range,
+      which sizes the kernel's rank bitmap; read from ``type_bounds`` (a
+      device sync) when not given.
 
   Returns a dict: ``picks`` and ``eid_picks`` [S, K] (-1 on invalid
   lanes; ``eid_picks`` None without ``eids_flat``), ``labels`` [S*K]
@@ -455,54 +550,61 @@ def sample_hop_dedup(indices_flat, eids_flat, starts, offsets, valid, keys,
   value rank among the hop's new type-t ids, -1 on invalid lanes),
   ``new_head`` [S*K] bool (each new id's minimum lane) and ``counts``
   [T] after the hop.
+
+  On the card the hop is one cooperative launch
+  (csrc/sample_hop_dedup.cu); its outputs are views of one allocation,
+  its scratch another's.
   """
   if not offsets.is_cuda:
     return sample_hop_dedup_plain(indices_flat, eids_flat, starts, offsets,
                                   valid, keys, vals, first, type_bounds,
-                                  counts)
+                                  counts, num_ids=num_ids)
   _check_hop_inputs(starts, offsets, valid, type_bounds, counts)
+  slots = keys.numel()
+  if slots < 1 or slots & (slots - 1) or vals.numel() != slots \
+      or first.numel() != slots:
+    raise ValueError('dedup table planes must be int32 [2^p]')
   s, k = offsets.shape
   m = s * k
   dev = offsets.device
-  where = _where(dev)
   indices_flat = _i32(indices_flat, dev)
   eids_flat = _i32(eids_flat, dev) if eids_flat is not None else None
   starts, offsets = _i32(starts, dev), _i32(offsets, dev)
-  valid = valid.to(device=dev, dtype=torch.bool).contiguous()
+  valid = _on(valid, torch.bool, dev)
   type_bounds, counts = _i32(type_bounds, dev), _i32(counts, dev)
-  picks = torch.empty((s, k), dtype=torch.int32, device=dev)
-  eid_picks = (torch.empty((s, k), dtype=torch.int32, device=dev)
-               if eids_flat is not None else None)
-  tslot = torch.empty(m, dtype=torch.int32, device=dev)
-  _check(glt_hop_sample(
-      _ptr(indices_flat), _ptr(eids_flat), _ptr(starts), _ptr(offsets),
-      _ptr(valid), s, k, _ptr(keys), _ptr(vals), _ptr(first), keys.numel(),
-      _ptr(picks), _ptr(eid_picks), _ptr(tslot), *where),
-      'sample_hop_dedup (sample)')
-  labels = torch.empty(m, dtype=torch.int32, device=dev)
-  new_head = torch.empty(m, dtype=torch.bool, device=dev)
-  nxt = torch.empty(m, dtype=torch.int32, device=dev)
-  _check(glt_hop_heads(
-      _ptr(picks), _ptr(valid), _ptr(tslot), _ptr(vals), _ptr(first), m,
-      _ptr(labels), _ptr(new_head), _ptr(nxt), *where),
-      'sample_hop_dedup (heads)')
-  sorted_new = torch.sort(nxt).values
-  _check(glt_hop_labels(
-      _ptr(picks), _ptr(new_head), _ptr(tslot), _ptr(sorted_new),
-      _ptr(type_bounds), counts.numel(), _ptr(counts), m, _ptr(labels),
-      _ptr(vals), *where), 'sample_hop_dedup (labels)')
-  sample_hop_dedup.launches += 3
-  type_rank = torch.searchsorted(sorted_new, type_bounds)
-  return dict(picks=picks, eid_picks=eid_picks, labels=labels,
-              new_head=new_head,
-              counts=counts + (type_rank[1:] - type_rank[:-1]).to(
-                  torch.int32))
+  if num_ids is None:
+    num_ids = int(type_bounds[-1])
+  words = _bitmap_words(num_ids)
+  n_types = counts.numel()
+  blocks = _coop_blocks('glt_hop_dedup_blocks', dev.index)
+  n_eid = m if eids_flat is not None else 0
+  # the outputs (picks, eid_picks, labels, counts, then the new_head
+  # bytes) in one allocation; the kernel's scratch (the bitmap, word
+  # ranks, per-block counts, then tslot) in another, freed on return
+  buf = torch.empty(2 * m + n_eid + n_types + (m + 3) // 4,
+                    dtype=torch.int32, device=dev)
+  picks, eid_picks, labels, counts_out, flags = buf.split_with_sizes(
+      [m, n_eid, m, n_types, (m + 3) // 4])
+  new_head = flags.view(torch.bool)[:m]
+  scratch = torch.empty(2 * words + blocks + m, dtype=torch.int32,
+                        device=dev)
+  sbase = scratch.data_ptr()
+  _check(glt_hop_dedup(
+      indices_flat.data_ptr(), _ptr(eids_flat), starts.data_ptr(),
+      offsets.data_ptr(), valid.data_ptr(), s, k, keys.data_ptr(),
+      vals.data_ptr(), first.data_ptr(), slots, type_bounds.data_ptr(),
+      n_types, counts.data_ptr(), num_ids, sbase, words,
+      picks.data_ptr(), eid_picks.data_ptr() if n_eid else None,
+      sbase + 4 * (2 * words + blocks), labels.data_ptr(),
+      new_head.data_ptr(), counts_out.data_ptr(), *_where(dev)),
+      'sample_hop_dedup')
+  sample_hop_dedup.launches += 1
+  return dict(picks=picks.view(s, k),
+              eid_picks=eid_picks.view(s, k) if n_eid else None,
+              labels=labels, new_head=new_head, counts=counts_out)
 
 
 # -- B2: sample_hop ------------------------------------------------------------
-
-_I32, _LANES = torch.int32, 2 ** 31   # kernels address lanes with int32
-
 
 def _check_pick_inputs(indices, starts, offsets):
   if offsets.dim() != 2 or starts.numel() != offsets.shape[0]:

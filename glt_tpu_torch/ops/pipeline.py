@@ -86,8 +86,7 @@ def multihop_sample(plan: FusedHopPlan, seeds: torch.Tensor, n_valid: int,
   for hop, k in zip(hops, fanouts):
     ids_flat = hop['picks'].reshape(-1)
     mask_flat = hop['mask'].reshape(-1)
-    nh, labels = hop['new_head'], hop['labels']
-    new_count = nh.sum(dtype=torch.int32)
+    nh, labels, new_count = hop['new_head'], hop['labels'], hop['new_count']
     rows_parent.append(torch.repeat_interleave(frontier_labels, k))
     cols_child.append(labels)
     emasks.append(mask_flat)
@@ -270,7 +269,8 @@ def multihop_sample_hetero(plan: HeteroFusedPlan, table_slots: int,
           torch.cat([sg['start'] for sg in segs]),
           torch.cat([pad(sg['off'], sg['k']) for sg in segs]),
           torch.cat([pad(sg['mask'], sg['k']) for sg in segs]),
-          keys, vals, first, plan.type_bounds, counts)
+          keys, vals, first, plan.type_bounds, counts,
+          num_ids=plan.num_ids)
       picks, labels = hop['picks'], hop['labels'].view(-1, k_max)
       new_head = hop['new_head'].view(-1, k_max)
       r0 = 0

@@ -318,6 +318,8 @@ class HeteroFusedPlan:
     self.indices_flat = plane['indices_flat']
     self.eids_flat = plane['eids_flat']
     total = sum(int(node_counts[t]) for t in self.types)
+    #: the tagged ids' range, ``type_bounds[T]``, as a host int
+    self.num_ids = total
     #: [T + 1] int32 type boundaries, the kernel's type lookup
     self.type_bounds = torch.tensor(
         [self.type_base[t] for t in self.types] + [total],

@@ -174,6 +174,241 @@ def test_walk_matches_plain_at_fanouts_above_64(dev, fanouts):
   assert int((deg > fanouts[0]).sum()) >= b // 2
 
 
+def _ragged_graph(dev, n=20_003, seed=13):
+  """:func:`_hub_graph`'s shape over N = 20,003 nodes (not a multiple of
+  32), with one edge in 50 pointing at the last node, so that the walk
+  picks it and ranks ids in the bitmap's last, partial word."""
+  g = torch.Generator(device=dev).manual_seed(seed)
+  deg = torch.randint(0, 41, (n,), generator=g, device=dev)
+  hubs = torch.randperm(n, generator=g, device=dev)[:200]
+  deg[hubs] = torch.randint(200, 2001, (200,), generator=g, device=dev)
+  src = torch.repeat_interleave(torch.arange(n, device=dev), deg)
+  e = src.numel()
+  dst = torch.where(torch.rand(e, generator=g, device=dev) < 0.5,
+                    hubs[torch.randint(0, 200, (e,), generator=g,
+                                       device=dev)],
+                    torch.randint(0, n, (e,), generator=g, device=dev))
+  dst[::50] = n - 1
+  topo = Topology(torch.stack([src, dst]), num_nodes=n)
+  indptr_pad = torch.cat([topo.indptr, torch.tensor([e], device=dev)])
+  return indptr_pad.to(torch.int32), topo.indices, hubs
+
+
+def _walk_args(dev, hubs, n, b, fanouts, replace, seed, valid=True):
+  """One walk's inputs from ``b`` seeds (up to half of them hubs, four
+  duplicates), as the sampler hands them over."""
+  g = torch.Generator(device=dev).manual_seed(seed)
+  seeds = torch.randint(0, n, (b,), generator=g, device=dev)
+  n_hubs = min(b // 2, hubs.numel())
+  seeds[:n_hubs] = hubs[:n_hubs]
+  seeds[1:5] = seeds[0]
+  d, _ = _fused_seed_hop(seeds.to(torch.int32), b)
+  ok = d['new_head3'] if valid else torch.zeros_like(d['new_head3'])
+  u = walk_hop_uniforms(g, b, fanouts, replace, dev)
+  return (d['ids3'], ok, torch.where(ok, d['ids3'],
+                                     torch.full_like(d['ids3'], -1)),
+          d['labels3'], d['count2'], u)
+
+
+_WALK_KEYS = ('picks', 'mask', 'labels', 'new_head', 'new_count')
+
+
+@pytest.mark.parametrize('b', [1, 7, 256, 1024])
+@pytest.mark.parametrize('fanouts', [(15, 10, 5), (100,), (3, 80)])
+@pytest.mark.parametrize('replace,with_slots', [(False, True),
+                                                (True, False)])
+def test_walk_is_one_launch_equal_to_plain(dev, b, fanouts, replace,
+                                           with_slots):
+  # one cooperative launch a walk, every surface bit-equal to the plain
+  # walk, over a graph of N % 32 != 0 whose last node is picked (a new
+  # id in the bitmap's last, partial word)
+  indptr_pad, indices, hubs = _ragged_graph(dev)
+  n = indptr_pad.numel() - 2
+  args = (indptr_pad, indices) + _walk_args(dev, hubs, n, b, fanouts,
+                                            replace, seed=b)
+  kw = dict(fanouts=fanouts, replace=replace, with_slots=with_slots,
+            table_slots=K.walk_table_slots(sample_budget(b, fanouts)))
+  before = K.sample_walk_dedup.launches, K.dedup_table_insert.launches
+  got = K.sample_walk_dedup(*args, **kw)
+  assert (K.sample_walk_dedup.launches,
+          K.dedup_table_insert.launches) == (before[0] + 1, before[1])
+  want = K.sample_walk_dedup_plain(*args, **kw)
+  keys = _WALK_KEYS + (('slots',) if with_slots else ())
+  for h, (a, c) in enumerate(zip(got, want)):
+    assert set(a) == set(keys)
+    for k in keys:
+      assert a[k].dtype == c[k].dtype and torch.equal(a[k], c[k]), \
+          f'hop {h} {k}'
+  if b >= 256:
+    assert any(bool((hop['picks'].reshape(-1)[hop['new_head']]
+                     == n - 1).any()) for hop in got)
+
+
+def test_walk_with_no_valid_seed_is_equal_to_plain(dev):
+  # every frontier row invalid: no pick, no new id, new_count 0 a hop
+  indptr_pad, indices, hubs = _ragged_graph(dev)
+  n = indptr_pad.numel() - 2
+  fanouts = (15, 10, 5)
+  args = (indptr_pad, indices) + _walk_args(dev, hubs, n, 64, fanouts,
+                                            False, seed=3, valid=False)
+  kw = dict(fanouts=fanouts, with_slots=True,
+            table_slots=K.walk_table_slots(sample_budget(64, fanouts)))
+  got = K.sample_walk_dedup(*args, **kw)
+  want = K.sample_walk_dedup_plain(*args, **kw)
+  for a, c in zip(got, want):
+    for k in _WALK_KEYS + ('slots',):
+      assert torch.equal(a[k], c[k]), k
+    assert int(a['new_count']) == 0 and not bool(a['mask'].any())
+
+
+def test_walk_replays_in_a_cuda_graph(dev):
+  # one walk captured, then replayed on other seeds and uniforms copied
+  # into its inputs: no table, bitmap or count leaks from one call into
+  # the next, and the replay equals the plain walk on each input
+  indptr_pad, indices, hubs = _ragged_graph(dev)
+  n = indptr_pad.numel() - 2
+  b, fanouts = 256, (15, 10, 5)
+  kw = dict(fanouts=fanouts, with_slots=True,
+            table_slots=K.walk_table_slots(sample_budget(b, fanouts)))
+  inputs = [_walk_args(dev, hubs, n, b, fanouts, False, seed=s)
+            for s in (21, 22)]
+  static = [t.clone() for t in inputs[0][:5]] + [
+      [u.clone() for u in inputs[0][5]]]
+  args = lambda: (indptr_pad, indices, *static)
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    K.sample_walk_dedup(*args(), **kw)      # builds and warms up
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = K.sample_walk_dedup(*args(), **kw)
+  for which in (1, 0, 1):
+    src = inputs[which]
+    for dst, t in zip(static[:5], src[:5]):
+      dst.copy_(t)
+    for dst, t in zip(static[5], src[5]):
+      dst.copy_(t)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = K.sample_walk_dedup_plain(indptr_pad, indices, *src, **kw)
+    for h, (a, c) in enumerate(zip(out, want)):
+      for k in _WALK_KEYS + ('slots',):
+        assert torch.equal(a[k], c[k]), f'input {which} hop {h} {k}'
+
+
+def _tagged_hop(dev, bounds, seed, s=4096, k=5, n_flat=60_000):
+  """One hop's inputs over tagged ids in ``[0, bounds[-1])``, a fifth of
+  them at or next to a type bound, shorter segments behind invalid
+  lanes."""
+  g = torch.Generator(device=dev).manual_seed(seed)
+  tb = torch.tensor(bounds, dtype=torch.int32, device=dev)
+  indices = torch.randint(0, bounds[-1], (n_flat,), generator=g, device=dev,
+                          dtype=torch.int32)
+  near = tb[torch.randint(1, len(bounds), (n_flat // 5,), generator=g,
+                          device=dev)] + torch.randint(
+      -2, 2, (n_flat // 5,), generator=g, device=dev, dtype=torch.int32)
+  indices[::5] = near.clamp(0, bounds[-1] - 1)
+  eids = torch.randperm(n_flat, generator=g, device=dev).to(torch.int32)
+  starts = torch.randint(0, n_flat - 64, (s,), generator=g, device=dev,
+                         dtype=torch.int32)
+  deg = torch.randint(0, 64, (s,), generator=g, device=dev)
+  offsets = (torch.rand((s, k), generator=g, device=dev)
+             * deg[:, None]).to(torch.int32)
+  valid = (torch.arange(k, device=dev)[None, :] < deg.clamp(max=k)[:, None])
+  valid[s // 2:, 3:] = False
+  return indices, eids, starts, offsets, valid, tb
+
+
+_HOP_KEYS = ('picks', 'eid_picks', 'labels', 'new_head', 'counts')
+
+
+def test_hop_chain_is_one_launch_a_hop_equal_to_plain(dev):
+  # three hops against one table, tag bounds inside bitmap words (3001,
+  # 7013) and an empty type: each hop one launch, its outputs and the
+  # table after it equal to the plain hop's
+  bounds = [0, 3001, 7013, 7013, 7500]
+  nid = bounds[-1]
+  pre = torch.arange(0, nid, 11, device=dev, dtype=torch.int32)
+  slots = K.walk_table_slots(3 * 4096 * 5 + pre.numel())
+  tables = [K.make_dedup_table(slots, dev) for _ in range(2)]
+  for keys, vals, _ in tables:
+    K.dedup_table_insert(keys, vals, pre, torch.arange(pre.numel(),
+                                                       device=dev),
+                         torch.ones_like(pre, dtype=torch.bool))
+  counts = [torch.tensor([5, 9, 0, 2], dtype=torch.int32, device=dev)] * 2
+  for h in range(3):
+    indices, eids, starts, offsets, valid, tb = _tagged_hop(dev, bounds, h)
+    before = K.sample_hop_dedup.launches
+    got = K.sample_hop_dedup(indices, eids, starts, offsets, valid,
+                             *tables[0], tb, counts[0], num_ids=nid)
+    assert K.sample_hop_dedup.launches == before + 1
+    want = K.sample_hop_dedup_plain(indices, eids, starts, offsets, valid,
+                                    *tables[1], tb, counts[1])
+    for key in _HOP_KEYS:
+      assert got[key].dtype == want[key].dtype
+      assert torch.equal(got[key], want[key]), f'hop {h} {key}'
+    assert int(got['new_head'].sum()) > 0
+    probe = torch.arange(nid, device=dev)
+    assert torch.equal(K.dedup_table_lookup(*tables[0][:2], probe),
+                       K.dedup_table_lookup(*tables[1][:2], probe)), h
+    counts = [got['counts'], want['counts']]
+  # without num_ids the wrapper reads the range from type_bounds
+  indices, eids, starts, offsets, valid, tb = _tagged_hop(dev, bounds, 7)
+  fresh = [K.make_dedup_table(slots, dev) for _ in range(2)]
+  got = K.sample_hop_dedup(indices, None, starts, offsets, valid,
+                           *fresh[0], tb, counts[0])
+  want = K.sample_hop_dedup_plain(indices, None, starts, offsets, valid,
+                                  *fresh[1], tb, counts[1])
+  assert got['eid_picks'] is None
+  for key in ('picks', 'labels', 'new_head', 'counts'):
+    assert torch.equal(got[key], want[key]), key
+
+
+def test_hop_replays_in_a_cuda_graph(dev):
+  # one hop captured, replayed on other offsets and a fresh copy of the
+  # table each time: no bitmap or count leaks from one call into the next
+  bounds = [0, 3001, 7013, 7500]
+  nid = bounds[-1]
+  pre = torch.arange(0, nid, 13, device=dev, dtype=torch.int32)
+  slots = K.walk_table_slots(4096 * 5 + pre.numel())
+  table0 = K.make_dedup_table(slots, dev)
+  K.dedup_table_insert(table0[0], table0[1], pre,
+                       torch.arange(pre.numel(), device=dev),
+                       torch.ones_like(pre, dtype=torch.bool))
+  counts = torch.tensor([3, 1, 4], dtype=torch.int32, device=dev)
+  cases = [_tagged_hop(dev, bounds, s) for s in (31, 32)]
+  indices, eids, _, _, _, tb = cases[0]
+  starts, offsets, valid = (t.clone() for t in cases[0][2:5])
+  table = [t.clone() for t in table0]
+  run = lambda: K.sample_hop_dedup(indices, eids, starts, offsets, valid,
+                                   *table, tb, counts, num_ids=nid)
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    run()
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = run()
+  for which in (1, 0, 1):
+    case = cases[which]
+    for dst, t in zip((starts, offsets, valid), case[2:5]):
+      dst.copy_(t)
+    for dst, t in zip(table, table0):
+      dst.copy_(t)
+    graph.replay()
+    torch.cuda.synchronize()
+    ptab = [t.clone() for t in table0]
+    want = K.sample_hop_dedup_plain(indices, eids, *case[2:5], *ptab, tb,
+                                    counts)
+    for key in _HOP_KEYS:
+      assert torch.equal(out[key], want[key]), f'case {which} {key}'
+    probe = torch.arange(nid, device=dev)
+    assert torch.equal(K.dedup_table_lookup(*table[:2], probe),
+                       K.dedup_table_lookup(*ptab[:2], probe)), which
+
+
 def test_engine_serves_through_the_kernels(dev):
   rng = np.random.default_rng(0)
   ei = np.stack([rng.integers(0, 3000, 40_000), rng.integers(0, 3000, 40_000)])
@@ -186,8 +421,10 @@ def test_engine_serves_through_the_kernels(dev):
   out = eng.infer(np.arange(20))
   assert out.shape == (20, 7) and np.isfinite(out).all()
   assert all(fn.launches > 0 for fn in (K.sample_walk_dedup,
-                                        K.dedup_table_insert, K.gather_rows))
-  assert K.sample_hop_dedup.launches == 0   # the hetero path's kernel
+                                        K.gather_rows))
+  # the walk inserts its seeds itself; K2 and B1 are the hetero path's
+  assert K.dedup_table_insert.launches == 0
+  assert K.sample_hop_dedup.launches == 0
 
 
 def test_sample_hop_dedup_matches_plain(dev):

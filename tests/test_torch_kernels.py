@@ -188,11 +188,56 @@ def test_walk_picks_and_heads_match_pallas_kernel():
                                   err_msg=h)
     jn = np.asarray(newh[h])[:s].reshape(-1) != 0
     np.testing.assert_array_equal(jn, hop['new_head'].numpy(), err_msg=h)
+    assert int(hop['new_count']) == int(jn.sum()), h
     n_heads += int(jn.sum())
     frontier = np.where(jn, jp.reshape(-1), np.iinfo(np.int32).max)
     fmask = jn
   assert n_heads > 0
   assert K.sample_walk_dedup.launches == 0
+
+
+@pytest.mark.parametrize('hops,with_slots', [
+    (((256, 15), (3840, 10), (38400, 5)), True),
+    (((7, 3), (21, 2)), False),
+    (((1, 100),), True)])
+def test_walk_layout_planes_are_the_views_the_kernel_writes(hops,
+                                                            with_slots):
+  # a walk's two allocations: the byte offsets handed to the kernel are
+  # where the split views the wrapper returns begin, and no two planes of
+  # one allocation overlap
+  slots, words, blocks = 1 << 12, 77, 9
+  lay = K._walk_layout(hops, slots, words, blocks, with_slots)
+  buf = torch.empty(lay.size, dtype=torch.int32)
+  base = buf.data_ptr()
+  ints = buf.split_with_sizes(lay.int_sizes)
+  flags = ints[-1].view(torch.bool).split_with_sizes(lay.flag_sizes)
+  assert ints[0].numel() == len(hops)
+  table = 4 * (3 * slots + 2 * words + blocks)
+  out_spans, scratch_spans = [], [(0, table)]
+  for h, (s, k) in enumerate(hops):
+    m = s * k
+    at = 1 + h * lay.per_hop
+    picks, slots_off, mask, tslot, labels, new_head, new_count = \
+        lay.hop_bytes[h]
+    assert ints[at].data_ptr() - base == picks and ints[at].numel() == m
+    assert ints[at + 1].data_ptr() - base == labels
+    assert ints[0][h].data_ptr() - base == new_count
+    if with_slots:
+      assert ints[at + 2].data_ptr() - base == slots_off
+      out_spans.append((slots_off, slots_off + 4 * m))
+    else:
+      assert slots_off == -1
+    assert flags[2 * h].data_ptr() - base == mask
+    assert flags[2 * h + 1].data_ptr() - base == new_head
+    assert flags[2 * h].numel() == flags[2 * h + 1].numel() == m
+    out_spans += [(picks, picks + 4 * m), (labels, labels + 4 * m),
+                  (new_count, new_count + 4), (mask, mask + m),
+                  (new_head, new_head + m)]
+    scratch_spans.append((tslot, tslot + 4 * m))
+  for spans, size in ((out_spans, lay.size), (scratch_spans, lay.scratch)):
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] <= 4 * size
 
 
 def test_seed_dedup_matches_jax_with_seen_set():
