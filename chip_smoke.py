@@ -51,10 +51,16 @@ windows) are timed in turns against torch.take over the same clipped
 slots (kernel, take, kernel, ... over ROUNDS rounds, medians), beside
 their byte bounds and host enqueue times; a "claim:" line compares each
 sum with torch.take's and gives the spread of their ratio over the
-rounds. The walk (sample_walk_dedup, one cooperative launch a walk) and
-the hetero hop (sample_hop_dedup, one a hop) are timed back to back,
-inside a CUDA graph and by their host enqueue, and every main path checks
-that they launch once a walk and once a hop.
+rounds. The feature gather (gather_rows) is timed the same way against
+index_select at five row shapes: float32 x 100 and bf16 x 100 (the
+products table and its bf16 cast at bucket 256's node list), float32 x
+1024 (the igbh-rgat paper table at one request's paper nodes), bf16 x 101
+and uint8 x 7. The walk (sample_walk_dedup, one cooperative launch a
+walk), the hetero hop (sample_hop_dedup, one a hop) and the hetero seed
+phase (dedup_table_init, one launch a request, beside the chain of ops it
+replaced) are timed back to back, inside a CUDA graph and by their host
+enqueue, and every main path checks that they launch once a walk, once a
+hop and once a request.
 
 Prints one line per phase with its seconds, the card's name and power
 limit, one JSON line of per-kernel numbers ({"kernels": [...]}) and, as
@@ -246,6 +252,113 @@ def bytes_ms(nbytes):
   return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def time_gather(torch, np, K, label, table, rows):
+  """K3 on ``table`` at ``rows``: bit-equal to its plain version and to
+  index_select over the clamped rows, timed in turns with index_select
+  (medians of ROUNDS rounds), its plain time, host enqueue and byte bound
+  (each distinct table row read once, an output row written and a 4-byte
+  index read per row: a node list's -1 pad lanes all read row 0); prints
+  its line and a "claim:" line and returns its row."""
+  n = table.shape[0]
+  clamped = rows.long().clamp(0, n - 1)
+  got = K.gather_rows(table, rows)
+  if not (torch.equal(got, K.gather_rows_plain(table, rows))
+          and torch.equal(got, torch.index_select(table, 0, clamped))):
+    raise AssertionError(f'gather_rows {label} differs')
+  del got
+  fns = {'kernel': lambda: K.gather_rows(table, rows),
+         'index_select': lambda: torch.index_select(table, 0, clamped)}
+  per_round = in_turns_ms(torch, np, fns)
+  t = {k: float(np.median(v)) for k, v in per_round.items()}
+  host = in_turns_host_us(torch, np, fns)
+  plain = cuda_ms(torch, lambda i=0: K.gather_rows_plain(table, rows), 20)
+  b, distinct = rows.numel(), int(torch.unique(clamped).numel())
+  row_bytes = table.shape[1] * table.element_size()
+  # device time in a CUDA graph where 20 outputs fit in 1.3 GB: back to
+  # back, a small gather's time is its host enqueue
+  graph = {}
+  if b * row_bytes <= 2 ** 26:
+    graph = {k: graph_ms(torch, fn, calls=20) for k, fn in fns.items()}
+  bound = bytes_ms((distinct + b) * row_bytes + 4 * b)
+  lay = K.gather_rows_layout(row_bytes, table.data_ptr())
+  mode = (f'T={lay.lanes}, {lay.passes} pass(es), '
+          + ('realigned' if lay.realign else 'copy'))
+  print(f'gather_rows {label}: {b} rows ({distinct} distinct) of '
+        f'{row_bytes} B ({mode}), equal to plain and index_select; '
+        f'{t["kernel"]:.4f} ms (index_select {t["index_select"]:.4f} ms, '
+        f'in turns, medians of {ROUNDS}; plain {plain:.4f} ms; bound '
+        f'{bound:.6f} ms, {bound / t["kernel"] * 100:.1f}% of it); '
+        + (f'in a CUDA graph {graph["kernel"]:.4f} ms (index_select '
+           f'{graph["index_select"]:.4f} ms); ' if graph else '')
+        + f'host enqueue {host["kernel"]:.2f} us a call (index_select '
+        f'{host["index_select"]:.2f} us)')
+  verdict(f'gather_rows {label}', t['kernel'], t['index_select'],
+          label='index_select',
+          ratios=list(per_round['kernel'] / per_round['index_select']))
+  return dict(ms=t['kernel'], plain_ms=plain, library_ms=t['index_select'],
+              bound_ms=bound, err=0, host_us=host['kernel'],
+              graph_ms=graph.get('kernel'),
+              library_graph_ms=graph.get('index_select'), rows=b,
+              distinct=distinct, layout=lay._asdict())
+
+
+def time_table_init(torch, K, args, host_us):
+  """K2's init (``dedup_table_init(*args)``, the hetero walk's seed phase)
+  against its plain twin by lookups of every seed and 64 absent ids; the
+  init timed back to back, in a CUDA graph and by host enqueue, beside
+  the chain of ops it replaced (make_dedup_table, the masked ids, the
+  in-place insert) timed the same ways; returns its kernel row."""
+  slots, ids, labs, heads, base, dev = args
+  before = K.dedup_table_insert.launches
+  got = K.dedup_table_init(*args)
+  if K.dedup_table_insert.launches != before + 1:
+    raise AssertionError('the table init is not one launch')
+  want = K.dedup_table_init_plain(*args)
+  live = heads & (ids < K.BIG)
+  probe = torch.cat([torch.where(live, ids.long() + base, -1),
+                     torch.arange(2 ** 31 - 65, 2 ** 31 - 1, device=dev)])
+  a = K.dedup_table_lookup(*got[:2], probe)
+  b = K.dedup_table_lookup(*want[:2], probe)
+  if not (torch.equal(a, b) and torch.equal(got[2], want[2])):
+    raise AssertionError('dedup_table_init differs from plain')
+  seen = torch.where(live, labs.long(), -1)
+  if not torch.equal(a[:ids.numel()], seen) or bool((a[ids.numel():]
+                                                      >= 0).any()):
+    raise AssertionError('dedup_table_init lookups miss seed labels')
+
+  def chain():   # the seed phase before this kernel took it over
+    keys, vals, _ = K.make_dedup_table(slots, dev)
+    x = torch.where(heads, ids + base, torch.full_like(ids, -1))
+    K.dedup_table_insert(keys, vals, x, labs, x >= 0)
+
+  init = lambda: K.dedup_table_init(*args)
+  ms = cuda_ms(torch, lambda i=0: init(), 20)
+  chain_ms = cuda_ms(torch, lambda i=0: chain(), 20)
+  plain = cuda_ms(torch, lambda i=0: K.dedup_table_init_plain(*args), 3,
+                  warmup=1)
+  dev_ms = graph_ms(torch, init, calls=20)
+  chain_dev = graph_ms(torch, chain, calls=20)
+  host = host_us({'kernel': init, 'chain': chain})
+  # bytes the init must move: the fill's three planes, a 1-byte flag a
+  # lane, an id where the flag is set, and for each insert its label read
+  # and its key and label written
+  n_ins = int(live.sum())
+  bound = bytes_ms(12 * slots + ids.numel() + 4 * int(heads.sum())
+                   + 12 * n_ins)
+  print(f'dedup_table_init: {slots} slots, {ids.numel()} seed lanes, '
+        f'{n_ins} inserted at base {base}; one launch, lookups equal to '
+        f'plain; {ms:.4f} ms back to back, in a CUDA graph {dev_ms:.4f} '
+        f'ms ({bound / dev_ms * 100:.1f}% of the bound), host enqueue '
+        f'{host["kernel"]:.2f} us a call; the chain it replaced '
+        f'{chain_ms:.4f} ms, in a CUDA graph {chain_dev:.4f} ms, host '
+        f'{host["chain"]:.2f} us (plain {plain:.4f} ms, bound {bound:.6f} '
+        'ms)')
+  return dict(ms=ms, plain_ms=plain, err=int((a - b).abs().max()),
+              bound_ms=bound, graph_ms=dev_ms, host_us=host['kernel'],
+              chain_ms=chain_ms, chain_graph_ms=chain_dev,
+              chain_host_us=host['chain'], slots=slots)
+
+
 def time_walk(torch, K, g, seeds, fanouts, gen, host_us):
   """K1 over the graph ``g`` from ``seeds`` at ``fanouts``: one launch,
   equal to its plain version on every surface, its time back to back and
@@ -325,8 +438,8 @@ def hub_graph(torch, dev, seed):
 def repair_checks(torch, np, K, ds, dev, seed, host_us):
   """The walk at fanouts above 64 and K3 on narrow rows, each equal to
   its plain version (K3 to index_select too) and timed; the float32
-  products table still copies 16-byte units. Returns the printed rows
-  for the summary."""
+  products table takes K3's copy mode. Returns the printed rows for the
+  summary."""
   g, hubs = hub_graph(torch, dev, seed + 8)
   gen = torch.Generator(device=dev).manual_seed(seed + 9)
   print(f'hub graph: {g.num_nodes} nodes, {g.num_edges} edges, max degree '
@@ -338,13 +451,13 @@ def repair_checks(torch, np, K, ds, dev, seed, host_us):
     out[f'walk {list(fanouts)}'] = time_walk(torch, K, g, seeds, fanouts,
                                              gen, host_us)
   table = ds.get_node_feature().table
-  if K.row_unit(table) != 16:
-    raise AssertionError(f'the float32 width-{FEAT_DIM} table copies '
-                         f'{K.row_unit(table)}-byte units, not 16')
+  lay = K.gather_rows_layout(FEAT_DIM * 4, table.data_ptr())
+  if lay.realign:
+    raise AssertionError(f'the float32 width-{FEAT_DIM} table does not '
+                         'take the copy mode')
   n_rows = 234_496     # bucket 256's node count (kernel checks)
   rows = torch.randint(-2, NUM_NODES + 2, (n_rows,), generator=gen,
                        device=dev, dtype=torch.int32)
-  clamped = rows.long().clamp(0, NUM_NODES - 1)
   for dtype, width in NARROW_ROWS:
     dt = getattr(torch, dtype)
     narrow = torch.randint(0, 256, (NUM_NODES, width), generator=gen,
@@ -352,28 +465,9 @@ def repair_checks(torch, np, K, ds, dev, seed, host_us):
     if dt != torch.uint8:
       narrow = torch.randn((NUM_NODES, width), generator=gen, device=dev
                            ).to(dt)
-    got = K.gather_rows(narrow, rows)
-    if not (torch.equal(got, K.gather_rows_plain(narrow, rows))
-            and torch.equal(got, torch.index_select(narrow, 0, clamped))):
-      raise AssertionError(f'gather_rows {dtype} width {width} differs')
-    ms = cuda_ms(torch, lambda i=0: K.gather_rows(narrow, rows), 50)
-    plain = cuda_ms(torch, lambda i=0: K.gather_rows_plain(narrow, rows), 50)
-    lib = cuda_ms(torch, lambda i=0: torch.index_select(narrow, 0, clamped),
-                  50)
-    host = host_us({'kernel': lambda: K.gather_rows(narrow, rows),
-                    'index_select': lambda: torch.index_select(narrow, 0,
-                                                               clamped)})
-    row_bytes = width * got.element_size()
-    bound = bytes_ms(2 * n_rows * row_bytes + 4 * n_rows)
-    out[f'gather_rows {dtype} {width}'] = dict(ms=ms, plain_ms=plain,
-                                               library_ms=lib,
-                                               bound_ms=bound)
-    print(f'gather_rows {n_rows} x {width} {dtype} ({K.row_unit(narrow)}-'
-          f'byte units): equal to plain and index_select; {ms:.4f} ms '
-          f'(plain {plain:.4f}, index_select {lib:.4f}, bound {bound:.6f} '
-          f'ms); host enqueue {host["kernel"]:.2f} us a call (index_select '
-          f'{host["index_select"]:.2f} us)')
-    del narrow, got
+    out[f'gather_rows {dtype} x {width}'] = time_gather(
+        torch, np, K, f'{dtype} x {width}', narrow, rows)
+    del narrow
   return out
 
 
@@ -397,8 +491,9 @@ def guard_cost(torch, np, K):
                          dtype=torch.int32)
     out = torch.empty((256, 100), device=d)
     keep.append((table, rows, out))
+    lay = K.gather_rows_layout(400, table.data_ptr())
     args = (table.data_ptr(), rows.data_ptr(), out.data_ptr(), 1000, 400,
-            256, K.row_unit(table), *K._where(d))
+            256, lay.lanes, int(lay.realign), lay.passes, *K._where(d))
     calls[f'entry on card {d.index}'] = (
         lambda a=args: K._check(K.glt_gather_rows(*a), 'gather_rows'))
   d0 = cards[0]
@@ -1162,7 +1257,6 @@ def main() -> int:
   from glt_tpu_torch.ops import build
   from glt_tpu_torch.ops import cuda_kernels as K
   from glt_tpu_torch.ops import probe_kernels as P
-  from glt_tpu_torch.ops.pipeline import _fused_seed_hop, sample_budget
   from glt_tpu_torch.sampler.base import NodeSamplerInput
   from glt_tpu_torch.serving import InferenceEngine
 
@@ -1231,62 +1325,18 @@ def main() -> int:
             for b in (256, 1024)}
     rows['sample_walk_dedup'] = walk[256]
 
-    # dedup_table_insert at a bucket-256 walk's seeds (the hetero path's
-    # seed insert; the homogeneous walk inserts its seeds itself)
+    # gather_rows: bucket 256's node list (234,496 rows) on the products
+    # table, float32 and under Feature's bf16 cast (a 490 MB copy)
     seeds = seeds_np[:256].to(torch.int32)
-    d, _ = _fused_seed_hop(seeds, 256)
-    ids = torch.where(d['new_head3'], d['ids3'],
-                      torch.full_like(d['ids3'], -1))
-    valid = ids >= 0
-    slots = K.walk_table_slots(sample_budget(256, FANOUTS))
-    tables = [K.make_dedup_table(slots, dev)[:2] for _ in range(24)]
-    K.dedup_table_insert(*tables[0], ids, d['labels3'], valid)
-    plain_tab = K.make_dedup_table(slots, dev)[:2]
-    K.dedup_table_insert_plain(*plain_tab, ids, d['labels3'], valid)
-    probe = torch.cat([d['ids3'], torch.arange(NUM_NODES, NUM_NODES + 64,
-                                               device=dev)])
-    a = K.dedup_table_lookup(*tables[0], probe)
-    b_ = K.dedup_table_lookup(*plain_tab, probe)
-    if not torch.equal(a, b_):
-      raise AssertionError('dedup_table_insert lookups differ from plain')
-    # every live seed (duplicates included) finds its exact-dedup label
-    want = torch.cat([torch.where(d['ids3'] < K.BIG, d['labels3'], -1),
-                      torch.full((64,), -1, device=dev)])
-    if not torch.equal(a, want.long()):
-      raise AssertionError('dedup_table_insert lookups miss seed labels')
-    ms = cuda_ms(torch, lambda i=0: K.dedup_table_insert(
-        *tables[1 + i % 23], ids, d['labels3'], valid), 20, warmup=0)
-    ptables = [K.make_dedup_table(slots, dev)[:2] for _ in range(4)]
-    plain = cuda_ms(torch, lambda i=0: K.dedup_table_insert_plain(
-        *ptables[i % 4], ids, d['labels3'], valid), 3, warmup=0)
-    n_ins = int(valid.sum())
-    rows['dedup_table_insert'] = dict(
-        ms=ms, plain_ms=plain, err=int((a - b_).abs().max()),
-        bound_ms=bytes_ms(12 * ids.numel() + 8 * n_ins))
-    print(f'dedup_table_insert: {n_ins} seeds, lookups equal; {ms:.4f} ms '
-          f'(plain {plain:.4f} ms)')
-
-    # gather_rows: bucket 256's node list (234,496 rows x 100 float32)
-    out = engine.sampler.sample_from_nodes(seeds)
-    node = out.node
+    node = engine.sampler.sample_from_nodes(seeds).node
     table = ds.get_node_feature().table
-    got = K.gather_rows(table, node)
-    want = K.gather_rows_plain(table, node)
-    if not torch.equal(got, want):
-      raise AssertionError('gather_rows differs from plain')
-    clamped = node.long().clamp(0, NUM_NODES - 1)
-    ms = cuda_ms(torch, lambda i=0: K.gather_rows(table, node), 50)
-    plain = cuda_ms(torch, lambda i=0: K.gather_rows_plain(table, node), 50)
-    lib = cuda_ms(torch, lambda i=0: torch.index_select(table, 0, clamped),
-                  50)
-    nb = node.numel()
-    rows['gather_rows'] = dict(
-        ms=ms, plain_ms=plain, library_ms=lib, err=float(
-            (got - want).abs().max()),
-        bound_ms=bytes_ms(2 * nb * FEAT_DIM * 4 + nb * 4))
-    print(f'gather_rows: {nb} x {FEAT_DIM} float32 equal; {ms:.4f} ms '
-          f'(plain {plain:.4f}, index_select {lib:.4f}, bound '
-          f'{rows["gather_rows"]["bound_ms"]:.4f} ms)')
+    k3 = {'float32 x 100': time_gather(torch, np, K, 'float32 x 100',
+                                       table, node)}
+    rows['gather_rows'] = dict(k3['float32 x 100'], shapes=k3)
+    half = table.to(torch.bfloat16)
+    k3['bfloat16 x 100'] = time_gather(torch, np, K, 'bfloat16 x 100', half,
+                                       node)
+    del half
 
     # launches of one sample + gather at each batch size (the serving
     # bucket 256 and the training batch 1024), counted by the wrappers
@@ -1370,17 +1420,31 @@ def main() -> int:
     # the pipeline hands them over (tables copied before each call); the
     # recording walk runs the plain version, which leaves every input of
     # the next hop as the kernel would
-    hops, real = [], K.sample_hop_dedup
+    hops, inits = [], []
+    real, real_init = K.sample_hop_dedup, K.dedup_table_init
     def record(*a, **kw):
       hops.append((a, [t.clone() for t in a[5:8]], kw))
       return K.sample_hop_dedup_plain(*a, **kw)
-    K.sample_hop_dedup = record
+    def record_init(*a):
+      inits.append(a)
+      return K.dedup_table_init_plain(*a)
+    K.sample_hop_dedup, K.dedup_table_init = record, record_init
     try:
-      hengine.sampler.sample_from_nodes(NodeSamplerInput(torch.randint(
-          0, IGBH_NODES['paper'], (256,), generator=hgen,
-          device=dev).cpu().numpy(), 'paper'))
+      hout = hengine.sampler.sample_from_nodes(NodeSamplerInput(
+          torch.randint(0, IGBH_NODES['paper'], (256,), generator=hgen,
+                        device=dev).cpu().numpy(), 'paper'))
     finally:
-      K.sample_hop_dedup = real
+      K.sample_hop_dedup, K.dedup_table_init = real, real_init
+    if len(inits) != 1:
+      raise AssertionError(f'{len(inits)} table inits in one request')
+    # K2: the seed phase of this request (igbh-rgat's table at bucket 256)
+    rows['dedup_table_insert'] = time_table_init(torch, K, inits[0],
+                                                 host_us)
+    # K3 on the paper table (1024 float32) at this request's paper nodes
+    k3['float32 x 1024'] = time_gather(
+        torch, np, K, 'float32 x 1024',
+        hds.get_node_feature('paper').table, hout.node['paper'])
+    del hout
     hop_row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0, graph_ms=0.0,
                    host_us=0.0)
     for h, (a, table, kw) in enumerate(hops):
@@ -1470,7 +1534,7 @@ def main() -> int:
       bk = hengine.make_batch(seeds, ids.size, 256, uniforms=u)
       yk = hengine.model(bk)
       bp, yp = plain_swapped(K, hengine, ('sample_hop_dedup',
-                                          'dedup_table_insert',
+                                          'dedup_table_init',
                                           'gather_rows'), seeds, ids.size, u)
     for f in ('node_dict', 'node_count_dict', 'row_dict', 'col_dict',
               'edge_mask_dict', 'x_dict'):
@@ -1576,13 +1640,29 @@ def main() -> int:
   print('main-path launches: ' + '; '.join(
       f'{p} {v}' for p, v in by_path.items()))
   for name, row in repair.items():
+    if name.startswith('gather_rows '):
+      k3[name[len('gather_rows '):]] = row
+      continue
     print(f'repair {name}: {row["ms"]:.4f} ms (plain {row["plain_ms"]:.4f}'
-          + (f', index_select {row["library_ms"]:.4f}' if 'library_ms' in row
-             else '') + f', bound {row["bound_ms"]:.6f} ms)')
+          f', bound {row["bound_ms"]:.6f} ms)')
+  for shape, row in k3.items():
+    print(f'gather_rows {shape}: {row["ms"]:.4f} ms, index_select '
+          f'{row["library_ms"]:.4f} ms ({row["ms"] / row["library_ms"]:.3f}'
+          f'x), plain {row["plain_ms"]:.4f} ms, bound {row["bound_ms"]:.6f} '
+          f'ms ({row["bound_ms"] / row["ms"] * 100:.1f}% of it)'
+          + (f'; in a CUDA graph {row["graph_ms"]:.4f} ms, index_select '
+             f'{row["library_graph_ms"]:.4f} ms' if row['graph_ms'] else ''))
+  k2 = rows['dedup_table_insert']
+  print(f'dedup_table_init ({k2["slots"]} slots): {k2["ms"]:.4f} ms back '
+        f'to back, in a CUDA graph {k2["graph_ms"]:.4f} ms, host enqueue '
+        f'{k2["host_us"]:.2f} us; the chain it replaced {k2["chain_ms"]:.4f}'
+        f' ms, graph {k2["chain_graph_ms"]:.4f} ms, host '
+        f'{k2["chain_host_us"]:.2f} us; bound {k2["bound_ms"]:.6f} ms')
   print(smi)
   # launches: the main paths together; launches_by_path: each path's own;
   # graph_ms: device time a call inside a CUDA graph (the probe rows, K1
-  # at B=256 and B1 per request); host_us: host enqueue a call;
+  # at B=256, B1 per request, K2's table init); host_us: host enqueue a
+  # call; shapes: K3 at each timed row shape (ms and library_ms in turns);
   # vt and vmem_take launch one kernel through wrappers of their own, so
   # each row counts only its own shape's launches
   print(json.dumps({'kernels': [
@@ -1595,7 +1675,8 @@ def main() -> int:
            library_ms=rows[n].get('library_ms'),
            graph_ms=rows[n].get('graph_ms'),
            library_graph_ms=rows[n].get('library_graph_ms'),
-           host_us=rows[n].get('host_us'))
+           host_us=rows[n].get('host_us'),
+           **({'shapes': rows[n]['shapes']} if 'shapes' in rows[n] else {}))
       for n, (w, src, rep) in replaces.items()]}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

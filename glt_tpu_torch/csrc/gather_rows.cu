@@ -1,75 +1,284 @@
 // gather_rows: out[i] = table[clamp(rows[i], 0, N-1)].
 //
 // Replaces: glt_tpu/ops/pallas_kernels.py gather_rows (:236), the
-// row_gather seam of Feature.device_gather.
+// row_gather seam of Feature.device_gather. The TPU kernel pays one grid
+// step per row; this is a design for the card, not a step-by-step copy.
 //
-// Bound on this card: bytes. Each output row is one table row read and one
-// row written (400 B each for 100 float32 features), with no arithmetic,
-// so the floor is 2 * B * row_bytes over the 3.35 TB/s of device memory.
-// Design: one warp per row, the 32 lanes striding the row in the widest
-// unit that the row size and both base pointers allow: 16-byte vectors
-// (the common float32 width of 100 qualifies), 4-byte words (any float32
-// row, or a bf16 row of even width), 2-byte halves (a bf16 or fp16 row of
-// odd width) or single bytes (a uint8 row whose width is not even).
-// The TPU kernel paid one grid step per row; here 8 rows share a block and
-// the row index is loaded once per warp.
+// Bound on this card: bytes. Each distinct table row is read once, each
+// output row written once, each 4-byte index read once, over the 3.35
+// TB/s of device memory: bucket 256's node list on the products table is
+// 234,496 rows, 206,655 distinct (its -1 pad lanes all read row 0), 0.0530
+// ms at 100 float32 and 0.0266 ms at 100 bf16; an igbh-rgat request's
+// 656,896 paper rows, 172,355 distinct, 1.0147 ms at 1024 float32.
+//
+// The first design gave a warp to each row and its 32 lanes one unit each
+// of the widest size, 16, 4, 2 or 1 bytes, that divided the row and the
+// table's address, with one row in flight. On an H100 80GB HBM3 at 700 W
+// (PERF.md) it took 0.0922 ms at float32 x 100 (ahead of index_select's
+// 0.1446; 57% of the bound), but 0.0848 ms at bf16 x 101 and 0.0246 ms at
+// uint8 x 7, behind index_select (0.0784, 0.0146): a 7-byte row tied up a
+// warp in which 7 lanes moved a byte each, and a 200-byte bf16 row copied
+// in 4-byte words.
+//
+// Design: a row is a byte window [r * row_bytes, (r + 1) * row_bytes) of
+// the table, copied as 16-byte vectors, as gather_windows.cu copies its
+// windows, at every row width and base address. The layout is picked on
+// the host by ops/cuda_kernels.py's gather_rows_layout from the row size
+// and the table's address; one launch, no host sync.
+// - Segments. A segment of T threads (a power of two, at most 32) takes a
+//   row, each thread one aligned vector of the row's 16-byte cover
+//   (vectors that hold none of its bytes load nothing). A warp takes 32 /
+//   T rows at a time. Rows of one pass: a segment takes two rows, their
+//   loads issued before their stores; wider rows: a segment to a row and
+//   the loads of kWideUnroll passes before their stores. So each lane
+//   keeps two to eight random loads in flight (the first design one at
+//   100-float rows).
+// - Realignment. Output row i starts at i * row_bytes of a fresh, 16-byte
+//   aligned allocation, so a row's source bytes are shifted by
+//   d = (address - i * row_bytes) mod 16 against the output's vectors.
+//   Output vector j of the row is bytes [d, d + 16) of the thread's vector
+//   and its neighbour's (a warp shuffle), selected by word and funnel-
+//   shifted by byte (realign). When the row size and the table's address
+//   are both multiples of 16, d is 0 for every row and the copy mode loads
+//   and stores with no shuffle.
+// - Writes. A vector inside the row is one 16-byte store; the row's first
+//   and last vectors, which it may share with its neighbours, take byte-
+//   exact stores of naturally aligned pieces of 8, 4, 2 and 1 bytes.
+// - Edges. A row whose cover would reach before the table's first byte or
+//   past its last (the first and last rows of a table at an unaligned
+//   address or size) is copied byte by byte, in the same kernel.
+// Tried on an H100 80GB HBM3 at 700 W and not kept (PERF.md): staging a
+// warp's rows in shared memory to store their span as whole vectors
+// (the byte-exact stores beat it at every size it served), four rows a
+// segment (registers, and so resident warps) and streaming stores (no
+// change). A second kernel for 3-15-byte rows, a thread an output
+// vector built from the rows that overlap it, beat index_select inside
+// a CUDA graph (uint8 x 7 0.0059 against 0.0068 ms) where the segments
+// lose (0.0108 against 0.0068), and was level back to back; no served
+// configuration has such rows, so they take the segments.
 #include "entry.cuh"
 #include <cstdint>
-#include <cuda_runtime.h>
 
 namespace {
 
-template <typename Unit>
-__global__ void gather_rows_kernel(const Unit* __restrict__ table,
-                                   const int* __restrict__ rows,
-                                   Unit* __restrict__ out, int64_t n,
-                                   int64_t units_per_row, int64_t b) {
-  const int warps = blockDim.x / 32;
-  int64_t i = static_cast<int64_t>(blockIdx.x) * warps + threadIdx.x / 32;
-  if (i >= b) return;
-  const int lane = threadIdx.x % 32;
-  int64_t r = rows[i];
-  r = r < 0 ? 0 : (r >= n ? n - 1 : r);
-  const Unit* src = table + r * units_per_row;
-  Unit* dst = out + i * units_per_row;
-  for (int64_t u = lane; u < units_per_row; u += 32) dst[u] = __ldg(src + u);
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// passes of a wide row whose loads a lane issues before their stores
+constexpr int kWideUnroll = 8;
+
+// Bytes [d, d + 16) of the 32 bytes lo, hi (little-endian).
+__device__ __forceinline__ uint4 realign(uint4 lo, uint4 hi, int d) {
+  const bool two = d & 8, one = d & 4;
+  const uint32_t w0 = two ? lo.z : lo.x, w1 = two ? lo.w : lo.y;
+  const uint32_t w2 = two ? hi.x : lo.z, w3 = two ? hi.y : lo.w;
+  const uint32_t w4 = two ? hi.z : hi.x, w5 = two ? hi.w : hi.y;
+  const uint32_t a = one ? w1 : w0, b = one ? w2 : w1, c = one ? w3 : w2;
+  const uint32_t e = one ? w4 : w3, f = one ? w5 : w4;
+  const unsigned s = (d & 3) * 8;
+  return make_uint4(__funnelshift_r(a, b, s), __funnelshift_r(b, c, s),
+                    __funnelshift_r(c, e, s), __funnelshift_r(e, f, s));
 }
 
-template <typename Unit>
-int launch(const void* table, const void* rows, void* out, int64_t n,
-           int64_t row_bytes, int64_t b, int device, void* stream) {
-  const int threads = 256;  // 8 rows per block
-  const int64_t blocks = (b + threads / 32 - 1) / (threads / 32);
-  return glt::Launch<gather_rows_kernel<Unit>>::run(
-      dim3(static_cast<unsigned>(blocks)), dim3(threads), device, stream,
-      static_cast<const Unit*>(table), static_cast<const int*>(rows),
-      static_cast<Unit*>(out), n, row_bytes / sizeof(Unit), b);
+// Bytes [lo, hi) of `v` into the 16-byte-aligned vector at `p`, as
+// naturally aligned pieces of 8, 4, 2 and 1 bytes.
+__device__ __forceinline__ void store_bytes(unsigned char* p, uint4 v,
+                                            int lo, int hi) {
+  const uint64_t h0 = v.x | static_cast<uint64_t>(v.y) << 32;
+  const uint64_t h1 = v.z | static_cast<uint64_t>(v.w) << 32;
+  for (int q = lo; q < hi;) {
+    const uint64_t x = (q < 8 ? h0 : h1) >> (8 * (q & 7));
+    if (!(q & 7) && q + 8 <= hi) {
+      *reinterpret_cast<uint64_t*>(p + q) = x;
+      q += 8;
+    } else if (!(q & 3) && q + 4 <= hi) {
+      *reinterpret_cast<uint32_t*>(p + q) = static_cast<uint32_t>(x);
+      q += 4;
+    } else if (!(q & 1) && q + 2 <= hi) {
+      *reinterpret_cast<uint16_t*>(p + q) = static_cast<uint16_t>(x);
+      q += 2;
+    } else {
+      p[q] = static_cast<unsigned char>(x);
+      q += 1;
+    }
+  }
+}
+
+// One row of a step: where its bytes come from and go.
+struct Row {
+  uintptr_t q0;     // the source vector (absolute index) of output vector 0
+  int64_t ob;       // the row's first byte in the output
+  int jlo, jhi;     // output vectors j whose source vector q0 + j lies in
+                    // the row's cover (jlo 0 or 1)
+  int n;            // output vectors the row touches
+  int oh;           // its offset in its first output vector
+  int tail;         // bytes of its last output vector (1-16)
+  int d;            // source shift against the output's vectors
+  bool live;        // a row of the launch
+  bool ok;          // its cover lies inside the table: the vector path
+};
+
+template <bool kRealign>
+__device__ __forceinline__ Row plan_row(uintptr_t base, uintptr_t end,
+                                        int64_t n_rows, int64_t rb,
+                                        const int* __restrict__ rows,
+                                        unsigned i, unsigned b) {
+  Row w;
+  w.live = i < b;
+  int64_t r = w.live ? __ldg(rows + i) : 0;
+  r = r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r);
+  const uintptr_t src = base + static_cast<uintptr_t>(r * rb);
+  w.ob = static_cast<int64_t>(i) * rb;
+  w.oh = kRealign ? static_cast<int>(w.ob & 15) : 0;
+  const uintptr_t c0 = src >> 4, c1 = (src + rb - 1) >> 4;
+  w.q0 = (src - w.oh) >> 4;
+  w.jlo = static_cast<int>(c0 - w.q0);
+  w.jhi = static_cast<int>(c1 - w.q0);
+  w.d = kRealign ? static_cast<int>((src - w.oh) & 15) : 0;
+  w.n = static_cast<int>((w.oh + rb - 1) >> 4) + 1;
+  w.tail = kRealign ? static_cast<int>((w.oh + rb - 1) & 15) + 1 : 16;
+  w.ok = w.live && (c0 << 4) >= base && ((c1 + 1) << 4) <= end;
+  return w;
+}
+
+// T threads a row (a power of two); a segment takes kRows rows and issues
+// the loads of kUnroll passes of each before their stores. kRealign: rows
+// shift against the output's vectors (T - 1 vectors a pass, the T-th lane
+// loads the last one's neighbour), else T vectors a pass with no shuffle
+template <int T, int kRows, int kUnroll, bool kRealign>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_kernel(const unsigned char* __restrict__ table, int64_t n_rows,
+                   int64_t rb, const int* __restrict__ rows, int b,
+                   unsigned char* __restrict__ out, int passes) {
+  constexpr int kSegs = 32 / T;
+  constexpr int kPer = kRealign ? T - 1 : T;   // output vectors a pass
+  const int lane = threadIdx.x & 31;
+  const int t = lane & (T - 1);
+  const unsigned warp = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const unsigned row0 = warp * (kRows * kSegs);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(table);
+  const uintptr_t end = base + static_cast<uintptr_t>(n_rows * rb);
+
+  Row w[kRows];
+#pragma unroll
+  for (int u = 0; u < kRows; ++u)
+    w[u] = plan_row<kRealign>(base, end, n_rows, rb, rows,
+                              row0 + u * kSegs + lane / T,
+                              static_cast<unsigned>(b));
+  // every lane runs every pass and shuffle: rows past b and rows of the
+  // byte path load nothing and store nothing
+  for (int p0 = 0; p0 < passes; p0 += kUnroll) {
+    uint4 v[kRows][kUnroll];
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) {
+        const int j = (p0 + q) * kPer + t;
+        v[u][q] = make_uint4(0, 0, 0, 0);
+        if (w[u].ok && p0 + q < passes && j >= w[u].jlo && j <= w[u].jhi)
+          v[u][q] = __ldg(reinterpret_cast<const uint4*>((w[u].q0 + j)
+                                                         << 4));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) {
+        const int j = (p0 + q) * kPer + t;
+        uint4 x = v[u][q];
+        if (kRealign) {
+          uint4 hi;
+          hi.x = __shfl_down_sync(0xffffffffu, x.x, 1, T);
+          hi.y = __shfl_down_sync(0xffffffffu, x.y, 1, T);
+          hi.z = __shfl_down_sync(0xffffffffu, x.z, 1, T);
+          hi.w = __shfl_down_sync(0xffffffffu, x.w, 1, T);
+          x = realign(x, hi, w[u].d);
+        }
+        if (w[u].ok && t < kPer && j < w[u].n) {
+          const int lo_b = j == 0 ? w[u].oh : 0;
+          const int hi_b = j == w[u].n - 1 ? w[u].tail : 16;
+          unsigned char* dst = out + (((w[u].ob >> 4) + j) << 4);
+          if (lo_b == 0 && hi_b == 16)
+            *reinterpret_cast<uint4*>(dst) = x;
+          else
+            store_bytes(dst, x, lo_b, hi_b);
+        }
+      }
+    }
+  }
+  // rows whose cover leaves the table: byte by byte
+#pragma unroll
+  for (int u = 0; u < kRows; ++u) {
+    if (!w[u].live || w[u].ok) continue;
+    // the row's first byte: source vector q0's byte d, then oh bytes on
+    const unsigned char* src = table + ((w[u].q0 << 4) + w[u].d + w[u].oh
+                                        - base);
+    for (int64_t k = t; k < rb; k += T) out[w[u].ob + k] = __ldg(src + k);
+  }
+}
+
+using Args = std::tuple<const unsigned char*, int64_t, int64_t, const int*,
+                        int, unsigned char*, int>;
+
+template <int T, int kRows, int kUnroll, bool kRealign>
+int launch(int device, void* stream, const Args& a) {
+  const int b = std::get<4>(a);
+  const int rows_per_block = kWarps * kRows * (32 / T);
+  return std::apply([&](auto... v) {
+    return glt::Launch<gather_rows_kernel<T, kRows, kUnroll, kRealign>>::run(
+        dim3((b - 1) / rows_per_block + 1), dim3(kThreads), device, stream,
+        v...);
+  }, a);
+}
+
+template <int T, int kRows, int kUnroll>
+int launch_mode(bool realign, int device, void* stream, const Args& a) {
+  if (!realign) return launch<T, kRows, kUnroll, false>(device, stream, a);
+  if constexpr (T > 1)
+    return launch<T, kRows, kUnroll, true>(device, stream, a);
+  return CUDA_ERROR_INVALID_VALUE;   // a realigning row needs a neighbour
+}
+
+// rows of one pass: T of any size, two rows a segment (rows wider than a
+// pass: T = 32, one row a segment, kWideUnroll passes in flight)
+int launch_one_pass(int lanes, bool realign, int device, void* stream,
+                    const Args& a) {
+  switch (lanes) {
+    case 1: return launch_mode<1, 2, 1>(realign, device, stream, a);
+    case 2: return launch_mode<2, 2, 1>(realign, device, stream, a);
+    case 4: return launch_mode<4, 2, 1>(realign, device, stream, a);
+    case 8: return launch_mode<8, 2, 1>(realign, device, stream, a);
+    case 16: return launch_mode<16, 2, 1>(realign, device, stream, a);
+    case 32: return launch_mode<32, 2, 1>(realign, device, stream, a);
+    default: return CUDA_ERROR_INVALID_VALUE;
+  }
 }
 
 }  // namespace
 
-// row_bytes = D * itemsize; unit is the copy width in bytes (16, 4, 2 or
-// 1), chosen by the wrapper from row_bytes and pointer alignment. Returns
-// the launch's CUresult (entry.cuh).
+// row_bytes = D * itemsize; lanes T, realign and passes are
+// gather_rows_layout's (ops/cuda_kernels.py). Rows of one pass take T
+// lanes and two rows a segment; wider rows take 32 lanes, one row a
+// segment and kWideUnroll passes in flight. Refuses wider rows on fewer
+// lanes, copy mode on a row size or table address that is not a multiple
+// of 16, and an output that is not 16-byte aligned. Returns the launch's
+// CUresult (entry.cuh).
 extern "C" int glt_gather_rows(const void* table, const void* rows, void* out,
-                               int64_t n, int64_t row_bytes, int64_t b,
-                               int unit, int device, void* stream) {
+                               int64_t n, int64_t row_bytes, int b,
+                               int lanes, int realign, int passes,
+                               int device, void* stream) {
   if (b <= 0) return 0;
-  switch (unit) {
-    case 16:
-      return launch<uint4>(table, rows, out, n, row_bytes, b, device, stream);
-    case 4:
-      return launch<uint32_t>(table, rows, out, n, row_bytes, b, device,
-                              stream);
-    case 2:
-      return launch<uint16_t>(table, rows, out, n, row_bytes, b, device,
-                              stream);
-    case 1:
-      return launch<uint8_t>(table, rows, out, n, row_bytes, b, device,
-                             stream);
-    default:
-      return CUDA_ERROR_INVALID_VALUE;
-  }
+  const uintptr_t base = reinterpret_cast<uintptr_t>(table);
+  if (n <= 0 || row_bytes <= 0 || passes <= 0
+      || reinterpret_cast<uintptr_t>(out) % 16
+      || (!realign && (row_bytes % 16 || base % 16)))
+    return CUDA_ERROR_INVALID_VALUE;
+  const Args a{static_cast<const unsigned char*>(table), n, row_bytes,
+               static_cast<const int*>(rows), b,
+               static_cast<unsigned char*>(out), passes};
+  if (passes == 1) return launch_one_pass(lanes, realign, device, stream, a);
+  if (lanes == 32)
+    return launch_mode<32, 1, kWideUnroll>(realign, device, stream, a);
+  return CUDA_ERROR_INVALID_VALUE;
 }
 
 GLT_MODULE(gather_rows,

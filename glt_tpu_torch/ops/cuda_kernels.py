@@ -12,7 +12,8 @@ that it went through the kernels.
 wrapper                       replaces (glt_tpu/ops/...)        source
 ============================  ================================  ==========
 ``gather_rows``               pallas_kernels.py:236             csrc/gather_rows.cu
-``dedup_table_insert``        pallas_kernels.py:588             csrc/dedup_table_insert.cu
+``dedup_table_insert``,       pallas_kernels.py:588 (+ the      csrc/dedup_table_insert.cu
+``dedup_table_init``          seed phase, sample.py:587-593)
 ``sample_walk_dedup``         pallas_kernels.py:998 + the       csrc/sample_walk_dedup.cu
                               epilogue of pipeline.py:584-633
 ``sample_hop_dedup``          pallas_kernels.py:653 + the       csrc/sample_hop_dedup.cu
@@ -24,6 +25,7 @@ wrapper                       replaces (glt_tpu/ops/...)        source
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -66,6 +68,7 @@ def reset_launch_counts() -> None:
 
 glt_gather_rows = lazy_entry(globals(), 'glt_gather_rows')
 glt_dedup_table_insert = lazy_entry(globals(), 'glt_dedup_table_insert')
+glt_dedup_table_init = lazy_entry(globals(), 'glt_dedup_table_init')
 glt_walk_dedup_blocks = lazy_entry(globals(), 'glt_walk_dedup_blocks')
 glt_walk_dedup = lazy_entry(globals(), 'glt_walk_dedup')
 glt_hop_dedup_blocks = lazy_entry(globals(), 'glt_hop_dedup_blocks')
@@ -124,9 +127,9 @@ def gather_rows_plain(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
   """Feature row gather, ``table [N, D]``, ``rows [B]`` -> ``[B, D]``,
-  rows clamped to ``[0, N-1]``; any dtype and width. The kernel copies a
-  row in the widest unit of 16, 4, 2 or 1 bytes that divides the row
-  size and the table's address."""
+  rows clamped to ``[0, N-1]``; any dtype, width and table address. The
+  kernel copies each row as 16-byte vectors in the layout of
+  :func:`gather_rows_layout`."""
   if not table.is_cuda:
     return gather_rows_plain(table, rows)
   if table.dim() != 2 or not table.is_contiguous():
@@ -137,21 +140,45 @@ def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
   rows = _i32(rows.reshape(-1), table.device)
   b = rows.numel()
   out = torch.empty((b, d), dtype=table.dtype, device=table.device)
-  if b:
+  if b and d:
+    row_bytes, ptr = d * table.element_size(), table.data_ptr()
+    lay = _layout(row_bytes, ptr % 16)
     _check(glt_gather_rows(
-        _ptr(table), _ptr(rows), _ptr(out), n, d * table.element_size(), b,
-        row_unit(table), *_where(table.device)), 'gather_rows')
+        ptr, rows.data_ptr(), out.data_ptr(), n, row_bytes, b, lay.lanes,
+        int(lay.realign), lay.passes, *_where(table.device)), 'gather_rows')
     gather_rows.launches += 1
   return out
 
 
-def row_unit(table: torch.Tensor) -> int:
-  """The bytes K3 copies at a time from ``table``'s rows: the widest of
-  16, 4, 2 and 1 that divides both the row size and the table's address
-  (the output is a fresh, aligned allocation)."""
-  row_bytes = table.shape[-1] * table.element_size()
-  return next(u for u in (16, 4, 2, 1)
-              if row_bytes % u == 0 and table.data_ptr() % u == 0)
+class RowLayout(NamedTuple):
+  lanes: int      # T: threads a row, a power of two <= 32
+  realign: bool   # rows shift against the output's 16-byte vectors
+  passes: int     # passes over a row: T (realign: T - 1) vectors each
+
+
+@functools.lru_cache(maxsize=256)
+def _layout(row_bytes: int, base16: int) -> RowLayout:
+  # output row i starts at byte i * row_bytes of a 16-byte-aligned
+  # allocation, so at most 16 - gcd(row_bytes, 16) into its first vector
+  head = 16 - math.gcd(row_bytes, 16)
+  n_out = (head + row_bytes - 1) // 16 + 1
+  realign = bool(row_bytes % 16 or base16)
+  need = n_out + realign    # realign: a lane for the last vector's neighbour
+  lanes = min(32, 1 << (need - 1).bit_length())
+  return RowLayout(lanes, realign, -(-n_out // (lanes - realign)))
+
+
+def gather_rows_layout(row_bytes: int, base: int) -> RowLayout:
+  """How K3 copies rows of ``row_bytes`` bytes from a table at address
+  ``base`` (csrc/gather_rows.cu): T threads a row, T the power of two at
+  or above the output vectors a row touches (plus one for the neighbour
+  vector when realigning), at most 32. Rows of one pass go two to a
+  segment; a wider row takes several passes on 32 lanes, a segment to
+  itself (the kernel derives both from ``passes``). Rows realign unless
+  both the row size and the address are multiples of 16."""
+  if row_bytes <= 0:
+    raise ValueError(f'row_bytes must be positive, got {row_bytes}')
+  return _layout(int(row_bytes), int(base) % 16)
 
 
 # -- K2: dedup_table_insert ---------------------------------------------------
@@ -190,12 +217,12 @@ def dedup_table_insert_plain(keys: torch.Tensor, vals: torch.Tensor,
 def dedup_table_insert(keys: torch.Tensor, vals: torch.Tensor,
                        ids: torch.Tensor, labs: torch.Tensor,
                        valid: torch.Tensor) -> None:
-  """Insert pre-labelled ids into the (keys, vals) table in place (the
-  hetero walk's seed phase; the homogeneous walk inserts its seeds in its
-  own launch): ids < 0 and invalid slots are no-ops, present ids
-  keep their labels. Valid ids are distinct within one call (the walk
-  inserts the seed uniques); the kernel inserts in no fixed order, so an
-  id repeated with two labels would keep either."""
+  """Insert pre-labelled ids into the (keys, vals) table in place: ids < 0
+  and invalid slots are no-ops, present ids keep their labels. Valid ids
+  are distinct within one call; the kernel inserts in no fixed order, so
+  an id repeated with two labels would keep either. The hetero walk's
+  seed phase is :func:`dedup_table_init`, the same kernel with the
+  table's fill in front; this mode fills tables that tests prepare."""
   if not keys.is_cuda:
     return dedup_table_insert_plain(keys, vals, ids, labs, valid)
   slots = keys.numel()
@@ -203,13 +230,67 @@ def dedup_table_insert(keys: torch.Tensor, vals: torch.Tensor,
       or keys.dtype != torch.int32 or vals.dtype != torch.int32):
     raise ValueError('dedup table planes must be int32 [2^p]')
   dev = keys.device
-  ids, labs, valid = _i32(ids, dev), _i32(labs, dev), _i32(valid, dev)
+  ids, labs = _i32(ids, dev), _i32(labs, dev)
+  valid = _on(valid, torch.bool, dev)
   m = ids.numel()
   if m:
     _check(glt_dedup_table_insert(
         _ptr(keys), _ptr(vals), slots, _ptr(ids), _ptr(labs), _ptr(valid),
         m, *_where(dev)), 'dedup_table_insert')
     dedup_table_insert.launches += 1
+
+
+def dedup_table_init_plain(slots: int, ids: torch.Tensor, labs: torch.Tensor,
+                           new_head: torch.Tensor, base: int, device
+                           ) -> Tuple[torch.Tensor, ...]:
+  """:func:`make_dedup_table`, then the seed uniques inserted:
+  ``ids + base`` under ``labs`` wherever ``new_head`` holds and the id is
+  neither negative nor INT32_MAX (the seed hop's non-heads)."""
+  keys, vals, first = make_dedup_table(slots, device)
+  x = ids.to(keys.device).long()
+  live = (new_head.to(keys.device) != 0) & (x >= 0) & (x != BIG)
+  x = torch.where(live, x + int(base), torch.full_like(x, -1))
+  dedup_table_insert_plain(keys, vals, x, labs.to(keys.device), live)
+  return keys, vals, first
+
+
+def dedup_table_init(slots: int, ids: torch.Tensor, labs: torch.Tensor,
+                     new_head: torch.Tensor, base: int, device
+                     ) -> Tuple[torch.Tensor, ...]:
+  """A fresh dedup table ``(keys, vals, first)`` of ``slots`` slots with the
+  seed uniques inserted: ``ids + base`` (the seed type's tag base) under
+  ``labs`` wherever ``new_head`` holds (the counterpart of JAX's
+  ``init_table``, glt_tpu/ops/sample.py:587-593). The three planes are
+  views of one allocation on ``device``; the ids' card must be it.
+
+  On the card this is one cooperative launch that fills the planes and
+  inserts (csrc/dedup_table_insert.cu, counted on
+  ``dedup_table_insert.launches``): it reads ``new_head`` as bytes and
+  nothing back, so a CUDA graph can capture it."""
+  if not ids.is_cuda:
+    return dedup_table_init_plain(slots, ids, labs, new_head, base, device)
+  dev = ids.device
+  if device != dev and torch.device(device) not in (
+      dev, torch.device(dev.type)):
+    raise ValueError(f'dedup_table_init: ids on {dev}, table on {device}')
+  if slots < 1 or slots & (slots - 1):
+    raise ValueError(f'table slots must be a power of two, got {slots}')
+  if not 0 <= base < BIG:
+    raise ValueError(f'dedup_table_init: type base {base} out of range')
+  if ids.dim() != 1 or labs.shape != ids.shape \
+      or new_head.shape != ids.shape:
+    raise ValueError(f'dedup_table_init takes three [m] planes, got ids '
+                     f'{tuple(ids.shape)}, labels {tuple(labs.shape)}, '
+                     f'flags {tuple(new_head.shape)}')
+  ids, labs = _i32(ids, dev), _i32(labs, dev)
+  new_head = _on(new_head, torch.bool, dev)
+  planes = torch.empty(3 * slots, dtype=torch.int32, device=dev)
+  _check(glt_dedup_table_init(
+      planes.data_ptr(), slots, ids.data_ptr(), labs.data_ptr(),
+      new_head.data_ptr(), int(base), ids.numel(), *_where(dev)),
+      'dedup_table_init')
+  dedup_table_insert.launches += 1
+  return planes.split(slots)
 
 
 def dedup_table_lookup(keys: torch.Tensor, vals: torch.Tensor,

@@ -234,10 +234,9 @@ def multihop_sample_hetero(plan: HeteroFusedPlan, table_slots: int,
   u_labs[seed_type].append(d['u_labs2'])
   count[seed_type] = d['count2']
   frontier[seed_type] = (d['ids3'], d['labels3'], d['new_head3'])
-  keys, vals, first = cuda_kernels.make_dedup_table(table_slots, dev)
-  ids = torch.where(d['new_head3'], d['ids3'] + plan.type_base[seed_type],
-                    torch.full_like(d['ids3'], -1))
-  cuda_kernels.dedup_table_insert(keys, vals, ids, d['labels3'], ids >= 0)
+  keys, vals, first = cuda_kernels.dedup_table_init(
+      table_slots, d['ids3'], d['labels3'], d['new_head3'],
+      plan.type_base[seed_type], dev)
   counts = torch.stack([count[t] for t in types]).to(torch.int32)
   hop_nodes = {t: [count[t]] for t in types}
   rows_d, cols_d, mask_d, eid_d, hop_edges = {}, {}, {}, {}, {}

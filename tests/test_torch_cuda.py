@@ -56,9 +56,9 @@ def _signed_or_bytes(shape, dtype, g, dev):
 
 
 def test_gather_rows_matches_plain(dev):
-  # every width and dtype: 16-byte units (float32 width 100), 4-byte
-  # (width 37, bf16 64 and 38), 2-byte (odd bf16 and fp16) and 1-byte
-  # (uint8 of odd width) copies
+  # every width and dtype: the copy mode (float32 width 100, bf16 64),
+  # realigned rows of one pass (float32 37, bf16 38 and 101, and rows
+  # under 16 bytes: fp16 3, uint8 7)
   g = torch.Generator(device=dev).manual_seed(0)
   for d, dtype in ((100, torch.float32), (37, torch.float32),
                    (64, torch.bfloat16), (38, torch.bfloat16),
@@ -76,8 +76,8 @@ def test_gather_rows_matches_plain(dev):
                                          (torch.float16, 3),
                                          (torch.uint8, 7)])
 def test_gather_rows_reads_narrow_rows_at_an_offset_base(dev, dtype, width):
-  # a table one element into its allocation: the unit is chosen by the
-  # table's address too, so these take the 2- or 1-byte copies; equal to
+  # a table one element into its allocation: the layout is chosen by the
+  # table's address too, so its first row takes the byte path; equal to
   # index_select over the clipped rows
   g = torch.Generator(device=dev).manual_seed(width)
   n = 5000
@@ -88,6 +88,31 @@ def test_gather_rows_reads_narrow_rows_at_an_offset_base(dev, dtype, width):
   got = K.gather_rows(table, rows)
   assert torch.equal(got, torch.index_select(table, 0,
                                              rows.clamp(0, n - 1)))
+
+
+@pytest.mark.parametrize('dtype,offset', [
+    (torch.uint8, 0), (torch.uint8, 1), (torch.uint8, 3),
+    (torch.bfloat16, 0), (torch.bfloat16, 1), (torch.float32, 0),
+    (torch.float32, 1), (torch.float64, 0), (torch.float64, 1)])
+def test_gather_rows_sweep_matches_plain_and_index_select(dev, dtype, offset):
+  # every layout of K3 (gather_rows_layout: copy or realigned, one pass
+  # or several) over element sizes 1, 2, 4 and 8, widths 1-33, 100, 101 and
+  # 1024, the table `offset` elements into its allocation; rows clip at
+  # both ends, so the table's edge rows take the byte path
+  g = torch.Generator(device=dev).manual_seed(17 + offset)
+  n = 3000
+  for width in [*range(1, 34), 100, 101, 1024]:
+    flat = _signed_or_bytes((n * width + offset,), dtype, g, dev)
+    table = flat[offset:].view(n, width)
+    rows = torch.randint(-3, n + 3, (5000,), generator=g, device=dev)
+    before = K.gather_rows.launches
+    got = K.gather_rows(table, rows)
+    assert K.gather_rows.launches == before + 1
+    lay = K.gather_rows_layout(width * table.element_size(),
+                               table.data_ptr())
+    assert torch.equal(got, K.gather_rows_plain(table, rows)), (width, lay)
+    assert torch.equal(got, torch.index_select(
+        table, 0, rows.clamp(0, n - 1))), (width, lay)
 
 
 def test_dedup_table_insert_matches_plain(dev):
@@ -103,6 +128,64 @@ def test_dedup_table_insert_matches_plain(dev):
   probe = torch.cat([ids, torch.arange(100_000, 100_100, device=dev)])
   assert torch.equal(K.dedup_table_lookup(a[0], a[1], probe),
                      K.dedup_table_lookup(b[0], b[1], probe))
+
+
+@pytest.mark.parametrize('slots', [1 << 14, 1 << 21])
+def test_dedup_table_init_matches_plain(dev, slots):
+  # the hetero walk's seed phase in one launch: a fresh table (a 2^21-slot
+  # one takes several grid-stride rounds of the fill) with the seed
+  # uniques inserted at a type base, equal to the plain twin by lookups
+  g = torch.Generator(device=dev).manual_seed(5)
+  seeds = torch.randint(0, 50_000, (1024,), generator=g, device=dev,
+                        dtype=torch.int32)
+  d, _ = _fused_seed_hop(seeds, 1000)
+  base = 70_000
+  args = (slots, d['ids3'], d['labels3'], d['new_head3'], base, dev)
+  before = K.dedup_table_insert.launches
+  got = K.dedup_table_init(*args)
+  assert K.dedup_table_insert.launches == before + 1
+  want = K.dedup_table_init_plain(*args)
+  for a, b in zip(got, want):
+    assert a.dtype == b.dtype and a.shape == b.shape
+  assert torch.equal(got[2], want[2])          # first: untouched
+  assert got[1].data_ptr() == got[0].data_ptr() + 4 * slots   # one buffer
+  probe = torch.cat([seeds + base, torch.arange(
+      200_000, 200_064, device=dev, dtype=torch.int32)])
+  lab = K.dedup_table_lookup(*got[:2], probe)
+  assert torch.equal(lab, K.dedup_table_lookup(*want[:2], probe))
+  assert int((lab[:1000] >= 0).sum()) == 1000 and bool((lab[1024:] < 0).all())
+
+
+def test_dedup_table_init_replays_in_a_cuda_graph(dev):
+  # the init captured once and replayed on other seeds: each replay is a
+  # fresh table, with nothing left from the last one
+  g = torch.Generator(device=dev).manual_seed(6)
+  slots, base = 1 << 12, 3
+  cases = [_fused_seed_hop(torch.randint(0, 900, (256,), generator=g,
+                                         device=dev, dtype=torch.int32),
+                           nv)[0] for nv in (256, 100)]
+  keys = ('ids3', 'labels3', 'new_head3')
+  ids, labs, heads = (cases[0][k].clone() for k in keys)
+  run = lambda: K.dedup_table_init(slots, ids, labs, heads, base, dev)
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    run()
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = run()
+  probe = torch.arange(base + 900 + 64, device=dev)
+  for which in (1, 0, 1):
+    for dst, k in zip((ids, labs, heads), keys):
+      dst.copy_(cases[which][k])
+    graph.replay()
+    torch.cuda.synchronize()
+    want = K.dedup_table_init_plain(slots, *(cases[which][k] for k in keys),
+                                    base, dev)
+    assert torch.equal(K.dedup_table_lookup(*out[:2], probe),
+                       K.dedup_table_lookup(*want[:2], probe)), which
+    assert torch.equal(out[2], want[2]), which
 
 
 @pytest.mark.parametrize('replace', [False, True])
@@ -465,8 +548,7 @@ def test_sample_hop_dedup_matches_plain(dev):
                      K.dedup_table_lookup(*tables[1][:2], probe))
 
 
-def test_hetero_engine_serves_through_the_kernels(dev):
-  rng = np.random.default_rng(1)
+def _hetero_engine(rng):
   counts = {'paper': 4000, 'author': 2000, 'institute': 100}
   rel = {('paper', 'cites', 'paper'): ('paper', 'paper', 40_000),
          ('author', 'writes', 'paper'): ('author', 'paper', 12_000),
@@ -484,11 +566,39 @@ def test_hetero_engine_serves_through_the_kernels(dev):
                                  conv='rgat', heads=2), None, [5, 3, 2],
                         buckets=(16,), input_type='paper')
   eng.init_params(0)
+  return eng
+
+
+def test_hetero_engine_serves_through_the_kernels(dev):
+  eng = _hetero_engine(np.random.default_rng(1))
   K.reset_launch_counts()
   out = eng.infer(np.arange(20))
   assert out.shape == (20, 7) and np.isfinite(out).all()
   assert K.sample_hop_dedup.launches > 0
   assert K.dedup_table_insert.launches > 0 and K.gather_rows.launches > 0
+
+
+def test_hetero_walk_is_one_init_and_one_hop_launch_a_hop(dev, monkeypatch):
+  # a hetero request's sample: one K2 launch (the seed phase) and one B1
+  # launch a hop, its batch bit-equal to the plain twins' on the same
+  # seeds and uniforms
+  eng = _hetero_engine(np.random.default_rng(2))
+  seeds = np.arange(0, 4000, 250)
+  u = eng.sampler.hop_uniforms(16, 'paper')
+  K.reset_launch_counts()
+  with torch.no_grad():
+    got = eng.make_batch(seeds, 12, 16, uniforms=u)
+  counted = (K.dedup_table_insert, K.sample_hop_dedup)
+  assert tuple(fn.launches for fn in counted) == (1, 3)
+  for name in ('dedup_table_init', 'sample_hop_dedup', 'gather_rows'):
+    monkeypatch.setattr(K, name, getattr(K, name + '_plain'))
+  with torch.no_grad():
+    want = eng.make_batch(seeds, 12, 16, uniforms=u)
+  assert tuple(fn.launches for fn in counted) == (1, 3)   # none plain
+  for f in ('node_dict', 'node_count_dict', 'row_dict', 'col_dict',
+            'edge_mask_dict', 'x_dict'):
+    a, b = getattr(got, f), getattr(want, f)
+    assert set(a) == set(b) and all(torch.equal(a[t], b[t]) for t in a), f
 
 
 @pytest.mark.parametrize('k', range(1, 16))

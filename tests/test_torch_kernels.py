@@ -63,18 +63,24 @@ def test_gather_rows_matches_pallas_kernel_with_clipping():
   assert K.gather_rows.launches == 0  # the CPU runs the plain version
 
 
-@pytest.mark.parametrize('dtype,width', [('bfloat16', 101), ('uint8', 7)])
+@pytest.mark.parametrize('dtype,width', [('bfloat16', 101), ('uint8', 7),
+                                         ('bfloat16', 100),
+                                         ('float32', 1024)])
 def test_narrow_rows_match_pallas_kernel(dtype, width):
-  # rows that are not whole 4-byte words (K3's 2- and 1-byte units on the
-  # card): the Feature gather and the plain version equal the TPU kernel,
-  # bit for bit (exact)
+  # rows that are not whole 16-byte vectors (K3 realigns them on the card:
+  # bf16 x 101 and x 100, uint8 x 7) and a wide row (float32 x 1024,
+  # several passes): the Feature gather and the plain version equal
+  # the TPU kernel, bit for bit (exact)
   from glt_tpu_torch.data.feature import Feature
   rng = np.random.default_rng(3)
-  n = 40
+  n = 40 if width < 1000 else 12
   rows = np.concatenate([rng.integers(0, n, 30), [-1, n, 0, n - 1]])
   rows = rows.astype(np.int32)
   if dtype == 'uint8':
     table = rng.integers(0, 256, (n, width)).astype(np.uint8)
+    jt, pt = jnp.asarray(table), torch.as_tensor(table)
+  elif dtype == 'float32':
+    table = rng.standard_normal((n, width)).astype(np.float32)
     jt, pt = jnp.asarray(table), torch.as_tensor(table)
   else:   # both sides round the same float32 draw to bf16
     table = rng.standard_normal((n, width)).astype(np.float32)
@@ -91,6 +97,78 @@ def test_narrow_rows_match_pallas_kernel(dtype, width):
     if dtype == 'bfloat16':
       got = got.view(torch.int16).to(torch.int32) & 0xFFFF
     np.testing.assert_array_equal(want, got.numpy())
+
+
+def _k3_lane_plan(mem, base, n, rb, rows, lay):
+  """csrc/gather_rows.cu's lane plan in numpy, over the bytes ``mem``
+  whose index 0 stands for a 16-byte-aligned address (the table's ``n``
+  rows of ``rb`` bytes start at byte ``base``), in the layout ``lay``.
+  Every vector load is checked to lie in its row's cover and inside the
+  table, every row to fit its lanes and passes; returns the output bytes
+  and 16 bytes of slack past them, which nothing may write."""
+  lanes, realign, passes = lay
+  per = lanes - realign
+  end = base + n * rb
+  out = np.full(rows.size * rb + 16, 0xA5, np.uint8)
+
+  def put(o, lo, data):   # bytes at [lo, lo + len) of output vector o
+    out[16 * o + lo:16 * o + lo + len(data)] = data
+
+  for i, r in enumerate(rows):
+    src = base + min(max(int(r), 0), n - 1) * rb
+    ob = i * rb
+    oh = ob % 16 if realign else 0
+    c0, c1 = src // 16, (src + rb - 1) // 16
+    q0, d = divmod(src - oh, 16)
+    if not realign:
+      assert d == 0 and rb % 16 == 0, 'copy mode on a shifted row'
+    nv = (oh + rb - 1) // 16 + 1
+    tail = (oh + rb - 1) % 16 + 1
+    assert nv <= passes * per, 'the row does not fit its lanes'
+    if not (16 * c0 >= base and 16 * (c1 + 1) <= end):   # byte path
+      out[ob:ob + rb] = mem[src:src + rb]
+      continue
+    for p in range(passes):
+      js = p * per + np.arange(lanes)
+      v = np.zeros((lanes, 16), np.uint8)
+      for t, j in enumerate(js):
+        if c0 <= q0 + j <= c1:
+          q = q0 + j
+          assert 16 * q >= base and 16 * (q + 1) <= end
+          v[t] = mem[16 * q:16 * q + 16]
+      hi = np.concatenate([v[1:], v[-1:]])    # the shuffle from lane t + 1
+      x = np.concatenate([v, hi], axis=1)[:, d:d + 16]
+      for t, j in enumerate(js):
+        if t < per and j < nv:
+          lo_b = oh if j == 0 else 0
+          hi_b = tail if j == nv - 1 else 16
+          put(ob // 16 + j, lo_b, x[t, lo_b:hi_b])
+  return out
+
+
+@pytest.mark.parametrize('offset', [0, 1, 2, 3])
+def test_gather_rows_layout_reads_only_each_rows_cover(offset):
+  # K3's layout at a table base `offset` bytes past a 16-byte boundary:
+  # every row fits its T lanes and passes, no lane loads a vector outside
+  # its row's cover or the table, nothing is written past the output, and
+  # the kernel's plan (realign, byte-exact pieces, the byte path of the
+  # table's edge rows) gathers exactly the clamped rows
+  rng = np.random.default_rng(offset)
+  n, b = 24, 70
+  rows = np.concatenate([rng.integers(-2, n + 2, b - 4), [0, n - 1, -1, n]])
+  base = 32 + offset
+  for rb in [*range(1, 65), 200, 202, 400, 4096]:
+    lay = K.gather_rows_layout(rb, base)
+    assert lay.lanes in (1, 2, 4, 8, 16, 32)
+    assert lay.passes == 1 or lay.lanes == 32   # what the kernel launches
+    assert lay.realign == bool(rb % 16 or offset)
+    assert lay.lanes > 1 or not lay.realign   # a neighbour to shuffle
+    mem = rng.integers(0, 256, base + n * rb + 48, dtype=np.uint8)
+    got = _k3_lane_plan(mem, base, n, rb, rows, lay)
+    want = mem[base:base + n * rb].reshape(n, rb)[np.clip(rows, 0, n - 1)]
+    np.testing.assert_array_equal(got[:b * rb], want.reshape(-1),
+                                  err_msg=f'row_bytes {rb}')
+    assert (got[b * rb:] == 0xA5).all(), rb
 
 
 # -- dedup_table_insert -------------------------------------------------------
@@ -136,6 +214,35 @@ def test_dedup_table_insert_lookup_matches_pallas_kernel():
   got = K.dedup_table_lookup(keys, vals, torch.as_tensor(probe)).numpy()
   np.testing.assert_array_equal(
       got, [want.get(int(i), -1) for i in probe])
+
+
+def test_dedup_table_init_matches_pallas_init_table():
+  # the hetero walk's seed phase: JAX's init_table (make_dedup_table, then
+  # dedup_table_insert of the type-tagged seed uniques, interpret mode)
+  # against the port's one-call init and its plain twin; the layouts
+  # differ, so lookups of every seed and of 64 absent ids are compared
+  seeds = np.array([9, 3, 9, 40, 3, 17, 0, 255, 71, 9, 6, 6], np.int32)
+  d = _seed_hop_np(seeds, 10)     # the last two lanes are padding
+  base, slots = 1000, 1024
+  tagged = np.where(d['new_head3'], d['ids3'] + base, -1).astype(np.int32)
+  jt = jpk.dedup_table_insert(
+      *jpk.make_dedup_table(slots), jnp.asarray(tagged),
+      jnp.asarray(d['labels3']),
+      jnp.asarray(d['new_head3'].astype(np.int32)), interpret=True)
+  want = _jax_table_dict(*jt)
+  assert len(want) == len(set(seeds[:10].tolist()))
+  probe = np.concatenate([seeds + base,
+                          np.arange(5000, 5064)]).astype(np.int32)
+  args = (slots, torch.as_tensor(d['ids3']), torch.as_tensor(d['labels3']),
+          torch.as_tensor(d['new_head3']), base, 'cpu')
+  for keys, vals, first in (K.dedup_table_init(*args),
+                            K.dedup_table_init_plain(*args)):
+    assert keys.numel() == vals.numel() == first.numel() == slots
+    assert bool((first == K.BIG).all())
+    got = K.dedup_table_lookup(keys, vals, torch.as_tensor(probe)).numpy()
+    np.testing.assert_array_equal(
+        got, [want.get(int(i), -1) for i in probe])
+  assert K.dedup_table_insert.launches == 0   # the CPU runs the plain twin
 
 
 # -- sample_walk_dedup ----------------------------------------------------------
