@@ -3,9 +3,9 @@
 
 Builds the port's CUDA kernels from csrc/, holds each against its plain
 PyTorch version at the shapes the main paths give it, then drives the
-three serving paths through InferenceEngine.infer, the training path
-through NeighborLoader and SageTrainStep and the two benchmark entry
-points through their main functions, and checks what comes out:
+three serving paths through InferenceEngine.infer, the two training
+paths through NeighborLoader and SageTrainStep and the two benchmark
+entry points through their main functions, and checks what comes out:
 
 - homogeneous: a seeded 3-layer GraphSAGE (hidden 256, 47 classes, 100
   features, fanouts [15, 10, 5]) over a products-shaped graph (2.45M
@@ -29,6 +29,15 @@ points through their main functions, and checks what comes out:
   256 -> 256 -> 47 -> masked cross-entropy -> Adam(1e-3), 30 steps; then
   10 uniform steps through the walk, and a [10, -1] full-neighbourhood
   sampler held against its plain route;
+- hetero training (examples/hetero/train_rgnn.py at
+  examples/igbh/dist_train_rgnn.py's settings): the hetero NeighborLoader
+  over the igbh-rgat graph with its features cast to bf16 (the trainer's
+  default store), learnable labels argmax(x_paper @ w) and a seeded 60%
+  of the papers, batch 64, [15, 10, 5] on every edge type -> the same
+  RGAT over the reversed relations -> masked cross-entropy on
+  y_dict['paper'] -> Adam(1e-3), 3 warm-up and 10 timed steps; then the
+  CSC layout: both graphs flipped on the card, a walk batch and a hetero
+  training batch sampled along in-edges (edge_dir='in') and one step;
 - repairs: the walk at fanouts [100] and [3, 80] over a graph whose hub
   rows (degree 200-2000) exceed them, and the feature gather on bf16 rows
   of width 101 and uint8 rows of width 7, each against its plain version;
@@ -52,9 +61,10 @@ slots (kernel, take, kernel, ... over ROUNDS rounds, medians), beside
 their byte bounds and host enqueue times; a "claim:" line compares each
 sum with torch.take's and gives the spread of their ratio over the
 rounds. The feature gather (gather_rows) is timed the same way against
-index_select at five row shapes: float32 x 100 and bf16 x 100 (the
+index_select at six row shapes: float32 x 100 and bf16 x 100 (the
 products table and its bf16 cast at bucket 256's node list), float32 x
-1024 (the igbh-rgat paper table at one request's paper nodes), bf16 x 101
+1024 (the igbh-rgat paper table at one request's paper nodes), bf16 x
+1024 (its bf16 store at one training batch's paper nodes), bf16 x 101
 and uint8 x 7. The walk (sample_walk_dedup, one cooperative launch a
 walk), the hetero hop (sample_hop_dedup, one a hop) and the hetero seed
 phase (dedup_table_init, one launch a request, beside the chain of ops it
@@ -91,6 +101,10 @@ N_INSERTS, N_DELETES, N_FEATURE_ROWS = 1000, 500, 256
 # training: examples/train_sage_products.py (batch 1024, Adam 1e-3)
 TRAIN_BATCH, TRAIN_STEPS, UNIFORM_STEPS, LR = 1024, 30, 10, 1e-3
 LOSS_TOL = 1e-4   # same batch bit for bit; index_add_ atomics again
+# hetero training: examples/igbh/dist_train_rgnn.py (batch 64, Adam 1e-3,
+# a bf16 feature store) over the igbh-rgat graph, a seeded 60% of the
+# papers to train on (examples/igbh/split_seeds.py)
+HTRAIN_BATCH, HTRAIN_WARMUP, HTRAIN_STEPS, HTRAIN_FRAC = 64, 3, 10, 0.6
 # B2 and B3 against torch.take: timed in turns (kernel, take, kernel, ...)
 # over ROUNDS rounds, medians reported; host enqueue over HOST_CALLS calls
 ROUNDS, HOST_CALLS = 11, 200
@@ -1241,6 +1255,244 @@ def train_phases(torch, np, K, ds, dev, seed, rows, smi):
   return launches, uniform_launches
 
 
+HETERO_BATCH_FIELDS = ('node_dict', 'node_count_dict', 'row_dict',
+                       'col_dict', 'edge_mask_dict', 'x_dict', 'y_dict',
+                       'num_sampled_edges')
+
+
+def differing_field(torch, a, b, fields):
+  """The first of ``fields`` (a tensor or a dict of them) that is not
+  bit-identical between batches ``a`` and ``b``, else None."""
+  for f in fields:
+    x, y = getattr(a, f), getattr(b, f)
+    if not isinstance(x, dict):
+      x, y = {None: x}, {None: y}
+    if set(x) != set(y) or any(not torch.equal(x[k], y[k]) for k in x):
+      return f
+  return None
+
+
+def hetero_train_phases(torch, np, K, graphs, feats, ds, dev, seed, k3,
+                        smi):
+  """Training on the igbh-rgat graph (``graphs``, its float32 feature
+  tables ``feats``, emptied here once cast to the bf16 store), then the
+  CSC checks over it and over the products graph of ``ds``; returns the
+  launches of the training path and of the CSC checks by kernel."""
+  from glt_tpu_torch.data import Dataset, Graph
+  from glt_tpu_torch.loader import NeighborLoader
+  from glt_tpu_torch.models import RGNN
+  from glt_tpu_torch.parallel import SageTrainStep, sage_loss
+  from glt_tpu_torch.sampler.base import NodeSamplerInput
+  from glt_tpu_torch.typing import reverse_edge_type
+  from glt_tpu_torch.utils.profile import ThroughputMeter
+
+  etypes = list(graphs)
+  fanouts = {e: list(FANOUTS) for e in etypes}
+  swapped = ('sample_hop_dedup', 'dedup_table_init', 'gather_rows')
+  with Phase('hetero train data'):
+    # the trainer's bf16 store; learnable labels argmax(x @ w) over the
+    # papers' features as the model reads them
+    tds = Dataset(graph=graphs).init_node_features(
+        {t: f.table.to(torch.bfloat16) for t, f in feats.items()})
+    feats.clear()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    w = torch.randn((IGBH_FEAT, IGBH_CLASSES), generator=gen, device=dev)
+    paper = tds.get_node_feature('paper').table
+    tds.init_node_labels({'paper': torch.argmax(paper.float() @ w, 1).to(
+        torch.int32)})
+    n_papers = IGBH_NODES['paper']
+    train_idx = torch.randperm(n_papers, generator=gen, device=dev)[
+        :int(HTRAIN_FRAC * n_papers)].cpu().numpy()
+    loader = NeighborLoader(tds, fanouts, ('paper', train_idx),
+                            batch_size=HTRAIN_BATCH, shuffle=True,
+                            device=dev, seed=seed,
+                            rng=np.random.default_rng(seed))
+    mp_etypes = [reverse_edge_type(e) for e in etypes]
+
+    def model():
+      torch.manual_seed(seed)
+      return RGNN(mp_etypes, IGBH_FEAT, IGBH_HIDDEN, IGBH_CLASSES,
+                  num_layers=len(FANOUTS), conv='rgat',
+                  heads=IGBH_HEADS).to(dev)
+    classes = np.bincount(tds.get_node_label('paper')[train_idx],
+                          minlength=IGBH_CLASSES)
+    store = sum(f.table.numel() * 2 for f in tds.node_features.values())
+    torch.cuda.synchronize()
+    print(f'hetero train: {train_idx.size} training papers, '
+          f'{int((classes > 0).sum())} of {IGBH_CLASSES} classes present; '
+          f'features bf16 x {IGBH_FEAT}, {store / 2**30:.3f} GiB; '
+          f'message-passing keys {[e[1] for e in mp_etypes]}')
+
+  def one_batch(ld, n_valid, u):
+    """One batch of the first training seeds (``n_valid`` real, the rest
+    padding), sampled from the uniforms ``u``."""
+    seeds = np.concatenate([train_idx[:n_valid],
+                            np.full(HTRAIN_BATCH - n_valid, train_idx[0])])
+    out = ld.sampler.sample_from_nodes(NodeSamplerInput(seeds, 'paper'),
+                                       n_valid, uniforms=u)
+    return ld._collate(out, seeds, n_valid)
+
+  def kernels_vs_plain(label, ld, net):
+    """One training batch through the kernels and through their plain
+    versions, same seeds and uniforms: bit-identical, and its loss on
+    ``net``'s weights within LOSS_TOL. Returns the kernels' batch."""
+    n_valid = HTRAIN_BATCH - 1
+    u = ld.sampler.hop_uniforms(HTRAIN_BATCH, 'paper')
+    with torch.no_grad():
+      bk = one_batch(ld, n_valid, u)
+      lk = float(sage_loss(net, bk))
+      with swapped_to_plain(K, swapped):
+        bp = one_batch(ld, n_valid, u)
+        lp = float(sage_loss(net, bp))
+    f = differing_field(torch, bk, bp, HETERO_BATCH_FIELDS)
+    if f is not None:
+      raise AssertionError(f'{label} batch.{f} differs between kernels and '
+                           'plain')
+    if not abs(lk - lp) <= LOSS_TOL * max(1.0, abs(lp)):
+      raise AssertionError(f'{label} loss {lk} vs plain {lp}')
+    print(f'{label} batch {HTRAIN_BATCH} ({n_valid} real seeds): '
+          f'bit-identical ('
+          f'{sum(int(c) for c in bk.node_count_dict.values())} nodes, '
+          f'{sum(int(m.sum()) for m in bk.edge_mask_dict.values())} edges, '
+          f'keys {sorted(e[1] for e in bk.row_dict)}), loss {lk:.6f} vs '
+          f'plain {lp:.6f} (|diff| {abs(lk - lp):.3e}, tolerance {LOSS_TOL})')
+    return bk
+
+  with Phase('hetero train kernel checks'):
+    net = model()
+    bk = kernels_vs_plain('hetero train', loader, net)
+    # K3 on the bf16 paper table (2048-byte rows) at this batch's papers
+    k3['bfloat16 x 1024'] = time_gather(
+        torch, np, K, 'bfloat16 x 1024', tds.get_node_feature('paper').table,
+        bk.node_dict['paper'])
+    del bk, net
+
+  with Phase('hetero train main path'):
+    net = model()
+    step = SageTrainStep(net, lr=LR)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    # a step: B1 once a hop, K2's init once, K3 once a featured type; no K1
+    per_step = dict(sample_hop_dedup=len(FANOUTS), dedup_table_insert=1,
+                    gather_rows=len(IGBH_NODES), sample_walk_dedup=0)
+    losses, secs, edges = [], [], []
+    it = iter(loader)
+    for i in range(HTRAIN_WARMUP + HTRAIN_STEPS):
+      before = {n: getattr(K, n).launches for n in per_step}
+      t0 = time.perf_counter()
+      b = next(it)
+      losses.append(step(b))
+      n_edges = sum(v.sum() for v in b.num_sampled_edges.values())
+      torch.cuda.synchronize()
+      secs.append(time.perf_counter() - t0)
+      edges.append(n_edges)
+      for n, want in per_step.items():
+        if getattr(K, n).launches - before[n] != want:
+          raise AssertionError(
+              f'step {i}: {getattr(K, n).launches - before[n]} {n} '
+              f'launches, expected {want}')
+    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+      raise AssertionError(f'hetero training: non-finite loss {losses}')
+    timed = np.array(secs[HTRAIN_WARMUP:]) * 1e3
+    n_timed = sum(int(e) for e in edges[HTRAIN_WARMUP:])
+    meter = ThroughputMeter('edges')
+    meter.update(n_timed, timed.sum() / 1e3)
+    median_ms = float(np.median(timed))
+    print(f'hetero training: {len(losses)} steps, losses '
+          + ', '.join(f'{v:.4f}' for v in losses))
+    print(f'hetero training steps {HTRAIN_WARMUP + 1}-{len(losses)}: median '
+          f'{median_ms:.3f} ms a step (min {timed.min():.3f}, quartiles '
+          f'{np.percentile(timed, 25):.3f}-{np.percentile(timed, 75):.3f}, '
+          f'max {timed.max():.3f}); '
+          f'{HTRAIN_BATCH * HTRAIN_STEPS / timed.sum() * 1e3:.1f} seeds/s, '
+          f'{meter.rate:.1f} sampled edges/s ({meter.report()}, '
+          f'{n_timed / HTRAIN_STEPS:.0f} a step); warmup steps '
+          + ', '.join(f'{v * 1e3:.3f}' for v in secs[:HTRAIN_WARMUP])
+          + f' ms; on {smi}')
+    print(f'launches {launches}; resident before training '
+          f'{resident / 2**30:.3f} GiB, peak memory {peak / 2**30:.3f} GiB '
+          f'({peak} bytes)')
+
+  with Phase('hetero train profile'):
+    pstep = SageTrainStep(net, lr=LR, sync_stages=True)
+    pstep(next(it))      # warm
+
+    def run():
+      for _ in range(2):
+        pstep(next(it))
+    step_stages = ('train.forward', 'train.backward', 'train.optimizer')
+    wall, busy = profile_stages(
+        torch, run, 2, ('sample.multihop', 'gather.features') + step_stages,
+        'step', host_stages=step_stages)
+    print(f'hetero train profile: device busy {busy:.3f} ms a step is '
+          f'{busy / median_ms * 100:.1f}% of the unsynchronised median step '
+          f'({median_ms:.3f} ms, hetero train main path)')
+    del pstep, it, b
+
+  with Phase('csc checks'):
+    # both graphs flipped to CSC on the card, then sampled along in-edges
+    g = ds.get_graph()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hcsc = {e: Graph(graphs[e].topo.flip_layout()) for e in etypes}
+    torch.cuda.synchronize()
+    hflip_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    csc = Graph(g.topo.flip_layout())
+    torch.cuda.synchronize()
+    flip_ms = (time.perf_counter() - t0) * 1e3
+    h_edges = sum(x.num_edges for x in hcsc.values())
+    print(f'flip to CSC on the card: products {g.num_edges} edges '
+          f'{flip_ms:.3f} ms; igbh-rgat {h_edges} edges over {len(hcsc)} '
+          f'types {hflip_ms:.3f} ms')
+    hds_in = Dataset(graph=hcsc, node_features=tds.node_features,
+                     node_labels=tds.node_labels, edge_dir='in')
+    hl_in = NeighborLoader(hds_in, fanouts, ('paper', train_idx),
+                           batch_size=HTRAIN_BATCH, device=dev, seed=seed)
+    ds_in = Dataset(graph=csc, node_features=ds.node_features, edge_dir='in')
+    wl_in = NeighborLoader(ds_in, list(FANOUTS), np.arange(TRAIN_BATCH),
+                           batch_size=TRAIN_BATCH, device=dev, seed=seed)
+    K.reset_launch_counts()
+    u = wl_in.sampler.hop_uniforms(TRAIN_BATCH)
+    seeds = torch.randint(0, NUM_NODES, (TRAIN_BATCH,), generator=gen,
+                          device=dev).cpu().numpy()
+
+    def walk_batch():
+      return wl_in._collate(wl_in.sampler.sample_from_nodes(
+          seeds, TRAIN_BATCH, uniforms=u), seeds, TRAIN_BATCH)
+    wk = walk_batch()
+    with swapped_to_plain(K, ('sample_walk_dedup', 'gather_rows')):
+      wp = walk_batch()
+    f = differing_field(torch, wk, wp, ('node', 'node_count', 'row', 'col',
+                                        'edge_mask', 'x',
+                                        'num_sampled_edges'))
+    if f is not None:
+      raise AssertionError(f'in-edge walk batch.{f} differs between kernels '
+                           'and plain')
+    print(f'in-edge walk batch {TRAIN_BATCH}: bit-identical '
+          f'({int(wk.node_count)} nodes, {int(wk.edge_mask.sum())} edges)')
+    del wk, wp
+    hk = kernels_vs_plain('in-edge hetero train', hl_in, net)
+    loss = float(step(hk))
+    csc_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    if not np.isfinite(loss):
+      raise AssertionError(f'in-edge train step: non-finite loss {loss}')
+    print(f'in-edge train step: loss {loss:.6f}; launches {csc_launches}')
+    want = dict(sample_walk_dedup=1, sample_hop_dedup=len(FANOUTS),
+                dedup_table_insert=1, gather_rows=1 + len(IGBH_NODES))
+    for n, v in want.items():
+      if csc_launches[n] != v:
+        raise AssertionError(f'{n}: {csc_launches[n]} launches in the CSC '
+                             f'checks, expected {v}')
+  return launches, csc_launches
+
+
 def main() -> int:
   ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
   ap.add_argument('--seed', type=int, default=0,
@@ -1556,7 +1808,12 @@ def main() -> int:
     profile_requests(torch, hengine, [
         torch.randint(0, IGBH_NODES['paper'], (256,),
                       generator=hrng).numpy() for _ in range(3)])
+  graphs, feats = hds.graph, hds.node_features
   del hengine, hds
+  torch.cuda.empty_cache()
+  htrain_launches, csc_launches = hetero_train_phases(
+      torch, np, K, graphs, feats, ds, dev, opts.seed, k3, smi)
+  del graphs, feats
   torch.cuda.empty_cache()
 
   stream_launches = stream_phases(torch, np, K, ds, dev, opts.seed, rows)
@@ -1597,6 +1854,7 @@ def main() -> int:
     print(f'launches {micro_launches}')
 
   by_path = {'homogeneous': homo_launches, 'hetero': hetero_launches,
+             'hetero_train': htrain_launches, 'csc': csc_launches,
              'stream': stream_launches, 'train': train_launches,
              'train_uniform': uniform_launches, 'probe': probe_launches,
              'microbench': micro_launches}

@@ -1,6 +1,7 @@
 """Dataset: graph + node features + labels (counterpart of
-glt_tpu/data/dataset.py). The graph is the CSR of out-edges (the
-reference's ``edge_dir='out'``): the sampler draws out-neighbours.
+glt_tpu/data/dataset.py). ``edge_dir`` picks the layout, as in the
+reference: ``'out'`` builds the CSR (indptr over src; the sampler draws
+out-neighbours), ``'in'`` the CSC (indptr over dst; in-neighbours).
 
 Homogeneous payloads are single objects; heterogeneous ones are dicts
 keyed by EdgeType (graphs) and NodeType (features), as in the
@@ -22,25 +23,30 @@ from .topology import Topology
 class Dataset:
 
   def __init__(self, graph: Union[None, Graph, Dict[EdgeType, Graph]] = None,
-               node_features=None, node_labels=None):
+               node_features=None, node_labels=None, edge_dir: str = 'out'):
+    if edge_dir not in ('out', 'in'):
+      raise ValueError(f"edge_dir must be 'out' or 'in', got {edge_dir!r}")
     self.graph = graph
     self.node_features = node_features
     self.node_labels = node_labels
+    self.edge_dir = edge_dir
     self.node_split = None   # (train_idx, val_idx, test_idx)
 
   def init_graph(self, edge_index, edge_ids=None, edge_weights=None,
                  num_nodes=None, device=None) -> 'Dataset':
-    """Build the CSR from a [2, E] COO ``edge_index`` on ``device``
-    (default: the card), with optional per-edge ``edge_weights``
-    (homogeneous; weighted sampling reads them). Hetero: ``edge_index``
-    (and ``edge_ids``) are dicts keyed by EdgeType and ``num_nodes`` a
-    dict keyed by NodeType (or one int for every type); each edge type
-    compresses into a rectangular CSR over its (src, dst) node counts."""
+    """Build the CSR (``edge_dir='out'``) or CSC (``'in'``) from a [2, E]
+    COO ``edge_index`` on ``device`` (default: the card), with optional
+    per-edge ``edge_weights`` (homogeneous; weighted sampling reads
+    them). Hetero: ``edge_index`` (and ``edge_ids``) are dicts keyed by
+    EdgeType and ``num_nodes`` a dict keyed by NodeType (or one int for
+    every type); each edge type compresses into a rectangular graph over
+    its (src, dst) node counts."""
     device = resolve_device(device)
+    layout = 'CSR' if self.edge_dir == 'out' else 'CSC'
     if not isinstance(edge_index, dict):
       topo = Topology(edge_index, edge_ids=edge_ids,
                       edge_weights=edge_weights, num_nodes=num_nodes,
-                      device=device)
+                      layout=layout, device=device)
       self.graph = Graph(topo, device=device)
       return self
     if edge_weights is not None:
@@ -52,8 +58,10 @@ class Dataset:
                       if isinstance(num_nodes, dict)
                       else (num_nodes, num_nodes))
       eid = edge_ids.get(etype) if isinstance(edge_ids, dict) else None
-      topo = Topology(ei, edge_ids=eid, num_rows=n_src, num_cols=n_dst,
-                      device=device)
+      # the pointer axis: src of a CSR, dst of a CSC
+      n_rows, n_cols = (n_src, n_dst) if layout == 'CSR' else (n_dst, n_src)
+      topo = Topology(ei, edge_ids=eid, num_rows=n_rows, num_cols=n_cols,
+                      layout=layout, device=device)
       self.graph[etype] = Graph(topo, device=device)
     return self
 
@@ -71,7 +79,12 @@ class Dataset:
     return self
 
   def init_node_labels(self, node_label_data) -> 'Dataset':
-    self.node_labels = as_numpy(node_label_data)
+    """One label array, or a dict of them keyed by NodeType (hetero: the
+    loader reads the seed type's)."""
+    if isinstance(node_label_data, dict):
+      self.node_labels = {t: as_numpy(v) for t, v in node_label_data.items()}
+    else:
+      self.node_labels = as_numpy(node_label_data)
     return self
 
   def random_node_split(self, num_val, num_test, seed: int = 0
@@ -106,7 +119,9 @@ class Dataset:
       return self.node_features.get(ntype)
     return self.node_features
 
-  def get_node_label(self):
+  def get_node_label(self, ntype: Optional[NodeType] = None):
+    if isinstance(self.node_labels, dict):
+      return self.node_labels[ntype]
     return self.node_labels
 
   def get_node_types(self):

@@ -21,7 +21,8 @@ from .topology import Topology
 class Graph:
   """Binds a :class:`Topology` to ``device`` (default: the card; raises
   when there is none). A hetero dataset holds one per edge type, its
-  ``indptr_pad`` over the edge type's src (row) node type."""
+  ``indptr_pad`` over the edge type's pointer node type (src of a CSR,
+  dst of a CSC)."""
 
   def __init__(self, topo: Topology, device=None):
     self.topo = topo
@@ -39,6 +40,11 @@ class Graph:
                    device=self.device)])
 
   @property
+  def layout(self) -> str:
+    """'CSR' (sampled along out-edges) or 'CSC' (along in-edges)."""
+    return self.topo.layout
+
+  @property
   def num_nodes(self) -> int:
     return self.topo.num_nodes
 
@@ -48,11 +54,14 @@ class Graph:
 
 
 def hetero_node_counts(graphs: Dict[EdgeType, Graph]) -> Dict[NodeType, int]:
-  """Per node type, the largest axis any edge type's CSR gives it (rows
-  for its src type, columns for its dst type), in first-appearance order
+  """Per node type, the largest axis any edge type's graph gives it (rows
+  for its pointer type, columns for the other), in first-appearance order
   over the edge types' (src, dst)."""
   counts: Dict[NodeType, int] = {}
   for (src, _, dst), g in graphs.items():
-    counts[src] = max(counts.get(src, 0), g.topo.num_rows)
-    counts[dst] = max(counts.get(dst, 0), g.topo.num_cols)
+    counts.setdefault(src, 0)
+    counts.setdefault(dst, 0)
+    rows_t, cols_t = (src, dst) if g.layout == 'CSR' else (dst, src)
+    counts[rows_t] = max(counts[rows_t], g.topo.num_rows)
+    counts[cols_t] = max(counts[cols_t], g.topo.num_cols)
   return counts

@@ -1,9 +1,10 @@
-"""COO -> CSR topology (counterpart of glt_tpu/data/topology.py).
+"""COO -> CSR or CSC topology (counterpart of glt_tpu/data/topology.py).
 
 The compressed order is the JAX package's exactly -- slots sorted by
-(row, col), ties in input order -- because the walk's picks index into it.
-The build runs on the device the edge tensors are on (one stable sort of
-a (row, col) key), so a large graph compresses on the card.
+(pointer id, other id), ties in input order -- because the walk's picks
+index into it. The build runs on the device the edge tensors are on (one
+stable sort of a (row, col) key), so a large graph compresses, and flips
+between layouts, on the card.
 """
 from __future__ import annotations
 
@@ -22,14 +23,16 @@ def _as_tensor(x, device=None) -> Optional[torch.Tensor]:
 
 
 class Topology:
-  """CSR ('out' edges, indptr over src) built from a [2, E] COO
-  ``edge_index`` (row=src, col=dst).
+  """CSR ('out' edges, indptr over src) or CSC ('in' edges, indptr over
+  dst) built from a [2, E] COO ``edge_index`` (row=src, col=dst);
+  ``layout`` is the one to build.
 
   Bipartite edge types compress with independent axis sizes:
-  ``num_rows`` (the src type, the pointer axis) and ``num_cols`` (the dst
-  type); ``num_nodes`` sets both for a square graph. Given none of the
-  three, the graph is square over one past the largest id; given one
-  axis, the other defaults to one past its largest id.
+  ``num_rows`` (the pointer axis of the layout: the src type of a CSR,
+  the dst type of a CSC) and ``num_cols`` (the other endpoint's type);
+  ``num_nodes`` sets both for a square graph. Given none of the three,
+  the graph is square over one past the largest id; given one axis, the
+  other defaults to one past its largest id.
 
   ``indptr`` is int64 (graphs past 2^31 edges must not wrap; the device
   copy narrows it), ``indices`` int32, and ``edge_ids[k]`` the original
@@ -42,9 +45,15 @@ class Topology:
   def __init__(self, edge_index, edge_ids=None, edge_weights=None,
                num_nodes: Optional[int] = None,
                num_rows: Optional[int] = None,
-               num_cols: Optional[int] = None, device=None):
+               num_cols: Optional[int] = None, layout: str = 'CSR',
+               device=None):
+    if layout not in ('CSR', 'CSC'):
+      raise ValueError(f'unsupported layout {layout!r}')
+    self.layout = layout
     edge_index = _as_tensor(edge_index, device).long().reshape(2, -1)
     row, col = edge_index[0], edge_index[1]
+    if layout == 'CSC':
+      row, col = col, row
     if num_nodes is None and num_rows is None and num_cols is None:
       num_nodes = int(edge_index.max()) + 1 if edge_index.numel() else 0
     if num_nodes is not None:
@@ -80,13 +89,24 @@ class Topology:
     return int(d.max()) if d.numel() else 0
 
   def to_coo(self):
-    """``(row, col, edge_ids)`` in compressed-slot order, int64 on the
-    topology's device (the JAX ``to_coo`` of a CSR: src, dst, eid);
-    ``edge_ids`` is the topology's own tensor, not a copy."""
+    """``(pointer ids, other ids, edge_ids)`` in compressed-slot order,
+    int64 on the topology's device (the JAX ``to_coo``: src, dst, eid of
+    a CSR; dst, src, eid of a CSC); ``edge_ids`` is the topology's own
+    tensor, not a copy."""
     row = torch.repeat_interleave(
         torch.arange(self.num_rows, device=self.indices.device),
         self.degrees)
     return row, self.indices.long(), self.edge_ids
+
+  def flip_layout(self) -> 'Topology':
+    """The same edges re-compressed in the other layout (CSR <-> CSC), on
+    this topology's device; edge ids and weights follow their edges."""
+    ptr, other, eids = self.to_coo()
+    src_dst = (ptr, other) if self.layout == 'CSR' else (other, ptr)
+    return Topology(torch.stack(src_dst), edge_ids=eids,
+                    edge_weights=self.edge_weights,
+                    num_rows=self.num_cols, num_cols=self.num_rows,
+                    layout='CSC' if self.layout == 'CSR' else 'CSR')
 
 
 def _compress(row: torch.Tensor, col: torch.Tensor, num_rows: int,

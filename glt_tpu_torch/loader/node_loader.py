@@ -4,16 +4,15 @@ of glt_tpu/loader/node_loader.py).
 The host only shuffles and pads seed ids (numpy); sampling, dedup and the
 feature gather run on the sampler's device. The last ragged batch is
 padded to the batch size, ``metadata['n_valid']`` counting its real
-seeds. The port's feature store is fully device-resident, so collation
-has no host phase and the loader no prefetch thread (the JAX default is
-depth 0 for such stores too). Homogeneous datasets only: the hetero
-collate is not ported yet. Sampling and the feature gather carry
-``torch.profiler`` ranges named as the serving engine's stages
-(``sample.multihop``, ``gather.features``).
+seeds, or dropped with ``drop_last``. The port's feature store is fully
+device-resident, so collation has no host phase and the loader no
+prefetch thread (the JAX default is depth 0 for such stores too).
+Sampling and the feature gather carry ``torch.profiler`` ranges named as
+the serving engine's stages (``sample.multihop``, ``gather.features``).
 """
 from __future__ import annotations
 
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -21,10 +20,11 @@ from torch.profiler import record_function
 
 from ..data import Dataset
 from ..data.feature import gather_features
-from ..sampler import BaseSampler, SamplerOutput
+from ..sampler import (BaseSampler, HeteroSamplerOutput, NodeSamplerInput,
+                       SamplerOutput)
 from ..utils import as_numpy
 from .device_epoch import pad_seed_batch
-from .transform import Batch, to_batch
+from .transform import Batch, HeteroBatch, to_batch, to_hetero_batch
 
 
 class NodeLoader:
@@ -33,43 +33,60 @@ class NodeLoader:
   Args:
     data: the Dataset (graph + features + labels).
     sampler: the sampler (NeighborLoader builds a NeighborSampler).
-    input_nodes: seed ids.
+    input_nodes: seed ids, or ``(node_type, ids)`` over a hetero dataset.
     batch_size: seeds a batch (the last one padded).
     shuffle: a fresh permutation of the seeds every epoch.
+    drop_last: skip the last batch when it is ragged.
+    collect_features: gather the nodes' feature rows into the batch.
     rng: numpy Generator for shuffling (default ``default_rng(0)``, so
       the epoch order is the JAX loader's).
   """
 
   def __init__(self, data: Dataset, sampler: BaseSampler, input_nodes,
                batch_size: int = 512, shuffle: bool = False,
+               drop_last: bool = False, collect_features: bool = True,
                rng: Optional[np.random.Generator] = None):
-    if data.is_hetero:
-      raise NotImplementedError('the port\'s loaders are homogeneous')
     self.data = data
     self.sampler = sampler
-    self.seeds = as_numpy(input_nodes).astype(np.int64)
+    if isinstance(input_nodes, tuple) and isinstance(input_nodes[0], str):
+      self.input_type, seeds = input_nodes
+    else:
+      self.input_type, seeds = None, input_nodes
+    self.seeds = as_numpy(seeds).astype(np.int64)
     self.batch_size = int(batch_size)
     self.shuffle = shuffle
+    self.drop_last = drop_last
+    self.collect_features = collect_features
     self.rng = rng or np.random.default_rng(0)
 
   def __len__(self):
-    return (self.seeds.shape[0] + self.batch_size - 1) // self.batch_size
+    n = self.seeds.shape[0]
+    if self.drop_last:
+      return n // self.batch_size
+    return (n + self.batch_size - 1) // self.batch_size
 
-  def __iter__(self) -> Iterator[Batch]:
+  def __iter__(self) -> Iterator[Union[Batch, HeteroBatch]]:
     order = (self.rng.permutation(self.seeds.shape[0])
              if self.shuffle else np.arange(self.seeds.shape[0]))
     n = order.shape[0]
     for lo in range(0, n, self.batch_size):
       hi = min(lo + self.batch_size, n)
+      if hi - lo < self.batch_size and self.drop_last:
+        break
       seeds, n_valid = pad_seed_batch(self.seeds[order[lo:hi]],
                                       self.batch_size)
+      inputs = (seeds if self.input_type is None
+                else NodeSamplerInput(seeds, self.input_type))
       with record_function('sample.multihop'):
-        out = self.sampler.sample_from_nodes(seeds, n_valid=n_valid)
+        out = self.sampler.sample_from_nodes(inputs, n_valid=n_valid)
       yield self._collate(out, seeds, n_valid)
 
-  def _collate(self, out: SamplerOutput, seeds, n_valid) -> Batch:
+  def _collate(self, out: Union[SamplerOutput, HeteroSamplerOutput], seeds,
+               n_valid) -> Union[Batch, HeteroBatch]:
+    if isinstance(out, HeteroSamplerOutput):
+      return self._collate_hetero(out, seeds, n_valid)
     x = None
-    if self.data.node_features is not None:
+    if self.collect_features and self.data.node_features is not None:
       with record_function('gather.features'):
         x = gather_features(self.data.get_node_feature(), out.node)
     y = None
@@ -78,4 +95,25 @@ class NodeLoader:
                           device=out.node.device)
     batch = to_batch(out, x=x, y=y, batch_size=self.batch_size)
     batch.metadata = dict(batch.metadata or {}, n_valid=n_valid)
+    return batch
+
+  def _collate_hetero(self, out: HeteroSamplerOutput, seeds,
+                      n_valid) -> HeteroBatch:
+    """Per node type with a feature table, its rows (one ``gather_rows``
+    launch a type); the seed type's labels, when the dataset has them."""
+    x_dict = {}
+    feats = self.data.node_features
+    if self.collect_features and isinstance(feats, dict):
+      with record_function('gather.features'):
+        x_dict = {t: gather_features(feats[t], node)
+                  for t, node in out.node.items() if t in feats}
+    y_dict = None
+    labels = self.data.node_labels
+    if isinstance(labels, dict) and self.input_type in labels:
+      dev = out.node[self.input_type].device
+      y_dict = {self.input_type: torch.as_tensor(
+          labels[self.input_type][seeds], device=dev)}
+    batch = to_hetero_batch(out, x_dict=x_dict, y_dict=y_dict,
+                            batch_size=self.batch_size)
+    batch.metadata['n_valid'] = n_valid
     return batch

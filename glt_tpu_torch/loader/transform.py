@@ -49,17 +49,22 @@ def to_batch(out: SamplerOutput, x: Optional[torch.Tensor] = None,
 class HeteroBatch:
   """Heterogeneous mini-batch, padded. Edge keys (s, r, d) carry ``row`` =
   s-type child labels and ``col`` = d-type parent labels (message flow);
-  ``edge_hop_offsets_dict`` gives each key's per-hop slots for
-  hierarchical trimming."""
+  ``y_dict`` the seed type's labels [batch_size] (from a loader over a
+  labelled dataset); ``edge_hop_offsets_dict`` gives each key's per-hop
+  slots for hierarchical trimming."""
   x_dict: Dict[NodeType, torch.Tensor]
   row_dict: Dict[EdgeType, torch.Tensor]
   col_dict: Dict[EdgeType, torch.Tensor]
   edge_mask_dict: Dict[EdgeType, torch.Tensor]
   node_dict: Dict[NodeType, torch.Tensor]
   node_count_dict: Dict[NodeType, torch.Tensor]
+  y_dict: Optional[Dict[NodeType, torch.Tensor]] = None
   edge_dict: Optional[Dict[EdgeType, torch.Tensor]] = None
   num_sampled_nodes: Optional[Dict[NodeType, torch.Tensor]] = None
   num_sampled_edges: Optional[Dict[EdgeType, torch.Tensor]] = None
+  #: the sampler's metadata without its hop offsets; a loader adds
+  #: ``n_valid`` (real seeds)
+  metadata: Optional[Dict[str, Any]] = None
   input_type: Optional[NodeType] = None
   batch_size: int = 0
   edge_hop_offsets_dict: Optional[Dict[EdgeType, Tuple[int, ...]]] = None
@@ -67,16 +72,20 @@ class HeteroBatch:
 
 def to_hetero_batch(out: HeteroSamplerOutput,
                     x_dict: Optional[Dict[NodeType, torch.Tensor]] = None,
+                    y_dict: Optional[Dict[NodeType, torch.Tensor]] = None,
                     batch_size: Optional[int] = None) -> HeteroBatch:
   """Assemble a HeteroBatch from a HeteroSamplerOutput (+ per-type
-  gathered features)."""
-  offs = (out.metadata or {}).get('edge_hop_offsets')
+  gathered features and the seed type's labels). The hop offsets move
+  from the sampler's metadata into ``edge_hop_offsets_dict``."""
+  meta = dict(out.metadata or {})
+  offs = meta.pop('edge_hop_offsets', None)
   return HeteroBatch(
       x_dict=x_dict or {}, row_dict=out.row, col_dict=out.col,
       edge_mask_dict=out.edge_mask, node_dict=out.node,
-      node_count_dict=out.node_count, edge_dict=out.edge,
+      node_count_dict=out.node_count, y_dict=y_dict, edge_dict=out.edge,
       num_sampled_nodes=out.num_sampled_nodes,
-      num_sampled_edges=out.num_sampled_edges, input_type=out.input_type,
+      num_sampled_edges=out.num_sampled_edges, metadata=meta,
+      input_type=out.input_type,
       batch_size=batch_size if batch_size is not None
       else out.batch[out.input_type].shape[0],
       edge_hop_offsets_dict={k: tuple(v) for k, v in offs.items()}

@@ -2,7 +2,12 @@
 glt_tpu/models/conv.py): invalid edge slots route to a sink segment, so
 aggregation is one masked ``index_add_`` (a segment max one
 ``scatter_reduce``). These are plain PyTorch: the JAX convolutions are
-XLA and reach no Pallas kernel."""
+XLA and reach no Pallas kernel.
+
+Features of a narrower type (a bf16 feature store) are promoted to the
+parameters' dtype on the way in, as flax's ``Dense`` promotes its input
+(``param_dtype`` float32, no ``dtype``), so the layers compute in
+float32."""
 from __future__ import annotations
 
 import torch
@@ -35,6 +40,7 @@ class SAGEConv(nn.Module):
 
   def forward(self, x: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
               edge_mask: torch.Tensor) -> torch.Tensor:
+    x = x.to(self.lin_root.weight.dtype)
     n = x.shape[0]
     msgs = x.index_select(0, row.long().clamp(0, n - 1))
     ok = edge_mask & (row >= 0) & (col >= 0)
@@ -60,6 +66,7 @@ class GATConv(nn.Module):
 
   def forward(self, x: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
               edge_mask: torch.Tensor) -> torch.Tensor:
+    x = x.to(self.proj.weight.dtype)
     n, h, f = x.shape[0], self.heads, self.out_features
     ok = edge_mask & (row >= 0) & (col >= 0)
     proj = self.proj(x).view(n, h, f)

@@ -45,6 +45,9 @@ class HeteroConvLayer(nn.Module):
 
   def forward(self, x_dict: Dict[NodeType, torch.Tensor], row_dict,
               col_dict, mask_dict) -> Dict[NodeType, torch.Tensor]:
+    # promoted once per type here, not once per relation in the convs
+    dtype = next(self.parameters()).dtype
+    x_dict = {t: x.to(dtype) for t, x in x_dict.items()}
     out: Dict[NodeType, torch.Tensor] = {}
     for etype in self.edge_types:
       if etype not in row_dict:

@@ -1,11 +1,14 @@
-"""The GraphSAGE training step on one device (counterpart of
-``_sage_update`` in glt_tpu/parallel/train.py, without its ``pmean``: the
-data-parallel step over several cards waits for the distributed port).
+"""The node-classification training step on one device, for GraphSAGE
+over a Batch and RGNN over a HeteroBatch (counterpart of ``_sage_update``
+in glt_tpu/parallel/train.py, without its ``pmean``: the data-parallel
+step over several cards waits for the distributed port; and of the step
+of examples/hetero/train_rgnn.py).
 
 The loss is the masked softmax cross-entropy of the seed rows, averaged
 over the ``n_valid`` real seeds of the batch; autograd through the
-model's ``index_add_`` aggregation carries the gradient (no Pallas kernel
-of the JAX package has a backward); ``torch.optim.Adam`` applies it with
+model's ``index_add_`` and ``scatter_reduce`` aggregations carries the
+gradient (no Pallas kernel of the JAX package has a backward);
+``torch.optim.Adam`` applies it with
 optax's ``adam`` defaults (b1 0.9, b2 0.999, eps 1e-8, eps_root 0). The
 three stages carry ``torch.profiler`` ranges (``train.forward``,
 ``train.backward``, ``train.optimizer``); with ``sync_stages`` each of
@@ -16,21 +19,28 @@ range's device-side extent).
 """
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
-from ..loader.transform import Batch
+from ..loader.transform import Batch, HeteroBatch
 
 
-def sage_loss(model: nn.Module, batch: Batch) -> torch.Tensor:
-  """Mean cross-entropy of the logits against ``batch.y`` over the first
-  ``batch.metadata['n_valid']`` seeds (padded seeds weigh nothing)."""
+def sage_loss(model: nn.Module,
+              batch: Union[Batch, HeteroBatch]) -> torch.Tensor:
+  """Mean cross-entropy of the logits against the seed labels (``batch.y``
+  of a Batch, ``batch.y_dict[batch.input_type]`` of a HeteroBatch) over
+  the first ``batch.metadata['n_valid']`` seeds (padded seeds weigh
+  nothing)."""
   logits = model(batch)
+  y = (batch.y_dict[batch.input_type] if isinstance(batch, HeteroBatch)
+       else batch.y)
   n = logits.shape[0]
   mask = torch.arange(n, device=logits.device) < batch.metadata['n_valid']
-  losses = F.cross_entropy(logits, batch.y.long(), reduction='none')
+  losses = F.cross_entropy(logits, y.long(), reduction='none')
   return (torch.where(mask, losses, torch.zeros_like(losses)).sum()
           / mask.sum().clamp(min=1))
 
@@ -39,7 +49,8 @@ class SageTrainStep:
   """One forward/backward/Adam update of ``model`` per call.
 
   Args:
-    model: a module consuming a Batch (e.g. models.GraphSAGE).
+    model: a module consuming a Batch (models.GraphSAGE) or a HeteroBatch
+      (models.RGNN).
     lr: Adam's learning rate (the reference's 1e-3).
     sync_stages: synchronise the card around every stage (for profiling;
       a no-op for a model on the CPU).
@@ -54,7 +65,7 @@ class SageTrainStep:
     self._sync = (lambda: torch.cuda.synchronize(device)) if (
         sync_stages and device.type == 'cuda') else (lambda: None)
 
-  def __call__(self, batch: Batch) -> torch.Tensor:
+  def __call__(self, batch: Union[Batch, HeteroBatch]) -> torch.Tensor:
     """Returns the batch's loss (before the update), detached."""
     self.optimizer.zero_grad(set_to_none=True)
     self._sync()

@@ -1,5 +1,6 @@
-from .base import BaseSampler, NodeSamplerInput, SamplerOutput
+from .base import (BaseSampler, HeteroSamplerOutput, NodeSamplerInput,
+                   SamplerOutput)
 from .neighbor_sampler import NeighborSampler
 
-__all__ = ['BaseSampler', 'NeighborSampler', 'NodeSamplerInput',
-           'SamplerOutput']
+__all__ = ['BaseSampler', 'HeteroSamplerOutput', 'NeighborSampler',
+           'NodeSamplerInput', 'SamplerOutput']

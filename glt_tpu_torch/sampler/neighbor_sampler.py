@@ -12,9 +12,12 @@ hop reads its weight window and a full hop its neighbour window through
 ``sample_hop_dedup`` per hop (``ops.pipeline.multihop_sample_hetero``).
 
 Orientation contract (the reference's): ``row`` holds message-source
-(child) labels and ``col`` message-destination (parent) labels. The
-hetero output keys are the reversed traversal types (``edge_dir='out'``,
-the 'rev_' convention).
+(child) labels and ``col`` message-destination (parent) labels. With
+``edge_dir='out'`` (CSR graphs) a hop expands src into dst and the hetero
+output keys are the reversed traversal types (the 'rev_' convention);
+with ``'in'`` (CSC graphs) it expands dst into src and the keys are the
+traversal types themselves. The homogeneous loops read either layout's
+``indptr`` and ``indices`` alike.
 """
 from __future__ import annotations
 
@@ -59,6 +62,8 @@ class NeighborSampler(BaseSampler):
       degree and never below the hop's fanout) on a graph with
       ``edge_weights``; without them the hops stay uniform, as in JAX.
     replace: sample with replacement (the walk and the hetero path only).
+    edge_dir: ``'out'`` samples out-neighbours of CSR graphs, ``'in'``
+      in-neighbours of CSC graphs (``Dataset.edge_dir``).
     seed: seed of the sampler's ``torch.Generator``; defaults to the
       process :class:`RandomSeedManager` seed.
   """
@@ -66,14 +71,21 @@ class NeighborSampler(BaseSampler):
   def __init__(self, graph: Union[Graph, Dict[EdgeType, Graph]],
                num_neighbors, device=None, with_edge: bool = False,
                with_weight: bool = False, replace: bool = False,
-               seed: Optional[int] = None):
+               edge_dir: str = 'out', seed: Optional[int] = None):
     self.device = resolve_device(device)
     self.is_hetero = isinstance(graph, dict)
+    if edge_dir not in ('out', 'in'):
+      raise ValueError(f"edge_dir must be 'out' or 'in', got {edge_dir!r}")
+    self.edge_dir = edge_dir
+    layout = 'CSR' if edge_dir == 'out' else 'CSC'
     graphs = graph.values() if self.is_hetero else (graph,)
     for g in graphs:
       if g.device != self.device:
         raise ValueError(f'graph lives on {g.device}, sampler runs on '
                          f'{self.device}')
+      if g.layout != layout:
+        raise ValueError(f'edge_dir={edge_dir!r} samples a {layout} graph, '
+                         f'got a {g.layout}')
     if self.is_hetero:
       self.edge_types = list(graph)
       if not isinstance(num_neighbors, dict):
@@ -229,9 +241,11 @@ class NeighborSampler(BaseSampler):
   # -- heterogeneous ------------------------------------------------------
 
   def _traversal_types(self):
-    """Per traversal edge type: (expand-from type, neighbour type); the
-    CSR expands src into dst."""
-    return {e: (e[0], e[2]) for e in self.edge_types}
+    """Per traversal edge type: (expand-from type, neighbour type); a CSR
+    expands src into dst, a CSC dst into src."""
+    if self.edge_dir == 'out':
+      return {e: (e[0], e[2]) for e in self.edge_types}
+    return {e: (e[2], e[0]) for e in self.edge_types}
 
   def _hetero_caps(self, input_type: NodeType, batch_size: int):
     """Static per-type frontier capacities per hop and node budgets."""
@@ -275,8 +289,8 @@ class NeighborSampler(BaseSampler):
                                  seeds, n_valid, uniforms,
                                  with_edge=self.with_edge)
     # message-flow keys: row carries child labels (the walk's cols), col
-    # parent labels (the walk's rows)
-    rev = reverse_edge_type
+    # parent labels (the walk's rows); 'out' reverses the traversal type
+    rev = reverse_edge_type if self.edge_dir == 'out' else (lambda e: e)
     return HeteroSamplerOutput(
         node=out['node'], node_count=out['node_count'],
         row={rev(e): v for e, v in out['col'].items()},

@@ -94,7 +94,8 @@ class InferenceEngine:
                        f'{self.device}')
     self.sampler = sampler if sampler is not None else NeighborSampler(
         data.graph, dict(num_neighbors) if isinstance(num_neighbors, dict)
-        else list(num_neighbors), device=self.device, seed=seed)
+        else list(num_neighbors), device=self.device,
+        edge_dir=data.edge_dir, seed=seed)
     self.forward_calls = 0
     self._snapshot_version = 0
     self._out_dim: Optional[int] = None
