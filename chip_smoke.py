@@ -4,8 +4,10 @@
 Builds the port's CUDA kernels from csrc/, holds each against its plain
 PyTorch version at the shapes the main paths give it, then drives the
 three serving paths through InferenceEngine.infer, the two training
-paths through NeighborLoader and SageTrainStep and the two benchmark
-entry points through their main functions, and checks what comes out:
+paths through NeighborLoader and SageTrainStep, link prediction through
+LinkNeighborLoader and SageTrainStep, a SubGraphLoader batch, SEAL
+through its example's run, and the two benchmark entry points through
+their main functions, and checks what comes out:
 
 - homogeneous: a seeded 3-layer GraphSAGE (hidden 256, 47 classes, 100
   features, fanouts [15, 10, 5]) over a products-shaped graph (2.45M
@@ -38,6 +40,20 @@ entry points through their main functions, and checks what comes out:
   y_dict['paper'] -> Adam(1e-3), 3 warm-up and 10 timed steps; then the
   CSC layout: both graphs flipped on the card, a walk batch and a hetero
   training batch sampled along in-edges (edge_dir='in') and one step;
+- link prediction (examples/graph_sage_unsup.py at products-sage's depth
+  and width): LinkNeighborLoader over every edge of the homogeneous
+  graph, batch 512 with one binary negative each (1,024 labelled pairs,
+  2,048 seeds with repeats), [15, 10, 5] -> GraphSAGE 100 -> 256 -> 256
+  -> 64 embeddings of every sampled node -> dot-product sigmoid BCE ->
+  Adam(3e-3), 3 warm-up and 10 timed steps; a binary and a triplet batch
+  of strict negatives held against the plain route; then one
+  SubGraphLoader batch (64 seeds, [10, 5]) whose induced edges are
+  checked against the CSR;
+- SEAL (examples/seal_link_pred.py) on a Cora-sized ring-and-chords graph
+  (2,708 nodes, 5,278 undirected edges): 256 + 256 training links and 64
+  + 64 of each held-out split, enclosing subgraphs through [-1, -1]
+  (gather_windows a hop), DRNL, one epoch of DGCNN at batch 32, its
+  validation and test ROC-AUC;
 - repairs: the walk at fanouts [100] and [3, 80] over a graph whose hub
   rows (degree 200-2000) exceed them, and the feature gather on bf16 rows
   of width 101 and uint8 rows of width 7, each against its plain version;
@@ -1493,6 +1509,293 @@ def hetero_train_phases(torch, np, K, graphs, feats, ds, dev, seed, k3,
   return launches, csc_launches
 
 
+LINK_BATCH, LINK_EMBED, LINK_WARMUP, LINK_STEPS = 512, 64, 3, 10
+LINK_FIELDS = ('node', 'node_count', 'row', 'col', 'edge_mask', 'x',
+               'num_sampled_nodes', 'num_sampled_edges')
+# SEAL on a Cora-sized graph (2,708 nodes, 5,278 undirected edges): the
+# training links and each held-out split cut to these positives (and as
+# many negatives), one epoch of batch 32
+SEAL_NODES, SEAL_CHORDS, SEAL_TRAIN, SEAL_EVAL = 2708, 2570, 256, 64
+SEAL_CHECK = 32   # positive (and as many negative) links re-extracted
+SUBGRAPH_FANOUTS, SUBGRAPH_BATCH = (10, 5), 64
+
+
+def link_batch_vs_plain(torch, K, loader, label, props, u, seeds_idx):
+  """One link batch (``loader._make_batch`` at edge positions
+  ``seeds_idx``, the draws injected) through the kernels and through
+  their plain versions: bit-identical on every field and label, or
+  raises. Returns the kernels' batch."""
+  sampler = loader.sampler
+  real = sampler.sample_from_edges
+  sampler.sample_from_edges = lambda inputs: real(inputs, proposals=props,
+                                                  uniforms=u)
+  try:
+    bk = loader._make_batch(seeds_idx, seeds_idx.size)
+    with swapped_to_plain(K, ('sample_walk_dedup', 'gather_rows')):
+      bp = loader._make_batch(seeds_idx, seeds_idx.size)
+  finally:
+    del sampler.sample_from_edges
+  f = differing_field(torch, bk, bp, LINK_FIELDS)
+  if f is None:
+    for key, v in bp.metadata.items():
+      if isinstance(v, torch.Tensor) and not torch.equal(bk.metadata[key], v):
+        f = f'metadata[{key!r}]'
+  if f is not None:
+    raise AssertionError(f'{label} link batch.{f} differs between kernels '
+                         'and plain')
+  return bk
+
+
+def link_phases(torch, np, K, ds, dev, seed, k3, walks, host_us, smi):
+  """Link prediction over the products graph (examples/graph_sage_unsup.py
+  at products-sage's depth and width), the SubGraphLoader batch, and SEAL
+  (examples/seal_link_pred.py) on a Cora-sized graph; returns the
+  launches of the link main path, the subgraph batch and the SEAL run."""
+  from glt_tpu_torch.examples import graph_sage_unsup as unsup
+  from glt_tpu_torch.examples import seal_link_pred as seal
+  from glt_tpu_torch.loader import (LinkNeighborLoader, SubGraphLoader,
+                                    get_edge_label_index)
+  from glt_tpu_torch.models import GraphSAGE
+  from glt_tpu_torch.ops.negative import edge_in_csr, negative_proposals
+  from glt_tpu_torch.ops.pipeline import sample_budget
+  from glt_tpu_torch.parallel import SageTrainStep, link_bce_loss
+  from glt_tpu_torch.sampler import NegativeSampling
+  from glt_tpu_torch.utils.profile import ThroughputMeter
+
+  g = ds.get_graph()
+  table = ds.get_node_feature().table
+
+  def loader(mode='binary', amount=1, strict=False, eli=None):
+    # every edge of the graph is a seed (edge_label_index=None), as in the
+    # example; the checks pass that array in, resolved once
+    return LinkNeighborLoader(
+        ds, list(FANOUTS), edge_label_index=eli, batch_size=LINK_BATCH,
+        shuffle=True, neg_sampling=NegativeSampling(mode, amount, strict),
+        device=dev, seed=seed, rng=np.random.default_rng(seed))
+
+  with Phase('link kernel checks'):
+    every_edge = get_edge_label_index(ds)[1]
+    binary = loader(strict=True, eli=every_edge)
+    gen = torch.Generator().manual_seed(seed + 11)
+    pos = torch.randint(0, g.num_edges, (LINK_BATCH,), generator=gen).numpy()
+    pos[LINK_BATCH // 2:] = pos[:LINK_BATCH // 2]     # repeated edges
+    for mode, amount in (('binary', 1), ('triplet', 2)):
+      ld = binary if mode == 'binary' else loader(mode, amount, True,
+                                                  every_edge)
+      sampler = ld.sampler
+      num_neg = ld.neg_sampling.sample_size(LINK_BATCH)
+      n_seeds = (2 * (LINK_BATCH + num_neg) if mode == 'binary'
+                 else 2 * LINK_BATCH + num_neg)
+      props = negative_proposals(sampler.generator, num_neg, 5, NUM_NODES,
+                                 NUM_NODES, dev)
+      u = sampler.hop_uniforms(n_seeds)
+      bk = link_batch_vs_plain(torch, K, ld, mode, props, u, pos)
+      node, meta = bk.node.long(), bk.metadata
+      if mode == 'binary':
+        # a strict negative is no edge (a triplet keeps only the checked
+        # pair's dst, beside the positive's src)
+        eli = meta['edge_label_index'].long()
+        want = torch.as_tensor(ld.edge_rows[pos], device=dev)
+        if not torch.equal(node[eli[0, :LINK_BATCH]], want):
+          raise AssertionError('edge_label_index does not resolve to the '
+                               'positives\' src')
+        hits = int(edge_in_csr(g.indptr, g.indices, node[eli[0, LINK_BATCH:]],
+                               node[eli[1, LINK_BATCH:]]).sum())
+        if hits:
+          raise AssertionError(f'{hits} strict negatives are edges')
+      elif tuple(meta['dst_neg_index'].shape) != (LINK_BATCH, amount):
+        raise AssertionError('dst_neg_index is not [batch, amount]')
+      print(f'link {mode} batch ({LINK_BATCH} positives, half of them '
+            f'repeats, {num_neg} strict negatives, {n_seeds} seeds, '
+            f'{int(bk.node_count)} nodes, {int(bk.edge_mask.sum())} edges): '
+            'bit-identical to plain on every field and label'
+            + ('; no negative is an edge' if mode == 'binary' else ''))
+      if mode == 'binary':
+        # K1 at the link batch's 2,048 seeds (each slot's id, repeats
+        # included); K3 at its node list
+        walk_seeds = bk.node[meta['seed_labels'].long()]
+        slots = K.walk_table_slots(sample_budget(n_seeds, FANOUTS))
+        print(f'walk at the link batch: B={n_seeds} seeds '
+              f'({int(torch.unique(walk_seeds).numel())} distinct), budget '
+              f'{sample_budget(n_seeds, FANOUTS)} nodes, table {slots} '
+              'slots, cooperative grid '
+              f'{K._coop_blocks("glt_walk_dedup_blocks", dev.index)} blocks')
+        walks['B=2048 link'] = time_walk(torch, K, g, walk_seeds, FANOUTS,
+                                         torch.Generator(device=dev)
+                                         .manual_seed(seed), host_us)
+        k3['float32 x 100 link'] = time_gather(
+            torch, np, K, 'float32 x 100 link', table, bk.node)
+      del bk, ld, sampler
+    del binary, every_edge
+
+  with Phase('link main path'):
+    torch.manual_seed(seed)
+    net = GraphSAGE(FEAT_DIM, HIDDEN, LINK_EMBED, num_layers=3).to(dev)
+    step = SageTrainStep(net, lr=unsup.LR, loss=link_bce_loss)
+    data = loader()
+    it = iter(data)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, secs, edges = [], [], []
+    for i in range(LINK_WARMUP + LINK_STEPS):
+      t0 = time.perf_counter()
+      b = next(it)
+      losses.append(step(b))
+      n_edges = b.num_sampled_edges.sum()
+      torch.cuda.synchronize()
+      secs.append(time.perf_counter() - t0)
+      edges.append(n_edges)
+    link_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = LINK_WARMUP + LINK_STEPS
+    want = dict(sample_walk_dedup=n_steps, gather_rows=n_steps,
+                dedup_table_insert=0, gather_windows=0, sample_hop=0,
+                sample_hop_dedup=0)
+    for name, n in want.items():
+      if link_launches[name] != n:
+        raise AssertionError(f'{name}: {link_launches[name]} launches on the '
+                             f'link path, expected {n}')
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+      raise AssertionError(f'link training: non-finite loss {losses}')
+    pairs = int(b.metadata['edge_label_index'].shape[1])
+    timed = np.array(secs[LINK_WARMUP:]) * 1e3
+    n_timed = sum(int(e) for e in edges[LINK_WARMUP:])
+    meter = ThroughputMeter('edges')
+    meter.update(n_timed, timed.sum() / 1e3)
+    link_median = float(np.median(timed))
+    print(f'link training ({len(data)} batches an epoch over '
+          f'{g.num_edges} seed edges; {pairs} labelled pairs and '
+          f'{2 * pairs} seeds a batch): loss {losses[0]:.4f} at step 1, '
+          f'{losses[-1]:.4f} at step {n_steps}; steps {LINK_WARMUP + 1}-'
+          f'{n_steps}: median {link_median:.3f} ms (quartiles '
+          f'{np.percentile(timed, 25):.3f}-{np.percentile(timed, 75):.3f}, '
+          f'min {timed.min():.3f}, max {timed.max():.3f}); '
+          f'{pairs * LINK_STEPS / timed.sum() * 1e3:.1f} labelled pairs/s, '
+          f'{meter.rate:.1f} valid sampled edges/s ({meter.report()}, '
+          f'{n_timed / LINK_STEPS:.0f} a step); warm-up steps '
+          + ', '.join(f'{v * 1e3:.3f}' for v in secs[:LINK_WARMUP])
+          + f' ms; on {smi}')
+    print(f'launches {link_launches}; resident before {resident / 2**30:.3f}'
+          f' GiB, peak memory {peak / 2**30:.3f} GiB ({peak} bytes)')
+
+  with Phase('link profile'):
+    pstep = SageTrainStep(net, lr=unsup.LR, loss=link_bce_loss,
+                          sync_stages=True)
+    pstep(next(it))      # warm
+
+    def run():
+      for _ in range(3):
+        pstep(next(it))
+    step_stages = ('train.forward', 'train.backward', 'train.optimizer')
+    wall, busy = profile_stages(
+        torch, run, 3, ('sample.multihop', 'gather.features') + step_stages,
+        'step', host_stages=step_stages)
+    print(f'link profile: device busy {busy:.3f} ms a step is '
+          f'{busy / link_median * 100:.1f}% of the unsynchronised median '
+          f'step ({link_median:.3f} ms, link main path)')
+    del pstep, step, it, b, data, net
+
+  with Phase('subgraph checks'):
+    sub_loader = SubGraphLoader(ds, list(SUBGRAPH_FANOUTS),
+                                np.arange(NUM_NODES),
+                                batch_size=SUBGRAPH_BATCH, shuffle=True,
+                                device=dev, seed=seed,
+                                rng=np.random.default_rng(seed))
+    sampler = sub_loader.sampler
+    u = sampler.hop_uniforms(SUBGRAPH_BATCH)
+    real = sampler.subgraph
+    sampler.subgraph = lambda s: real(s, uniforms=u)
+    seeds = np.random.default_rng(seed + 12).choice(
+        NUM_NODES, SUBGRAPH_BATCH, replace=False)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    sk = sub_loader._make_batch(seeds, SUBGRAPH_BATCH)
+    torch.cuda.synchronize()
+    sub_ms = (time.perf_counter() - t0) * 1e3
+    sub_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    with swapped_to_plain(K, ('sample_walk_dedup', 'gather_rows')):
+      sp = sub_loader._make_batch(seeds, SUBGRAPH_BATCH)
+    f = differing_field(torch, sk, sp, ('x', 'row', 'col', 'edge_mask',
+                                        'node', 'node_count', 'edge'))
+    if f is not None:
+      raise AssertionError(f'subgraph batch.{f} differs between kernels and '
+                           'plain')
+    m = sk.edge_mask
+    node = sk.node.long()
+    src, dst = node[sk.col.long()[m]], node[sk.row.long()[m]]
+    found = edge_in_csr(g.indptr, g.indices, src, dst)
+    if not bool(found.all()) or not int(m.sum()):
+      raise AssertionError(f'{int((~found).sum())} induced edges are not in '
+                           'the CSR')
+    for name in ('sample_walk_dedup', 'gather_rows'):
+      if sub_launches[name] != 1:
+        raise AssertionError(f'{name}: {sub_launches[name]} launches for a '
+                             'subgraph batch, expected 1')
+    print(f'SubGraphLoader batch {SUBGRAPH_BATCH} seeds, fanouts '
+          f'{list(SUBGRAPH_FANOUTS)}: {int(sk.node_count)} nodes, '
+          f'{int(m.sum())} induced edges of {m.numel()} slots (max degree '
+          f'{sampler._max_degree}), every one in the CSR; bit-identical to '
+          f'plain; {sub_ms:.3f} ms a batch; launches {sub_launches}')
+    del sk, sp, sub_loader, sampler, real
+
+  with Phase('seal main path'):
+    K.reset_launch_counts()
+    res = seal.run(nodes=SEAL_NODES, chords=SEAL_CHORDS, hops=2, epochs=1,
+                   batch_size=32, device=dev, max_train=SEAL_TRAIN,
+                   max_eval=SEAL_EVAL)
+    seal_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    if seal_launches['gather_windows'] != 2 * res['links']:
+      raise AssertionError(f'{seal_launches["gather_windows"]} window reads '
+                           f'for {res["links"]} links, expected two a link')
+    if not (np.isfinite(res['losses']).all()
+            and 0 <= res['test_auc'] <= 1 and 0 <= res['val_auc'][-1] <= 1):
+      raise AssertionError(f'SEAL: {res}')
+    # B3 at SEAL's shapes: the run's own sampler and n_cap re-extract its
+    # first training links through the window kernel and its plain
+    # version; every enclosing subgraph and its DRNL labels must agree
+    n_cap, drnl_fn = res['n_cap'], seal.make_drnl_fn(res['n_cap'])
+    pos, neg = res['train_pos'][:SEAL_CHECK], res['train_neg'][:SEAL_CHECK]
+
+    def enclosing():
+      return (seal.extract_enclosing(res['sampler'], pos, 1.0, drnl_fn, n_cap)
+              + seal.extract_enclosing(res['sampler'], neg, 0.0, drnl_fn,
+                                       n_cap))
+    K.reset_launch_counts()
+    got = enclosing()
+    check_windows = K.gather_windows.launches
+    with swapped_to_plain(K, ('gather_windows',)):
+      want = enclosing()
+    if check_windows != 2 * len(want) or len(got) != len(want):
+      raise AssertionError(f'{check_windows} window reads for {len(want)} '
+                           're-extracted links, expected two a link')
+    names = ('z', 'rows', 'cols', 'keep', 'node_mask')
+    for i, (a, b) in enumerate(zip(got, want)):
+      for name, x, y in zip(names, a, b):
+        if not torch.equal(x, y):
+          raise AssertionError(f'SEAL link {i}: {name} differs between the '
+                               'window kernel and plain')
+    print(f'seal extraction check: {len(got)} links (the first {SEAL_CHECK} '
+          f'positive and {SEAL_CHECK} negative training links), n_cap '
+          f'{n_cap}, window {res["sampler"]._max_degree}: z, rows, cols, '
+          f'keep and node mask bit-identical between gather_windows and '
+          f'its plain version')
+    st = np.array(res['step_ms'])
+    print(f'seal: {res["links"]} links ({res["train_links"]} training), '
+          f'n_cap {res["n_cap"]}, k {res["k"]}; extraction '
+          f'{res["extract_ms_per_link"]:.3f} ms a link, DRNL '
+          f'{res["drnl_ms_per_link"]:.4f} ms a link ({res["bfs_rounds"]} BFS '
+          f'rounds over the three splits\' batches); {len(st)} steps, median '
+          f'{np.median(st):.3f} ms (quartiles {np.percentile(st, 25):.3f}-'
+          f'{np.percentile(st, 75):.3f}); loss {res["losses"][-1]:.4f}; '
+          f'validation AUC {res["val_auc"][-1]:.4f}, test AUC '
+          f'{res["test_auc"]:.4f}; launches {seal_launches}; on {smi}')
+  return link_launches, sub_launches, seal_launches
+
+
 def main() -> int:
   ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
   ap.add_argument('--seed', type=int, default=0,
@@ -1820,6 +2123,12 @@ def main() -> int:
   torch.cuda.empty_cache()
   train_launches, uniform_launches = train_phases(torch, np, K, ds, dev,
                                                   opts.seed, rows, smi)
+  torch.cuda.empty_cache()
+  link_launches, sub_launches, seal_launches = link_phases(
+      torch, np, K, ds, dev, opts.seed, k3, walk, host_us, smi)
+  rows['sample_walk_dedup'] = dict(
+      walk[256], shapes={f'B={b}' if isinstance(b, int) else b: row
+                         for b, row in walk.items()})
   with Phase('repair checks'):
     repair = repair_checks(torch, np, K, ds, dev, opts.seed, host_us)
     guard_cost(torch, np, K)
@@ -1856,7 +2165,9 @@ def main() -> int:
   by_path = {'homogeneous': homo_launches, 'hetero': hetero_launches,
              'hetero_train': htrain_launches, 'csc': csc_launches,
              'stream': stream_launches, 'train': train_launches,
-             'train_uniform': uniform_launches, 'probe': probe_launches,
+             'train_uniform': uniform_launches, 'link': link_launches,
+             'subgraph': sub_launches, 'seal': seal_launches,
+             'probe': probe_launches,
              'microbench': micro_launches}
   # row: (its wrapper, source, the TPU kernel it replaces)
   replaces = {
@@ -1895,6 +2206,11 @@ def main() -> int:
         f'{walk[1024]["graph_ms"]:.4f} ms, host enqueue '
         f'{walk[1024]["host_us"]:.2f} us, plain {walk[1024]["plain_ms"]:.4f} '
         f'ms, bound {walk[1024]["bound_ms"]:.6f} ms')
+  lw = walk['B=2048 link']
+  print(f'walk B=2048 (link batch, seeds with repeats): {lw["ms"]:.4f} ms, '
+        f'in a CUDA graph {lw["graph_ms"]:.4f} ms, host enqueue '
+        f'{lw["host_us"]:.2f} us, plain {lw["plain_ms"]:.4f} ms, bound '
+        f'{lw["bound_ms"]:.6f} ms')
   print('main-path launches: ' + '; '.join(
       f'{p} {v}' for p, v in by_path.items()))
   for name, row in repair.items():

@@ -75,11 +75,17 @@ class NodeLoader:
         break
       seeds, n_valid = pad_seed_batch(self.seeds[order[lo:hi]],
                                       self.batch_size)
-      inputs = (seeds if self.input_type is None
-                else NodeSamplerInput(seeds, self.input_type))
-      with record_function('sample.multihop'):
-        out = self.sampler.sample_from_nodes(inputs, n_valid=n_valid)
-      yield self._collate(out, seeds, n_valid)
+      yield self._make_batch(seeds, n_valid)
+
+  def _make_batch(self, seeds: np.ndarray, n_valid: int
+                  ) -> Union[Batch, HeteroBatch]:
+    """One batch from ``seeds`` (padded to the batch size) of which the
+    first ``n_valid`` are real: sample, then collate."""
+    inputs = (seeds if self.input_type is None
+              else NodeSamplerInput(seeds, self.input_type))
+    with record_function('sample.multihop'):
+      out = self.sampler.sample_from_nodes(inputs, n_valid=n_valid)
+    return self._collate(out, seeds, n_valid)
 
   def _collate(self, out: Union[SamplerOutput, HeteroSamplerOutput], seeds,
                n_valid) -> Union[Batch, HeteroBatch]:

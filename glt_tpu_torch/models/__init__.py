@@ -1,10 +1,13 @@
-from .conv import GATConv, SAGEConv, segment_mean
-from .convert import (gat_conv_params_from_flax, rgnn_params_from_flax,
+from .conv import GATConv, GCNConv, SAGEConv, segment_mean
+from .convert import (dgcnn_params_from_flax, gat_conv_params_from_flax,
+                      gcn_conv_params_from_flax, rgnn_params_from_flax,
                       sage_conv_params_from_flax, sage_params_from_flax)
+from .dgcnn import DGCNN
 from .rgnn import RGNN, HeteroConvLayer
 from .sage import GraphSAGE
 
-__all__ = ['GATConv', 'GraphSAGE', 'HeteroConvLayer', 'RGNN', 'SAGEConv',
-           'gat_conv_params_from_flax', 'rgnn_params_from_flax',
-           'sage_conv_params_from_flax', 'sage_params_from_flax',
-           'segment_mean']
+__all__ = ['DGCNN', 'GATConv', 'GCNConv', 'GraphSAGE', 'HeteroConvLayer',
+           'RGNN', 'SAGEConv', 'dgcnn_params_from_flax',
+           'gat_conv_params_from_flax', 'gcn_conv_params_from_flax',
+           'rgnn_params_from_flax', 'sage_conv_params_from_flax',
+           'sage_params_from_flax', 'segment_mean']

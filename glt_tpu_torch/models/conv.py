@@ -1,7 +1,8 @@
 """GNN convolution layers over padded edge lists (counterpart of
 glt_tpu/models/conv.py): invalid edge slots route to a sink segment, so
 aggregation is one masked ``index_add_`` (a segment max one
-``scatter_reduce``). These are plain PyTorch: the JAX convolutions are
+``scatter_reduce``). :class:`GCNConv` also takes a leading batch
+dimension (a batch of padded subgraphs, each its own node space). These are plain PyTorch: the JAX convolutions are
 XLA and reach no Pallas kernel.
 
 Features of a narrower type (a bf16 feature store) are promoted to the
@@ -94,3 +95,49 @@ class GATConv(nn.Module):
     out = proj.new_zeros((n + 1, h, f)).index_add_(
         0, seg, proj[r] * alpha[:, :, None])[:n]
     return out.mean(1)
+
+
+class GCNConv(nn.Module):
+  """GCN layer with symmetric normalisation computed on the (masked)
+  sampled edges, as the JAX package's: both endpoints of an edge are
+  normalised by the in-degree of the self-loop-augmented graph (``deg_in
+  + 1``), the self-loop term by ``1 / deg_in``, then the bias.
+  Parameters: ``lin`` (no bias) and ``bias``.
+
+  ``x`` [N, F] with ``row``/``col``/``edge_mask`` [E], or a batch of
+  padded graphs: ``x`` [B, N, F] with [B, E] edge slots, each graph's
+  labels in its own ``[0, N)``."""
+
+  def __init__(self, in_features: int, out_features: int,
+               bias: bool = True):
+    super().__init__()
+    self.lin = nn.Linear(in_features, out_features, bias=False)
+    self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+  def forward(self, x: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
+              edge_mask: torch.Tensor) -> torch.Tensor:
+    x = x.to(self.lin.weight.dtype)
+    n = x.shape[-2]
+    ok = edge_mask & (row >= 0) & (col >= 0)
+    h = self.lin(x)
+    if x.dim() == 3:   # node spaces of the batch side by side
+      off = torch.arange(x.shape[0], device=x.device)[:, None] * n
+      total = x.shape[0] * n
+    else:
+      off, total = 0, n
+    h_flat = h.reshape(total, -1)
+    r = (row.long().clamp(0, n - 1) + off).reshape(-1)
+    c = (col.long().clamp(0, n - 1) + off).reshape(-1)
+    ok = ok.reshape(-1)
+    seg = torch.where(ok, c, torch.full_like(c, total))
+    deg_in = h.new_zeros(total + 1).index_add_(0, seg, ok.to(h.dtype))
+    deg_in = deg_in[:total] + 1.0
+    norm = deg_in[r].rsqrt() * deg_in[c].rsqrt()
+    msgs = h_flat.index_select(0, r) * norm[:, None]
+    msgs = torch.where(ok[:, None], msgs, torch.zeros_like(msgs))
+    agg = h.new_zeros((total + 1, h.shape[-1])).index_add_(0, seg,
+                                                          msgs)[:total]
+    agg = agg + h_flat / deg_in[:, None]
+    if self.bias is not None:
+      agg = agg + self.bias
+    return agg.reshape(h.shape)

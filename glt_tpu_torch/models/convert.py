@@ -1,7 +1,9 @@
-"""Flax GraphSAGE / RGNN parameters -> this package's state_dict.
+"""Flax GraphSAGE / RGNN / DGCNN parameters -> this package's state_dict.
 
 Flax ``Dense`` keeps ``kernel`` as [in, out] and computes ``x @ kernel``;
 ``nn.Linear`` keeps ``weight`` as [out, in], so kernels are transposed.
+Flax ``Conv`` kernels are [W, Cin, Cout] and ``nn.Conv1d`` weights
+[Cout, Cin, W].
 Input is the flax tree with numpy leaves (``jax.tree.map(np.asarray,
 params)``); nothing here imports JAX.
 """
@@ -67,4 +69,37 @@ def rgnn_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
       else:
         raise ValueError(f'unknown RGNN parameter group {name!r}')
     i += 1
+  return out
+
+
+def gcn_conv_params_from_flax(conv: Mapping,
+                              prefix: str = '') -> Dict[str, torch.Tensor]:
+  """One GCNConv: ``{lin: {kernel}, bias}``."""
+  t = lambda a: torch.as_tensor(np.array(a, dtype=np.float32))
+  out = {f'{prefix}lin.weight': t(conv['lin']['kernel']).T.contiguous()}
+  if 'bias' in conv:
+    out[f'{prefix}bias'] = t(conv['bias'])
+  return out
+
+
+def dgcnn_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+  """A flax DGCNN tree -> :class:`~glt_tpu_torch.models.DGCNN`
+  state_dict: ``gcn<i>`` -> ``convs.<i>``, ``gcn_key``, the two Conv
+  kernels permuted to [Cout, Cin, W], the MLP's Dense kernels
+  transposed."""
+  params = tree.get('params', tree)
+  t = lambda a: torch.as_tensor(np.array(a, dtype=np.float32))
+  out = {}
+  i = 0
+  while f'gcn{i}' in params:
+    out.update(gcn_conv_params_from_flax(params[f'gcn{i}'], f'convs.{i}.'))
+    i += 1
+  out.update(gcn_conv_params_from_flax(params['gcn_key'], 'gcn_key.'))
+  for name in ('conv1', 'conv2'):
+    out[f'{name}.weight'] = t(params[name]['kernel']).permute(
+        2, 1, 0).contiguous()
+    out[f'{name}.bias'] = t(params[name]['bias'])
+  for name in ('mlp0', 'mlp1'):
+    out[f'{name}.weight'] = t(params[name]['kernel']).T.contiguous()
+    out[f'{name}.bias'] = t(params[name]['bias'])
   return out

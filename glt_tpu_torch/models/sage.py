@@ -43,3 +43,9 @@ class GraphSAGE(nn.Module):
       if i < self.num_layers - 1:
         x = torch.relu(x)
     return x if return_all else x[:batch.batch_size]
+
+  def embed(self, batch: Batch) -> torch.Tensor:
+    """Embeddings of every sampled node (link tasks index them by
+    ``edge_label_index`` or the triplet indices, which range over every
+    seed endpoint, not just the first ``batch_size`` labels)."""
+    return self.forward(batch, return_all=True)

@@ -7,14 +7,62 @@ The seed hop must stay bit-identical to every engine of the JAX package:
 per-hop dedup of the walk lives in the walk kernel
 (ops/cuda_kernels.py ``sample_walk_dedup``). The per-hop loop of the
 live-update stream dedups each hop with :func:`sorted_hop_dedup_fused`.
+:func:`ordered_unique` (first-occurrence order, inverse labels) labels the
+nodes of an induced subgraph (ops/subgraph.py).
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Tuple, Union
 
 import torch
 
 BIG = torch.iinfo(torch.int32).max
+
+
+def ordered_unique(ids: torch.Tensor, valid: torch.Tensor, capacity: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """First-occurrence-ordered unique with inverse labels, fixed shapes
+  (counterpart of ``glt_tpu.ops.unique.ordered_unique``).
+
+  ``capacity`` must be at least the number of distinct valid ids. Returns
+  ``uniq`` [capacity] (distinct ids in order of first appearance, -1
+  padded, ``ids``' dtype), ``count`` (int32 scalar) and ``inverse`` [M]
+  int32 (each slot's position in ``uniq``, -1 where ``~valid``). A
+  stable sort by value marks each run's head (its first slot); the runs
+  are then ordered by their heads' slots.
+  """
+  dev = ids.device
+  m = ids.numel()
+  big = torch.iinfo(ids.dtype).max
+  x = torch.where(valid, ids, torch.full_like(ids, big))
+  xs, order = torch.sort(x, stable=True)
+  head = torch.ones(m, dtype=torch.bool, device=dev)
+  head[1:] = xs[1:] != xs[:-1]
+  head &= xs != big
+  seg = torch.cumsum(head, 0) - 1
+  # each run's first sorted slot (runs past ``capacity`` are dropped, as
+  # the JAX ``nonzero(size=capacity)`` drops them)
+  run_starts = torch.full((capacity + 1,), m, dtype=torch.long, device=dev)
+  run_starts.scatter_(0, torch.where(head & (seg < capacity), seg,
+                                     capacity),
+                      torch.arange(m, device=dev))
+  run_starts = run_starts[:capacity]
+  run_ok = run_starts < m
+  safe = run_starts.clamp(max=max(m - 1, 0))
+  run_first_pos = torch.where(run_ok, order[safe], m)
+  run_vals = torch.where(run_ok, xs[safe], torch.full_like(xs[safe], big))
+  aorder = torch.sort(run_first_pos, stable=True).indices
+  uniq = run_vals[aorder]
+  count = head.sum(dtype=torch.int32)
+  rank = torch.zeros(capacity, dtype=torch.int32, device=dev)
+  rank[aorder] = torch.arange(capacity, dtype=torch.int32, device=dev)
+  seg_at_orig = torch.zeros(m, dtype=torch.long, device=dev)
+  seg_at_orig[order] = seg
+  inverse = rank[seg_at_orig.clamp(0, capacity - 1)]
+  inverse = torch.where(valid, inverse, torch.full_like(inverse, -1))
+  uniq = torch.where(torch.arange(capacity, device=dev) < count, uniq,
+                     torch.full_like(uniq, -1))
+  return uniq, count, inverse
 
 
 def sorted_hop_dedup(u_ids: torch.Tensor, u_labs: torch.Tensor,

@@ -1,3 +1,3 @@
-from .train import SageTrainStep, sage_loss
+from .train import SageTrainStep, link_bce_loss, sage_loss
 
-__all__ = ['SageTrainStep', 'sage_loss']
+__all__ = ['SageTrainStep', 'link_bce_loss', 'sage_loss']

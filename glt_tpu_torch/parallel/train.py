@@ -1,8 +1,9 @@
-"""The node-classification training step on one device, for GraphSAGE
-over a Batch and RGNN over a HeteroBatch (counterpart of ``_sage_update``
-in glt_tpu/parallel/train.py, without its ``pmean``: the data-parallel
-step over several cards waits for the distributed port; and of the step
-of examples/hetero/train_rgnn.py).
+"""The training step on one device, for GraphSAGE over a Batch and RGNN
+over a HeteroBatch (counterpart of ``_sage_update`` in
+glt_tpu/parallel/train.py, without its ``pmean``: the data-parallel step
+over several cards waits for the distributed port; of the step of
+examples/hetero/train_rgnn.py; and, with ``loss=link_bce_loss``, of the
+unsupervised link-prediction step of examples/graph_sage_unsup.py).
 
 The loss is the masked softmax cross-entropy of the seed rows, averaged
 over the ``n_valid`` real seeds of the batch; autograd through the
@@ -19,7 +20,7 @@ range's device-side extent).
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Callable, Union
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +46,20 @@ def sage_loss(model: nn.Module,
           / mask.sum().clamp(min=1))
 
 
+def link_bce_loss(model: nn.Module, batch: Batch) -> torch.Tensor:
+  """The link-prediction loss of examples/graph_sage_unsup.py: every
+  sampled node's embedding (``model.embed``), a dot product per labelled
+  pair of ``metadata['edge_label_index']``, and the sigmoid binary
+  cross-entropy against ``metadata['edge_label']``, averaged over every
+  label slot (a padded ragged batch's repeated edges included, as the
+  example averages them)."""
+  emb = model.embed(batch)
+  eli = batch.metadata['edge_label_index'].long()
+  logit = (emb.index_select(0, eli[0]) * emb.index_select(0, eli[1])).sum(-1)
+  label = batch.metadata['edge_label'].to(logit.dtype)
+  return F.binary_cross_entropy_with_logits(logit, label)
+
+
 class SageTrainStep:
   """One forward/backward/Adam update of ``model`` per call.
 
@@ -54,11 +69,15 @@ class SageTrainStep:
     lr: Adam's learning rate (the reference's 1e-3).
     sync_stages: synchronise the card around every stage (for profiling;
       a no-op for a model on the CPU).
+    loss: ``loss(model, batch)`` -> scalar (default :func:`sage_loss`;
+      :func:`link_bce_loss` for link prediction).
   """
 
   def __init__(self, model: nn.Module, lr: float = 1e-3,
-               sync_stages: bool = False):
+               sync_stages: bool = False,
+               loss: Callable[[nn.Module, Batch], torch.Tensor] = sage_loss):
     self.model = model
+    self.loss = loss
     self.optimizer = torch.optim.Adam(model.parameters(), lr=lr,
                                       betas=(0.9, 0.999), eps=1e-8)
     device = next(model.parameters()).device
@@ -70,7 +89,7 @@ class SageTrainStep:
     self.optimizer.zero_grad(set_to_none=True)
     self._sync()
     with record_function('train.forward'):
-      loss = sage_loss(self.model, batch)
+      loss = self.loss(self.model, batch)
       self._sync()
     with record_function('train.backward'):
       loss.backward()

@@ -1,6 +1,8 @@
-from .base import (BaseSampler, HeteroSamplerOutput, NodeSamplerInput,
-                   SamplerOutput)
+from .base import (BaseSampler, EdgeSamplerInput, HeteroSamplerOutput,
+                   NegativeSampling, NodeSamplerInput, SamplerOutput)
+from .negative_sampler import RandomNegativeSampler
 from .neighbor_sampler import NeighborSampler
 
-__all__ = ['BaseSampler', 'HeteroSamplerOutput', 'NeighborSampler',
-           'NodeSamplerInput', 'SamplerOutput']
+__all__ = ['BaseSampler', 'EdgeSamplerInput', 'HeteroSamplerOutput',
+           'NegativeSampling', 'NeighborSampler', 'NodeSamplerInput',
+           'RandomNegativeSampler', 'SamplerOutput']

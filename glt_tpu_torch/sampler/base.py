@@ -5,7 +5,8 @@ message-destination (parent) labels."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+import math
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -27,6 +28,69 @@ class NodeSamplerInput:
 
 
 @dataclasses.dataclass
+class NegativeSampling:
+  """Binary or triplet negative sampling of a link batch.
+
+  ``amount`` negatives a positive (a float in binary mode; triplet mode
+  takes the ceil, an integral count a positive). ``strict`` rejects
+  proposals that are edges of the graph."""
+  mode: str = 'binary'
+  amount: Union[int, float] = 1
+  strict: bool = False
+
+  def __post_init__(self):
+    if self.mode not in ('binary', 'triplet'):
+      raise ValueError(f"mode must be 'binary' or 'triplet', got "
+                       f'{self.mode!r}')
+    if self.amount <= 0:
+      raise ValueError(
+          f'negative sampling amount must be positive, got {self.amount}')
+    if self.is_triplet() and isinstance(self.amount, float):
+      self.amount = int(math.ceil(self.amount))
+
+  @classmethod
+  def cast(cls, value) -> Optional['NegativeSampling']:
+    """None, an instance, or the arguments as a tuple or a dict."""
+    if value is None or isinstance(value, cls):
+      return value
+    if isinstance(value, (tuple, list)):
+      return cls(*value)
+    if isinstance(value, dict):
+      return cls(**value)
+    raise TypeError(f'cannot make a NegativeSampling of {value!r}')
+
+  def is_binary(self) -> bool:
+    return self.mode == 'binary'
+
+  def is_triplet(self) -> bool:
+    return self.mode == 'triplet'
+
+  def sample_size(self, num_pos: int) -> int:
+    """Negatives for ``num_pos`` positives: ``ceil(num_pos * amount)``."""
+    return int(math.ceil(num_pos * float(self.amount)))
+
+
+@dataclasses.dataclass
+class EdgeSamplerInput:
+  """Seed edges for link sampling: ``row[i] -> col[i]`` with an optional
+  label each."""
+  row: np.ndarray
+  col: np.ndarray
+  label: Optional[np.ndarray] = None
+  input_type: Optional[EdgeType] = None
+  neg_sampling: Optional[NegativeSampling] = None
+
+  def __len__(self):
+    return int(np.asarray(self.row).shape[0])
+
+  def __getitem__(self, index) -> 'EdgeSamplerInput':
+    return EdgeSamplerInput(
+        np.asarray(self.row)[index], np.asarray(self.col)[index],
+        np.asarray(self.label)[index] if self.label is not None else None,
+        self.input_type, self.neg_sampling)
+
+
+@dataclasses.dataclass
 class SamplerOutput:
   """Homogeneous sampling result, padded.
 
@@ -37,8 +101,11 @@ class SamplerOutput:
   num_sampled_nodes/num_sampled_edges: per-hop counts.
   edge_hop_offsets: hop h's edges occupy slots
   ``[edge_hop_offsets[h], edge_hop_offsets[h+1])``.
-  metadata: ``seed_labels``, ``seed_count`` and, from a StreamSampler,
-  ``snapshot_version`` (the stream snapshot the batch was sampled from).
+  metadata: ``seed_labels``, ``seed_count``; from a StreamSampler
+  ``snapshot_version`` (the stream snapshot the batch was sampled from);
+  from ``sample_from_edges`` the link labels (``edge_label_index`` and
+  ``edge_label``, or ``src_index``, ``dst_pos_index`` and
+  ``dst_neg_index``) with ``num_pos`` and ``num_neg``.
   """
   node: torch.Tensor
   node_count: torch.Tensor
@@ -77,4 +144,7 @@ class HeteroSamplerOutput:
 class BaseSampler:
 
   def sample_from_nodes(self, inputs: NodeSamplerInput, **kwargs):
+    raise NotImplementedError
+
+  def sample_from_edges(self, inputs: EdgeSamplerInput, **kwargs):
     raise NotImplementedError

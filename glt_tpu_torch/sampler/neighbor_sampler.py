@@ -10,6 +10,10 @@ hop reads its weight window and a full hop its neighbour window through
 ``gather_windows``, a uniform hop of a mixed list reads through
 ``sample_hop``. Heterogeneous graphs take uniform positive fanouts, one
 ``sample_hop_dedup`` per hop (``ops.pipeline.multihop_sample_hetero``).
+Link sampling (:meth:`NeighborSampler.sample_from_edges`) sends the
+endpoints of the positive and the sampled negative edges through the same
+loops as seeds; :meth:`NeighborSampler.subgraph` induces the subgraph of
+a sampled neighbourhood (homogeneous graphs).
 
 Orientation contract (the reference's): ``row`` holds message-source
 (child) labels and ``col`` message-destination (parent) labels. With
@@ -35,11 +39,13 @@ from ..ops.sample import (FusedHopPlan, HeteroFusedPlan, hetero_hop_uniforms,
                           sample_full_neighbors, sample_neighbors,
                           sample_neighbors_weighted, walk_hop_uniforms,
                           weighted_hop_uniforms)
+from ..ops.subgraph import SubGraph, induced_subgraph
 from ..typing import EdgeType, NodeType, reverse_edge_type
 from ..utils import as_numpy, make_generator, resolve_device
 from ..utils.rng import RandomSeedManager
-from .base import (BaseSampler, HeteroSamplerOutput, NodeSamplerInput,
-                   SamplerOutput)
+from .base import (BaseSampler, EdgeSamplerInput, HeteroSamplerOutput,
+                   NodeSamplerInput, SamplerOutput)
+from .negative_sampler import RandomNegativeSampler
 
 
 class NeighborSampler(BaseSampler):
@@ -122,6 +128,8 @@ class NeighborSampler(BaseSampler):
         seed if seed is not None
         else RandomSeedManager.getInstance().getSeed(), self.device)
     self._plans = {}
+    if not self.is_hetero:   # link sampling's negatives (sample_from_edges)
+      self._neg_sampler = RandomNegativeSampler(graph, edge_dir=edge_dir)
     if self.is_hetero:
       # the flat edge-type plane depends on the graph alone; only the
       # table size, capacities and budgets change with the batch shape
@@ -306,3 +314,95 @@ class NeighborSampler(BaseSampler):
                   'edge_hop_offsets': {rev(e): tuple(v)
                                        for e, v in offs.items()
                                        if e in out['row']}})
+
+  # -- link sampling --------------------------------------------------------
+
+  def sample_from_edges(self, inputs: EdgeSamplerInput, uniforms=None,
+                        proposals=None) -> SamplerOutput:
+    """Link sampling: the endpoints of the positive edges (and of the
+    sampled negatives) are the seeds, ``concat([src, dst])``, repeats
+    included; the metadata labels the links by the seeds' labels, each
+    slot its id's first-occurrence label.
+
+    Binary negative sampling appends ``neg.sample_size(num_pos)`` pairs
+    to the positives: ``edge_label_index`` [2, num_pos + num_neg] and
+    ``edge_label`` (the given labels, else ones, then zeros). Triplet
+    sampling appends the negatives' dst: ``src_index``, ``dst_pos_index``
+    [num_pos] and ``dst_neg_index`` ([num_pos, amount] when amount > 1).
+    Negatives are drawn with padding (always full), strict as
+    ``neg.strict`` says, from five trial rounds.
+
+    ``proposals`` injects the negatives' draws (five rounds of
+    ``ops.negative.negative_proposals``, in the stored orientation) and
+    ``uniforms`` the walk's (:meth:`hop_uniforms` at
+    ``2 * num_pos + num_neg`` seeds (binary: ``2 * (num_pos +
+    num_neg)``)); by default both come from the sampler's generator, the
+    negatives first. Homogeneous graphs only."""
+    if self.is_hetero or inputs.input_type is not None:
+      raise NotImplementedError('link sampling in the port takes '
+                                'homogeneous graphs')
+    src, dst = self._seeds(inputs.row), self._seeds(inputs.col)
+    num_pos, num_neg = src.numel(), 0
+    edge_label = (None if inputs.label is None else torch.as_tensor(
+        as_numpy(inputs.label), device=self.device))
+    neg = inputs.neg_sampling
+    if neg is not None:
+      num_neg = neg.sample_size(num_pos)
+      pair = self._neg_sampler.sample(num_neg, padding=True,
+                                      strict=neg.strict,
+                                      proposals=proposals,
+                                      generator=self.generator)
+      if neg.is_binary():
+        src = torch.cat([src, pair.rows])
+        dst = torch.cat([dst, pair.cols])
+        if edge_label is None:
+          edge_label = torch.ones(num_pos, dtype=torch.float32,
+                                  device=self.device)
+        edge_label = torch.cat([edge_label, edge_label.new_zeros(
+            (num_neg,) + tuple(edge_label.shape[1:]))])
+      else:
+        if num_neg % max(num_pos, 1):
+          raise ValueError('triplet amount must be an integer multiple')
+        if edge_label is not None:
+          raise ValueError('triplet sampling takes no edge labels')
+        dst = torch.cat([dst, pair.cols])
+    out = self.sample_from_nodes(torch.cat([src, dst]), uniforms=uniforms)
+    inverse = out.metadata['seed_labels']
+    meta = dict(out.metadata, num_pos=num_pos, num_neg=num_neg)
+    if neg is None or neg.is_binary():
+      meta['edge_label_index'] = inverse.reshape(2, -1)
+      meta['edge_label'] = edge_label
+    else:
+      meta['src_index'] = inverse[:num_pos]
+      meta['dst_pos_index'] = inverse[num_pos:2 * num_pos]
+      dst_neg = inverse[2 * num_pos:]
+      if num_pos > 0 and num_neg // num_pos > 1:
+        dst_neg = dst_neg.reshape(num_pos, -1)
+      meta['dst_neg_index'] = dst_neg
+    out.metadata = meta
+    return out
+
+  # -- subgraph -------------------------------------------------------------
+
+  def subgraph(self, seeds, node_capacity: Optional[int] = None,
+               uniforms=None) -> SubGraph:
+    """The subgraph induced on the multi-hop neighbourhood of ``seeds``:
+    its nodes labelled in the node list's order (seeds first), every edge
+    of the graph between two of them (``ops.subgraph.induced_subgraph``,
+    each node's edges read in a window of the graph's max degree, so
+    exact). ``node_capacity`` defaults to the
+    sampled node budget; ``uniforms`` injects the walk's draws.
+    Homogeneous graphs only."""
+    if self.is_hetero:
+      raise NotImplementedError('subgraph takes a homogeneous graph')
+    out = self.sample_from_nodes(seeds, uniforms=uniforms)
+    g = self.graph
+    if not hasattr(self, '_max_degree'):   # one device read, then cached
+      self._max_degree = g.topo.max_degree
+    node_mask = torch.arange(out.node.numel(),
+                             device=self.device) < out.node_count
+    return induced_subgraph(
+        g.indptr, g.indices, out.node, node_mask,
+        node_capacity=node_capacity or out.node.numel(),
+        max_degree=self._max_degree, edge_ids=g.edge_ids,
+        with_edge=self.with_edge)

@@ -930,3 +930,128 @@ def test_kernels_launch_on_the_device_of_their_tensors(dev):
                       dtype=torch.int32)
   assert torch.equal(P.vmem_take(tab, starts), P.vmem_take_plain(tab, starts))
   assert torch.cuda.current_device() == 0
+
+
+# -- link prediction and subgraphs ----------------------------------------------
+
+def _link_data(dev, seed=31, n=6000, e=90_000):
+  g = torch.Generator(device=dev).manual_seed(seed)
+  ei = torch.stack([torch.randint(0, n, (e,), generator=g, device=dev),
+                    torch.randint(0, n, (e,), generator=g, device=dev)])
+  ds = Dataset().init_graph(ei, num_nodes=n, device=dev)
+  ds.init_node_features(torch.randn((n, 100), generator=g, device=dev),
+                        device=dev)
+  return ds, ei, g
+
+
+def _link_batch(sampler, ds, inputs, props, u):
+  out = sampler.sample_from_edges(inputs, proposals=props, uniforms=u)
+  return out, ds.get_node_feature().device_gather(out.node)
+
+
+@pytest.mark.parametrize('mode,amount', [('binary', 1), ('triplet', 2)])
+def test_link_batch_matches_plain(dev, monkeypatch, mode, amount):
+  # 2,048 seeds with repeats (the products link batch's shape), strict
+  # negatives: the walk and the gather equal to their plain versions
+  from glt_tpu_torch.ops.negative import edge_in_csr, negative_proposals
+  from glt_tpu_torch.sampler import (EdgeSamplerInput, NegativeSampling,
+                                     NeighborSampler)
+  ds, ei, g = _link_data(dev)
+  graph = ds.get_graph()
+  sampler = NeighborSampler(graph, [15, 10, 5], device=dev, seed=0)
+  pos = torch.randint(0, ei.shape[1], (512,), generator=g, device=dev)
+  pos[256:] = pos[:256]                      # repeated edges
+  neg = NegativeSampling(mode, amount, strict=True)
+  inputs = EdgeSamplerInput(ei[0, pos].cpu().numpy(), ei[1, pos].cpu().numpy(),
+                            neg_sampling=neg)
+  num_neg = neg.sample_size(512)
+  props = negative_proposals(sampler.generator, num_neg, 5, graph.num_nodes,
+                             graph.num_nodes, dev)
+  n_seeds = 2 * (512 + num_neg) if mode == 'binary' else 1024 + num_neg
+  assert n_seeds == 2048
+  u = sampler.hop_uniforms(n_seeds)
+  K.reset_launch_counts()
+  out, x = _link_batch(sampler, ds, inputs, props, u)
+  assert K.sample_walk_dedup.launches == 1 and K.gather_rows.launches == 1
+  for name in ('sample_walk_dedup', 'gather_rows'):
+    monkeypatch.setattr(K, name, getattr(K, name + '_plain'))
+  want, want_x = _link_batch(sampler, ds, inputs, props, u)
+  for f in ('node', 'node_count', 'row', 'col', 'edge_mask',
+            'num_sampled_nodes', 'num_sampled_edges'):
+    assert torch.equal(getattr(out, f), getattr(want, f)), f
+  assert torch.equal(x, want_x)
+  for f, v in want.metadata.items():
+    if isinstance(v, torch.Tensor):
+      assert torch.equal(out.metadata[f], v), f
+  node = out.node.long()
+  if mode == 'binary':
+    eli = out.metadata['edge_label_index'].long()
+    assert torch.equal(node[eli[0, :512]], ei[0, pos].to(node.dtype))
+    src, dst = node[eli[0, 512:]], node[eli[1, 512:]]
+    assert not bool(edge_in_csr(graph.indptr, graph.indices, src, dst).any())
+  else:
+    assert tuple(out.metadata['dst_neg_index'].shape) == (512, 2)
+
+
+def test_link_loader_trains_through_the_kernels(dev):
+  from glt_tpu_torch.loader import LinkNeighborLoader
+  from glt_tpu_torch.parallel import link_bce_loss
+  ds, _, _ = _link_data(dev, seed=37)
+  loader = LinkNeighborLoader(ds, [10, 5], batch_size=256, shuffle=True,
+                              neg_sampling=('binary', 1), device=dev, seed=0)
+  step = SageTrainStep(GraphSAGE(100, 64, 32, num_layers=2).to(dev), lr=3e-3,
+                       loss=link_bce_loss)
+  K.reset_launch_counts()
+  losses = [float(step(b)) for _, b in zip(range(4), loader)]
+  assert all(np.isfinite(losses))
+  assert K.sample_walk_dedup.launches == 4 and K.gather_rows.launches == 4
+
+
+def test_subgraph_loader_batch_matches_plain(dev, monkeypatch):
+  from glt_tpu_torch.loader import SubGraphLoader
+  ds, ei, _ = _link_data(dev, seed=41)
+  loader = SubGraphLoader(ds, [10, 5], np.arange(6000), batch_size=64,
+                          device=dev, seed=0)
+  sampler = loader.sampler
+  u = sampler.hop_uniforms(64)
+  real = sampler.subgraph
+  sampler.subgraph = lambda s: real(s, uniforms=u)
+  seeds = np.arange(64)
+  K.reset_launch_counts()
+  got = loader._make_batch(seeds, 64)
+  assert K.sample_walk_dedup.launches == 1 and K.gather_rows.launches == 1
+  for name in ('sample_walk_dedup', 'gather_rows'):
+    monkeypatch.setattr(K, name, getattr(K, name + '_plain'))
+  want = loader._make_batch(seeds, 64)
+  for f in ('x', 'row', 'col', 'edge_mask', 'node', 'node_count', 'edge'):
+    assert torch.equal(getattr(got, f), getattr(want, f)), f
+  # every induced edge (col -> row) is an edge of the graph
+  from glt_tpu_torch.ops.negative import edge_in_csr
+  graph = ds.get_graph()
+  m = got.edge_mask
+  node = got.node.long()
+  src, dst = node[got.col.long()[m]], node[got.row.long()[m]]
+  assert int(m.sum()) > 0
+  assert bool(edge_in_csr(graph.indptr, graph.indices, src, dst).all())
+
+
+def test_seal_extraction_reads_windows_through_the_kernel(dev, monkeypatch):
+  from glt_tpu_torch.examples import seal_link_pred as seal
+  rng = np.random.default_rng(0)
+  und = seal.ring_chord_graph(n=300, chords=200, seed=0)
+  split = seal.link_split(und, rng, n=300)
+  ds = seal.build_train_dataset(split[0], 300, device=dev)
+  from glt_tpu_torch.sampler import NeighborSampler
+  sampler = NeighborSampler(ds.get_graph(), [-1, -1], device=dev, seed=0)
+  n_cap = sample_budget(2, sampler.num_neighbors)
+  links = split[0][:16] + split[1][:16]
+  K.reset_launch_counts()
+  got = seal.collate(seal.extract_enclosing(
+      sampler, links, 1.0, seal.make_drnl_fn(n_cap), n_cap))
+  assert K.gather_windows.launches == 2 * len(links)
+  assert K.sample_walk_dedup.launches == 0
+  monkeypatch.setattr(K, 'gather_windows', K.gather_windows_plain)
+  want = seal.collate(seal.extract_enclosing(
+      sampler, links, 1.0, seal.make_drnl_fn(n_cap), n_cap))
+  for a, b in zip(got, want):
+    assert torch.equal(a, b)

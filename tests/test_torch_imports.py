@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``glt_tpu_torch`` (the
 hetero models, loader and typing, the live-update stream, and the
 training slice's loaders, train step and profiling among them, the
-probe and microbench kernels and their benchmark entry points) and
+probe and microbench kernels and their benchmark entry points, and the
+link and SEAL modules with their two example scripts) and
 ``chip_smoke`` pulls in neither JAX nor the JAX package, and touches no
 card."""
 import os
@@ -31,6 +32,12 @@ print('TRAIN', all(m in sys.modules for m in (
     'glt_tpu_torch.loader.node_loader', 'glt_tpu_torch.loader.neighbor_loader',
     'glt_tpu_torch.loader.device_epoch', 'glt_tpu_torch.parallel.train',
     'glt_tpu_torch.utils.profile')))
+print('LINK', all(m in sys.modules for m in (
+    'glt_tpu_torch.examples.graph_sage_unsup',
+    'glt_tpu_torch.examples.seal_link_pred', 'glt_tpu_torch.ops.negative',
+    'glt_tpu_torch.ops.subgraph', 'glt_tpu_torch.ops.drnl',
+    'glt_tpu_torch.loader.link_loader', 'glt_tpu_torch.loader.subgraph_loader',
+    'glt_tpu_torch.models.dgcnn')))
 print('BENCH', all(m in sys.modules for m in (
     'glt_tpu_torch.benchmarks.probe_compile',
     'glt_tpu_torch.benchmarks.microbench_gather',
@@ -51,4 +58,5 @@ def test_port_and_chip_smoke_import_no_jax():
   assert 'STREAM True' in out.stdout, out.stdout
   assert 'TRAIN True' in out.stdout, out.stdout
   assert 'BENCH True' in out.stdout, out.stdout
+  assert 'LINK True' in out.stdout, out.stdout
   assert 'CUDA_INIT False' in out.stdout, out.stdout
