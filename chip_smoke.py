@@ -6,8 +6,9 @@ PyTorch version at the shapes the main paths give it, then drives the
 three serving paths through InferenceEngine.infer, the two training
 paths through NeighborLoader and SageTrainStep, link prediction through
 LinkNeighborLoader and SageTrainStep, a SubGraphLoader batch, SEAL
-through its example's run, and the two benchmark entry points through
-their main functions, and checks what comes out:
+through its example's run, training from a hot/cold split feature store,
+the feature bench, and the two benchmark entry points through their main
+functions, and checks what comes out:
 
 - homogeneous: a seeded 3-layer GraphSAGE (hidden 256, 47 classes, 100
   features, fanouts [15, 10, 5]) over a products-shaped graph (2.45M
@@ -54,6 +55,20 @@ their main functions, and checks what comes out:
   + 64 of each held-out split, enclosing subgraphs through [-1, -1]
   (gather_windows a hop), DRNL, one epoch of DGCNN at batch 32, its
   validation and test ROC-AUC;
+- the hot/cold feature tier (examples/train_sage_products.py
+  --split-ratio 0.2): the products table sorted by in-degree through
+  Dataset.init_node_features(sort_func=sort_by_in_degree,
+  split_ratio=0.2), its hottest 20% of rows on the card and the rest
+  pinned in host memory and mapped; the feature gather over both blocks
+  (gather_rows_mixed, one launch a batch) held against its plain twin at
+  a training batch's rows, at split 0.0 and 1.0 and on bf16 x 101 and
+  uint8 x 7 rows, timed in turns beside K3 over the resident table and
+  the host phase (host_offload=False), against a bound over the measured
+  host link; the uniform training step (batch 1024, [15, 10, 5], Adam
+  1e-3), 3 warm-up and 10 timed steps, beside the same steps over the
+  resident sorted table; a bucket-256 request against the resident
+  store's logits; then glt_tpu_torch.benchmarks.bench_feature at its
+  defaults (2M x 128 float32, batch 200K, split 0.2) in a subprocess;
 - repairs: the walk at fanouts [100] and [3, 80] over a graph whose hub
   rows (degree 200-2000) exceed them, and the feature gather on bf16 rows
   of width 101 and uint8 rows of width 7, each against its plain version;
@@ -105,6 +120,7 @@ NUM_NODES, NUM_EDGES, FEAT_DIM = 2_450_000, 62_000_000, 100
 HIDDEN, CLASSES, FANOUTS, BUCKETS = 256, 47, (15, 10, 5), (8, 64, 256)
 REQUESTS = (1, 7, 64, 200, 256)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
+LINK_BYTES_PER_S = 64e9       # the host link's peak one way: PCIe Gen5 x16
 LOGIT_TOL = 1e-4  # same batch bit for bit; index_add_ float atomics
                   # sum in another order from run to run
 # igbh-rgat: IGBH-small's node counts and widths, MLPerf GNN's RGAT
@@ -186,13 +202,15 @@ def graph_ms(torch, fn, calls=50, replays=5):
   return start.elapsed_time(end) / (calls * replays)
 
 
-def in_turns_ms(torch, np, fns, iters=50):
+def in_turns_ms(torch, np, fns, iters=50, abba=False):
   """cuda_ms of each callable of ``fns`` (name -> fn) in each of ROUNDS
   rounds, timed in turns within a round so that host noise hits them
-  alike: name -> array of the rounds' times."""
+  alike (``abba``: every other round in reverse order): name -> array of
+  the rounds' times."""
   times = {n: [] for n in fns}
-  for _ in range(ROUNDS):
-    for n, fn in fns.items():
+  for r in range(ROUNDS):
+    order = list(fns.items())
+    for n, fn in (order[::-1] if abba and r % 2 else order):
       times[n].append(cuda_ms(torch, lambda i=0, fn=fn: fn(), iters))
   return {n: np.array(v) for n, v in times.items()}
 
@@ -1796,6 +1814,370 @@ def link_phases(torch, np, K, ds, dev, seed, k3, walks, host_us, smi):
   return link_launches, sub_launches, seal_launches
 
 
+# the hot/cold feature tier: examples/train_sage_products.py --split-ratio
+# 0.2 (the reference protocol's split, benchmarks/bench_feature.py): the
+# products table sorted by in-degree, its hottest 20% on the card and the
+# rest pinned in host memory, then the uniform training step
+SPLIT_RATIO, SPLIT_WARMUP, SPLIT_STEPS = 0.2, 3, 10
+LINK_COPY_BYTES = 256 * 2 ** 20   # a pinned block's host-to-device copy
+
+
+def link_rate(torch, block, dev):
+  """Bytes a second of a copy from the pinned CPU tensor ``block`` (its
+  first LINK_COPY_BYTES) to the card, CUDA events over 5 copies after
+  one: the rate the host link gives a bulk copy, printed beside the cold
+  rows' bound (which takes the link's peak, LINK_BYTES_PER_S)."""
+  flat = block.reshape(-1).view(torch.uint8)[:LINK_COPY_BYTES]
+  dst = torch.empty(flat.shape, dtype=torch.uint8, device=dev)
+  ms = cuda_ms(torch, lambda i=0: dst.copy_(flat, non_blocking=True), 5,
+               warmup=1)
+  return flat.numel() / ms * 1e3
+
+
+def mixed_bound_ms(torch, rows, h, row_bytes):
+  """The least time of a split store's gather of ``rows`` (clamped, as the
+  kernel reads them): device memory moves each distinct hot row once, a
+  4-byte index and a written row per lane, while the host link moves each
+  distinct cold row once at its peak; the two channels run at once, so
+  the bound is the larger time. Returns it with the distinct hot and cold
+  row counts."""
+  distinct = torch.unique(rows.long())
+  n_cold = int((distinct >= h).sum())
+  n_hot = distinct.numel() - n_cold
+  b = rows.numel()
+  ms = max(bytes_ms(n_hot * row_bytes + b * (row_bytes + 4)),
+           n_cold * row_bytes / LINK_BYTES_PER_S * 1e3)
+  return ms, n_hot, n_cold
+
+
+def time_mixed(torch, np, K, label, hot, cold, rows, rate, resident=None,
+               host_phase=None):
+  """K3 over a split store (``gather_rows_mixed(hot, cold, rows)``, ``cold``
+  the pinned block's ``PinnedHost``): one
+  launch, torch.equal to its plain twin and, given the fully resident
+  table ``resident``, to today's K3 over it; timed in turns (ABBA, medians
+  of ROUNDS) with that K3 and, given one, the host phase
+  (``host_phase()``); its plain time and bound. Prints its line and
+  returns its row."""
+  n = hot.shape[0] + cold.shape[0]
+  before = K.gather_rows_mixed.launches
+  got = K.gather_rows_mixed(hot, cold, rows)
+  if K.gather_rows_mixed.launches != before + 1:
+    raise AssertionError(f'gather_rows_mixed {label} is not one launch')
+  want = K.gather_rows_mixed_plain(hot, cold, rows)
+  if not torch.equal(got, want):
+    raise AssertionError(f'gather_rows_mixed {label} differs from plain')
+  if resident is not None and not torch.equal(got, K.gather_rows(resident,
+                                                                  rows)):
+    raise AssertionError(f'gather_rows_mixed {label} differs from K3 over '
+                         'the resident table')
+  del got, want
+  fns = {'mixed': lambda: K.gather_rows_mixed(hot, cold, rows)}
+  if resident is not None:
+    fns['resident'] = lambda: K.gather_rows(resident, rows)
+  if host_phase is not None:
+    fns['host_phase'] = host_phase
+  per_round = in_turns_ms(torch, np, fns, iters=5, abba=True)
+  t = {k: float(np.median(v)) for k, v in per_round.items()}
+  plain = cuda_ms(torch, lambda i=0: K.gather_rows_mixed_plain(hot, cold,
+                                                               rows), 3,
+                  warmup=1)
+  row_bytes = hot.shape[1] * hot.element_size()
+  clamped = rows.long().clamp(0, n - 1)
+  bound, n_hot, n_cold = mixed_bound_ms(torch, clamped, hot.shape[0],
+                                        row_bytes)
+  lay = K.gather_rows_layout(row_bytes, hot.data_ptr() | cold.address)
+  mode = (f'T={lay.lanes}, {lay.passes} pass(es), '
+          + ('realigned' if lay.realign else 'copy'))
+  others = ''.join(f', {k} {v:.4f} ms' for k, v in t.items() if k != 'mixed')
+  print(f'gather_rows_mixed {label}: {rows.numel()} rows ({n_hot} distinct '
+        f'hot of {hot.shape[0]}, {n_cold} distinct cold of {cold.shape[0]}) '
+        f'of {row_bytes} B ({mode}); one launch, equal to plain'
+        + (' and to K3 over the resident table' if resident is not None
+           else '') + f'; {t["mixed"]:.4f} ms (in turns, ABBA, medians of '
+        f'{ROUNDS}{others}; plain {plain:.4f} ms; bound {bound:.6f} ms, the '
+        f'larger of device memory and the link at its '
+        f'{LINK_BYTES_PER_S / 1e9:.0f} GB/s peak, {bound / t["mixed"] * 100:.1f}'
+        f'% of it; a bulk copy over the link {rate / 1e9:.2f} GB/s)')
+  return dict(ms=t['mixed'], plain_ms=plain, bound_ms=bound, err=0,
+              library_ms=None, resident_ms=t.get('resident'),
+              host_phase_ms=t.get('host_phase'), rows=rows.numel(),
+              hot_distinct=n_hot, cold_distinct=n_cold,
+              hot_rows=hot.shape[0], cold_rows=cold.shape[0],
+              link_gb_s=rate / 1e9, layout=lay._asdict())
+
+
+def split_phases(torch, np, K, ds, dev, seed, smi):
+  """The hot/cold feature tier over the products graph: the table sorted
+  by in-degree and split 0.2 (hot rows on the card, cold rows pinned and
+  mapped), K3 over both blocks against its plain twin, the resident K3
+  and the host phase, uniform training through NeighborLoader and
+  SageTrainStep beside the same steps over the resident sorted table, a
+  serving request, and the feature bench; returns the launches of the
+  split main path and the K3 rows of the split kernel checks."""
+  from glt_tpu_torch.data import Dataset, Feature, sort_by_in_degree
+  from glt_tpu_torch.data.feature import gather_features
+  from glt_tpu_torch.loader import NeighborLoader
+  from glt_tpu_torch.models import GraphSAGE
+  from glt_tpu_torch.parallel import SageTrainStep, sage_loss
+  from glt_tpu_torch.serving import InferenceEngine
+  from glt_tpu_torch.typing import Split
+  from glt_tpu_torch.utils.offload import pin_host
+  from glt_tpu_torch.utils.profile import ThroughputMeter
+
+  g = ds.get_graph()
+  train_idx = ds.get_split(Split.train)
+  with Phase('split data'):
+    host = ds.get_node_feature().table.cpu().numpy()
+    sorted_ = {}
+
+    def timed_sort(feats, ratio, topo):
+      t0 = time.perf_counter()
+      sorted_['feats'], sorted_['old2new'] = sort_by_in_degree(feats, ratio,
+                                                               topo)
+      sorted_['s'] = time.perf_counter() - t0
+      return sorted_['feats'], sorted_['old2new']
+
+    def dataset():
+      d = Dataset(graph=ds.graph, node_labels=ds.node_labels)
+      d.node_split = ds.node_split
+      return d
+    sds = dataset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sds.init_node_features(host, sort_func=timed_sort,
+                           split_ratio=SPLIT_RATIO, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    del host
+    sf = sds.get_node_feature()
+    hot, cold = sf.device_part, sf.cold_pinned
+    if cold is None or cold.tensor.is_cuda or hot.shape[0] != round(
+        NUM_NODES * SPLIT_RATIO):
+      raise AssertionError('the split store did not pin its cold block')
+    # the same sorted rows whole on the card, and in a host-phase store
+    rds = dataset()
+    rds.node_features = Feature(sorted_['feats'], id2index=sorted_['old2new'],
+                                device=dev)
+    hp = Feature(sorted_['feats'], split_ratio=SPLIT_RATIO,
+                 id2index=sorted_['old2new'], device=dev, host_offload=False)
+    resident = rds.get_node_feature().table
+    rate = link_rate(torch, cold.tensor, dev)
+    dev_bytes = hot.numel() * 4 + sf.id2index.numel() * 4
+    print(f'split store: {hot.shape[0]} hot rows on the card, '
+          f'{cold.shape[0]} cold rows pinned and mapped ({dev_bytes} device '
+          f'bytes with the id map, {cold.tensor.numel() * 4} pinned bytes); '
+          f'sort by in-degree {sorted_["s"]:.3f} s, init_node_features {init_s:.3f} '
+          f's (row 0 holds node {int(np.argmin(sorted_["old2new"]))}, the '
+          'hottest); host-to-device copy of '
+          f'the pinned block {rate / 1e9:.3f} GB/s ({LINK_COPY_BYTES} bytes)'
+          f' on {smi}')
+
+  with Phase('split kernel checks'):
+    loader = lambda d: NeighborLoader(d, list(FANOUTS), train_idx,
+                                      batch_size=TRAIN_BATCH, shuffle=True,
+                                      device=dev, seed=seed,
+                                      rng=np.random.default_rng(seed))
+    sl = loader(sds)
+    node = sl.sampler.sample_from_nodes(train_idx[:TRAIN_BATCH]).node
+    rows = sf.map_ids(node).to(torch.int32)
+    mixed = {'float32 x 100 split 0.2': time_mixed(
+        torch, np, K, 'float32 x 100 split 0.2 (a training batch)', hot,
+        cold, rows, rate, resident=resident,
+        host_phase=lambda: gather_features(hp, node))}
+    if not torch.equal(gather_features(hp, node), gather_features(sf, node)):
+      raise AssertionError('the host phase differs from the split gather')
+    # padded, out-of-range and -1 rows at split 0.0 (the whole table
+    # pinned) and 1.0 (nothing spilled: today's K3, counted as mixed)
+    raw = torch.cat([rows, torch.tensor([-1, -7, NUM_NODES, NUM_NODES + 5],
+                                        dtype=torch.int32, device=dev)])
+    whole = Feature(sorted_['feats'], split_ratio=0.0, device=dev)
+    mixed['float32 x 100 split 0.0'] = time_mixed(
+        torch, np, K, 'float32 x 100 split 0.0', whole.device_part,
+        whole.cold_pinned, raw, rate, resident=resident)
+    del whole
+    sorted_.clear()
+    nothing = pin_host(torch.empty((0, FEAT_DIM), dtype=torch.float32), dev)
+    mixed['float32 x 100 split 1.0'] = time_mixed(
+        torch, np, K, 'float32 x 100 split 1.0', resident, nothing, raw,
+        rate, resident=resident)
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    for dtype, width in NARROW_ROWS:
+      dt = getattr(torch, dtype)
+      t = (torch.randint(0, 256, (NUM_NODES, width), generator=gen,
+                         device=dev, dtype=dt) if dt == torch.uint8 else
+           torch.randn((NUM_NODES, width), generator=gen, device=dev).to(dt))
+      f = Feature(t, split_ratio=SPLIT_RATIO, device=dev)
+      mixed[f'{dtype} x {width} split 0.2'] = time_mixed(
+          torch, np, K, f'{dtype} x {width} split 0.2', f.device_part,
+          f.cold_pinned, raw, rate, resident=t)
+      del t, f
+    del node, rows, raw, hp
+
+  with Phase('split main path vs plain'):
+    # one batch through the kernels and through the plain versions, and
+    # the same batch over the resident sorted table
+    torch.manual_seed(seed)
+    net = GraphSAGE(FEAT_DIM, HIDDEN, CLASSES, num_layers=3).to(dev)
+    rl = loader(rds)
+    u = sl.sampler.hop_uniforms(TRAIN_BATCH)
+    n_valid = TRAIN_BATCH - 1
+    seeds = np.concatenate([train_idx[:n_valid], train_idx[:1]])
+
+    def batch(ld):
+      return ld._collate(ld.sampler.sample_from_nodes(seeds, n_valid,
+                                                      uniforms=u),
+                         seeds, n_valid)
+    fields = ('node', 'node_count', 'row', 'col', 'edge_mask', 'x', 'y',
+              'num_sampled_edges')
+    with torch.no_grad():
+      K.reset_launch_counts()
+      bk = batch(sl)
+      if (K.gather_rows_mixed.launches, K.gather_rows.launches) != (1, 0):
+        raise AssertionError('the split batch is not one mixed K3 launch')
+      lk = float(sage_loss(net, bk))
+      with swapped_to_plain(K, ('sample_walk_dedup', 'gather_rows_mixed')):
+        bp = batch(sl)
+        lp = float(sage_loss(net, bp))
+      br = batch(rl)
+    for other, what in ((bp, 'plain'), (br, 'the resident sorted table')):
+      f = differing_field(torch, bk, other, fields)
+      if f is not None:
+        raise AssertionError(f'split batch.{f} differs from {what}')
+    if not abs(lk - lp) <= LOSS_TOL * max(1.0, abs(lp)):
+      raise AssertionError(f'split first-step loss {lk} vs plain {lp}')
+    valid = bk.node[:int(bk.node_count)]
+    n_cold = int((sf.map_ids(valid) >= sf.hot_count).sum())
+    print(f'split batch {TRAIN_BATCH} ({n_valid} real seeds, '
+          f'{int(bk.node_count)} nodes, {n_cold} of them cold): bit-identical'
+          f' to plain and to the batch over the resident sorted table; loss '
+          f'{lk:.6f} vs plain {lp:.6f} (|diff| {abs(lk - lp):.3e}, tolerance '
+          f'{LOSS_TOL})')
+    del bk, bp, br, valid, net
+
+  def train(label, ld):
+    """SPLIT_WARMUP + SPLIT_STEPS uniform steps; returns the timed steps'
+    ms, their sampled edges, each batch's cold share of its valid rows,
+    the launches and the peak memory above the resident bytes."""
+    torch.manual_seed(seed)
+    step = SageTrainStep(GraphSAGE(FEAT_DIM, HIDDEN, CLASSES,
+                                   num_layers=3).to(dev), lr=LR)
+    feat = ld.data.get_node_feature()
+    it = iter(ld)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    secs, edges, shares, losses = [], [], [], []
+    for i in range(SPLIT_WARMUP + SPLIT_STEPS):
+      t0 = time.perf_counter()
+      b = next(it)
+      losses.append(step(b))
+      n_edges = b.num_sampled_edges.sum()
+      torch.cuda.synchronize()
+      secs.append(time.perf_counter() - t0)
+      edges.append(int(n_edges))
+      valid = b.node[:int(b.node_count)]
+      shares.append((int((feat.map_ids(valid) >= feat.hot_count).sum()),
+                     valid.numel()))
+    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    peak = torch.cuda.max_memory_allocated() - before
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or not np.mean(losses[-5:]) < losses[0]:
+      raise AssertionError(f'{label}: losses {losses}')
+    timed = np.array(secs[SPLIT_WARMUP:]) * 1e3
+    n_timed = sum(edges[SPLIT_WARMUP:])
+    meter = ThroughputMeter('edges')
+    meter.update(n_timed, timed.sum() / 1e3)
+    cold_rows = sum(c for c, _ in shares[SPLIT_WARMUP:]) / SPLIT_STEPS
+    print(f'{label}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; steps '
+          f'{SPLIT_WARMUP + 1}-{SPLIT_WARMUP + SPLIT_STEPS}: median '
+          f'{np.median(timed):.3f} ms (quartiles {np.percentile(timed, 25):.3f}'
+          f'-{np.percentile(timed, 75):.3f}), '
+          f'{TRAIN_BATCH * SPLIT_STEPS / timed.sum() * 1e3:.1f} seeds/s, '
+          f'{meter.rate:.1f} sampled edges/s ({meter.report()}); cold share '
+          'of each batch\'s valid rows ' + ', '.join(
+              f'{c / n:.4f}' for c, n in shares)
+          + f'; {cold_rows:.0f} cold rows, {cold_rows * FEAT_DIM * 4:.0f} '
+          f'bytes over the link a timed step; peak {peak / 2**30:.3f} GiB '
+          f'({peak} bytes) above the {before / 2**30:.3f} GiB resident; '
+          f'launches {launches}; on {smi}')
+    return dict(median_ms=float(np.median(timed)), peak=peak,
+                launches=launches)
+
+  with Phase('split main path'):
+    split = train('split 0.2 training', loader(sds))
+    n = SPLIT_WARMUP + SPLIT_STEPS
+    want = dict(sample_walk_dedup=n, gather_rows_mixed=n, gather_rows=0,
+                dedup_table_insert=0)
+    for name, v in want.items():
+      if split['launches'][name] != v:
+        raise AssertionError(f'{name}: {split["launches"][name]} launches '
+                             f'on the split path, expected {v}')
+    res = train('resident sorted training (the same batches)', loader(rds))
+    if (res['launches']['gather_rows'],
+        res['launches']['gather_rows_mixed']) != (n, 0):
+      raise AssertionError('the resident run did not gather through K3')
+    print(f'split against resident: median step {split["median_ms"]:.3f} '
+          f'vs {res["median_ms"]:.3f} ms; peak above resident '
+          f'{split["peak"]} vs {res["peak"]} bytes')
+
+  with Phase('split profile'):
+    step = SageTrainStep(GraphSAGE(FEAT_DIM, HIDDEN, CLASSES,
+                                   num_layers=3).to(dev), lr=LR,
+                         sync_stages=True)
+    it = iter(sl)
+    step(next(it))      # warm
+
+    def run():
+      for _ in range(3):
+        step(next(it))
+    step_stages = ('train.forward', 'train.backward', 'train.optimizer')
+    profile_stages(torch, run, 3,
+                   ('sample.multihop', 'gather.features') + step_stages,
+                   'step', host_stages=step_stages)
+    del step, it
+
+  with Phase('split serving check'):
+    rng = torch.Generator().manual_seed(seed + 14)
+    ids = torch.randint(0, NUM_NODES, (200,), generator=rng).numpy()
+    out = {}
+    for name, d in (('split', sds), ('resident', rds)):
+      eng = InferenceEngine(d, GraphSAGE(FEAT_DIM, HIDDEN, CLASSES,
+                                         num_layers=3), None, list(FANOUTS),
+                            buckets=BUCKETS, seed=seed, device=dev)
+      eng.init_params(seed)
+      K.reset_launch_counts()
+      out[name] = eng.infer(ids)
+      if name == 'split' and K.gather_rows_mixed.launches != 1:
+        raise AssertionError('the split request is not one mixed K3 launch')
+      del eng
+    diff = float(np.abs(out['split'] - out['resident']).max())
+    if not np.allclose(out['split'], out['resident'], rtol=LOGIT_TOL,
+                       atol=LOGIT_TOL):
+      raise AssertionError(f'split serving logits differ by {diff}')
+    print(f'bucket-256 request of {ids.size} ids over the split store: '
+          f'logits within {diff:.3e} of the resident store\'s (tolerance '
+          f'{LOGIT_TOL})')
+    del sds, rds, sl, resident, hot, cold, sf
+    torch.cuda.empty_cache()
+
+  with Phase('feature bench'):
+    out = subprocess.run(
+        [sys.executable, '-m', 'glt_tpu_torch.benchmarks.bench_feature'],
+        capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+      raise AssertionError(f'bench_feature failed: {out.stderr[-2000:]}')
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith('{')]
+    metrics = [json.loads(ln)['metric'] for ln in lines]
+    if metrics != ['feature_gather_rows_per_sec_device',
+                   'feature_gather_rows_per_sec_split']:
+      raise AssertionError(f'bench_feature printed {out.stdout[-2000:]}')
+    for ln in lines:
+      print(f'bench_feature: {ln}')
+  return split['launches'], mixed
+
+
 def main() -> int:
   ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
   ap.add_argument('--seed', type=int, default=0,
@@ -2126,6 +2508,9 @@ def main() -> int:
   torch.cuda.empty_cache()
   link_launches, sub_launches, seal_launches = link_phases(
       torch, np, K, ds, dev, opts.seed, k3, walk, host_us, smi)
+  torch.cuda.empty_cache()
+  split_launches, mixed = split_phases(torch, np, K, ds, dev, opts.seed, smi)
+  torch.cuda.empty_cache()
   rows['sample_walk_dedup'] = dict(
       walk[256], shapes={f'B={b}' if isinstance(b, int) else b: row
                          for b, row in walk.items()})
@@ -2167,7 +2552,7 @@ def main() -> int:
              'stream': stream_launches, 'train': train_launches,
              'train_uniform': uniform_launches, 'link': link_launches,
              'subgraph': sub_launches, 'seal': seal_launches,
-             'probe': probe_launches,
+             'split': split_launches, 'probe': probe_launches,
              'microbench': micro_launches}
   # row: (its wrapper, source, the TPU kernel it replaces)
   replaces = {
@@ -2177,7 +2562,8 @@ def main() -> int:
       'dedup_table_insert': ('dedup_table_insert',
                              'glt_tpu_torch/csrc/dedup_table_insert.cu',
                              'glt_tpu/ops/pallas_kernels.py:588'),
-      'gather_rows': ('gather_rows', 'glt_tpu_torch/csrc/gather_rows.cu',
+      'gather_rows': (('gather_rows', 'gather_rows_mixed'),
+                      'glt_tpu_torch/csrc/gather_rows.cu',
                       'glt_tpu/ops/pallas_kernels.py:236'),
       'sample_hop_dedup': ('sample_hop_dedup',
                            'glt_tpu_torch/csrc/sample_hop_dedup.cu',
@@ -2226,6 +2612,15 @@ def main() -> int:
           f'ms ({row["bound_ms"] / row["ms"] * 100:.1f}% of it)'
           + (f'; in a CUDA graph {row["graph_ms"]:.4f} ms, index_select '
              f'{row["library_graph_ms"]:.4f} ms' if row['graph_ms'] else ''))
+  for shape, row in mixed.items():
+    print(f'gather_rows_mixed {shape}: {row["ms"]:.4f} ms, '
+          + ''.join(f'{k} {row[k + "_ms"]:.4f} ms, ' for k in
+                    ('resident', 'host_phase') if row[k + '_ms'] is not None)
+          + f'plain {row["plain_ms"]:.4f} ms, bound {row["bound_ms"]:.6f} ms '
+          f'({row["bound_ms"] / row["ms"] * 100:.1f}% of it, the link at '
+          f'{LINK_BYTES_PER_S / 1e9:.0f} GB/s; a bulk copy '
+          f'{row["link_gb_s"]:.3f} GB/s)')
+    k3[f'mixed {shape}'] = row
   k2 = rows['dedup_table_insert']
   print(f'dedup_table_init ({k2["slots"]} slots): {k2["ms"]:.4f} ms back '
         f'to back, in a CUDA graph {k2["graph_ms"]:.4f} ms, host enqueue '
@@ -2233,16 +2628,23 @@ def main() -> int:
         f' ms, graph {k2["chain_graph_ms"]:.4f} ms, host '
         f'{k2["chain_host_us"]:.2f} us; bound {k2["bound_ms"]:.6f} ms')
   print(smi)
-  # launches: the main paths together; launches_by_path: each path's own;
+  def count(launched, wrappers):
+    return sum(launched.get(w, 0) for w in
+               ((wrappers,) if isinstance(wrappers, str) else wrappers))
+
+  # launches: the main paths together; launches_by_path: each path's own
+  # (K3's row: gather_rows and gather_rows_mixed, one kernel source);
   # graph_ms: device time a call inside a CUDA graph (the probe rows, K1
   # at B=256, B1 per request, K2's table init); host_us: host enqueue a
-  # call; shapes: K3 at each timed row shape (ms and library_ms in turns);
+  # call; shapes: K3 at each timed row shape (ms and library_ms in turns;
+  # 'mixed ...': over a split store, in turns with K3 over the resident
+  # table and the host phase, bounded over the host link too);
   # vt and vmem_take launch one kernel through wrappers of their own, so
   # each row counts only its own shape's launches
   print(json.dumps({'kernels': [
       dict(name=n, route='cuda', source=src, replaces=rep, wrapper=w,
-           launches=sum(v.get(w, 0) for v in by_path.values()),
-           launches_by_path={p: v.get(w, 0) for p, v in by_path.items()},
+           launches=sum(count(v, w) for v in by_path.values()),
+           launches_by_path={p: count(v, w) for p, v in by_path.items()},
            max_abs_err=rows[n]['err'],
            ms=rows[n]['ms'], plain_ms=rows[n]['plain_ms'],
            bound_ms=rows[n]['bound_ms'], bound_by='bytes',

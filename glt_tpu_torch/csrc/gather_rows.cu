@@ -1,8 +1,15 @@
-// gather_rows: out[i] = table[clamp(rows[i], 0, N-1)].
+// gather_rows: out[i] = table[clamp(rows[i], 0, N-1)]; and over a split
+// store, out[i] = r < H ? hot[r] : cold[r - H], r = clamp(rows[i], 0,
+// H + C - 1), hot the [H, D] device block, cold the [C, D] block in
+// pinned host memory, read through its mapped device address.
 //
 // Replaces: glt_tpu/ops/pallas_kernels.py gather_rows (:236), the
 // row_gather seam of Feature.device_gather. The TPU kernel pays one grid
 // step per row; this is a design for the card, not a step-by-step copy.
+// The split store's read replaces _mixed_gather (glt_tpu/data/
+// feature.py:36), which has no Pallas source: XLA stages its cold rows
+// through compute_on('device_host') and merges them with a second
+// device gather. Here both blocks are read in the same launch.
 //
 // Bound on this card: bytes. Each distinct table row is read once, each
 // output row written once, each 4-byte index read once, over the 3.35
@@ -47,6 +54,27 @@
 // - Edges. A row whose cover would reach before the table's first byte or
 //   past its last (the first and last rows of a table at an unaligned
 //   address or size) is copied byte by byte, in the same kernel.
+// - Two blocks (glt_gather_rows_mixed). A row's block follows from its
+//   clamped index, and with it its base address, its realignment shift
+//   d and the edges test: a row whose cover would leave its own block is
+//   copied byte by byte. The layout realigns unless the row size and both
+//   blocks' addresses are multiples of 16. A cold row crosses the host
+//   link as its cover's 16-byte loads, a warp's neighbouring lanes on
+//   neighbouring addresses of one row. H = 0 (all cold) and C = 0 (all
+//   hot) launch the one-block kernel over the other block, so a store
+//   with nothing spilled runs K3 as before. Bound of a split read: the
+//   larger of two times, since one launch drives both channels at once:
+//   device memory's (the hot distinct rows, the indices and the output
+//   over 3.35 TB/s) and the host link's (the cold distinct rows over
+//   PCIe Gen5 x16's 64 GB/s one way). chip_smoke.py prints the rate of a
+//   bulk copy from the pinned block beside it.
+// - Pinning. glt_host_register page-locks a CPU buffer in place at its
+//   exact size (cudaHostRegister with cudaHostRegisterMapped, which is
+//   cuMemHostRegister with DEVICEMAP) and returns its mapped device
+//   address (cudaHostGetDevicePointer), or the error. It is not
+//   torch.empty(pin_memory=True): PyTorch's caching host allocator
+//   rounds a block up to a power of two, so a 784 MB cold block would pin
+//   1 GiB, and its pointer would still need mapping.
 // Tried on an H100 80GB HBM3 at 700 W and not kept (PERF.md): staging a
 // warp's rows in shared memory to store their span as whole vectors
 // (the byte-exact stores beat it at every size it served), four rows a
@@ -58,6 +86,8 @@
 // configuration has such rows, so they take the segments.
 #include "entry.cuh"
 #include <cstdint>
+#include <tuple>
+#include <type_traits>
 
 namespace {
 
@@ -117,15 +147,28 @@ struct Row {
   bool ok;          // its cover lies inside the table: the vector path
 };
 
-template <bool kRealign>
-__device__ __forceinline__ Row plan_row(uintptr_t base, uintptr_t end,
-                                        int64_t n_rows, int64_t rb,
+// The rows' bytes: [hot, hot_end) holds rows [0, h); with kTwo,
+// [cold, cold_end) holds rows [h, n_rows), else h == n_rows.
+struct Blocks {
+  uintptr_t hot, hot_end, cold, cold_end;
+  int64_t h;
+};
+
+template <bool kRealign, bool kTwo>
+__device__ __forceinline__ Row plan_row(const Blocks& bk, int64_t n_rows,
+                                        int64_t rb,
                                         const int* __restrict__ rows,
                                         unsigned i, unsigned b) {
   Row w;
   w.live = i < b;
   int64_t r = w.live ? __ldg(rows + i) : 0;
   r = r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r);
+  uintptr_t base = bk.hot, end = bk.hot_end;
+  if (kTwo && r >= bk.h) {
+    base = bk.cold;
+    end = bk.cold_end;
+    r -= bk.h;
+  }
   const uintptr_t src = base + static_cast<uintptr_t>(r * rb);
   w.ob = static_cast<int64_t>(i) * rb;
   w.oh = kRealign ? static_cast<int>(w.ob & 15) : 0;
@@ -143,27 +186,27 @@ __device__ __forceinline__ Row plan_row(uintptr_t base, uintptr_t end,
 // T threads a row (a power of two); a segment takes kRows rows and issues
 // the loads of kUnroll passes of each before their stores. kRealign: rows
 // shift against the output's vectors (T - 1 vectors a pass, the T-th lane
-// loads the last one's neighbour), else T vectors a pass with no shuffle
-template <int T, int kRows, int kUnroll, bool kRealign>
-__global__ void __launch_bounds__(kThreads)
-gather_rows_kernel(const unsigned char* __restrict__ table, int64_t n_rows,
-                   int64_t rb, const int* __restrict__ rows, int b,
-                   unsigned char* __restrict__ out, int passes) {
+// loads the last one's neighbour), else T vectors a pass with no shuffle.
+// kTwo: rows [bk.h, n_rows) live in the cold block; `table` is the
+// first block's pointer.
+template <int T, int kRows, int kUnroll, bool kRealign, bool kTwo>
+__device__ __forceinline__ void gather_rows_body(
+    const unsigned char* __restrict__ table, const Blocks& bk,
+    int64_t n_rows, int64_t rb, const int* __restrict__ rows, int b,
+    unsigned char* __restrict__ out, int passes) {
   constexpr int kSegs = 32 / T;
   constexpr int kPer = kRealign ? T - 1 : T;   // output vectors a pass
   const int lane = threadIdx.x & 31;
   const int t = lane & (T - 1);
   const unsigned warp = (blockIdx.x * kThreads + threadIdx.x) >> 5;
   const unsigned row0 = warp * (kRows * kSegs);
-  const uintptr_t base = reinterpret_cast<uintptr_t>(table);
-  const uintptr_t end = base + static_cast<uintptr_t>(n_rows * rb);
 
   Row w[kRows];
 #pragma unroll
   for (int u = 0; u < kRows; ++u)
-    w[u] = plan_row<kRealign>(base, end, n_rows, rb, rows,
-                              row0 + u * kSegs + lane / T,
-                              static_cast<unsigned>(b));
+    w[u] = plan_row<kRealign, kTwo>(bk, n_rows, rb, rows,
+                                    row0 + u * kSegs + lane / T,
+                                    static_cast<unsigned>(b));
   // every lane runs every pass and shuffle: rows past b and rows of the
   // byte path load nothing and store nothing
   for (int p0 = 0; p0 < passes; p0 += kUnroll) {
@@ -210,38 +253,90 @@ gather_rows_kernel(const unsigned char* __restrict__ table, int64_t n_rows,
   for (int u = 0; u < kRows; ++u) {
     if (!w[u].live || w[u].ok) continue;
     // the row's first byte: source vector q0's byte d, then oh bytes on
-    const unsigned char* src = table + ((w[u].q0 << 4) + w[u].d + w[u].oh
-                                        - base);
+    // (one table: through the kernel's restrict pointer; an address cast
+    // here compiled the kernel to more registers and a slower gather of a
+    // link batch on an H100 80GB HBM3 at 700 W, PERF.md)
+    const uintptr_t first = (w[u].q0 << 4) + w[u].d + w[u].oh;
+    const unsigned char* src = kTwo
+        ? reinterpret_cast<const unsigned char*>(first)
+        : table + (first - bk.hot);
     for (int64_t k = t; k < rb; k += T) out[w[u].ob + k] = __ldg(src + k);
   }
 }
 
+// One table: rows [0, n_rows) at `table`.
+template <int T, int kRows, int kUnroll, bool kRealign>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_kernel(const unsigned char* __restrict__ table, int64_t n_rows,
+                   int64_t rb, const int* __restrict__ rows, int b,
+                   unsigned char* __restrict__ out, int passes) {
+  Blocks bk;
+  bk.h = n_rows;
+  bk.hot = reinterpret_cast<uintptr_t>(table);
+  bk.hot_end = bk.hot + static_cast<uintptr_t>(n_rows * rb);
+  bk.cold = bk.cold_end = 0;
+  gather_rows_body<T, kRows, kUnroll, kRealign, false>(table, bk, n_rows, rb,
+                                                       rows, b, out, passes);
+}
+
+// A split store: rows [0, h) at `hot`, rows [h, n_rows) at `cold`.
+template <int T, int kRows, int kUnroll, bool kRealign>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_mixed_kernel(const unsigned char* __restrict__ hot, int64_t h,
+                         const unsigned char* __restrict__ cold,
+                         int64_t n_rows, int64_t rb,
+                         const int* __restrict__ rows, int b,
+                         unsigned char* __restrict__ out, int passes) {
+  Blocks bk;
+  bk.h = h;
+  bk.hot = reinterpret_cast<uintptr_t>(hot);
+  bk.hot_end = bk.hot + static_cast<uintptr_t>(h * rb);
+  bk.cold = reinterpret_cast<uintptr_t>(cold);
+  bk.cold_end = bk.cold + static_cast<uintptr_t>((n_rows - h) * rb);
+  gather_rows_body<T, kRows, kUnroll, kRealign, true>(hot, bk, n_rows, rb,
+                                                      rows, b, out, passes);
+}
+
+// the kernels' arguments: one table's, a split store's
 using Args = std::tuple<const unsigned char*, int64_t, int64_t, const int*,
                         int, unsigned char*, int>;
+using MixedArgs = std::tuple<const unsigned char*, int64_t,
+                             const unsigned char*, int64_t, int64_t,
+                             const int*, int, unsigned char*, int>;
 
-template <int T, int kRows, int kUnroll, bool kRealign>
-int launch(int device, void* stream, const Args& a) {
-  const int b = std::get<4>(a);
-  const int rows_per_block = kWarps * kRows * (32 / T);
+template <int T, int kRows, int kUnroll, bool kRealign, typename A>
+int launch(int device, void* stream, const A& a) {
+  const int b = std::get<std::tuple_size_v<A> - 3>(a);
+  const dim3 grid((b - 1) / (kWarps * kRows * (32 / T)) + 1);
   return std::apply([&](auto... v) {
-    return glt::Launch<gather_rows_kernel<T, kRows, kUnroll, kRealign>>::run(
-        dim3((b - 1) / rows_per_block + 1), dim3(kThreads), device, stream,
-        v...);
+    if constexpr (std::is_same_v<A, MixedArgs>)
+      return glt::Launch<gather_rows_mixed_kernel<T, kRows, kUnroll,
+                                                  kRealign>>::run(
+          grid, dim3(kThreads), device, stream, v...);
+    else
+      return glt::Launch<gather_rows_kernel<T, kRows, kUnroll, kRealign>>::
+          run(grid, dim3(kThreads), device, stream, v...);
   }, a);
 }
 
-template <int T, int kRows, int kUnroll>
-int launch_mode(bool realign, int device, void* stream, const Args& a) {
+template <int T, int kRows, int kUnroll, typename A>
+int launch_mode(bool realign, int device, void* stream, const A& a) {
   if (!realign) return launch<T, kRows, kUnroll, false>(device, stream, a);
   if constexpr (T > 1)
     return launch<T, kRows, kUnroll, true>(device, stream, a);
   return CUDA_ERROR_INVALID_VALUE;   // a realigning row needs a neighbour
 }
 
-// rows of one pass: T of any size, two rows a segment (rows wider than a
-// pass: T = 32, one row a segment, kWideUnroll passes in flight)
-int launch_one_pass(int lanes, bool realign, int device, void* stream,
-                    const Args& a) {
+// rows of one pass: T of any size, two rows a segment; wider rows: T =
+// 32, one row a segment, kWideUnroll passes in flight
+template <typename A>
+int launch_layout(int lanes, bool realign, int passes, int device,
+                  void* stream, const A& a) {
+  if (passes > 1) {
+    if (lanes == 32)
+      return launch_mode<32, 1, kWideUnroll>(realign, device, stream, a);
+    return CUDA_ERROR_INVALID_VALUE;
+  }
   switch (lanes) {
     case 1: return launch_mode<1, 2, 1>(realign, device, stream, a);
     case 2: return launch_mode<2, 2, 1>(realign, device, stream, a);
@@ -251,6 +346,13 @@ int launch_one_pass(int lanes, bool realign, int device, void* stream,
     case 32: return launch_mode<32, 2, 1>(realign, device, stream, a);
     default: return CUDA_ERROR_INVALID_VALUE;
   }
+}
+
+bool bad_layout(int64_t row_bytes, int passes, const void* out, bool realign,
+                uintptr_t addresses) {
+  return row_bytes <= 0 || passes <= 0
+         || reinterpret_cast<uintptr_t>(out) % 16
+         || (!realign && (row_bytes % 16 || addresses % 16));
 }
 
 }  // namespace
@@ -267,19 +369,77 @@ extern "C" int glt_gather_rows(const void* table, const void* rows, void* out,
                                int lanes, int realign, int passes,
                                int device, void* stream) {
   if (b <= 0) return 0;
-  const uintptr_t base = reinterpret_cast<uintptr_t>(table);
-  if (n <= 0 || row_bytes <= 0 || passes <= 0
-      || reinterpret_cast<uintptr_t>(out) % 16
-      || (!realign && (row_bytes % 16 || base % 16)))
+  if (n <= 0 || bad_layout(row_bytes, passes, out, realign,
+                           reinterpret_cast<uintptr_t>(table)))
     return CUDA_ERROR_INVALID_VALUE;
   const Args a{static_cast<const unsigned char*>(table), n, row_bytes,
                static_cast<const int*>(rows), b,
                static_cast<unsigned char*>(out), passes};
-  if (passes == 1) return launch_one_pass(lanes, realign, device, stream, a);
-  if (lanes == 32)
-    return launch_mode<32, 1, kWideUnroll>(realign, device, stream, a);
-  return CUDA_ERROR_INVALID_VALUE;
+  return launch_layout(lanes, realign, passes, device, stream, a);
+}
+
+// A split store's gather: rows [0, h) from `hot` (device memory), rows
+// [h, h + c) from `cold` (pinned host memory at its mapped device
+// address, or device memory); the layout is gather_rows_layout's over
+// both addresses. h == 0 or c == 0 is the one-block launch over the
+// other block.
+extern "C" int glt_gather_rows_mixed(const void* hot, int64_t h,
+                                     const void* cold, int64_t c,
+                                     const void* rows, void* out,
+                                     int64_t row_bytes, int b, int lanes,
+                                     int realign, int passes, int device,
+                                     void* stream) {
+  if (b <= 0) return 0;
+  if (h < 0 || c < 0) return CUDA_ERROR_INVALID_VALUE;
+  if (c == 0)
+    return glt_gather_rows(hot, rows, out, h, row_bytes, b, lanes, realign,
+                           passes, device, stream);
+  if (h == 0)
+    return glt_gather_rows(cold, rows, out, c, row_bytes, b, lanes, realign,
+                           passes, device, stream);
+  if (bad_layout(row_bytes, passes, out, realign,
+                 reinterpret_cast<uintptr_t>(hot)
+                     | reinterpret_cast<uintptr_t>(cold)))
+    return CUDA_ERROR_INVALID_VALUE;
+  const MixedArgs a{static_cast<const unsigned char*>(hot), h,
+                    static_cast<const unsigned char*>(cold), h + c,
+                    row_bytes, static_cast<const int*>(rows), b,
+                    static_cast<unsigned char*>(out), passes};
+  return launch_layout(lanes, realign, passes, device, stream, a);
+}
+
+// Page-locks the `bytes` bytes of host memory at `ptr` in place and maps
+// them for the card `device`; writes their device address to the 8 bytes
+// at `address` and returns 0, or returns the runtime's error.
+extern "C" int glt_host_register(const void* ptr, int64_t bytes,
+                                 void* address, int device) {
+  glt::DeviceGuard guard(device);
+  if (guard.err != CUDA_SUCCESS) return guard.err;
+  if (!ptr || bytes <= 0 || !address) return cudaErrorInvalidValue;
+  void* p = const_cast<void*>(ptr);
+  cudaError_t err = cudaHostRegister(
+      p, static_cast<size_t>(bytes),
+      cudaHostRegisterMapped | cudaHostRegisterPortable);
+  if (err != cudaSuccess) return err;
+  void* dev = nullptr;
+  err = cudaHostGetDevicePointer(&dev, p, 0);
+  if (err != cudaSuccess) {
+    cudaHostUnregister(p);
+    return err;
+  }
+  *static_cast<uint64_t*>(address) = reinterpret_cast<uint64_t>(dev);
+  return 0;
+}
+
+// Undoes glt_host_register.
+extern "C" int glt_host_unregister(const void* ptr, int device) {
+  glt::DeviceGuard guard(device);
+  if (guard.err != CUDA_SUCCESS) return guard.err;
+  return cudaHostUnregister(const_cast<void*>(ptr));
 }
 
 GLT_MODULE(gather_rows,
-           GLT_ENTRY(glt_gather_rows))
+           GLT_ENTRY(glt_gather_rows),
+           GLT_ENTRY(glt_gather_rows_mixed),
+           GLT_ENTRY(glt_host_register),
+           GLT_ENTRY(glt_host_unregister))

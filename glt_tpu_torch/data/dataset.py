@@ -38,9 +38,12 @@ class Dataset:
     COO ``edge_index`` on ``device`` (default: the card), with optional
     per-edge ``edge_weights`` (homogeneous; weighted sampling reads
     them). Hetero: ``edge_index`` (and ``edge_ids``) are dicts keyed by
-    EdgeType and ``num_nodes`` a dict keyed by NodeType (or one int for
-    every type); each edge type compresses into a rectangular graph over
-    its (src, dst) node counts."""
+    EdgeType, and each edge type compresses into a rectangular graph
+    over its (src, dst) node counts. ``num_nodes`` is then a dict keyed
+    by NodeType (an edge type either of whose ends it names reads both
+    ends from it), a dict keyed by EdgeType (a square count for that
+    type), or one int for every type, as in the JAX package. An axis
+    with no count is one past its largest id."""
     device = resolve_device(device)
     layout = 'CSR' if self.edge_dir == 'out' else 'CSC'
     if not isinstance(edge_index, dict):
@@ -54,9 +57,12 @@ class Dataset:
     self.graph = {}
     for etype, ei in edge_index.items():
       src_t, _, dst_t = etype
-      n_src, n_dst = ((num_nodes.get(src_t), num_nodes.get(dst_t))
-                      if isinstance(num_nodes, dict)
-                      else (num_nodes, num_nodes))
+      if not isinstance(num_nodes, dict):
+        n_src = n_dst = num_nodes
+      elif src_t in num_nodes or dst_t in num_nodes:
+        n_src, n_dst = num_nodes.get(src_t), num_nodes.get(dst_t)
+      else:
+        n_src = n_dst = num_nodes.get(etype)
       eid = edge_ids.get(etype) if isinstance(edge_ids, dict) else None
       # the pointer axis: src of a CSR, dst of a CSC
       n_rows, n_cols = (n_src, n_dst) if layout == 'CSR' else (n_dst, n_src)
@@ -65,17 +71,38 @@ class Dataset:
       self.graph[etype] = Graph(topo, device=device)
     return self
 
-  def init_node_features(self, node_feature_data,
-                         dtype: Optional[torch.dtype] = None,
-                         device=None) -> 'Dataset':
-    """One table, or a dict of per-type tables keyed by NodeType."""
+  def init_node_features(self, node_feature_data, sort_func=None,
+                         split_ratio: float = 1.0,
+                         dtype: Optional[torch.dtype] = None, device=None,
+                         host_offload: Optional[bool] = None
+                         ) -> 'Dataset':
+    """One table, or a dict of per-type tables keyed by NodeType, each a
+    :class:`Feature` with ``split_ratio`` of its rows on the card and
+    the rest in host memory (pinned unless ``host_offload=False``).
+    ``sort_func`` (e.g. :func:`~glt_tpu_torch.data.reorder.
+    sort_by_in_degree`) reorders a homogeneous table over the graph's
+    topology, hottest rows first, and its old -> new map becomes the
+    Feature's ``id2index``, so lookups keep taking the original ids."""
+    def build(feats, topo=None):
+      id2index = None
+      if sort_func is not None and topo is not None:
+        feats, id2index = sort_func(as_numpy(feats), split_ratio, topo)
+      return Feature(feats, split_ratio=split_ratio, id2index=id2index,
+                     device=device, dtype=dtype, host_offload=host_offload)
+
     if isinstance(node_feature_data, dict):
-      self.node_features = {
-          t: Feature(f, device=device, dtype=dtype)
-          for t, f in node_feature_data.items()}
+      if sort_func is not None:
+        # the JAX package sorts a type by the first edge type whose
+        # pointer type it is (_topo_for_node_type), which for a CSR counts
+        # the in-degrees of the edge type's other end; no ported caller
+        raise NotImplementedError('sorting hetero feature tables is not '
+                                  'ported')
+      self.node_features = {t: build(f)
+                            for t, f in node_feature_data.items()}
     else:
-      self.node_features = Feature(node_feature_data, device=device,
-                                   dtype=dtype)
+      self.node_features = build(
+          node_feature_data,
+          self.graph.topo if isinstance(self.graph, Graph) else None)
     return self
 
   def init_node_labels(self, node_label_data) -> 'Dataset':

@@ -30,9 +30,10 @@ class Topology:
   Bipartite edge types compress with independent axis sizes:
   ``num_rows`` (the pointer axis of the layout: the src type of a CSR,
   the dst type of a CSC) and ``num_cols`` (the other endpoint's type);
-  ``num_nodes`` sets both for a square graph. Given none of the three,
-  the graph is square over one past the largest id; given one axis, the
-  other defaults to one past its largest id.
+  ``num_nodes`` sets both for a square graph. An axis given no size is
+  one past its own largest id (the pointer axis past the largest
+  pointer id, the other past the largest other id), as the JAX package
+  sizes it.
 
   ``indptr`` is int64 (graphs past 2^31 edges must not wrap; the device
   copy narrows it), ``indices`` int32, and ``edge_ids[k]`` the original
@@ -54,8 +55,6 @@ class Topology:
     row, col = edge_index[0], edge_index[1]
     if layout == 'CSC':
       row, col = col, row
-    if num_nodes is None and num_rows is None and num_cols is None:
-      num_nodes = int(edge_index.max()) + 1 if edge_index.numel() else 0
     if num_nodes is not None:
       num_rows = num_nodes if num_rows is None else num_rows
       num_cols = num_nodes if num_cols is None else num_cols

@@ -12,10 +12,9 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
-from glt_tpu_torch.data import Dataset
+from glt_tpu_torch.examples.common import synthetic_products
 from glt_tpu_torch.loader import LinkNeighborLoader
 from glt_tpu_torch.models import GraphSAGE
 from glt_tpu_torch.parallel import SageTrainStep, link_bce_loss
@@ -23,26 +22,6 @@ from glt_tpu_torch.sampler import NegativeSampling
 from glt_tpu_torch.utils import resolve_device
 
 FANOUTS, HIDDEN, EMBED, LR = [8, 4], 128, 64, 3e-3
-
-
-def synthetic_products(num_nodes=3_000, avg_degree=25, feat_dim=100,
-                       num_classes=47, seed=0, device=None):
-  """The ogbn-products-shaped synthetic graph of examples/common.py (the
-  same numpy draws): square-uniform in-degree skew, normal features,
-  learnable labels, the 0.1/0.1 node split; on ``device``."""
-  rng = np.random.default_rng(seed)
-  e = num_nodes * avg_degree
-  src = rng.integers(0, num_nodes, e, dtype=np.int64)
-  dst = (rng.random(e) ** 2 * num_nodes).astype(np.int64) % num_nodes
-  feats = rng.normal(size=(num_nodes, feat_dim)).astype(np.float32)
-  w = rng.normal(size=(feat_dim, num_classes)).astype(np.float32)
-  labels = np.argmax(feats @ w, axis=1).astype(np.int32)
-  ds = Dataset(edge_dir='out')
-  ds.init_graph(np.stack([src, dst]), num_nodes=num_nodes, device=device)
-  ds.init_node_features(feats, device=device)
-  ds.init_node_labels(labels)
-  ds.random_node_split(num_val=0.1, num_test=0.1)
-  return ds, num_classes
 
 
 def main(argv: Optional[Sequence[str]] = None) -> float:

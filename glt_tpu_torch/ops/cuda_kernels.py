@@ -12,6 +12,8 @@ that it went through the kernels.
 wrapper                       replaces (glt_tpu/ops/...)        source
 ============================  ================================  ==========
 ``gather_rows``               pallas_kernels.py:236             csrc/gather_rows.cu
+``gather_rows_mixed``         data/feature.py:36 (no Pallas     csrc/gather_rows.cu
+                              source: compute_on's host read)
 ``dedup_table_insert``,       pallas_kernels.py:588 (+ the      csrc/dedup_table_insert.cu
 ``dedup_table_init``          seed phase, sample.py:587-593)
 ``sample_walk_dedup``         pallas_kernels.py:998 + the       csrc/sample_walk_dedup.cu
@@ -30,6 +32,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import offload
 from .build import lazy_entry
 from .sample import _row_spans, draw_offsets, walk_geometry
 
@@ -67,6 +70,7 @@ def reset_launch_counts() -> None:
 # caller may switch streams.
 
 glt_gather_rows = lazy_entry(globals(), 'glt_gather_rows')
+glt_gather_rows_mixed = lazy_entry(globals(), 'glt_gather_rows_mixed')
 glt_dedup_table_insert = lazy_entry(globals(), 'glt_dedup_table_insert')
 glt_dedup_table_init = lazy_entry(globals(), 'glt_dedup_table_init')
 glt_walk_dedup_blocks = lazy_entry(globals(), 'glt_walk_dedup_blocks')
@@ -150,6 +154,70 @@ def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
   return out
 
 
+def gather_rows_mixed_plain(hot: torch.Tensor, cold,
+                            rows: torch.Tensor) -> torch.Tensor:
+  """``out[i] = r < H ? hot[r] : cold[r - H]``, ``r = clamp(rows[i], 0,
+  H + C - 1)``, on ``hot``'s device: ``index_select`` on each block where
+  it lies (the cold block's rows cross to ``hot``'s device in one copy).
+  ``cold`` is a tensor or, as :func:`gather_rows_mixed` takes it, the
+  ``PinnedHost`` that holds one."""
+  if isinstance(cold, offload.PinnedHost):
+    cold = cold.tensor
+  h, c = hot.shape[0], cold.shape[0]
+  r = rows.reshape(-1).long().clamp(0, max(h + c - 1, 0))
+  if c == 0:
+    return hot.index_select(0, r.to(hot.device))
+  cold_rows = cold.index_select(0, (r - h).clamp(min=0).to(cold.device))
+  cold_rows = cold_rows.to(hot.device)
+  if h == 0:
+    return cold_rows
+  r = r.to(hot.device)
+  return torch.where((r < h)[:, None], hot.index_select(0, r.clamp(max=h - 1)),
+                     cold_rows)
+
+
+def gather_rows_mixed(hot: torch.Tensor, cold,
+                      rows: torch.Tensor) -> torch.Tensor:
+  """A split store's row gather, ``hot [H, D]`` on the card, ``cold`` the
+  ``utils.offload.PinnedHost`` of a ``[C, D]`` block that ``pin_host``
+  pinned and mapped for that card, ``rows [B]`` -> ``[B, D]`` on the card:
+  ``out[i] = r < H ? hot[r] : cold[r - H]`` with ``r = clamp(rows[i], 0,
+  H + C - 1)``, both blocks read in one launch in the layout of
+  :func:`gather_rows_layout` over both addresses. A CPU ``hot`` takes a
+  CPU tensor ``cold`` and runs :func:`gather_rows_mixed_plain`."""
+  if not hot.is_cuda:
+    return gather_rows_mixed_plain(hot, cold, rows)
+  if not isinstance(cold, offload.PinnedHost) or cold.device != hot.device:
+    raise TypeError(f'gather_rows_mixed on {hot.device} reads a cold block '
+                    'pinned and mapped for it (utils.offload.pin_host)')
+  cold_ptr, cold = cold.address, cold.tensor
+  for name, t in (('hot', hot), ('cold', cold)):
+    if t.dim() != 2 or not t.is_contiguous():
+      raise ValueError(f'gather_rows_mixed needs a contiguous [N, D] {name} '
+                       'block')
+  (h, d), c = hot.shape, cold.shape[0]
+  if cold.shape[1] != d or cold.dtype != hot.dtype:
+    raise ValueError(f'blocks differ: hot {tuple(hot.shape)} {hot.dtype}, '
+                     f'cold {tuple(cold.shape)} {cold.dtype}')
+  if h + c == 0 and rows.numel():
+    raise ValueError('gather_rows_mixed from an empty table')
+  dev = hot.device
+  rows = _i32(rows.reshape(-1), dev)
+  b = rows.numel()
+  out = torch.empty((b, d), dtype=hot.dtype, device=dev)
+  if b and d:
+    row_bytes = d * hot.element_size()
+    # an empty block takes no part in the layout
+    lay = _layout(row_bytes, ((hot.data_ptr() if h else 0)
+                              | (cold_ptr if c else 0)) % 16)
+    _check(glt_gather_rows_mixed(
+        hot.data_ptr(), h, cold_ptr, c, rows.data_ptr(), out.data_ptr(),
+        row_bytes, b, lay.lanes, int(lay.realign), lay.passes, *_where(dev)),
+        'gather_rows_mixed')
+    gather_rows_mixed.launches += 1
+  return out
+
+
 class RowLayout(NamedTuple):
   lanes: int      # T: threads a row, a power of two <= 32
   realign: bool   # rows shift against the output's 16-byte vectors
@@ -170,7 +238,8 @@ def _layout(row_bytes: int, base16: int) -> RowLayout:
 
 def gather_rows_layout(row_bytes: int, base: int) -> RowLayout:
   """How K3 copies rows of ``row_bytes`` bytes from a table at address
-  ``base`` (csrc/gather_rows.cu): T threads a row, T the power of two at
+  ``base`` (for a split store's two blocks, their addresses or-ed)
+  (csrc/gather_rows.cu): T threads a row, T the power of two at
   or above the output vectors a row touches (plus one for the neighbour
   vector when realigning), at most 32. Rows of one pass go two to a
   segment; a wider row takes several passes on 32 lanes, a segment to
@@ -855,6 +924,6 @@ def _refuse_windows(arr, starts, width):
   _check_window_inputs(arr, starts, width)
 
 
-KERNELS = (gather_rows, dedup_table_insert, sample_walk_dedup,
-           sample_hop_dedup, sample_hop, gather_windows)
+KERNELS = (gather_rows, gather_rows_mixed, dedup_table_insert,
+           sample_walk_dedup, sample_hop_dedup, sample_hop, gather_windows)
 reset_launch_counts()

@@ -7,11 +7,13 @@ the machine with the card it runs without the repository's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
 
-from glt_tpu_torch.data import Dataset, Topology
+from glt_tpu_torch.data import Dataset, Feature, Topology, gather_features
 from glt_tpu_torch.loader import NeighborLoader
 from glt_tpu_torch.models import RGNN, GraphSAGE
 from glt_tpu_torch.benchmarks import probe_compile
@@ -27,6 +29,8 @@ from glt_tpu_torch.serving import InferenceEngine
 from glt_tpu_torch.stream import (CompactionPolicy, SnapshotManager,
                                   StreamIngestor, StreamSampler)
 from glt_tpu_torch.typing import reverse_edge_type
+from glt_tpu_torch.utils import offload
+from glt_tpu_torch.utils.offload import pin_host
 
 pytestmark = pytest.mark.cuda
 
@@ -113,6 +117,97 @@ def test_gather_rows_sweep_matches_plain_and_index_select(dev, dtype, offset):
     assert torch.equal(got, K.gather_rows_plain(table, rows)), (width, lay)
     assert torch.equal(got, torch.index_select(
         table, 0, rows.clamp(0, n - 1))), (width, lay)
+
+
+@pytest.mark.parametrize('split', [0.0, 0.2, 1.0])
+@pytest.mark.parametrize('dtype,width', [(torch.float32, 100),
+                                         (torch.bfloat16, 101),
+                                         (torch.uint8, 7),
+                                         (torch.float32, 1024)])
+@pytest.mark.parametrize('hot_offset,cold_offset', [(0, 0), (1, 0), (0, 1)])
+def test_gather_rows_mixed_matches_plain(dev, split, dtype, width,
+                                         hot_offset, cold_offset):
+  # K3 over a split store: hot rows from the card, cold rows from pinned
+  # host memory, in one launch; the hot block, or the cold block, an
+  # element into its allocation; rows clamped at both ends, -1 lanes read
+  # row 0; equal to the plain twin and to the table's own K3 gather
+  g = torch.Generator(device=dev).manual_seed(width + hot_offset)
+  n = 3000
+  h = round(n * split)
+  table = _signed_or_bytes((n, width), dtype, g, dev)
+  hot_buf = _signed_or_bytes((h * width + hot_offset,), dtype, g, dev)
+  hot = hot_buf[hot_offset:].view(h, width)
+  hot.copy_(table[:h])
+  flat = table[h:].reshape(-1).cpu()
+  cold = pin_host(torch.cat([flat[:cold_offset], flat])[cold_offset:].view(
+      n - h, width), dev)
+  rows = torch.cat([torch.randint(-3, n + 3, (6000,), generator=g,
+                                  device=dev),
+                    torch.tensor([-1, 0, h - 1, h, n - 1, n], device=dev)])
+  before = K.gather_rows_mixed.launches
+  got = K.gather_rows_mixed(hot, cold, rows)
+  torch.cuda.synchronize()
+  assert K.gather_rows_mixed.launches == before + 1
+  assert got.device == hot.device
+  assert torch.equal(got, K.gather_rows_mixed_plain(hot, cold, rows))
+  assert torch.equal(got, K.gather_rows_plain(table, rows))
+
+
+def test_split_store_dropped_after_a_mixed_launch(dev):
+  # the store, and with it the pinned block's owner, goes straight after
+  # the launch: the card finishes reading the block before it is unmapped
+  g = torch.Generator(device=dev).manual_seed(23)
+  n = 400_000
+  x = torch.randn((n, 100), generator=g, device=dev)
+  rows = torch.randint(0, n, (2_000_000,), generator=g, device=dev)
+  want = K.gather_rows_plain(x, rows)
+  for _ in range(3):
+    store = Feature(x, split_ratio=0.2, device=dev)
+    got = gather_features(store, rows)
+    del store
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_split_feature_reads_both_blocks_in_one_launch(dev):
+  # a degree-sorted split store's gather: one mixed K3 launch, no copy of
+  # the cold block to the card, equal to the resident store and to the
+  # host phase
+  g = torch.Generator(device=dev).manual_seed(5)
+  n = 20_000
+  x = torch.randn((n, 100), generator=g, device=dev)
+  perm = torch.randperm(n, generator=g, device=dev).cpu().numpy()
+  split = Feature(x, split_ratio=0.2, id2index=perm, device=dev)
+  assert split.cold_array.device.type == 'cpu'
+  assert split.cold_pinned.tensor is split.cold_array
+  assert split.device_part.shape == (4000, 100)
+  node = torch.cat([torch.randint(0, n, (50_000,), generator=g, device=dev),
+                    torch.full((100,), -1, device=dev)])
+  K.reset_launch_counts()
+  got = gather_features(split, node)
+  assert (K.gather_rows_mixed.launches, K.gather_rows.launches) == (1, 0)
+  for other in (Feature(x, id2index=perm, device=dev),
+                Feature(x, split_ratio=0.2, id2index=perm, device=dev,
+                        host_offload=False)):
+    assert torch.equal(got, gather_features(other, node))
+  np.testing.assert_array_equal(split[np.arange(10)],
+                                x[torch.as_tensor(perm[:10])].cpu().numpy())
+
+
+def test_split_feature_raises_when_pinning_is_refused(dev, monkeypatch):
+  # no fallback: a refused pin or map raises, and an unmapped CPU block
+  # is never read (or copied to the card) by the kernel
+  x = np.ones((100, 8), np.float32)
+  monkeypatch.setattr(offload, 'glt_host_register', lambda *a: 1)
+  with pytest.raises(RuntimeError, match='pinning and mapping'):
+    Feature(x, split_ratio=0.2, device=dev)
+  Feature(x, split_ratio=1.0, device=dev)    # nothing spilled: no pin
+  Feature(x, split_ratio=0.2, device=dev, host_offload=False)
+  hot = torch.ones((20, 8), device=dev)
+  with pytest.raises(TypeError, match='pinned and mapped'):
+    K.gather_rows_mixed(hot, torch.ones((80, 8)), torch.arange(30,
+                                                               device=dev))
 
 
 def test_dedup_table_insert_matches_plain(dev):

@@ -2,7 +2,8 @@
 hetero models, loader and typing, the live-update stream, and the
 training slice's loaders, train step and profiling among them, the
 probe and microbench kernels and their benchmark entry points, and the
-link and SEAL modules with their two example scripts) and
+link and SEAL modules with their two example scripts, and the hot/cold
+feature tier's offload, reorder, products example and feature bench) and
 ``chip_smoke`` pulls in neither JAX nor the JAX package, and touches no
 card."""
 import os
@@ -42,6 +43,11 @@ print('BENCH', all(m in sys.modules for m in (
     'glt_tpu_torch.benchmarks.probe_compile',
     'glt_tpu_torch.benchmarks.microbench_gather',
     'glt_tpu_torch.ops.probe_kernels')))
+print('TIER', all(m in sys.modules for m in (
+    'glt_tpu_torch.utils.offload', 'glt_tpu_torch.data.reorder',
+    'glt_tpu_torch.examples.common',
+    'glt_tpu_torch.examples.train_sage_products',
+    'glt_tpu_torch.benchmarks.bench_feature')))
 import torch
 print('CUDA_INIT', torch.cuda.is_initialized())
 '''
@@ -59,4 +65,5 @@ def test_port_and_chip_smoke_import_no_jax():
   assert 'TRAIN True' in out.stdout, out.stdout
   assert 'BENCH True' in out.stdout, out.stdout
   assert 'LINK True' in out.stdout, out.stdout
+  assert 'TIER True' in out.stdout, out.stdout
   assert 'CUDA_INIT False' in out.stdout, out.stdout

@@ -23,6 +23,7 @@ from glt_tpu_torch.ops import cuda_kernels as K
 from glt_tpu_torch.ops.sample import walk_geometry
 from glt_tpu_torch.ops.unique import sorted_hop_dedup
 from glt_tpu_torch.utils import resolve_device
+from glt_tpu_torch.utils.offload import PinnedHost
 
 W = 8  # JAX window width: small enough that hub rows (deg > W) exist
 
@@ -99,23 +100,31 @@ def test_narrow_rows_match_pallas_kernel(dtype, width):
     np.testing.assert_array_equal(want, got.numpy())
 
 
-def _k3_lane_plan(mem, base, n, rb, rows, lay):
+def _k3_lane_plan(mem, blocks, rb, rows, lay):
   """csrc/gather_rows.cu's lane plan in numpy, over the bytes ``mem``
-  whose index 0 stands for a 16-byte-aligned address (the table's ``n``
-  rows of ``rb`` bytes start at byte ``base``), in the layout ``lay``.
-  Every vector load is checked to lie in its row's cover and inside the
-  table, every row to fit its lanes and passes; returns the output bytes
-  and 16 bytes of slack past them, which nothing may write."""
+  whose index 0 stands for a 16-byte-aligned address, in the layout
+  ``lay``. ``blocks`` is the table's ``[(base, n)]`` (rows of ``rb`` bytes
+  from byte ``base``), or a split store's ``[(hot base, H), (cold base,
+  C)]``, whose row r >= H lives at cold row r - H. Every vector load is
+  checked to lie in its row's cover and inside the row's own block, every
+  row to fit its lanes and passes; returns the output bytes and 16 bytes
+  of slack past them, which nothing may write."""
   lanes, realign, passes = lay
   per = lanes - realign
-  end = base + n * rb
+  n_rows = sum(n for _, n in blocks)
   out = np.full(rows.size * rb + 16, 0xA5, np.uint8)
 
   def put(o, lo, data):   # bytes at [lo, lo + len) of output vector o
     out[16 * o + lo:16 * o + lo + len(data)] = data
 
   for i, r in enumerate(rows):
-    src = base + min(max(int(r), 0), n - 1) * rb
+    r = min(max(int(r), 0), n_rows - 1)
+    base, n = blocks[0]
+    if r >= n:
+      r -= n
+      base, n = blocks[1]
+    end = base + n * rb
+    src = base + r * rb
     ob = i * rb
     oh = ob % 16 if realign else 0
     c0, c1 = src // 16, (src + rb - 1) // 16
@@ -148,14 +157,17 @@ def _k3_lane_plan(mem, base, n, rb, rows, lay):
 
 @pytest.mark.parametrize('offset', [0, 1, 2, 3])
 def test_gather_rows_layout_reads_only_each_rows_cover(offset):
-  # K3's layout at a table base `offset` bytes past a 16-byte boundary:
-  # every row fits its T lanes and passes, no lane loads a vector outside
-  # its row's cover or the table, nothing is written past the output, and
-  # the kernel's plan (realign, byte-exact pieces, the byte path of the
-  # table's edge rows) gathers exactly the clamped rows
+  # K3's layout at a table base `offset` bytes past a 16-byte boundary,
+  # and over a split store whose hot block starts there and whose cold
+  # block starts at another offset, past a gap: every row fits its T lanes
+  # and passes, no lane loads a vector outside its row's cover or its own
+  # block, nothing is written past the output, and the kernel's plan
+  # (realign, byte-exact pieces, the byte path of each block's edge rows)
+  # gathers exactly the clamped rows
   rng = np.random.default_rng(offset)
-  n, b = 24, 70
-  rows = np.concatenate([rng.integers(-2, n + 2, b - 4), [0, n - 1, -1, n]])
+  n, b, h = 24, 70, 9
+  rows = np.concatenate([rng.integers(-2, n + 2, b - 6),
+                         [0, n - 1, -1, n, h - 1, h]])
   base = 32 + offset
   for rb in [*range(1, 65), 200, 202, 400, 4096]:
     lay = K.gather_rows_layout(rb, base)
@@ -164,11 +176,67 @@ def test_gather_rows_layout_reads_only_each_rows_cover(offset):
     assert lay.realign == bool(rb % 16 or offset)
     assert lay.lanes > 1 or not lay.realign   # a neighbour to shuffle
     mem = rng.integers(0, 256, base + n * rb + 48, dtype=np.uint8)
-    got = _k3_lane_plan(mem, base, n, rb, rows, lay)
+    got = _k3_lane_plan(mem, [(base, n)], rb, rows, lay)
     want = mem[base:base + n * rb].reshape(n, rb)[np.clip(rows, 0, n - 1)]
     np.testing.assert_array_equal(got[:b * rb], want.reshape(-1),
                                   err_msg=f'row_bytes {rb}')
     assert (got[b * rb:] == 0xA5).all(), rb
+    # two blocks: hot rows [0, h) at `base`, cold rows [h, n) at a base
+    # 16 * 3 + (offset + 2) % 4 bytes past the hot block's end
+    cold = base + h * rb + 48 + (offset + 2) % 4
+    lay = K.gather_rows_layout(rb, base | cold)
+    assert lay.realign == bool(rb % 16 or offset or cold % 16)
+    mem = rng.integers(0, 256, cold + (n - h) * rb + 48, dtype=np.uint8)
+    got = _k3_lane_plan(mem, [(base, h), (cold, n - h)], rb, rows, lay)
+    table = np.concatenate([mem[base:base + h * rb],
+                            mem[cold:cold + (n - h) * rb]]).reshape(n, rb)
+    np.testing.assert_array_equal(got[:b * rb],
+                                  table[np.clip(rows, 0, n - 1)].reshape(-1),
+                                  err_msg=f'two blocks, row_bytes {rb}')
+    assert (got[b * rb:] == 0xA5).all(), rb
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('split', [0.0, 0.3, 1.0])
+def test_gather_rows_mixed_matches_jax_mixed_gather(dtype, split):
+  # the split store's gather (on the CPU its plain version) against the
+  # JAX store's gather_mixed over a pinned-host cold block, on every lane
+  # but -1, which the port clamps to row 0 and jnp.take wraps; rows past
+  # the end read row N - 1 on both
+  from glt_tpu.data import Feature as JaxFeature
+  rng = np.random.default_rng(12)
+  n, d = 30, 11
+  table = rng.standard_normal((n, d)).astype(np.float32)
+  rows = np.concatenate([rng.integers(0, n, 40), [0, n - 1, n, n + 7, -1]])
+  rows = rows.astype(np.int32)
+  jdt, pdt = ((jnp.bfloat16, torch.bfloat16) if dtype == 'bfloat16'
+              else (jnp.float32, torch.float32))
+  jf = JaxFeature(table, split_ratio=split, dtype=jdt)
+  h = jf.hot_count
+  pt = torch.as_tensor(table).to(pdt)
+  got = K.gather_rows_mixed(pt[:h], pt[h:], torch.as_tensor(rows))
+  assert K.gather_rows_mixed.launches == 0  # the CPU runs the plain version
+  np.testing.assert_array_equal(
+      got.view(torch.int16).numpy() if pdt == torch.bfloat16 else got.numpy(),
+      K.gather_rows_plain(pt, torch.as_tensor(rows)).view(
+          torch.int16 if pdt == torch.bfloat16 else pdt).numpy())
+  if split == 1.0:
+    return       # nothing spilled: the JAX store has no gather_mixed
+  want = np.asarray(jf.gather_mixed(jnp.asarray(rows))).astype(np.float32)
+  np.testing.assert_array_equal(got.float().numpy()[:-1], want[:-1])
+
+
+def test_gather_rows_mixed_plain_takes_the_pinned_owner():
+  # the plain twin takes the wrapper's arguments, so a path swapped to
+  # plain versions may hand it a split store's PinnedHost
+  rng = np.random.default_rng(4)
+  table = torch.as_tensor(rng.standard_normal((20, 6)).astype(np.float32))
+  rows = torch.as_tensor(rng.integers(-2, 23, 50))
+  owner = PinnedHost(table[8:], 0, torch.device('cuda', 0))
+  got = K.gather_rows_mixed_plain(table[:8], owner, rows)
+  assert torch.equal(got, K.gather_rows_mixed_plain(table[:8], table[8:],
+                                                    rows))
+  assert torch.equal(got, K.gather_rows_plain(table, rows))
 
 
 # -- dedup_table_insert -------------------------------------------------------
