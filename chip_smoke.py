@@ -7,7 +7,8 @@ three serving paths through InferenceEngine.infer, the two training
 paths through NeighborLoader and SageTrainStep, link prediction through
 LinkNeighborLoader and SageTrainStep, a SubGraphLoader batch, SEAL
 through its example's run, training from a hot/cold split feature store,
-the feature bench, and the two benchmark entry points through their main
+the feature bench, superstep training through SPMDSageTrainStep and the
+training bench, and the two benchmark entry points through their main
 functions, and checks what comes out:
 
 - homogeneous: a seeded 3-layer GraphSAGE (hidden 256, 47 classes, 100
@@ -69,6 +70,18 @@ functions, and checks what comes out:
   resident sorted table; a bucket-256 request against the resident
   store's logits; then glt_tpu_torch.benchmarks.bench_feature at its
   defaults (2M x 128 float32, batch 200K, split 0.2) in a subprocess;
+- superstep training (the JAX package's SPMDSageTrainStep as
+  benchmarks/bench_train.py drives it): a one-rank mesh, a ShardedFeature
+  of the products table (the exchange lookup, K3 serving the rows), batch
+  1024, [15, 10, 5], the same GraphSAGE and Adam, windows of K = 8
+  batches, each window length one CUDA graph; the sampling window held
+  against 8 walks and the exchange against the plain gather; two
+  windows against their 16 per-batch calls; run_epoch twice over an
+  epoch of 19 batches staged on the card (two captures, then none); the
+  body against its plain versions; the same epoch over a split-0.2
+  shard (K3 mixed inside the graph) and with cold streaming; then the
+  per-batch against superstep bench at the JAX defaults (in a
+  subprocess) and at this width;
 - repairs: the walk at fanouts [100] and [3, 80] over a graph whose hub
   rows (degree 200-2000) exceed them, and the feature gather on bf16 rows
   of width 101 and uint8 rows of width 7, each against its plain version;
@@ -2178,6 +2191,377 @@ def split_phases(torch, np, K, ds, dev, seed, smi):
   return split['launches'], mixed
 
 
+# superstep training (SPMDSageTrainStep at products-sage's width): windows of
+# K = 8 batches of 1024 seeds; an epoch of 19 batches (two full windows and
+# a tail of 3, its last batch ragged)
+SS_K, SS_BATCHES, SS_RAGGED = 8, 19, 300
+SS_SPLIT = 0.2
+# a split or streaming epoch against the resident one: the same weights,
+# batches and uniforms, so the first step's loss differs only by the
+# forward's float atomics; each later step also carries the other run's
+# atomics through the Adam updates before it (19 steps)
+FIRST_LOSS_TOL, EPOCH_LOSS_TOL = 1e-5, 1e-3
+
+
+def superstep_phases(torch, np, K, ds, dev, seed, smi):
+  """The data-parallel trainer at products-sage's width on a one-rank
+  mesh: the epoch staged on the card and trained window by window, each
+  window length captured once in a CUDA graph and replayed; then over a
+  split ShardedFeature (K3 mixed inside the graph) and with cold
+  streaming; then the per-batch against superstep bench at the JAX
+  defaults and at this width. Returns, for each path (``superstep``,
+  ``superstep_split``, ``superstep_streaming``), its kernel launches
+  (eager plus graph replays) and those its graph replays made, by
+  wrapper name."""
+  from glt_tpu_torch.benchmarks import bench_train
+  from glt_tpu_torch.models import GraphSAGE
+  from glt_tpu_torch.ops.pipeline import multihop_sample, multihop_sample_many
+  from glt_tpu_torch.ops.sample import walk_hop_uniforms
+  from glt_tpu_torch.parallel import (ShardedFeature, SPMDSageTrainStep,
+                                      make_mesh, sage_loss)
+  from glt_tpu_torch.typing import Split
+
+  g = ds.get_graph()
+  table = ds.get_node_feature().table
+  labels = ds.node_labels
+  train_idx = ds.get_split(Split.train)
+  n_seeds = SS_BATCHES * TRAIN_BATCH - SS_RAGGED
+  with Phase('superstep data'):
+    mesh = make_mesh(device=dev)
+    sf = ShardedFeature(table, mesh)
+    torch.cuda.synchronize()
+
+    def trainer(store=sf, **kw):
+      torch.manual_seed(seed)
+      return SPMDSageTrainStep(
+          mesh, GraphSAGE(FEAT_DIM, HIDDEN, CLASSES, num_layers=3).to(dev),
+          g, store, labels, list(FANOUTS), TRAIN_BATCH, lr=LR, seed=seed,
+          **kw)
+
+    def loader(step):
+      return step.make_epoch_loader(train_idx[:n_seeds], superstep_len=SS_K,
+                                    rng=np.random.default_rng(seed))
+    rng = np.random.default_rng(seed + 15)
+    ugen = torch.Generator(device=dev).manual_seed(seed + 16)
+
+    def window(t=SS_K):
+      """Seeds [t, 1024] from the training split, the last batch ragged,
+      and their uniforms per hop [t, 1, S, K]."""
+      seeds = rng.choice(train_idx, (t, TRAIN_BATCH))
+      nv = np.full((t, 1), TRAIN_BATCH)
+      nv[-1] = TRAIN_BATCH - SS_RAGGED
+      draws = [walk_hop_uniforms(ugen, TRAIN_BATCH, FANOUTS, False, dev)
+               for _ in range(t)]
+      return seeds, nv, [torch.stack(h)[:, None] for h in zip(*draws)]
+    print(f'superstep: one rank on {dev}, ShardedFeature of '
+          f'{tuple(table.shape)} float32 ({sf.rows_per_shard} rows a '
+          f'shard), {train_idx.size} training seeds; an epoch of '
+          f'{n_seeds} seeds: {SS_BATCHES} batches of {TRAIN_BATCH}, windows '
+          f'of {SS_K} and a tail of {SS_BATCHES % SS_K}')
+
+  with Phase('superstep kernel checks'):
+    # the sampling window (multihop_sample_many, one K1 launch a batch)
+    # against K single walks on the same uniforms, and the exchange's
+    # served rows (K3) against the plain gather of the same nodes
+    step = trainer()
+    seeds, nv, u = window()
+    s_dev = torch.as_tensor(seeds, device=dev, dtype=torch.int32)
+    nv_dev = torch.as_tensor(nv[:, 0], device=dev, dtype=torch.int32)
+    uu = [x[:, 0].contiguous() for x in u]
+    K.reset_launch_counts()
+    many = multihop_sample_many(step._plan, s_dev, nv_dev, FANOUTS,
+                                u_stack=uu)
+    if K.sample_walk_dedup.launches != SS_K:
+      raise AssertionError('the sampling window is not one walk a batch')
+    for t in range(SS_K):
+      one = multihop_sample(step._plan, s_dev[t], nv_dev[t], FANOUTS,
+                            u_hops=[x[t] for x in uu])
+      for key, v in one.items():
+        if not torch.equal(v, many[key][t]):
+          raise AssertionError(f'multihop_sample_many {key} differs from '
+                               f'walk {t}')
+    node = many['node'][0]
+    valid = torch.arange(node.numel(), device=dev) < many['node_count'][0]
+    before = K.gather_rows.launches
+    x = sf.lookup_local(node.clamp(min=0), valid)
+    if K.gather_rows.launches != before + 1:
+      raise AssertionError('the exchange did not serve through one K3 launch')
+    want = torch.where(valid[:, None], K.gather_rows_plain(
+        table, node.clamp(min=0)), torch.zeros((), device=dev))
+    if not torch.equal(x, want):
+      raise AssertionError('the exchange rows differ from the plain gather')
+    print(f'sampling window of {SS_K}: bit-identical to {SS_K} walks on every '
+          f'output ({int(many["node_count"].sum())} nodes, '
+          f'{int(many["edge_mask"].sum())} edges); exchange of '
+          f'{node.numel()} lanes ({int(valid.sum())} valid): bit-identical '
+          'to the plain gather')
+    # a capped exchange (a quarter of the lanes a bucket): the per-batch
+    # drain reads its round count back, a captured body runs the worst
+    # case; both against the uncapped exchange
+    cap = node.numel() // 4
+    capped = ShardedFeature(table, mesh, bucket_cap=cap)
+    ids = node.clamp(min=0)
+    times = {}
+    for name, static in (('drain', False), ('static', True)):
+      if not torch.equal(capped.lookup_local(ids, valid, static), x):
+        raise AssertionError(f'the capped exchange ({name}) differs')
+      times[name] = cuda_ms(torch, lambda i=0, st=static: capped.lookup_local(
+          ids, valid, st), 10)
+    uncapped = cuda_ms(torch, lambda i=0: sf.lookup_local(ids, valid), 10)
+    rounds = -(-int(valid.sum()) // cap)
+    print(f'capped exchange (cap {cap}): bit-identical; the drain '
+          f'({rounds} rounds read back) {times["drain"]:.4f} ms, the static '
+          f'worst case ({-(-node.numel() // cap)} rounds) '
+          f'{times["static"]:.4f} ms, uncapped {uncapped:.4f} ms')
+    del many, one, node, x, want, step, capped
+
+  with Phase('superstep main path'):
+    # (1) a captured window against its batches a call at a time
+    a, b = trainer(), trainer()
+    got, want = [], []
+    for w in range(2):
+      seeds, nv, u = window()
+      got.append(a.superstep(seeds, nv, u))
+      want.append(torch.stack([b(seeds[t], nv[t], [x[t] for x in u])
+                               for t in range(SS_K)]))
+    got, want = torch.cat(got).cpu(), torch.cat(want).cpu()
+    diff = float((got - want).abs().max())
+    if (a.superstep_captures, a.graph_replays) != (1, 1) or \
+        not diff <= LOSS_TOL:
+      raise AssertionError(f'window vs per-batch: captures '
+                           f'{a.superstep_captures}, replays '
+                           f'{a.graph_replays}, losses differ by {diff}')
+    print(f'two windows of {SS_K} (eager + capture, then a replay) against '
+          f'{2 * SS_K} per-batch calls: losses within {diff:.3e} (tolerance '
+          f'{LOSS_TOL}); capture {a.capture_seconds[0] * 1e3:.1f} ms')
+    del a, b
+    torch.cuda.empty_cache()
+    # (2) run_epoch: two epochs, every launch counted from here
+    step = trainer()
+    ld = loader(step)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    epochs, secs, caps = [], [], []
+    for _ in range(2):
+      t0 = time.perf_counter()
+      epochs.append(step.run_epoch(ld))
+      torch.cuda.synchronize()
+      secs.append(time.perf_counter() - t0)
+      caps.append(step.superstep_captures)
+    eager, replayed, launches = path_launches(K, step)
+    peak = torch.cuda.max_memory_allocated() - base
+    resident_losses = epochs[0].cpu()
+    losses = torch.cat(epochs).cpu().numpy()
+    if caps != [2, 2] or not np.isfinite(losses).all() or \
+        losses.shape != (2 * SS_BATCHES,):
+      raise AssertionError(f'run_epoch: captures {caps}, losses {losses}')
+    bodies = SS_K + SS_BATCHES % SS_K      # the bodies run eagerly
+    for name in ('sample_walk_dedup', 'gather_rows'):
+      if (eager[name], launches[name]) != (bodies, 2 * SS_BATCHES):
+        raise AssertionError(
+            f'{name}: {eager[name]} eager launches and {replayed.get(name)} '
+            f'by replays, expected {bodies} and {2 * SS_BATCHES - bodies}')
+    print_windows(step)
+    ms = secs[1] * 1e3 / SS_BATCHES
+    print(f'run_epoch x 2 ({SS_BATCHES} batches each): captures after each '
+          f'epoch {caps}, capture ms {[round(s * 1e3, 1) for s in step.capture_seconds]}, '
+          f'graph replays {step.graph_replays}; loss {losses[0]:.4f} -> '
+          f'{losses[-1]:.4f}; epoch 1 {secs[0]:.3f} s (two eager windows and '
+          f'their captures), epoch 2 {secs[1]:.3f} s ({ms:.3f} ms a step, '
+          f'{1e3 / ms:.2f} steps/s, all replays); launches {launches}: '
+          f'eager {eager}, by graph replays {replayed}; peak '
+          f'{peak / 2**30:.3f} GiB above {base / 2**30:.3f} GiB resident; '
+          f'on {smi}')
+    ss_paths = {'superstep': (launches, replayed)}
+
+  with Phase('superstep main path vs plain'):
+    seeds, nv, u = window(1)
+    s0 = torch.as_tensor(seeds[0], device=dev, dtype=torch.int32)
+    n0 = torch.tensor(int(nv[0, 0]), device=dev, dtype=torch.int32)
+    uh = [x[0, 0] for x in u]
+    fields = ('node', 'node_count', 'row', 'col', 'edge_mask', 'x', 'y')
+    with torch.no_grad():
+      bk = step.make_batch(s0, n0, uh)
+      lk = float(sage_loss(step.model, bk))
+      with swapped_to_plain(K, ('sample_walk_dedup', 'gather_rows')):
+        bp = step.make_batch(s0, n0, uh)
+        lp = float(sage_loss(step.model, bp))
+    f = differing_field(torch, bk, bp, fields)
+    if f is not None:
+      raise AssertionError(f'superstep batch.{f} differs from plain')
+    if not abs(lk - lp) <= LOSS_TOL * max(1.0, abs(lp)):
+      raise AssertionError(f'superstep body loss {lk} vs plain {lp}')
+    print(f'the batch body ({int(bk.node_count)} nodes, ragged at '
+          f'{int(n0)} seeds): bit-identical to plain; loss {lk:.6f} vs '
+          f'plain {lp:.6f} (|diff| {abs(lk - lp):.3e}, tolerance {LOSS_TOL})')
+    del bk, bp, step
+    torch.cuda.empty_cache()
+
+  def epoch_beside(label, store, epochs, **kw):
+    """``epochs`` epochs of a fresh trainer over ``store``: its first
+    epoch's losses against the resident run's (same weights, batches and
+    uniforms), each epoch's ms a step and its launches (eager, by graph
+    replays, both). Returns the trainer, the launches and those of its
+    replays."""
+    step = trainer(store, **kw)
+    ld = loader(step)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    runs, ms = [], []
+    for _ in range(epochs):
+      t0 = time.perf_counter()
+      runs.append(step.run_epoch(ld).cpu())
+      torch.cuda.synchronize()
+      ms.append((time.perf_counter() - t0) * 1e3 / SS_BATCHES)
+    losses = runs[0]
+    eager, replayed, launches = path_launches(K, step)
+    diffs = (losses - resident_losses).abs()
+    first, diff = float(diffs[0]), float(diffs.max())
+    if not (first <= FIRST_LOSS_TOL and diff <= EPOCH_LOSS_TOL) or \
+        step.superstep_captures != 2:
+      raise AssertionError(f'{label}: losses differ from resident by '
+                           f'{first} at the first step, {diff} at most; '
+                           f'captures {step.superstep_captures}')
+    print_windows(step)
+    print(f'{label}: ms a step by epoch {[round(m, 3) for m in ms]} (the '
+          f'resident epochs {[round(t * 1e3 / SS_BATCHES, 3) for t in secs]});'
+          f' losses against resident: first step {first:.3e} (tolerance '
+          f'{FIRST_LOSS_TOL}), at most {diff:.3e} (tolerance '
+          f'{EPOCH_LOSS_TOL}); launches {launches}: eager {eager}, by graph '
+          f'replays {replayed}; on {smi}')
+    return step, launches, replayed
+
+  with Phase('superstep split'):
+    # the exchange over each spilled shard against the plain gather of
+    # the kernel checks' batch: the pinned one reads hot and cold rows in
+    # one K3 mixed launch; the host-spilled one's lookup adds its cold
+    # rows on the host
+    want = torch.where(valid[:, None], K.gather_rows_plain(table, ids),
+                       torch.zeros((), device=dev))
+    split = ShardedFeature(table, mesh, split_ratio=SS_SPLIT)
+    if split.cold_pinned is None:
+      raise AssertionError('the split shard did not pin its cold block')
+    before = K.gather_rows_mixed.launches
+    got = split.lookup_local(ids, valid)
+    if K.gather_rows_mixed.launches != before + 1:
+      raise AssertionError('the split exchange is not one K3 mixed launch')
+    if not torch.equal(got, want):
+      raise AssertionError('the split exchange rows differ from the plain '
+                           'gather')
+    stream = ShardedFeature(table, mesh, split_ratio=SS_SPLIT,
+                            host_offload=False)
+    if not torch.equal(stream.lookup(ids, valid), want):
+      raise AssertionError('the host-spilled lookup differs from the plain '
+                           'gather')
+    cold = int((valid & (ids >= split.hot_count)).sum())
+    print(f'split {SS_SPLIT} exchange of {ids.numel()} lanes '
+          f'({int(valid.sum())} valid, {cold} cold): pinned (one K3 mixed '
+          'launch) and host-spilled (lookup + host rows) both bit-identical '
+          'to the plain gather')
+    del got, want
+    step, launches, replayed = epoch_beside(
+        f'split {SS_SPLIT} (pinned cold block, K3 mixed in the graph)', split,
+        2)
+    if (launches['gather_rows_mixed'], launches['sample_walk_dedup'],
+        launches['gather_rows']) != (2 * SS_BATCHES, 2 * SS_BATCHES, 0):
+      raise AssertionError('the split path did not gather through K3 mixed '
+                           'once a batch')
+    ss_paths['superstep_split'] = (launches, replayed)
+    del split, step
+    torch.cuda.empty_cache()
+    step, launches, replayed = epoch_beside(
+        f'split {SS_SPLIT} cold streaming (host staging, prefetch thread)',
+        stream, 2, cold_streaming=True)
+    if (launches['gather_rows'], launches['sample_walk_dedup']) != (
+        2 * SS_BATCHES, 2 * SS_BATCHES) or replayed.get('sample_walk_dedup'):
+      raise AssertionError('the streaming path did not sample eagerly and '
+                           'gather through K3 once a batch')
+    ss_paths['superstep_streaming'] = (launches, replayed)
+    stream_parts(torch, np, K, step, stream, window(), dev)
+    del stream, step
+    torch.cuda.empty_cache()
+
+  with Phase('train bench'):
+    out = subprocess.run(
+        [sys.executable, '-m', 'glt_tpu_torch.benchmarks.bench_train',
+         '--superstep-ab'], capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+      raise AssertionError(f'bench_train failed: {out.stderr[-2000:]}')
+    small = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f'bench_train (JAX defaults): {json.dumps(small)}')
+    big = bench_train.measure_engines(
+        data=(ds, table, labels), feat_dim=FEAT_DIM, batch_size=TRAIN_BATCH,
+        fanout=FANOUTS, hidden=HIDDEN, num_classes=CLASSES, k=SS_K,
+        supersteps=6, warmup=2, seed=seed, device=dev)
+    print(f'bench_train (products-sage width): {json.dumps(big)}')
+    print(f'bench on {smi}')
+    torch.cuda.empty_cache()
+  return ss_paths
+
+
+def path_launches(K, step):
+  """A superstep path's launches by wrapper name since the last reset:
+  those run eagerly (the wrappers' counts), those the trainer's graph
+  replays made, and their sum."""
+  eager = {fn.__name__: fn.launches for fn in K.KERNELS}
+  replayed = step.graph_launches()
+  return eager, replayed, {n: v + replayed.get(n, 0)
+                           for n, v in eager.items()}
+
+
+def print_windows(step):
+  """Each captured window of ``step``: the launches recorded in its graph
+  and its replays."""
+  for (kind, t), w in step.windows.items():
+    rec = {n: v for n, v in w.recorded.items() if v}
+    print(f'  {kind} window of {t}: recorded {rec}, replayed {w.replays} '
+          'times')
+
+
+def stream_parts(torch, np, K, step, store, win, dev):
+  """One cold-streaming window of ``step`` timed whole (sample, stage,
+  consume, unpipelined) and its host-side parts timed apart: the walks
+  and the read-back of their nodes, the host gather of the cold rows,
+  their pageable copy to the card, and a device copy of the same bytes
+  (what filling the graph's static buffer costs)."""
+  from glt_tpu_torch.ops.pipeline import multihop_sample_many
+  seeds, nv, u = win
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  step.superstep(seeds, nv, u)
+  torch.cuda.synchronize()
+  whole = time.perf_counter() - t0
+  s_dev = torch.as_tensor(seeds, device=dev, dtype=torch.int32)
+  nv_dev = torch.as_tensor(nv[:, 0], device=dev, dtype=torch.int32)
+  t = [time.perf_counter()]
+  outs = multihop_sample_many(step._plan, s_dev, nv_dev, list(FANOUTS),
+                              u_stack=[x[:, 0].contiguous() for x in u])
+  nodes, counts = outs['node'].cpu(), outs['node_count'].cpu()
+  t.append(time.perf_counter())
+  cold = store.stage_cold_rows(nodes, counts[:, None])
+  t.append(time.perf_counter())
+  cold_dev = torch.as_tensor(cold).to(dev)
+  torch.cuda.synchronize()
+  t.append(time.perf_counter())
+  buf = torch.empty_like(cold_dev)
+  torch.cuda.synchronize()
+  t.append(time.perf_counter())
+  buf.copy_(cold_dev)
+  torch.cuda.synchronize()
+  t.append(time.perf_counter())
+  parts = dict(zip(('sample_and_read_back', 'host_gather', 'to_card',
+                    'static_copy'), np.diff(t)[[0, 1, 2, 4]] * 1e3))
+  print(f'cold streaming, one window of {seeds.shape[0]} unpipelined: '
+        f'{whole * 1e3:.1f} ms ({whole * 1e3 / seeds.shape[0]:.1f} ms a '
+        f'step); its parts timed apart (ms): '
+        + ', '.join(f'{k} {v:.1f}' for k, v in parts.items())
+        + f'; the staged block {tuple(cold.shape)} {cold.dtype} '
+        f'({cold.nbytes / 2**30:.2f} GiB)')
+  del outs, cold, cold_dev, buf
+
+
 def main() -> int:
   ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
   ap.add_argument('--seed', type=int, default=0,
@@ -2511,6 +2895,8 @@ def main() -> int:
   torch.cuda.empty_cache()
   split_launches, mixed = split_phases(torch, np, K, ds, dev, opts.seed, smi)
   torch.cuda.empty_cache()
+  ss_paths = superstep_phases(torch, np, K, ds, dev, opts.seed, smi)
+  torch.cuda.empty_cache()
   rows['sample_walk_dedup'] = dict(
       walk[256], shapes={f'B={b}' if isinstance(b, int) else b: row
                          for b, row in walk.items()})
@@ -2552,7 +2938,9 @@ def main() -> int:
              'stream': stream_launches, 'train': train_launches,
              'train_uniform': uniform_launches, 'link': link_launches,
              'subgraph': sub_launches, 'seal': seal_launches,
-             'split': split_launches, 'probe': probe_launches,
+             'split': split_launches,
+             **{p: v[0] for p, v in ss_paths.items()},
+             'probe': probe_launches,
              'microbench': micro_launches}
   # row: (its wrapper, source, the TPU kernel it replaces)
   replaces = {
@@ -2633,7 +3021,10 @@ def main() -> int:
                ((wrappers,) if isinstance(wrappers, str) else wrappers))
 
   # launches: the main paths together; launches_by_path: each path's own
-  # (K3's row: gather_rows and gather_rows_mixed, one kernel source);
+  # (K3's row: gather_rows and gather_rows_mixed, one kernel source), on a
+  # superstep path the eager launches plus those of its graphs' replays;
+  # replayed_by_path: those replays' launches (recorded in a capture times
+  # the graph's replays; a call recorded in a capture launches nothing);
   # graph_ms: device time a call inside a CUDA graph (the probe rows, K1
   # at B=256, B1 per request, K2's table init); host_us: host enqueue a
   # call; shapes: K3 at each timed row shape (ms and library_ms in turns;
@@ -2645,6 +3036,7 @@ def main() -> int:
       dict(name=n, route='cuda', source=src, replaces=rep, wrapper=w,
            launches=sum(count(v, w) for v in by_path.values()),
            launches_by_path={p: count(v, w) for p, v in by_path.items()},
+           replayed_by_path={p: count(v[1], w) for p, v in ss_paths.items()},
            max_abs_err=rows[n]['err'],
            ms=rows[n]['ms'], plain_ms=rows[n]['plain_ms'],
            bound_ms=rows[n]['bound_ms'], bound_by='bytes',

@@ -21,8 +21,8 @@ split path (``gather_mixed``) reads row ``H - 1`` there instead
 with no hot rows row ``N - 1`` (numpy indexing wraps); its other paths
 clamp.
 
-Not ported: ``stage_cold_rows`` (its only consumer is the superstep,
-ROADMAP A3) and ``fused_gather_fn`` (the ``pallas_fused`` engine, A13).
+Not ported: ``fused_gather_fn`` (the ``pallas_fused`` engine, ROADMAP
+A13).
 """
 from __future__ import annotations
 
@@ -185,6 +185,31 @@ class Feature:
                   max(self._cold.shape[0] - 1, 0))
     return _host_numpy(self._cold.index_select(
         0, torch.as_tensor(idx)))
+
+  def stage_cold_rows(self, nodes, counts) -> np.ndarray:
+    """Host gather of the cold rows of pre-sampled node stacks, for a
+    pipeline that samples ahead and gathers on the host while the card
+    computes (the one-store counterpart of
+    ``parallel.ShardedFeature.stage_cold_rows``).
+
+    Args:
+      nodes: ``[..., B]`` rows after the id map (``map_ids`` first when
+        the store has one).
+      counts: ``[...]`` valid slots of each stack.
+
+    Returns ``[..., B, D]`` numpy (bf16 widened to float32): cold rows on
+    cold valid lanes, zeros elsewhere, so one add merges them with the
+    hot gather."""
+    nodes = as_numpy(nodes).astype(np.int64)
+    counts = as_numpy(counts)
+    valid = np.arange(nodes.shape[-1]) < counts[..., None]
+    cold = valid & (nodes >= self.hot_count) & (nodes < self.num_rows)
+    out = np.zeros(nodes.shape + (self.feature_dim,),
+                   _host_numpy(self._cold[:0]).dtype)
+    lanes = np.nonzero(cold)
+    if lanes[0].size:
+      out[lanes] = self.gather_cold_host(nodes[lanes])
+    return out
 
   def with_updated_rows(self, ids, values) -> 'Feature':
     """A new Feature that shares every block with this one but those with

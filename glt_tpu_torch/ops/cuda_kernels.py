@@ -6,7 +6,10 @@ A wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel (built on first use by ops/build.py) on
 the current stream or raises; nothing falls back. Each wrapper counts its
 kernel launches in ``<wrapper>.launches``, a plain int, so a run can show
-that it went through the kernels.
+that it went through the kernels. A call made while the current stream
+records a CUDA graph launches nothing: it counts in ``<wrapper>.recorded``
+instead, and each replay of that graph launches the kernel once more (the
+graph's owner multiplies, e.g. ``SPMDSageTrainStep.graph_launches``).
 
 ============================  ================================  ==========
 wrapper                       replaces (glt_tpu/ops/...)        source
@@ -57,9 +60,19 @@ def make_dedup_table(slots: int, device) -> Tuple[torch.Tensor, ...]:
           torch.full((slots,), BIG, dtype=torch.int32, device=device))
 
 
+def count_launch(fn, n: int = 1) -> None:
+  """Counts ``n`` launches of wrapper ``fn``'s kernel: in ``fn.launches``,
+  or in ``fn.recorded`` while the current stream records a CUDA graph,
+  where the call launches nothing."""
+  if torch.cuda.is_current_stream_capturing():
+    fn.recorded += n
+  else:
+    fn.launches += n
+
+
 def reset_launch_counts() -> None:
   for fn in KERNELS:
-    fn.launches = 0
+    fn.launches = fn.recorded = 0
 
 
 # -- plumbing ---------------------------------------------------------------
@@ -150,7 +163,7 @@ def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     _check(glt_gather_rows(
         ptr, rows.data_ptr(), out.data_ptr(), n, row_bytes, b, lay.lanes,
         int(lay.realign), lay.passes, *_where(table.device)), 'gather_rows')
-    gather_rows.launches += 1
+    count_launch(gather_rows)
   return out
 
 
@@ -214,7 +227,7 @@ def gather_rows_mixed(hot: torch.Tensor, cold,
         hot.data_ptr(), h, cold_ptr, c, rows.data_ptr(), out.data_ptr(),
         row_bytes, b, lay.lanes, int(lay.realign), lay.passes, *_where(dev)),
         'gather_rows_mixed')
-    gather_rows_mixed.launches += 1
+    count_launch(gather_rows_mixed)
   return out
 
 
@@ -306,7 +319,7 @@ def dedup_table_insert(keys: torch.Tensor, vals: torch.Tensor,
     _check(glt_dedup_table_insert(
         _ptr(keys), _ptr(vals), slots, _ptr(ids), _ptr(labs), _ptr(valid),
         m, *_where(dev)), 'dedup_table_insert')
-    dedup_table_insert.launches += 1
+    count_launch(dedup_table_insert)
 
 
 def dedup_table_init_plain(slots: int, ids: torch.Tensor, labs: torch.Tensor,
@@ -358,7 +371,7 @@ def dedup_table_init(slots: int, ids: torch.Tensor, labs: torch.Tensor,
       planes.data_ptr(), slots, ids.data_ptr(), labs.data_ptr(),
       new_head.data_ptr(), int(base), ids.numel(), *_where(dev)),
       'dedup_table_init')
-  dedup_table_insert.launches += 1
+  count_launch(dedup_table_insert)
   return planes.split(slots)
 
 
@@ -533,7 +546,7 @@ def sample_walk_dedup(indptr_pad, indices, seed_ids, seed_ok, stab_ids,
       seed_ok.data_ptr(), stab_ids.data_ptr(), stab_labs.data_ptr(),
       seeds.numel(), count.data_ptr(), int(replace), sbase, table_slots,
       words, planes, *_where(dev)), 'sample_walk_dedup')
-  sample_walk_dedup.launches += 1
+  count_launch(sample_walk_dedup)
   ints = buf.split_with_sizes(lay.int_sizes)
   flags = ints[-1].view(torch.bool).split_with_sizes(lay.flag_sizes)
   new_counts = ints[0].unbind()
@@ -748,7 +761,7 @@ def sample_hop_dedup(indices_flat, eids_flat, starts, offsets, valid, keys,
       sbase + 4 * (2 * words + blocks), labels.data_ptr(),
       new_head.data_ptr(), counts_out.data_ptr(), *_where(dev)),
       'sample_hop_dedup')
-  sample_hop_dedup.launches += 1
+  count_launch(sample_hop_dedup)
   return dict(picks=picks.view(s, k),
               eid_picks=eid_picks.view(s, k) if n_eid else None,
               labels=labels, new_head=new_head, counts=counts_out)
@@ -829,7 +842,7 @@ def sample_hop(indices: torch.Tensor, eids: Optional[torch.Tensor],
         indices.data_ptr(), eids_ptr, n, starts.data_ptr(),
         offsets.data_ptr(), shape[0], shape[1], picks.data_ptr(),
         eid_picks_ptr, dev, _raw_stream(dev)), 'sample_hop')
-    sample_hop.launches += 1
+    count_launch(sample_hop)
   return picks, eid_picks
 
 
@@ -909,7 +922,7 @@ def gather_windows(arr: torch.Tensor, starts: torch.Tensor,
     _check(glt_gather_windows(
         arr.data_ptr(), n, starts.data_ptr(), s, width, out.data_ptr(),
         dev, _raw_stream(dev)), 'gather_windows')
-    gather_windows.launches += 1
+    count_launch(gather_windows)
   return out
 
 

@@ -110,6 +110,27 @@ def multihop_sample(plan: FusedHopPlan, seeds: torch.Tensor, n_valid: int,
   return out
 
 
+def multihop_sample_many(plan: FusedHopPlan, seeds_stack: torch.Tensor,
+                         n_valid_stack, fanouts: Sequence[int],
+                         generator: Optional[torch.Generator] = None,
+                         u_stack=None, with_edge: bool = False
+                         ) -> Dict[str, torch.Tensor]:
+  """T walks, one per row of ``seeds_stack [T, B]`` (``n_valid_stack
+  [T]`` ints or a tensor), their outputs stacked on a leading ``[T]``
+  axis (counterpart of glt_tpu/ops/pipeline.py:1275, which scans T
+  batches in one dispatch): each is one :func:`multihop_sample`, one
+  walk launch, so the result equals T such calls. ``u_stack`` injects
+  the uniforms (per hop ``[T, S_h, K_h]``); without it each walk draws
+  its own from ``generator`` in turn, as T calls would."""
+  outs = []
+  for t in range(seeds_stack.shape[0]):
+    u = None if u_stack is None else [u[t] for u in u_stack]
+    outs.append(multihop_sample(plan, seeds_stack[t], n_valid_stack[t],
+                                fanouts, generator, u_hops=u,
+                                with_edge=with_edge))
+  return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
 def multihop_sample_sorted(one_hop: OneHopFn, seeds: torch.Tensor,
                            n_valid: int, fanouts: Sequence[int],
                            u_hops: Sequence[Optional[torch.Tensor]]

@@ -29,7 +29,7 @@ from typing import Tuple
 import torch
 
 from .build import lazy_entry
-from .cuda_kernels import _check, _raw_stream
+from .cuda_kernels import _check, _raw_stream, count_launch
 
 glt_probe_stage_copy = lazy_entry(globals(), 'glt_probe_stage_copy')
 glt_probe_scale = lazy_entry(globals(), 'glt_probe_scale')
@@ -80,7 +80,7 @@ def vmem_id(x: torch.Tensor) -> torch.Tensor:
     dev = x.get_device()
     _check(glt_probe_stage_copy(x.data_ptr(), out.data_ptr(), nbytes, dev,
                                 _raw_stream(dev)), 'vmem_id')
-    vmem_id.launches += 1
+    count_launch(vmem_id)
   return out
 
 
@@ -107,7 +107,7 @@ def smem_scalar(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     dev = x.get_device()
     _check(glt_probe_scale(x.data_ptr(), s.data_ptr(), out.data_ptr(),
                            x.numel(), dev, _raw_stream(dev)), 'smem_scalar')
-    smem_scalar.launches += 1
+    count_launch(smem_scalar)
   return out
 
 
@@ -155,7 +155,7 @@ def dma_fixed(big: torch.Tensor, start: int = 256,
   _check(glt_probe_window(big.data_ptr(), big.numel(), int(start), None,
                           width, out.data_ptr(), dev, _raw_stream(dev)),
          'dma_fixed')
-  dma_fixed.launches += 1
+  count_launch(dma_fixed)
   return out
 
 
@@ -184,7 +184,7 @@ def dma_dynamic(big: torch.Tensor, st: torch.Tensor,
   _check(glt_probe_window(big.data_ptr(), big.numel(), 0, st.data_ptr(),
                           width, out.data_ptr(), dev, _raw_stream(dev)),
          'dma_dynamic')
-  dma_dynamic.launches += 1
+  count_launch(dma_dynamic)
   return out
 
 
@@ -218,7 +218,7 @@ def prefetch_grid(tab: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     _check(glt_probe_row_copy(tab.data_ptr(), n, row_bytes, rows.data_ptr(),
                               b, out.data_ptr(), dev, _raw_stream(dev)),
            'prefetch_grid')
-    prefetch_grid.launches += 1
+    count_launch(prefetch_grid)
   return out
 
 
@@ -257,7 +257,7 @@ def vmem_take(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
   if not tab.is_cuda:
     return vmem_take_plain(tab, idx)
   out, launched = _take2d(tab, idx, 'vmem_take')
-  vmem_take.launches += launched
+  count_launch(vmem_take, launched)
   return out
 
 
@@ -270,7 +270,7 @@ def vt(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
   if not tab.is_cuda:
     return vt_plain(tab, idx)
   out, launched = _take2d(tab, idx, 'vt')
-  vt.launches += launched
+  count_launch(vt, launched)
   return out
 
 
@@ -280,7 +280,7 @@ KERNELS = (vmem_id, smem_scalar, dma_fixed, dma_dynamic, prefetch_grid, vt,
 
 def reset_launch_counts() -> None:
   for fn in KERNELS:
-    fn.launches = 0
+    fn.launches = fn.recorded = 0
 
 
 reset_launch_counts()

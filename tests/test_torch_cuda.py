@@ -1150,3 +1150,101 @@ def test_seal_extraction_reads_windows_through_the_kernel(dev, monkeypatch):
       sampler, links, 1.0, seal.make_drnl_fn(n_cap), n_cap))
   for a, b in zip(got, want):
     assert torch.equal(a, b)
+
+
+# -- the superstep trainer -------------------------------------------------------
+
+CARD_LOSS_TOL = 1e-4   # the same batches; index_add_'s atomics sum in
+                       # another order from run to run
+
+
+def _check_windows(res):
+  np.testing.assert_allclose(res['got'], res['want'], rtol=0,
+                             atol=CARD_LOSS_TOL)
+  assert res['param_diff'] <= CARD_LOSS_TOL
+  assert np.isfinite(res['got']).all()
+
+
+@pytest.mark.parametrize('store', ['resident', 'capped', 'pinned_split',
+                                   'cold_streaming'])
+def test_superstep_graph_equals_per_batch_calls(dev, store):
+  import torch_spmd_worker as worker
+  from glt_tpu_torch.parallel import make_mesh
+  kw = {'resident': {}, 'capped': dict(bucket_cap=100),
+        'pinned_split': dict(split_ratio=0.3),
+        'cold_streaming': dict(split_ratio=0.3, host_offload=False,
+                               cold_streaming=True)}[store]
+  K.reset_launch_counts()
+  res = worker.card_windows(make_mesh(device=dev), **kw)
+  _check_windows(res)
+  # one capture (window length 4), replayed for the second window
+  assert (res['captures'], res['replays']) == (1, 1)
+  # the walk ran eagerly for the first window and again in the replay of
+  # its capture (streaming: both windows sample eagerly, outside the
+  # graph); the twin's per-batch calls launch it a batch. The wrappers
+  # count what ran eagerly, the trainer what its replays launched.
+  replayed = res['replayed']
+  streaming = store == 'cold_streaming'
+  assert K.sample_walk_dedup.launches == (8 if streaming else 4) + 8
+  assert K.sample_walk_dedup.launches + replayed['sample_walk_dedup'] == 16
+  if store == 'pinned_split':
+    assert K.gather_rows_mixed.launches == 4
+    assert replayed['gather_rows_mixed'] == 4
+  else:
+    assert K.gather_rows.launches > 0 and replayed['gather_rows'] > 0
+
+
+def test_streaming_epoch_on_the_card_equals_resident(dev):
+  from glt_tpu_torch.parallel import (ShardedFeature, SPMDSageTrainStep,
+                                      make_mesh)
+  mesh = make_mesh(device=dev)
+  rng = np.random.default_rng(2)
+  n = 3000
+  ei = np.stack([rng.integers(0, n, 40_000), rng.integers(0, n, 40_000)])
+  feats = rng.normal(size=(n, 24)).astype(np.float32)
+  labels = rng.integers(0, 6, n).astype(np.int32)
+  g = Dataset().init_graph(ei, num_nodes=n, device=dev).get_graph()
+  out = []
+  for kw in ({}, dict(split_ratio=0.25, host_offload=False)):
+    torch.manual_seed(0)
+    step = SPMDSageTrainStep(
+        mesh, GraphSAGE(24, 32, 6, num_layers=3).to(dev), g,
+        ShardedFeature(feats, mesh, **kw), labels, [4, 3, 2], 64,
+        cold_streaming=bool(kw), seed=1)
+    loader = step.make_epoch_loader(np.arange(n - 100), superstep_len=4,
+                                    rng=np.random.default_rng(0))
+    losses = [step.run_epoch(loader) for _ in range(2)]
+    assert step.superstep_captures == 2       # K and the tail
+    out.append(torch.cat(losses).cpu())
+  assert out[0].shape == (2 * 46,)
+  torch.testing.assert_close(out[1], out[0], rtol=0, atol=CARD_LOSS_TOL)
+
+
+def test_two_ranks_over_nccl_train_as_per_batch(dev, tmp_path):
+  if torch.cuda.device_count() < 2:
+    pytest.skip('needs two cards')
+  import pickle
+  import torch_spmd_worker as worker
+  ctx = torch.multiprocessing.get_context('spawn')
+  out = str(tmp_path / 'rank%d.pkl')
+  procs = [ctx.Process(target=worker.nccl_main,
+                       args=(r, 2, str(tmp_path / 'store'), out))
+           for r in range(2)]
+  for p in procs:
+    p.start()
+  for p in procs:
+    p.join(300)
+  hung = [p for p in procs if p.is_alive()]
+  for p in hung:
+    p.kill()
+  assert not hung and all(p.exitcode == 0 for p in procs)
+  res = []
+  for r in range(2):
+    with open(out % r, 'rb') as f:
+      res.append(pickle.load(f))
+  for name in ('resident', 'capped'):
+    for r in res:
+      _check_windows(r[name])
+      assert (r[name]['captures'], r[name]['replays']) == (1, 1)
+    # the mesh mean: every rank reports the same losses
+    np.testing.assert_array_equal(res[0][name]['got'], res[1][name]['got'])

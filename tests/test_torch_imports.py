@@ -3,7 +3,9 @@ hetero models, loader and typing, the live-update stream, and the
 training slice's loaders, train step and profiling among them, the
 probe and microbench kernels and their benchmark entry points, and the
 link and SEAL modules with their two example scripts, and the hot/cold
-feature tier's offload, reorder, products example and feature bench) and
+feature tier's offload, reorder, products example and feature bench, and
+the superstep trainer's mesh, collectives, sharded feature store,
+superstep lifts, epoch staging, prefetch thread and training bench) and
 ``chip_smoke`` pulls in neither JAX nor the JAX package, and touches no
 card."""
 import os
@@ -48,6 +50,11 @@ print('TIER', all(m in sys.modules for m in (
     'glt_tpu_torch.examples.common',
     'glt_tpu_torch.examples.train_sage_products',
     'glt_tpu_torch.benchmarks.bench_feature')))
+print('SUPERSTEP', all(m in sys.modules for m in (
+    'glt_tpu_torch.parallel.mesh', 'glt_tpu_torch.parallel.collectives',
+    'glt_tpu_torch.parallel.dist_feature', 'glt_tpu_torch.ops.superstep',
+    'glt_tpu_torch.loader.device_epoch', 'glt_tpu_torch.utils.prefetch',
+    'glt_tpu_torch.benchmarks.bench_train')))
 import torch
 print('CUDA_INIT', torch.cuda.is_initialized())
 '''
@@ -66,4 +73,5 @@ def test_port_and_chip_smoke_import_no_jax():
   assert 'BENCH True' in out.stdout, out.stdout
   assert 'LINK True' in out.stdout, out.stdout
   assert 'TIER True' in out.stdout, out.stdout
+  assert 'SUPERSTEP True' in out.stdout, out.stdout
   assert 'CUDA_INIT False' in out.stdout, out.stdout
