@@ -8,8 +8,9 @@ paths through NeighborLoader and SageTrainStep, link prediction through
 LinkNeighborLoader and SageTrainStep, a SubGraphLoader batch, SEAL
 through its example's run, training from a hot/cold split feature store,
 the feature bench, superstep training through SPMDSageTrainStep and the
-training bench, and the two benchmark entry points through their main
-functions, and checks what comes out:
+training bench, partitioned hetero training through DistHeteroTrainStep,
+and the two benchmark entry points through their main functions, and
+checks what comes out:
 
 - homogeneous: a seeded 3-layer GraphSAGE (hidden 256, 47 classes, 100
   features, fanouts [15, 10, 5]) over a products-shaped graph (2.45M
@@ -82,6 +83,19 @@ functions, and checks what comes out:
   shard (K3 mixed inside the graph) and with cold streaming; then the
   per-batch against superstep bench at the JAX defaults (in a
   subprocess) and at this width;
+- partitioned hetero training (examples/igbh/dist_train_rgnn.py at
+  igbh-rgat's width, one rank): the igbh-rgat graph and float32 features
+  synthesised on the card, partitioned on disk by the port's
+  RandomPartitioner (one part) in a temporary directory, loaded back
+  through DistHeteroGraph, DistDataset and a bf16 DistFeature a node type
+  (the directory then removed); B2 at a batch's one-hop request shapes,
+  K3 at its per-type node lists and the static-shape dedup in a CUDA
+  graph against their plain versions; DistHeteroTrainStep (RGAT 1024 ->
+  512 x 4 -> 19, [15, 10, 5] on every edge type, batch 64, Adam 1e-3) 2
+  warm-up and 10 timed steps on seeds of split_indices, 3 eval batches,
+  one batch against the plain versions, then two windows of 8 through
+  the per-batch engine and through the superstep (eager and captured,
+  then a replay) on the same seeds and uniforms;
 - repairs: the walk at fanouts [100] and [3, 80] over a graph whose hub
   rows (degree 200-2000) exceed them, and the feature gather on bf16 rows
   of width 101 and uint8 rows of width 7, each against its plain version;
@@ -264,9 +278,10 @@ def verdict(what, ms, yardstick_ms, label='torch.take', ratios=None):
 def time_picks(torch, np, K, label, hops):
   """B2 at each recorded hop ``(indices, eids, starts, offsets)``: equal
   to plain, its time against torch.take over the same clipped slots (in
-  turns), its plain time, bound and host enqueue; returns the row of
-  sums."""
-  row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0)
+  turns, and in a CUDA graph, where the host's enqueue drops out), its
+  plain time, bound and host enqueue; returns the row of sums."""
+  row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0,
+             graph_ms=0.0, library_graph_ms=0.0)
   rounds = {'kernel': 0.0, 'take': 0.0}
   for h, (indices, eids, starts, offsets) in enumerate(hops):
     got = K.sample_hop(indices, eids, starts, offsets)[0]
@@ -284,6 +299,7 @@ def time_picks(torch, np, K, label, hops):
     for n in rounds:
       rounds[n] = rounds[n] + per_round[n]
     host = in_turns_host_us(torch, np, fns)
+    graph = {n: graph_ms(torch, fn, calls=20) for n, fn in fns.items()}
     plain = cuda_ms(torch, lambda i=0: K.sample_hop_plain(
         indices, eids, starts, offsets), 20)
     # bytes the read must move: a start per row; per lane an offset and
@@ -291,22 +307,122 @@ def time_picks(torch, np, K, label, hops):
     s, k = offsets.shape
     bound = bytes_ms(4 * s + 12 * s * k)
     for key, v in (('ms', t['kernel']), ('plain_ms', plain),
-                   ('library_ms', t['take']), ('bound_ms', bound)):
+                   ('library_ms', t['take']), ('bound_ms', bound),
+                   ('graph_ms', graph['kernel']),
+                   ('library_graph_ms', graph['take'])):
       row[key] += v
     print(f'sample_hop {label} hop {h + 1} [{s}, {k}] over '
           f'{indices.numel()} slots: equal to plain; {t["kernel"]:.4f} ms '
           f'(torch.take {t["take"]:.4f} ms, in turns, medians of {ROUNDS}; '
           f'plain {plain:.4f} ms; bound {bound:.6f} ms, '
-          f'{bound / t["kernel"] * 100:.1f}% of it); host enqueue '
-          f'{host["kernel"]:.2f} us a call (torch.take {host["take"]:.2f} '
-          'us)')
+          f'{bound / t["kernel"] * 100:.1f}% of it); in a CUDA graph '
+          f'{graph["kernel"]:.4f} ms (torch.take {graph["take"]:.4f} ms); '
+          f'host enqueue {host["kernel"]:.2f} us a call (torch.take '
+          f'{host["take"]:.2f} us)')
   print(f'sample_hop per {label} ({len(hops)} hops): {row["ms"]:.4f} ms '
         f'(plain {row["plain_ms"]:.4f} ms, torch.take '
-        f'{row["library_ms"]:.4f} ms, bound {row["bound_ms"]:.6f} ms)')
+        f'{row["library_ms"]:.4f} ms, bound {row["bound_ms"]:.6f} ms); in a '
+        f'CUDA graph {row["graph_ms"]:.4f} ms (torch.take '
+        f'{row["library_graph_ms"]:.4f} ms)')
   verdict(f'sample_hop summed over a {label}\'s {len(hops)} hops',
           row['ms'], row['library_ms'],
           ratios=list(rounds['kernel'] / rounds['take']))
+  verdict(f'sample_hop summed over a {label}\'s {len(hops)} hops in a CUDA '
+          'graph', row['graph_ms'], row['library_graph_ms'])
   return row
+
+
+def unique_dedup(torch, big, u_ids, u_labs, count, ids, valid):
+  """The data-sized version of ``sorted_hop_dedup_fused`` that the
+  static-shape one replaced, kept here to time the two in turns: new ids
+  ranked by ``torch.unique`` (its size read on the host), each one's head
+  by a scatter-min."""
+  dev = ids.device
+  m = ids.numel()
+  x = torch.where(valid, ids.to(torch.int32),
+                  torch.full_like(ids, big, dtype=torch.int32))
+  seen_ids, order = torch.sort(u_ids.to(torch.int32))
+  seen_labs = u_labs.to(torch.int32)[order]
+  if seen_ids.numel():
+    pos = torch.searchsorted(seen_ids, x).clamp(max=seen_ids.numel() - 1)
+    found = valid & (seen_ids[pos] == x)
+    seen_lab = seen_labs[pos]
+  else:
+    found = torch.zeros_like(valid)
+    seen_lab = torch.full_like(x, -1)
+  new_el = valid & ~found
+  uniq = torch.unique(x[new_el])
+  n_new = uniq.numel()
+  rank = torch.searchsorted(uniq, x).clamp(max=max(n_new - 1, 0))
+  iota = torch.arange(m, device=dev)
+  first = torch.full((n_new + 1,), m, dtype=torch.long, device=dev)
+  first.scatter_reduce_(0, torch.where(new_el, rank, n_new), iota, 'amin')
+  new_head3 = new_el & (first[rank] == iota)
+  labels3 = torch.where(found, seen_lab, torch.where(
+      new_el, (count + rank).to(torch.int32),
+      torch.full_like(x, -1))).to(torch.int32)
+  new_count = torch.tensor(n_new, dtype=torch.int32, device=dev)
+  pad = torch.full_like(x, big)
+  return dict(
+      labels3=labels3, new_head3=new_head3,
+      u_ids2=torch.cat([u_ids.to(torch.int32),
+                        torch.where(new_head3, x, pad)]),
+      u_labs2=torch.cat([u_labs.to(torch.int32),
+                         torch.where(new_head3, labels3, pad)]),
+      count2=(count + new_count).to(torch.int32), new_count=new_count)
+
+
+@contextlib.contextmanager
+def recorded_dedups(torch, calls):
+  """While open, every ``sorted_hop_dedup_fused`` call of the per-hop loops
+  (ops/pipeline.py) appends a copy of its arguments to ``calls``."""
+  from glt_tpu_torch.ops import pipeline
+  real = pipeline.sorted_hop_dedup_fused
+
+  def record(*a):
+    calls.append(tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                       for x in a))
+    return real(*a)
+  pipeline.sorted_hop_dedup_fused = record
+  try:
+    yield
+  finally:
+    pipeline.sorted_hop_dedup_fused = real
+
+
+def time_dedup(torch, np, label, calls):
+  """The static-shape ``sorted_hop_dedup_fused`` against the data-sized
+  version it replaced (``unique_dedup``) at each recorded hop's arguments:
+  equal on every output, timed in turns (medians of ROUNDS rounds), summed
+  over the hops; prints both and a "claim:" line, returns the sums."""
+  from glt_tpu_torch.ops.unique import BIG, sorted_hop_dedup_fused
+  sums = {'static': 0.0, 'unique': 0.0}
+  rounds = {'static': 0.0, 'unique': 0.0}
+  per_hop = []
+  for h, a in enumerate(calls):
+    new, old = sorted_hop_dedup_fused(*a), unique_dedup(torch, BIG, *a)
+    for key, v in new.items():
+      if not torch.equal(v, old[key]):
+        raise AssertionError(f'sorted_hop_dedup_fused {label} hop {h + 1}: '
+                             f'{key} differs from the torch.unique version')
+    fns = {'static': lambda a=a: sorted_hop_dedup_fused(*a),
+           'unique': lambda a=a: unique_dedup(torch, BIG, *a)}
+    per_round = in_turns_ms(torch, np, fns, iters=20)
+    for n in sums:
+      sums[n] += float(np.median(per_round[n]))
+      rounds[n] = rounds[n] + per_round[n]
+    per_hop.append((a[3].numel(), a[0].numel(),
+                    round(float(np.median(per_round['static'])), 4),
+                    round(float(np.median(per_round['unique'])), 4)))
+  print(f'sorted_hop_dedup_fused per {label} ({len(calls)} hops; lanes, '
+        f'seen-set, static ms, torch.unique version ms: {per_hop}): equal on '
+        f'every output; static {sums["static"]:.4f} ms, the torch.unique '
+        f'version {sums["unique"]:.4f} ms (in turns, medians of {ROUNDS})')
+  verdict(f'sorted_hop_dedup_fused summed over a {label}\'s {len(calls)} '
+          'hops', sums['static'], sums['unique'],
+          label='the torch.unique version',
+          ratios=list(rounds['static'] / rounds['unique']))
+  return sums
 
 
 def bytes_ms(nbytes):
@@ -858,9 +974,11 @@ def stream_phases(torch, np, K, ds, dev, seed, rows):
     def record_windows(*a):
       windows.append(a)
       return K.gather_windows_plain(*a)
+    dedups = []
     K.sample_hop, K.gather_windows = record, record_windows
     try:
-      sampler.sample_from_nodes(seeds)
+      with recorded_dedups(torch, dedups):
+        sampler.sample_from_nodes(seeds)
     finally:
       K.sample_hop, K.gather_windows = real, real_windows
     for arr, starts, width in windows:
@@ -888,8 +1006,9 @@ def stream_phases(torch, np, K, ds, dev, seed, rows):
           f'{q["raw"]:.3f}')
     rows['sample_hop'] = time_picks(torch, np, K, 'bucket-256 request',
                                     hops)
+    time_dedup(torch, np, 'bucket-256 request', dedups)
     # the recorded hops hold v0's padded array: let the swap free it
-    del hops, windows
+    del hops, windows, dedups
 
   with Phase('stream main path'):
     # per computed bucket: a base hop (sample_hop) and a tombstone and an
@@ -1092,9 +1211,11 @@ def train_phases(torch, np, K, ds, dev, seed, rows, smi):
     def record_picks(*a):
       picks.append(a)
       return K.sample_hop_plain(*a)
+    dedups = []
     K.gather_windows, K.sample_hop = record, record_picks
     try:
-      sampler.sample_from_nodes(seeds)
+      with recorded_dedups(torch, dedups):
+        sampler.sample_from_nodes(seeds)
     finally:
       K.gather_windows, K.sample_hop = real, real_picks
     shapes = [(int(a[1].numel()), a[2]) for a in calls]
@@ -1156,7 +1277,8 @@ def train_phases(torch, np, K, ds, dev, seed, rows, smi):
             hop_ms[-1], 2 * bound_hop[-1], label='twice the bound')
     # B2 at the weighted step's three hops, as the sampler hands them over
     time_picks(torch, np, K, 'weighted training step', picks)
-    del calls, picks, arr, starts, got, want, slots, fns, per_round
+    time_dedup(torch, np, 'weighted training step', dedups)
+    del calls, picks, dedups, arr, starts, got, want, slots, fns, per_round
 
   with Phase('train main path vs plain'):
     # one batch through the kernels and through the plain versions, same
@@ -2501,6 +2623,343 @@ def superstep_phases(torch, np, K, ds, dev, seed, smi):
   return ss_paths
 
 
+# partitioned hetero training (examples/igbh/dist_train_rgnn.py) at
+# igbh-rgat's width on a one-rank mesh: warm-up and timed per-batch steps,
+# eval batches, a window of DIST_K batches as one CUDA graph
+DIST_WARMUP, DIST_STEPS, DIST_EVAL, DIST_K = 2, 10, 3, 8
+DIST_FIELDS = ('node_dict', 'node_count_dict', 'row_dict', 'col_dict',
+               'edge_mask_dict', 'x_dict', 'y_dict')
+
+
+def dist_phases(torch, np, K, dev, seed, k3, rows, smi):
+  """The partitioned hetero trainer: the igbh-rgat graph synthesised on the
+  card, partitioned on disk by the port's RandomPartitioner (one part: one
+  rank), loaded back through DistHeteroGraph, DistDataset and a bf16
+  DistFeature a node type, then trained by DistHeteroTrainStep a batch a
+  step and a window at a time. Returns the launches of the per-batch path
+  and, for the superstep path, its launches (eager plus graph replays) and
+  those its replays made, by wrapper name."""
+  import os
+  import shutil
+  import tempfile
+  from glt_tpu_torch.distributed import (DistDataset, DistFeature,
+                                         DistHeteroGraph,
+                                         DistHeteroNeighborSampler,
+                                         DistHeteroTrainStep)
+  from glt_tpu_torch.examples.igbh.data import split_indices
+  from glt_tpu_torch.models import RGNN
+  from glt_tpu_torch.ops.unique import sorted_hop_dedup_fused
+  from glt_tpu_torch.parallel import make_mesh, sage_loss
+  from glt_tpu_torch.partition import RandomPartitioner
+
+  fanouts = list(FANOUTS)
+  with Phase('dist data'):
+    t = [time.perf_counter()]
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    edges = {e: ei.cpu().numpy() for e, ei in
+             igbh_edges(torch, IGBH_NODES, gen, dev).items()}
+    feats, w = {}, torch.randn((IGBH_FEAT, IGBH_CLASSES), generator=gen,
+                               device=dev)
+    for tp, n in IGBH_NODES.items():
+      x = torch.randn((n, IGBH_FEAT), generator=gen, device=dev)
+      if tp == 'paper':   # learnable labels over the features as trained
+        labels = torch.argmax(x.to(torch.bfloat16).float() @ w, 1).to(
+            torch.int32).cpu().numpy()
+      feats[tp] = x.cpu().numpy()
+      del x
+    train_idx, val_idx = split_indices(IGBH_NODES['paper'],
+                                       random_seed=42 + seed)
+    t.append(time.perf_counter())
+    root = tempfile.mkdtemp(prefix='glt_dist_parts_')
+    try:
+      RandomPartitioner(root, num_parts=1, num_nodes=dict(IGBH_NODES),
+                        edge_index=edges, node_feat=feats,
+                        seed=seed).partition()
+      t.append(time.perf_counter())
+      disk = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(root) for f in fs)
+      feat_bytes = sum(f.nbytes for f in feats.values())
+      n_edges = sum(e.shape[1] for e in edges.values())
+      del feats, edges
+      mesh = make_mesh(device=dev)
+      dg = DistHeteroGraph.from_dataset_partitions(mesh, root)
+      torch.cuda.synchronize()
+      t.append(time.perf_counter())
+      dss = {0: DistDataset.load(root, 0, feature_dtype=torch.bfloat16,
+                                   device=dev)}
+      torch.cuda.synchronize()
+      t.append(time.perf_counter())
+      dfeats = {tp: DistFeature.from_dist_datasets(mesh, dss, ntype=tp,
+                                                   dtype=torch.bfloat16)
+                for tp in IGBH_NODES}
+      del dss
+      torch.cuda.synchronize()
+      t.append(time.perf_counter())
+    finally:
+      shutil.rmtree(root, ignore_errors=True)
+    secs = np.diff(t)
+    store = sum(f.array.numel() * f.array.element_size()
+                for f in dfeats.values())
+    graph_bytes = sum(sum(getattr(st, f).numel() * getattr(st, f).element_size()
+                          for f in ('indptr', 'indices', 'edge_ids',
+                                    'local_row', 'node_pb'))
+                      for st in dg.graphs.values())
+    print(f'dist data: {n_edges} edges over {len(dg.graphs)} types, '
+          f'{IGBH_NODES}; synthesised on the card and copied to the host '
+          f'{secs[0]:.3f} s ({feat_bytes} B of float32 features); partitioned '
+          f'(RandomPartitioner, one part) {secs[1]:.3f} s, {disk} B on disk; '
+          f'DistHeteroGraph {secs[2]:.3f} s ({graph_bytes} B on the card); '
+          f'DistDataset.load (bf16 Feature) {secs[3]:.3f} s; '
+          f'DistFeature.from_dist_datasets {secs[4]:.3f} s ({store} B of '
+          f'bf16 rows on the card); {train_idx.size} training and '
+          f'{val_idx.size} validation papers (split_indices)')
+
+    sampler = DistHeteroNeighborSampler(dg, fanouts, seed=seed)
+    keys = sampler.message_passing_types(HTRAIN_BATCH, 'paper')
+    shapes = sampler.uniform_shapes(HTRAIN_BATCH, 'paper')
+    b2_per_step = sum(len(h) for h in shapes)
+
+    def trainer():
+      torch.manual_seed(seed)
+      model = RGNN(keys, IGBH_FEAT, IGBH_HIDDEN, IGBH_CLASSES,
+                   num_layers=len(fanouts), conv='rgat', heads=IGBH_HEADS,
+                   node_types=list(IGBH_NODES)).to(dev)
+      return DistHeteroTrainStep(dg, dfeats, model, {'paper': labels},
+                                 fanouts, HTRAIN_BATCH, 'paper', lr=LR,
+                                 seed=seed)
+    rng = np.random.default_rng(seed + 21)
+    ugen = torch.Generator(device=dev).manual_seed(seed + 22)
+
+    def window(t_=DIST_K):
+      """Seeds [t, 64] from the training split, the last batch ragged,
+      and their uniforms per hop and segment [t, 1, S, K]."""
+      seeds = rng.choice(train_idx, (t_, HTRAIN_BATCH))
+      nv = np.full((t_, 1), HTRAIN_BATCH)
+      nv[-1] = HTRAIN_BATCH - 5
+      u = [[torch.rand((t_, 1) + s, generator=ugen, device=dev)
+            for s in hop] for hop in shapes]
+      return seeds, nv, u
+    print(f'dist: message-passing keys {[e[1] for e in keys]}; segments a '
+          f'step (hop: [world * F, fanout]) {shapes}')
+
+  with Phase('dist kernel checks'):
+    # one batch's B2 hops, K3 serves and dedups, recorded through the plain
+    # versions (which leave each input as the kernels would)
+    hops, gathers, dedups = [], [], []
+
+    def record_hop(*a):
+      hops.append(a)
+      return K.sample_hop_plain(*a)
+
+    def record_gather(table, r):
+      gathers.append((table, r))
+      return K.gather_rows_plain(table, r)
+    step = trainer()
+    seeds, nv, u = window(1)
+    s0 = torch.as_tensor(seeds[0], device=dev, dtype=torch.int32)
+    n0 = torch.tensor(int(nv[0, 0]), device=dev, dtype=torch.int32)
+    u0 = [[x[0, 0] for x in hop] for hop in u]
+    real_hop, real_gather = K.sample_hop, K.gather_rows
+    K.sample_hop, K.gather_rows = record_hop, record_gather
+    try:
+      with torch.no_grad(), recorded_dedups(torch, dedups):
+        batch = step.make_batch(s0, n0, u0)
+    finally:
+      K.sample_hop, K.gather_rows = real_hop, real_gather
+    if (len(hops), len(gathers)) != (b2_per_step, len(IGBH_NODES)):
+      raise AssertionError(f'{len(hops)} B2 hops and {len(gathers)} K3 '
+                           f'serves in a batch, expected {b2_per_step} and '
+                           f'{len(IGBH_NODES)}')
+    row = time_picks(torch, np, K, 'dist batch', hops)
+    rows['sample_hop']['shapes'] = {
+        f'dist batch ({b2_per_step} hops)': row}
+    names = list(batch.node_dict)
+    for tp, (table, r) in zip(names, gathers):
+      k3[f'dist bfloat16 x 1024 {tp}'] = time_gather(
+          torch, np, K, f'dist bfloat16 x 1024 {tp}', table, r)
+    time_dedup(torch, np, 'dist batch', dedups)
+    # the static-shape dedup of the largest hop inside a CUDA graph
+    big = max(dedups, key=lambda a: a[3].numel())
+    real_dedup = sorted_hop_dedup_fused
+    eager = real_dedup(*big)
+    static = [x.clone() if isinstance(x, torch.Tensor) else x for x in big]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+      real_dedup(*static)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+      captured = real_dedup(*static)
+    graph.replay()
+    torch.cuda.synchronize()
+    for key, v in eager.items():
+      if not torch.equal(captured[key], v):
+        raise AssertionError(f'the captured dedup differs from eager: {key}')
+    d_eager = cuda_ms(torch, lambda i=0: real_dedup(*big), 20)
+    d_graph = graph_ms(torch, lambda: real_dedup(*static), calls=10)
+    print(f'sorted_hop_dedup_fused over {big[3].numel()} lanes against a '
+          f'seen-set of {big[0].numel()}: captured in a CUDA graph and '
+          f'replayed, equal to eager on every output ({int(eager["new_count"])}'
+          f' new ids); {d_eager:.4f} ms back to back, {d_graph:.4f} ms in a '
+          'CUDA graph')
+    del hops, gathers, dedups, batch, step, big, eager, static, captured, graph
+
+  with Phase('dist main path'):
+    step = trainer()
+    order = rng.permutation(train_idx)
+
+    def batch_seeds(i):
+      return order[i * HTRAIN_BATCH:(i + 1) * HTRAIN_BATCH][None]
+    one = np.ones(1, np.int64) * HTRAIN_BATCH
+    for i in range(DIST_WARMUP):
+      step(batch_seeds(i), one)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(DIST_WARMUP, DIST_WARMUP + DIST_STEPS):
+      losses.append(step(batch_seeds(i), one))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / DIST_STEPS
+    dist_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [float(v) for v in losses]
+    want = dict(sample_hop=b2_per_step * DIST_STEPS,
+                gather_rows=len(IGBH_NODES) * DIST_STEPS)
+    for n, v in want.items():
+      if dist_launches[n] != v:
+        raise AssertionError(f'{n}: {dist_launches[n]} launches over '
+                             f'{DIST_STEPS} steps, expected {v}')
+    if not np.isfinite(losses).all():
+      raise AssertionError(f'dist training: non-finite loss {losses}')
+    wall, busy = profile_stages(
+        torch, lambda: [step(batch_seeds(i), one) for i in range(2)], 2,
+        (), 'step')
+    correct = total = want_total = 0
+    for b in range(DIST_EVAL):
+      # the validation split in batches, the last padded (examples/igbh)
+      chunk = val_idx[b * HTRAIN_BATCH:(b + 1) * HTRAIN_BATCH]
+      want_total += chunk.size
+      c, n = step.eval_step(
+          np.resize(chunk, HTRAIN_BATCH)[None], np.array([chunk.size]))
+      correct, total = correct + c, total + n
+    if total != want_total:
+      raise AssertionError(f'eval counted {total} seeds of {want_total}')
+    print(f'dist training (one rank, batch {HTRAIN_BATCH}, {fanouts}): '
+          f'{DIST_STEPS} steps after {DIST_WARMUP} warm-up, {ms:.3f} ms a '
+          f'step, {HTRAIN_BATCH / ms * 1e3:.1f} seeds/s; device busy '
+          f'{busy / wall * 100:.1f}% over 2 profiled steps ({wall:.3f} ms '
+          f'wall, {busy:.3f} busy); peak {peak / 2**30:.3f} GiB above '
+          f'{base / 2**30:.3f} GiB resident; losses '
+          + ', '.join(f'{v:.4f}' for v in losses)
+          + f'; eval {correct}/{total}; launches {dist_launches} ('
+          f'{b2_per_step} B2 and {len(IGBH_NODES)} K3 a step); on {smi}')
+
+  with Phase('dist main path vs plain'):
+    seeds, nv, u = window(1)
+    s0 = torch.as_tensor(seeds[0], device=dev, dtype=torch.int32)
+    n0 = torch.tensor(int(nv[0, 0]), device=dev, dtype=torch.int32)
+    u0 = [[x[0, 0] for x in hop] for hop in u]
+    with torch.no_grad():
+      bk = step.make_batch(s0, n0, u0)
+      lk = float(sage_loss(step.model, bk))
+      with swapped_to_plain(K, ('sample_hop', 'gather_rows')):
+        bp = step.make_batch(s0, n0, u0)
+        lp = float(sage_loss(step.model, bp))
+    f = differing_field(torch, bk, bp, DIST_FIELDS)
+    if f is not None:
+      raise AssertionError(f'dist batch.{f} differs between kernels and plain')
+    if not abs(lk - lp) <= LOSS_TOL * max(1.0, abs(lp)):
+      raise AssertionError(f'dist loss {lk} vs plain {lp}')
+    print(f'dist batch {HTRAIN_BATCH} ({int(n0)} real seeds): samples and '
+          f'rows bit-identical ('
+          f'{sum(int(c) for c in bk.node_count_dict.values())} nodes, '
+          f'{sum(int(m.sum()) for m in bk.edge_mask_dict.values())} edges), '
+          f'loss {lk:.6f} vs plain {lp:.6f} (|diff| {abs(lk - lp):.3e}, '
+          f'tolerance {LOSS_TOL})')
+    del bk, bp, step
+    torch.cuda.empty_cache()
+
+  with Phase('dist superstep'):
+    wins = [window() for _ in range(2)]
+    # the per-batch engine first: its cached blocks and a captured window's
+    # pool (each about one body's peak) may not fit the card together
+    b = trainer()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    per_batch, ms_b = [], []
+    for seeds, nv, u in wins:
+      t0 = time.perf_counter()
+      per_batch.append(torch.stack([
+          b(seeds[t_], nv[t_], [[x[t_] for x in hop] for hop in u])
+          for t_ in range(DIST_K)]))
+      torch.cuda.synchronize()
+      ms_b.append((time.perf_counter() - t0) * 1e3 / DIST_K)
+    peak_b = torch.cuda.max_memory_allocated() - base
+    seeds, nv, u = wins[1]
+    wall_b, busy_b = profile_stages(torch, lambda: [
+        b(seeds[t_], nv[t_], [[x[t_] for x in hop] for hop in u])
+        for t_ in range(2)], 2, (), 'step')
+    del b
+    torch.cuda.empty_cache()
+    a = trainer()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    fused, ms_a = [], []
+    for seeds, nv, u in wins:
+      t0 = time.perf_counter()
+      fused.append(a.superstep(seeds, nv, u))
+      torch.cuda.synchronize()
+      ms_a.append((time.perf_counter() - t0) * 1e3 / DIST_K)
+    peak_a = torch.cuda.max_memory_allocated() - base
+    eager, replayed, launches = path_launches(K, a)
+    got, want = torch.cat(fused).cpu(), torch.cat(per_batch).cpu()
+    diffs = (got - want).abs()
+    first = float(diffs[0])
+    diff = float(diffs.max())
+    if (a.superstep_captures, a.graph_replays) != (1, 1) or not (
+        first <= FIRST_LOSS_TOL and diff <= EPOCH_LOSS_TOL):
+      raise AssertionError(f'dist superstep: captures {a.superstep_captures},'
+                           f' replays {a.graph_replays}, losses differ from '
+                           f'per-batch by {first} first, {diff} at most')
+    for n, per in (('sample_hop', b2_per_step),
+                   ('gather_rows', len(IGBH_NODES))):
+      if (eager[n], replayed.get(n, 0)) != (per * DIST_K, per * DIST_K):
+        raise AssertionError(f'{n}: {eager[n]} eager and '
+                             f'{replayed.get(n, 0)} replayed launches')
+    seeds, nv, u = wins[1]
+    wall_a, busy_a = profile_stages(torch, lambda: a.superstep(seeds, nv, u),
+                                    DIST_K, (), 'step')
+    free, total_mem = torch.cuda.mem_get_info(dev)
+    print_windows(a)
+    print(f'dist superstep, windows of {DIST_K}: the first eager and '
+          f'captured ({a.capture_seconds[0] * 1e3:.1f} ms to capture), the '
+          f'second a replay; captures {a.superstep_captures}, replays '
+          f'{a.graph_replays} (the last one profiled); ms a step: superstep '
+          f'{ms_a[1]:.3f} '
+          f'(the first window {ms_a[0]:.3f}), per-batch {ms_b[1]:.3f} '
+          f'({ms_b[0]:.3f}), {ms_b[1] / ms_a[1]:.3f}x; busy superstep '
+          f'{busy_a / wall_a * 100:.1f}%, per-batch '
+          f'{busy_b / wall_b * 100:.1f}%; peak superstep '
+          f'{peak_a / 2**30:.3f} GiB, per-batch {peak_b / 2**30:.3f} GiB; '
+          f'{free / 2**30:.3f} of {total_mem / 2**30:.3f} GiB free with the '
+          f'graph held, so the engines ran one after the other on the same '
+          f'seeds and uniforms; losses against per-batch: first step '
+          f'{first:.3e} (tolerance {FIRST_LOSS_TOL}), at most {diff:.3e} '
+          f'(tolerance {EPOCH_LOSS_TOL}); launches {launches}: eager {eager},'
+          f' by graph replays {replayed}; on {smi}')
+    ss_launches = (launches, replayed)
+    del a, dfeats, dg
+    torch.cuda.empty_cache()
+  return dist_launches, ss_launches
+
+
 def path_launches(K, step):
   """A superstep path's launches by wrapper name since the last reset:
   those run eagerly (the wrappers' counts), those the trainer's graph
@@ -2897,6 +3356,9 @@ def main() -> int:
   torch.cuda.empty_cache()
   ss_paths = superstep_phases(torch, np, K, ds, dev, opts.seed, smi)
   torch.cuda.empty_cache()
+  dist_launches, ss_paths['dist_hetero_superstep'] = dist_phases(
+      torch, np, K, dev, opts.seed, k3, rows, smi)
+  torch.cuda.empty_cache()
   rows['sample_walk_dedup'] = dict(
       walk[256], shapes={f'B={b}' if isinstance(b, int) else b: row
                          for b, row in walk.items()})
@@ -2938,7 +3400,7 @@ def main() -> int:
              'stream': stream_launches, 'train': train_launches,
              'train_uniform': uniform_launches, 'link': link_launches,
              'subgraph': sub_launches, 'seal': seal_launches,
-             'split': split_launches,
+             'split': split_launches, 'dist_hetero': dist_launches,
              **{p: v[0] for p, v in ss_paths.items()},
              'probe': probe_launches,
              'microbench': micro_launches}

@@ -352,6 +352,123 @@ def multihop_sample_hetero(plan: HeteroFusedPlan, table_slots: int,
   return out
 
 
+def multihop_sample_hetero_sorted(one_hops, trav, num_neighbors, num_hops,
+                                  caps, budgets, seeds, n_valid, u_hops):
+  """The hetero per-hop loop over given one-hops (counterpart of the
+  ``fused_hops()`` branch of glt_tpu/ops/pipeline.py
+  ``_multihop_sample_hetero_sorted``: ``GLT_DEDUP=sort GLT_FUSED_HOP=1``),
+  the loop of the partitioned sampler, whose one-hops exchange their
+  requests with the rows' owners.
+
+  Args:
+    one_hops: per traversal edge type ``one_hop(ids [F], fanout, u, mask
+      [F]) -> NeighborOutput`` ([F, fanout]).
+    trav: per traversal edge type ``(row_type, col_type)``; the order of
+      the loop over edge types.
+    num_neighbors: per edge type the fanout of each hop.
+    caps / budgets: per hop and node type the frontier capacity, per node
+      type the node budget (``DistHeteroNeighborSampler._caps``).
+    seeds / n_valid: per seed type ``[B]`` ids and the valid count.
+    u_hops: ``u_hops[h][i]`` the uniforms of hop h's i-th segment (the
+      edge types of ``trav`` whose row type has a frontier and whose
+      fanout is not 0, in order), in the shape its one-hop takes.
+
+  Seed types take the exact seed hop; every hop then dedups each node
+  type's picks with :func:`sorted_hop_dedup_fused` (new ids labelled in
+  value order, heads at their minimum slot, the next frontier every pick
+  with non-heads INT32_MAX). Every shape is fixed by ``caps``, so a CUDA
+  graph can hold the loop when the one-hops' can be held.
+
+  Returns the reference's dict: per type ``node``, ``node_count``,
+  ``num_sampled_nodes``, ``batch`` and ``seed_labels`` (the seed types),
+  per traversal edge type ``row`` (parent labels), ``col`` (child labels,
+  -1 where masked), ``edge_mask`` and ``num_sampled_edges``.
+  """
+  dev = next(iter(seeds.values())).device
+  zero = torch.zeros((), dtype=torch.int32, device=dev)
+  empty = torch.zeros(0, dtype=torch.int32, device=dev)
+  seen, frontier, seed_labels = {}, {}, {}
+  for t in budgets:
+    if t in seeds:
+      d, seed_labels[t] = _fused_seed_hop(seeds[t], n_valid[t])
+      seen[t] = (d['u_ids2'], d['u_labs2'], d['count2'])
+      frontier[t] = (d['ids3'], d['labels3'], d['new_head3'])
+    else:
+      seen[t] = (empty, empty, zero)
+      frontier[t] = _empty_frontier(max(1, caps[0][t]), dev)
+  rows_d, cols_d, mask_d = {}, {}, {}
+  hop_nodes = {t: [seen[t][2]] for t in budgets}
+  hop_edges = {}
+  for h in range(num_hops):
+    per_type = {t: [] for t in budgets}
+    per_meta = []
+    for e, (row_t, col_t) in trav.items():
+      k = num_neighbors[e][h]
+      if caps[h][row_t] == 0 or k == 0:
+        continue
+      f_ids, f_labels, f_mask = frontier[row_t]
+      out = one_hops[e](f_ids, k, u_hops[h][len(per_meta)], f_mask)
+      mflat = out.mask.reshape(-1)
+      per_type[col_t].append((out.nbrs.reshape(-1), mflat))
+      per_meta.append((e, col_t, torch.repeat_interleave(f_labels, k),
+                       mflat, caps[h][row_t] * k))
+    labels_by_type = {}
+    for t, chunks in per_type.items():
+      if not chunks:
+        frontier[t] = _empty_frontier(max(1, caps[h + 1][t]), dev)
+        hop_nodes[t].append(zero)
+        continue
+      ids = torch.cat([c[0] for c in chunks])
+      ok = torch.cat([c[1] for c in chunks])
+      d = sorted_hop_dedup_fused(*seen[t], ids, ok)
+      labels_by_type[t] = d['labels3']
+      frontier[t] = (torch.where(d['new_head3'], ids.to(torch.int32),
+                                 torch.full_like(ids, BIG,
+                                                 dtype=torch.int32)),
+                     d['labels3'], d['new_head3'])
+      seen[t] = (d['u_ids2'], d['u_labs2'], d['count2'])
+      hop_nodes[t].append(d['new_count'])
+    cursor = {t: 0 for t in budgets}
+    for e, col_t, rows_parent, mask, width in per_meta:
+      s = cursor[col_t]
+      cursor[col_t] += width
+      lab = labels_by_type[col_t][s:s + width]
+      rows_d.setdefault(e, []).append(rows_parent)
+      cols_d.setdefault(e, []).append(
+          torch.where(mask, lab, torch.full_like(lab, -1)))
+      mask_d.setdefault(e, []).append(mask)
+      hop_edges.setdefault(e, []).append(mask.sum(dtype=torch.int32))
+  nodes = {t: sorted_nodes_by_label(*seen[t], budgets[t]) for t in budgets}
+  return dict(
+      node=nodes, node_count={t: seen[t][2] for t in budgets},
+      row={e: torch.cat(v) for e, v in rows_d.items()},
+      col={e: torch.cat(v) for e, v in cols_d.items()},
+      edge_mask={e: torch.cat(v) for e, v in mask_d.items()},
+      batch={t: nodes[t][:s.numel()] for t, s in seeds.items()},
+      seed_labels=seed_labels,
+      num_sampled_nodes={t: torch.stack(v) for t, v in hop_nodes.items()},
+      num_sampled_edges={e: torch.stack(v) for e, v in hop_edges.items()})
+
+
+def multihop_sample_hetero_many(one_hops, trav, num_neighbors, num_hops,
+                                caps, budgets, seeds_stack, n_valid_stack,
+                                u_stack):
+  """T batches of :func:`multihop_sample_hetero_sorted` (counterpart of
+  glt_tpu/ops/pipeline.py:1247, which scans them in one dispatch):
+  ``seeds_stack``/``n_valid_stack`` per seed type ``[T, B]``/``[T]``,
+  ``u_stack[h][i]`` ``[T, ...]``; the outputs stacked on a leading
+  ``[T]`` axis, equal to T calls."""
+  outs = []
+  for t in range(next(iter(seeds_stack.values())).shape[0]):
+    outs.append(multihop_sample_hetero_sorted(
+        one_hops, trav, num_neighbors, num_hops, caps, budgets,
+        {k: v[t] for k, v in seeds_stack.items()},
+        {k: v[t] for k, v in n_valid_stack.items()},
+        [[u[t] for u in hop] for hop in u_stack]))
+  return {k: {kk: torch.stack([o[k][kk] for o in outs]) for kk in outs[0][k]}
+          for k in outs[0]}
+
+
 def _fused_seed_hop(seeds: torch.Tensor, n_valid: int):
   """The exact seed hop: ``(d, seed_labels)`` with ``d`` the raw
   :func:`sorted_hop_dedup` dict (``batch``/``seed_labels`` bit-identical

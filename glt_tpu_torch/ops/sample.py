@@ -99,10 +99,11 @@ def draw_offsets(deg: torch.Tensor, u: torch.Tensor, fanout: int,
 
 class NeighborOutput(NamedTuple):
   """One-hop result in padded layout, [S, K] each: neighbour ids
-  (undefined where ``~mask``) and validity. No ported caller samples edge
-  ids on the per-hop loop."""
+  (undefined where ``~mask``), validity and, when the caller asked for
+  them, the picked edges' ids (None otherwise)."""
   nbrs: torch.Tensor
   mask: torch.Tensor
+  eids: Optional[torch.Tensor] = None
 
 
 def _empty_output(s: int, width: int, device) -> NeighborOutput:
@@ -114,7 +115,8 @@ def _empty_output(s: int, width: int, device) -> NeighborOutput:
 
 def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
                      seeds: torch.Tensor, fanout: int, u: torch.Tensor,
-                     seed_mask: Optional[torch.Tensor] = None
+                     seed_mask: Optional[torch.Tensor] = None,
+                     edge_ids: Optional[torch.Tensor] = None
                      ) -> NeighborOutput:
   """Uniformly sample up to ``fanout`` distinct neighbours per seed of a
   CSR: the draw of ``glt_tpu.ops.sample._draw_hop`` without replacement
@@ -124,15 +126,16 @@ def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
   and ``pallas`` engines; a seed of degree <= fanout is taken whole, in
   adjacency order. ``indices`` may be padded past the live edges (a
   snapshot's capacity): slots clip to its length, as ``_slots_i32`` clips
-  them."""
+  them. ``edge_ids`` (int32, aligned with ``indices``) are read through
+  the same slots into ``eids``."""
   if fanout <= 0:
     raise ValueError(f'fanout must be a positive int, got {fanout}')
   if indices.numel() == 0:
     return _empty_output(seeds.numel(), fanout, seeds.device)
   start, deg = _row_spans(indptr, seeds, seed_mask)
   offsets, mask = draw_offsets(deg, u, fanout, replace=False)
-  nbrs, _ = cuda_kernels.sample_hop(indices, None, start, offsets)
-  return NeighborOutput(nbrs=nbrs, mask=mask)
+  nbrs, eids = cuda_kernels.sample_hop(indices, edge_ids, start, offsets)
+  return NeighborOutput(nbrs=nbrs, mask=mask, eids=eids)
 
 
 def sample_full_neighbors(indptr: torch.Tensor, indices: torch.Tensor,

@@ -137,6 +137,10 @@ def capture_window(run: Callable[[], Any], device: torch.device
     out = run()
   current.wait_stream(side)
   torch.cuda.synchronize(device)
+  # the eager window's cached blocks go back to the card before the
+  # graph's private pool fills: at igbh-rgat's width one body's peak is
+  # over half the card, and the two would not fit together
+  torch.cuda.empty_cache()
   before = {fn.__name__: fn.recorded for fn in cuda_kernels.KERNELS}
   t0 = time.perf_counter()
   graph = torch.cuda.CUDAGraph()

@@ -138,12 +138,16 @@ def sorted_hop_dedup_fused(u_ids: torch.Tensor, u_labs: torch.Tensor,
   is its minimum slot.
 
   Seen ids are found by a binary search of the sorted seen-set (its
-  ``BIG`` padding never matches a valid id), new ids are ranked by
-  ``unique``, and a scatter-min finds each one's first slot.
+  ``BIG`` padding never matches a valid id). The new ids are ranked over
+  all M lanes, as the JAX function ranks them under ``jit``: a stable
+  sort of the new lanes (every other lane ``BIG``), a flag on the first
+  lane of each run of one value, which is that id's minimum slot, and a
+  cumulative sum of the flags. Every shape is fixed by M and nothing is
+  read back, so a CUDA graph can hold the hop.
 
   Returns ``labels3`` (-1 at ``~valid``), ``new_head3`` ([M] each),
   ``u_ids2``/``u_labs2`` (the seen-set with the new ids appended, ``BIG``
-  padded), ``count2`` and ``new_count`` (int32 scalars).
+  padded), ``count2`` and ``new_count`` (int32 scalars on the device).
   """
   dev = ids.device
   m = ids.numel()
@@ -159,17 +163,18 @@ def sorted_hop_dedup_fused(u_ids: torch.Tensor, u_labs: torch.Tensor,
     found = torch.zeros_like(valid)
     seen_lab = torch.full_like(x, -1)
   new_el = valid & ~found
-  uniq = torch.unique(x[new_el])
-  n_new = uniq.numel()
-  rank = torch.searchsorted(uniq, x).clamp(max=max(n_new - 1, 0))
-  iota = torch.arange(m, device=dev)
-  first = torch.full((n_new + 1,), m, dtype=torch.long, device=dev)
-  first.scatter_reduce_(0, torch.where(new_el, rank, n_new), iota, 'amin')
-  new_head3 = new_el & (first[rank] == iota)
+  xs, order = torch.sort(torch.where(new_el, x, torch.full_like(x, BIG)),
+                         stable=True)
+  run_head = torch.ones(m, dtype=torch.bool, device=dev)
+  run_head[1:] = xs[1:] != xs[:-1]
+  run_head &= xs != BIG
+  rank_sorted = torch.cumsum(run_head, 0, dtype=torch.int32) - 1
+  rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+  new_head3 = torch.empty_like(run_head).scatter_(0, order, run_head)
   labels3 = torch.where(found, seen_lab, torch.where(
       new_el, (count + rank).to(torch.int32),
       torch.full_like(x, -1))).to(torch.int32)
-  new_count = torch.tensor(n_new, dtype=torch.int32, device=dev)
+  new_count = run_head.sum(dtype=torch.int32)
   big = torch.full_like(x, BIG)
   return dict(
       labels3=labels3, new_head3=new_head3,

@@ -81,6 +81,40 @@ def require_device_resident(store, ctx: str) -> None:
         'rows of each window on the host')
 
 
+def exchange_lookup(ids: torch.Tensor, owner: torch.Tensor, mesh: Mesh,
+                    bucket_cap: int, serve, dim: int, dtype: torch.dtype,
+                    static_rounds: bool = False) -> torch.Tensor:
+  """The exchange of a lookup from inside a step (a collective: every
+  rank calls it with the same B): ``ids [B]`` int32 bucketed by ``owner``
+  (``mesh.world`` for a lane that asks nothing), sent to their owners,
+  served there by ``serve(requests [world * C]) -> [world * C, dim]``
+  (zero rows for the requests it does not serve; a request slot past an
+  owner's count holds -1) and sent back, ``[B, dim]`` in request order.
+
+  With a ``bucket_cap`` C below B the exchange drains in rounds
+  (:func:`~glt_tpu_torch.parallel.collectives.capped_drain`): as many as
+  the mesh's fullest bucket needs, read on the host, or with
+  ``static_rounds`` the worst case, which a CUDA graph can hold."""
+  n_shards, b = mesh.world, ids.numel()
+  meta = bucket_meta(owner, n_shards)
+  cap = bucket_cap if 0 < bucket_cap < b else b
+
+  def round_out(base):
+    req = bucket_payload(ids, meta, n_shards, fill_value=-1, capacity=cap,
+                         round_offset=base)
+    # row p: what rank p asks of this rank
+    req_in = all_to_all(req, mesh).reshape(-1)
+    # row p: this rank's requests as rank p served them
+    resp = all_to_all(serve(req_in).view(n_shards, cap, dim), mesh)
+    return unbucket(resp, meta, n_shards, round_offset=base)
+
+  if cap >= b:
+    return round_out(0)     # one uncapped round serves everything
+  return capped_drain(round_out, meta, n_shards, cap, b, mesh,
+                      torch.zeros((b, dim), dtype=dtype, device=mesh.device),
+                      static_rounds=static_rounds)
+
+
 class ShardedFeature:
   """``[N, D]`` feature table row-sharded over ``mesh``'s ranks.
 
@@ -160,19 +194,12 @@ class ShardedFeature:
     ``static_rounds`` the worst case, which a CUDA graph can hold."""
     mesh, n_shards = self.mesh, self.mesh.world
     ids = ids.reshape(-1).to(torch.int32)
-    b, d, r, h = ids.numel(), self.feature_dim, self.rows_per_shard, \
-        self.hot_count
+    r, h = self.rows_per_shard, self.hot_count
     owner = torch.where(valid, (ids // r).clamp(0, n_shards - 1),
                         torch.full_like(ids, n_shards))   # pads sort last
-    meta = bucket_meta(owner, n_shards)
-    cap = self.bucket_cap if 0 < self.bucket_cap < b else b
     base_row = mesh.rank * r
 
-    def round_out(base):
-      req = bucket_payload(ids, meta, n_shards, fill_value=-1, capacity=cap,
-                           round_offset=base)
-      # row p: what rank p asks of this rank
-      req_in = all_to_all(req, mesh).reshape(-1)
+    def serve(req_in):
       local = req_in - base_row
       if self.cold_array is not None:
         # hot rows from the card, cold ones from the pinned block, one
@@ -185,17 +212,10 @@ class ShardedFeature:
       else:
         ok = (local >= 0) & (local < h) & (req_in >= 0)
         rows = cuda_kernels.gather_rows(self.array, local.clamp(0, h - 1))
-      served = torch.where(ok[:, None], rows, torch.zeros_like(rows))
-      # row p: this rank's requests as rank p served them
-      resp = all_to_all(served.view(n_shards, cap, d), mesh)
-      return unbucket(resp, meta, n_shards, round_offset=base)
+      return torch.where(ok[:, None], rows, torch.zeros_like(rows))
 
-    if cap >= b:
-      return round_out(0)     # one uncapped round serves everything
-    return capped_drain(round_out, meta, n_shards, cap, b, mesh,
-                        torch.zeros((b, d), dtype=self.dtype,
-                                    device=mesh.device),
-                        static_rounds=static_rounds)
+    return exchange_lookup(ids, owner, mesh, self.bucket_cap, serve,
+                           self.feature_dim, self.dtype, static_rounds)
 
   # -- host phase and staging --------------------------------------------
 

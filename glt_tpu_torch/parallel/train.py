@@ -122,6 +122,35 @@ class SageTrainStep:
     return loss.detach()
 
 
+def mesh_update(model: nn.Module, optimizer: torch.optim.Optimizer,
+                mesh: Mesh, batch: Union[Batch, HeteroBatch]) -> torch.Tensor:
+  """One data-parallel update: :func:`sage_loss` of ``batch``, its
+  backward, the mesh mean of the gradients and the loss (one
+  ``all_reduce``, the JAX ``pmean``), the optimizer's step. Returns the
+  mean loss (before the update), a 0-dim tensor."""
+  optimizer.zero_grad(set_to_none=True)
+  loss = sage_loss(model, batch)
+  loss.backward()
+  loss = loss.detach().reshape(1)
+  for p in model.parameters():
+    # a parameter the batch did not reach (a relation with no edges)
+    # takes a zero gradient, as a JAX gradient has one, so that Adam
+    # steps it as optax does
+    if p.grad is None:
+      p.grad = torch.zeros_like(p)
+  world = mesh.world
+  if world > 1:
+    grads = [p.grad for p in model.parameters()]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss])
+    dist.all_reduce(flat, group=mesh.group)
+    flat = flat / world
+    for g, v in zip(grads, flat[:-1].split([g.numel() for g in grads])):
+      g.copy_(v.view_as(g))
+    loss = flat[-1:]
+  optimizer.step()
+  return loss[0]
+
+
 class _Window:
   """The static buffers of one window length, its CUDA graph once
   captured, the graph's output (the window's losses), the kernel
@@ -136,7 +165,71 @@ class _Window:
     self.replays = 0
 
 
-class SPMDSageTrainStep:
+class CapturedWindows:
+  """The windows of a superstep trainer: each window length's static
+  buffers and, on a card, its CUDA graph, captured the first time the
+  length comes and replayed after (``superstep_captures``,
+  ``capture_seconds``, ``graph_replays``, ``windows`` by (kind, length),
+  :meth:`graph_launches`). A trainer calls :meth:`_init_windows` and runs
+  each window's body through :meth:`_run`."""
+
+  def _init_windows(self, device: torch.device):
+    self._window_device = device
+    #: CUDA graphs captured (one per window length and kind); 0 on the CPU
+    self.superstep_captures = 0
+    #: seconds each capture took (the recording, after its eager window)
+    self.capture_seconds: List[float] = []
+    #: windows run by replaying a graph
+    self.graph_replays = 0
+    #: the windows by (kind, length): static buffers, graph, the launches
+    #: recorded in it and its replays
+    self.windows: Dict = {}
+    # held by a capture and by a producer thread's device work, so that
+    # no other thread touches the card while a graph records
+    self._lock = threading.Lock()
+
+  def _run(self, w: _Window, body: Callable[[], torch.Tensor]
+           ) -> torch.Tensor:
+    """A window's losses: eagerly on the CPU; on the card the first
+    window of its length runs eagerly and is captured, later ones
+    replay."""
+    dev = self._window_device
+    if dev.type != 'cuda':
+      return body()
+    if w.graph is None:
+      with self._lock:
+        losses, w.graph, w.losses, secs, w.recorded = capture_window(body,
+                                                                     dev)
+      self.superstep_captures += 1
+      self.capture_seconds.append(secs)
+      return losses
+    w.graph.replay()
+    w.replays += 1
+    self.graph_replays += 1
+    return w.losses.clone()
+
+  def graph_launches(self) -> Dict[str, int]:
+    """Kernel launches made by graph replays, by wrapper name: each
+    window's recorded launches times its replays (the wrappers count
+    only what ran eagerly)."""
+    out: Dict[str, int] = {}
+    for w in self.windows.values():
+      for name, n in w.recorded.items():
+        out[name] = out.get(name, 0) + n * w.replays
+    return out
+
+  def _window(self, key, inputs: Dict) -> _Window:
+    """The window ``key``, its static buffers (shaped like ``inputs``, a
+    tree of tensors on the card) filled with ``inputs``."""
+    if key not in self.windows:
+      self.windows[key] = _Window(tree_map(torch.empty_like, inputs))
+    w = self.windows[key]
+    for dst, src in zip(tree_leaves(w.inputs), tree_leaves(inputs)):
+      dst.copy_(src)
+    return w
+
+
+class SPMDSageTrainStep(CapturedWindows):
   """The data-parallel GraphSAGE step over a mesh of ranks, one card each
   (counterpart of glt_tpu/parallel/train.py:76-568).
 
@@ -214,18 +307,7 @@ class SPMDSageTrainStep:
         model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
         capturable=dev.type == 'cuda')
     self.generator = make_generator(seed + mesh.rank, dev)
-    #: CUDA graphs captured (one per window length and kind); 0 on the CPU
-    self.superstep_captures = 0
-    #: seconds each capture took (the recording, after its eager window)
-    self.capture_seconds: List[float] = []
-    #: windows run by replaying a graph
-    self.graph_replays = 0
-    #: the windows by (kind, length): static buffers, graph, the launches
-    #: recorded in it and its replays
-    self.windows: Dict = {}
-    # held by a capture and by the streaming producer's device work, so
-    # that no other thread touches the card while a graph records
-    self._lock = threading.Lock()
+    self._init_windows(dev)
 
   # -- the batch body ----------------------------------------------------
 
@@ -251,23 +333,7 @@ class SPMDSageTrainStep:
                  metadata={'n_valid': n_valid})
 
   def _update(self, batch: Batch) -> torch.Tensor:
-    """Forward, backward, the mesh mean of the gradients and the loss,
-    Adam; returns the mean loss (before the update), a 0-dim tensor."""
-    self.optimizer.zero_grad(set_to_none=True)
-    loss = sage_loss(self.model, batch)
-    loss.backward()
-    loss = loss.detach().reshape(1)
-    world = self.mesh.world
-    if world > 1:
-      grads = [p.grad for p in self.model.parameters()]
-      flat = torch.cat([g.reshape(-1) for g in grads] + [loss])
-      dist.all_reduce(flat, group=self.mesh.group)
-      flat = flat / world
-      for g, v in zip(grads, flat[:-1].split([g.numel() for g in grads])):
-        g.copy_(v.view_as(g))
-      loss = flat[-1:]
-    self.optimizer.step()
-    return loss[0]
+    return mesh_update(self.model, self.optimizer, self.mesh, batch)
 
   # -- inputs of this rank -----------------------------------------------
 
@@ -310,46 +376,6 @@ class SPMDSageTrainStep:
                                         [x[0] for x in u]))
 
   # -- windows ------------------------------------------------------------
-
-  def _run(self, w: _Window, body: Callable[[], torch.Tensor]
-           ) -> torch.Tensor:
-    """A window's losses: eagerly on the CPU; on the card the first
-    window of its length runs eagerly and is captured, later ones
-    replay."""
-    dev = self.mesh.device
-    if dev.type != 'cuda':
-      return body()
-    if w.graph is None:
-      with self._lock:
-        losses, w.graph, w.losses, secs, w.recorded = capture_window(body,
-                                                                     dev)
-      self.superstep_captures += 1
-      self.capture_seconds.append(secs)
-      return losses
-    w.graph.replay()
-    w.replays += 1
-    self.graph_replays += 1
-    return w.losses.clone()
-
-  def graph_launches(self) -> Dict[str, int]:
-    """Kernel launches made by graph replays, by wrapper name: each
-    window's recorded launches times its replays (the wrappers count
-    only what ran eagerly)."""
-    out: Dict[str, int] = {}
-    for w in self.windows.values():
-      for name, n in w.recorded.items():
-        out[name] = out.get(name, 0) + n * w.replays
-    return out
-
-  def _window(self, key, inputs: Dict) -> _Window:
-    """The window ``key``, its static buffers (shaped like ``inputs``, a
-    tree of tensors on the card) filled with ``inputs``."""
-    if key not in self.windows:
-      self.windows[key] = _Window(tree_map(torch.empty_like, inputs))
-    w = self.windows[key]
-    for dst, src in zip(tree_leaves(w.inputs), tree_leaves(inputs)):
-      dst.copy_(src)
-    return w
 
   def superstep(self, seeds_stack, n_valid_stack, uniforms=None
                 ) -> torch.Tensor:

@@ -37,6 +37,7 @@ from ..loader.transform import Batch, HeteroBatch, to_batch, to_hetero_batch
 from ..sampler import NeighborSampler
 from ..sampler.base import NodeSamplerInput
 from ..utils import as_numpy, resolve_device
+from ..utils.rng import seeded_state_dict
 from .embedding_cache import EmbeddingCache
 
 
@@ -155,15 +156,7 @@ class InferenceEngine:
     nn.Linear's default range, drawn on the CPU so a seed gives the same
     weights on every device) -- fresh or benchmark weights without a
     training loop."""
-    gen = torch.Generator().manual_seed(int(seed))
-    state, current = {}, self.model.state_dict()
-    for name, p in current.items():
-      # a bias takes the fan-in of its layer's weight; a weight or an
-      # attention vector its last axis
-      fan_in = (current[name[:-len('bias')] + 'weight'].shape[-1]
-                if name.endswith('bias') else p.shape[-1])
-      bound = 1.0 / float(fan_in) ** 0.5
-      state[name] = (torch.rand(p.shape, generator=gen) * 2 - 1) * bound
+    state = seeded_state_dict(self.model, seed)
     with self._lock:
       self.model.load_state_dict(state)
     return state

@@ -2,7 +2,9 @@
 from __future__ import annotations
 
 import enum
-from typing import Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
+
+import numpy as np
 
 NodeType = str
 #: (src_node_type, relation, dst_node_type)
@@ -37,3 +39,18 @@ class Split(enum.Enum):
 class GraphMode(enum.Enum):
   """Where the topology lives. The port keeps it in device memory."""
   HBM = 'HBM'
+
+
+class GraphPartitionData(NamedTuple):
+  """Edges assigned to one partition. ``edge_index``: [2, E] (row, col)."""
+  edge_index: np.ndarray
+  eids: np.ndarray
+  weights: Optional[np.ndarray] = None
+
+
+class FeaturePartitionData(NamedTuple):
+  """Features of one partition: owned rows plus the hot-cache rows."""
+  feats: Optional[np.ndarray]
+  ids: Optional[np.ndarray]
+  cache_feats: Optional[np.ndarray]
+  cache_ids: Optional[np.ndarray]

@@ -1248,3 +1248,95 @@ def test_two_ranks_over_nccl_train_as_per_batch(dev, tmp_path):
       assert (r[name]['captures'], r[name]['replays']) == (1, 1)
     # the mesh mean: every rank reports the same losses
     np.testing.assert_array_equal(res[0][name]['got'], res[1][name]['got'])
+
+
+# -- partitioned hetero training ----------------------------------------------
+
+def _check_dist(res, world):
+  """A batch bit-identical through the kernels and the plain versions,
+  one B2 launch a segment and one K3 a node type, and windows (one
+  capture, one replay) equal to per-batch calls."""
+  assert res['differ'] == []
+  assert res['batch_launches']['sample_hop'] == res['segments']
+  assert res['batch_launches']['gather_rows'] == 3
+  if world > 1:
+    assert res['remote'] > 0        # requests another rank served
+  _check_windows(res)
+  assert (res['captures'], res['replays']) == (1, 1)
+  assert res['replayed']['sample_hop'] == 3 * res['segments']
+  assert res['replayed']['gather_rows'] == 3 * 3
+
+
+def test_dist_hetero_one_rank_kernels_and_superstep(dev, tmp_path):
+  import torch_dist_worker as worker
+  from glt_tpu_torch.parallel import make_mesh
+  labels = worker.card_layout(str(tmp_path), 1)
+  _check_dist(worker.card_dist_windows(make_mesh(device=dev), str(tmp_path),
+                                       labels), 1)
+
+
+def test_static_dedup_replays_in_a_cuda_graph(dev):
+  from glt_tpu_torch.ops.unique import BIG, sorted_hop_dedup_fused
+  g = torch.Generator(device=dev).manual_seed(8)
+
+  def case():
+    seen = torch.randperm(5000, generator=g, device=dev)[:700].to(
+        torch.int32)
+    u_ids = torch.cat([seen, torch.full((50,), BIG, dtype=torch.int32,
+                                        device=dev)])
+    u_labs = torch.cat([torch.randperm(700, generator=g, device=dev).to(
+        torch.int32), torch.full((50,), BIG, dtype=torch.int32, device=dev)])
+    ids = torch.randint(0, 5000, (20_000,), generator=g, device=dev,
+                        dtype=torch.int32)
+    valid = torch.rand(20_000, generator=g, device=dev) > 0.2
+    return [u_ids, u_labs, torch.tensor(700, dtype=torch.int32, device=dev),
+            ids, valid]
+  static = case()
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    sorted_hop_dedup_fused(*static)
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = sorted_hop_dedup_fused(*static)
+  for _ in range(3):
+    fresh = case()
+    for s, f in zip(static, fresh):
+      s.copy_(f)
+    graph.replay()
+    want = sorted_hop_dedup_fused(*fresh)
+    for k, v in want.items():
+      assert torch.equal(out[k], v), k
+    assert int(want['new_count']) > 0
+
+
+def test_two_ranks_over_nccl_train_dist_hetero(dev, tmp_path):
+  if torch.cuda.device_count() < 2:
+    pytest.skip('needs two cards')
+  import pickle
+  import torch_dist_worker as worker
+  root = str(tmp_path / 'parts')
+  np.save(tmp_path / 'labels.npy', worker.card_layout(root, 2))
+  ctx = torch.multiprocessing.get_context('spawn')
+  out = str(tmp_path / 'rank%d.pkl')
+  procs = [ctx.Process(target=worker.dist_nccl_main,
+                       args=(r, 2, str(tmp_path / 'store'), root,
+                             str(tmp_path / 'labels.npy'), out))
+           for r in range(2)]
+  for p in procs:
+    p.start()
+  for p in procs:
+    p.join(300)
+  hung = [p for p in procs if p.is_alive()]
+  for p in hung:
+    p.kill()
+  assert not hung and all(p.exitcode == 0 for p in procs)
+  res = []
+  for r in range(2):
+    with open(out % r, 'rb') as f:
+      res.append(pickle.load(f))
+  for r in res:
+    _check_dist(r, 2)
+  # the mesh mean: every rank reports the same losses
+  np.testing.assert_array_equal(res[0]['got'], res[1]['got'])

@@ -5,9 +5,10 @@ probe and microbench kernels and their benchmark entry points, and the
 link and SEAL modules with their two example scripts, and the hot/cold
 feature tier's offload, reorder, products example and feature bench, and
 the superstep trainer's mesh, collectives, sharded feature store,
-superstep lifts, epoch staging, prefetch thread and training bench) and
-``chip_smoke`` pulls in neither JAX nor the JAX package, and touches no
-card."""
+superstep lifts, epoch staging, prefetch thread and training bench, and
+the partitioned slice's partitioner, distributed stores, samplers and
+trainer, MLPerf logging and the IGBH example) and ``chip_smoke`` pulls in
+neither JAX nor the JAX package, and touches no card."""
 import os
 import subprocess
 import sys
@@ -55,6 +56,18 @@ print('SUPERSTEP', all(m in sys.modules for m in (
     'glt_tpu_torch.parallel.dist_feature', 'glt_tpu_torch.ops.superstep',
     'glt_tpu_torch.loader.device_epoch', 'glt_tpu_torch.utils.prefetch',
     'glt_tpu_torch.benchmarks.bench_train')))
+print('DIST', all(m in sys.modules for m in (
+    'glt_tpu_torch.partition', 'glt_tpu_torch.partition.base',
+    'glt_tpu_torch.partition.partition_book',
+    'glt_tpu_torch.partition.random_partitioner',
+    'glt_tpu_torch.distributed', 'glt_tpu_torch.distributed.dist_dataset',
+    'glt_tpu_torch.distributed.dist_graph',
+    'glt_tpu_torch.distributed.dist_neighbor_sampler',
+    'glt_tpu_torch.distributed.dist_feature',
+    'glt_tpu_torch.distributed.dist_hetero',
+    'glt_tpu_torch.utils.mlperf_logging',
+    'glt_tpu_torch.examples.igbh.data',
+    'glt_tpu_torch.examples.igbh.dist_train_rgnn')))
 import torch
 print('CUDA_INIT', torch.cuda.is_initialized())
 '''
@@ -66,7 +79,7 @@ def test_port_and_chip_smoke_import_no_jax():
                        capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr
   assert 'BAD []' in out.stdout, out.stdout
-  assert int(out.stdout.split('LOADED ')[1].split()[0]) >= 45
+  assert int(out.stdout.split('LOADED ')[1].split()[0]) >= 60
   assert 'HETERO True' in out.stdout, out.stdout
   assert 'STREAM True' in out.stdout, out.stdout
   assert 'TRAIN True' in out.stdout, out.stdout
@@ -74,4 +87,5 @@ def test_port_and_chip_smoke_import_no_jax():
   assert 'LINK True' in out.stdout, out.stdout
   assert 'TIER True' in out.stdout, out.stdout
   assert 'SUPERSTEP True' in out.stdout, out.stdout
+  assert 'DIST True' in out.stdout, out.stdout
   assert 'CUDA_INIT False' in out.stdout, out.stdout

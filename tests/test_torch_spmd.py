@@ -12,9 +12,6 @@ process with no process group; world 2 runs it in two spawned ranks of a
 gloo group over a ``FileStore`` in ``tmp_path`` (tests/torch_spmd_worker.py,
 which imports no JAX), each rank's block held against the JAX result's.
 """
-import os
-import pickle
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -176,34 +173,6 @@ def reference():
   return out
 
 
-def spawn_ranks(world, cases, tmp):
-  """Run ``worker.main`` in ``world`` spawned ranks; their results by
-  rank. A rank that hangs is killed at ``JOIN_S`` and fails the test."""
-  inp = os.path.join(tmp, 'cases.pkl')
-  with open(inp, 'wb') as f:
-    pickle.dump(cases, f)
-  out = os.path.join(tmp, 'rank%d.pkl')
-  ctx = torch.multiprocessing.get_context('spawn')
-  procs = [ctx.Process(target=worker.main,
-                       args=(r, world, os.path.join(tmp, 'store'), inp, out))
-           for r in range(world)]
-  for p in procs:
-    p.start()
-  for p in procs:
-    p.join(JOIN_S)
-  hung = [p for p in procs if p.is_alive()]
-  for p in hung:
-    p.kill()
-    p.join(10)
-  assert not hung, f'{len(hung)} ranks still running after {JOIN_S} s'
-  assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
-  res = []
-  for r in range(world):
-    with open(out % r, 'rb') as f:
-      res.append(pickle.load(f))
-  return res
-
-
 @pytest.fixture(scope='module')
 def port(reference, tmp_path_factory):
   """Per world: each rank's results (world 1 in this process)."""
@@ -213,8 +182,9 @@ def port(reference, tmp_path_factory):
     if world == 1:
       out[1] = [worker.run_cases(make_mesh(device='cpu'), cases)]
     else:
-      out[world] = spawn_ranks(world, cases,
-                               str(tmp_path_factory.mktemp(f'w{world}')))
+      out[world] = worker.spawn_ranks(
+          worker.main, world, cases,
+          str(tmp_path_factory.mktemp(f'w{world}')), JOIN_S)
   return out
 
 

@@ -64,10 +64,10 @@ def run_cases(mesh, cases):
           for name, case in cases.items()}
 
 
-def main(rank, world, store_path, in_path, out_path):
-  """A spawned rank: joins the gloo group over the FileStore, runs every
-  case of ``in_path`` (a pickled dict) and pickles its results to
-  ``out_path % rank``."""
+def run_rank(run, rank, world, store_path, in_path, out_path):
+  """A spawned rank: joins the gloo group over the FileStore, runs
+  ``run(mesh, cases)`` on the cases of ``in_path`` (a pickled dict) and
+  pickles its results to ``out_path % rank``."""
   import pickle
   dist.init_process_group('gloo', store=dist.FileStore(store_path, world),
                           rank=rank, world_size=world)
@@ -75,11 +75,47 @@ def main(rank, world, store_path, in_path, out_path):
     with open(in_path, 'rb') as f:
       cases = pickle.load(f)
     torch.set_num_threads(1)
-    res = run_cases(make_mesh(device='cpu'), cases)
+    res = run(make_mesh(device='cpu'), cases)
     with open(out_path % rank, 'wb') as f:
       pickle.dump(res, f)
   finally:
     dist.destroy_process_group()
+
+
+def main(rank, world, store_path, in_path, out_path):
+  """A spawned rank of this module's cases (:func:`run_rank`)."""
+  run_rank(run_cases, rank, world, store_path, in_path, out_path)
+
+
+def spawn_ranks(target, world, cases, tmp, join_s):
+  """Run ``target(rank, world, store, cases_path, out_path)`` in
+  ``world`` spawned ranks; their results by rank. A rank that hangs is
+  killed at ``join_s`` seconds and fails the caller."""
+  import os
+  import pickle
+  inp = os.path.join(tmp, 'cases.pkl')
+  with open(inp, 'wb') as f:
+    pickle.dump(cases, f)
+  out = os.path.join(tmp, 'rank%d.pkl')
+  ctx = torch.multiprocessing.get_context('spawn')
+  procs = [ctx.Process(target=target,
+                       args=(r, world, os.path.join(tmp, 'store'), inp, out))
+           for r in range(world)]
+  for p in procs:
+    p.start()
+  for p in procs:
+    p.join(join_s)
+  hung = [p for p in procs if p.is_alive()]
+  for p in hung:
+    p.kill()
+    p.join(10)
+  assert not hung, f'{len(hung)} ranks still running after {join_s} s'
+  assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+  res = []
+  for r in range(world):
+    with open(out % r, 'rb') as f:
+      res.append(pickle.load(f))
+  return res
 
 
 def card_windows(mesh, n=2000, e=30_000, seed=5, **kw):
