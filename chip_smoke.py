@@ -9,8 +9,9 @@ LinkNeighborLoader and SageTrainStep, a SubGraphLoader batch, SEAL
 through its example's run, training from a hot/cold split feature store,
 the feature bench, superstep training through SPMDSageTrainStep and the
 training bench, partitioned hetero training through DistHeteroTrainStep,
-and the two benchmark entry points through their main functions, and
-checks what comes out:
+hetero link prediction through the hetero LinkNeighborLoader, HGT
+training through the hetero NeighborLoader, and the two benchmark entry
+points through their main functions, and checks what comes out:
 
 - homogeneous: a seeded 3-layer GraphSAGE (hidden 256, 47 classes, 100
   features, fanouts [15, 10, 5]) over a products-shaped graph (2.45M
@@ -96,6 +97,26 @@ checks what comes out:
   one batch against the plain versions, then two windows of 8 through
   the per-batch engine and through the superstep (eager and captured,
   then a replay) on the same seeds and uniforms;
+- hetero link prediction (examples/hetero/bipartite_sage_unsup.py at
+  Taobao's counts): 987,994 users, 4,161,138 items in 9,439 categories,
+  101 user-item links a user inside one category (99.8M) and their
+  reverse, 4 same-category item neighbours an item (16.6M), float32 x 32
+  features, drawn on the card; the 80/20 link split; the hetero
+  LinkNeighborLoader over ('user', 'to', 'item'), batch 2,048 with one
+  binary negative each (4,096 user and 4,096 item seeds through one
+  walk: K2's seed phase for both types in one launch), [8, 4] -> RGNN
+  rsage 32 -> 64 -> 32 embeddings of both types -> dot-product sigmoid
+  BCE -> Adam(3e-3), 2 warm-up and 10 timed steps; K2's two-type init
+  timed in turns against the init-then-insert chain, B1 and K3 at the
+  batch's shapes; one batch against the plain versions; a test AUC over
+  4 batches (printed, not gated);
+- HGT (examples/hetero/train_hgt_mag.py at ogbn-mag's counts: 736,389
+  papers, 1,134,649 authors, 5,416,271 cites, 7,145,660 writes, 128
+  features, 349 classes): the hetero NeighborLoader seeded on papers,
+  {cites: [5, 5], writes: [5, 5]}, batch 128 -> HGT (hidden 64, 2 heads,
+  2 layers) -> masked cross-entropy -> Adam(2e-3), 2 warm-up and 10 timed
+  steps; B1, K2 and K3 (512-byte paper rows) at a batch's shapes and one
+  batch against the plain versions;
 - repairs: the walk at fanouts [100] and [3, 80] over a graph whose hub
   rows (degree 200-2000) exceed them, and the feature gather on bf16 rows
   of width 101 and uint8 rows of width 7, each against its plain version;
@@ -126,9 +147,10 @@ products table and its bf16 cast at bucket 256's node list), float32 x
 and uint8 x 7. The walk (sample_walk_dedup, one cooperative launch a
 walk), the hetero hop (sample_hop_dedup, one a hop) and the hetero seed
 phase (dedup_table_init, one launch a request, beside the chain of ops it
-replaced) are timed back to back, inside a CUDA graph and by their host
-enqueue, and every main path checks that they launch once a walk, once a
-hop and once a request.
+replaced; dedup_table_init_types, both seed types of a link batch in one
+launch, beside the init-then-insert chain) are timed back to back,
+inside a CUDA graph and by their host enqueue, and every main path
+checks that they launch once a walk, once a hop and once a request.
 
 Prints one line per phase with its seconds, the card's name and power
 limit, one JSON line of per-kernel numbers ({"kernels": [...]}) and, as
@@ -534,6 +556,173 @@ def time_table_init(torch, K, args, host_us):
               bound_ms=bound, graph_ms=dev_ms, host_us=host['kernel'],
               chain_ms=chain_ms, chain_graph_ms=chain_dev,
               chain_host_us=host['chain'], slots=slots)
+
+
+def recorded_hetero_sample(K, sample):
+  """Runs ``sample()`` with the hetero walk's kernels (B1, K2's init of one
+  or several seed types) replaced by their plain versions, which leave
+  every input of the next hop as the kernels would, and records their
+  inputs as the pipeline hands them over (the tables copied before each
+  hop). Returns (hops, inits, the sample's output): a hop is ``(args,
+  table planes, kwargs)``, an init ``(wrapper name, args)``."""
+  hops, inits = [], []
+  real = {n: getattr(K, n) for n in ('sample_hop_dedup', 'dedup_table_init',
+                                     'dedup_table_init_types')}
+
+  def record(*a, **kw):
+    hops.append((a, [t.clone() for t in a[5:8]], kw))
+    return K.sample_hop_dedup_plain(*a, **kw)
+
+  def init(name):
+    def rec(*a):
+      inits.append((name, a))
+      return getattr(K, name + '_plain')(*a)
+    return rec
+  K.sample_hop_dedup = record
+  K.dedup_table_init = init('dedup_table_init')
+  K.dedup_table_init_types = init('dedup_table_init_types')
+  try:
+    out = sample()
+  finally:
+    for n, fn in real.items():
+      setattr(K, n, fn)
+  return hops, inits, out
+
+
+def time_hops(torch, K, hops, host_us, label):
+  """B1 at each recorded hop (``recorded_hetero_sample``): one launch,
+  equal to its plain version on every output and on the table it leaves,
+  timed back to back, in a CUDA graph (each call on a fresh copy of the
+  table, less the copy's own time) and by host enqueue, beside its plain
+  time and byte bound; prints a line a hop and the sums, returns the row
+  of sums."""
+  hop_row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0, graph_ms=0.0,
+                 host_us=0.0)
+  hop = K.sample_hop_dedup
+  for h, (a, table, kw) in enumerate(hops):
+    fresh = lambda: [t.clone() for t in table]
+    kt, pt = fresh(), fresh()
+    before = hop.launches
+    got = hop(*a[:5], *kt, *a[8:], **kw)
+    if hop.launches != before + 1:
+      raise AssertionError('a hop is not one launch')
+    want = K.sample_hop_dedup_plain(*a[:5], *pt, *a[8:], **kw)
+    for key in ('picks', 'labels', 'new_head', 'counts'):
+      if not torch.equal(got[key], want[key]):
+        raise AssertionError(f'sample_hop_dedup {label} hop {h} {key} '
+                             'differs')
+      hop_row['err'] = max(hop_row['err'], int(
+          (got[key].long() - want[key].long()).abs().max()))
+    ok = a[4].reshape(-1)
+    probe = torch.unique(got['picks'].reshape(-1)[ok])
+    if not torch.equal(K.dedup_table_lookup(*kt[:2], probe),
+                       K.dedup_table_lookup(*pt[:2], probe)):
+      raise AssertionError(f'sample_hop_dedup {label} hop {h} tables differ')
+    s, k = a[3].shape
+    tables = [fresh() for _ in range(10)]
+    ms = cuda_ms(torch, lambda i=0: hop(*a[:5], *tables[i], *a[8:], **kw),
+                 10, warmup=0)
+    ptables = [fresh() for _ in range(2)]
+    plain = cuda_ms(torch, lambda i=0: K.sample_hop_dedup_plain(
+        *a[:5], *ptables[i], *a[8:], **kw), 2, warmup=0)
+    live = fresh()
+    reset = lambda: [t.copy_(u) for t, u in zip(live, table)]
+    copy_ms = graph_ms(torch, reset)
+    dev_ms = graph_ms(torch, lambda: (reset(), hop(*a[:5], *live, *a[8:],
+                                                   **kw))) - copy_ms
+    host = host_us({'kernel': lambda: hop(*a[:5], *live, *a[8:],
+                                          **kw)})['kernel']
+    hop_row['graph_ms'] += dev_ms
+    hop_row['host_us'] += host
+    # bytes the hop must move: starts, offsets and validity in, one
+    # neighbour id and one table key per valid lane, and per lane the
+    # outputs (pick, label: 4 B; head: 1 B), a key and a label written
+    # per new id
+    n_ok, n_new = int(ok.sum()), int(got['new_head'].sum())
+    nbytes = 4 * s + 5 * s * k + 8 * n_ok + 9 * s * k + 8 * n_new
+    for key, v in (('ms', ms), ('plain_ms', plain),
+                   ('bound_ms', bytes_ms(nbytes))):
+      hop_row[key] += v
+    print(f'sample_hop_dedup {label} hop {h + 1} [{s}, {k}]: {n_ok} valid '
+          f'lanes, {n_new} new ids, one launch, equal to plain on every '
+          f'surface; {ms:.4f} ms back to back, in a CUDA graph {dev_ms:.4f} '
+          f'ms (table copy {copy_ms:.4f} ms taken off), host enqueue '
+          f'{host:.2f} us a call (plain {plain:.4f} ms, bound '
+          f'{bytes_ms(nbytes):.6f} ms)')
+    del tables, ptables, live
+  print(f'sample_hop_dedup per {label} ({len(hops)} hops): '
+        f'{hop_row["ms"]:.4f} ms back to back, in a CUDA graph '
+        f'{hop_row["graph_ms"]:.4f} ms, host enqueue '
+        f'{hop_row["host_us"]:.2f} us (plain {hop_row["plain_ms"]:.4f} '
+        f'ms, bound {hop_row["bound_ms"]:.6f} ms)')
+  return hop_row
+
+
+def time_table_init_types(torch, np, K, args, host_us):
+  """K2's init of several seed types (``dedup_table_init_types(*args)``,
+  a two-type link batch's seed phase): one launch, equal to its plain
+  twin (the ``first`` plane and the occupied slots bit for bit, every
+  seed's label and 64 absent ids by lookup; which key holds which
+  occupied slot depends on the order of the atomic inserts); timed in
+  turns against the two-launch chain it replaces (the one-type init, then
+  an in-place insert a further type), back to back and in a CUDA graph,
+  and by host enqueue; returns its row."""
+  slots, segs, dev = args
+  before = K.dedup_table_insert.launches
+  got = K.dedup_table_init_types(*args)
+  if K.dedup_table_insert.launches != before + 1:
+    raise AssertionError('the multi-type table init is not one launch')
+  want = K.dedup_table_init_types_plain(*args)
+  live = [h & (i < K.BIG) for i, _, h, _ in segs]
+  probe = torch.cat([torch.where(m, i.long() + b, -1)
+                     for m, (i, _, _, b) in zip(live, segs)]
+                    + [torch.arange(2 ** 31 - 65, 2 ** 31 - 1, device=dev)])
+  a = K.dedup_table_lookup(*got[:2], probe)
+  b = K.dedup_table_lookup(*want[:2], probe)
+  if not (torch.equal(a, b) and torch.equal(got[2], want[2])
+          and torch.equal(got[0] >= 0, want[0] >= 0)):
+    raise AssertionError('dedup_table_init_types differs from plain')
+  seen = torch.cat([torch.where(m, l.long(), -1)
+                    for m, (_, l, _, _) in zip(live, segs)])
+  if not torch.equal(a[:seen.numel()], seen) or bool(
+      (a[seen.numel():] >= 0).any()):
+    raise AssertionError('dedup_table_init_types lookups miss seed labels')
+
+  def chain():   # the one-type init, then an in-place insert a type
+    keys, vals, _ = K.dedup_table_init(slots, *segs[0], dev)
+    for ids, labs, heads, base in segs[1:]:
+      x = torch.where(heads, ids + base, torch.full_like(ids, -1))
+      K.dedup_table_insert(keys, vals, x, labs, x >= 0)
+
+  init = lambda: K.dedup_table_init_types(*args)
+  per_round = in_turns_ms(torch, np, {'kernel': init, 'chain': chain},
+                          iters=20)
+  t = {n: float(np.median(v)) for n, v in per_round.items()}
+  plain = cuda_ms(torch, lambda i=0: K.dedup_table_init_types_plain(*args),
+                  3, warmup=1)
+  graph = {n: graph_ms(torch, fn, calls=20)
+           for n, fn in (('kernel', init), ('chain', chain))}
+  host = host_us({'kernel': init, 'chain': chain})
+  lanes = sum(i.numel() for i, _, _, _ in segs)
+  n_ins = sum(int(m.sum()) for m in live)
+  bound = bytes_ms(12 * slots + lanes + 4 * sum(int(h.sum()) for _, _, h, _
+                                                in segs) + 12 * n_ins)
+  print(f'dedup_table_init_types: {slots} slots, {len(segs)} seed types, '
+        f'{lanes} seed lanes, {n_ins} inserted at bases '
+        f'{[b for _, _, _, b in segs]}; one launch, equal to plain; '
+        f'{t["kernel"]:.4f} ms back to back (the two-launch chain '
+        f'{t["chain"]:.4f} ms, in turns, medians of {ROUNDS}), in a CUDA '
+        f'graph {graph["kernel"]:.4f} ms (chain {graph["chain"]:.4f} ms; '
+        f'{bound / graph["kernel"] * 100:.1f}% of the bound), host enqueue '
+        f'{host["kernel"]:.2f} us a call (chain {host["chain"]:.2f} us); '
+        f'plain {plain:.4f} ms, bound {bound:.6f} ms')
+  verdict('dedup_table_init_types', t['kernel'], t['chain'],
+          label='the init-then-insert chain',
+          ratios=list(per_round['kernel'] / per_round['chain']))
+  return dict(ms=t['kernel'], plain_ms=plain, err=int((a - b).abs().max()),
+              bound_ms=bound, graph_ms=graph['kernel'], host_us=host['kernel'],
+              chain_ms=t['chain'], chain_graph_ms=graph['chain'],
+              chain_host_us=host['chain'], slots=slots, types=len(segs))
 
 
 def time_walk(torch, K, g, seeds, fanouts, gen, host_us):
@@ -1673,30 +1862,37 @@ SEAL_CHECK = 32   # positive (and as many negative) links re-extracted
 SUBGRAPH_FANOUTS, SUBGRAPH_BATCH = (10, 5), 64
 
 
-def link_batch_vs_plain(torch, K, loader, label, props, u, seeds_idx):
+def link_batch_vs_plain(torch, K, loader, label, props, u, seeds_idx,
+                        names=('sample_walk_dedup', 'gather_rows'),
+                        fields=LINK_FIELDS):
   """One link batch (``loader._make_batch`` at edge positions
   ``seeds_idx``, the draws injected) through the kernels and through
-  their plain versions: bit-identical on every field and label, or
-  raises. Returns the kernels' batch."""
+  their plain versions (the wrappers ``names``): bit-identical on every
+  field of ``fields`` and every tensor of its metadata (a dict's too), or
+  raises. Returns both batches."""
   sampler = loader.sampler
   real = sampler.sample_from_edges
   sampler.sample_from_edges = lambda inputs: real(inputs, proposals=props,
                                                   uniforms=u)
   try:
     bk = loader._make_batch(seeds_idx, seeds_idx.size)
-    with swapped_to_plain(K, ('sample_walk_dedup', 'gather_rows')):
+    with swapped_to_plain(K, names):
       bp = loader._make_batch(seeds_idx, seeds_idx.size)
   finally:
     del sampler.sample_from_edges
-  f = differing_field(torch, bk, bp, LINK_FIELDS)
+  f = differing_field(torch, bk, bp, fields)
   if f is None:
     for key, v in bp.metadata.items():
-      if isinstance(v, torch.Tensor) and not torch.equal(bk.metadata[key], v):
+      a = bk.metadata[key]
+      if not isinstance(v, dict):
+        a, v = {None: a}, {None: v}
+      if any(isinstance(x, torch.Tensor) and not torch.equal(a[k], x)
+             for k, x in v.items()):
         f = f'metadata[{key!r}]'
   if f is not None:
     raise AssertionError(f'{label} link batch.{f} differs between kernels '
                          'and plain')
-  return bk
+  return bk, bp
 
 
 def link_phases(torch, np, K, ds, dev, seed, k3, walks, host_us, smi):
@@ -1742,7 +1938,7 @@ def link_phases(torch, np, K, ds, dev, seed, k3, walks, host_us, smi):
       props = negative_proposals(sampler.generator, num_neg, 5, NUM_NODES,
                                  NUM_NODES, dev)
       u = sampler.hop_uniforms(n_seeds)
-      bk = link_batch_vs_plain(torch, K, ld, mode, props, u, pos)
+      bk = link_batch_vs_plain(torch, K, ld, mode, props, u, pos)[0]
       node, meta = bk.node.long(), bk.metadata
       if mode == 'binary':
         # a strict negative is no edge (a triplet keeps only the checked
@@ -3021,6 +3217,329 @@ def stream_parts(torch, np, K, step, store, win, dev):
   del outs, cold, cold_dev, buf
 
 
+# hetero link prediction: examples/hetero/bipartite_sage_unsup.py at
+# Taobao's counts (its TAOBAO) and the upstream Taobao example's batch
+# (2,048 links with one binary negative each: 4,096 seeds of either
+# type), [8, 4], RGNN rsage 32 -> 64 -> 32, Adam 3e-3; AUC over a few
+# test batches
+HLINK_BATCH, HLINK_WARMUP, HLINK_STEPS, HLINK_EVAL = 2048, 2, 10, 4
+HLINK_SWAPPED = ('dedup_table_init', 'dedup_table_init_types',
+                 'sample_hop_dedup', 'gather_rows')
+HLINK_FIELDS = ('node_dict', 'node_count_dict', 'row_dict', 'col_dict',
+                'edge_mask_dict', 'x_dict', 'num_sampled_nodes',
+                'num_sampled_edges')
+# HGT: examples/hetero/train_hgt_mag.py at ogbn-mag's counts
+# (examples/common.py MAG_COUNTS), hidden 64, 2 heads, 2 layers, batch 128
+HGT_WARMUP, HGT_STEPS = 2, 10
+
+
+def device_bytes(tensors):
+  """Bytes of the distinct storages among ``tensors``."""
+  seen = {}
+  for t in tensors:
+    if t is not None:
+      seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+  return sum(seen.values())
+
+
+def graph_bytes(ds):
+  return device_bytes([x for g in ds.graph.values() for x in (
+      g.indptr, g.indptr_pad, g.indices, g.edge_ids, g.topo.indptr)])
+
+
+def timed_steps(torch, np, K, label, it, step, n_steps, warmup, per_step,
+                pairs, smi):
+  """``n_steps`` training steps over ``it`` (each ending in a device sync;
+  host clock), every kernel's launches a step held to ``per_step``; prints
+  the losses, the timed steps' ms, ``pairs`` a step per second (labelled
+  pairs or seeds), sampled edges/s and the peak; returns (launches by
+  kernel, median ms, the last batch)."""
+  from glt_tpu_torch.utils.profile import ThroughputMeter
+  torch.cuda.synchronize()
+  resident = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  K.reset_launch_counts()
+  losses, secs, edges = [], [], []
+  for i in range(n_steps):
+    before = {n: getattr(K, n).launches for n in per_step}
+    t0 = time.perf_counter()
+    b = next(it)
+    losses.append(step(b))
+    n_edges = sum(v.sum() for v in b.num_sampled_edges.values())
+    torch.cuda.synchronize()
+    secs.append(time.perf_counter() - t0)
+    edges.append(n_edges)
+    for n, want in per_step.items():
+      if getattr(K, n).launches - before[n] != want:
+        raise AssertionError(
+            f'{label} step {i}: {getattr(K, n).launches - before[n]} {n} '
+            f'launches, expected {want}')
+  launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+  peak = torch.cuda.max_memory_allocated()
+  losses = [float(v) for v in losses]
+  if not all(np.isfinite(losses)):
+    raise AssertionError(f'{label}: non-finite loss {losses}')
+  timed = np.array(secs[warmup:]) * 1e3
+  n_timed = sum(int(e) for e in edges[warmup:])
+  meter = ThroughputMeter('edges')
+  meter.update(n_timed, timed.sum() / 1e3)
+  median = float(np.median(timed))
+  rate = pairs * (n_steps - warmup) / timed.sum() * 1e3
+  print(f'{label}: {len(losses)} steps, losses '
+        + ', '.join(f'{v:.4f}' for v in losses))
+  print(f'{label} steps {warmup + 1}-{n_steps}: median {median:.3f} ms a '
+        f'step (quartiles {np.percentile(timed, 25):.3f}-'
+        f'{np.percentile(timed, 75):.3f}, min {timed.min():.3f}, max '
+        f'{timed.max():.3f}); {rate:.1f} '
+        f'{"labelled pairs" if "link" in label else "seeds"}/s, '
+        f'{meter.rate:.1f} valid sampled edges/s ({meter.report()}, '
+        f'{n_timed / (n_steps - warmup):.0f} a step); warm-up steps '
+        + ', '.join(f'{v * 1e3:.3f}' for v in secs[:warmup])
+        + f' ms; on {smi}')
+  print(f'{label} launches {launches}; resident before '
+        f'{resident / 2**30:.3f} GiB, peak memory {peak / 2**30:.3f} GiB '
+        f'({peak} bytes)')
+  return launches, median, b
+
+
+def profile_steps(torch, step_fn, it, label, median):
+  """profile_stages over 2 synced steps of ``step_fn`` (a SageTrainStep
+  with ``sync_stages``) after one warm step."""
+  step_fn(next(it))
+
+  def run():
+    for _ in range(2):
+      step_fn(next(it))
+  step_stages = ('train.forward', 'train.backward', 'train.optimizer')
+  wall, busy = profile_stages(
+      torch, run, 2, ('sample.multihop', 'gather.features') + step_stages,
+      'step', host_stages=step_stages)
+  print(f'{label} profile: device busy {busy:.3f} ms a step is '
+        f'{busy / median * 100:.1f}% of the unsynchronised median step '
+        f'({median:.3f} ms)')
+
+
+def hetero_link_phases(torch, np, K, dev, seed, rows, k3, host_us, smi):
+  """Hetero link prediction (examples/hetero/bipartite_sage_unsup.py) over
+  a Taobao-shaped graph drawn on the card; returns its launches."""
+  from glt_tpu_torch.examples.hetero import bipartite_sage_unsup as bp
+  from glt_tpu_torch.ops.negative import negative_proposals
+  from glt_tpu_torch.parallel import SageTrainStep, link_bce_loss
+  from glt_tpu_torch.sampler import EdgeSamplerInput
+
+  with Phase('hetero link data'):
+    secs = {}
+
+    def stage(name, fn):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      out = fn()
+      torch.cuda.synchronize()
+      secs[name] = time.perf_counter() - t0
+      return out
+    ui, ii, nu, ni = stage('draw', lambda: bp.taobao_graph(
+        seed=seed, device=dev, **bp.TAOBAO))
+    drawn = device_bytes([ui, ii])
+    train, test = stage('split', lambda: bp.link_split(ui, seed + 1))
+    del ui
+    gen = torch.Generator(device=dev).manual_seed(seed + 22)
+    feats = stage('features', lambda: {
+        t: torch.randn((n, bp.FEAT), generator=gen, device=dev)
+        for t, n in (('user', nu), ('item', ni))})
+    ds = stage('dataset', lambda: bp.build_dataset(train, ii, nu, ni, feats,
+                                                   device=dev))
+    n_ii = ii.shape[1]
+    del ii, feats
+    loader = stage('loaders', lambda: bp.link_loader(
+        ds, train, HLINK_BATCH, seed, device=dev, shuffle=True))
+    eval_loader = bp.link_loader(ds, test, HLINK_BATCH, seed + 3, device=dev)
+    n_train, n_test = train.shape[1], test.shape[1]
+    del train, test
+    torch.cuda.empty_cache()
+    fbytes = sum(ds.get_node_feature(t).table.numel() * 4
+                 for t in ('user', 'item'))
+    print(f'taobao graph: {nu} users, {ni} items in '
+          f'{bp.TAOBAO["num_groups"]} categories; {n_train + n_test} '
+          f'user-item links ({n_train} train, {n_test} test) and their '
+          f'reverse, {n_ii} item-item; ' + ', '.join(
+              f'{e[1]} {ds.get_graph(e).num_edges}' for e in ds.graph)
+          + f'; features float32 x {bp.FEAT}')
+    print('taobao data seconds: ' + ', '.join(
+        f'{k} {v:.3f}' for k, v in secs.items())
+          + f'; bytes: drawn edges {drawn}, graph on the card '
+          f'{graph_bytes(ds)}, features {fbytes}, the flat edge plane '
+          f'{device_bytes([loader.sampler._hetero_plan.indices_flat])}, '
+          f'host seed edges {loader.edge_rows.nbytes * 2} + '
+          f'{eval_loader.edge_rows.nbytes * 2}')
+
+  with Phase('hetero link kernel checks'):
+    sampler = loader.sampler
+    rng = np.random.default_rng(seed + 23)
+    pos = rng.integers(0, loader.edge_rows.shape[0], HLINK_BATCH)
+    g_u2i = ds.get_graph(bp.U2I).topo
+    props = negative_proposals(sampler.generator, HLINK_BATCH, 5,
+                               g_u2i.num_rows, g_u2i.num_cols, dev)
+    sizes = {'user': 2 * HLINK_BATCH, 'item': 2 * HLINK_BATCH}
+    u = sampler.hop_uniforms(sizes)
+    inputs = EdgeSamplerInput(loader.edge_rows[pos], loader.edge_cols[pos],
+                              input_type=bp.U2I,
+                              neg_sampling=loader.neg_sampling)
+    hops, inits, out = recorded_hetero_sample(
+        K, lambda: sampler.sample_from_edges(inputs, proposals=props,
+                                             uniforms=u))
+    if [n for n, _ in inits] != ['dedup_table_init_types']:
+      raise AssertionError(f'a two-type link batch seeded by {inits}')
+    slots, caps, budgets, _ = sampler._hetero_geometry(sizes)
+    print(f'taobao link batch: {HLINK_BATCH} positives, {HLINK_BATCH} '
+          f'binary negatives, seeds {sizes}, budgets {budgets}, table '
+          f'{slots} slots; {sum(int(c) for c in out.node_count.values())} '
+          f'nodes, ' + ', '.join(f'{e[1]} {int(m.sum())}'
+                                 for e, m in out.edge_mask.items())
+          + ' sampled edges')
+    k2 = rows['dedup_table_insert'].setdefault('shapes', {})
+    k2['init_types taobao link batch'] = time_table_init_types(
+        torch, np, K, inits[0][1], host_us)
+    rows['sample_hop_dedup'].setdefault('shapes', {})[
+        'taobao link batch'] = time_hops(torch, K, hops, host_us,
+                                         'taobao link batch')
+    for t in ('user', 'item'):
+      k3[f'float32 x 32 {t} (taobao link)'] = time_gather(
+          torch, np, K, f'float32 x 32 {t} (taobao link)',
+          ds.get_node_feature(t).table, out.node[t])
+    del hops, inits, out
+
+  with Phase('hetero link main path'):
+    torch.manual_seed(seed)
+    net = bp.make_model(dev)
+    bk, bpl = link_batch_vs_plain(torch, K, loader, 'taobao', props, u, pos,
+                                  names=HLINK_SWAPPED, fields=HLINK_FIELDS)
+    with torch.no_grad():
+      lk, lp = (float(link_bce_loss(net, b)) for b in (bk, bpl))
+    if not abs(lk - lp) <= LOSS_TOL:
+      raise AssertionError(f'taobao link loss {lk} against plain {lp}')
+    print(f'taobao link batch: bit-identical between the kernels and the '
+          f'plain versions on every field and label; loss {lk:.6f}, plain '
+          f'{lp:.6f} (|diff| {abs(lk - lp):.3e}, tolerance {LOSS_TOL})')
+    del bk, bpl
+    step = SageTrainStep(net, lr=bp.LR, loss=link_bce_loss)
+    it = iter(loader)
+    launches, median, b = timed_steps(
+        torch, np, K, 'taobao link training', it, step,
+        HLINK_WARMUP + HLINK_STEPS, HLINK_WARMUP,
+        dict(dedup_table_insert=1, sample_hop_dedup=2, gather_rows=2,
+             sample_walk_dedup=0, sample_hop=0, gather_windows=0),
+        2 * HLINK_BATCH, smi)
+    if tuple(b.metadata['edge_label_index'].shape) != (2, 2 * HLINK_BATCH):
+      raise AssertionError('a taobao batch is not 4,096 labelled pairs')
+    del b
+
+  with Phase('hetero link profile'):
+    profile_steps(torch, SageTrainStep(net, lr=bp.LR, loss=link_bce_loss,
+                                       sync_stages=True), it, 'taobao link',
+                  median)
+    auc = bp.evaluate(net, eval_loader, HLINK_EVAL)
+    if not 0 <= auc <= 1:
+      raise AssertionError(f'taobao AUC {auc}')
+    print(f'taobao link: test AUC {auc:.4f} over {HLINK_EVAL} batches of '
+          f'{HLINK_BATCH} held-out links and as many negatives, after '
+          f'{HLINK_WARMUP + HLINK_STEPS + 3} steps (not gated)')
+  return launches
+
+
+def hgt_phases(torch, np, K, dev, seed, rows, k3, host_us, smi):
+  """HGT training (examples/hetero/train_hgt_mag.py) over an
+  ogbn-mag-shaped graph; returns its launches."""
+  from glt_tpu_torch.examples.common import MAG_COUNTS, synthetic_hetero_mag
+  from glt_tpu_torch.examples.hetero import train_hgt_mag as hgt
+  from glt_tpu_torch.loader import NeighborLoader
+  from glt_tpu_torch.parallel import SageTrainStep, sage_loss
+  from glt_tpu_torch.sampler.base import NodeSamplerInput
+
+  n_papers = MAG_COUNTS['num_papers']
+  with Phase('hgt data'):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds, classes, cites, writes = synthetic_hetero_mag(seed=seed, device=dev,
+                                                      **MAG_COUNTS)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    loader = NeighborLoader(ds, {cites: hgt.FANOUTS, writes: hgt.FANOUTS},
+                            ('paper', np.arange(n_papers)),
+                            batch_size=hgt.BATCH, shuffle=True, seed=seed,
+                            device=dev, rng=np.random.default_rng(seed))
+    fbytes = sum(ds.get_node_feature(t).table.numel() * 4
+                 for t in ('paper', 'author'))
+    print(f'mag graph: {n_papers} papers, {MAG_COUNTS["num_authors"]} '
+          f'authors, ' + ', '.join(f'{e[1]} {ds.get_graph(e).num_edges}'
+                                   for e in ds.graph)
+          + f'; features float32 x {MAG_COUNTS["feat_dim"]}, {classes} '
+          f'classes; {data_s:.3f} s (numpy draws, the CSRs on the card); '
+          f'graph {graph_bytes(ds)} B, features {fbytes} B on the card')
+
+  with Phase('hgt kernel checks'):
+    sampler = loader.sampler
+    seeds = np.random.default_rng(seed + 24).choice(n_papers, hgt.BATCH,
+                                                    replace=False)
+    u = sampler.hop_uniforms(hgt.BATCH, 'paper')
+    inp = NodeSamplerInput(seeds, 'paper')
+    hops, inits, out = recorded_hetero_sample(
+        K, lambda: sampler.sample_from_nodes(inp, uniforms=u))
+    if [n for n, _ in inits] != ['dedup_table_init']:
+      raise AssertionError(f'a paper batch seeded by {inits}')
+    print(f'mag batch: {hgt.BATCH} papers, nodes '
+          f'{ {t: int(c) for t, c in out.node_count.items()} }, edges '
+          f'{ {e[1]: int(m.sum()) for e, m in out.edge_mask.items()} }, '
+          f'author budget {out.node["author"].numel()}')
+    rows['dedup_table_insert'].setdefault('shapes', {})[
+        'init mag batch'] = time_table_init(torch, K, inits[0][1], host_us)
+    rows['sample_hop_dedup'].setdefault('shapes', {})['mag batch'] = \
+        time_hops(torch, K, hops, host_us, 'mag batch')
+    # 512-byte rows: the two-pass width of PERF.md's open question
+    k3['float32 x 128 paper (mag)'] = time_gather(
+        torch, np, K, 'float32 x 128 paper (mag)',
+        ds.get_node_feature('paper').table, out.node['paper'])
+    del hops, inits, out
+
+  with Phase('hgt main path'):
+    torch.manual_seed(seed)
+    net = hgt.make_model(ds, classes, cites, writes, device=dev)
+
+    def batch():
+      return loader._collate(sampler.sample_from_nodes(inp, uniforms=u),
+                             seeds, hgt.BATCH)
+    bk = batch()
+    with swapped_to_plain(K, HLINK_SWAPPED):
+      bpl = batch()
+    f = differing_field(torch, bk, bpl, HETERO_BATCH_FIELDS)
+    if f is not None:
+      raise AssertionError(f'mag batch.{f} differs between kernels and '
+                           'plain')
+    if set(bk.row_dict) != {cites} or bk.x_dict['author'].shape[0] != 1:
+      raise AssertionError('a paper-seeded mag batch reached an author')
+    with torch.no_grad():
+      lk, lp = (float(sage_loss(net, b)) for b in (bk, bpl))
+    if not (np.isfinite(lk) and abs(lk - lp) <= LOSS_TOL):
+      raise AssertionError(f'mag HGT loss {lk} against plain {lp}')
+    print(f'mag batch: bit-identical between the kernels and the plain '
+          f'versions on every field; HGT loss {lk:.6f}, plain {lp:.6f} '
+          f'(|diff| {abs(lk - lp):.3e}, tolerance {LOSS_TOL}); one padded '
+          f'author row, no rev_writes edge')
+    del bk, bpl
+    step = SageTrainStep(net, lr=hgt.LR)
+    it = iter(loader)
+    launches, median, _ = timed_steps(
+        torch, np, K, 'mag hgt training', it, step, HGT_WARMUP + HGT_STEPS,
+        HGT_WARMUP,
+        dict(dedup_table_insert=1, sample_hop_dedup=2, gather_rows=2,
+             sample_walk_dedup=0, sample_hop=0, gather_windows=0),
+        hgt.BATCH, smi)
+
+  with Phase('hgt profile'):
+    profile_steps(torch, SageTrainStep(net, lr=hgt.LR, sync_stages=True), it,
+                  'mag hgt', median)
+  return launches
+
+
 def main() -> int:
   ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
   ap.add_argument('--seed', type=int, default=0,
@@ -3197,95 +3716,23 @@ def main() -> int:
 
   with Phase('hetero kernel checks'):
     # the three hops of one bucket-256 request, their inputs recorded as
-    # the pipeline hands them over (tables copied before each call); the
-    # recording walk runs the plain version, which leaves every input of
-    # the next hop as the kernel would
-    hops, inits = [], []
-    real, real_init = K.sample_hop_dedup, K.dedup_table_init
-    def record(*a, **kw):
-      hops.append((a, [t.clone() for t in a[5:8]], kw))
-      return K.sample_hop_dedup_plain(*a, **kw)
-    def record_init(*a):
-      inits.append(a)
-      return K.dedup_table_init_plain(*a)
-    K.sample_hop_dedup, K.dedup_table_init = record, record_init
-    try:
-      hout = hengine.sampler.sample_from_nodes(NodeSamplerInput(
-          torch.randint(0, IGBH_NODES['paper'], (256,), generator=hgen,
-                        device=dev).cpu().numpy(), 'paper'))
-    finally:
-      K.sample_hop_dedup, K.dedup_table_init = real, real_init
-    if len(inits) != 1:
+    # the pipeline hands them over
+    hops, inits, hout = recorded_hetero_sample(
+        K, lambda: hengine.sampler.sample_from_nodes(NodeSamplerInput(
+            torch.randint(0, IGBH_NODES['paper'], (256,), generator=hgen,
+                          device=dev).cpu().numpy(), 'paper')))
+    if len(inits) != 1 or inits[0][0] != 'dedup_table_init':
       raise AssertionError(f'{len(inits)} table inits in one request')
     # K2: the seed phase of this request (igbh-rgat's table at bucket 256)
-    rows['dedup_table_insert'] = time_table_init(torch, K, inits[0],
+    rows['dedup_table_insert'] = time_table_init(torch, K, inits[0][1],
                                                  host_us)
     # K3 on the paper table (1024 float32) at this request's paper nodes
     k3['float32 x 1024'] = time_gather(
         torch, np, K, 'float32 x 1024',
         hds.get_node_feature('paper').table, hout.node['paper'])
     del hout
-    hop_row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0, graph_ms=0.0,
-                   host_us=0.0)
-    for h, (a, table, kw) in enumerate(hops):
-      fresh = lambda: [t.clone() for t in table]
-      kt, pt = fresh(), fresh()
-      before = K.sample_hop_dedup.launches
-      got = real(*a[:5], *kt, *a[8:], **kw)
-      if K.sample_hop_dedup.launches != before + 1:
-        raise AssertionError('a hop is not one launch')
-      want = K.sample_hop_dedup_plain(*a[:5], *pt, *a[8:], **kw)
-      for key in ('picks', 'labels', 'new_head', 'counts'):
-        if not torch.equal(got[key], want[key]):
-          raise AssertionError(f'sample_hop_dedup hop {h} {key} differs')
-        hop_row['err'] = max(hop_row['err'], int(
-            (got[key].long() - want[key].long()).abs().max()))
-      ok = a[4].reshape(-1)
-      probe = torch.unique(got['picks'].reshape(-1)[ok])
-      if not torch.equal(K.dedup_table_lookup(*kt[:2], probe),
-                         K.dedup_table_lookup(*pt[:2], probe)):
-        raise AssertionError(f'sample_hop_dedup hop {h} tables differ')
-      s, k = a[3].shape
-      tables = [fresh() for _ in range(10)]
-      ms = cuda_ms(torch, lambda i=0: real(*a[:5], *tables[i], *a[8:], **kw),
-                   10, warmup=0)
-      ptables = [fresh() for _ in range(2)]
-      plain = cuda_ms(torch, lambda i=0: K.sample_hop_dedup_plain(
-          *a[:5], *ptables[i], *a[8:], **kw), 2, warmup=0)
-      # in a CUDA graph: each call on a fresh copy of the table, less the
-      # copy's own time; host enqueue on one table (seen ids after the
-      # first call: the enqueue does not depend on them)
-      live = fresh()
-      reset = lambda: [t.copy_(u) for t, u in zip(live, table)]
-      hop = lambda: (reset(), real(*a[:5], *live, *a[8:], **kw))
-      copy_ms = graph_ms(torch, reset)
-      dev_ms = graph_ms(torch, hop) - copy_ms
-      host = host_us({'kernel': lambda: real(*a[:5], *live, *a[8:],
-                                             **kw)})['kernel']
-      hop_row['graph_ms'] += dev_ms
-      hop_row['host_us'] += host
-      # bytes the hop must move: starts, offsets and validity in, one
-      # neighbour id and one table key per valid lane, and per lane the
-      # outputs (pick, label: 4 B; head: 1 B), a key and a label written
-      # per new id
-      n_ok, n_new = int(ok.sum()), int(got['new_head'].sum())
-      nbytes = 4 * s + 5 * s * k + 8 * n_ok + 9 * s * k + 8 * n_new
-      for key, v in (('ms', ms), ('plain_ms', plain),
-                     ('bound_ms', bytes_ms(nbytes))):
-        hop_row[key] += v
-      print(f'sample_hop_dedup hop {h + 1} [{s}, {k}]: {n_ok} valid lanes, '
-            f'{n_new} new ids, one launch, equal to plain on every surface; '
-            f'{ms:.4f} ms back to back, in a CUDA graph {dev_ms:.4f} ms '
-            f'(table copy {copy_ms:.4f} ms taken off), host enqueue '
-            f'{host:.2f} us a call (plain {plain:.4f} ms, bound '
-            f'{bytes_ms(nbytes):.6f} ms)')
-      del tables, ptables, live
-    rows['sample_hop_dedup'] = hop_row
-    print(f'sample_hop_dedup per bucket-256 request ({len(hops)} hops): '
-          f'{hop_row["ms"]:.4f} ms back to back, in a CUDA graph '
-          f'{hop_row["graph_ms"]:.4f} ms, host enqueue '
-          f'{hop_row["host_us"]:.2f} us (plain {hop_row["plain_ms"]:.4f} '
-          f'ms, bound {hop_row["bound_ms"]:.6f} ms)')
+    rows['sample_hop_dedup'] = time_hops(torch, K, hops, host_us,
+                                         'bucket-256 request')
 
   with Phase('hetero main path'):
     hengine.warmup()
@@ -3359,6 +3806,12 @@ def main() -> int:
   dist_launches, ss_paths['dist_hetero_superstep'] = dist_phases(
       torch, np, K, dev, opts.seed, k3, rows, smi)
   torch.cuda.empty_cache()
+  hlink_launches = hetero_link_phases(torch, np, K, dev, opts.seed, rows, k3,
+                                      host_us, smi)
+  torch.cuda.empty_cache()
+  hgt_launches = hgt_phases(torch, np, K, dev, opts.seed, rows, k3, host_us,
+                            smi)
+  torch.cuda.empty_cache()
   rows['sample_walk_dedup'] = dict(
       walk[256], shapes={f'B={b}' if isinstance(b, int) else b: row
                          for b, row in walk.items()})
@@ -3401,6 +3854,7 @@ def main() -> int:
              'train_uniform': uniform_launches, 'link': link_launches,
              'subgraph': sub_launches, 'seal': seal_launches,
              'split': split_launches, 'dist_hetero': dist_launches,
+             'hetero_link': hlink_launches, 'hgt': hgt_launches,
              **{p: v[0] for p, v in ss_paths.items()},
              'probe': probe_launches,
              'microbench': micro_launches}
@@ -3471,12 +3925,19 @@ def main() -> int:
           f'{LINK_BYTES_PER_S / 1e9:.0f} GB/s; a bulk copy '
           f'{row["link_gb_s"]:.3f} GB/s)')
     k3[f'mixed {shape}'] = row
-  k2 = rows['dedup_table_insert']
-  print(f'dedup_table_init ({k2["slots"]} slots): {k2["ms"]:.4f} ms back '
-        f'to back, in a CUDA graph {k2["graph_ms"]:.4f} ms, host enqueue '
-        f'{k2["host_us"]:.2f} us; the chain it replaced {k2["chain_ms"]:.4f}'
-        f' ms, graph {k2["chain_graph_ms"]:.4f} ms, host '
-        f'{k2["chain_host_us"]:.2f} us; bound {k2["bound_ms"]:.6f} ms')
+  for k2 in [rows['dedup_table_insert']] + list(
+      rows['dedup_table_insert'].get('shapes', {}).values()):
+    name = 'dedup_table_init' + ('_types' if 'types' in k2 else '')
+    print(f'{name} ({k2["slots"]} slots): {k2["ms"]:.4f} ms back '
+          f'to back, in a CUDA graph {k2["graph_ms"]:.4f} ms, host enqueue '
+          f'{k2["host_us"]:.2f} us; the chain it replaced '
+          f'{k2["chain_ms"]:.4f} ms, graph {k2["chain_graph_ms"]:.4f} ms, '
+          f'host {k2["chain_host_us"]:.2f} us; bound {k2["bound_ms"]:.6f} ms')
+  for label, row in rows['sample_hop_dedup'].get('shapes', {}).items():
+    print(f'sample_hop_dedup per {label}: {row["ms"]:.4f} ms, in a CUDA '
+          f'graph {row["graph_ms"]:.4f} ms, host enqueue '
+          f'{row["host_us"]:.2f} us, plain {row["plain_ms"]:.4f} ms, bound '
+          f'{row["bound_ms"]:.6f} ms')
   print(smi)
   def count(launched, wrappers):
     return sum(launched.get(w, 0) for w in

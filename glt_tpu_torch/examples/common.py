@@ -32,3 +32,43 @@ def synthetic_products(num_nodes=24_000, avg_degree=25, feat_dim=100,
   ds.init_node_labels(labels)
   ds.random_node_split(num_val=0.1, num_test=0.1)
   return ds, num_classes
+
+
+#: ogbn-mag's counts (paper-cites-paper, author-writes-paper), its feature
+#: width and classes: ``synthetic_hetero_mag(**MAG_COUNTS)`` is the graph
+#: at full scale
+MAG_COUNTS = dict(num_papers=736_389, num_authors=1_134_649,
+                  num_cites=5_416_271, num_writes=7_145_660, feat_dim=128,
+                  num_classes=349)
+
+
+def synthetic_hetero_mag(num_papers=2_000, num_authors=1_000, feat_dim=64,
+                         num_classes=8, seed=0, num_cites=None,
+                         num_writes=None, device=None):
+  """The ogbn-mag-shaped hetero graph of examples/common.py
+  (paper-cites-paper, author-writes-paper, uniform endpoints, normal
+  features, learnable paper labels ``argmax(x_paper @ w)``), from the
+  same numpy draws; ``num_cites`` and ``num_writes`` default to the JAX
+  recipe's 8 and 3 a paper (:data:`MAG_COUNTS` gives ogbn-mag's). Graph
+  and features on ``device``. Returns ``(dataset, classes, cites,
+  writes)``."""
+  rng = np.random.default_rng(seed)
+  cites = ('paper', 'cites', 'paper')
+  writes = ('author', 'writes', 'paper')
+  n_pp = num_papers * 8 if num_cites is None else int(num_cites)
+  n_ap = num_papers * 3 if num_writes is None else int(num_writes)
+  pp = np.stack([rng.integers(0, num_papers, n_pp),
+                 rng.integers(0, num_papers, n_pp)])
+  ap = np.stack([rng.integers(0, num_authors, n_ap),
+                 rng.integers(0, num_papers, n_ap)])
+  ds = Dataset(edge_dir='out')
+  ds.init_graph({cites: pp, writes: ap},
+                num_nodes={'paper': num_papers, 'author': num_authors},
+                device=device)
+  pf = rng.normal(size=(num_papers, feat_dim)).astype(np.float32)
+  af = rng.normal(size=(num_authors, feat_dim)).astype(np.float32)
+  w = rng.normal(size=(feat_dim, num_classes)).astype(np.float32)
+  labels = np.argmax(pf @ w, 1).astype(np.int32)
+  ds.init_node_features({'paper': pf, 'author': af}, device=device)
+  ds.init_node_labels({'paper': labels})
+  return ds, num_classes, cites, writes

@@ -76,7 +76,12 @@ def to_hetero_batch(out: HeteroSamplerOutput,
                     batch_size: Optional[int] = None) -> HeteroBatch:
   """Assemble a HeteroBatch from a HeteroSamplerOutput (+ per-type
   gathered features and the seed type's labels). The hop offsets move
-  from the sampler's metadata into ``edge_hop_offsets_dict``."""
+  from the sampler's metadata into ``edge_hop_offsets_dict``; the rest of
+  it stays, a link batch's labels too (``edge_label_index`` and
+  ``edge_label``, or ``src_index``, ``dst_pos_index`` and
+  ``dst_neg_index``, with ``num_pos`` and ``num_neg``), whose
+  ``input_type`` is its edge type. ``batch_size`` defaults to the seed
+  type's seeds (0 for a link batch: its loader passes its own)."""
   meta = dict(out.metadata or {})
   offs = meta.pop('edge_hop_offsets', None)
   return HeteroBatch(
@@ -87,6 +92,7 @@ def to_hetero_batch(out: HeteroSamplerOutput,
       num_sampled_edges=out.num_sampled_edges, metadata=meta,
       input_type=out.input_type,
       batch_size=batch_size if batch_size is not None
-      else out.batch[out.input_type].shape[0],
+      else (out.batch[out.input_type].shape[0]
+            if out.input_type in (out.batch or {}) else 0),
       edge_hop_offsets_dict={k: tuple(v) for k, v in offs.items()}
       if offs else None)

@@ -1,4 +1,5 @@
-"""Flax GraphSAGE / RGNN / DGCNN parameters -> this package's state_dict.
+"""Flax GraphSAGE / RGNN / DGCNN / HGT parameters -> this package's
+state_dict.
 
 Flax ``Dense`` keeps ``kernel`` as [in, out] and computes ``x @ kernel``;
 ``nn.Linear`` keeps ``weight`` as [out, in], so kernels are transposed.
@@ -102,4 +103,40 @@ def dgcnn_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
   for name in ('mlp0', 'mlp1'):
     out[f'{name}.weight'] = t(params[name]['kernel']).T.contiguous()
     out[f'{name}.bias'] = t(params[name]['bias'])
+  return out
+
+
+def hgt_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+  """A flax HGT tree -> :class:`~glt_tpu_torch.models.HGT` state_dict:
+  ``in_<type>`` and ``head`` (Dense), and per layer ``hgt<i>``: the
+  ``DenseGeneral((heads, d))`` kernels ``k_``, ``q_``, ``v_<type>``
+  ([in, heads, d], flattened to [in, heads * d] and transposed),
+  ``a_<type>`` and ``res_<type>`` (Dense), the scalars ``skip_<type>``
+  and per relation ``watt_``, ``wmsg_`` ([heads, d, d]) and ``prior_``
+  ([heads]). Flax makes a relation's weights only when a batch holds it
+  and a projection only for a type with rows, so load with
+  ``strict=False``: the port's other weights stay as they are."""
+  params = tree.get('params', tree)
+  t = lambda a: torch.as_tensor(np.array(a, dtype=np.float32))
+  dense = lambda sub, prefix: {
+      f'{prefix}.weight': t(sub['kernel']).reshape(
+          sub['kernel'].shape[0], -1).T.contiguous(),
+      f'{prefix}.bias': t(sub['bias']).reshape(-1)}
+  out = {}
+  for name, sub in params.items():
+    if name == 'head' or name.startswith('in_'):
+      key = 'head' if name == 'head' else f'in_lins.{name[len("in_"):]}'
+      out.update(dense(sub, key))
+      continue
+    if not name.startswith('hgt'):
+      raise ValueError(f'unknown HGT parameter group {name!r}')
+    layer = f'convs.{int(name[len("hgt"):])}'
+    for pname, p in sub.items():
+      kind, rest = pname.split('_', 1)
+      if kind in ('k', 'q', 'v', 'a', 'res'):
+        out.update(dense(p, f'{layer}.{kind}_lins.{rest}'))
+      elif kind in ('skip', 'watt', 'wmsg', 'prior'):
+        out[f'{layer}.{kind}.{rest}'] = t(p)
+      else:
+        raise ValueError(f'unknown HGT parameter {pname!r}')
   return out

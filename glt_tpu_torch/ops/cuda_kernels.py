@@ -18,7 +18,9 @@ wrapper                       replaces (glt_tpu/ops/...)        source
 ``gather_rows_mixed``         data/feature.py:36 (no Pallas     csrc/gather_rows.cu
                               source: compute_on's host read)
 ``dedup_table_insert``,       pallas_kernels.py:588 (+ the      csrc/dedup_table_insert.cu
-``dedup_table_init``          seed phase, sample.py:587-593)
+``dedup_table_init``,         seed phase, sample.py:587-593,
+``dedup_table_init_types``    and its several seed types,
+                              pipeline.py:1042-1088)
 ``sample_walk_dedup``         pallas_kernels.py:998 + the       csrc/sample_walk_dedup.cu
                               epilogue of pipeline.py:584-633
 ``sample_hop_dedup``          pallas_kernels.py:653 + the       csrc/sample_hop_dedup.cu
@@ -86,6 +88,8 @@ glt_gather_rows = lazy_entry(globals(), 'glt_gather_rows')
 glt_gather_rows_mixed = lazy_entry(globals(), 'glt_gather_rows_mixed')
 glt_dedup_table_insert = lazy_entry(globals(), 'glt_dedup_table_insert')
 glt_dedup_table_init = lazy_entry(globals(), 'glt_dedup_table_init')
+glt_dedup_table_init_types = lazy_entry(globals(),
+                                        'glt_dedup_table_init_types')
 glt_walk_dedup_blocks = lazy_entry(globals(), 'glt_walk_dedup_blocks')
 glt_walk_dedup = lazy_entry(globals(), 'glt_walk_dedup')
 glt_hop_dedup_blocks = lazy_entry(globals(), 'glt_hop_dedup_blocks')
@@ -328,12 +332,50 @@ def dedup_table_init_plain(slots: int, ids: torch.Tensor, labs: torch.Tensor,
   """:func:`make_dedup_table`, then the seed uniques inserted:
   ``ids + base`` under ``labs`` wherever ``new_head`` holds and the id is
   neither negative nor INT32_MAX (the seed hop's non-heads)."""
+  return dedup_table_init_types_plain(slots, [(ids, labs, new_head, base)],
+                                      device)
+
+
+def dedup_table_init_types_plain(slots: int, segments, device
+                                 ) -> Tuple[torch.Tensor, ...]:
+  """:func:`dedup_table_init_plain` over several seed types: a fresh
+  table, then each segment ``(ids, labs, new_head, base)`` inserted in
+  turn (types' tagged ids never collide, so the order does not
+  matter)."""
   keys, vals, first = make_dedup_table(slots, device)
-  x = ids.to(keys.device).long()
-  live = (new_head.to(keys.device) != 0) & (x >= 0) & (x != BIG)
-  x = torch.where(live, x + int(base), torch.full_like(x, -1))
-  dedup_table_insert_plain(keys, vals, x, labs.to(keys.device), live)
+  for ids, labs, new_head, base in segments:
+    x = ids.to(keys.device).long()
+    live = (new_head.to(keys.device) != 0) & (x >= 0) & (x != BIG)
+    x = torch.where(live, x + int(base), torch.full_like(x, -1))
+    dedup_table_insert_plain(keys, vals, x, labs.to(keys.device), live)
   return keys, vals, first
+
+
+def _init_segments(slots: int, segments, device):
+  """The card of the segments' ids, checked against ``device`` and the
+  table size; each segment ``(ids, labs, new_head, base)`` as the kernel
+  reads it (int32 ids and labels, byte flags, its base)."""
+  dev = segments[0][0].device
+  if device != dev and torch.device(device) not in (
+      dev, torch.device(dev.type)):
+    raise ValueError(f'dedup_table_init: ids on {dev}, table on {device}')
+  if slots < 1 or slots & (slots - 1):
+    raise ValueError(f'table slots must be a power of two, got {slots}')
+  out = []
+  for ids, labs, new_head, base in segments:
+    if ids.device != dev:
+      raise ValueError(f'dedup_table_init: seed types on {dev} and '
+                       f'{ids.device}')
+    if not 0 <= base < BIG:
+      raise ValueError(f'dedup_table_init: type base {base} out of range')
+    if ids.dim() != 1 or labs.shape != ids.shape \
+        or new_head.shape != ids.shape:
+      raise ValueError(f'dedup_table_init takes three [m] planes, got ids '
+                       f'{tuple(ids.shape)}, labels {tuple(labs.shape)}, '
+                       f'flags {tuple(new_head.shape)}')
+    out.append((_i32(ids, dev), _i32(labs, dev),
+                _on(new_head, torch.bool, dev), int(base)))
+  return dev, out
 
 
 def dedup_table_init(slots: int, ids: torch.Tensor, labs: torch.Tensor,
@@ -351,26 +393,46 @@ def dedup_table_init(slots: int, ids: torch.Tensor, labs: torch.Tensor,
   nothing back, so a CUDA graph can capture it."""
   if not ids.is_cuda:
     return dedup_table_init_plain(slots, ids, labs, new_head, base, device)
-  dev = ids.device
-  if device != dev and torch.device(device) not in (
-      dev, torch.device(dev.type)):
-    raise ValueError(f'dedup_table_init: ids on {dev}, table on {device}')
-  if slots < 1 or slots & (slots - 1):
-    raise ValueError(f'table slots must be a power of two, got {slots}')
-  if not 0 <= base < BIG:
-    raise ValueError(f'dedup_table_init: type base {base} out of range')
-  if ids.dim() != 1 or labs.shape != ids.shape \
-      or new_head.shape != ids.shape:
-    raise ValueError(f'dedup_table_init takes three [m] planes, got ids '
-                     f'{tuple(ids.shape)}, labels {tuple(labs.shape)}, '
-                     f'flags {tuple(new_head.shape)}')
-  ids, labs = _i32(ids, dev), _i32(labs, dev)
-  new_head = _on(new_head, torch.bool, dev)
+  dev, [(ids, labs, new_head, base)] = _init_segments(
+      slots, [(ids, labs, new_head, base)], device)
   planes = torch.empty(3 * slots, dtype=torch.int32, device=dev)
   _check(glt_dedup_table_init(
       planes.data_ptr(), slots, ids.data_ptr(), labs.data_ptr(),
-      new_head.data_ptr(), int(base), ids.numel(), *_where(dev)),
+      new_head.data_ptr(), base, ids.numel(), *_where(dev)),
       'dedup_table_init')
+  count_launch(dedup_table_insert)
+  return planes.split(slots)
+
+
+#: seed types one :func:`dedup_table_init_types` launch takes (kMaxSegs)
+MAX_SEED_TYPES = 8
+
+
+def dedup_table_init_types(slots: int, segments, device
+                           ) -> Tuple[torch.Tensor, ...]:
+  """:func:`dedup_table_init` for seeds of several node types: a fresh
+  table with every segment ``(ids, labs, new_head, base)`` inserted, each
+  type's uniques under its own tag base (the seed phase of JAX's
+  multi-type hetero walk, glt_tpu/ops/pipeline.py:1042-1088, where both
+  endpoint types of a link batch seed one table).
+
+  On the card the fill and every type's insert are one cooperative launch
+  (at most :data:`MAX_SEED_TYPES` types; counted on
+  ``dedup_table_insert.launches``), with no host read, so a CUDA graph
+  can capture it."""
+  segments = list(segments)
+  if not segments or len(segments) > MAX_SEED_TYPES:
+    raise ValueError(f'dedup_table_init_types takes 1 to {MAX_SEED_TYPES} '
+                     f'seed types, got {len(segments)}')
+  if not segments[0][0].is_cuda:
+    return dedup_table_init_types_plain(slots, segments, device)
+  dev, segs = _init_segments(slots, segments, device)
+  planes = torch.empty(3 * slots, dtype=torch.int32, device=dev)
+  _check(glt_dedup_table_init_types(
+      planes.data_ptr(), slots, [s[0].data_ptr() for s in segs],
+      [s[1].data_ptr() for s in segs], [s[2].data_ptr() for s in segs],
+      [s[3] for s in segs], [s[0].numel() for s in segs], *_where(dev)),
+      'dedup_table_init_types')
   count_launch(dedup_table_insert)
   return planes.split(slots)
 

@@ -214,14 +214,23 @@ def _empty_frontier(c0: int, dev):
 
 def multihop_sample_hetero(plan: HeteroFusedPlan, table_slots: int,
                            num_neighbors, num_hops, caps, budgets,
-                           seed_type: str, seeds: torch.Tensor, n_valid: int,
-                           u_hops, with_edge: bool = False):
-  """The hetero walk from ``seeds`` of ``seed_type``: an exact seed hop,
-  then one ``cuda_kernels.sample_hop_dedup`` for every edge type of a hop
-  (counterpart of glt_tpu/ops/pipeline.py
+                           seeds: Dict[str, torch.Tensor],
+                           n_valid: Dict[str, int], u_hops,
+                           with_edge: bool = False):
+  """The hetero walk from ``seeds`` (per seed type its ids; ``n_valid``
+  per seed type its real ones, the rest padding): an exact seed hop a
+  seed type, then one ``cuda_kernels.sample_hop_dedup`` for every edge
+  type of a hop (counterpart of glt_tpu/ops/pipeline.py
   ``_multihop_sample_hetero_fused``, bit-identical to its per-edge-type
   sorted reference ``GLT_DEDUP=sort GLT_FUSED_HOP=1`` given the same
-  uniforms).
+  uniforms). A link batch seeds both endpoint types at once.
+
+  The seed uniques of every type go into one dedup table under their
+  types' tag bases: ``cuda_kernels.dedup_table_init`` for one seed type,
+  ``dedup_table_init_types`` for several, one launch either way. Each
+  type's seeds are labelled ``0..`` in its own label space (JAX labels
+  them in one provisional space and remaps before they leave its
+  function).
 
   Per hop the segments (traversal edge types with live frontier rows and
   a non-zero fanout, in traversal order) draw their offsets from
@@ -236,8 +245,8 @@ def multihop_sample_hetero(plan: HeteroFusedPlan, table_slots: int,
   walk's node budget across types).
 
   Returns the result dict of the reference: per type ``node``,
-  ``node_count``, ``num_sampled_nodes``, ``batch`` and ``seed_labels``
-  (the seed type), per traversal edge type ``row`` (parent labels),
+  ``node_count``, ``num_sampled_nodes``, per seed type ``batch`` and
+  ``seed_labels``, per traversal edge type ``row`` (parent labels),
   ``col`` (child labels), ``edge_mask``, ``num_sampled_edges`` and, with
   ``with_edge``, ``edge``.
   """
@@ -245,19 +254,31 @@ def multihop_sample_hetero(plan: HeteroFusedPlan, table_slots: int,
     raise ValueError('with_edge needs the plan\'s edge-id plane')
   dev = plan.indices_flat.device
   types = plan.types
+  unknown = set(seeds) - set(types)
+  if unknown:
+    raise ValueError(f'seed types {sorted(unknown)} are no node types of '
+                     'the graph')
   zero = torch.zeros((), dtype=torch.int32, device=dev)
-  frontier, u_ids, u_labs, count = {}, {}, {}, {}
+  frontier, u_ids, u_labs, count, seed_labels = {}, {}, {}, {}, {}
+  inserts = []
   for t in types:
     u_ids[t], u_labs[t], count[t] = [], [], zero
-    frontier[t] = _empty_frontier(max(1, caps[0][t]), dev)
-  d, seed_labels = _fused_seed_hop(seeds, n_valid)
-  u_ids[seed_type].append(d['u_ids2'])
-  u_labs[seed_type].append(d['u_labs2'])
-  count[seed_type] = d['count2']
-  frontier[seed_type] = (d['ids3'], d['labels3'], d['new_head3'])
-  keys, vals, first = cuda_kernels.dedup_table_init(
-      table_slots, d['ids3'], d['labels3'], d['new_head3'],
-      plan.type_base[seed_type], dev)
+    if t not in seeds:
+      frontier[t] = _empty_frontier(max(1, caps[0][t]), dev)
+      continue
+    d, seed_labels[t] = _fused_seed_hop(seeds[t], n_valid[t])
+    u_ids[t].append(d['u_ids2'])
+    u_labs[t].append(d['u_labs2'])
+    count[t] = d['count2']
+    frontier[t] = (d['ids3'], d['labels3'], d['new_head3'])
+    inserts.append((d['ids3'], d['labels3'], d['new_head3'],
+                    plan.type_base[t]))
+  if len(inserts) == 1:
+    keys, vals, first = cuda_kernels.dedup_table_init(table_slots,
+                                                      *inserts[0], dev)
+  else:
+    keys, vals, first = cuda_kernels.dedup_table_init_types(table_slots,
+                                                            inserts, dev)
   counts = torch.stack([count[t] for t in types]).to(torch.int32)
   hop_nodes = {t: [count[t]] for t in types}
   rows_d, cols_d, mask_d, eid_d, hop_edges = {}, {}, {}, {}, {}
@@ -343,8 +364,8 @@ def multihop_sample_hetero(plan: HeteroFusedPlan, table_slots: int,
       row={e: torch.cat(v) for e, v in rows_d.items()},
       col={e: torch.cat(v) for e, v in cols_d.items()},
       edge_mask={e: torch.cat(v) for e, v in mask_d.items()},
-      batch={seed_type: nodes[seed_type][:seeds.numel()]},
-      seed_labels={seed_type: seed_labels},
+      batch={t: nodes[t][:s.numel()] for t, s in seeds.items()},
+      seed_labels=seed_labels,
       num_sampled_nodes={t: torch.stack(v) for t, v in hop_nodes.items()},
       num_sampled_edges={e: torch.stack(v) for e, v in hop_edges.items()})
   if with_edge:

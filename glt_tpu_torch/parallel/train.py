@@ -68,16 +68,29 @@ def sage_loss(model: nn.Module,
           / mask.sum().clamp(min=1))
 
 
-def link_bce_loss(model: nn.Module, batch: Batch) -> torch.Tensor:
+def link_bce_loss(model: nn.Module,
+                  batch: Union[Batch, HeteroBatch]) -> torch.Tensor:
   """The link-prediction loss of examples/graph_sage_unsup.py: every
   sampled node's embedding (``model.embed``), a dot product per labelled
   pair of ``metadata['edge_label_index']``, and the sigmoid binary
   cross-entropy against ``metadata['edge_label']``, averaged over every
   label slot (a padded ragged batch's repeated edges included, as the
-  example averages them)."""
-  emb = model.embed(batch)
+  example averages them).
+
+  A HeteroBatch of links of the edge type ``(src, rel, dst)`` (its
+  ``input_type``) is examples/hetero/bipartite_sage_unsup.py's loss: the
+  embeddings of every type (``model(batch, return_all=True)``, an RGNN),
+  ``edge_label_index[0]`` indexing the src type's and ``[1]`` the dst
+  type's."""
   eli = batch.metadata['edge_label_index'].long()
-  logit = (emb.index_select(0, eli[0]) * emb.index_select(0, eli[1])).sum(-1)
+  if isinstance(batch, HeteroBatch):
+    emb = model(batch, return_all=True)
+    src_t, _, dst_t = batch.input_type
+    z_src, z_dst = emb[src_t], emb[dst_t]
+  else:
+    z_src = z_dst = model.embed(batch)
+  logit = (z_src.index_select(0, eli[0])
+           * z_dst.index_select(0, eli[1])).sum(-1)
   label = batch.metadata['edge_label'].to(logit.dtype)
   return F.binary_cross_entropy_with_logits(logit, label)
 

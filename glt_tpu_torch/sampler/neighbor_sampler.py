@@ -12,8 +12,9 @@ hop reads its weight window and a full hop its neighbour window through
 ``sample_hop_dedup`` per hop (``ops.pipeline.multihop_sample_hetero``).
 Link sampling (:meth:`NeighborSampler.sample_from_edges`) sends the
 endpoints of the positive and the sampled negative edges through the same
-loops as seeds; :meth:`NeighborSampler.subgraph` induces the subgraph of
-a sampled neighbourhood (homogeneous graphs).
+loops as seeds, on a hetero graph both endpoint types of an edge type in
+one walk; :meth:`NeighborSampler.subgraph` induces the subgraph of a
+sampled neighbourhood (homogeneous graphs).
 
 Orientation contract (the reference's): ``row`` holds message-source
 (child) labels and ``col`` message-destination (parent) labels. With
@@ -128,8 +129,9 @@ class NeighborSampler(BaseSampler):
         seed if seed is not None
         else RandomSeedManager.getInstance().getSeed(), self.device)
     self._plans = {}
-    if not self.is_hetero:   # link sampling's negatives (sample_from_edges)
-      self._neg_sampler = RandomNegativeSampler(graph, edge_dir=edge_dir)
+    #: link sampling's negatives, one sampler an edge type (None: the
+    #: homogeneous graph), made at first use
+    self._neg_samplers = {}
     if self.is_hetero:
       # the flat edge-type plane depends on the graph alone; only the
       # table size, capacities and budgets change with the batch shape
@@ -181,13 +183,14 @@ class NeighborSampler(BaseSampler):
           replace=self.replace)
     return self._plans[batch_size]
 
-  def hop_uniforms(self, batch_size: int,
-                   input_type: Optional[NodeType] = None):
+  def hop_uniforms(self, batch_size, input_type: Optional[NodeType] = None):
     """The next per-hop uniforms of this sampler's stream; hetero: for
-    ``batch_size`` seeds of ``input_type``, per hop and per segment
-    (:func:`hetero_hop_uniforms`)."""
+    ``batch_size`` seeds of ``input_type``, or a dict of batch sizes by
+    seed type, per hop and per segment (:func:`hetero_hop_uniforms`)."""
     if self.is_hetero:
-      caps = self._hetero_geometry(input_type, batch_size)[1]
+      sizes = (batch_size if isinstance(batch_size, dict)
+               else {input_type: batch_size})
+      caps = self._hetero_geometry(sizes)[1]
       return hetero_hop_uniforms(self.generator, self._traversal_types(),
                                  self.num_neighbors, caps, self.replace,
                                  self.device)
@@ -222,6 +225,9 @@ class NeighborSampler(BaseSampler):
     are a :class:`NodeSamplerInput` with its ``input_type``, and the
     result a :class:`HeteroSamplerOutput`."""
     if self.is_hetero:
+      if not isinstance(inputs, NodeSamplerInput):
+        raise ValueError('hetero sampling takes a NodeSamplerInput with the '
+                         'seeds\' node type')
       return self._hetero_sample_from_nodes(inputs, n_valid, uniforms)
     if isinstance(inputs, NodeSamplerInput):
       inputs = inputs.node
@@ -255,10 +261,10 @@ class NeighborSampler(BaseSampler):
       return {e: (e[0], e[2]) for e in self.edge_types}
     return {e: (e[2], e[0]) for e in self.edge_types}
 
-  def _hetero_caps(self, input_type: NodeType, batch_size: int):
-    """Static per-type frontier capacities per hop and node budgets."""
-    caps = [{t: batch_size if t == input_type else 0
-             for t in self.node_counts}]
+  def _hetero_caps(self, batch_sizes: Dict[NodeType, int]):
+    """Static per-type frontier capacities per hop and node budgets, for
+    ``batch_sizes`` seeds of each seed type."""
+    caps = [{t: batch_sizes.get(t, 0) for t in self.node_counts}]
     for h in range(self.num_hops):
       nxt = {t: 0 for t in self.node_counts}
       for e, (row_t, col_t) in self._traversal_types().items():
@@ -268,34 +274,45 @@ class NeighborSampler(BaseSampler):
                for t in self.node_counts}
     return caps, budgets
 
-  def _hetero_geometry(self, input_type: NodeType, batch_size: int):
-    """Per seed type and batch size: the dedup-table size, capacities,
-    budgets and per-edge-type hop offsets."""
-    key = (input_type, batch_size)
+  def _hetero_geometry(self, batch_sizes: Dict[NodeType, int]):
+    """Per signature of seed types and batch sizes: the dedup-table size,
+    capacities, budgets and per-edge-type hop offsets."""
+    key = tuple(sorted(batch_sizes.items()))
     if key not in self._plans:
-      caps, budgets = self._hetero_caps(input_type, batch_size)
+      caps, budgets = self._hetero_caps(batch_sizes)
       offs = hetero_edge_hop_offsets(caps, self._traversal_types(),
                                      self.num_neighbors, self.num_hops)
       self._plans[key] = (walk_table_slots(sum(budgets.values())), caps,
                           budgets, offs)
     return self._plans[key]
 
-  def _hetero_sample_from_nodes(self, inputs, n_valid, uniforms
+  def _hetero_sample_from_nodes(self, inputs, n_valid, uniforms,
+                                seed_type: Optional[NodeType] = None
                                 ) -> HeteroSamplerOutput:
-    if not isinstance(inputs, NodeSamplerInput) or inputs.input_type is None:
+    """``inputs``: a :class:`NodeSamplerInput` with its node type, or a
+    dict of seeds by node type (link sampling seeds both endpoint types)
+    with ``seed_type`` the output's ``input_type``; ``n_valid`` an int
+    for every seed type or a dict of them."""
+    if isinstance(inputs, NodeSamplerInput) and inputs.input_type is not None:
+      seed_type = inputs.input_type
+      inputs = {seed_type: inputs.node}
+    elif not isinstance(inputs, dict):
       raise ValueError('hetero sampling takes a NodeSamplerInput with the '
                        'seeds\' node type')
-    seed_type = inputs.input_type
-    seeds = self._seeds(inputs.node)
-    batch_size = seeds.numel()
-    n_valid = batch_size if n_valid is None else int(n_valid)
-    slots, caps, budgets, offs = self._hetero_geometry(seed_type, batch_size)
-    if uniforms is None:
-      uniforms = self.hop_uniforms(batch_size, seed_type)
+    if seed_type is None:
+      seed_type = next(iter(inputs))
+    seeds = {t: self._seeds(x) for t, x in inputs.items()}
+    sizes = {t: x.numel() for t, x in seeds.items()}
+    if not isinstance(n_valid, dict):
+      n_valid = {t: sizes[t] if n_valid is None else int(n_valid)
+                 for t in seeds}
+    slots, caps, budgets, offs = self._hetero_geometry(sizes)
+    if uniforms is None:   # one seed type: hop_uniforms(batch size, type)
+      uniforms = (self.hop_uniforms(sizes[seed_type], seed_type)
+                  if list(sizes) == [seed_type] else self.hop_uniforms(sizes))
     out = multihop_sample_hetero(self._hetero_plan, slots, self.num_neighbors,
-                                 self.num_hops, caps, budgets, seed_type,
-                                 seeds, n_valid, uniforms,
-                                 with_edge=self.with_edge)
+                                 self.num_hops, caps, budgets, seeds,
+                                 n_valid, uniforms, with_edge=self.with_edge)
     # message-flow keys: row carries child labels (the walk's cols), col
     # parent labels (the walk's rows); 'out' reverses the traversal type
     rev = reverse_edge_type if self.edge_dir == 'out' else (lambda e: e)
@@ -317,12 +334,23 @@ class NeighborSampler(BaseSampler):
 
   # -- link sampling --------------------------------------------------------
 
+  def _neg_sampler(self, etype: Optional[EdgeType]
+                   ) -> RandomNegativeSampler:
+    """The negative sampler over ``etype``'s graph (the homogeneous graph
+    for None), one an edge type (the JAX ``_get_neg_sampler``)."""
+    if etype not in self._neg_samplers:
+      g = self.graph[etype] if self.is_hetero else self.graph
+      self._neg_samplers[etype] = RandomNegativeSampler(
+          g, edge_dir=self.edge_dir)
+    return self._neg_samplers[etype]
+
   def sample_from_edges(self, inputs: EdgeSamplerInput, uniforms=None,
-                        proposals=None) -> SamplerOutput:
+                        proposals=None
+                        ) -> Union[SamplerOutput, HeteroSamplerOutput]:
     """Link sampling: the endpoints of the positive edges (and of the
-    sampled negatives) are the seeds, ``concat([src, dst])``, repeats
-    included; the metadata labels the links by the seeds' labels, each
-    slot its id's first-occurrence label.
+    sampled negatives) are the seeds, repeats included; the metadata
+    labels the links by the seeds' labels, each slot its id's
+    first-occurrence label.
 
     Binary negative sampling appends ``neg.sample_size(num_pos)`` pairs
     to the positives: ``edge_label_index`` [2, num_pos + num_neg] and
@@ -330,17 +358,31 @@ class NeighborSampler(BaseSampler):
     sampling appends the negatives' dst: ``src_index``, ``dst_pos_index``
     [num_pos] and ``dst_neg_index`` ([num_pos, amount] when amount > 1).
     Negatives are drawn with padding (always full), strict as
-    ``neg.strict`` says, from five trial rounds.
+    ``neg.strict`` says, from five trial rounds, over the input's edge
+    type.
+
+    Homogeneous graphs seed ``concat([src, dst])``. On a hetero graph
+    ``inputs.input_type`` names the edge type: when its two ends differ
+    (``('user', 'to', 'item')``), src seeds its type and dst the other,
+    in one walk, and the link labels index each type's node list; when
+    they are the same, ``concat([src, dst])`` seeds that type. The
+    output's ``input_type`` is then the edge type.
 
     ``proposals`` injects the negatives' draws (five rounds of
     ``ops.negative.negative_proposals``, in the stored orientation) and
-    ``uniforms`` the walk's (:meth:`hop_uniforms` at
+    ``uniforms`` the walk's (:meth:`hop_uniforms` at the seed counts:
     ``2 * num_pos + num_neg`` seeds (binary: ``2 * (num_pos +
-    num_neg)``)); by default both come from the sampler's generator, the
-    negatives first. Homogeneous graphs only."""
-    if self.is_hetero or inputs.input_type is not None:
-      raise NotImplementedError('link sampling in the port takes '
-                                'homogeneous graphs')
+    num_neg)``), or by seed type ``{src type: num_pos (binary: + num_neg),
+    dst type: num_pos + num_neg}``); by default both come from the
+    sampler's generator, the negatives first, as the JAX sampler splits
+    its key."""
+    etype = inputs.input_type
+    if etype is not None and not self.is_hetero:
+      raise NotImplementedError('a homogeneous graph has no edge type to '
+                                'seed links from')
+    if self.is_hetero and etype not in self.graph:
+      raise ValueError(f'hetero link sampling needs the edge type of the '
+                       f'links, got {etype!r}')
     src, dst = self._seeds(inputs.row), self._seeds(inputs.col)
     num_pos, num_neg = src.numel(), 0
     edge_label = (None if inputs.label is None else torch.as_tensor(
@@ -348,10 +390,9 @@ class NeighborSampler(BaseSampler):
     neg = inputs.neg_sampling
     if neg is not None:
       num_neg = neg.sample_size(num_pos)
-      pair = self._neg_sampler.sample(num_neg, padding=True,
-                                      strict=neg.strict,
-                                      proposals=proposals,
-                                      generator=self.generator)
+      pair = self._neg_sampler(etype).sample(
+          num_neg, padding=True, strict=neg.strict, proposals=proposals,
+          generator=self.generator)
       if neg.is_binary():
         src = torch.cat([src, pair.rows])
         dst = torch.cat([dst, pair.cols])
@@ -366,20 +407,36 @@ class NeighborSampler(BaseSampler):
         if edge_label is not None:
           raise ValueError('triplet sampling takes no edge labels')
         dst = torch.cat([dst, pair.cols])
-    out = self.sample_from_nodes(torch.cat([src, dst]), uniforms=uniforms)
-    inverse = out.metadata['seed_labels']
+    if etype is not None and etype[0] != etype[-1]:
+      out = self._hetero_sample_from_nodes(
+          {etype[0]: src, etype[-1]: dst}, None, uniforms,
+          seed_type=etype[0])
+      labels = out.metadata['seed_labels']
+      inv_src, inv_dst = labels[etype[0]], labels[etype[-1]]
+    else:
+      seeds = torch.cat([src, dst])
+      if etype is None:
+        out = self.sample_from_nodes(seeds, uniforms=uniforms)
+        inverse = out.metadata['seed_labels']
+      else:
+        out = self._hetero_sample_from_nodes({etype[0]: seeds}, None,
+                                             uniforms)
+        inverse = out.metadata['seed_labels'][etype[0]]
+      inv_src, inv_dst = inverse[:src.numel()], inverse[src.numel():]
     meta = dict(out.metadata, num_pos=num_pos, num_neg=num_neg)
     if neg is None or neg.is_binary():
-      meta['edge_label_index'] = inverse.reshape(2, -1)
+      meta['edge_label_index'] = torch.stack([inv_src, inv_dst])
       meta['edge_label'] = edge_label
     else:
-      meta['src_index'] = inverse[:num_pos]
-      meta['dst_pos_index'] = inverse[num_pos:2 * num_pos]
-      dst_neg = inverse[2 * num_pos:]
+      meta['src_index'] = inv_src
+      meta['dst_pos_index'] = inv_dst[:num_pos]
+      dst_neg = inv_dst[num_pos:]
       if num_pos > 0 and num_neg // num_pos > 1:
         dst_neg = dst_neg.reshape(num_pos, -1)
       meta['dst_neg_index'] = dst_neg
     out.metadata = meta
+    if etype is not None:
+      out.input_type = etype
     return out
 
   # -- subgraph -------------------------------------------------------------

@@ -283,6 +283,124 @@ def test_dedup_table_init_replays_in_a_cuda_graph(dev):
     assert torch.equal(out[2], want[2]), which
 
 
+def _two_type_seeds(dev, seed, n=(1024, 1536), nv=(1000, 1536)):
+  """Two seed types' uniques as the seed hop leaves them, at tag bases 0
+  and 70,000: ``[(ids, labels, heads, base)]``."""
+  g = torch.Generator(device=dev).manual_seed(seed)
+  segs = []
+  for m, v, base in zip(n, nv, (0, 70_000)):
+    d, _ = _fused_seed_hop(torch.randint(0, 60_000, (m,), generator=g,
+                                         device=dev, dtype=torch.int32), v)
+    segs.append((d['ids3'], d['labels3'], d['new_head3'], base))
+  return segs
+
+
+@pytest.mark.parametrize('slots', [1 << 14, 1 << 21])
+def test_dedup_table_init_types_matches_plain(dev, slots):
+  # a two-type link batch's seed phase in one launch: the fill and both
+  # types' inserts, equal to the plain twin and to the chain it replaces
+  # (the one-type init, then an in-place insert of the second type)
+  segs = _two_type_seeds(dev, 7)
+  before = K.dedup_table_insert.launches
+  got = K.dedup_table_init_types(slots, segs, dev)
+  assert K.dedup_table_insert.launches == before + 1
+  want = K.dedup_table_init_types_plain(slots, segs, dev)
+  keys, vals, first = K.dedup_table_init(slots, *segs[0], dev)
+  ids, labs, heads, base = segs[1]
+  x = torch.where(heads, ids + base, torch.full_like(ids, -1))
+  K.dedup_table_insert(keys, vals, x, labs, x >= 0)
+  assert torch.equal(got[2], want[2]) and torch.equal(got[2], first)
+  assert got[1].data_ptr() == got[0].data_ptr() + 4 * slots   # one buffer
+  probe = torch.cat([torch.where(h, i + b, -1) for i, _, h, b in segs]
+                    + [torch.arange(300_000, 300_064, device=dev,
+                                    dtype=torch.int32)])
+  lab = K.dedup_table_lookup(*got[:2], probe)
+  assert torch.equal(lab, K.dedup_table_lookup(*want[:2], probe))
+  assert torch.equal(lab, K.dedup_table_lookup(keys, vals, probe))
+  live = torch.cat([h for _, _, h, _ in segs])
+  seen = torch.cat([torch.where(h, l, -1) for _, l, h, _ in segs]).long()
+  assert torch.equal(lab[:live.numel()], seen) and int(live.sum()) > 0
+  assert bool((lab[live.numel():] < 0).all())
+
+
+def test_dedup_table_init_types_replays_in_a_cuda_graph(dev):
+  # captured once, replayed on other seeds of both types: each replay a
+  # fresh table
+  slots = 1 << 14
+  cases = [_two_type_seeds(dev, s, nv=nv)
+           for s, nv in ((8, (1024, 1536)), (9, (100, 7)))]
+  live = [[t.clone() for t in seg[:3]] + [seg[3]] for seg in cases[0]]
+  run = lambda: K.dedup_table_init_types(slots, live, dev)
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    run()
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = run()
+  probe = torch.arange(140_000, device=dev, dtype=torch.int32)
+  for which in (1, 0, 1):
+    for dst, src in zip(live, cases[which]):
+      for a, b in zip(dst[:3], src[:3]):
+        a.copy_(b)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = K.dedup_table_init_types_plain(slots, cases[which], dev)
+    assert torch.equal(K.dedup_table_lookup(*out[:2], probe),
+                       K.dedup_table_lookup(*want[:2], probe)), which
+
+
+def test_hetero_link_batch_matches_plain(dev, monkeypatch):
+  # a two-type link batch (users and items seeded in one walk) and a
+  # same-type one: one K2 launch and one B1 launch a hop, every field and
+  # label equal to the plain twins' on the same draws
+  from glt_tpu_torch.loader import LinkNeighborLoader
+  from glt_tpu_torch.ops.negative import negative_proposals
+  g = torch.Generator(device=dev).manual_seed(23)
+  nu, ni = 3000, 5000
+  u2i = ('user', 'to', 'item')
+  i2u, i2i = ('item', 'rev_to', 'user'), ('item', 'sim', 'item')
+  ui = torch.stack([torch.randint(0, nu, (40_000,), generator=g, device=dev),
+                    torch.randint(0, ni, (40_000,), generator=g, device=dev)])
+  ii = torch.randint(0, ni, (2, 20_000), generator=g, device=dev)
+  ds = Dataset().init_graph({u2i: ui, i2u: ui.flip(0), i2i: ii},
+                            num_nodes={'user': nu, 'item': ni})
+  ds.init_node_features({'user': torch.randn((nu, 32), generator=g,
+                                             device=dev),
+                         'item': torch.randn((ni, 32), generator=g,
+                                             device=dev)})
+  for etype, sizes in ((u2i, {'user': 256, 'item': 256}),
+                       (i2i, {'item': 512})):
+    loader = LinkNeighborLoader(ds, [8, 4], edge_label_index=(etype, None),
+                                batch_size=128, neg_sampling=('binary', 1),
+                                device=dev, seed=0)
+    gn = ds.get_graph(etype).topo
+    props = negative_proposals(g, 128, 5, gn.num_rows, gn.num_cols, dev)
+    u = loader.sampler.hop_uniforms(sizes)
+    real = loader.sampler.sample_from_edges
+    monkeypatch.setattr(loader.sampler, 'sample_from_edges',
+                        lambda inputs: real(inputs, proposals=props,
+                                            uniforms=u))
+    seeds = np.arange(128) * 3
+    K.reset_launch_counts()
+    got = loader._make_batch(seeds, 128)
+    counted = (K.dedup_table_insert, K.sample_hop_dedup)
+    assert tuple(fn.launches for fn in counted) == (1, 2)
+    with monkeypatch.context() as m:
+      for name in ('dedup_table_init', 'dedup_table_init_types',
+                   'sample_hop_dedup', 'gather_rows'):
+        m.setattr(K, name, getattr(K, name + '_plain'))
+      want = loader._make_batch(seeds, 128)
+    assert tuple(fn.launches for fn in counted) == (1, 2)   # none plain
+    for f in ('node_dict', 'node_count_dict', 'row_dict', 'col_dict',
+              'edge_mask_dict', 'x_dict'):
+      a, b = getattr(got, f), getattr(want, f)
+      assert set(a) == set(b) and all(torch.equal(a[t], b[t]) for t in a), f
+    for key in ('edge_label_index', 'edge_label'):
+      assert torch.equal(got.metadata[key], want.metadata[key]), key
+
+
 @pytest.mark.parametrize('replace', [False, True])
 def test_walk_matches_plain(dev, replace):
   indptr_pad, indices = _graph(dev)

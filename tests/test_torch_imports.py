@@ -7,8 +7,9 @@ feature tier's offload, reorder, products example and feature bench, and
 the superstep trainer's mesh, collectives, sharded feature store,
 superstep lifts, epoch staging, prefetch thread and training bench, and
 the partitioned slice's partitioner, distributed stores, samplers and
-trainer, MLPerf logging and the IGBH example) and ``chip_smoke`` pulls in
-neither JAX nor the JAX package, and touches no card."""
+trainer, MLPerf logging and the IGBH example, and HGT with the four
+hetero examples) and ``chip_smoke`` pulls in neither JAX nor the JAX
+package, and touches no card."""
 import os
 import subprocess
 import sys
@@ -68,6 +69,12 @@ print('DIST', all(m in sys.modules for m in (
     'glt_tpu_torch.utils.mlperf_logging',
     'glt_tpu_torch.examples.igbh.data',
     'glt_tpu_torch.examples.igbh.dist_train_rgnn')))
+print('HGT', all(m in sys.modules for m in (
+    'glt_tpu_torch.models.hgt', 'glt_tpu_torch.examples.hetero',
+    'glt_tpu_torch.examples.hetero.bipartite_sage_unsup',
+    'glt_tpu_torch.examples.hetero.train_hgt_mag',
+    'glt_tpu_torch.examples.hetero.train_rgnn',
+    'glt_tpu_torch.examples.hetero.hierarchical_sage')))
 import torch
 print('CUDA_INIT', torch.cuda.is_initialized())
 '''
@@ -88,4 +95,5 @@ def test_port_and_chip_smoke_import_no_jax():
   assert 'TIER True' in out.stdout, out.stdout
   assert 'SUPERSTEP True' in out.stdout, out.stdout
   assert 'DIST True' in out.stdout, out.stdout
+  assert 'HGT True' in out.stdout, out.stdout
   assert 'CUDA_INIT False' in out.stdout, out.stdout

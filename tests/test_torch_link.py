@@ -413,7 +413,9 @@ def test_link_loader_draws_on_its_own_and_refuses_hetero():
                                 pl.edge_rows[:100])
   hds = Dataset().init_graph({('a', 'to', 'b'): ei}, num_nodes=N,
                              device='cpu')
-  with pytest.raises(NotImplementedError):
+  # a hetero dataset's link seeds name their edge type
+  # (tests/test_torch_hetero_link.py loads them)
+  with pytest.raises(ValueError, match='edge type'):
     LinkNeighborLoader(hds, FANOUTS, device='cpu')
 
 
