@@ -9,7 +9,9 @@ LinkNeighborLoader and SageTrainStep, a SubGraphLoader batch, SEAL
 through its example's run, training from a hot/cold split feature store,
 the feature bench, superstep training through SPMDSageTrainStep and the
 training bench, partitioned hetero training through DistHeteroTrainStep,
-hetero link prediction through the hetero LinkNeighborLoader, HGT
+partitioned homogeneous training through DistTrainStep and
+DistLinkNeighborLoader, hetero link prediction through the hetero
+LinkNeighborLoader, HGT
 training through the hetero NeighborLoader, and the two benchmark entry
 points through their main functions, and checks what comes out:
 
@@ -97,6 +99,22 @@ points through their main functions, and checks what comes out:
   one batch against the plain versions, then two windows of 8 through
   the per-batch engine and through the superstep (eager and captured,
   then a replay) on the same seeds and uniforms;
+- partitioned homogeneous training (examples/distributed/
+  dist_train_sage.py at products-sage's width, one rank): the products
+  graph and table partitioned on disk by RandomPartitioner (one part),
+  loaded back through DistGraph, DistDataset (to the host) and a
+  DistFeature, resident and split 0.2 (the first 20% of ids copied to the
+  card, the rest pinned and read at the owner by K3 mixed); B2 at a batch's three hops, K3 and K3
+  mixed at its node list against their plain versions; DistTrainStep
+  (GraphSAGE 100 -> 256 -> 256 -> 47, [15, 10, 5], batch 1024, Adam
+  1e-3) 2 warm-up and 10 timed steps from each store, one batch of each
+  against the plain versions; the link path of dist_sage_unsup.py over
+  the same stores (DistLinkNeighborLoader, 512 positive edges and 512
+  strict binary negatives, 100 -> 256 -> 256 -> 64, Adam 3e-3), 2 + 10
+  steps and one batch against plain; K3 on float32 x 7 edge rows and B2
+  with edge ids through DistNeighborLoader(edge_feature=) on a
+  100,000-node graph, and a DistSubGraphLoader batch (B2 at max_degree
+  windows) on a Cora-sized graph, each bit-equal to plain;
 - hetero link prediction (examples/hetero/bipartite_sage_unsup.py at
   Taobao's counts): 987,994 users, 4,161,138 items in 9,439 categories,
   101 user-item links a user inside one category (99.8M) and their
@@ -306,16 +324,19 @@ def time_picks(torch, np, K, label, hops):
              graph_ms=0.0, library_graph_ms=0.0)
   rounds = {'kernel': 0.0, 'take': 0.0}
   for h, (indices, eids, starts, offsets) in enumerate(hops):
-    got = K.sample_hop(indices, eids, starts, offsets)[0]
-    want = K.sample_hop_plain(indices, eids, starts, offsets)[0]
-    if not torch.equal(got, want):
+    got = K.sample_hop(indices, eids, starts, offsets)
+    want = K.sample_hop_plain(indices, eids, starts, offsets)
+    if not (torch.equal(got[0], want[0]) and (eids is None or torch.equal(
+        got[1], want[1]))):
       raise AssertionError(f'sample_hop {label} hop {h + 1} differs from '
                            'plain')
-    row['err'] = max(row['err'], int((got.long() - want.long()).abs().max()))
+    row['err'] = max(row['err'], int((got[0].long() - want[0].long()).abs()
+                                     .max()))
     slots = (starts.long()[:, None] + offsets.long()).clamp(
         0, indices.numel() - 1)
     fns = {'kernel': lambda: K.sample_hop(indices, eids, starts, offsets),
-           'take': lambda: torch.take(indices, slots)}
+           'take': (lambda: torch.take(indices, slots)) if eids is None else
+           (lambda: (torch.take(indices, slots), torch.take(eids, slots)))}
     per_round = in_turns_ms(torch, np, fns)
     t = {n: float(np.median(v)) for n, v in per_round.items()}
     for n in rounds:
@@ -325,16 +346,17 @@ def time_picks(torch, np, K, label, hops):
     plain = cuda_ms(torch, lambda i=0: K.sample_hop_plain(
         indices, eids, starts, offsets), 20)
     # bytes the read must move: a start per row; per lane an offset and
-    # a neighbour id in, a pick out
+    # a neighbour id in, a pick out (and an edge id in and out)
     s, k = offsets.shape
-    bound = bytes_ms(4 * s + 12 * s * k)
+    bound = bytes_ms(4 * s + (12 if eids is None else 20) * s * k)
     for key, v in (('ms', t['kernel']), ('plain_ms', plain),
                    ('library_ms', t['take']), ('bound_ms', bound),
                    ('graph_ms', graph['kernel']),
                    ('library_graph_ms', graph['take'])):
       row[key] += v
     print(f'sample_hop {label} hop {h + 1} [{s}, {k}] over '
-          f'{indices.numel()} slots: equal to plain; {t["kernel"]:.4f} ms '
+          f'{indices.numel()} slots{"" if eids is None else " with eids"}: '
+          f'equal to plain; {t["kernel"]:.4f} ms '
           f'(torch.take {t["take"]:.4f} ms, in turns, medians of {ROUNDS}; '
           f'plain {plain:.4f} ms; bound {bound:.6f} ms, '
           f'{bound / t["kernel"] * 100:.1f}% of it); in a CUDA graph '
@@ -410,6 +432,29 @@ def recorded_dedups(torch, calls):
     yield
   finally:
     pipeline.sorted_hop_dedup_fused = real
+
+
+@contextlib.contextmanager
+def recorded_calls(K, names):
+  """The wrappers ``names`` of ``K`` replaced by their plain versions that
+  also record their arguments, by name, inside the block."""
+  calls = {n: [] for n in names}
+
+  def recorder(n):
+    plain = getattr(K, n + '_plain')
+
+    def call(*a):
+      calls[n].append(a)
+      return plain(*a)
+    return call
+  real = {n: getattr(K, n) for n in names}
+  try:
+    for n in names:
+      setattr(K, n, recorder(n))
+    yield calls
+  finally:
+    for n, fn in real.items():
+      setattr(K, n, fn)
 
 
 def time_dedup(torch, np, label, calls):
@@ -1619,10 +1664,16 @@ HETERO_BATCH_FIELDS = ('node_dict', 'node_count_dict', 'row_dict',
 
 
 def differing_field(torch, a, b, fields):
-  """The first of ``fields`` (a tensor or a dict of them) that is not
-  bit-identical between batches ``a`` and ``b``, else None."""
+  """The first of ``fields`` (a tensor, a dict of them, or None) that is
+  not bit-identical between batches ``a`` and ``b`` (objects, or the
+  loaders' dicts), else None."""
+  get = (lambda o, f: o.get(f)) if isinstance(a, dict) else getattr
   for f in fields:
-    x, y = getattr(a, f), getattr(b, f)
+    x, y = get(a, f), get(b, f)
+    if x is None or y is None:
+      if x is not y:
+        return f
+      continue
     if not isinstance(x, dict):
       x, y = {None: x}, {None: y}
     if set(x) != set(y) or any(not torch.equal(x[k], y[k]) for k in x):
@@ -3156,6 +3207,432 @@ def dist_phases(torch, np, K, dev, seed, k3, rows, smi):
   return dist_launches, ss_launches
 
 
+# partitioned homogeneous training (examples/distributed/dist_train_sage.py
+# at products-sage's width, one rank): the products graph partitioned to
+# disk in one part, 2 + 10 steps from the resident store and from a split
+# 0.2 store; the link path of examples/distributed/dist_sage_unsup.py over
+# the same stores (the link phases' batch: 512 positive edges and 512 strict
+# binary negatives, 100 -> 256 -> 256 -> 64, Adam 3e-3); K3 on float32 x 7
+# edge rows (28 B, no multiple of 16) of a small partitioned graph, and a
+# DistSubGraphLoader batch on a Cora-sized graph
+HDIST_WARMUP, HDIST_STEPS, HDIST_SPLIT = 2, 10, 0.2
+HDIST_LINK_BATCH, HDIST_LINK_LR = 512, 3e-3
+EDGE_DIM, EDGE_NODES, EDGE_DEGREE = 7, 100_000, 25
+HDIST_FIELDS = ('node', 'node_count', 'row', 'col', 'edge_mask', 'x', 'y',
+                'edge', 'edge_attr')
+HDIST_SWAPPED = ('sample_hop', 'gather_rows', 'gather_rows_mixed')
+
+
+def homo_dist_phases(torch, np, K, ds, dev, seed, rows, k3, mixed, smi):
+  """Partitioned homogeneous training over the products graph (``ds``, its
+  labels and split from the training phases): partition and load, the
+  kernels at the batch's shapes, DistTrainStep from the resident and the
+  split 0.2 store, the link path, then the edge-feature and subgraph
+  checks on small graphs. Returns the launches by path."""
+  import os
+  import shutil
+  import tempfile
+  from glt_tpu_torch.distributed import (DistDataset, DistFeature,
+                                         DistGraph, DistLinkNeighborLoader,
+                                         DistNeighborLoader,
+                                         DistSubGraphLoader, DistTrainStep)
+  from glt_tpu_torch.examples.distributed import dist_sage_unsup as unsup
+  from glt_tpu_torch.examples.seal_link_pred import ring_chord_graph
+  from glt_tpu_torch.models import GraphSAGE
+  from glt_tpu_torch.parallel import link_bce_loss, make_mesh, sage_loss
+  from glt_tpu_torch.partition import RandomPartitioner
+  from glt_tpu_torch.sampler import NegativeSampling
+  from glt_tpu_torch.typing import Split
+
+  fanouts = list(FANOUTS)
+  mesh = make_mesh(device=dev)
+  paths = {}
+
+  def load(root):
+    return (DistGraph.from_dataset_partitions(mesh, root),
+            {0: DistDataset.load(root, 0, device=dev)})
+
+  with Phase('homo dist data'):
+    t = [time.perf_counter()]
+    src, dst, _ = ds.get_graph().topo.to_coo()
+    edge_index = torch.stack([src, dst]).cpu().numpy()
+    del src, dst
+    feats = ds.get_node_feature().table.cpu().numpy()
+    labels = np.asarray(ds.node_labels)
+    train_idx = ds.get_split(Split.train)
+    t.append(time.perf_counter())
+    root = tempfile.mkdtemp(prefix='glt_homo_parts_')
+    try:
+      RandomPartitioner(root, num_parts=1, num_nodes=NUM_NODES,
+                        edge_index=edge_index, node_feat=feats,
+                        seed=seed).partition()
+      t.append(time.perf_counter())
+      disk = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(root) for f in fs)
+      del feats
+      dg = DistGraph.from_dataset_partitions(mesh, root)
+      torch.cuda.synchronize()
+      t.append(time.perf_counter())
+      # to the host: the split store then copies only its hot rows to
+      # the card, the resident one the whole table
+      dss = {0: DistDataset.load(root, 0, device='cpu')}
+      t.append(time.perf_counter())
+      df = DistFeature.from_dist_datasets(mesh, dss)
+      torch.cuda.synchronize()
+      t.append(time.perf_counter())
+      dfs = DistFeature.from_dist_datasets(mesh, dss, split_ratio=HDIST_SPLIT)
+      torch.cuda.synchronize()
+      t.append(time.perf_counter())
+      del dss
+    finally:
+      shutil.rmtree(root, ignore_errors=True)
+    secs = np.diff(t)
+    if dfs.cold_pinned is None or dfs.hot_count != round(
+        NUM_NODES * HDIST_SPLIT):
+      raise AssertionError('the split DistFeature did not pin its cold block')
+    row_b = FEAT_DIM * df.array.element_size()
+    card_b = [f.array.untyped_storage().nbytes() for f in (df, dfs)]
+    if card_b != [NUM_NODES * row_b, dfs.hot_count * row_b]:
+      raise AssertionError(f'the stores hold {card_b} B on the card, not '
+                           'their rows\' bytes')
+    graph_b = sum(getattr(dg, f).numel() * getattr(dg, f).element_size()
+                  for f in ('indptr', 'indices', 'edge_ids', 'local_row',
+                            'node_pb'))
+    print(f'homo dist data: {edge_index.shape[1]} edges, {NUM_NODES} nodes; '
+          f'the graph and features copied to the host {secs[0]:.3f} s; '
+          f'partitioned (RandomPartitioner, one part) {secs[1]:.3f} s, '
+          f'{disk} B on disk; DistGraph {secs[2]:.3f} s ({graph_b} B on the '
+          f'card, max degree {dg.max_degree}); DistDataset.load {secs[3]:.3f}'
+          f' s (to the host); DistFeature resident {secs[4]:.3f} s '
+          f'({card_b[0]} B on the card), split {HDIST_SPLIT} '
+          f'{secs[5]:.3f} s ({dfs.hot_count} rows, {card_b[1]} B, on the '
+          f'card, {dfs.cold_array.shape[0]} pinned and mapped)')
+
+    def trainer(store):
+      torch.manual_seed(seed)
+      model = GraphSAGE(FEAT_DIM, HIDDEN, CLASSES, num_layers=3).to(dev)
+      return DistTrainStep(dg, store, model, labels, fanouts, TRAIN_BATCH,
+                           lr=LR, seed=seed)
+    rng = np.random.default_rng(seed + 30)
+    order = rng.permutation(train_idx)
+
+  with Phase('homo dist kernel checks'):
+    step = trainer(dfs)
+    inputs = step.own_inputs(order[:TRAIN_BATCH][None],
+                             np.array([TRAIN_BATCH - 7]))
+    with torch.no_grad(), recorded_calls(
+        K, ('sample_hop', 'gather_rows_mixed')) as calls:
+      step.make_batch(*inputs)
+    hops, (mx,) = calls['sample_hop'], calls['gather_rows_mixed']
+    if len(hops) != len(fanouts):
+      raise AssertionError(f'{len(hops)} B2 hops in a batch')
+    b2 = rows['sample_hop'].setdefault('shapes', {})
+    b2['homo dist batch (3 hops)'] = time_picks(
+        torch, np, K, 'homo dist batch', hops)
+    served = mx[2]
+    k3['dist float32 x 100 (homo batch)'] = time_gather(
+        torch, np, K, 'dist float32 x 100 (homo batch)', df.array, served)
+    mixed['dist owner split 0.2 (homo batch)'] = time_mixed(
+        torch, np, K, 'dist owner split 0.2 (homo batch)', dfs.array,
+        dfs.cold_pinned, served, link_rate(torch, dfs.cold_array, dev),
+        resident=df.array)
+    del step, calls, hops, mx, served
+
+  def edges_a_step(step):
+    """Wrap the step's sampler so that each batch's valid sampled edges
+    are kept (summed after the step's sync)."""
+    got = []
+    real = step.sampler.sample_local
+
+    def sample(*a):
+      out = real(*a)
+      got.append(out['num_sampled_edges'].sum())
+      return out
+    step.sampler.sample_local = sample
+    return got
+
+  def train_path(label, store, per_step):
+    step = trainer(store)
+    edges = edges_a_step(step)
+
+    def one(i):
+      return step(order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH][None],
+                  np.array([TRAIN_BATCH]))
+    for i in range(HDIST_WARMUP):
+      one(i)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, secs, host = [], [], []
+    for i in range(HDIST_WARMUP, HDIST_WARMUP + HDIST_STEPS):
+      t0 = time.perf_counter()
+      losses.append(one(i))
+      host.append(time.perf_counter() - t0)    # the call's return
+      torch.cuda.synchronize()
+      secs.append(time.perf_counter() - t0)
+    launched = {fn.__name__: fn.launches for fn in K.KERNELS}
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [float(v) for v in losses]
+    n_edges = sum(int(e) for e in edges[HDIST_WARMUP:])
+    for n, per in per_step.items():
+      if launched[n] != per * HDIST_STEPS:
+        raise AssertionError(f'{label}: {launched[n]} {n} launches over '
+                             f'{HDIST_STEPS} steps, expected {per} a step')
+    if not np.isfinite(losses).all():
+      raise AssertionError(f'{label}: non-finite loss {losses}')
+    ms = np.array(secs) * 1e3
+    med = float(np.median(ms))
+    wall, busy = profile_stages(torch, lambda: [one(i) for i in range(2)],
+                                2, (), 'step')
+    print(f'{label} (one rank, batch {TRAIN_BATCH}, {fanouts}): '
+          f'{HDIST_STEPS} steps after {HDIST_WARMUP}, median {med:.3f} ms a '
+          f'step (quartiles {np.percentile(ms, 25):.3f}-'
+          f'{np.percentile(ms, 75):.3f}, min {ms.min():.3f}, max '
+          f'{ms.max():.3f}), {TRAIN_BATCH / med * 1e3:.1f} seeds/s, '
+          f'{n_edges / ms.sum() * 1e3:.1f} valid sampled edges/s '
+          f'({n_edges / HDIST_STEPS:.0f} a step); the step call returns '
+          f'to the host after a median {np.median(host) * 1e3:.3f} ms; '
+          f'device busy '
+          f'{busy / wall * 100:.1f}% over 2 profiled steps ({wall:.3f} ms '
+          f'wall, {busy:.3f} busy); peak {peak / 2**30:.3f} GiB above '
+          f'{base / 2**30:.3f} GiB resident; losses '
+          + ', '.join(f'{v:.4f}' for v in losses)
+          + f'; launches {launched}; on {smi}')
+    return step, launched
+
+  with Phase('homo dist main path'):
+    step, paths['dist_homo'] = train_path(
+        'homo dist training', df, {'sample_hop': 3, 'gather_rows': 1,
+                                   'gather_rows_mixed': 0})
+    del step
+  with Phase('homo dist split path'):
+    step, paths['dist_homo_split'] = train_path(
+        f'homo dist training, split {HDIST_SPLIT}', dfs,
+        {'sample_hop': 3, 'gather_rows': 0, 'gather_rows_mixed': 1})
+    del step
+
+  with Phase('homo dist main path vs plain'):
+    for name, store in (('resident', df), (f'split {HDIST_SPLIT}', dfs)):
+      step = trainer(store)
+      inputs = step.own_inputs(order[-TRAIN_BATCH:][None],
+                               np.array([TRAIN_BATCH - 3]))
+      with torch.no_grad():
+        bk = step.make_batch(*inputs)
+        lk = float(sage_loss(step.model, bk))
+        with swapped_to_plain(K, HDIST_SWAPPED):
+          bp = step.make_batch(*inputs)
+          lp = float(sage_loss(step.model, bp))
+      f = differing_field(torch, bk, bp, HDIST_FIELDS)
+      if f is not None:
+        raise AssertionError(f'homo dist ({name}) batch.{f} differs between '
+                             'kernels and plain')
+      if not abs(lk - lp) <= LOSS_TOL * max(1.0, abs(lp)):
+        raise AssertionError(f'homo dist ({name}) loss {lk} vs plain {lp}')
+      print(f'homo dist batch ({name}, {int(inputs[1])} real seeds): '
+            f'samples and rows bit-identical ({int(bk.node_count)} nodes, '
+            f'{int(bk.edge_mask.sum())} edges), loss {lk:.6f} vs plain '
+            f'{lp:.6f} (|diff| {abs(lk - lp):.3e}, tolerance {LOSS_TOL})')
+      del step, bk, bp
+
+  with Phase('homo dist link path'):
+    pools = unsup.positive_pools(edge_index, dg.node_pb, 1)
+    del edge_index
+
+    def link_loader():
+      return DistLinkNeighborLoader(
+          dg, fanouts, pools, dist_feature=df,
+          neg_sampling=NegativeSampling('binary', amount=1, strict=True),
+          batch_size=HDIST_LINK_BATCH, shuffle=True, seed=seed)
+
+    def link_model():
+      torch.manual_seed(seed)
+      return GraphSAGE(FEAT_DIM, HIDDEN, LINK_EMBED, num_layers=3).to(dev)
+    loader = link_loader()
+    lstep = unsup.LinkStep(mesh, link_model(), fanouts, lr=HDIST_LINK_LR)
+    it = iter(loader)
+    for _ in range(HDIST_WARMUP):
+      lstep(next(it))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, secs, host = [], [], []
+    for _ in range(HDIST_STEPS):
+      t0 = time.perf_counter()
+      losses.append(lstep(next(it)))
+      host.append(time.perf_counter() - t0)    # the calls' return
+      torch.cuda.synchronize()
+      secs.append(time.perf_counter() - t0)
+    paths['dist_link'] = {fn.__name__: fn.launches for fn in K.KERNELS}
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [float(v) for v in losses]
+    for n, per in (('sample_hop', 3), ('gather_rows', 1)):
+      if paths['dist_link'][n] != per * HDIST_STEPS:
+        raise AssertionError(f'homo dist link: {paths["dist_link"][n]} {n} '
+                             f'launches, expected {per} a step')
+    if not np.isfinite(losses).all():
+      raise AssertionError(f'homo dist link: non-finite loss {losses}')
+    ms = np.array(secs) * 1e3
+    med = float(np.median(ms))
+    pairs = 2 * HDIST_LINK_BATCH
+    wall, busy = profile_stages(
+        torch, lambda: [lstep(next(it)) for _ in range(2)], 2, (), 'step')
+    print(f'homo dist link (one rank, {HDIST_LINK_BATCH} positive edges and '
+          f'{HDIST_LINK_BATCH} strict binary negatives, {fanouts}, '
+          f'{loader.seeds_per_device} seeds): median {med:.3f} ms a step '
+          f'(quartiles {np.percentile(ms, 25):.3f}-{np.percentile(ms, 75):.3f}'
+          f', min {ms.min():.3f}, max {ms.max():.3f}), '
+          f'{pairs / med * 1e3:.1f} labelled pairs/s; the batch and step '
+          f'calls return to the host after a median '
+          f'{np.median(host) * 1e3:.3f} ms; device busy '
+          f'{busy / wall * 100:.1f}% over 2 profiled steps ({wall:.3f} ms '
+          f'wall, {busy:.3f} busy); peak {peak / 2**30:.3f} GiB above '
+          f'{base / 2**30:.3f} GiB resident; losses '
+          + ', '.join(f'{v:.4f}' for v in losses)
+          + f'; launches {paths["dist_link"]}; on {smi}')
+    # one batch through the kernels and through the plain versions: two
+    # loaders of one seed draw the same orders, negatives and uniforms
+    bk = next(iter(link_loader()))
+    with swapped_to_plain(K, HDIST_SWAPPED):
+      bp = next(iter(link_loader()))
+    f = differing_field(torch, bk, bp, ('node', 'node_count', 'row', 'col',
+                                        'edge_mask', 'x', 'edge_label_index',
+                                        'edge_label'))
+    if f is not None:
+      raise AssertionError(f'homo dist link batch {f} differs between '
+                           'kernels and plain')
+    model = lstep.model
+    with torch.no_grad():
+      lk = float(link_bce_loss(model, unsup.link_batch(bk, fanouts)))
+      lp = float(link_bce_loss(model, unsup.link_batch(bp, fanouts)))
+    if not abs(lk - lp) <= LOSS_TOL * max(1.0, abs(lp)):
+      raise AssertionError(f'homo dist link loss {lk} vs plain {lp}')
+    print(f'homo dist link batch: bit-identical ({int(bk["node_count"])} '
+          f'nodes, {int(bk["edge_mask"].sum())} edges), loss {lk:.6f} vs '
+          f'plain {lp:.6f} (|diff| {abs(lk - lp):.3e})')
+    del loader, lstep, it, bk, bp, model, pools, df, dfs, dg
+    torch.cuda.empty_cache()
+
+  with Phase('homo dist edge checks'):
+    # a small products-shaped graph with float32 x 7 edge features
+    egen = torch.Generator(device=dev).manual_seed(seed + 31)
+    ne = EDGE_NODES * EDGE_DEGREE
+    esrc = torch.randint(0, EDGE_NODES, (ne,), generator=egen, device=dev)
+    edst = (torch.rand(ne, generator=egen, device=dev) ** 2
+            * EDGE_NODES).long() % EDGE_NODES
+    ex = torch.randn((EDGE_NODES, FEAT_DIM), generator=egen, device=dev)
+    eattr = torch.randn((ne, EDGE_DIM), generator=egen, device=dev)
+    root = tempfile.mkdtemp(prefix='glt_edge_parts_')
+    try:
+      RandomPartitioner(root, num_parts=1, num_nodes=EDGE_NODES,
+                        edge_index=torch.stack([esrc, edst]).cpu().numpy(),
+                        node_feat=ex.cpu().numpy(),
+                        edge_feat=eattr.cpu().numpy(), seed=seed).partition()
+      edg, edss = load(root)
+      enf = DistFeature.from_dist_datasets(mesh, edss)
+      eef = DistFeature.from_dist_datasets(mesh, edss, kind='edge')
+      del edss
+    finally:
+      shutil.rmtree(root, ignore_errors=True)
+    elabels = torch.randint(0, CLASSES, (EDGE_NODES,), generator=egen,
+                            device=dev)
+
+    def edge_loader():
+      return DistNeighborLoader(
+          edg, fanouts, [np.arange(EDGE_NODES)], dist_feature=enf,
+          labels=elabels, batch_size=TRAIN_BATCH, shuffle=True,
+          seed=seed, rng=np.random.default_rng(seed), edge_feature=eef)
+    K.reset_launch_counts()
+    bk = next(iter(edge_loader()))
+    paths['dist_edge'] = {fn.__name__: fn.launches for fn in K.KERNELS}
+    if (paths['dist_edge']['sample_hop'], paths['dist_edge']['gather_rows']) \
+        != (3, 2):
+      raise AssertionError(f'an edge-feature batch launched '
+                           f'{paths["dist_edge"]}, expected 3 B2 and 2 K3')
+    with recorded_calls(K, ('sample_hop', 'gather_rows')) as calls:
+      bp = next(iter(edge_loader()))
+    f = differing_field(torch, bk, bp, HDIST_FIELDS)
+    if f is not None:
+      raise AssertionError(f'edge-feature batch {f} differs between kernels '
+                           'and plain')
+    m = bk['edge_mask']
+    want_attr = eattr.index_select(0, bk['edge'].clamp(min=0).long())
+    if not (torch.equal(bk['edge_attr'][m], want_attr[m])
+            and not bk['edge_attr'][~m].any()):
+      raise AssertionError('edge_attr is not the sampled edges\' rows')
+    rows['sample_hop']['shapes']['edge batch (3 hops, eids)'] = time_picks(
+        torch, np, K, 'edge batch (eids)', calls['sample_hop'])
+    table, erows = calls['gather_rows'][1]
+    k3[f'edge float32 x {EDGE_DIM}'] = time_gather(
+        torch, np, K, f'edge float32 x {EDGE_DIM}', table, erows)
+    print(f'edge-feature batch ({TRAIN_BATCH} seeds, {int(m.sum())} sampled '
+          f'edges of {m.numel()} slots): bit-identical between kernels and '
+          f'plain, edge_attr the rows of the sampled edge ids; launches '
+          f'{paths["dist_edge"]}')
+    del edg, enf, eef, bk, bp, calls, table, erows, eattr, ex
+
+  with Phase('homo dist subgraph checks'):
+    und = np.asarray(ring_chord_graph(SEAL_NODES, SEAL_CHORDS, seed=seed))
+    both = np.concatenate([und, und[:, ::-1]]).T.copy()
+    crng = np.random.default_rng(seed + 32)
+    root = tempfile.mkdtemp(prefix='glt_sub_parts_')
+    try:
+      RandomPartitioner(
+          root, num_parts=1, num_nodes=SEAL_NODES, edge_index=both,
+          node_feat=crng.normal(size=(SEAL_NODES, FEAT_DIM)).astype(
+              np.float32),
+          edge_feat=crng.normal(size=(both.shape[1], EDGE_DIM)).astype(
+              np.float32), seed=seed).partition()
+      sdg, sdss = load(root)
+      snf = DistFeature.from_dist_datasets(mesh, sdss)
+      sef = DistFeature.from_dist_datasets(mesh, sdss, kind='edge')
+      del sdss
+    finally:
+      shutil.rmtree(root, ignore_errors=True)
+
+    def sub_loader():
+      return DistSubGraphLoader(
+          sdg, 2, [np.arange(SEAL_NODES)], dist_feature=snf, batch_size=16,
+          shuffle=True, seed=seed, rng=np.random.default_rng(seed),
+          edge_feature=sef)
+    K.reset_launch_counts()
+    bk = next(iter(sub_loader()))
+    paths['dist_subgraph'] = {fn.__name__: fn.launches for fn in K.KERNELS}
+    if paths['dist_subgraph']['sample_hop'] != 3:
+      raise AssertionError(f'a subgraph batch launched '
+                           f'{paths["dist_subgraph"]}, expected 3 B2')
+    with recorded_calls(K, ('sample_hop',)) as calls:
+      bp = next(iter(sub_loader()))
+    f = differing_field(torch, bk, bp, ('node', 'node_count', 'row', 'col',
+                                        'edge_mask', 'x', 'edge'))
+    ib, ip = bk['induced'], bp['induced']
+    if f is None and any(not torch.equal(torch.as_tensor(ib[k]),
+                                         torch.as_tensor(ip[k])) for k in ib):
+      f = 'induced'
+    if f is not None:
+      raise AssertionError(f'subgraph batch {f} differs between kernels and '
+                           'plain')
+    # every induced edge is a graph edge between two nodes of the set
+    node = bk['node'].cpu().numpy()
+    edges = {tuple(e) for e in both.T}
+    got = {(int(node[c]), int(node[r])) for r, c in zip(ib['rows'],
+                                                          ib['cols'])}
+    if not got or not got <= edges:
+      raise AssertionError('an induced edge is not a graph edge')
+    shape = f'subgraph windows (max_degree {sdg.max_degree}, eids)'
+    rows['sample_hop']['shapes'][shape] = time_picks(
+        torch, np, K, shape, calls['sample_hop'])
+    print(f'subgraph batch (16 seeds, 2 hops of max_degree {sdg.max_degree} '
+          f'on a {SEAL_NODES}-node graph of {both.shape[1]} directed edges): '
+          f'{int(bk["node_count"])} nodes, {ib["eids"].size} induced edges, '
+          f'bit-identical between kernels and plain; launches '
+          f'{paths["dist_subgraph"]}')
+    del sdg, snf, sef, bk, bp, calls
+    torch.cuda.empty_cache()
+  return paths
+
+
 def path_launches(K, step):
   """A superstep path's launches by wrapper name since the last reset:
   those run eagerly (the wrappers' counts), those the trainer's graph
@@ -3806,6 +4283,9 @@ def main() -> int:
   dist_launches, ss_paths['dist_hetero_superstep'] = dist_phases(
       torch, np, K, dev, opts.seed, k3, rows, smi)
   torch.cuda.empty_cache()
+  homo_paths = homo_dist_phases(torch, np, K, ds, dev, opts.seed, rows, k3,
+                                mixed, smi)
+  torch.cuda.empty_cache()
   hlink_launches = hetero_link_phases(torch, np, K, dev, opts.seed, rows, k3,
                                       host_us, smi)
   torch.cuda.empty_cache()
@@ -3855,6 +4335,7 @@ def main() -> int:
              'subgraph': sub_launches, 'seal': seal_launches,
              'split': split_launches, 'dist_hetero': dist_launches,
              'hetero_link': hlink_launches, 'hgt': hgt_launches,
+             **homo_paths,
              **{p: v[0] for p, v in ss_paths.items()},
              'probe': probe_launches,
              'microbench': micro_launches}

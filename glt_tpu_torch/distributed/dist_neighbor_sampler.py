@@ -19,9 +19,12 @@ device's index, dist_neighbor_sampler.py:69). So the uniforms a one-hop
 takes are the serving rank's, ``[world * F, fanout]`` over the requests
 it received (row p's bucket of F slots at rows ``[p*F, (p+1)*F)``).
 
+With ``with_edge`` the owner also reads each pick's global edge id (the
+``eids`` plane of the same B2 launch), which rides back beside the
+neighbours: ``out['edge']``, -1 on invalid lanes.
+
 Not ported (each raises until a caller needs it): the full-neighbourhood
-hop (fanout -1, B3), the weighted hop and edge ids on the sampler's
-output.
+hop (fanout -1, B3) and the weighted hop.
 """
 from __future__ import annotations
 
@@ -112,6 +115,7 @@ class DistNeighborSampler:
   Args:
     dist_graph: this rank's block.
     num_neighbors: per-hop fanouts (positive).
+    with_edge: also return each sampled edge's global id (``'edge'``).
     seed: seed of the rank's generator (``seed + rank``; default the
       process-wide seed), which draws the uniforms a call is given none.
   """
@@ -120,14 +124,13 @@ class DistNeighborSampler:
                with_edge: bool = False, with_weight: bool = False,
                seed: Optional[int] = None,
                full_neighbor_cap: Optional[int] = None):
-    if with_edge:
-      raise NotImplementedError('edge ids of a partitioned sample are not '
-                                'ported')
     self.g = dist_graph
     self.mesh = dist_graph.mesh
+    self.with_edge = bool(with_edge)
     self.num_neighbors = check_fanouts(num_neighbors, full_neighbor_cap)
     self._one_hop = make_dist_one_hop(
-        store_tensors(dist_graph), dist_graph.num_nodes,
+        store_tensors(dist_graph, with_edge=self.with_edge),
+        dist_graph.num_nodes,
         dist_graph.num_partitions, dist_graph.max_rows, self.mesh,
         with_weight=with_weight)
     base = (seed if seed is not None
@@ -142,15 +145,27 @@ class DistNeighborSampler:
       f *= k
     return shapes
 
+  def own_uniforms(self, uniforms, batch_size: int) -> List[torch.Tensor]:
+    """This rank's row of per-hop ``[world, world * F_h, K_h]`` draws on
+    its device, or, for ``uniforms=None``, its own draws from its
+    generator."""
+    dev = self.mesh.device
+    if uniforms is None:
+      return [torch.rand(s, generator=self.generator, device=dev)
+              for s in self.uniform_shapes(batch_size)]
+    return [torch.as_tensor(x)[self.mesh.rank].to(dev, torch.float32)
+            for x in uniforms]
+
   def sample_local(self, seeds: torch.Tensor, n_valid, u_hops
                    ) -> Dict[str, torch.Tensor]:
     """This rank's walk from ``seeds [B]`` on its device (``n_valid`` an
     int or a 0-dim tensor, ``u_hops`` per hop this rank's draw); the
-    output dict of ``multihop_sample_sorted``."""
+    output dict of ``multihop_sample_sorted`` (with ``edge`` given
+    ``with_edge``)."""
     fanouts = self.num_neighbors
     return multihop_sample_sorted(
         lambda h, ids, mask, u: self._one_hop(ids, fanouts[h], u, mask),
-        seeds, n_valid, fanouts, u_hops)
+        seeds, n_valid, fanouts, u_hops, with_edge=self.with_edge)
 
   def sample_from_nodes(self, seeds_per_device, n_valid_per_device=None,
                         uniforms=None) -> Dict[str, torch.Tensor]:
@@ -166,12 +181,6 @@ class DistNeighborSampler:
                            device=mesh.device)
     n_valid = (b if n_valid_per_device is None
                else int(as_numpy(n_valid_per_device).reshape(-1)[mesh.rank]))
-    if uniforms is None:
-      u = [torch.rand(s, generator=self.generator, device=mesh.device)
-           for s in self.uniform_shapes(b)]
-    else:
-      u = [torch.as_tensor(x)[mesh.rank].to(mesh.device, torch.float32)
-           for x in uniforms]
-    out = self.sample_local(mine, n_valid, u)
+    out = self.sample_local(mine, n_valid, self.own_uniforms(uniforms, b))
     out['edge_hop_offsets'] = edge_hop_offsets(b, self.num_neighbors)
     return out

@@ -22,6 +22,8 @@ class Batch:
   node_count: torch.Tensor
   y: Optional[torch.Tensor] = None   # [batch_size] seed labels
   edge: Optional[torch.Tensor] = None
+  #: [edge_cap, De] features of the sampled edges (an edge store's)
+  edge_attr: Optional[torch.Tensor] = None
   num_sampled_nodes: Optional[torch.Tensor] = None
   num_sampled_edges: Optional[torch.Tensor] = None
   batch_size: int = 0

@@ -133,7 +133,8 @@ def multihop_sample_many(plan: FusedHopPlan, seeds_stack: torch.Tensor,
 
 def multihop_sample_sorted(one_hop: OneHopFn, seeds: torch.Tensor,
                            n_valid: int, fanouts: Sequence[int],
-                           u_hops: Sequence[Optional[torch.Tensor]]
+                           u_hops: Sequence[Optional[torch.Tensor]],
+                           with_edge: bool = False
                            ) -> Dict[str, torch.Tensor]:
   """The per-hop loop (counterpart of the fused branch of
   glt_tpu/ops/pipeline.py ``_multihop_sample_sorted``): the exact seed
@@ -141,7 +142,9 @@ def multihop_sample_sorted(one_hop: OneHopFn, seeds: torch.Tensor,
   of width ``abs(fanouts[h])`` (a negative fanout is a full-neighbourhood
   window) and :func:`sorted_hop_dedup_fused`, whose new heads (each new
   id's minimum slot, non-heads INT32_MAX) are the next frontier. Returns
-  the output dict of :func:`multihop_sample` without ``edge``."""
+  the output dict of :func:`multihop_sample`; ``edge`` (with
+  ``with_edge``) holds each hop's ``eids`` in slot order, as the one-hop
+  returned them."""
   batch_size = seeds.numel()
   widths = [abs(int(f)) for f in fanouts]
   budget = sample_budget(batch_size, widths)
@@ -150,10 +153,12 @@ def multihop_sample_sorted(one_hop: OneHopFn, seeds: torch.Tensor,
   seed_count = count
   frontier_ids, frontier_labels = d['ids3'], d['labels3']
   frontier_mask = d['new_head3']
-  rows_parent, cols_child, emasks = [], [], []
+  rows_parent, cols_child, emasks, eids = [], [], [], []
   hop_node_counts, hop_edge_counts = [seed_count], []
   for h, width in enumerate(widths):
     hop = one_hop(h, frontier_ids, frontier_mask, u_hops[h])
+    if with_edge:
+      eids.append(hop.eids.reshape(-1))
     ids_flat = hop.nbrs.reshape(-1)
     mask_flat = hop.mask.reshape(-1)
     d = sorted_hop_dedup_fused(u_ids, u_labs, count, ids_flat, mask_flat)
@@ -167,10 +172,13 @@ def multihop_sample_sorted(one_hop: OneHopFn, seeds: torch.Tensor,
     hop_node_counts.append(d['new_count'])
     hop_edge_counts.append(mask_flat.sum(dtype=torch.int32))
     frontier_labels, frontier_mask = d['labels3'], d['new_head3']
-  return _output_dict(sorted_nodes_by_label(u_ids, u_labs, count, budget),
-                      count, cols_child, rows_parent, emasks, batch_size,
-                      seed_labels, seed_count, hop_node_counts,
-                      hop_edge_counts)
+  out = _output_dict(sorted_nodes_by_label(u_ids, u_labs, count, budget),
+                     count, cols_child, rows_parent, emasks, batch_size,
+                     seed_labels, seed_count, hop_node_counts,
+                     hop_edge_counts)
+  if with_edge:
+    out['edge'] = torch.cat(eids)
+  return out
 
 
 def _output_dict(nodes, count, cols_child, rows_parent, emasks, batch_size,

@@ -136,13 +136,15 @@ class SageTrainStep:
 
 
 def mesh_update(model: nn.Module, optimizer: torch.optim.Optimizer,
-                mesh: Mesh, batch: Union[Batch, HeteroBatch]) -> torch.Tensor:
-  """One data-parallel update: :func:`sage_loss` of ``batch``, its
-  backward, the mesh mean of the gradients and the loss (one
-  ``all_reduce``, the JAX ``pmean``), the optimizer's step. Returns the
-  mean loss (before the update), a 0-dim tensor."""
+                mesh: Mesh, batch: Union[Batch, HeteroBatch],
+                loss_fn: Callable[[nn.Module, Batch], torch.Tensor]
+                = sage_loss) -> torch.Tensor:
+  """One data-parallel update: ``loss_fn`` of ``batch`` (default
+  :func:`sage_loss`), its backward, the mesh mean of the gradients and the
+  loss (one ``all_reduce``, the JAX ``pmean``), the optimizer's step.
+  Returns the mean loss (before the update), a 0-dim tensor."""
   optimizer.zero_grad(set_to_none=True)
-  loss = sage_loss(model, batch)
+  loss = loss_fn(model, batch)
   loss.backward()
   loss = loss.detach().reshape(1)
   for p in model.parameters():

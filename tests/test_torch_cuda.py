@@ -1458,3 +1458,81 @@ def test_two_ranks_over_nccl_train_dist_hetero(dev, tmp_path):
     _check_dist(r, 2)
   # the mesh mean: every rank reports the same losses
   np.testing.assert_array_equal(res[0]['got'], res[1]['got'])
+
+
+def test_dist_homo_spilled_store_pins_and_matches_resident(dev, tmp_path):
+  """On a card a spilled DistFeature pins its cold block, serves a lookup
+  through one K3 mixed launch equal to the resident store's K3, and
+  refuses the host phase; DistTrainStep trains from it as from the
+  resident store."""
+  import torch_dist_worker as worker
+  from glt_tpu_torch.distributed import DistDataset, DistFeature
+  from glt_tpu_torch.parallel import make_mesh
+  root = str(tmp_path)
+  labels = worker.det_layout(root, 1)
+  mesh = make_mesh(device=dev)
+  ds = {0: DistDataset.load(root, 0, device='cpu')}
+  resident = DistFeature.from_dist_datasets(mesh, ds)
+  spilled = DistFeature.from_dist_datasets(mesh, ds, split_ratio=0.3)
+  assert spilled.cold_pinned is not None
+  assert spilled.cold_pinned.tensor.device.type == 'cpu'
+  # the card holds the hot rows only
+  assert spilled.array.device.type == 'cuda'
+  assert spilled.array.untyped_storage().nbytes() == (
+      spilled.hot_count * spilled.feature_dim * spilled.array.element_size())
+  with pytest.raises(NotImplementedError):
+    DistFeature.from_dist_datasets(mesh, ds, split_ratio=0.3,
+                                   host_offload=False)
+  ids = np.random.default_rng(0).integers(-1, worker.DET_NODES, 3000)
+  K.reset_launch_counts()
+  got = spilled.lookup(ids)
+  assert (K.gather_rows_mixed.launches, K.gather_rows.launches) == (1, 0)
+  assert torch.equal(got, resident.lookup(ids))
+  seeds = worker.det_seeds(1)
+  a = worker.det_train(mesh, root, labels, seeds)
+  with pytest.MonkeyPatch.context() as mp:
+    mp.setattr(DistFeature, 'from_dist_datasets', classmethod(
+        lambda cls, mesh, dss, **kw: spilled))
+    b = worker.det_train(mesh, root, labels, seeds)
+  np.testing.assert_allclose(a['losses'], b['losses'], rtol=1e-5)
+
+
+def test_two_ranks_over_nccl_train_dist_homo(dev, tmp_path):
+  """Two NCCL ranks over a two-part layout train as one rank over one
+  part on both seed blocks (every row a hop takes whole, so the sample
+  does not depend on the draws): the same losses and weights to float
+  noise."""
+  if torch.cuda.device_count() < 2:
+    pytest.skip('needs two cards')
+  import pickle
+  import torch_dist_worker as worker
+  from glt_tpu_torch.parallel import make_mesh
+  roots = [str(tmp_path / f'parts{w}') for w in (1, 2)]
+  labels = [worker.det_layout(r, w) for r, w in zip(roots, (1, 2))]
+  seeds = worker.det_seeds(2)
+  np.save(tmp_path / 'labels.npy', labels[1])
+  np.save(tmp_path / 'seeds.npy', seeds)
+  ctx = torch.multiprocessing.get_context('spawn')
+  out = str(tmp_path / 'rank%d.pkl')
+  procs = [ctx.Process(target=worker.dist_homo_nccl_main,
+                       args=(r, 2, str(tmp_path / 'store'), roots[1],
+                             str(tmp_path / 'labels.npy'),
+                             str(tmp_path / 'seeds.npy'), out))
+           for r in range(2)]
+  for p in procs:
+    p.start()
+  for p in procs:
+    p.join(300)
+  hung = [p for p in procs if p.is_alive()]
+  for p in hung:
+    p.kill()
+  assert not hung and all(p.exitcode == 0 for p in procs)
+  want = worker.det_train(make_mesh(device=dev), roots[0], labels[0],
+                          seeds.reshape(seeds.shape[0], 1, -1))
+  for r in range(2):
+    with open(out % r, 'rb') as f:
+      res = pickle.load(f)
+    np.testing.assert_allclose(res['losses'], want['losses'], rtol=1e-5)
+    for k, v in want['params'].items():
+      np.testing.assert_allclose(res['params'][k], v, rtol=0, atol=1e-5,
+                                 err_msg=k)

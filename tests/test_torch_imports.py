@@ -8,7 +8,8 @@ the superstep trainer's mesh, collectives, sharded feature store,
 superstep lifts, epoch staging, prefetch thread and training bench, and
 the partitioned slice's partitioner, distributed stores, samplers and
 trainer, MLPerf logging and the IGBH example, and HGT with the four
-hetero examples) and ``chip_smoke`` pulls in neither JAX nor the JAX
+hetero examples, and the homogeneous partitioned trainer, loaders,
+negative sampler and the two distributed examples) and ``chip_smoke`` pulls in neither JAX nor the JAX
 package, and touches no card."""
 import os
 import subprocess
@@ -69,6 +70,16 @@ print('DIST', all(m in sys.modules for m in (
     'glt_tpu_torch.utils.mlperf_logging',
     'glt_tpu_torch.examples.igbh.data',
     'glt_tpu_torch.examples.igbh.dist_train_rgnn')))
+print('DIST_HOMO', all(m in sys.modules for m in (
+    'glt_tpu_torch.distributed.dist_train',
+    'glt_tpu_torch.distributed.dist_loader',
+    'glt_tpu_torch.distributed.dist_negative',
+    'glt_tpu_torch.distributed.dist_link_loader',
+    'glt_tpu_torch.distributed.dist_subgraph_loader',
+    'glt_tpu_torch.examples.distributed',
+    'glt_tpu_torch.examples.distributed.common',
+    'glt_tpu_torch.examples.distributed.dist_train_sage',
+    'glt_tpu_torch.examples.distributed.dist_sage_unsup')))
 print('HGT', all(m in sys.modules for m in (
     'glt_tpu_torch.models.hgt', 'glt_tpu_torch.examples.hetero',
     'glt_tpu_torch.examples.hetero.bipartite_sage_unsup',
@@ -96,4 +107,5 @@ def test_port_and_chip_smoke_import_no_jax():
   assert 'SUPERSTEP True' in out.stdout, out.stdout
   assert 'DIST True' in out.stdout, out.stdout
   assert 'HGT True' in out.stdout, out.stdout
+  assert 'DIST_HOMO True' in out.stdout, out.stdout
   assert 'CUDA_INIT False' in out.stdout, out.stdout

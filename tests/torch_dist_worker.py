@@ -1,6 +1,8 @@
 """The port's side of the partitioned parity tests
-(tests/test_torch_dist_hetero.py): the stores, the one-hop, both samplers,
-DistFeature lookups, DistHeteroTrainStep runs and gradients of one rank over a
+(tests/test_torch_dist_hetero.py, tests/test_torch_dist_homo.py and
+tests/test_torch_dist_link.py): the stores, the one-hop, both samplers,
+DistFeature lookups (node, edge and spilled stores), the loaders,
+DistHeteroTrainStep and DistTrainStep runs and gradients of one rank over a
 partition layout on disk, and the entry point of a spawned rank of a gloo
 group. Imports no JAX, so a spawned rank starts without it."""
 import torch
@@ -144,12 +146,254 @@ def grads_case(mesh, case):
   return out
 
 
+# -- the homogeneous slice (tests/test_torch_dist_homo.py and
+# tests/test_torch_dist_link.py) ----------------------------------------------
+
+def _homo_stores(mesh, case, kind='node', split_ratio=None, bucket_cap=0):
+  ds = {mesh.rank: DistDataset.load(case['root'], mesh.rank, device='cpu')}
+  return DistFeature.from_dist_datasets(mesh, ds, kind=kind,
+                                        split_ratio=split_ratio,
+                                        bucket_cap=bucket_cap)
+
+
+def _inject(sampler, draws):
+  """Feed ``sampler.sample_from_nodes`` the recorded draws of its calls,
+  in order (the JAX sampler's, one a call)."""
+  it = iter(draws)
+  real = sampler.sample_from_nodes
+  sampler.sample_from_nodes = lambda seeds, n_valid=None, uniforms=None: \
+      real(seeds, n_valid, next(it))
+
+
+def edge_sample_case(mesh, case):
+  """The homogeneous sampler with edge ids."""
+  g = DistGraph.from_dataset_partitions(mesh, case['root'])
+  s = DistNeighborSampler(g, case['fanouts'], with_edge=True)
+  return _batch_np(s.sample_from_nodes(case['seeds'], case['n_valid'],
+                                       case['u']))
+
+
+def store_lookup_case(mesh, case):
+  """A lookup through each store the case names: ``(kind, split_ratio,
+  bucket_cap)``; each result and, for a spilled store, whether its cold
+  block is the CPU tensor its serve reads."""
+  out = {}
+  for name, (kind, split, cap) in case['stores'].items():
+    st = _homo_stores(mesh, case, kind, split, cap)
+    out[name] = dict(rows=_np(st.lookup(case['ids'][kind],
+                                        case['valid'][kind])),
+                     spilled=st.cold_array is not None,
+                     hot=st.hot_count)
+  return out
+
+
+def _batch_np(out):
+  return {k: _np(v) for k, v in out.items() if k != 'edge_hop_offsets'}
+
+
+def dist_loader_case(mesh, case):
+  """Two epochs of a DistNeighborLoader with node and edge stores and
+  labels, its sampler fed the recorded draws."""
+  import numpy as np
+  from glt_tpu_torch.distributed import DistNeighborLoader
+  g = DistGraph.from_dataset_partitions(mesh, case['root'])
+  loader = DistNeighborLoader(
+      g, case['fanouts'], case['input_nodes'],
+      dist_feature=_homo_stores(mesh, case),
+      labels=case['labels'], batch_size=case['bs'], shuffle=True,
+      rng=np.random.default_rng(case['rng']),
+      edge_feature=_homo_stores(mesh, case, 'edge'))
+  _inject(loader.sampler, case['u'])
+  return [_batch_np(b) for _ in range(case['epochs']) for b in loader]
+
+
+def subgraph_case(mesh, case):
+  """A DistSubGraphLoader epoch, both samplers fed the recorded draws."""
+  import numpy as np
+  from glt_tpu_torch.distributed import DistSubGraphLoader
+  g = DistGraph.from_dataset_partitions(mesh, case['root'])
+  loader = DistSubGraphLoader(
+      g, case['hops'], case['input_nodes'], max_degree=case['max_degree'],
+      dist_feature=_homo_stores(mesh, case), batch_size=case['bs'],
+      shuffle=True, rng=np.random.default_rng(case['rng']),
+      edge_feature=_homo_stores(mesh, case, 'edge'))
+  _inject(loader.sampler, case['u'])
+  _inject(loader.extractor, case['u_extract'])
+  return [_batch_np(b) for b in loader]
+
+
+def link_case(mesh, case):
+  """A DistLinkNeighborLoader epoch, its sampler fed the recorded draws and
+  its strict negatives the recorded proposals (this rank's)."""
+  import numpy as np
+  from glt_tpu_torch.distributed import DistLinkNeighborLoader
+  from glt_tpu_torch.sampler import NegativeSampling
+  g = DistGraph.from_dataset_partitions(mesh, case['root'])
+  loader = DistLinkNeighborLoader(
+      g, case['fanouts'], case['pools'],
+      dist_feature=_homo_stores(mesh, case),
+      neg_sampling=NegativeSampling(*case['neg']),
+      batch_size=case['bs'], shuffle=True, seed=case['seed'],
+      edge_feature=_homo_stores(mesh, case, 'edge'))
+  _inject(loader.sampler, case['u'])
+  if loader.strict_neg is not None:
+    props = iter(case['props'])
+    neg = loader.strict_neg
+    real_sample, real_dst = neg.sample, neg.sample_dst
+    neg.sample = lambda n, proposals=None: real_sample(
+        n, [p[mesh.rank] for p in next(props)])
+    neg.sample_dst = lambda src, proposals=None: real_dst(
+        src, next(props)[1][mesh.rank])
+  return [_batch_np(b) for b in loader]
+
+
+def negative_case(mesh, case):
+  """DistRandomNegativeSampler.sample and sample_dst on given proposals."""
+  from glt_tpu_torch.distributed import DistRandomNegativeSampler
+  g = DistGraph.from_dataset_partitions(mesh, case['root'],
+                                        edge_dir=case['edge_dir'])
+  s = DistRandomNegativeSampler(g, trials_num=case['trials'],
+                                padding=case['padding'])
+  r = mesh.rank
+  free = s.sample(case['req'], [p[r] for p in case['props']])
+  dst = s.sample_dst(case['src'][r], case['dst_props'][r])
+  return dict(free=_np(free._asdict()), dst=_np(dst._asdict()))
+
+
+class EdgeSumProbe(torch.nn.Module):
+  """Logits from the node features and the sum of each node's incoming
+  edge features (the JAX suite's ``_EdgeSumModel``): its gradients reach
+  the edge-feature weights only if ``edge_attr`` arrives."""
+
+  def __init__(self, in_dim, edge_dim, classes):
+    super().__init__()
+    self.lin = torch.nn.Linear(in_dim + edge_dim, classes)
+
+  def forward(self, batch):
+    n = batch.node.numel()
+    m = batch.edge_mask
+    seg = torch.where(m, batch.col.long().clamp(0, n - 1), n)
+    ea = torch.where(m[:, None], batch.edge_attr,
+                     torch.zeros_like(batch.edge_attr))
+    agg = ea.new_zeros((n + 1, ea.shape[1])).index_add_(0, seg, ea)[:n]
+    return self.lin(torch.cat([batch.x, agg], -1))[:batch.batch_size]
+
+
+def homo_model(case):
+  from glt_tpu_torch.models import GraphSAGE
+  if case['model'] == 'probe':
+    return EdgeSumProbe(case['in_dim'], case['edge_dim'], case['classes'])
+  return GraphSAGE(case['in_dim'], case['hidden'], case['classes'],
+                   num_layers=len(case['fanouts']))
+
+
+def dist_train_case(mesh, case):
+  """DistTrainStep from the case's weights over its calls: the losses and
+  the parameters after each."""
+  from glt_tpu_torch.distributed import DistTrainStep
+  g = DistGraph.from_dataset_partitions(mesh, case['root'])
+  model = homo_model(case)
+  model.load_state_dict({k: torch.as_tensor(v)
+                         for k, v in case['params'].items()})
+  ef = (_homo_stores(mesh, case, 'edge') if case['model'] == 'probe'
+        else None)
+  step = DistTrainStep(g, _homo_stores(mesh, case,
+                                       split_ratio=case['split_ratio']),
+                       model, case['labels'], case['fanouts'], case['bs'],
+                       lr=case['lr'], edge_feature=ef)
+  out = []
+  for call in case['calls']:
+    loss = _np(step(call['seeds'], call['n_valid'], call['u']))
+    out.append(dict(result=loss, params=_np(model.state_dict())))
+  return out
+
+
+# every node has DET_DEGREE out-edges (at most), no more than the smallest
+# fanout, so every hop takes each row whole and a batch's sample does not
+# depend on the draws: two ranks over two parts train as one rank over one
+# part on the two seed blocks together
+DET_NODES, DET_DEGREE, DET_DIM, DET_CLASSES = 400, 3, 12, 4
+DET_FANOUTS, DET_BS, DET_STEPS = [3, 3], 16, 3
+
+
+def det_layout(root, world, seed=3):
+  """The draw-independent graph at ``root`` in ``world`` parts (the
+  port's partitioner); returns its labels."""
+  import numpy as np
+  from glt_tpu_torch.partition import RandomPartitioner
+  rng = np.random.default_rng(seed)
+  n = DET_NODES
+  src = np.repeat(np.arange(n), DET_DEGREE)
+  dst = np.stack([(np.arange(n) + 1) % n] + [rng.integers(0, n, n)
+                                             for _ in range(DET_DEGREE - 1)],
+                 1).reshape(-1)
+  feats = rng.normal(size=(n, DET_DIM)).astype('float32')
+  RandomPartitioner(root, num_parts=world, num_nodes=n,
+                    edge_index=np.stack([src, dst]), node_feat=feats,
+                    seed=seed).partition()
+  return rng.integers(0, DET_CLASSES, n).astype('int32')
+
+
+def det_seeds(world, seed=4):
+  """Per step ``[world, DET_BS]`` seeds, distinct within a step (a batch
+  dedups its seeds, so a seed in both blocks would leave the one-rank
+  batch one seed short)."""
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  return np.stack([rng.permutation(DET_NODES)[:world * DET_BS].reshape(
+      world, DET_BS) for _ in range(DET_STEPS)])
+
+
+def det_train(mesh, root, labels, seeds):
+  """DistTrainStep over the layout at ``root`` on ``seeds [T, world, B]``
+  (every rank passes all of them): the losses and the final weights."""
+  import numpy as np
+  from glt_tpu_torch.distributed import DistTrainStep
+  from glt_tpu_torch.models import GraphSAGE
+  g = DistGraph.from_dataset_partitions(mesh, root)
+  ds = {mesh.rank: DistDataset.load(root, mesh.rank, device=mesh.device)}
+  df = DistFeature.from_dist_datasets(mesh, ds)
+  torch.manual_seed(0)
+  model = GraphSAGE(DET_DIM, 16, DET_CLASSES, num_layers=2).to(mesh.device)
+  bs = seeds.shape[-1]
+  step = DistTrainStep(g, df, model, labels, DET_FANOUTS, bs)
+  losses = [float(step(s, np.full(mesh.world, bs))) for s in seeds]
+  return dict(losses=losses, params=_np(model.state_dict()))
+
+
+def det_case(mesh, case):
+  return det_train(mesh, case['root'], case['labels'], case['seeds'])
+
+
+def dist_homo_nccl_main(rank, world, store_path, root, labels_path,
+                        seeds_path, out_path):
+  """A spawned rank on card ``rank`` of an NCCL group: det_train over the
+  layout at ``root``; results pickled to ``out_path % rank``."""
+  import pickle
+  import numpy as np
+  import torch.distributed as dist
+  from glt_tpu_torch.parallel import make_mesh
+  torch.cuda.set_device(rank)
+  dist.init_process_group('nccl', store=dist.FileStore(store_path, world),
+                          rank=rank, world_size=world)
+  try:
+    res = det_train(make_mesh(device=torch.device('cuda', rank)), root,
+                    np.load(labels_path), np.load(seeds_path))
+    with open(out_path % rank, 'wb') as f:
+      pickle.dump(res, f)
+  finally:
+    dist.destroy_process_group()
+
+
 def run_cases(mesh, cases):
   """Every case for this rank: ``{name: result}``."""
   fns = dict(stores=stores_case, one_hop=one_hop_case,
              sample_homo=sample_homo_case, sample_hetero=sample_hetero_case,
              lookup=lookup_case, train=train_case,
-             grads=grads_case)
+             grads=grads_case, edge_sample=edge_sample_case,
+             store_lookup=store_lookup_case, dist_loader=dist_loader_case,
+             subgraph=subgraph_case, link=link_case, negative=negative_case,
+             dist_train=dist_train_case, det=det_case)
   return {name: fns[case['kind']](mesh, case)
           for name, case in cases.items()}
 
