@@ -10,8 +10,10 @@ through its example's run, training from a hot/cold split feature store,
 the feature bench, superstep training through SPMDSageTrainStep and the
 training bench, partitioned hetero training through DistHeteroTrainStep,
 partitioned homogeneous training through DistTrainStep and
-DistLinkNeighborLoader, hetero link prediction through the hetero
-LinkNeighborLoader, HGT
+DistLinkNeighborLoader, the server-client mode through spawned sampling
+servers and RemoteNeighborLoader, the mp mode through MpNeighborLoader,
+feature lookups across processes through the feature_mp example, hetero
+link prediction through the hetero LinkNeighborLoader, HGT
 training through the hetero NeighborLoader, and the two benchmark entry
 points through their main functions, and checks what comes out:
 
@@ -115,6 +117,30 @@ points through their main functions, and checks what comes out:
   with edge ids through DistNeighborLoader(edge_feature=) on a
   100,000-node graph, and a DistSubGraphLoader batch (B2 at max_degree
   windows) on a Cora-sized graph, each bit-equal to plain;
+- the host phase of the split 0.2 partitioned store (host_offload=False:
+  K3 at the owner over its hot rows, the cold lanes flagged, read from
+  host memory and written on the card) at one batch's node slots,
+  bit-identical to K3 mixed and timed beside it;
+- server-client training (examples/distributed/server_client_mode.py at
+  products-sage's width): the graph, features and labels written to a
+  temporary directory, two sampling servers spawned (each its own copy on
+  the host for the data plane), each with one sampling worker that
+  builds the graph on the card and samples there (K1) and gathers the
+  batch's rows (K3), batches through a shared-memory ring of two messages
+  (the phase fails unless both servers streamed through a ShmChannel) and
+  TCP to this process's RemoteNeighborLoader; each server serves half
+  the seeds of 12 batches of 1,024, [15, 10, 5], an epoch, and
+  SageTrainStep (GraphSAGE 100 -> 256 -> 256 -> 47, Adam 1e-3) takes 2
+  warm-up and 10 timed steps of epoch 0 (batches/s over that window, no
+  profiler) and the same of epoch 1 under the profiler (the device's busy
+  share); server 0's first batch is held bit for bit against the
+  in-process sampler on the card (the same generator seed and seed
+  order) and its loss against the local batch's; then 3 batches of
+  MpNeighborLoader (one worker on the card) held the same way, and the
+  feature_mp example's 5 lookups (K3 mixed in its worker) against the
+  table's rows, with K3 mixed at that shape held against its plain
+  version here. The workers' launch counts and stage times come back
+  through files their dataset builder (``sc_build``) has written at exit;
 - hetero link prediction (examples/hetero/bipartite_sage_unsup.py at
   Taobao's counts): 987,994 users, 4,161,138 items in 9,439 categories,
   101 user-item links a user inside one category (99.8M) and their
@@ -3283,6 +3309,11 @@ def homo_dist_phases(torch, np, K, ds, dev, seed, rows, k3, mixed, smi):
       dfs = DistFeature.from_dist_datasets(mesh, dss, split_ratio=HDIST_SPLIT)
       torch.cuda.synchronize()
       t.append(time.perf_counter())
+      # the same split without its pinned block: the host phase
+      dfh = DistFeature.from_dist_datasets(mesh, dss, split_ratio=HDIST_SPLIT,
+                                           host_offload=False)
+      torch.cuda.synchronize()
+      t.append(time.perf_counter())
       del dss
     finally:
       shutil.rmtree(root, ignore_errors=True)
@@ -3306,7 +3337,11 @@ def homo_dist_phases(torch, np, K, ds, dev, seed, rows, k3, mixed, smi):
           f' s (to the host); DistFeature resident {secs[4]:.3f} s '
           f'({card_b[0]} B on the card), split {HDIST_SPLIT} '
           f'{secs[5]:.3f} s ({dfs.hot_count} rows, {card_b[1]} B, on the '
-          f'card, {dfs.cold_array.shape[0]} pinned and mapped)')
+          f'card, {dfs.cold_array.shape[0]} pinned and mapped), host phase '
+          f'{secs[6]:.3f} s ({dfh.cold_array.shape[0]} cold rows in host '
+          'memory, not pinned)')
+    if not dfh.host_spilled or dfh.cold_pinned is not None:
+      raise AssertionError('the host-phase store pinned its cold block')
 
     def trainer(store):
       torch.manual_seed(seed)
@@ -3337,6 +3372,11 @@ def homo_dist_phases(torch, np, K, ds, dev, seed, rows, k3, mixed, smi):
         dfs.cold_pinned, served, link_rate(torch, dfs.cold_array, dev),
         resident=df.array)
     del step, calls, hops, mx, served
+
+  with Phase('homo dist host phase'):
+    paths['dist_homo_host'] = host_phase_check(torch, np, K, trainer, dfs,
+                                               dfh, order, mixed, smi)
+    del dfh
 
   def edges_a_step(step):
     """Wrap the step's sampler so that each batch's valid sampled edges
@@ -3630,6 +3670,546 @@ def homo_dist_phases(torch, np, K, ds, dev, seed, rows, k3, mixed, smi):
           f'{paths["dist_subgraph"]}')
     del sdg, snf, sef, bk, bp, calls
     torch.cuda.empty_cache()
+  return paths
+
+
+def host_phase_check(torch, np, K, trainer, dfs, dfh, order, mixed, smi):
+  """One partitioned products batch's node lookup through the split
+  store's host phase (``host_offload=False``: K3 at the owner over the hot
+  rows, the cold lanes flagged, read from host memory and written on the
+  card) and through K3 mixed (the pinned block): bit-identical, timed in
+  turns (host clock around a synced call, medians of ROUNDS). Returns the
+  host phase's launches."""
+  step = trainer(dfs)
+  inputs = step.own_inputs(order[:TRAIN_BATCH][None],
+                           np.array([TRAIN_BATCH - 7]))
+  with torch.no_grad():
+    node = step.make_batch(*inputs).node.reshape(-1)
+  del step
+  valid = node >= 0
+  node = node.clamp(min=0).to(torch.int32)
+  K.reset_launch_counts()
+  got = dfh.lookup_local(node, valid)
+  torch.cuda.synchronize()
+  launched = {fn.__name__: fn.launches for fn in K.KERNELS}
+  want = dfs.lookup_local(node, valid)
+  if not torch.equal(got, want):
+    raise AssertionError('the host phase differs from K3 mixed')
+  if (launched['gather_rows'], launched['gather_rows_mixed']) != (1, 0):
+    raise AssertionError(f'a host-phase lookup launched {launched}, '
+                         'expected one K3 and no K3 mixed')
+  rows = dfs.id2index.index_select(0, node.long().clamp(min=0))
+  cold = int(((rows >= dfs.hot_count) & valid).sum())
+  times = {'host phase': [], 'K3 mixed': []}
+  fns = {'host phase': lambda: dfh.lookup_local(node, valid),
+         'K3 mixed': lambda: dfs.lookup_local(node, valid)}
+  for _ in range(ROUNDS):
+    for name, fn in fns.items():
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      fn()
+      torch.cuda.synchronize()
+      times[name].append((time.perf_counter() - t0) * 1e3)
+  med = {k: float(np.median(v)) for k, v in times.items()}
+  print(f'homo dist host phase (split {HDIST_SPLIT}, a batch\'s '
+        f'{node.numel()} node slots, {int(valid.sum())} valid, {cold} of '
+        f'them cold lanes): bit-identical to K3 mixed; a lookup '
+        f'{med["host phase"]:.3f} ms (quartiles '
+        f'{np.percentile(times["host phase"], 25):.3f}-'
+        f'{np.percentile(times["host phase"], 75):.3f}) against K3 mixed\'s '
+        f'lookup {med["K3 mixed"]:.3f} ms, synced host clock in turns, '
+        f'medians of {ROUNDS}; launches {launched}; on {smi}')
+  mixed['dist owner split 0.2 (homo batch)']['host_phase_lookup_ms'] = \
+      med['host phase']
+  mixed['dist owner split 0.2 (homo batch)']['mixed_lookup_ms'] = \
+      med['K3 mixed']
+  return launched
+
+
+# server-client: two servers with one sampling worker each and one
+# training client, all on one card (examples/distributed/
+# server_client_mode.py at products-sage's width); each server serves half
+# of the seeds of SC_BATCHES batches an epoch; the client runs SC_WARMUP +
+# SC_STEPS of each of two epochs, the second under the profiler
+SC_SERVERS, SC_BATCHES, SC_WARMUP, SC_STEPS, SC_PREFETCH = 2, 12, 2, 10, 2
+MP_BATCHES = 3        # the mp loader's batches, each held against in process
+SC_FIELDS = ('node', 'node_count', 'row', 'col', 'edge_mask', 'x', 'y',
+             'num_sampled_nodes', 'num_sampled_edges')
+
+
+def _dump_counts(path, extra):
+  """Writes this process's wrapper counts and ``extra`` to ``path``."""
+  from glt_tpu_torch.ops import cuda_kernels as K
+  with open(path, 'w') as f:
+    json.dump(dict(extra, launches={fn.__name__: fn.launches
+                                    for fn in K.KERNELS}), f)
+
+
+def _sc_dataset(root, device):
+  """The products graph, features and labels that ``server client data``
+  wrote to ``root``, as a Dataset on ``device``."""
+  import os
+  import numpy as np
+  from glt_tpu_torch.data import Dataset
+  load = lambda name: np.load(os.path.join(root, name + '.npy'))
+  ds = Dataset().init_graph(load('edge_index'),
+                            num_nodes=int(load('num_nodes')), device=device)
+  ds.init_node_features(load('feats'), device=device)
+  ds.init_node_labels(load('labels'))
+  return ds
+
+
+def sc_reference(torch, ds, labels, ref, seeds):
+  """The SC_FIELDS of the batch that the in-process sampler ``ref`` draws
+  next over ``seeds`` (the features by ``gather_features`` over its
+  nodes clipped at 0, as a sampling worker collects them)."""
+  from glt_tpu_torch.data.feature import gather_features
+  out = ref.sample_from_nodes(seeds, n_valid=len(seeds))
+  return dict(node=out.node, node_count=out.node_count, row=out.row,
+              col=out.col, edge_mask=out.edge_mask,
+              x=gather_features(ds.get_node_feature(),
+                                out.node.clamp(min=0)),
+              y=torch.as_tensor(labels[seeds], device=out.node.device),
+              num_sampled_nodes=out.num_sampled_nodes,
+              num_sampled_edges=out.num_sampled_edges)
+
+
+def sc_differing(batch, want):
+  """The first of SC_FIELDS in which ``batch`` differs from ``want``, or
+  None."""
+  import torch
+  for f in SC_FIELDS:
+    a = getattr(batch, f)
+    if not torch.equal(a, want[f].to(a.dtype)):
+      return f
+  return None
+
+
+def sc_build(root, device, counts):
+  """A sampling worker's dataset builder: the products graph, features
+  and labels that ``server client data`` wrote to ``root``, built on
+  ``device``. Also starts the worker's launch counts at 0, times its
+  stages (CUDA events around the sample and the feature gather; the host
+  clock around the copy to the host and the send into the ring) and has
+  both written to ``counts % pid`` when the worker exits."""
+  import functools
+  import os
+  from multiprocessing import util
+  import torch
+  import glt_tpu_torch.distributed.dist_sampling_producer as P
+  from glt_tpu_torch.channel import ShmChannel
+  from glt_tpu_torch.ops import cuda_kernels as K
+  from glt_tpu_torch.sampler import NeighborSampler
+  t0 = time.perf_counter()
+  ds = _sc_dataset(root, device)
+  torch.cuda.synchronize()
+  stages = {'build_s': time.perf_counter() - t0, 'sample': [], 'gather': [],
+            'to_host': [], 'send': []}
+
+  def on_card(fn, key):
+    @functools.wraps(fn)
+    def run(*a, **k):
+      e0 = torch.cuda.Event(enable_timing=True)
+      e1 = torch.cuda.Event(enable_timing=True)
+      e0.record()
+      out = fn(*a, **k)
+      e1.record()
+      e1.synchronize()
+      stages[key].append(e0.elapsed_time(e1))
+      return out
+    return run
+
+  def on_host(fn, key):
+    @functools.wraps(fn)
+    def run(*a, **k):
+      t = time.perf_counter()
+      out = fn(*a, **k)
+      stages[key].append((time.perf_counter() - t) * 1e3)
+      return out
+    return run
+  NeighborSampler.sample_from_nodes = on_card(
+      NeighborSampler.sample_from_nodes, 'sample')
+  P.gather_features = on_card(P.gather_features, 'gather')
+  P.flatten_sampler_output = on_host(P.flatten_sampler_output, 'to_host')
+  ShmChannel.send = on_host(ShmChannel.send, 'send')
+  K.reset_launch_counts()
+  util.Finalize(None, lambda: _dump_counts(counts % os.getpid(), stages),
+                exitpriority=100)
+  return ds
+
+
+def sc_server(rank, num_servers, port, root, builder, device, ready,
+              out_path):
+  """A sampling server of ``server client path``: its own copy of the
+  graph and features on the host (the data plane's), its workers built by
+  ``builder`` on ``device`` (the card); serves until the client's exit,
+  then writes the channel each producer streamed through to
+  ``out_path``."""
+  from glt_tpu_torch.distributed import init_server, shutdown_server
+  t0 = time.perf_counter()
+  ds = _sc_dataset(root, 'cpu')
+  built = time.perf_counter() - t0
+  srv = init_server(num_servers, 1, rank, ds, master_port=port,
+                    dataset_builder=builder, device=device)
+  ready.set()
+  while not srv.should_exit:
+    time.sleep(0.05)
+  channels = {k: type(c).__name__ for k, c in srv._channels.items()}
+  shutdown_server()
+  with open(out_path, 'w') as f:
+    json.dump(dict(channels=channels, build_s=built), f)
+
+
+def fmp_worker(chan_req, chan_resp, device, counts):
+  """examples/feature_mp.py's worker, its launch counts written to
+  ``counts`` when it ends."""
+  from glt_tpu_torch.examples import feature_mp
+  from glt_tpu_torch.ops import cuda_kernels as K
+  K.reset_launch_counts()
+  feature_mp.feature_worker(chan_req, chan_resp, device)
+  _dump_counts(counts, {})
+
+
+def _worker_counts(pattern):
+  """The counts files of the workers ``pattern`` names, and their
+  launches summed by wrapper."""
+  import glob
+  got = []
+  for path in sorted(glob.glob(pattern.replace('%d', '*'))):
+    with open(path) as f:
+      got.append(json.load(f))
+  total = {}
+  for g in got:
+    for n, v in g['launches'].items():
+      total[n] = total.get(n, 0) + v
+  return got, total
+
+
+def _stage_line(workers):
+  import numpy as np
+  parts = []
+  for key in ('sample', 'gather', 'to_host', 'send'):
+    v = [x for w in workers for x in w[key]]
+    if v:
+      parts.append(f'{key} {np.median(v):.3f} ms (max {max(v):.3f})')
+  return ', '.join(parts)
+
+
+def server_client_phases(torch, np, K, ds, dev, seed, k3, mixed, walk,
+                         smi):
+  """The server-client slice over the products graph (``ds``, its labels
+  and split from the training phases): servers spawned with
+  ``server_client_mode``'s roles, the remote loader's batches held
+  against the in-process sampler and trained on by SageTrainStep over two
+  epochs; then MpNeighborLoader and the feature_mp example, whose K3 mixed
+  shape joins ``mixed``. Launch counts of K1 and K3 come from the workers'
+  own counts files. Returns the launches by path."""
+  import functools
+  import multiprocessing as mp
+  import os
+  import shutil
+  import tempfile
+  from glt_tpu_torch.channel import ShmChannel, pack_message
+  from glt_tpu_torch.data import Feature
+  from glt_tpu_torch.data.feature import gather_features
+  from glt_tpu_torch.distributed import (MpDistSamplingWorkerOptions,
+                                         MpNeighborLoader,
+                                         RemoteDistSamplingWorkerOptions,
+                                         RemoteNeighborLoader,
+                                         flatten_sampler_output,
+                                         free_port_base, init_client,
+                                         shutdown_client)
+  from glt_tpu_torch.examples import feature_mp
+  from glt_tpu_torch.models import GraphSAGE
+  from glt_tpu_torch.parallel import SageTrainStep, sage_loss
+  from glt_tpu_torch.sampler import NeighborSampler
+  from glt_tpu_torch.typing import Split
+
+  paths = {}
+  fanouts = list(FANOUTS)
+  root = tempfile.mkdtemp(prefix='glt_sc_')
+  ctx = mp.get_context('spawn')
+  servers = []
+  try:
+    with Phase('server client data'):
+      t0 = time.perf_counter()
+      src, dst, _ = ds.get_graph().topo.to_coo()
+      np.save(os.path.join(root, 'edge_index.npy'),
+              torch.stack([src, dst]).to(torch.int32).cpu().numpy())
+      del src, dst
+      np.save(os.path.join(root, 'feats.npy'),
+              ds.get_node_feature().table.cpu().numpy())
+      labels = np.asarray(ds.node_labels)
+      np.save(os.path.join(root, 'labels.npy'), labels)
+      np.save(os.path.join(root, 'num_nodes.npy'), np.array(NUM_NODES))
+      disk = sum(os.path.getsize(os.path.join(root, f))
+                 for f in os.listdir(root))
+      order = np.random.default_rng(seed + 40).permutation(
+          ds.get_split(Split.train))[:SC_BATCHES * TRAIN_BATCH]
+      per_server = np.split(order, SC_SERVERS)
+      # one message of this batch shape, packed as a worker packs it: the
+      # rings hold two
+      ref = NeighborSampler(ds.get_graph(), fanouts, device=dev, seed=seed)
+      out = ref.sample_from_nodes(per_server[0][:TRAIN_BATCH])
+      x = gather_features(ds.get_node_feature(), out.node.clamp(min=0))
+      msg = flatten_sampler_output(out, y=torch.as_tensor(
+          labels[per_server[0][:TRAIN_BATCH]]), x=x)
+      msg.update({'n_valid': torch.ones(1, dtype=torch.int32),
+                  '#hop_offsets': torch.zeros(len(fanouts) + 1,
+                                              dtype=torch.int32),
+                  '#epoch': torch.zeros(1, dtype=torch.int32)})
+      msg_bytes = len(pack_message(msg))
+      ring = 2 * msg_bytes + (1 << 20)
+      del ref, out, x, msg
+      print(f'server client data: the graph ({ds.get_graph().num_edges} '
+            f'edges), features and labels written for the workers, {disk} B '
+            f'in {time.perf_counter() - t0:.3f} s; a batch\'s message '
+            f'{msg_bytes} B (batch {TRAIN_BATCH}, {fanouts}); rings of '
+            f'{ring} B')
+
+    with Phase('server client path'):
+      counts = os.path.join(root, 'sc_counts.%d.json')
+      builder = functools.partial(sc_build, root, str(dev), counts)
+      port = free_port_base(SC_SERVERS)
+      readies = [ctx.Event() for _ in range(SC_SERVERS)]
+      outs = [os.path.join(root, f'server{r}.json')
+              for r in range(SC_SERVERS)]
+      t0 = time.perf_counter()
+      servers = [ctx.Process(target=sc_server, args=(
+          r, SC_SERVERS, port, root, builder, str(dev), readies[r],
+          outs[r]))
+          for r in range(SC_SERVERS)]
+      for p in servers:
+        p.start()
+      for r, e in enumerate(readies):
+        if not e.wait(timeout=300):
+          raise AssertionError(f'server {r} did not come up')
+      up = time.perf_counter() - t0
+      init_client(SC_SERVERS, 1, 0, master_port=port, rpc_timeout=600.0)
+      try:
+        loader = RemoteNeighborLoader(
+            fanouts, per_server, batch_size=TRAIN_BATCH, shuffle=True,
+            collect_features=True, seed=seed, device=dev,
+            worker_options=RemoteDistSamplingWorkerOptions(
+                server_rank=list(range(SC_SERVERS)),
+                prefetch_size=SC_PREFETCH, buffer_capacity_bytes=ring,
+                rpc_timeout=600.0))
+        torch.manual_seed(seed)
+        model = GraphSAGE(FEAT_DIM, HIDDEN, CLASSES, num_layers=3).to(dev)
+        step = SageTrainStep(model, lr=LR)
+        it = iter(loader)
+        t1 = time.perf_counter()
+        first = None
+        waits, secs, losses = [], [], []
+
+        def one():
+          nonlocal first
+          t = time.perf_counter()
+          b = next(it)
+          waits.append(time.perf_counter() - t)
+          if first is None and int(b.batch[0]) in set(
+              per_server[0].tolist()):
+            first = b
+          losses.append(float(step(b)))
+          torch.cuda.synchronize()
+          secs.append(time.perf_counter() - t)
+
+        def drain():
+          rest = sum(1 for _ in it)    # the epoch's end: every server's
+          if rest:                      # END came after the last batch
+            raise AssertionError(f'{rest} batches past {SC_BATCHES}')
+        # epoch 0: the rate over a window without the profiler
+        for _ in range(SC_WARMUP):
+          one()
+        first_s = time.perf_counter() - t1
+        waits.clear()
+        secs.clear()
+        t1 = time.perf_counter()
+        for _ in range(SC_STEPS):
+          one()
+        window = time.perf_counter() - t1
+        drain()
+        win_waits, win_secs = list(waits), list(secs)
+        # epoch 1: the same steps under the profiler, for the busy share
+        it = iter(loader)
+        for _ in range(SC_WARMUP):
+          one()
+        wall, busy = profile_stages(
+            torch, lambda: [one() for _ in range(SC_STEPS)], SC_STEPS, (),
+            'step')
+        drain()
+      finally:
+        shutdown_client()
+        for p in servers:
+          p.join(timeout=120)
+      if any(p.exitcode != 0 for p in servers):
+        raise AssertionError(f'servers exited {[p.exitcode for p in servers]}')
+      chans, built = [], []
+      for o in outs:
+        with open(o) as f:
+          got = json.load(f)
+        chans.append(got['channels'])
+        built.append(got['build_s'])
+      if any(set(c.values()) != {'ShmChannel'} or not c for c in chans):
+        raise AssertionError(f'a server streamed through {chans}, not a '
+                             'ShmChannel')
+      workers, paths['server_client'] = _worker_counts(counts)
+      launched = paths['server_client']
+      if len(workers) != SC_SERVERS or (
+          launched['sample_walk_dedup'], launched['gather_rows']) != (
+              2 * SC_BATCHES, 2 * SC_BATCHES):
+        raise AssertionError(f'{len(workers)} workers launched {launched}, '
+                             f'expected {2 * SC_BATCHES} K1 and K3 in all '
+                             'over two epochs')
+      # the first batch of server 0 against the in-process sampler on the
+      # card: the same generator seed, the same first order of epoch 0
+      if first is None:
+        raise AssertionError('no batch of server 0 arrived')
+      seeds0 = per_server[0][np.random.default_rng(0).permutation(
+          per_server[0].shape[0])[:TRAIN_BATCH]]
+      if not np.array_equal(first.batch.cpu().numpy(), seeds0):
+        raise AssertionError('server 0\'s first batch is not its first seeds')
+      ref = NeighborSampler(ds.get_graph(), fanouts, device=dev, seed=seed)
+      want = sc_reference(torch, ds, labels, ref, seeds0)
+      bad = sc_differing(first, want)
+      if bad:
+        raise AssertionError(f'remote batch.{bad} differs from the '
+                             'in-process sampler\'s')
+      local = type(first)(**{**first.__dict__, **{
+          f: want[f] for f in SC_FIELDS}})
+      with torch.no_grad():
+        lr_, ll_ = float(sage_loss(model, first)), float(sage_loss(model,
+                                                                    local))
+      if not abs(lr_ - ll_) <= LOSS_TOL * max(1.0, abs(ll_)):
+        raise AssertionError(f'remote loss {lr_} vs local {ll_}')
+      # the workers' 'sample' stage in this process, on a card nobody
+      # shares: CUDA events around the same call at the same batch
+      in_proc = []
+      for _ in range(SC_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ref.sample_from_nodes(seeds0, n_valid=TRAIN_BATCH)
+        e1.record()
+        e1.synchronize()
+        in_proc.append(e0.elapsed_time(e1))
+      call_wall, call_busy = profile_stages(
+          torch, lambda: [ref.sample_from_nodes(seeds0, n_valid=TRAIN_BATCH)
+                          for _ in range(SC_STEPS)], SC_STEPS, (),
+          'sample_from_nodes call')
+      k3['float32 x 100 (server-client batch)'] = time_gather(
+          torch, np, K, 'float32 x 100 (server-client batch)',
+          ds.get_node_feature().table, first.node)
+      ms = np.array(win_secs) * 1e3
+      stage_line = _stage_line(workers)
+      print(f'server client path ({SC_SERVERS} servers, one sampling worker '
+            f'each on the card, one client; batch {TRAIN_BATCH}, {fanouts}, '
+            f'GraphSAGE {FEAT_DIM} -> {HIDDEN} -> {HIDDEN} -> {CLASSES}, '
+            f'Adam {LR}): servers up in {up:.3f} s (their host copies '
+            + ', '.join(f'{b:.3f}' for b in built) + ' s), the first '
+            f'{SC_WARMUP} batches {first_s:.3f} s after the loader started; '
+            f'epoch 0, {SC_STEPS} steps after {SC_WARMUP} warm-up, no '
+            f'profiler: {window:.3f} s, {SC_STEPS / window:.3f} batches/s; a '
+            f'step (recv and step, synced) median {np.median(ms):.3f} ms '
+            f'(quartiles {np.percentile(ms, 25):.3f}-'
+            f'{np.percentile(ms, 75):.3f}, min {ms.min():.3f}, max '
+            f'{ms.max():.3f}), the recv wait a batch median '
+            f'{np.median(win_waits) * 1e3:.3f} ms (max '
+            f'{max(win_waits) * 1e3:.3f}, {sum(win_waits) / window * 100:.1f}'
+            f'% of the window); epoch 1, {SC_STEPS} steps under the '
+            f'profiler: {wall:.3f} ms wall a step, device busy {busy:.3f} ms '
+            f'({busy / wall * 100:.1f}%); a message {msg_bytes} B; the '
+            f'workers\' stages: {stage_line}; in this process on the idle '
+            f'card, the same sample_from_nodes call median '
+            f'{np.median(in_proc):.3f} ms (CUDA events, as the workers\' '
+            f'sample stage; min {min(in_proc):.3f}; profiled, '
+            f'{call_wall:.3f} ms wall a call, {call_busy:.3f} ms of it busy) '
+            f'and K1 alone at '
+            f'B={TRAIN_BATCH} {walk[1024]["ms"]:.4f} ms; channels {chans}; '
+            f'launches {launched}; server 0\'s first batch bit-identical to '
+            f'the in-process sampler\'s, loss {lr_:.6f} vs {ll_:.6f}; losses '
+            + ', '.join(f'{v:.4f}' for v in losses) + f'; on {smi}')
+      if not np.isfinite(losses).all():
+        raise AssertionError(f'server client: non-finite loss {losses}')
+      del loader, it, first, local, model, step, want, ref
+
+    with Phase('mp loader path'):
+      counts = os.path.join(root, 'mp_counts.%d.json')
+      seeds = order[:MP_BATCHES * TRAIN_BATCH]
+      loader = MpNeighborLoader(
+          functools.partial(sc_build, root, str(dev), counts), fanouts,
+          input_nodes=seeds, batch_size=TRAIN_BATCH, collect_features=True,
+          seed=seed + 1, device=dev,
+          worker_options=MpDistSamplingWorkerOptions(
+              num_workers=1, channel_capacity_bytes=ring,
+              rpc_timeout=600.0))
+      try:
+        if not isinstance(loader.channel, ShmChannel):
+          raise AssertionError(f'the mp loader streams through '
+                               f'{type(loader.channel).__name__}')
+        t0 = time.perf_counter()
+        got = list(loader)
+        secs = time.perf_counter() - t0
+      finally:
+        loader.shutdown()
+      ref = NeighborSampler(ds.get_graph(), fanouts, device=dev,
+                            seed=seed + 1)
+      for i, b in enumerate(got):
+        bad = sc_differing(b, sc_reference(
+            torch, ds, labels, ref,
+            seeds[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]))
+        if bad:
+          raise AssertionError(f'mp batch {i}.{bad} differs from the '
+                               'in-process sampler\'s')
+      workers, paths['mp_loader'] = _worker_counts(counts)
+      launched = paths['mp_loader']
+      if len(got) != MP_BATCHES or (launched['sample_walk_dedup'],
+                                    launched['gather_rows']) != (
+                                        MP_BATCHES, MP_BATCHES):
+        raise AssertionError(f'{len(got)} mp batches, launches {launched}')
+      print(f'mp loader path (one worker on the card, a ShmChannel of '
+            f'{ring} B): {MP_BATCHES} batches in {secs:.3f} s from the '
+            f'first request (the worker\'s start and build '
+            f'{workers[0]["build_s"]:.3f} s of it), each bit-identical to the '
+            f'in-process sampler\'s; the worker\'s stages: '
+            f'{_stage_line(workers)}; launches {launched}')
+      del got, loader, ref
+
+    with Phase('feature mp'):
+      counts = os.path.join(root, 'fmp_counts.%d.json') % 0
+      got = feature_mp.run(num_batches=5, device=dev, worker=fmp_worker,
+                           worker_args=(counts,))
+      table = torch.from_numpy(feature_mp.table())
+      for i, (ids, rows_) in enumerate(got):
+        if not torch.equal(rows_, table[ids]):
+          raise AssertionError(f'feature_mp lookup {i} differs from the '
+                               'table\'s rows')
+      with open(counts) as fh:
+        paths['feature_mp'] = json.load(fh)['launches']
+      if paths['feature_mp']['gather_rows_mixed'] != len(got):
+        raise AssertionError(f'feature_mp launched {paths["feature_mp"]}')
+      # K3 mixed at the worker's shape against its plain version here
+      f = Feature(table, split_ratio=0.5, device=dev)
+      label = (f'float32 x {feature_mp.DIM} split 0.5 (feature_mp, '
+               f'{got[0][0].numel()} ids)')
+      link = torch.empty(LINK_COPY_BYTES, dtype=torch.uint8,
+                         pin_memory=True)
+      mixed[label] = time_mixed(
+          torch, np, K, label, f.device_part, f.cold_pinned,
+          f.map_ids(got[0][0].to(dev)).to(torch.int32),
+          link_rate(torch, link, dev), resident=table.to(dev))
+      print(f'feature mp: {len(got)} lookups of {got[0][0].numel()} ids '
+            f'over two ShmChannels to a worker whose Feature(split_ratio='
+            f'0.5) holds {f.hot_count} rows on the card and '
+            f'{f.num_rows - f.hot_count} pinned, each equal to the table\'s '
+            f'rows; launches {paths["feature_mp"]}')
+      del f, link
+  finally:
+    for p in servers:
+      if p.is_alive():
+        p.kill()
+        p.join(10)
+    shutil.rmtree(root, ignore_errors=True)
   return paths
 
 
@@ -4286,6 +4866,9 @@ def main() -> int:
   homo_paths = homo_dist_phases(torch, np, K, ds, dev, opts.seed, rows, k3,
                                 mixed, smi)
   torch.cuda.empty_cache()
+  sc_paths = server_client_phases(torch, np, K, ds, dev, opts.seed, k3,
+                                  mixed, walk, smi)
+  torch.cuda.empty_cache()
   hlink_launches = hetero_link_phases(torch, np, K, dev, opts.seed, rows, k3,
                                       host_us, smi)
   torch.cuda.empty_cache()
@@ -4335,7 +4918,7 @@ def main() -> int:
              'subgraph': sub_launches, 'seal': seal_launches,
              'split': split_launches, 'dist_hetero': dist_launches,
              'hetero_link': hlink_launches, 'hgt': hgt_launches,
-             **homo_paths,
+             **homo_paths, **sc_paths,
              **{p: v[0] for p, v in ss_paths.items()},
              'probe': probe_launches,
              'microbench': micro_launches}

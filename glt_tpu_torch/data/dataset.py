@@ -29,6 +29,8 @@ class Dataset:
     self.graph = graph
     self.node_features = node_features
     self.node_labels = node_labels
+    #: edge features by edge id (a Feature), or a dict of them by EdgeType
+    self.edge_features = None
     self.edge_dir = edge_dir
     self.node_split = None   # (train_idx, val_idx, test_idx)
 
@@ -104,6 +106,26 @@ class Dataset:
           node_feature_data,
           self.graph.topo if isinstance(self.graph, Graph) else None)
     return self
+
+  def init_edge_features(self, edge_feature_data,
+                         dtype: Optional[torch.dtype] = None,
+                         device=None) -> 'Dataset':
+    """One table by edge id, or a dict of them keyed by EdgeType, each a
+    :class:`Feature` on ``device`` (default: the card): what a sampling
+    worker gathers for a batch's sampled edges (``with_edge``)."""
+    if isinstance(edge_feature_data, dict):
+      self.edge_features = {e: Feature(f, dtype=dtype, device=device)
+                            for e, f in edge_feature_data.items()}
+    else:
+      self.edge_features = Feature(edge_feature_data, dtype=dtype,
+                                   device=device)
+    return self
+
+  def get_edge_feature(self, etype: Optional[EdgeType] = None
+                       ) -> Optional[Feature]:
+    if isinstance(self.edge_features, dict):
+      return self.edge_features.get(etype)
+    return self.edge_features
 
   def init_node_labels(self, node_label_data) -> 'Dataset':
     """One label array, or a dict of them keyed by NodeType (hetero: the

@@ -1,13 +1,29 @@
-"""Partitioned graphs and features and the trainers and loaders over them
-(counterpart of glt_tpu/distributed): one partition a rank of a
-``torch.distributed`` group, the rpc of the reference collapsed into the
-exchanges of ``parallel/collectives.py``. Not ported (ROADMAP A12): the
-rpc and producer stack (and with it a spilled DistFeature's host phase
-and cold fetcher), the weighted and full-neighbourhood partitioned hops,
-``FrequencyPartitioner`` and the multihost loaders
-(``*_from_partitions_multihost``)."""
+"""Partitioned graphs and features, the trainers and loaders over them,
+and the server-client mode (counterpart of glt_tpu/distributed).
+
+A partitioned trainer keeps one partition a rank of a ``torch.distributed``
+group and exchanges through ``parallel/collectives.py``. The server-client
+mode runs over the rpc fabric (``rpc.py``): sampling servers
+(``dist_server.py``) whose spawned workers sample on the card
+(``dist_sampling_producer.py``) and stream batches through a shared-memory
+ring, and training clients (``dist_client.py``) pulling them with prefetch
+(``channel_loader.py``). A spilled DistFeature may serve its cold rows in
+a host phase, over rpc from another process's partition.
+
+Not ported (ROADMAP): tracing over rpc and the clients' ``collect_obs``
+(observability), ``apply_delta`` (A6), the weighted and full-neighbourhood
+partitioned hops, ``FrequencyPartitioner``, ``DistRandomPartitioner``,
+``DistTableDataset`` and the multihost loaders (A12b)."""
+from .channel_loader import (MpNeighborLoader, RemoteNeighborLoader,
+                             message_to_batch)
+from .dist_client import (async_request_server, fabric_stats, init_client,
+                          request_server, request_with_failover,
+                          set_replicas, shutdown_client)
+from .dist_context import (DistContext, DistRole, assign_server_by_order,
+                           get_context, init_client_context,
+                           init_server_context, init_worker_group, shutdown)
 from .dist_dataset import DistDataset
-from .dist_feature import DistFeature
+from .dist_feature import DistFeature, resilient_cold_fetcher
 from .dist_graph import DistGraph
 from .dist_hetero import (DistHeteroGraph, DistHeteroNeighborSampler,
                           DistHeteroTrainStep)
@@ -15,12 +31,51 @@ from .dist_link_loader import DistLinkNeighborLoader
 from .dist_loader import DistLoader, DistNeighborLoader
 from .dist_negative import DistRandomNegativeSampler, make_dist_edge_membership
 from .dist_neighbor_sampler import DistNeighborSampler, make_dist_one_hop
+from .dist_options import (CollocatedDistSamplingWorkerOptions,
+                           MpDistSamplingWorkerOptions,
+                           RemoteDistSamplingWorkerOptions)
+from .dist_sampling_producer import (DistCollocatedSamplingProducer,
+                                     DistMpSamplingProducer,
+                                     flatten_sampler_output)
+from .dist_server import (DistServer, free_port_base, get_server, init_server,
+                          server_port, shutdown_server,
+                          wait_and_shutdown_server)
 from .dist_subgraph_loader import DistSubGraphLoader
 from .dist_train import DistTrainStep
+from .event_loop import ConcurrentEventLoop
+from .rpc import (RpcCalleeBase, RpcClient, RpcDataPartitionRouter,
+                  RpcServer, all_gather, barrier, get_rpc_master_addr,
+                  get_rpc_master_port, global_all_gather, global_barrier,
+                  init_rpc, ping_endpoint, rpc_global_request,
+                  rpc_global_request_async, rpc_is_initialized, rpc_register,
+                  rpc_request, rpc_request_async, rpc_sync_data_partitions,
+                  shutdown_rpc)
 
-__all__ = ['DistDataset', 'DistFeature', 'DistGraph', 'DistHeteroGraph',
-           'DistHeteroNeighborSampler', 'DistHeteroTrainStep',
-           'DistLinkNeighborLoader', 'DistLoader', 'DistNeighborLoader',
-           'DistNeighborSampler', 'DistRandomNegativeSampler',
-           'DistSubGraphLoader', 'DistTrainStep', 'make_dist_edge_membership',
-           'make_dist_one_hop']
+__all__ = [
+    'DistDataset', 'DistFeature', 'DistGraph', 'DistHeteroGraph',
+    'DistHeteroNeighborSampler', 'DistHeteroTrainStep',
+    'DistLinkNeighborLoader', 'DistLoader', 'DistNeighborLoader',
+    'DistNeighborSampler', 'DistRandomNegativeSampler', 'DistSubGraphLoader',
+    'DistTrainStep', 'make_dist_edge_membership', 'make_dist_one_hop',
+    'resilient_cold_fetcher',
+    'DistContext', 'DistRole', 'assign_server_by_order', 'get_context',
+    'init_client_context', 'init_server_context', 'init_worker_group',
+    'shutdown',
+    'CollocatedDistSamplingWorkerOptions', 'MpDistSamplingWorkerOptions',
+    'RemoteDistSamplingWorkerOptions',
+    'DistCollocatedSamplingProducer', 'DistMpSamplingProducer',
+    'flatten_sampler_output',
+    'MpNeighborLoader', 'RemoteNeighborLoader', 'message_to_batch',
+    'DistServer', 'free_port_base', 'get_server', 'init_server',
+    'server_port',
+    'shutdown_server', 'wait_and_shutdown_server',
+    'async_request_server', 'fabric_stats', 'init_client', 'request_server',
+    'request_with_failover', 'set_replicas', 'shutdown_client',
+    'ConcurrentEventLoop',
+    'RpcCalleeBase', 'RpcClient', 'RpcDataPartitionRouter', 'RpcServer',
+    'all_gather', 'barrier', 'get_rpc_master_addr', 'get_rpc_master_port',
+    'global_all_gather', 'global_barrier', 'init_rpc', 'ping_endpoint',
+    'rpc_global_request', 'rpc_global_request_async', 'rpc_is_initialized',
+    'rpc_register', 'rpc_request', 'rpc_request_async',
+    'rpc_sync_data_partitions', 'shutdown_rpc',
+]

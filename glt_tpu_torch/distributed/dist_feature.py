@@ -29,14 +29,25 @@ partition to the host (``DistDataset.load(..., device='cpu')``) for a
 spilled store: the card then never holds more than the hot rows. On the
 CPU the cold block is a plain tensor and the plain twin reads it.
 
-Not ported (ROADMAP A12): the host phase of a spilled store
-(``host_offload=False``: ``_resolve_cold``, ``cold_get``,
-``set_cold_fetcher``, ``resilient_cold_fetcher``), which waits for the
-rpc stack, and the multihost loader
+With ``host_offload=False`` a spilled store keeps its cold rows in
+ordinary host memory and a lookup has a host phase (dist_feature.py:
+298-475): the owner serves its hot rows with K3 and flags the lanes whose
+row is at or past its hot count, the flag riding back as one more column
+of the response (dist_feature.py:282-286); the requester then resolves
+the flagged lanes from its own cold block, or, for another rank's
+partition, through ``cold_fetcher(partition, ids)`` (e.g. an rpc client
+calling the owner's :meth:`DistFeature.cold_get`;
+:func:`resilient_cold_fetcher` adds replicas and the staleness cache),
+and writes them into its answer on the card. The rows are the pinned
+path's, bit for bit. A training step cannot hold the host phase
+(``host_spilled``; ``require_device_resident``).
+
+Not ported (ROADMAP A12b): the multihost loader
 (``dist_feature_from_partitions_multihost``).
 """
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import numpy as np
@@ -69,12 +80,16 @@ class DistFeature:
       dict holding this rank's; None: all of them). A spilled block's hot
       rows are copied to the card, its cold rows to host memory.
     host_offload: None or True pins and maps a spilled block's cold rows;
-      False (the host phase) raises NotImplementedError.
+      False keeps them in host memory and resolves them in a host phase.
+    cold_fetcher: ``fetcher(partition, ids [M]) -> [M, D]``, the cold
+      rows of another rank's partition for the host phase
+      (:meth:`set_cold_fetcher`).
   """
 
   def __init__(self, mesh: Mesh, parts, feat_pb, num_ids: int,
                dtype: Optional[torch.dtype] = None, bucket_cap: int = 0,
-               hot_counts=None, host_offload: Optional[bool] = None):
+               hot_counts=None, host_offload: Optional[bool] = None,
+               cold_fetcher=None):
     feats, id2index = rank_entry(parts, mesh, 'parts')
     if not isinstance(feats, torch.Tensor):
       feats = torch.as_tensor(np.asarray(feats))
@@ -95,16 +110,15 @@ class DistFeature:
     self.cold_array: Optional[torch.Tensor] = None
     #: the mapping of ``cold_array`` for the card (``PinnedHost``), or None
     self.cold_pinned = None
+    #: the host phase: cold rows in ordinary host memory, flagged by the
+    #: owner and resolved by the requester
+    self.host_phase = self.hot_count < r and host_offload is False
+    self._cold_fetcher = cold_fetcher
     if self.hot_count < r:
-      if host_offload is False:
-        raise NotImplementedError(
-            'a spilled DistFeature with host_offload=False needs the host '
-            'phase and its cold fetcher over rpc, which are not ported; '
-            'pin the cold block (host_offload None or True)')
       self.cold_array = torch.empty((r - self.hot_count, self.feature_dim),
                                     dtype=self.dtype)
       self.cold_array.copy_(feats[self.hot_count:])
-      if mesh.device.type == 'cuda':
+      if mesh.device.type == 'cuda' and not self.host_phase:
         self.cold_pinned = pin_host(self.cold_array, mesh.device)
     #: this rank's hot rows [hot_count, D] on its card (a resident empty
     #: partition keeps one zero row, which no valid request reads); a
@@ -122,18 +136,31 @@ class DistFeature:
     #: global id -> this rank's row (-1 where this rank holds no row)
     self.id2index = torch.as_tensor(m[:self.num_ids], device=mesh.device)
     #: this rank's routing book: the owner of every id
-    self.feat_pb = torch.as_tensor(dense_book(feat_pb, self.num_ids),
-                                   device=mesh.device)
+    book = dense_book(feat_pb, self.num_ids)
+    self.feat_pb = torch.as_tensor(book, device=mesh.device)
+    if self.host_phase:
+      # the host phase's books: the requester's routing (its own book)
+      # and the owner's id -> row map of its cold block
+      self._host_pb = np.asarray(book)
+      self._host_id2index = m[:self.num_ids].astype(np.int64)
 
   @property
   def host_spilled(self) -> bool:
-    """Never: a spilled block is pinned (see ``require_device_resident``),
-    and the host phase is not ported."""
-    return False
+    """Spilled with its cold rows in a host phase (``host_offload=False``):
+    a lookup inside a training step, which runs as one body, cannot read
+    them (``require_device_resident``)."""
+    return self.host_phase
 
   def _serve_rows(self, rows: torch.Tensor) -> torch.Tensor:
     """This rank's rows ``rows [M]`` (clamped into its block), through K3
-    or, for a spilled block, K3 mixed over both blocks in one launch."""
+    or, for a spilled block, K3 mixed over both blocks in one launch. In
+    the host phase: the hot rows through K3 (a cold lane reads row 0 and
+    is masked by its caller)."""
+    if self.host_phase:
+      if not self.hot_count:
+        return self.array.new_zeros((rows.numel(), self.feature_dim))
+      return cuda_kernels.gather_rows(
+          self.array, rows.clamp(0, self.hot_count - 1))
     if self.cold_array is None:
       return cuda_kernels.gather_rows(
           self.array, rows.clamp(0, self.array.shape[0] - 1))
@@ -156,11 +183,79 @@ class DistFeature:
     def serve(req_in):
       rows = self.id2index.index_select(0, req_in.long().clamp(0, hi))
       ok = (req_in >= 0) & (rows >= 0)
+      if self.host_phase:
+        cold = ok & (rows >= self.hot_count)
+        ok = ok & (rows < self.hot_count)
       got = self._serve_rows(rows)
-      return torch.where(ok[:, None], got, torch.zeros_like(got))
+      got = torch.where(ok[:, None], got, torch.zeros_like(got))
+      if not self.host_phase:
+        return got
+      # the cold flag rides back as one more response column, so the
+      # requester learns hot/cold without the owner's id2index
+      return torch.cat([got, cold[:, None].to(got.dtype)], 1)
 
-    return exchange_lookup(ids, owner, self.mesh, self.bucket_cap, serve,
-                           self.feature_dim, self.dtype, static_rounds)
+    if not self.host_phase:
+      return exchange_lookup(ids, owner, self.mesh, self.bucket_cap, serve,
+                             self.feature_dim, self.dtype, static_rounds)
+    full = exchange_lookup(ids, owner, self.mesh, self.bucket_cap, serve,
+                           self.feature_dim + 1, self.dtype, static_rounds)
+    out = full[:, :self.feature_dim].contiguous()
+    lanes = torch.nonzero(full[:, self.feature_dim] > 0).reshape(-1)
+    if lanes.numel():
+      out = self._resolve_cold(out, lanes, ids)
+    return out
+
+  # -- the host phase ----------------------------------------------------
+
+  def _resolve_cold(self, out: torch.Tensor, lanes: torch.Tensor,
+                    ids: torch.Tensor) -> torch.Tensor:
+    """Serves the flagged ``lanes`` of ``out`` (zero rows there) from the
+    host: this rank's partition from its own cold block, another's
+    through the cold fetcher, routed by this rank's book
+    (dist_feature.py:333-390). The rows are written into ``out`` on its
+    card by one scatter (JAX adds a delta that is zero elsewhere; an add
+    would turn a -0.0 into +0.0)."""
+    cold_ids = ids.index_select(0, lanes).long().cpu().numpy()
+    owners = self._host_pb[np.clip(cold_ids, 0, self.num_ids - 1)]
+    vals = torch.empty((cold_ids.shape[0], self.feature_dim),
+                       dtype=self.dtype)
+    for p in np.unique(owners):
+      m = owners == p
+      p = int(p)
+      if p == self.mesh.rank:
+        vals[torch.from_numpy(m)] = self.cold_get(p, cold_ids[m])
+      elif self._cold_fetcher is not None:
+        got = self._cold_fetcher(p, cold_ids[m])
+        got = (got.cpu() if isinstance(got, torch.Tensor)
+               else torch.as_tensor(np.asarray(got)))
+        vals[torch.from_numpy(m)] = got.to(self.dtype)
+      else:
+        raise RuntimeError(
+            f'partition {p} holds cold rows in another process and no '
+            'cold_fetcher is registered (see set_cold_fetcher)')
+    return out.index_copy(0, lanes, vals.to(out.device))
+
+  def set_cold_fetcher(self, fetcher) -> None:
+    """The host phase's resolver of another rank's cold rows:
+    ``fetcher(partition: int, ids: np.int64 [M]) -> [M, D]`` (a tensor or
+    numpy). Wrap it with :func:`resilient_cold_fetcher` for replicas and
+    the staleness cache."""
+    self._cold_fetcher = fetcher
+
+  def cold_get(self, partition: int, ids) -> torch.Tensor:
+    """Cold rows of this rank's partition by global id, a CPU tensor
+    ``[M, D]``: the rpc callee behind another rank's cold fetcher
+    (reference RpcFeatureLookupCallee, dist_feature.py:57-66). Only a
+    host-phase store keeps them there."""
+    if not self.host_phase:
+      raise RuntimeError(
+          'cold_get serves the host phase; this store reads its cold rows '
+          'in K3 mixed (build it with host_offload=False)')
+    if int(partition) != self.mesh.rank:
+      raise ValueError(f'rank {self.mesh.rank} holds partition '
+                       f'{self.mesh.rank}, not {partition}')
+    rows = self._host_id2index[np.asarray(ids, np.int64)] - self.hot_count
+    return self.cold_array.index_select(0, torch.from_numpy(rows))
 
   def lookup(self, ids, valid=None) -> torch.Tensor:
     """Whole-mesh lookup outside a step (a collective): ``ids [world *
@@ -195,8 +290,8 @@ class DistFeature:
                          dtype: Optional[torch.dtype] = None,
                          bucket_cap: int = 0, kind: str = 'node',
                          split_ratio: Optional[float] = None,
-                         host_offload: Optional[bool] = None
-                         ) -> 'DistFeature':
+                         host_offload: Optional[bool] = None,
+                         cold_fetcher=None) -> 'DistFeature':
     """This rank's store from its partition's
     :class:`~glt_tpu_torch.distributed.DistDataset` (``datasets``: one a
     partition, a sequence or a dict holding at least this rank's): its
@@ -222,4 +317,53 @@ class DistFeature:
            else {mesh.rank: int(round(block.shape[0] * float(split_ratio)))})
     return cls(mesh, {mesh.rank: (block, feat._id2index)}, pb,
                pb.table.shape[0], dtype=dtype, bucket_cap=bucket_cap,
-               hot_counts=hot, host_offload=host_offload)
+               hot_counts=hot, host_offload=host_offload,
+               cold_fetcher=cold_fetcher)
+
+
+def resilient_cold_fetcher(fetchers, feature_dim: Optional[int] = None,
+                           metrics=None, cache_capacity: int = 200_000):
+  """Per-partition cold fetchers composed into one fault-tolerant
+  ``fetcher(partition, ids) -> [M, D]`` for
+  :meth:`DistFeature.set_cold_fetcher` (dist_feature.py:475-513).
+
+  Args:
+    fetchers: ``{partition: [fn, ...]}``, each ``fn(ids) -> [M, D]``
+      (a tensor or numpy), the primary first and its replicas after.
+    feature_dim: the row width for zero rows before any fetch succeeded.
+    metrics: None, or an object with ``record_failover``,
+      ``record_stale_serve`` and ``add_gauge``.
+
+  The ladder of a lookup: the primary, then the replicas in order (each
+  connection failure noted; the first success wins and refreshes the
+  staleness cache), then the cached rows and zero rows for true misses,
+  counted and logged. Raises only when it cannot degrade (no cached rows
+  and no row width). Returns CPU tensors.
+  """
+  from ..resilience import DegradedFeatureCache
+  stale = DegradedFeatureCache(capacity=cache_capacity)
+  if feature_dim is not None:
+    stale.feature_dim = int(feature_dim)
+  fetchers = {int(p): list(fs) for p, fs in fetchers.items()}
+
+  def fetch(partition: int, ids) -> torch.Tensor:
+    ids = np.asarray(ids, np.int64)
+    last: Optional[BaseException] = None
+    for k, fn in enumerate(fetchers.get(int(partition), [])):
+      try:
+        rows = fn(ids)
+      except (ConnectionError, OSError) as e:
+        last = e
+        continue
+      rows = (rows.cpu() if isinstance(rows, torch.Tensor)
+              else torch.as_tensor(np.asarray(rows)))
+      if k > 0 and metrics is not None:
+        metrics.record_failover()
+      stale.update(ids, rows)
+      return rows
+    logging.getLogger(__name__).debug('cold fetch of partition %d failed '
+                                      'on every replica', partition)
+    return stale.serve_counted(
+        ids, metrics, what=f'cold fetch(partition {partition})', cause=last)
+
+  return fetch

@@ -31,6 +31,11 @@ class Batch:
   #: the sampler's metadata; a loader adds ``n_valid`` (real seeds)
   metadata: Optional[Dict[str, Any]] = None
 
+  @property
+  def batch(self) -> torch.Tensor:
+    """Global ids of the seed nodes (the first ``batch_size`` labels)."""
+    return self.node[:self.batch_size]
+
 
 def to_batch(out: SamplerOutput, x: Optional[torch.Tensor] = None,
              y: Optional[torch.Tensor] = None,

@@ -1,8 +1,10 @@
 from .base import (BaseSampler, EdgeSamplerInput, HeteroSamplerOutput,
-                   NegativeSampling, NodeSamplerInput, SamplerOutput)
+                   NegativeSampling, NodeSamplerInput, SamplerOutput,
+                   SamplingConfig, SamplingType)
 from .negative_sampler import RandomNegativeSampler
 from .neighbor_sampler import NeighborSampler
 
 __all__ = ['BaseSampler', 'EdgeSamplerInput', 'HeteroSamplerOutput',
            'NegativeSampling', 'NeighborSampler', 'NodeSamplerInput',
-           'RandomNegativeSampler', 'SamplerOutput']
+           'RandomNegativeSampler', 'SamplerOutput', 'SamplingConfig',
+           'SamplingType']

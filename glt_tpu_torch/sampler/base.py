@@ -5,6 +5,7 @@ message-destination (parent) labels."""
 from __future__ import annotations
 
 import dataclasses
+import enum
 import math
 from typing import Dict, List, Optional, Union
 
@@ -139,6 +140,30 @@ class HeteroSamplerOutput:
   num_sampled_edges: Optional[Dict[EdgeType, torch.Tensor]] = None
   input_type: Optional[NodeType] = None
   metadata: Optional[Dict] = None
+
+
+class SamplingType(enum.Enum):
+  NODE = 'node'
+  LINK = 'link'
+  SUBGRAPH = 'subgraph'
+  RANDOM_WALK = 'random_walk'
+
+
+@dataclasses.dataclass
+class SamplingConfig:
+  """The one sampling descriptor a sampling worker receives (reference
+  base.py:339-352)."""
+  sampling_type: SamplingType = SamplingType.NODE
+  num_neighbors: Optional[Union[List[int], Dict[EdgeType, List[int]]]] = None
+  batch_size: int = 1
+  shuffle: bool = False
+  drop_last: bool = False
+  with_edge: bool = False
+  with_weight: bool = False
+  collect_features: bool = False
+  edge_dir: str = 'out'
+  seed: Optional[int] = None
+  neg_sampling: Optional[NegativeSampling] = None
 
 
 class BaseSampler:

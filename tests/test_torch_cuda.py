@@ -1462,9 +1462,10 @@ def test_two_ranks_over_nccl_train_dist_hetero(dev, tmp_path):
 
 def test_dist_homo_spilled_store_pins_and_matches_resident(dev, tmp_path):
   """On a card a spilled DistFeature pins its cold block, serves a lookup
-  through one K3 mixed launch equal to the resident store's K3, and
-  refuses the host phase; DistTrainStep trains from it as from the
-  resident store."""
+  through one K3 mixed launch equal to the resident store's K3, and with
+  host_offload=False serves the same rows through the host phase (one K3
+  launch over the hot rows, nothing pinned); DistTrainStep trains from
+  the pinned store as from the resident store."""
   import torch_dist_worker as worker
   from glt_tpu_torch.distributed import DistDataset, DistFeature
   from glt_tpu_torch.parallel import make_mesh
@@ -1480,14 +1481,17 @@ def test_dist_homo_spilled_store_pins_and_matches_resident(dev, tmp_path):
   assert spilled.array.device.type == 'cuda'
   assert spilled.array.untyped_storage().nbytes() == (
       spilled.hot_count * spilled.feature_dim * spilled.array.element_size())
-  with pytest.raises(NotImplementedError):
-    DistFeature.from_dist_datasets(mesh, ds, split_ratio=0.3,
-                                   host_offload=False)
+  host = DistFeature.from_dist_datasets(mesh, ds, split_ratio=0.3,
+                                        host_offload=False)
+  assert host.host_spilled and host.cold_pinned is None
   ids = np.random.default_rng(0).integers(-1, worker.DET_NODES, 3000)
   K.reset_launch_counts()
   got = spilled.lookup(ids)
   assert (K.gather_rows_mixed.launches, K.gather_rows.launches) == (1, 0)
   assert torch.equal(got, resident.lookup(ids))
+  K.reset_launch_counts()
+  assert torch.equal(host.lookup(ids), got)
+  assert (K.gather_rows_mixed.launches, K.gather_rows.launches) == (0, 1)
   seeds = worker.det_seeds(1)
   a = worker.det_train(mesh, root, labels, seeds)
   with pytest.MonkeyPatch.context() as mp:

@@ -12,8 +12,9 @@ RandomPartitioner with node and edge features):
   over two epochs) and ``DistSubGraphLoader`` (``max_degree`` windows,
   the extraction pass, edge features of the induced edges) bit-identical
   on every field;
-- a spilled store without its pinned block refuses, and a store of no
-  hot rows serves every row from its cold block.
+- a spilled store without its pinned block (the host phase) serves every
+  row and a training step refuses it, and a store of no hot rows serves
+  every row from its cold block.
 
 ``DistTrainStep`` and the example are held in
 tests/test_torch_dist_train.py over the same layout.
@@ -302,9 +303,15 @@ def test_spilled_store_refuses_the_host_phase_and_serves_all_cold(tmp_path):
                     node_feat=feats, edge_feat=efeats).partition()
   mesh = make_mesh(device='cpu')
   ds = {0: DistDataset.load(root, 0, device='cpu')}
-  with pytest.raises(NotImplementedError, match='host phase'):
-    DistFeature.from_dist_datasets(mesh, ds, split_ratio=0.5,
-                                   host_offload=False)
+  # host_offload=False builds the host phase (tests/test_torch_dist_host_
+  # phase.py), which a training step refuses
+  hp = DistFeature.from_dist_datasets(mesh, ds, split_ratio=0.5,
+                                      host_offload=False)
+  assert hp.host_spilled and hp.cold_pinned is None
+  np.testing.assert_array_equal(hp.lookup(np.arange(N)).numpy(), feats)
+  from glt_tpu_torch.parallel import require_device_resident
+  with pytest.raises(NotImplementedError, match='host-spilled'):
+    require_device_resident(hp, 'DistTrainStep')
   st = DistFeature.from_dist_datasets(mesh, ds, split_ratio=0.0)
   assert st.hot_count == 0 and st.cold_array.shape == (N, DIM)
   np.testing.assert_array_equal(st.lookup(np.arange(N)).numpy(), feats)

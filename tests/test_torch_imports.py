@@ -9,8 +9,12 @@ superstep lifts, epoch staging, prefetch thread and training bench, and
 the partitioned slice's partitioner, distributed stores, samplers and
 trainer, MLPerf logging and the IGBH example, and HGT with the four
 hetero examples, and the homogeneous partitioned trainer, loaders,
-negative sampler and the two distributed examples) and ``chip_smoke`` pulls in neither JAX nor the JAX
-package, and touches no card."""
+negative sampler and the two distributed examples, and the server-client
+slice's channels, shared-memory ring, resilience, rpc fabric, contexts,
+options, event loop, producers, server, client, channel loaders and its
+two examples) and ``chip_smoke`` pulls in neither JAX, ``ml_dtypes`` nor
+the JAX package, and touches no card; the shared-memory ring the port
+loads is its own build."""
 import os
 import subprocess
 import sys
@@ -24,7 +28,8 @@ for m in pkgutil.walk_packages(glt_tpu_torch.__path__, 'glt_tpu_torch.'):
   importlib.import_module(m.name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'glt_tpu'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'glt_tpu',
+                                    'ml_dtypes'))
 print('LOADED', len([m for m in sys.modules if m.startswith('glt_tpu_torch')]))
 print('BAD', bad)
 print('HETERO', all(m in sys.modules for m in (
@@ -86,6 +91,29 @@ print('HGT', all(m in sys.modules for m in (
     'glt_tpu_torch.examples.hetero.train_hgt_mag',
     'glt_tpu_torch.examples.hetero.train_rgnn',
     'glt_tpu_torch.examples.hetero.hierarchical_sage')))
+print('SERVER_CLIENT', all(m in sys.modules for m in (
+    'glt_tpu_torch.channel', 'glt_tpu_torch.channel.base',
+    'glt_tpu_torch.channel.shm', 'glt_tpu_torch.channel.shm_channel',
+    'glt_tpu_torch.channel.mp_channel',
+    'glt_tpu_torch.channel.remote_channel',
+    'glt_tpu_torch.resilience', 'glt_tpu_torch.resilience.retry',
+    'glt_tpu_torch.resilience.health',
+    'glt_tpu_torch.distributed.rpc', 'glt_tpu_torch.distributed.dist_context',
+    'glt_tpu_torch.distributed.dist_options',
+    'glt_tpu_torch.distributed.event_loop',
+    'glt_tpu_torch.distributed.dist_sampling_producer',
+    'glt_tpu_torch.distributed.dist_server',
+    'glt_tpu_torch.distributed.dist_client',
+    'glt_tpu_torch.distributed.channel_loader',
+    'glt_tpu_torch.examples.feature_mp',
+    'glt_tpu_torch.examples.distributed.server_client_mode')))
+from glt_tpu_torch.channel import shm
+lib = shm.get_lib()
+maps = [ln.split(None, 5)[-1].strip() for ln in open('/proc/self/maps')
+        if 'libglt_shm' in ln]
+print('SHM_LIB', lib._name == shm.LIBRARY
+      and shm.LIBRARY.endswith('glt_tpu_torch/_build/libglt_shm.so')
+      and bool(maps) and all(m.startswith(shm.LIBRARY) for m in maps))
 import torch
 print('CUDA_INIT', torch.cuda.is_initialized())
 '''
@@ -108,4 +136,6 @@ def test_port_and_chip_smoke_import_no_jax():
   assert 'DIST True' in out.stdout, out.stdout
   assert 'HGT True' in out.stdout, out.stdout
   assert 'DIST_HOMO True' in out.stdout, out.stdout
+  assert 'SERVER_CLIENT True' in out.stdout, out.stdout
+  assert 'SHM_LIB True' in out.stdout, out.stdout
   assert 'CUDA_INIT False' in out.stdout, out.stdout

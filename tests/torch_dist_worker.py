@@ -1,7 +1,8 @@
 """The port's side of the partitioned parity tests
-(tests/test_torch_dist_hetero.py, tests/test_torch_dist_homo.py and
-tests/test_torch_dist_link.py): the stores, the one-hop, both samplers,
-DistFeature lookups (node, edge and spilled stores), the loaders,
+(tests/test_torch_dist_hetero.py, tests/test_torch_dist_homo.py,
+tests/test_torch_dist_link.py and tests/test_torch_dist_host_phase.py):
+the stores, the one-hop, both samplers, DistFeature lookups (node, edge
+and spilled stores, and the host phase over the rpc fabric), the loaders,
 DistHeteroTrainStep and DistTrainStep runs and gradients of one rank over a
 partition layout on disk, and the entry point of a spawned rank of a gloo
 group. Imports no JAX, so a spawned rank starts without it."""
@@ -149,11 +150,55 @@ def grads_case(mesh, case):
 # -- the homogeneous slice (tests/test_torch_dist_homo.py and
 # tests/test_torch_dist_link.py) ----------------------------------------------
 
-def _homo_stores(mesh, case, kind='node', split_ratio=None, bucket_cap=0):
+def _homo_stores(mesh, case, kind='node', split_ratio=None, bucket_cap=0,
+                 host_offload=None):
   ds = {mesh.rank: DistDataset.load(case['root'], mesh.rank, device='cpu')}
   return DistFeature.from_dist_datasets(mesh, ds, kind=kind,
                                         split_ratio=split_ratio,
-                                        bucket_cap=bucket_cap)
+                                        bucket_cap=bucket_cap,
+                                        host_offload=host_offload)
+
+
+def host_phase_case(mesh, case):
+  """Host-phase stores (``host_offload=False``) of this rank's partition
+  at each of the case's ``(split_ratio, bucket_cap)``, the other rank's
+  cold rows fetched over the port's rpc fabric (``init_rpc`` at the
+  case's master port, the owner's ``cold_get`` registered): this rank's
+  block of each lookup, and what the fabric's collectives returned."""
+  from glt_tpu_torch.distributed import (RpcDataPartitionRouter, barrier,
+                                         global_all_gather, init_rpc,
+                                         rpc_register, rpc_request,
+                                         rpc_sync_data_partitions,
+                                         shutdown_rpc)
+  init_rpc('127.0.0.1', case['master_port'], rank=mesh.rank,
+           world_size=mesh.world)
+  try:
+    stores = {name: _homo_stores(mesh, case, 'node', split, cap,
+                                 host_offload=False)
+              for name, (split, cap) in case['stores'].items()}
+    fetched = {name: 0 for name in stores}
+
+    def fetcher(name):
+      def fetch(p, ids):
+        fetched[name] += len(ids)
+        return rpc_request(p, f'cold_get:{name}', p, ids)
+      return fetch
+    for name, st in stores.items():
+      rpc_register(f'cold_get:{name}', st.cold_get)
+      st.set_cold_fetcher(fetcher(name))
+    barrier()       # every rank's callees are registered
+    out = {name: dict(rows=_np(st.lookup(case['ids'], case['valid'])),
+                      host_spilled=st.host_spilled, hot=st.hot_count,
+                      fetched=fetched[name])
+           for name, st in stores.items()}
+    p2w = rpc_sync_data_partitions([mesh.rank])
+    router = RpcDataPartitionRouter(p2w)
+    out['fabric'] = dict(
+        p2w=p2w, gathered=global_all_gather(mesh.rank * 10),
+        routed=[router.get_to_worker(p) for p in range(mesh.world)])
+  finally:
+    shutdown_rpc()   # a global barrier first: no rank leaves early
+  return out
 
 
 def _inject(sampler, draws):
@@ -393,7 +438,8 @@ def run_cases(mesh, cases):
              grads=grads_case, edge_sample=edge_sample_case,
              store_lookup=store_lookup_case, dist_loader=dist_loader_case,
              subgraph=subgraph_case, link=link_case, negative=negative_case,
-             dist_train=dist_train_case, det=det_case)
+             dist_train=dist_train_case, det=det_case,
+             host_phase=host_phase_case)
   return {name: fns[case['kind']](mesh, case)
           for name, case in cases.items()}
 
