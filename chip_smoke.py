@@ -1615,6 +1615,9 @@ def train_phases(torch, np, K, ds, dev, seed, rows, smi):
     K.reset_launch_counts()
     train('weighted training', wl, TRAIN_STEPS, net)
     median_ms = medians[-1]
+    # the front end phases serve these weights
+    TRAINED['products_sage'] = {k: v.detach().clone()
+                                for k, v in net.state_dict().items()}
     launches = {fn.__name__: fn.launches for fn in K.KERNELS}
     peak = torch.cuda.max_memory_allocated()
     want = dict(gather_windows=3 * TRAIN_STEPS, sample_hop=3 * TRAIN_STEPS,
@@ -4213,6 +4216,576 @@ def server_client_phases(torch, np, K, ds, dev, seed, k3, mixed, walk,
   return paths
 
 
+FE_CLIENTS, FE_REQUESTS = 8, 40   # client threads, requests a client
+FE_STALL_MS = 200.0               # the forced stall's watchdog budget
+FLEET_REQUESTS, FLEET_KILL_REQUESTS = 200, 120   # (a) and (b), 8 threads
+BATCH_FIELDS = ('node', 'node_count', 'row', 'col', 'edge_mask')
+#: the trained products-sage weights ('train main path'), for serving
+TRAINED = {}
+
+
+def squared_ids(rng, n):
+  """``n`` ids squared-uniform over the products nodes, as
+  examples/serve_sage_products.py draws them (low ids hot)."""
+  return ((rng.random(n) ** 2) * NUM_NODES).astype('int64')
+
+
+def recording(fn, log, secs):
+  """``fn`` with each call's first argument appended to ``log`` (a copy)
+  and its wall seconds to ``secs``."""
+  def call(ids, *a, **kw):
+    log.append(ids.copy())
+    t0 = time.perf_counter()
+    try:
+      return fn(ids, *a, **kw)
+    finally:
+      secs.append(time.perf_counter() - t0)
+  return call
+
+
+def recorded_batches(engine, log):
+  """Route the engine's make_batch through a recorder: each bucket run's
+  sample (BATCH_FIELDS) is appended to ``log`` in run order."""
+  real = engine.make_batch
+
+  def make_batch(*a, **kw):
+    b = real(*a, **kw)
+    log.append(tuple(getattr(b, f) for f in BATCH_FIELDS))
+    return b
+  engine.make_batch = make_batch
+
+
+def client_load(np, address, clients, requests, seed):
+  """``clients`` threads, each with its own ServingClient, each sending
+  ``requests`` requests of REQUESTS sizes (drawn) over squared-uniform
+  ids. Returns [(ids, rows, ms)] of every request and the wall seconds;
+  raises the first client error."""
+  import threading
+  from glt_tpu_torch.serving import ServingClient
+  out, errs, lock = [], [], threading.Lock()
+
+  def run(c):
+    rng = np.random.default_rng(seed + c)
+    cli = ServingClient(*address)
+    try:
+      for _ in range(requests):
+        ids = squared_ids(rng, int(rng.choice(REQUESTS)))
+        t0 = time.perf_counter()
+        rows = cli.infer(ids)
+        ms = (time.perf_counter() - t0) * 1e3
+        with lock:
+          out.append((ids, rows, ms))
+    except Exception as e:   # surfaced below
+      errs.append(e)
+    finally:
+      cli.close()
+  threads = [threading.Thread(target=run, args=(c,)) for c in range(clients)]
+  t0 = time.perf_counter()
+  for t in threads:
+    t.start()
+  for t in threads:
+    t.join()
+  wall = time.perf_counter() - t0
+  if errs:
+    raise errs[0]
+  return out, wall
+
+
+def load_line(np, label, srv, engine, out, wall, secs):
+  """One line of a load's numbers, as ServingMetrics and the host clock
+  report them; ``secs``: the load's dispatches' handler seconds (the
+  engine's infer), whose sum over the wall is the dispatcher's busy
+  share."""
+  snap = srv.metrics.snapshot(cache=engine.cache)
+  ms = np.array([m for _, _, m in out])
+  ids = sum(i.size for i, _, _ in out)
+  print(f'{label}: {len(out)} requests, {ids} ids in {wall:.3f} s: '
+        f'{len(out) / wall:.1f} requests/s, {ids / wall:.1f} ids/s (host '
+        f'clock); ServingMetrics p50 {snap["latency_p50_ms"]:.3f} ms, p99 '
+        f'{snap["latency_p99_ms"]:.3f} ms, {snap["qps"]:.1f} requests/s, '
+        f'{snap["batches"]} batches, fill {snap["batch_fill_ratio"]:.3f}, '
+        f'cache hit rate {snap["cache_hit_rate"]:.4f}; host clock p50 '
+        f'{np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} '
+        f'ms; bucket runs {engine.run_stats()["bucket_runs"]}; '
+        f'{len(secs)} dispatches, {np.mean(secs) * 1e3:.3f} ms each '
+        f'(median {np.median(secs) * 1e3:.3f}), the dispatcher busy '
+        f'{sum(secs) / wall * 100:.1f}% of the wall')
+  return snap
+
+
+def answered_by(np, engines, ids, rows):
+  """The index of the engine whose cache holds exactly ``rows`` for
+  ``ids`` (each at its newest version), or None."""
+  for k, e in enumerate(engines):
+    found = e.cache.lookup_stale(ids)
+    if all(int(i) in found for i in ids) and np.array_equal(
+        np.stack([found[int(i)] for i in ids]), rows):
+      return k
+  return None
+
+
+def frontend_phases(torch, np, K, ds, dev, seed, smi):
+  """The serving front ends over the products graph at products-sage's
+  width: a ServingServer answering concurrent ServingClients over the rpc
+  fabric, held against a plain twin's replay of its dispatches; then a
+  FleetRouter over two shards of two replicas. Returns the launches by
+  path."""
+  import tempfile
+  from glt_tpu_torch.data import Dataset
+  from glt_tpu_torch.models import GraphSAGE
+  from glt_tpu_torch.obs import get_tracer
+  from glt_tpu_torch.partition.partition_book import RangePartitionBook
+  from glt_tpu_torch.serving import (FleetRouter, FleetShard,
+                                     FleetUnavailable, InferenceEngine,
+                                     ServingClient, ServingServer)
+  from glt_tpu_torch.stream import (SnapshotManager, StreamIngestor,
+                                    StreamSampler)
+  from glt_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+
+  paths = {}
+  g, feat = ds.get_graph(), ds.get_node_feature()
+  walk_names = ('sample_walk_dedup', 'dedup_table_insert', 'gather_rows')
+
+  def sage():
+    return GraphSAGE(FEAT_DIM, HIDDEN, CLASSES, num_layers=3)
+
+  with Phase('serving front end path'):
+    params = TRAINED.get('products_sage')
+    origin = 'trained (train main path)'
+    if params is None:
+      params = InferenceEngine(ds, sage(), None, list(FANOUTS),
+                               buckets=BUCKETS, device=dev).init_params(seed)
+      origin = f'seeded ({seed})'
+    with tempfile.TemporaryDirectory(prefix='glt_fe_') as d:
+      t0 = time.perf_counter()
+      save_checkpoint(d, 0, params)
+      step, payload = restore_checkpoint(d)
+      ckpt_ms = (time.perf_counter() - t0) * 1e3
+    restored = payload['params']
+    if step != 0 or any(not torch.equal(params[k].cpu(), restored[k])
+                        for k in params):
+      raise AssertionError('the checkpoint did not restore the weights')
+    engine = InferenceEngine(ds, sage(), restored, list(FANOUTS),
+                             buckets=BUCKETS, device=dev, seed=seed + 8)
+    runs, dispatched, secs1, secs8 = [], [], [], []
+    recorded_batches(engine, runs)
+    srv1 = ServingServer(engine, max_wait_ms=2.0,
+                         request_timeout_ms=60_000)
+    srv1.batcher.handler = recording(srv1.batcher.handler, dispatched,
+                                     secs1)
+    K.reset_launch_counts()
+    print(f'front end: {origin} weights through save_checkpoint / '
+          f'restore_checkpoint ({ckpt_ms:.1f} ms); engine warmed, buckets '
+          f'{engine.buckets}')
+    engine.cache.reset_stats()
+    one, wall1 = client_load(np, srv1.address, 1, FE_REQUESTS, seed + 20)
+    snap1 = load_line(np, '1 client', srv1, engine, one, wall1, secs1)
+    srv1.close()
+    srv8 = ServingServer(engine, max_wait_ms=2.0, request_timeout_ms=60_000,
+                         warmup=False)
+    srv8.batcher.handler = recording(srv8.batcher.handler, dispatched,
+                                     secs8)
+    engine.cache.reset_stats()
+    eight, wall8 = client_load(np, srv8.address, FE_CLIENTS, FE_REQUESTS,
+                               seed + 30)
+    snap8 = load_line(np, f'{FE_CLIENTS} clients', srv8, engine, eight,
+                      wall8, secs8)
+    # a repeat of one served 64-id request: the cache answers it whole
+    rep = next(ids for ids, _, _ in eight if ids.size == 64)
+    hits0 = engine.cache.hits
+    runs1 = sum(engine.run_stats()['bucket_runs'].values())
+    cli = ServingClient(*srv8.address)
+    again = cli.infer(rep)
+    if engine.cache.hits - hits0 != 64 or \
+        sum(engine.run_stats()['bucket_runs'].values()) != runs1:
+      raise AssertionError('the repeated 64-id request missed the cache')
+    if not np.array_equal(again, [r for i, r, _ in eight if i is rep][0]):
+      raise AssertionError('the cache answered other rows')
+    fe_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    total_runs = len(runs) - len(BUCKETS)     # less the warm-up's
+    if total_runs != sum(engine.run_stats()['bucket_runs'].values()):
+      raise AssertionError(f'{total_runs} sampled buckets, the engine '
+                           f'counts {engine.run_stats()}')
+    for name, want in (('sample_walk_dedup', total_runs),
+                       ('gather_rows', total_runs),
+                       ('dedup_table_insert', 0)):
+      if fe_launches[name] != want:
+        raise AssertionError(f'{name}: {fe_launches[name]} launches for '
+                             f'{total_runs} bucket runs')
+    print(f'launches {fe_launches}: K1 and K3 once a bucket run '
+          f'({total_runs} runs over {len(dispatched)} dispatches of '
+          f'{len(one) + len(eight) + 1} requests)')
+
+    # the plain twin: same seed, buckets and cache, the kernels swapped
+    # for their plain versions, replays every dispatch in order (the
+    # warm-up first: the same draws in the same order)
+    twin = InferenceEngine(ds, sage(), restored, list(FANOUTS),
+                           buckets=BUCKETS, device=dev, seed=seed + 8)
+    twin_runs = []
+    recorded_batches(twin, twin_runs)
+    with swapped_to_plain(K, walk_names):
+      twin.warmup()
+      for ids in dispatched:
+        twin.infer(ids)
+    if len(twin_runs) != len(runs):
+      raise AssertionError(f'the twin ran {len(twin_runs)} buckets, the '
+                           f'server {len(runs)}')
+    for k, (a, b) in enumerate(zip(runs, twin_runs)):
+      for f, x, y in zip(BATCH_FIELDS, a, b):
+        if not torch.equal(x, y):
+          raise AssertionError(f'bucket run {k}: batch.{f} differs from '
+                               'the plain twin')
+    diff, n_rows = 0.0, 0
+    for ids, rows, _ in one + eight:
+      want = twin.cache.lookup_stale(ids)
+      ref = np.stack([want[int(i)] for i in ids])
+      diff = max(diff, float(np.abs(rows - ref).max()))
+      n_rows += ids.size
+      if not np.allclose(rows, ref, rtol=LOGIT_TOL, atol=LOGIT_TOL):
+        raise AssertionError(f'served rows differ from the plain twin by '
+                             f'{diff}')
+    print(f'plain twin: {len(runs)} bucket runs bit-identical samples; '
+          f'{n_rows} served rows within {diff:.3e} of the twin\'s '
+          f'(tolerance {LOGIT_TOL})')
+    del runs, twin_runs, twin
+
+    # validation before batching, with the JAX package's message
+    n_disp = len(dispatched)
+    try:
+      cli.infer(np.array([5, NUM_NODES]))
+      raise AssertionError('an out-of-range id was served')
+    except ValueError as e:
+      want = f'node ids out of range [0, {NUM_NODES}): [{NUM_NODES}]'
+      if str(e) != want or len(dispatched) != n_disp:
+        raise AssertionError(f'validation: {e!r}, '
+                             f'{len(dispatched) - n_disp} dispatches')
+    cli.close()
+    srv8.close()
+
+    # the stale tier: a handler that sleeps past the stall watchdog
+    stall = ServingServer(engine, max_wait_ms=2.0, warmup=False,
+                          request_timeout_ms=60_000,
+                          stall_timeout_ms=FE_STALL_MS, stale_serve=True)
+    real = stall.batcher.handler
+
+    def wedged(ids):
+      time.sleep(3 * FE_STALL_MS / 1e3)
+      return real(ids)
+    stall.batcher.handler = wedged
+    cli = ServingClient(*stall.address)
+    cached = np.unique(np.concatenate([i for i, _, _ in one]))[:4]
+    fresh = np.setdiff1d(np.arange(NUM_NODES - 64, NUM_NODES),
+                         list(engine.cache.lookup_stale(
+                             np.arange(NUM_NODES - 64, NUM_NODES))))[:3]
+    ids = np.concatenate([cached, fresh])
+    have = engine.cache.lookup_stale(cached)
+    t0 = time.perf_counter()
+    rows = cli.infer(ids)
+    stale_ms = (time.perf_counter() - t0) * 1e3
+    st = cli.stats()
+    want = np.concatenate([np.stack([have[int(i)] for i in cached]),
+                           np.zeros((fresh.size, CLASSES), np.float32)])
+    if not np.array_equal(rows, want):
+      raise AssertionError('the stale tier answered other rows')
+    if st['stale_serves'] != cached.size or \
+        st['gauges'].get('stale_zero_fills') != fresh.size:
+      raise AssertionError(f'stale tier counted {st["stale_serves"]} stale '
+                           f'rows, {st["gauges"]} gauges')
+    cli.close()
+    stall.close()
+    print(f'stale tier: a {3 * FE_STALL_MS:.0f} ms wedged dispatch past the '
+          f'{FE_STALL_MS:.0f} ms watchdog answered in {stale_ms:.1f} ms, '
+          f'{cached.size} rows from the cache (stale_serves '
+          f'{st["stale_serves"]}), {fresh.size} zero-filled '
+          f'(stale_zero_fills {st["gauges"]["stale_zero_fills"]:.0f}); '
+          f'breaker opens {st["breaker_opens"]}')
+    paths['serving_frontend'] = fe_launches
+    print(f'serving front end: 1 client p50 {snap1["latency_p50_ms"]:.3f} / '
+          f'p99 {snap1["latency_p99_ms"]:.3f} ms, {FE_CLIENTS} clients p50 '
+          f'{snap8["latency_p50_ms"]:.3f} / p99 {snap8["latency_p99_ms"]:.3f}'
+          f' ms; ids/s {sum(i.size for i, _, _ in one) / wall1:.1f} -> '
+          f'{sum(i.size for i, _, _ in eight) / wall8:.1f}; fill '
+          f'{snap1["batch_fill_ratio"]:.3f} -> {snap8["batch_fill_ratio"]:.3f}'
+          f'; on {smi}')
+    del engine, one, eight, dispatched
+    torch.cuda.empty_cache()
+
+  tracer = get_tracer()
+  closers = []
+  try:
+    with Phase('fleet path'):
+      # shard 0: two local engines on StreamSamplers over one
+      # SnapshotManager; shard 1: two ServingServers on loopback ports.
+      # The book splits the id range in half (squared-uniform ids: ~71%
+      # of them fall in shard 0)
+      mgr = SnapshotManager(g.topo, feat, delta_capacity=DELTA_CAPACITY,
+                            device=dev)
+      local_ds = Dataset(graph=g, node_features=feat)
+      local = [InferenceEngine(
+          local_ds, sage(), params, list(FANOUTS), buckets=BUCKETS,
+          device=dev, sampler=StreamSampler(
+              mgr, list(FANOUTS), delta_window=DELTA_WINDOW,
+              seed=seed + 50 + i)) for i in range(2)]
+      for e in local:
+        e.warmup()
+      remote = [InferenceEngine(ds, sage(), params, list(FANOUTS),
+                                buckets=BUCKETS, device=dev,
+                                seed=seed + 60 + i) for i in range(2)]
+      servers = [ServingServer(e, max_wait_ms=2.0,
+                               request_timeout_ms=60_000) for e in remote]
+      closers += servers
+      addrs = [s.address for s in servers]
+      book = RangePartitionBook([NUM_NODES // 2, NUM_NODES])
+
+      def shards():
+        return [FleetShard.local('s0', local, manager=mgr),
+                FleetShard.remote('s1', addrs, breaker_reset_s=0.5)]
+      router = FleetRouter(shards(), book)
+      closers.append(router)
+      strict = FleetRouter(shards(), book, stale_serve=False)
+      closers.append(strict)
+      K.reset_launch_counts()
+      runs0 = {id(e): dict(e.run_stats()['bucket_runs'])
+               for e in local + remote}
+
+      def fleet_load(n, seed_, on_done=None):
+        import threading
+        out, errs, lock = [], [], threading.Lock()
+
+        def run(c):
+          rng = np.random.default_rng(seed_ + c)
+          try:
+            for _ in range(n // FE_CLIENTS):
+              ids = squared_ids(rng, int(rng.choice(REQUESTS)))
+              t0 = time.perf_counter()
+              rows = router.infer(ids, timeout_ms=60_000)
+              ms = (time.perf_counter() - t0) * 1e3
+              with lock:
+                out.append((ids, rows, ms))
+                k = len(out)
+              if on_done is not None:
+                on_done(k)
+          except Exception as e:   # surfaced below
+            errs.append(e)
+        threads = [threading.Thread(target=run, args=(c,))
+                   for c in range(FE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+          t.start()
+        for t in threads:
+          t.join()
+        if errs:
+          raise errs[0]
+        return out, time.perf_counter() - t0
+
+      def check_answers(out, label):
+        """Each answer's rows of a shard are the rows one replica of that
+        shard holds in its cache, in the input order."""
+        who = {}
+        for ids, rows, _ in out:
+          part = book[ids]
+          for s, engines in ((0, local), (1, remote)):
+            sel = part == s
+            if not sel.any():
+              continue
+            k = answered_by(np, engines, ids[sel], rows[sel])
+            if k is None:
+              raise AssertionError(f'{label}: an answer of shard s{s} is '
+                                   'not any replica\'s cached rows')
+            who[(s, k)] = who.get((s, k), 0) + 1
+        return who
+
+      # (a) mixed requests from 8 threads
+      out_a, wall_a = fleet_load(FLEET_REQUESTS, seed + 70)
+      who_a = check_answers(out_a, '(a)')
+      ms_a = np.array([m for _, _, m in out_a])
+      print(f'(a) {len(out_a)} requests from {FE_CLIENTS} threads in '
+            f'{wall_a:.3f} s ({len(out_a) / wall_a:.1f} requests/s), every '
+            f'answer equal to its replica\'s cached rows (answers by '
+            f'(shard, replica): {who_a}); host clock p50 '
+            f'{np.percentile(ms_a, 50):.3f} ms, p99 '
+            f'{np.percentile(ms_a, 99):.3f} ms')
+
+      # (b) shard 1's primary dies under load: its endpoint first, as a
+      # process death drops its connections, then the rest of it
+      killed = []
+
+      def kill(k):
+        if k == FLEET_KILL_REQUESTS // 4 and not killed:
+          killed.append(time.perf_counter())
+          servers[0].rpc.stop()
+          servers[0].close()
+      s1 = router.shards[1]
+      out_b, wall_b = fleet_load(FLEET_KILL_REQUESTS, seed + 80, kill)
+      who_b = check_answers(out_b, '(b)')
+      m1 = s1.metrics.snapshot()
+      if not killed or m1['failovers'] < 1:
+        raise AssertionError(f'(b): failovers {m1["failovers"]}')
+      print(f'(b) {len(out_b)} requests, shard s1\'s r0 killed after '
+            f'{FLEET_KILL_REQUESTS // 4}: all answered ({who_b}); s1 '
+            f'failovers {m1["failovers"]}, health '
+            f'{s1.health.snapshot()}, breakers '
+            f'{[r.breaker.state for r in s1.replicas]}')
+
+      # (c) the second dies: shard 1 answers from the fleet's stale cache
+      servers[1].rpc.stop()
+      servers[1].close()
+      seen = next(ids for ids, _, _ in out_a if (book[ids] == 1).sum() >= 2)
+      seen = np.unique(seen[book[seen] == 1])[:4]
+      prior = router._stale.lookup_stale(seen)
+      never = np.setdiff1d(np.arange(NUM_NODES - 50, NUM_NODES),
+                           list(router._stale.lookup_stale(
+                               np.arange(NUM_NODES - 50, NUM_NODES))))[:3]
+      ids = np.concatenate([seen, never, [1]])
+      stale0 = s1.metrics.stale_serves
+      zero0 = s1.metrics.get_gauge('stale_zero_fills')
+      t0 = time.perf_counter()
+      rows = router.infer(ids, timeout_ms=60_000)
+      stale_ms = (time.perf_counter() - t0) * 1e3
+      want = np.concatenate([np.stack([prior[int(i)] for i in seen]),
+                             np.zeros((never.size, CLASSES), np.float32)])
+      if not np.array_equal(rows[:-1], want):
+        raise AssertionError('(c): the stale tier answered other rows')
+      if (s1.metrics.stale_serves - stale0 != seen.size
+          or s1.metrics.get_gauge('stale_zero_fills') - zero0
+          != never.size):
+        raise AssertionError('(c): stale rows or zero-fills uncounted')
+      try:
+        strict.infer(ids, timeout_ms=60_000)
+        raise AssertionError('(c): stale_serve=False answered a dead shard')
+      except FleetUnavailable as e:
+        refused = str(e)
+      unavailable = router.registry.get('fleet_unavailable_total',
+                                        shard='s1')
+      print(f'(c) both s1 replicas dead: {seen.size} rows from the fleet\'s '
+            f'stale cache, {never.size} zero-filled, counted (stale_serves '
+            f'{s1.metrics.stale_serves}, stale_zero_fills '
+            f'{s1.metrics.get_gauge("stale_zero_fills"):.0f}, '
+            f'fleet_unavailable_total {unavailable:.0f}) in {stale_ms:.1f} '
+            f'ms; stale_serve=False: FleetUnavailable ({refused[:60]}...)')
+
+      # (d) shard 1 comes back on its ports as stream replicas (a restart
+      # resyncs from the base graph), then one delta fans out fleet-wide
+      restarted = []
+      for i, (host, port) in enumerate(addrs):
+        m = SnapshotManager(g.topo, feat, delta_capacity=DELTA_CAPACITY,
+                            device=dev)
+        e = InferenceEngine(
+            Dataset(graph=g, node_features=feat), sage(), params,
+            list(FANOUTS), buckets=BUCKETS, device=dev,
+            sampler=StreamSampler(m, list(FANOUTS),
+                                  delta_window=DELTA_WINDOW,
+                                  seed=seed + 90 + i))
+        srv = ServingServer(e, host=host, port=port, max_wait_ms=2.0,
+                            request_timeout_ms=60_000, warmup=False,
+                            stream=StreamIngestor(m, sampler=e.sampler,
+                                                  engine=e))
+        closers.append(srv)
+        restarted.append(e)
+        runs0[id(e)] = dict(e.run_stats()['bucket_runs'])
+      time.sleep(0.6)    # past shard 1's breaker reset: probes admitted
+      rng = torch.Generator().manual_seed(seed + 95)
+      served0 = np.unique(np.concatenate(
+          [i[book[i] == 0] for i, _, _ in out_a]))
+      topo = mgr.current().topo
+      slots = torch.randint(0, topo.num_edges, (N_DELETES,),
+                            generator=rng).to(dev)
+      del_src = (torch.searchsorted(topo.indptr, slots, right=True)
+                 - 1).cpu().numpy()
+      del_dst = topo.indices[slots].long().cpu().numpy()
+      del topo
+      ins_src = np.concatenate([served0[:64], torch.randint(
+          0, NUM_NODES, (N_INSERTS - 64,), generator=rng).numpy()])
+      ins_dst = torch.randint(0, NUM_NODES, (N_INSERTS,),
+                              generator=rng).numpy()
+      upd = served0[-N_FEATURE_ROWS:]
+      touched = np.unique(np.concatenate([ins_src, del_src, upd]))
+      before = sum(len(e.cache.lookup_stale(touched)) for e in local)
+      if before == 0:
+        raise AssertionError('(d): no touched id was cached before')
+      token0 = router.consistency_token()
+      t0 = time.perf_counter()
+      res = router.apply_delta(
+          ins=np.stack([ins_src, ins_dst]), dels=np.stack([del_src,
+                                                           del_dst]),
+          feat_ids=upd, feat_rows=torch.randn(
+              (upd.size, FEAT_DIM), generator=rng).numpy())
+      delta_ms = (time.perf_counter() - t0) * 1e3
+      versions = [e.snapshot_version for e in local + restarted]
+      left = sum(len(e.cache.lookup_stale(touched)) for e in local)
+      if (router.consistency_token() != token0 + 1
+          or res['fleet_version'] != token0 + 1 or versions != [1] * 4
+          or left):
+        raise AssertionError(f'(d): token {token0} -> '
+                             f'{router.consistency_token()}, versions '
+                             f'{versions}, {left} touched rows cached')
+      print(f'(d) apply_delta ({N_INSERTS} inserts, {N_DELETES} deletes, '
+            f'{upd.size} feature rows) in {delta_ms:.1f} ms: token {token0} '
+            f'-> {res["fleet_version"]}, snapshot versions {versions}, '
+            f'{before} cached rows of {touched.size} touched ids dropped '
+            f'(shards: {res["shards"]})')
+
+      # (e) one traced request across both shards
+      rng_e = np.random.default_rng(seed + 99)
+      ids = np.concatenate([rng_e.integers(0, NUM_NODES // 2, 5),
+                            rng_e.integers(NUM_NODES // 2, NUM_NODES, 5)])
+      tracer.clear()
+      tracer.enable()
+      try:
+        router.infer(ids, timeout_ms=60_000)
+      finally:
+        tracer.disable()
+      evs = tracer.events()
+      tracer.clear()
+      tid = [e for e in evs if e['name'] == 'fleet.infer'][0]['args'][
+          'trace_id']
+      mine = [e for e in evs if e['args'].get('trace_id') == tid]
+      shard_spans = sorted(e['args']['shard'] for e in mine
+                           if e['name'] == 'fleet.shard')
+      buckets = [e for e in mine if e['name'] == 'serve.bucket']
+      tids = {e['args']['trace_id'] for e in evs
+              if e['name'] in ('fleet.shard', 'serve.bucket')}
+      if shard_spans != ['s0', 's1'] or len(buckets) < 2 or tids != {tid}:
+        raise AssertionError(f'(e): shard spans {shard_spans}, '
+                             f'{len(buckets)} bucket spans, trace ids '
+                             f'{tids}')
+      print(f'(e) one trace id over {len(mine)} spans: '
+            + ', '.join(sorted({e['name'] for e in mine})))
+
+      launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+      runs = {}
+      for kind, engines in (('walk', remote), ('stream', local + restarted)):
+        runs[kind] = sum(n - runs0[id(e)].get(b, 0) for e in engines
+                         for b, n in e.run_stats()['bucket_runs'].items())
+      want = dict(sample_walk_dedup=runs['walk'],
+                  gather_rows=runs['walk'] + runs['stream'],
+                  sample_hop=len(FANOUTS) * runs['stream'],
+                  gather_windows=2 * len(FANOUTS) * runs['stream'],
+                  dedup_table_insert=0)
+      for name, n in want.items():
+        if launches[name] != n or (name != 'dedup_table_insert' and not n):
+          raise AssertionError(f'{name}: {launches[name]} launches on the '
+                               f'fleet path, expected {n}')
+      fm = router.metrics.snapshot(cache=router._stale)
+      print(f'launches {launches} for {runs} bucket runs')
+      print(f'fleet: p50 {fm["latency_p50_ms"]:.3f} ms, p99 '
+            f'{fm["latency_p99_ms"]:.3f} ms over {fm["requests"]} requests '
+            f'(fleet ServingMetrics); failovers {m1["failovers"]}, stale '
+            f'rows {s1.metrics.stale_serves}, zero-fills '
+            f'{s1.metrics.get_gauge("stale_zero_fills"):.0f}; apply_delta '
+            f'{delta_ms:.1f} ms; on {smi}')
+      paths['fleet'] = launches
+  finally:
+    tracer.disable()
+    for c in reversed(closers):
+      try:
+        c.close()
+      except Exception:
+        pass
+  return paths
+
+
 def path_launches(K, step):
   """A superstep path's launches by wrapper name since the last reset:
   those run eagerly (the wrappers' counts), those the trainer's graph
@@ -4869,6 +5442,8 @@ def main() -> int:
   sc_paths = server_client_phases(torch, np, K, ds, dev, opts.seed, k3,
                                   mixed, walk, smi)
   torch.cuda.empty_cache()
+  fe_paths = frontend_phases(torch, np, K, ds, dev, opts.seed, smi)
+  torch.cuda.empty_cache()
   hlink_launches = hetero_link_phases(torch, np, K, dev, opts.seed, rows, k3,
                                       host_us, smi)
   torch.cuda.empty_cache()
@@ -4918,7 +5493,7 @@ def main() -> int:
              'subgraph': sub_launches, 'seal': seal_launches,
              'split': split_launches, 'dist_hetero': dist_launches,
              'hetero_link': hlink_launches, 'hgt': hgt_launches,
-             **homo_paths, **sc_paths,
+             **homo_paths, **sc_paths, **fe_paths,
              **{p: v[0] for p, v in ss_paths.items()},
              'probe': probe_launches,
              'microbench': micro_launches}

@@ -8,15 +8,16 @@ mode runs over the rpc fabric (``rpc.py``): sampling servers
 (``dist_sampling_producer.py``) and stream batches through a shared-memory
 ring, and training clients (``dist_client.py``) pulling them with prefetch
 (``channel_loader.py``). A spilled DistFeature may serve its cold rows in
-a host phase, over rpc from another process's partition.
+a host phase, over rpc from another process's partition. Traced requests
+carry their trace context over the fabric (``glt_tpu_torch.obs``).
 
-Not ported (ROADMAP): tracing over rpc and the clients' ``collect_obs``
-(observability), ``apply_delta`` (A6), the weighted and full-neighbourhood
+Not ported (ROADMAP): the servers' ``apply_delta`` (A6), the weighted and full-neighbourhood
 partitioned hops, ``FrequencyPartitioner``, ``DistRandomPartitioner``,
 ``DistTableDataset`` and the multihost loaders (A12b)."""
 from .channel_loader import (MpNeighborLoader, RemoteNeighborLoader,
                              message_to_batch)
-from .dist_client import (async_request_server, fabric_stats, init_client,
+from .dist_client import (async_request_server, collect_obs,
+                          export_fabric_trace, fabric_stats, init_client,
                           request_server, request_with_failover,
                           set_replicas, shutdown_client)
 from .dist_context import (DistContext, DistRole, assign_server_by_order,
@@ -69,7 +70,8 @@ __all__ = [
     'DistServer', 'free_port_base', 'get_server', 'init_server',
     'server_port',
     'shutdown_server', 'wait_and_shutdown_server',
-    'async_request_server', 'fabric_stats', 'init_client', 'request_server',
+    'async_request_server', 'collect_obs', 'export_fabric_trace',
+    'fabric_stats', 'init_client', 'request_server',
     'request_with_failover', 'set_replicas', 'shutdown_client',
     'ConcurrentEventLoop',
     'RpcCalleeBase', 'RpcClient', 'RpcDataPartitionRouter', 'RpcServer',

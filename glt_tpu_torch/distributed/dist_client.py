@@ -11,11 +11,13 @@ server's UP/DEGRADED/DOWN, and remote feature lookups fail over to
 replica servers (``set_replicas``) or degrade to the staleness cache and
 zero rows, counted and logged.
 
-The client's metrics object is the caller's (``init_client(metrics=)``:
-any object with the JAX ``ServingMetrics`` methods the fabric calls), or
-None; ``ServingMetrics`` itself comes with the serving front ends
-(ROADMAP A5). Not ported: ``collect_obs`` and ``export_fabric_trace``
-(tracing, ROADMAP's observability item) and ``apply_delta`` (ROADMAP A6).
+Each session counts its retries, reconnects, breaker opens, failovers,
+stale serves and dropouts in a :class:`~glt_tpu_torch.serving.
+ServingMetrics` of its own (``fabric_stats()['metrics']``), on a private
+registry or, labeled ``view="dist_client"``, on the caller's.
+``collect_obs`` and ``export_fabric_trace`` assemble one Chrome trace of
+the client and its servers. Not ported: ``apply_delta`` (the live-update
+path of the sampling servers).
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ _num_servers = 0
 _client_rank = 0
 _num_clients = 0
 _health: Optional[HealthMonitor] = None
-_metrics = None                         # the caller's metrics, or None
+_metrics = None                         # this session's ServingMetrics
 _replicas: Dict[int, List[int]] = {}    # server -> replica servers
 _feat_cache = DegradedFeatureCache()
 _dropouts: set = set()
@@ -52,20 +54,25 @@ def init_client(num_servers: int, num_clients: int, client_rank: int,
                 breaker_threshold: int = 5,
                 breaker_reset_s: float = 5.0,
                 health_interval_s: Optional[float] = 1.0,
-                registry=None, metrics=None) -> None:
+                registry=None) -> None:
   """Connects to servers ``0..num_servers-1`` at ``master_port + rank``.
   ``health_interval_s=None`` disables the background prober (the request
   path's passive observations still apply); the other knobs set each
-  server connection's retry and breaker. ``registry`` (optional) receives
-  the breakers' series; ``metrics`` (optional) observes retries,
-  reconnects, breaker opens, failovers, stale serves and dropouts."""
+  server connection's retry and breaker. ``registry``: publish the
+  fabric's failure counters and the breakers' series into a shared
+  MetricsRegistry (e.g. ``glt_tpu_torch.obs.get_registry()``, the
+  counters labeled ``view="dist_client"``) instead of a private registry
+  a session, whose counters start from zero."""
   global _num_servers, _client_rank, _num_clients, _health, _metrics, \
       _feat_cache
+  from ..serving.metrics import ServingMetrics
   init_client_context(num_servers, num_clients, client_rank)
   _num_servers = num_servers
   _client_rank = client_rank
   _num_clients = num_clients
-  _metrics = metrics
+  _metrics = ServingMetrics(registry=registry,
+                            name='dist_client' if registry is not None
+                            else '')
   _dropouts.clear()
   _replicas.clear()
   # a fresh cache a session: rows of an earlier session's dataset must
@@ -183,7 +190,7 @@ def record_server_dropout(server_rank: int) -> None:
 
 def fabric_stats() -> dict:
   """The client's resilience record: its metrics' snapshot (``{}``
-  without metrics), each server's health, the dropouts and the
+  before ``init_client``), each server's health, the dropouts and the
   degradation cache's rows."""
   return {
       'metrics': _metrics.snapshot() if _metrics is not None else {},
@@ -191,6 +198,41 @@ def fabric_stats() -> dict:
       'dropouts': sorted(_dropouts),
       'degraded_cache_rows': len(_feat_cache),
   }
+
+
+def collect_obs(server_rank: int) -> dict:
+  """One server's obs buffers (finished trace spans as Chrome-event
+  dicts and its registry snapshot) through the rpc fabric's built-in
+  ``_obs`` callee."""
+  return request_server(server_rank, '_obs')
+
+
+def export_fabric_trace(path: str,
+                        trace_id: Optional[str] = None) -> str:
+  """Write ONE Chrome-trace/Perfetto JSON of the fabric: this client's
+  spans merged with every reachable server's handler spans, which carry
+  the trace ids the client propagated. ``trace_id`` keeps one trace;
+  an unreachable server is skipped and counted
+  (``obs_harvest_misses_total{server=}``)."""
+  import json
+  from ..obs import get_registry, get_tracer, merge_chrome_traces
+
+  def keep(events):
+    if trace_id is None:
+      return events
+    return [e for e in events if e['args'].get('trace_id') == trace_id]
+
+  lists = [keep(get_tracer().events())]
+  for s in range(_num_servers):
+    try:
+      lists.append(keep(collect_obs(s)['events']))
+    except Exception as e:  # the harvest is best-effort
+      logger.warning('obs harvest from server %d failed: %s', s, e)
+      get_registry().counter('obs_harvest_misses_total',
+                             server=str(s)).inc()
+  with open(path, 'w') as f:
+    json.dump(merge_chrome_traces(*lists), f)
+  return path
 
 
 def barrier() -> None:

@@ -27,6 +27,7 @@ import torch
 from ..channel import ShmChannel, pack_message, unpack_message
 from ..channel.mp_channel import MpChannel
 from ..data.feature import gather_features
+from ..obs import get_tracer
 from ..sampler.base import SamplingConfig
 from .dist_context import init_server_context
 from .dist_sampling_producer import (DistMpSamplingProducer, END_KEY,
@@ -61,6 +62,9 @@ class DistServer:
         'exiting': self._exit.is_set(),
         'producers': len(self._producers),
         'partition_idx': getattr(self.dataset, 'partition_idx', 0),
+        # which peers are tracing: their spans are harvestable through
+        # the fabric's _obs callee
+        'obs_tracing': get_tracer().enabled,
     }
 
   def get_dataset_meta(self):

@@ -15,9 +15,13 @@ batch) and its length and body are sent by one ``sendmsg`` without
 joining them (the bytes on the wire are the same). Sockets set
 ``TCP_NODELAY``.
 
-Not ported: tracing (ROADMAP's observability item) -- the ``_obs`` callee and the
-client's spans and trace context. A server accepts a 5th request element
-and ignores it.
+Tracing (``glt_tpu_torch.obs``): with the tracer on, a request runs in an
+``rpc.client:<name>`` span whose (trace_id, span_id) rides the frame's 5th
+element, and the server reopens it around the handler as
+``rpc.server:<name>``, so the two processes' spans share one trace id,
+across the two packages too. A 5th element that is not a pair is
+answered as an untraced request. Every endpoint answers the built-in
+``_obs`` callee with its finished spans and its registry snapshot.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Dict, FrozenSet, List, Optional
 
+from ..obs.trace import SpanContext, get_tracer
 from ..resilience.retry import (
     CircuitBreaker, CircuitOpenError, RetryPolicy,
 )
@@ -90,6 +95,14 @@ def _recv_exact(sock: socket.socket, n: int) -> bytearray:
 def _recv_msg(sock: socket.socket) -> Any:
   (n,) = _HDR.unpack(_recv_exact(sock, _HDR.size))
   return pickle.loads(_recv_exact(sock, n))
+
+
+def _trace_context(raw) -> Optional[SpanContext]:
+  """A request's 5th element as a SpanContext; anything but a
+  (trace_id, span_id) pair is no context (the request is still served)."""
+  if isinstance(raw, (tuple, list)) and len(raw) == 2:
+    return SpanContext(str(raw[0]), str(raw[1]))
+  return None
 
 
 class RpcServer:
@@ -155,6 +168,7 @@ class RpcServer:
     self.register('_barrier', self._barrier)
     self.register('_gather', self._gather)
     self.register('_ping', self._ping)
+    self.register('_obs', self._obs)
     self._accept_thread = None
     if auto_start:
       self.start()
@@ -202,6 +216,16 @@ class RpcServer:
     targets this; servers may also register a richer 'ping')."""
     with self._lock:
       return {'ok': True, 'callees': len(self._callees)}
+
+  def _obs(self) -> dict:
+    """Built-in observability harvest every endpoint answers: this
+    process's finished trace spans (Chrome-event dicts) and the global
+    registry snapshot. A client assembling a cross-process trace pulls
+    each peer's buffer through here (``obs.collect_endpoint_obs``) and
+    merges: server-side handler spans carry the caller's trace id."""
+    from ..obs import get_registry
+    return {'events': get_tracer().events(),
+            'metrics': get_registry().snapshot()}
 
   # built-in synchronization callees (reference rpc.py:105-235)
   def _barrier(self, key: str, world: int) -> bool:
@@ -312,10 +336,11 @@ class RpcServer:
       except (ConnectionError, EOFError, OSError):
         return
       # wire format: (name, args, kwargs[, req_id[, trace_ctx]]) — the
-      # 4th element rides only on retryable requests; a 5th (a JAX
-      # client's trace context) is ignored
+      # 4th element rides only on retryable requests (None placeholder
+      # when only tracing), the 5th only on traced requests
       name, args, kwargs = msg[0], msg[1], msg[2]
       req_id = msg[3] if len(msg) > 3 else None
+      trace_ctx = _trace_context(msg[4]) if len(msg) > 4 else None
       # any subsequent request on this connection proves the client
       # consumed the previous reply (serial per connection; a retry
       # after a drop redials) — release the cached payload now instead
@@ -334,7 +359,13 @@ class RpcServer:
         continue
       try:
         fn = self._resolve(name)
-        reply = ('ok', fn(*args, **kwargs))
+        # reopen the caller's span context (if any) around the handler:
+        # the server-side span shares the client's trace id and parents
+        # under its rpc span. With no incoming context this is a local
+        # span (or the cached no-op while tracing is off).
+        with get_tracer().remote_span(f'rpc.server:{name}', trace_ctx,
+                                      callee=name):
+          reply = ('ok', fn(*args, **kwargs))
       except BaseException as e:  # deliver errors to the caller
         try:
           pickle.dumps(e)
@@ -486,7 +517,7 @@ class RpcClient:
 
   def _request_once(self, name: str, args, kwargs,
                     req_id: Optional[str],
-                    rpc_timeout: Optional[float]):
+                    rpc_timeout: Optional[float], trace_ctx=None):
     """One attempt over the (re)established socket. Raises
     ``_SendPhaseError`` when the failure provably predates delivery
     (safe to retry for any callee)."""
@@ -499,7 +530,11 @@ class RpcClient:
         self.reconnects += 1
         if self.metrics is not None:
           self.metrics.record_reconnect()
-      if req_id is not None:
+      if trace_ctx is not None:
+        # the trace context rides a 5th element; req_id keeps slot 3
+        # (a None placeholder: the server treats it as untracked)
+        msg = (name, args, kwargs, req_id, tuple(trace_ctx))
+      elif req_id is not None:
         msg = (name, args, kwargs, req_id)
       else:
         msg = (name, args, kwargs)
@@ -538,7 +573,22 @@ class RpcClient:
     remaining slice, and the retry loop stops once the budget is spent
     — a wedged peer cannot hold the caller for attempts x timeout.
     Connection errors engage reconnect/retry/breaker as described on
-    the class."""
+    the class.
+
+    With tracing on the call runs inside an ``rpc.client:<name>`` span
+    whose context ships with the request, so the peer's handler span
+    nests under it in a merged trace."""
+    tracer = get_tracer()
+    if not tracer.enabled:
+      return self._request_with_retries(name, args, kwargs, _rpc_timeout,
+                                        None)
+    with tracer.span(f'rpc.client:{name}', cat='rpc', callee=name,
+                     peer=f'{self._addr[0]}:{self._addr[1]}') as ctx:
+      return self._request_with_retries(name, args, kwargs, _rpc_timeout,
+                                        ctx)
+
+  def _request_with_retries(self, name: str, args, kwargs,
+                            _rpc_timeout: Optional[float], trace_ctx):
     retryable = name in self._idempotent
     attempts = self._retry.max_attempts
     req_id = (f'{self._req_prefix}.{next(self._req_seq)}'
@@ -561,7 +611,8 @@ class RpcClient:
         budget = remaining / (attempts - attempt) if retryable \
             else remaining
       try:
-        out = self._request_once(name, args, kwargs, req_id, budget)
+        out = self._request_once(name, args, kwargs, req_id, budget,
+                                 trace_ctx=trace_ctx)
       except _CalleeError as e:
         # callee-raised error: delivered + executed — the peer is
         # healthy, so neither the breaker nor the retry loop applies
@@ -597,6 +648,13 @@ class RpcClient:
     raise last
 
   def async_request(self, name: str, *args, **kwargs) -> Future:
+    if get_tracer().enabled:
+      # the caller's span context into the pool thread: without it an
+      # async rpc span would open an orphan root of its own
+      import contextvars
+      ctx = contextvars.copy_context()
+      return self._pool.submit(ctx.run, self.request, name, *args,
+                               **kwargs)
     return self._pool.submit(self.request, name, *args, **kwargs)
 
   def close(self) -> None:

@@ -10,10 +10,11 @@ jitter*; a persistent fault (a dead peer) must FAIL FAST -- the
 an immediate :class:`CircuitOpenError` instead of letting every caller
 wait out a full connect or recv timeout.
 
-Not ported: the JAX breaker's trip record on the process flight recorder
-(``glt_tpu.obs``, ROADMAP's observability item). ``registry=`` stays an optional hook
-(default None): any object with ``set(name, value, **labels)`` and
-``inc(name, **labels)``.
+Every breaker open also lands on the process flight recorder
+(``glt_tpu_torch.obs.get_recorder().trip('breaker_open')``), as in the
+JAX package. ``registry=`` (default None) is a
+:class:`~glt_tpu_torch.obs.MetricsRegistry` or any object with
+``set(name, value, **labels)`` and ``inc(name, **labels)``.
 """
 from __future__ import annotations
 
@@ -85,11 +86,13 @@ class CircuitBreaker:
 
   Thread-safe; all transitions happen under one lock. ``on_open`` is
   called (outside the lock) every CLOSED/HALF_OPEN -> OPEN transition —
-  the metrics hook. ``name`` labels the peer (optional, purely
-  observational).
+  the metrics hook. Every open also lands on the process flight
+  recorder (``trip('breaker_open')``): a breaker opening is the moment a
+  postmortem wants the recent span and counter context. ``name`` labels
+  the peer in that event (optional, purely observational).
 
   ``labels`` (e.g. ``{'shard': 'shard0', 'replica': 'r1'}``) ride
-  every registry series, so two shards sharing
+  every trip payload and every registry series, so two shards sharing
   one registry never merge their breaker series — the fleet lesson:
   an unlabeled ``breaker_opens_total`` summed across shards cannot
   tell "shard 2 is dying" from "everything is mildly flaky". With
@@ -181,6 +184,10 @@ class CircuitBreaker:
         self._opened_at = time.monotonic()
         self.opens += 1
         fire = True
+      # the trip payload under the lock: a concurrent record_success
+      # resetting the streak before the trip below would otherwise
+      # record consecutive_failures=0 for an OPEN
+      failures, opens = self._consecutive_failures, self.opens
     if fire:
       self._publish_state(OPEN)
       if self.registry is not None:
@@ -194,6 +201,14 @@ class CircuitBreaker:
           self.on_open()
         except Exception:
           pass
+      try:  # postmortem hook — must never break the failure path
+        from ..obs.recorder import get_recorder
+        payload = dict(self.labels)
+        payload.update(breaker=self.name,
+                       consecutive_failures=failures, opens=opens)
+        get_recorder().trip('breaker_open', **payload)
+      except Exception:
+        pass
 
   def release_probe(self) -> None:
     """Return a HALF_OPEN probe token taken by ``allow()`` when the

@@ -4,18 +4,19 @@ glt_tpu/serving/embedding_cache.py).
 Entries are keyed by ``(node_id, model_version)`` so a parameter reload
 (version bump) instantly stops serving stale vectors without an O(N)
 sweep: old-version entries simply stop hitting and age out of the LRU.
-``invalidate`` covers the other staleness source — feature or graph
-updates for specific nodes (``invalidate(ids=...)``) and bulk flushes
-(``invalidate()``).
+Explicit invalidation hooks cover the other staleness source — feature
+or graph updates for specific nodes (``invalidate(ids=...)``) and bulk
+flushes (``invalidate()``); registered listeners let callers fan the
+event out (e.g. to replicas or metrics).
 
-The fleet's stale-serve read and the invalidation listeners of the
-reference come with the serving front ends in a later slice.
+Rows are host numpy arrays: the engine copies a bucket's logits off the
+card once, and every hit, stale read and fleet write-back is host work.
 """
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Iterable, Optional
+from typing import Callable, Iterable, List, Optional
 
 import numpy as np
 
@@ -37,6 +38,7 @@ class EmbeddingCache:
     # version ever served on a long-running server
     self._version_counts: dict = {}
     self._lock = threading.Lock()
+    self._listeners: List[Callable] = []
     self.hits = 0
     self.misses = 0
     self.evictions = 0
@@ -45,6 +47,18 @@ class EmbeddingCache:
   def __len__(self) -> int:
     with self._lock:
       return len(self._data)
+
+  @property
+  def hit_rate(self) -> float:
+    # both counters under the lock: read unlocked against a concurrent
+    # lookup() they could pair a new `hits` with a stale `misses` (or
+    # vice versa) — a torn, even >1.0, ratio
+    with self._lock:
+      hits, misses = self.hits, self.misses
+    total = hits + misses
+    return hits / total if total else 0.0
+
+  # -- lookup / insert ---------------------------------------------------
 
   def lookup(self, ids: Iterable[int], version: int) -> dict:
     """Returns {node_id: row} for the cached subset; counts a hit or
@@ -61,6 +75,24 @@ class EmbeddingCache:
           self._data.move_to_end(key)
           self.hits += 1
           out[int(i)] = row
+    return out
+
+  def lookup_stale(self, ids: Iterable[int]) -> dict:
+    """Degraded-mode read: {node_id: row} probing EVERY live version,
+    newest first — the stale-serve tier answers from whatever the cache
+    still holds while the engine circuit is open. Counts neither hits
+    nor misses (a disaster-mode read must not skew the steady-state
+    hit-rate the capacity tuning watches) and does not touch LRU order
+    (stale reads must not keep stale entries artificially hot)."""
+    out = {}
+    with self._lock:
+      versions = sorted(self._version_counts, reverse=True)
+      for i in ids:
+        for v in versions:
+          row = self._data.get((int(i), v))
+          if row is not None:
+            out[int(i)] = row
+            break
     return out
 
   def insert(self, ids: Iterable[int], values: np.ndarray,
@@ -90,12 +122,24 @@ class EmbeddingCache:
     else:
       self._version_counts[version] = n
 
+  # -- invalidation hooks ------------------------------------------------
+
+  def add_invalidation_listener(self, fn: Callable) -> None:
+    """``fn(ids, version)`` is called after every invalidate (ids may
+    be None for a bulk flush). Listeners run synchronously inside the
+    caller's invalidation path — when that caller is the engine (whose
+    ``invalidate`` holds the non-reentrant engine lock), a listener
+    must NOT call back into the same engine; hand off to another
+    thread for cascading invalidations."""
+    self._listeners.append(fn)
+
   def invalidate(self, ids: Optional[Iterable[int]] = None,
                  version: Optional[int] = None) -> int:
     """Drop entries. ``ids`` None = all nodes; ``version`` None = all
     versions. Returns the number of entries dropped. The per-node form
     probes (id, version) keys directly — O(len(ids) x live versions),
-    never a scan of the whole cache."""
+    never a scan of the whole cache (feature-update hooks fire this on
+    the serving path)."""
     with self._lock:
       if ids is None and version is None:
         dropped = len(self._data)
@@ -117,4 +161,24 @@ class EmbeddingCache:
               self._drop_version_entry(v)
               dropped += 1
       self.invalidations += dropped
+    for fn in self._listeners:
+      fn(ids, version)
     return dropped
+
+  def reset_stats(self) -> None:
+    with self._lock:
+      self.hits = self.misses = self.evictions = self.invalidations = 0
+
+  def stats(self) -> dict:
+    with self._lock:
+      total = self.hits + self.misses
+      return {
+          'size': len(self._data), 'capacity': self.capacity,
+          'hits': self.hits, 'misses': self.misses,
+          # computed from the counters already under THIS lock hold —
+          # self.hit_rate would deadlock (non-reentrant lock) and a
+          # re-read could tear against a concurrent lookup()
+          'hit_rate': self.hits / total if total else 0.0,
+          'evictions': self.evictions,
+          'invalidations': self.invalidations,
+      }

@@ -16,10 +16,18 @@ Live-update serving plugs a :class:`~glt_tpu_torch.stream.StreamSampler`
 in through ``sampler=``; ``update_snapshot`` then swaps the features of a
 new stream snapshot in and drops the cache entries it staled.
 
-``infer`` takes an internal lock, as the JAX engine does. The stages
-carry ``torch.profiler`` ranges named as the JAX engine's spans
-(``sample.multihop``, ``gather.features``, ``serve.forward``), so a
-profile of serving splits its device time by stage.
+``infer`` takes an internal lock, as the JAX engine does; put the
+:class:`~glt_tpu_torch.serving.MicroBatcher` in front of it for
+cross-request batching. The stages are spans of the process
+:class:`~glt_tpu_torch.obs.Tracer` named as the JAX engine's
+(``serve.bucket`` around ``sample.multihop``, ``gather.features`` and
+``serve.forward``), which carry the request's trace id while tracing is
+on; off, they stay ``torch.profiler`` ranges of those names, so a
+profile of serving splits its device time by stage either way.
+
+The port compiles nothing, so where the JAX engine counts traces
+(``compile_stats``) this one counts its runs: ``forward_calls`` and
+``bucket_runs`` (:meth:`run_stats`).
 """
 from __future__ import annotations
 
@@ -34,11 +42,20 @@ from torch.profiler import record_function
 from ..data import Dataset
 from ..data.feature import gather_features
 from ..loader.transform import Batch, HeteroBatch, to_batch, to_hetero_batch
+from ..obs import get_tracer
 from ..sampler import NeighborSampler
 from ..sampler.base import NodeSamplerInput
 from ..utils import as_numpy, resolve_device
 from ..utils.rng import seeded_state_dict
 from .embedding_cache import EmbeddingCache
+
+
+def _stage(tracer, name: str, **args):
+  """A tracer span while tracing is on (it opens the profiler range
+  itself), else the bare profiler range."""
+  if tracer.enabled:
+    return tracer.span(name, **args)
+  return record_function(name)
 
 
 class InferenceEngine:
@@ -97,7 +114,7 @@ class InferenceEngine:
         data.graph, dict(num_neighbors) if isinstance(num_neighbors, dict)
         else list(num_neighbors), device=self.device,
         edge_dir=data.edge_dir, seed=seed)
-    self.forward_calls = 0
+    self.bucket_runs = {b: 0 for b in self.buckets}   # executed runs
     self._snapshot_version = 0
     self._out_dim: Optional[int] = None
     self._lock = threading.Lock()
@@ -106,13 +123,33 @@ class InferenceEngine:
     """Run every bucket once on distinct dummy seeds (builds the kernels
     on first use), through ``np.unique`` as ``infer`` does: its first call
     imports ``numpy.ma``, tens of ms where Python has no bytecode cache.
-    The cache is left as it was; ``forward_calls`` restarts at 0."""
+    The cache is left as it was; ``forward_calls`` and ``bucket_runs``
+    restart at 0."""
     n = self.num_nodes
     with self._lock:
       for b in self.buckets:
         seeds = np.unique(np.arange(b) % n)
         self._run_bucket(seeds, seeds.size, b)
-      self.forward_calls = 0
+      self.bucket_runs = {b: 0 for b in self.buckets}
+
+  def run_stats(self) -> dict:
+    """Execution counters (the port's stand-in for the JAX engine's
+    ``compile_stats``, which counts traces: the port traces nothing).
+    Lock-free, as JAX's: ``infer`` holds the engine lock across the
+    device work, and a stats scrape must not hang on a wedged request.
+    The counters are GIL-atomic ints; a read racing an increment is off
+    by at most one."""
+    runs = dict(self.bucket_runs)
+    return {'forward_calls': sum(runs.values()), 'bucket_runs': runs}
+
+  @property
+  def forward_calls(self) -> int:
+    """Executed bucket runs since the warm-up (not cached answers)."""
+    return sum(self.bucket_runs.values())
+
+  @property
+  def output_dim(self) -> Optional[int]:
+    return self._out_dim
 
   @property
   def num_nodes(self) -> int:
@@ -121,6 +158,15 @@ class InferenceEngine:
     if self.hetero:
       return self.data.node_count(self.input_type)
     return self.data.get_graph().num_nodes
+
+  def validate_ids(self, ids: np.ndarray) -> None:
+    """Reject out-of-range node ids: past the request boundary they
+    would be clamped by the gather paths — a wrong-but-valid-looking
+    embedding, cached under the bogus id."""
+    if ids.size and (ids.min() < 0 or ids.max() >= self.num_nodes):
+      bad = ids[(ids < 0) | (ids >= self.num_nodes)][:8]
+      raise ValueError(
+          f'node ids out of range [0, {self.num_nodes}): {bad.tolist()}')
 
   def bucket_for(self, n: int) -> int:
     for b in self.buckets:
@@ -134,20 +180,21 @@ class InferenceEngine:
     features gathered per node type that has a store) exactly as serving
     runs it; ``uniforms`` injects the walk's draws (see
     :meth:`NeighborSampler.sample_from_nodes`)."""
+    tracer = get_tracer()
     if self.hetero:
-      with record_function('sample.multihop'):
+      with _stage(tracer, 'sample.multihop'):
         out = self.sampler.sample_from_nodes(
             NodeSamplerInput(seeds, self.input_type), n_valid=n_valid,
             uniforms=uniforms)
-      with record_function('gather.features'):
+      with _stage(tracer, 'gather.features'):
         x_dict = {t: gather_features(self.data.get_node_feature(t), n)
                   for t, n in out.node.items()
                   if self.data.get_node_feature(t) is not None}
       return to_hetero_batch(out, x_dict=x_dict, batch_size=bucket)
-    with record_function('sample.multihop'):
+    with _stage(tracer, 'sample.multihop'):
       out = self.sampler.sample_from_nodes(seeds, n_valid=n_valid,
                                            uniforms=uniforms)
-    with record_function('gather.features'):
+    with _stage(tracer, 'gather.features'):
       x = gather_features(self.data.get_node_feature(), out.node)
     return to_batch(out, x=x, batch_size=bucket)
 
@@ -169,12 +216,17 @@ class InferenceEngine:
       padded = np.concatenate(
           [padded, np.full(bucket - padded.shape[0],
                            padded[0] if padded.size else 0, padded.dtype)])
-    with torch.no_grad():
+    tracer = get_tracer()
+    # the bucket span parents the sample, gather and forward spans; the
+    # copy to the host inside serve.forward waits for the card, so the
+    # spans carry the stage's device time, not its enqueue
+    with torch.no_grad(), tracer.span('serve.bucket', bucket=bucket,
+                                      n_valid=int(n_valid)):
       batch = self.make_batch(padded, n_valid, bucket)
-      with record_function('serve.forward'):
+      with _stage(tracer, 'serve.forward', bucket=bucket):
         emb = self.model(batch)
-    self.forward_calls += 1
-    rows = emb[:n_valid].cpu().numpy()
+        rows = emb[:n_valid].cpu().numpy()
+    self.bucket_runs[bucket] = self.bucket_runs.get(bucket, 0) + 1
     if self._out_dim is None:
       self._out_dim = int(rows.shape[1])
     return rows
@@ -214,15 +266,50 @@ class InferenceEngine:
         self.model_version += 1
       return self.model_version
 
+  def stale_serve(self, ids):
+    """Degradation tier: answer from the versioned EmbeddingCache ONLY
+    (any live version, newest first), zero-filling true misses — never
+    touches the sampler or the forward, and deliberately does NOT take
+    the engine lock (the lock is what a wedged infer is sitting on).
+    Returns ``(rows [n, D], cached_mask [n])`` so the caller can count
+    stale serves vs zero-fills.
+
+    Raises RuntimeError when the output width is unknown (the engine
+    never completed a forward) — there is nothing to degrade to."""
+    ids_np = as_numpy(ids).astype(np.int64).reshape(-1)
+    found = self.cache.lookup_stale(ids_np)
+    dim = self._out_dim
+    if dim is None and found:
+      dim = int(next(iter(found.values())).shape[0])
+    if dim is None:
+      raise RuntimeError(
+          'stale_serve before any completed forward: output dim '
+          'unknown and the cache is empty')
+    out = np.zeros((ids_np.size, dim), np.float32)
+    mask = np.zeros(ids_np.size, bool)
+    for k, i in enumerate(ids_np.tolist()):
+      row = found.get(int(i))
+      if row is not None:
+        out[k] = row
+        mask[k] = True
+    return out, mask
+
   # -- invalidation hooks --------------------------------------------------
 
-  def invalidate_nodes(self, ids) -> int:
-    """Drop the cached embeddings of ``ids`` across all versions, under
-    the engine lock, so an infer in flight cannot insert rows of ids it is
-    computing right after they were dropped. Returns the number of
-    entries dropped."""
+  def invalidate(self, ids=None, version=None) -> int:
+    """Cache invalidation serialized against in-flight infer (the engine
+    lock): without it, invalidating ids an infer is computing would drop
+    nothing and the stale rows would be inserted right after. Returns the
+    number of entries dropped."""
     with self._lock:
-      return self.cache.invalidate(ids=as_numpy(ids).reshape(-1).tolist())
+      if ids is not None:
+        ids = as_numpy(ids).reshape(-1).tolist()
+      return self.cache.invalidate(ids, version)
+
+  def invalidate_nodes(self, ids) -> int:
+    """Feature/graph update hook: drop the cached embeddings of ``ids``
+    across all versions."""
+    return self.invalidate(ids=ids)
 
   @property
   def snapshot_version(self) -> int:

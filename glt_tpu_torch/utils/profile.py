@@ -1,6 +1,55 @@
-"""Throughput accounting (counterpart of the ``ThroughputMeter`` of
-glt_tpu/utils/profile.py)."""
+"""Timing and throughput accounting (counterpart of
+glt_tpu/utils/profile.py's ``Timer`` and ``ThroughputMeter``)."""
 from __future__ import annotations
+
+import time
+
+
+class Timer:
+  """Wall-clock timer that can synchronise outstanding device work.
+
+  ``elapsed`` accumulates across start/stop intervals; each ``stop()``
+  consumes the matching ``start()``, so a stop without a running interval
+  raises a clear RuntimeError."""
+
+  def __init__(self):
+    self.reset()
+
+  def reset(self):
+    self._t0 = None
+    self.elapsed = 0.0
+
+  @property
+  def running(self) -> bool:
+    return self._t0 is not None
+
+  def start(self):
+    # a restart (incl. reusing one Timer across `with` blocks) restamps
+    # the interval; the accumulated elapsed stays
+    self._t0 = time.perf_counter()
+    return self
+
+  def stop(self, sync=None) -> float:
+    """End the interval; ``sync`` (a tensor) first waits for the work
+    queued on its CUDA device, where the JAX timer blocks on an array."""
+    if self._t0 is None:
+      raise RuntimeError(
+          'Timer.stop() without a running interval: call start() (or '
+          'enter the context manager) first; each stop() consumes its '
+          'start()')
+    if sync is not None and getattr(sync, 'is_cuda', False):
+      import torch
+      torch.cuda.synchronize(sync.device)
+    self.elapsed += time.perf_counter() - self._t0
+    self._t0 = None
+    return self.elapsed
+
+  def __enter__(self):
+    return self.start()
+
+  def __exit__(self, *exc):
+    if self._t0 is not None:  # tolerate an explicit stop() in the body
+      self.stop()
 
 
 class ThroughputMeter:

@@ -723,6 +723,54 @@ def test_engine_serves_through_the_kernels(dev):
   assert K.sample_hop_dedup.launches == 0
 
 
+def test_serving_server_runs_each_bucket_through_the_kernels(dev):
+  """The rpc front end on the card: concurrent clients' requests merge in
+  the MicroBatcher, and each bucket run of the engine launches the walk
+  (K1) and the feature gather (K3) once; the rows are the engine's own
+  (a repeat is a cache hit, equal to what was served)."""
+  import threading
+  from glt_tpu_torch.serving import ServingClient, ServingServer
+  rng = np.random.default_rng(1)
+  ei = np.stack([rng.integers(0, 3000, 40_000), rng.integers(0, 3000, 40_000)])
+  ds = Dataset().init_graph(ei, num_nodes=3000)
+  ds.init_node_features(rng.standard_normal((3000, 100)).astype(np.float32))
+  eng = InferenceEngine(ds, GraphSAGE(100, 64, 7), None, [5, 3],
+                        buckets=(8, 64))
+  eng.init_params(0)
+  with ServingServer(eng, max_wait_ms=2.0) as srv:
+    K.reset_launch_counts()
+    answers = {}
+
+    def client(c):
+      cli = ServingClient(*srv.address)
+      r = np.random.default_rng(c)
+      answers[c] = [(ids, cli.infer(ids)) for ids in
+                    (r.integers(0, 3000, int(n)) for n in (1, 7, 30, 64))]
+      cli.close()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for t in threads:
+      t.start()
+    for t in threads:
+      t.join(timeout=120)
+    runs = sum(eng.run_stats()['bucket_runs'].values())
+    assert runs > 0
+    assert K.sample_walk_dedup.launches == runs
+    assert K.gather_rows.launches == runs
+    for c, got in answers.items():
+      for ids, rows in got:
+        assert rows.shape == (ids.size, 7) and np.isfinite(rows).all()
+        np.testing.assert_array_equal(rows, eng.infer(ids))
+    assert srv.metrics.batches <= 16
+
+
+def test_serve_example_runs_on_the_card(dev):
+  from glt_tpu_torch.examples import serve_sage_products
+  out = serve_sage_products.main(['--nodes', '3000', '--max-steps', '3',
+                                  '--batch-size', '128', '--queries', '16'])
+  assert out['step'] == 0 and out['requests'] == 17
+  assert sum(out['bucket_runs'].values()) >= 1
+
+
 def test_sample_hop_dedup_matches_plain(dev):
   # one hop over a flat plane of three types' tagged ids, K_max = 5 with
   # shorter segments padded behind invalid lanes, against a seeded table

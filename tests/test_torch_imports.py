@@ -12,7 +12,9 @@ hetero examples, and the homogeneous partitioned trainer, loaders,
 negative sampler and the two distributed examples, and the server-client
 slice's channels, shared-memory ring, resilience, rpc fabric, contexts,
 options, event loop, producers, server, client, channel loaders and its
-two examples) and ``chip_smoke`` pulls in neither JAX, ``ml_dtypes`` nor
+two examples, and the serving front ends' observability layer, env knobs,
+timer, checkpoints, metrics, batcher, server, fleet and serving example)
+and ``chip_smoke`` pulls in neither JAX, ``ml_dtypes`` nor
 the JAX package, and touches no card; the shared-memory ring the port
 loads is its own build."""
 import os
@@ -107,6 +109,14 @@ print('SERVER_CLIENT', all(m in sys.modules for m in (
     'glt_tpu_torch.distributed.channel_loader',
     'glt_tpu_torch.examples.feature_mp',
     'glt_tpu_torch.examples.distributed.server_client_mode')))
+print('FRONTEND', all(m in sys.modules for m in (
+    'glt_tpu_torch.obs', 'glt_tpu_torch.obs.registry',
+    'glt_tpu_torch.obs.trace', 'glt_tpu_torch.obs.recorder',
+    'glt_tpu_torch.utils.env', 'glt_tpu_torch.utils.profile',
+    'glt_tpu_torch.utils.checkpoint', 'glt_tpu_torch.serving.metrics',
+    'glt_tpu_torch.serving.batcher', 'glt_tpu_torch.serving.server',
+    'glt_tpu_torch.serving.fleet',
+    'glt_tpu_torch.examples.serve_sage_products')))
 from glt_tpu_torch.channel import shm
 lib = shm.get_lib()
 maps = [ln.split(None, 5)[-1].strip() for ln in open('/proc/self/maps')
@@ -137,5 +147,6 @@ def test_port_and_chip_smoke_import_no_jax():
   assert 'HGT True' in out.stdout, out.stdout
   assert 'DIST_HOMO True' in out.stdout, out.stdout
   assert 'SERVER_CLIENT True' in out.stdout, out.stdout
+  assert 'FRONTEND True' in out.stdout, out.stdout
   assert 'SHM_LIB True' in out.stdout, out.stdout
   assert 'CUDA_INIT False' in out.stdout, out.stdout

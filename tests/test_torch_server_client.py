@@ -177,6 +177,7 @@ def test_data_plane_answers_as_jax(servers):
     assert request_server(0, name) == getattr(jsrv, name)(), name
   ping = request_server(0, 'ping')
   assert ping['ok'] and ping['partition_idx'] == 0
+  assert ping['obs_tracing'] is False      # the server's tracer is off
   with pytest.raises(NotImplementedError, match='A6'):
     request_server(0, 'apply_delta', b'')
 
@@ -332,7 +333,8 @@ def test_lost_server_degrades_the_epoch(servers):
   assert len(got) == 4 and all(int(b.batch[0]) < 20 for b in got)
   assert loader.degraded_servers == {1}
   assert fabric_stats()['dropouts'] == [1]
-  assert fabric_stats()['metrics'] == {}
+  # the session's ServingMetrics (JAX's keys) records the dropout
+  assert fabric_stats()['metrics']['gauges'] == {'server_dropouts': 1.0}
   # the feature lookup's ladder: a replica (server 0 holds the same
   # rows), then the staleness cache and zero rows
   from glt_tpu_torch.distributed import dist_client, set_replicas
@@ -347,3 +349,6 @@ def test_lost_server_degrades_the_epoch(servers):
   assert torch.equal(rows[0], torch.from_numpy(feats[np.array([3])])[0])
   assert not rows[1].any()
   assert fabric_stats()['degraded_cache_rows'] == 2
+  metrics = fabric_stats()['metrics']
+  assert metrics['failovers'] >= 1 and metrics['stale_serves'] == 1
+  assert metrics['gauges']['degraded_zero_fills'] == 1.0
