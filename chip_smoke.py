@@ -141,7 +141,17 @@ points through their main functions, and checks what comes out:
   table's rows, with K3 mixed at that shape held against its plain
   version here. The workers' launch counts and stage times come back
   through files their dataset builder (``sc_build``) has written at exit;
-- hetero link prediction (examples/hetero/bipartite_sage_unsup.py at
+- live updates, the rest (examples/stream_updates.py at products-sage's
+  width): a StreamIngestor's background applier (poll 0.05 s, staleness
+  1 s, occupancy 0.5, min interval 0.5 s, overlays refreshed by the
+  tick) compacting while 4 threads call the stream engine, 1,000
+  inserts, 500 deletes and 256 feature rows compacted by the staleness
+  check, 2,048 more by the occupancy policy; the graph as CSC through
+  StreamSampler(edge_dir='in'), every bucket run replayed through the
+  plain versions; a DistServer over the products graph and table on the
+  card (init_server, init_client) taking apply_delta over rpc, one
+  through a ChaosTcpProxy that drops its first reply; each compacted
+  graph held against numpy's merge of the base and the delta;
   Taobao's counts): 987,994 users, 4,161,138 items in 9,439 categories,
   101 user-item links a user inside one category (99.8M) and their
   reverse, 4 same-category item neighbours an item (16.6M), float32 x 32
@@ -4786,6 +4796,535 @@ def frontend_phases(torch, np, K, ds, dev, seed, smi):
   return paths
 
 
+# the rest of the stream slice: the background applier under concurrent
+# clients, a CSC stream, a partition server taking deltas over rpc
+STREAM_CLIENTS = 4                 # engine.infer threads during the churn
+APPLIER_POLL_S = 0.05
+APPLIER_STALENESS_S, APPLIER_MIN_INTERVAL_S = 1.0, 0.5
+STAGE_CALL = 64                    # edges a staging call
+ROUND2_INSERTS = 2048              # crosses the occupancy threshold
+SERVER_FEATURE_ROWS, CHAOS_INSERTS = 64, 16
+
+
+def base_keys(np, topo):
+  """The (pointer, other) keys of a topology's edges in its slot order,
+  on the host (sorted: slots go by pointer id, then other id)."""
+  ptr, other, _ = topo.to_coo()
+  return ptr.cpu().numpy() * NUM_NODES + other.cpu().numpy()
+
+
+def reference_keys(np, base, dels, ins):
+  """numpy's own merge, independent of the port: the sorted ``base`` keys
+  less every copy of a deleted key, plus the inserted keys, sorted."""
+  dels = np.unique(dels)
+  pos = np.minimum(np.searchsorted(dels, base), max(dels.size - 1, 0))
+  kept = base[dels[pos] != base] if dels.size else base
+  ins = np.sort(ins)
+  return np.insert(kept, np.searchsorted(kept, ins, side='right'), ins)
+
+
+def fresh_edges(torch, np, topo, gen, n_ins, n_del, csc=False, avoid=()):
+  """``n_del`` distinct existing edges (slots drawn from ``gen``) and
+  ``n_ins`` random new (src, dst) pairs, none of them a deleted pair or a
+  key of ``avoid``, as host int64 arrays (src, dst each); a CSC
+  topology's pointer axis is the destination."""
+  dev = topo.indices.device
+  slots = torch.unique(torch.randint(0, topo.num_edges, (2 * n_del,),
+                                     generator=gen))
+  slots = slots[torch.randperm(slots.numel(), generator=gen)][:n_del]
+  ptr = torch.searchsorted(topo.indptr, slots.to(dev), right=True).cpu() - 1
+  other = topo.indices[slots.to(dev)].cpu().long()
+  del_src, del_dst = (other, ptr) if csc else (ptr, other)
+  dead = set((del_src * NUM_NODES + del_dst).tolist()) | set(avoid)
+  src = torch.randint(0, NUM_NODES, (n_ins + 64,), generator=gen)
+  dst = torch.randint(0, NUM_NODES, (n_ins + 64,), generator=gen)
+  keep = torch.tensor([int(k) not in dead for k in
+                       (src * NUM_NODES + dst).tolist()], dtype=torch.bool)
+  src, dst = src[keep][:n_ins], dst[keep][:n_ins]
+  if src.numel() != n_ins or del_src.numel() != n_del:
+    raise AssertionError('could not draw the stream\'s edges')
+  return (src.numpy(), dst.numpy()), (del_src.numpy(), del_dst.numpy())
+
+
+def stream_rest_phases(torch, np, K, ds, dev, seed, smi):
+  """The rest of the live-update slice at products-sage's width: the
+  background applier compacting while client threads are served, a CSC
+  stream sampling along in-edges, and a partition server taking deltas
+  over rpc through a link that drops a reply. Each phase has a
+  SnapshotManager of its own. Returns the launches by path."""
+  import threading
+  from glt_tpu_torch.data import Dataset, Graph
+  from glt_tpu_torch.models import GraphSAGE
+  from glt_tpu_torch.serving import InferenceEngine, ServingMetrics
+  from glt_tpu_torch.stream import (CompactionPolicy, SnapshotManager,
+                                    StreamIngestor, StreamSampler)
+
+  paths = {}
+  g, feat = ds.get_graph(), ds.get_node_feature()
+  names = ('sample_hop', 'gather_windows', 'gather_rows')
+  params = TRAINED.get('products_sage')
+  origin = 'trained (train main path)' if params is not None \
+      else f'seeded ({seed})'
+
+  def stream_engine(data, sampler):
+    engine = InferenceEngine(
+        data, GraphSAGE(FEAT_DIM, HIDDEN, CLASSES, num_layers=3), params,
+        list(FANOUTS), buckets=BUCKETS, device=dev, sampler=sampler)
+    if params is None:
+      engine.init_params(seed)
+    return engine
+
+  def check_launches(label, engine, runs0):
+    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    runs = sum(engine.run_stats()['bucket_runs'].values()) - runs0
+    want = dict(sample_hop=len(FANOUTS) * runs,
+                gather_windows=2 * len(FANOUTS) * runs, gather_rows=runs,
+                sample_walk_dedup=0, dedup_table_insert=0)
+    for name, n in want.items():
+      if launches[name] != n or (n == 0 and name in names):
+        raise AssertionError(f'{label}: {name} launched {launches[name]} '
+                             f'times for {runs} bucket runs')
+    return launches, runs
+
+  def replay_plain(label, engine, batches):
+    """Each recorded bucket run (seeds, n_valid, bucket, uniforms, its
+    sample and logits) again through the plain versions."""
+    worst = 0.0
+    with torch.no_grad(), swapped_to_plain(K, names):
+      for seeds, n_valid, bucket, u, fields, y in batches:
+        b = engine.make_batch(seeds, n_valid, bucket, uniforms=u)
+        for f, t in zip(BATCH_FIELDS + ('x',), fields):
+          if not torch.equal(getattr(b, f), t):
+            raise AssertionError(f'{label}: batch.{f} differs from the '
+                                 'plain versions')
+        if y is not None:
+          yp = engine.model(b)
+          worst = max(worst, float((y - yp).abs().max()))
+          if not torch.allclose(y, yp, rtol=LOGIT_TOL, atol=LOGIT_TOL):
+            raise AssertionError(f'{label}: logits differ from plain by '
+                                 f'{worst}')
+    return worst
+
+  def stage(call, src, dst):
+    for lo in range(0, len(src), STAGE_CALL):
+      call(src[lo:lo + STAGE_CALL], dst[lo:lo + STAGE_CALL])
+
+  with Phase('stream applier path'):
+    gen = torch.Generator().manual_seed(seed + 40)
+    topo = g.topo
+    (ins_src, ins_dst), (del_src, del_dst) = fresh_edges(
+        torch, np, topo, gen, N_INSERTS, N_DELETES)
+    (ins2_src, ins2_dst), _ = fresh_edges(
+        torch, np, topo, gen, ROUND2_INSERTS, 0,
+        avoid=(del_src * NUM_NODES + del_dst).tolist())
+    upd = np.unique(torch.randint(0, NUM_NODES, (2 * N_FEATURE_ROWS,),
+                                  generator=gen).numpy())[:N_FEATURE_ROWS]
+    rows = torch.randn((upd.size, FEAT_DIM), generator=gen).numpy()
+    base = base_keys(np, topo)
+    mgr = SnapshotManager(topo, feat, delta_capacity=DELTA_CAPACITY,
+                          device=dev)
+    sampler = StreamSampler(mgr, list(FANOUTS), delta_window=DELTA_WINDOW,
+                            seed=seed + 41)
+    engine = stream_engine(Dataset(graph=g, node_features=feat), sampler)
+    engine.warmup()
+    metrics = ServingMetrics()
+    ingestor = StreamIngestor(
+        mgr, sampler=sampler, engine=engine, metrics=metrics,
+        policy=CompactionPolicy(occupancy_threshold=OCCUPANCY,
+                                max_staleness_s=APPLIER_STALENESS_S,
+                                min_interval_s=APPLIER_MIN_INTERVAL_S),
+        auto_refresh=False, expand_invalidation=True)
+    # who installs overlays and who compacts, by thread
+    in_flush, refreshes, swaps = threading.local(), [], []
+    real_flush, real_set = ingestor.flush, sampler.set_overlay
+
+    def flush():
+      in_flush.on = True
+      occ = ingestor.edges.occupancy     # before the drain
+      try:
+        info = real_flush()
+      finally:
+        in_flush.on = False
+      if info is not None:
+        swaps.append((threading.current_thread().name, info['version'], occ,
+                      info['compaction_s'] * 1e3, info['wall_s'] * 1e3,
+                      time.perf_counter()))
+      return info
+
+    def set_overlay(overlay):
+      refreshes.append((threading.current_thread().name,
+                        getattr(in_flush, 'on', False),
+                        overlay is not mgr.empty_overlay(),
+                        mgr.current().version))
+      real_set(overlay)
+    ingestor.flush, sampler.set_overlay = flush, set_overlay
+    runs0 = sum(engine.run_stats()['bucket_runs'].values())
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    done, errs, lat, lock = threading.Event(), [], [], threading.Lock()
+
+    def client(c):
+      rng = np.random.default_rng(seed + 50 + c)
+      try:
+        while not done.is_set():
+          ids = squared_ids(rng, int(rng.choice(REQUESTS)))
+          t0 = time.perf_counter()
+          out = engine.infer(ids)
+          ms = (time.perf_counter() - t0) * 1e3
+          if out.shape != (ids.size, CLASSES) or not np.isfinite(out).all():
+            raise AssertionError(f'client {c}: logits {out.shape}')
+          with lock:
+            lat.append(ms)
+      except Exception as e:   # raised below
+        errs.append(e)
+
+    clients = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(STREAM_CLIENTS)]
+    ingestor.start(poll_interval_s=APPLIER_POLL_S)
+    try:
+      for t in clients:
+        t.start()
+      t0 = time.perf_counter()
+      stage(ingestor.insert_edges, ins_src, ins_dst)
+      stage(ingestor.delete_edges, del_src, del_dst)
+      for lo in range(0, upd.size, STAGE_CALL):
+        ingestor.update_features(upd[lo:lo + STAGE_CALL],
+                                 rows[lo:lo + STAGE_CALL])
+      stage1_s = time.perf_counter() - t0
+      if mgr.current().version != 0:
+        raise AssertionError('round 1 compacted while staging')
+      time.sleep(1.5)
+      t1 = time.perf_counter()
+      stage(ingestor.insert_edges, ins2_src, ins2_dst)
+      stage2_s = time.perf_counter() - t1
+      deadline = time.monotonic() + 30
+      while mgr.current().version < 2 and time.monotonic() < deadline:
+        time.sleep(0.01)
+      if mgr.current().version != 2:
+        raise AssertionError(f'version {mgr.current().version} after the '
+                             'second round')
+    finally:
+      done.set()
+      for t in clients:
+        t.join(timeout=60)
+      ingestor.stop()       # raises the applier's error, if it died
+    if errs:
+      raise errs[0]
+    if any(t.is_alive() for t in clients):
+      raise AssertionError('a client thread did not finish')
+    torch.cuda.synchronize()
+    launches, runs = check_launches('stream applier path', engine, runs0)
+    # (a) overlays: outside a flush only the background thread installed
+    # them, and it installed the pending round-1 set before version 1
+    outside = [r for r in refreshes if not r[1]]
+    if any(r[0] != 'glt-stream-ingest' for r in outside):
+      raise AssertionError(f'a staging-time overlay refresh: {outside}')
+    if not any(r[2] and r[3] == 0 for r in outside):
+      raise AssertionError('the background tick installed no pending '
+                           'overlay before version 1')
+    # (b) version 1 from the tick's staleness check, then version 2 from
+    # the occupancy policy (min_interval_s is read before the compaction
+    # lock, as in the JAX package: a policy check made while version 1's
+    # flush still waits for the engine lock compacts right after it)
+    if [s[1] for s in swaps] != [1, 2]:
+      raise AssertionError(f'compactions {swaps}')
+    (th1, _, occ1, ms1, wall1, ts1), (th2, _, occ2, ms2, wall2, ts2) = swaps
+    if th1 != 'glt-stream-ingest' or occ1 >= OCCUPANCY:
+      raise AssertionError(f'version 1 on {th1} at occupancy {occ1}')
+    if occ2 < OCCUPANCY:
+      raise AssertionError(f'version 2 at occupancy {occ2}')
+    if ingestor.tick_errors_total or metrics.get_gauge(
+        'ingest_tick_errors'):
+      raise AssertionError(f'{ingestor.tick_errors_total} tick errors')
+    # (c) the final snapshot against numpy's merge
+    snap = mgr.current()
+    want = reference_keys(
+        np, base, del_src * NUM_NODES + del_dst,
+        np.concatenate([ins_src * NUM_NODES + ins_dst,
+                        ins2_src * NUM_NODES + ins2_dst]))
+    got = base_keys(np, snap.topo)
+    if not np.array_equal(got, want):
+      raise AssertionError(f'the compacted edges differ from numpy\'s '
+                           f'merge ({got.size} against {want.size})')
+    upd_rows = snap.feature.table[torch.as_tensor(upd, device=dev)].cpu()
+    if not torch.equal(upd_rows, torch.as_tensor(rows)):
+      raise AssertionError('the updated feature rows differ')
+    # (d) a request a bucket through the plain versions, same draws
+    rng = np.random.default_rng(seed + 60)
+    batches = []
+    with torch.no_grad():
+      for b in BUCKETS:
+        ids = squared_ids(rng, b)
+        u = sampler.hop_uniforms(b)
+        bk = engine.make_batch(ids, b, b, uniforms=u)
+        batches.append((ids, b, b, u, tuple(getattr(bk, f) for f in
+                                            BATCH_FIELDS + ('x',)),
+                        engine.model(bk)))
+    diff = replay_plain('stream applier path', engine, batches)
+    del batches
+    # (e) the gauges against stats() and the manager's counters
+    gauges, st = metrics.snapshot()['gauges'], ingestor.stats()
+    want_g = dict(snapshot_version=snap.version, compactions=mgr.compactions,
+                  last_compaction_ms=st['last_compaction_ms'],
+                  edge_capacity=mgr.edge_capacity,
+                  capacity_growths=mgr.capacity_growths,
+                  delta_occupancy=st['edge_delta']['occupancy'],
+                  feature_delta_occupancy=st['feature_delta']['occupancy'],
+                  ingest_ops_total=st['edge_delta']['total_inserts']
+                  + st['edge_delta']['total_deletes']
+                  + st['feature_delta']['total_updates'])
+    bad = {k: (gauges.get(k), v) for k, v in want_g.items()
+           if gauges.get(k) != float(v)}
+    if bad or st['snapshot_version'] != 2 or st['compactions'] != 2:
+      raise AssertionError(f'gauges against stats(): {bad}, {st}')
+    lat = np.array(lat)
+    ops = N_INSERTS + N_DELETES + upd.size
+    print(f'stream applier: {origin} weights; {STREAM_CLIENTS} client '
+          f'threads, {lat.size} requests during the churn, p50 '
+          f'{np.percentile(lat, 50):.3f} ms, p99 '
+          f'{np.percentile(lat, 99):.3f} ms (host clock); round 1 '
+          f'({N_INSERTS} inserts, {N_DELETES} deletes, {upd.size} feature '
+          f'rows in calls of {STAGE_CALL}) staged in {stage1_s * 1e3:.3f} '
+          f'ms ({ops / stage1_s:.0f} ops/s), round 2 ({ROUND2_INSERTS} '
+          f'inserts) in {stage2_s * 1e3:.3f} ms '
+          f'({ROUND2_INSERTS / stage2_s:.0f} ops/s); version 1 by the '
+          f'background tick\'s staleness check (occupancy {occ1:.3f}), '
+          f'compaction {ms1:.3f} ms, flush {wall1:.3f} ms (the engine '
+          f'lock\'s wait included); version 2 on {th2} (occupancy '
+          f'{occ2:.3f}, {ts2 - ts1:.3f} s later), compaction {ms2:.3f} ms, '
+          f'flush {wall2:.3f} ms; '
+          f'{sum(1 for r in outside)} background overlay refreshes, none '
+          f'at staging; {got.size} edges equal numpy\'s merge, '
+          f'{upd.size} rows updated; {len(BUCKETS)} replayed buckets '
+          f'bit-identical, logits max |diff| {diff:.3e}; gauges '
+          f'{ {k: gauges[k] for k in sorted(want_g)} } equal stats(); '
+          f'launches {launches} for {runs} bucket runs; on {smi}')
+    paths['stream_applier'] = launches
+    del engine, sampler, ingestor, mgr, snap, base, got, want
+    torch.cuda.empty_cache()
+
+  with Phase('stream csc path'):
+    gen = torch.Generator().manual_seed(seed + 42)
+    t0 = time.perf_counter()
+    csc = g.topo.flip_layout()
+    torch.cuda.synchronize()
+    flip_ms = (time.perf_counter() - t0) * 1e3
+    (ins_src, ins_dst), (del_src, del_dst) = fresh_edges(
+        torch, np, csc, gen, N_INSERTS, N_DELETES, csc=True)
+    base = base_keys(np, csc)
+    mgr = SnapshotManager(csc, feat, delta_capacity=DELTA_CAPACITY,
+                          device=dev)
+    sampler = StreamSampler(mgr, list(FANOUTS), delta_window=DELTA_WINDOW,
+                            edge_dir='in', seed=seed + 43)
+    engine = stream_engine(Dataset(graph=Graph(csc, device=dev),
+                                   node_features=feat, edge_dir='in'),
+                           sampler)
+    ingestor = StreamIngestor(mgr, sampler=sampler, engine=engine,
+                              policy=CompactionPolicy(
+                                  occupancy_threshold=OCCUPANCY),
+                              expand_invalidation=True)
+    engine.warmup()
+    # each pass's bucket runs (draws and sample) recorded, then replayed
+    # through the plain versions before the stream's state moves on
+    runs_log, drawn = [], []
+    real_draw, real_batch = sampler.hop_uniforms, engine.make_batch
+
+    def hop_uniforms(b):
+      drawn.append(real_draw(b))
+      return drawn[-1]
+
+    def make_batch(seeds, n_valid, bucket, uniforms=None):
+      b = real_batch(seeds, n_valid, bucket, uniforms=uniforms)
+      runs_log.append((seeds.copy(), n_valid, bucket, drawn[-1],
+                       tuple(getattr(b, f) for f in BATCH_FIELDS + ('x',)),
+                       None))
+      return b
+
+    replayed = []
+
+    def serve_and_replay(label):
+      sampler.hop_uniforms, engine.make_batch = hop_uniforms, make_batch
+      try:
+        serve_requests(torch, engine, NUM_NODES, CLASSES, rng, passes=1,
+                       label=label)
+      finally:
+        sampler.hop_uniforms, engine.make_batch = real_draw, real_batch
+      replay_plain(f'stream csc path ({label})', engine, runs_log)
+      replayed.append(len(runs_log))
+      runs_log.clear()
+      drawn.clear()
+
+    runs0 = sum(engine.run_stats()['bucket_runs'].values())
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    rng = torch.Generator().manual_seed(seed + 44)
+    serve_and_replay('csc v0 pass')
+    ingestor.insert_edges(ins_src, ins_dst)
+    ingestor.delete_edges(del_src, del_dst)
+    serve_and_replay('csc overlay pass')
+    info = ingestor.flush()
+    serve_and_replay('csc v1 pass')
+    torch.cuda.synchronize()
+    launches, runs = check_launches('stream csc path', engine, runs0)
+    snap = mgr.current()
+    if info['version'] != 1 or snap.topo.layout != 'CSC':
+      raise AssertionError(f'csc flush: {info["version"]}, '
+                           f'{snap.topo.layout}')
+    want = reference_keys(np, base, del_dst * NUM_NODES + del_src,
+                          ins_dst * NUM_NODES + ins_src)
+    got = base_keys(np, snap.topo)
+    if not np.array_equal(got, want):
+      raise AssertionError('the compacted CSC edges differ from numpy\'s '
+                           'merge')
+    touched = np.unique(np.concatenate([ins_dst, del_dst]))
+    if not np.array_equal(info['touched'], touched):
+      raise AssertionError('touched is not the destinations of the delta')
+    print(f'stream csc: products flipped to CSC on the card in '
+          f'{flip_ms:.3f} ms; {replayed} bucket runs over v0, the '
+          f'overlay ({N_INSERTS} inserts, {N_DELETES} deletes) and v1 '
+          f'each bit-identical to the plain versions on its draws; flush '
+          f'{info["wall_s"] * 1e3:.3f} ms (compaction '
+          f'{info["compaction_s"] * 1e3:.3f} ms), layout '
+          f'{snap.topo.layout}, {got.size} edges equal numpy\'s merge, '
+          f'{info["touched"].size} touched ids (the delta\'s '
+          f'destinations), {info["invalidated"]} cache entries dropped; '
+          f'launches {launches} for {runs} bucket runs; on {smi}')
+    paths['stream_csc'] = launches
+    del engine, sampler, ingestor, mgr, snap, csc, runs_log, drawn, base, \
+        got, want
+    torch.cuda.empty_cache()
+
+  with Phase('stream server path'):
+    from glt_tpu_torch.channel import pack_message, unpack_message
+    from glt_tpu_torch.distributed import (dist_client, free_port_base,
+                                           init_client, init_server,
+                                           shutdown, shutdown_client,
+                                           shutdown_server)
+    from glt_tpu_torch.distributed.rpc import RpcClient
+    from glt_tpu_torch.resilience import (ChaosTcpProxy, CircuitBreaker,
+                                          FaultPlan, RetryPolicy)
+
+    class FirstReplyDrop(FaultPlan):
+      """Drops the first reply of the proxy's first connection."""
+
+      def fork(self, salt):
+        child = super().fork(salt)
+        if salt != 1:
+          child.rates = {k: 0.0 for k in child.rates}
+        return child
+
+    gen = torch.Generator().manual_seed(seed + 45)
+    (ins_src, ins_dst), (del_src, del_dst) = fresh_edges(
+        torch, np, g.topo, gen, N_INSERTS, N_DELETES)
+    upd = np.unique(torch.randint(0, NUM_NODES, (2 * SERVER_FEATURE_ROWS,),
+                                  generator=gen).numpy())[
+                                      :SERVER_FEATURE_ROWS]
+    rows = torch.randn((upd.size, FEAT_DIM), generator=gen).numpy()
+    # every copy of a deleted pair goes
+    src, dst, _ = g.topo.to_coo()
+    dead = torch.as_tensor(del_src * NUM_NODES + del_dst, device=dev)
+    n_dead = int(torch.isin(src * NUM_NODES + dst, dead).sum())
+    del src, dst, dead
+    port = free_port_base(1)
+    data = Dataset(graph=g, node_features=feat)
+    srv = init_server(num_servers=1, num_clients=1, server_rank=0,
+                      dataset=data, master_port=port, device=dev)
+    closers = []
+    try:
+      init_client(num_servers=1, num_clients=1, client_rank=0,
+                  master_port=port, rpc_timeout=120.0,
+                  health_interval_s=None)
+      closers.append(shutdown_client)
+      K.reset_launch_counts()
+      e0 = dist_client.request_server(0, 'get_edge_size')
+      t0 = time.perf_counter()
+      r1 = dist_client.apply_delta(0, ins=np.stack([ins_src, ins_dst]),
+                                   dels=np.stack([del_src, del_dst]),
+                                   feat_ids=upd, feat_rows=rows)
+      stage_ms = (time.perf_counter() - t0) * 1e3
+      t0 = time.perf_counter()
+      r2 = dist_client.apply_delta(0, compact=True)
+      compact_ms = (time.perf_counter() - t0) * 1e3
+      stream = srv._stream_ingestor()
+      first_ms = stream.manager.last_compaction_s * 1e3
+      want1 = {'applied': {'inserts': N_INSERTS, 'deletes': N_DELETES,
+                           'feature_rows': upd.size}, 'version': 0,
+               'pending': N_INSERTS + N_DELETES + upd.size,
+               'compacted': False}
+      want2 = {'applied': {'inserts': 0, 'deletes': 0, 'feature_rows': 0},
+               'version': 1, 'pending': 0, 'compacted': True}
+      if r1 != want1 or r2 != want2:
+        raise AssertionError(f'apply_delta replies {r1}, {r2}')
+      if stream.manager.device != dev:
+        raise AssertionError(f'the server\'s stream on '
+                             f'{stream.manager.device}')
+      e1 = dist_client.request_server(0, 'get_edge_size')
+      if e1 != e0 + N_INSERTS - n_dead:
+        raise AssertionError(f'{e1} edges after the delta, expected '
+                             f'{e0} + {N_INSERTS} - {n_dead}')
+      k3 = K.gather_rows.launches
+      feats = unpack_message(dist_client.request_server(
+          0, 'get_node_feature', pack_message({'ids': upd})))['feats']
+      if K.gather_rows.launches != k3 + 1:
+        raise AssertionError('get_node_feature did not gather through K3')
+      if not torch.equal(feats, torch.as_tensor(rows)):
+        raise AssertionError('get_node_feature serves other rows')
+      # one delta through a link that drops the first reply
+      proxy = ChaosTcpProxy(*dist_client._clients[0]._addr,
+                            FirstReplyDrop(seed=seed, drop=1.0,
+                                           max_faults=1))
+      closers.append(proxy)
+      cli = RpcClient(*proxy.address, timeout=120.0,
+                      retry=RetryPolicy(max_attempts=4, base_delay_s=0.01,
+                                        max_delay_s=0.05, jitter=0),
+                      breaker=CircuitBreaker(failure_threshold=1000),
+                      idempotent=frozenset({'apply_delta'}))
+      closers.append(cli)
+      inserts0 = stream.edges.total_inserts
+      t0 = time.perf_counter()
+      r3 = cli.request('apply_delta', pack_message({
+          'ins': np.stack([ins_dst[:CHAOS_INSERTS], ins_src[:CHAOS_INSERTS]]),
+          'compact': np.ones(1, np.int8)}), _rpc_timeout=8.0)
+      chaos_ms = (time.perf_counter() - t0) * 1e3
+      faults = proxy.faults_injected
+      if (r3['version'] != 2 or not r3['compacted'] or cli.retries < 1
+          or faults['drop'] != 1
+          or stream.edges.total_inserts - inserts0 != CHAOS_INSERTS
+          or stream.manager.current().version != 2):
+        raise AssertionError(f'through the lossy link: {r3}, retries '
+                             f'{cli.retries}, faults {faults}, '
+                             f'{stream.edges.total_inserts - inserts0} '
+                             'inserts staged')
+      e2 = dist_client.request_server(0, 'get_edge_size')
+      if e2 != e1 + CHAOS_INSERTS:
+        raise AssertionError(f'{e2} edges after the retried delta')
+      launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+      print(f'stream server: init_server over the products graph and '
+            f'table on the card, init_client; apply_delta of {N_INSERTS} '
+            f'inserts, {N_DELETES} deletes, {upd.size} feature rows '
+            f'staged in {stage_ms:.3f} ms, compact=True in '
+            f'{compact_ms:.3f} ms (compaction {first_ms:.3f} ms on the '
+            f'card); edges {e0} -> {e1}; get_node_feature of the {upd.size} '
+            f'updated ids through K3 equals the staged rows; through the '
+            f'lossy link: {faults["drop"]} reply dropped, {cli.retries} '
+            f'retry, version 1 -> {r3["version"]}, {CHAOS_INSERTS} inserts '
+            f'staged once, {chaos_ms:.3f} ms (compaction '
+            f'{stream.manager.last_compaction_s * 1e3:.3f} ms); launches '
+            f'{launches}; on {smi}')
+      paths['stream_server'] = launches
+    finally:
+      for c in reversed(closers):
+        try:
+          c() if callable(c) else c.close()
+        except Exception:
+          pass
+      shutdown_server()
+      shutdown()
+    del srv, data
+    torch.cuda.empty_cache()
+  return paths
+
+
 def path_launches(K, step):
   """A superstep path's launches by wrapper name since the last reset:
   those run eagerly (the wrappers' counts), those the trainer's graph
@@ -5444,6 +5983,8 @@ def main() -> int:
   torch.cuda.empty_cache()
   fe_paths = frontend_phases(torch, np, K, ds, dev, opts.seed, smi)
   torch.cuda.empty_cache()
+  stream_paths = stream_rest_phases(torch, np, K, ds, dev, opts.seed, smi)
+  torch.cuda.empty_cache()
   hlink_launches = hetero_link_phases(torch, np, K, dev, opts.seed, rows, k3,
                                       host_us, smi)
   torch.cuda.empty_cache()
@@ -5493,7 +6034,7 @@ def main() -> int:
              'subgraph': sub_launches, 'seal': seal_launches,
              'split': split_launches, 'dist_hetero': dist_launches,
              'hetero_link': hlink_launches, 'hgt': hgt_launches,
-             **homo_paths, **sc_paths, **fe_paths,
+             **homo_paths, **sc_paths, **fe_paths, **stream_paths,
              **{p: v[0] for p, v in ss_paths.items()},
              'probe': probe_launches,
              'microbench': micro_launches}

@@ -11,12 +11,15 @@ ring, and training clients (``dist_client.py``) pulling them with prefetch
 a host phase, over rpc from another process's partition. Traced requests
 carry their trace context over the fabric (``glt_tpu_torch.obs``).
 
-Not ported (ROADMAP): the servers' ``apply_delta`` (A6), the weighted and full-neighbourhood
-partitioned hops, ``FrequencyPartitioner``, ``DistRandomPartitioner``,
+A sampling server takes live updates of its partition through
+``apply_delta``.
+
+Not ported (ROADMAP): the weighted and full-neighbourhood partitioned
+hops, ``FrequencyPartitioner``, ``DistRandomPartitioner``,
 ``DistTableDataset`` and the multihost loaders (A12b)."""
 from .channel_loader import (MpNeighborLoader, RemoteNeighborLoader,
                              message_to_batch)
-from .dist_client import (async_request_server, collect_obs,
+from .dist_client import (apply_delta, async_request_server, collect_obs,
                           export_fabric_trace, fabric_stats, init_client,
                           request_server, request_with_failover,
                           set_replicas, shutdown_client)
@@ -70,7 +73,8 @@ __all__ = [
     'DistServer', 'free_port_base', 'get_server', 'init_server',
     'server_port',
     'shutdown_server', 'wait_and_shutdown_server',
-    'async_request_server', 'collect_obs', 'export_fabric_trace',
+    'apply_delta', 'async_request_server', 'collect_obs',
+    'export_fabric_trace',
     'fabric_stats', 'init_client', 'request_server',
     'request_with_failover', 'set_replicas', 'shutdown_client',
     'ConcurrentEventLoop',

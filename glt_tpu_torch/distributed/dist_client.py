@@ -16,8 +16,8 @@ stale serves and dropouts in a :class:`~glt_tpu_torch.serving.
 ServingMetrics` of its own (``fabric_stats()['metrics']``), on a private
 registry or, labeled ``view="dist_client"``, on the caller's.
 ``collect_obs`` and ``export_fabric_trace`` assemble one Chrome trace of
-the client and its servers. Not ported: ``apply_delta`` (the live-update
-path of the sampling servers).
+the client and its servers. ``apply_delta`` posts live graph and feature
+updates to one partition server, exactly once through retries.
 """
 from __future__ import annotations
 
@@ -233,6 +233,33 @@ def export_fabric_trace(path: str,
   with open(path, 'w') as f:
     json.dump(merge_chrome_traces(*lists), f)
   return path
+
+
+def apply_delta(server_rank: int, ins=None, dels=None, feat_ids=None,
+                feat_rows=None, compact: bool = False) -> dict:
+  """Posts live graph and feature updates to one partition server (its
+  ``DistServer.apply_delta``). ``ins`` / ``dels`` are [2, n] edge blocks
+  in that partition's local ids; ``compact=True`` makes the server fold
+  the delta into a fresh snapshot at once. The payload packs as the JAX
+  client's does (int64 edge blocks and ids, ``compact`` a 1-element
+  int8).
+
+  Exactly once as observed: ``init_client`` marks ``apply_delta``
+  idempotent on every server connection, so the request carries a request
+  id and a retry after a lost reply gets the server's recorded reply; the
+  delta is never staged twice."""
+  from ..channel import pack_message
+  msg = {}
+  if ins is not None:
+    msg['ins'] = np.asarray(ins, np.int64)
+  if dels is not None:
+    msg['dels'] = np.asarray(dels, np.int64)
+  if feat_ids is not None:
+    msg['feat_ids'] = np.asarray(feat_ids, np.int64)
+    msg['feat_rows'] = np.asarray(feat_rows)
+  if compact:
+    msg['compact'] = np.ones(1, np.int8)
+  return request_server(server_rank, 'apply_delta', pack_message(msg))
 
 
 def barrier() -> None:

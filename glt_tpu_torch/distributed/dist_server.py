@@ -5,15 +5,16 @@ worker_key with an epoch's bookkeeping each (:50-211), the PyG remote
 backend's data-plane rpcs (:87-127), the poll fetch (:193-210), and
 init_server / wait_and_shutdown_server (:224-281)).
 
-A server keeps its dataset on the host for the data-plane callees; its
+A server serves the data-plane callees from its dataset, on whatever
+device its caller built that dataset (the host, or the card, where
+``get_node_feature`` gathers through the ``gather_rows`` kernel); its
 sampling workers (``create_sampling_producer``) build their own through
 ``dataset_builder`` on ``device`` (the card by default) and stream
 batches through a shared-memory ring (``ShmChannel``; an ``MpChannel``
 when the ring cannot be made, as in the JAX package). Batches leave over
-the rpc fabric as packed SampleMessage bytes.
-
-Not ported (ROADMAP A6): ``apply_delta``, live updates of a server's
-partition, which raises NotImplementedError.
+the rpc fabric as packed SampleMessage bytes. ``apply_delta`` stages live
+updates of the server's partition into a stream (``glt_tpu_torch.stream``)
+on the dataset's device and rebinds the dataset to each new snapshot.
 """
 from __future__ import annotations
 
@@ -50,6 +51,9 @@ class DistServer:
     self._channels: Dict[str, object] = {}
     self._ends_seen: Dict[str, int] = {}
     self._epochs: Dict[str, int] = {}
+    self._stream = None  # the StreamIngestor of apply_delta, made lazily
+    self._stream_lock = threading.Lock()
+    self._stream_bound_version = 0
     self._exit = threading.Event()
 
   # -- control plane -----------------------------------------------------
@@ -190,12 +194,85 @@ class DistServer:
       part = np.asarray(pb[ids])
     return pack_message({'partition': part})
 
+  # -- live updates (the stream) -------------------------------------------
+
+  def _stream_ingestor(self, delta_capacity: int = 4096):
+    """The server's StreamIngestor, built once on the first call: a
+    SnapshotManager over the dataset's graph and node features on the
+    graph's device (the device the caller built the dataset on). Locked:
+    the rpc server serves each connection on its own thread, and two
+    racing first calls would each build a chain off the startup graph,
+    one client's updates silently lost."""
+    with self._stream_lock:
+      if self._stream is None:
+        if self.dataset.is_hetero:
+          raise ValueError('apply_delta is homogeneous only (a hetero '
+                           'stream needs a delta buffer an edge type)')
+        from ..stream import SnapshotManager, StreamIngestor
+        g = self.dataset.get_graph()
+        manager = SnapshotManager(
+            g.topo, self.dataset.get_node_feature(),
+            delta_capacity=delta_capacity, device=g.topo.indices.device)
+        self._stream = StreamIngestor(manager)
+      return self._stream
+
   def apply_delta(self, delta_bytes: bytes) -> dict:
-    """Live updates of this server's partition: not ported (ROADMAP A6,
-    with the stream ingestor's background applier)."""
-    raise NotImplementedError(
-        'DistServer.apply_delta waits for the stream ingestor\'s remote '
-        'path (ROADMAP A6)')
+    """Applies live updates to this server's partition (the fan-out arm
+    of the stream: a coordinator shards updates by partition book and
+    posts each server its slice).
+
+    Payload (a packed TensorMap): optional ``ins`` / ``dels`` ``[2, n]``
+    edge blocks in the partition's local ids, optional ``feat_ids`` and
+    ``feat_rows`` feature updates, optional ``compact`` (any 1-element
+    array: compact now rather than when the policy says).
+
+    Whenever the snapshot version moves (this call's ``compact``, or a
+    compaction the policy fired while staging, this call's or another
+    client's), ``dataset.graph`` and ``dataset.node_features`` rebind to
+    the new snapshot, so the data-plane callees (``get_node_feature``,
+    ``get_edge_index``, ``get_edge_size``) and any producer created after
+    it serve the fresh graph. Sampling workers already running keep the
+    graph their ``dataset_builder`` built, as in the JAX package.
+
+    Returns JAX's reply: ``{'applied': {'inserts', 'deletes',
+    'feature_rows'}, 'version', 'pending', 'compacted'}``."""
+    msg = unpack_message(delta_bytes)
+    stream = self._stream_ingestor()
+    v0 = stream.manager.current().version
+    applied = {'inserts': 0, 'deletes': 0, 'feature_rows': 0}
+    if 'ins' in msg:
+      ins = msg['ins'].numpy()
+      applied['inserts'] = stream.insert_edges(ins[0], ins[1])
+    if 'dels' in msg:
+      dels = msg['dels'].numpy()
+      applied['deletes'] = stream.delete_edges(dels[0], dels[1])
+    if 'feat_ids' in msg:
+      applied['feature_rows'] = stream.update_features(
+          msg['feat_ids'].numpy(), msg['feat_rows'].numpy())
+    if 'compact' in msg:
+      stream.flush()
+    else:
+      stream.maybe_compact()
+    # rebind on the version, not on this call's flush: staging may have
+    # compacted through the policy, and another client's call may have too
+    version = stream.manager.current().version
+    with self._stream_lock:
+      if version != self._stream_bound_version:
+        from ..data import Graph
+        snap = stream.manager.current()
+        old = self.dataset.get_graph()
+        self.dataset.graph = Graph(snap.topo, device=old.device)
+        if snap.feature is not None:
+          self.dataset.node_features = snap.feature
+        self._stream_bound_version = snap.version
+        version = snap.version
+    return {
+        'applied': applied,
+        'version': version,
+        'pending': stream.edges.size + (stream.features.size
+                                        if stream.features else 0),
+        'compacted': version > v0,
+    }
 
   # -- lifecycle ---------------------------------------------------------
 

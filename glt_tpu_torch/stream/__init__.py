@@ -13,7 +13,9 @@ The write path is::
                                 `-- EmbeddingCache.invalidate(touched)
 
 and the read path samples the current snapshot plus one fixed-width
-overlay window per hop.
+overlay window per hop. ``StreamIngestor.start`` runs the refresh and the
+policy's compaction on a background thread; a CSR base serves 'out'
+sampling, a CSC base 'in' sampling.
 """
 from .delta import (DeltaOverflow, EdgeDeltaBuffer, EdgeDeltaCut,
                     FeatureDeltaBuffer, FeatureDeltaCut)

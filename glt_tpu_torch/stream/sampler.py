@@ -14,6 +14,11 @@ Reads follow the manager's RCU protocol: each ``sample_from_nodes``
 acquires the current snapshot, samples against its arrays and the
 installed overlay, and releases it.
 
+Over a CSC base (``edge_dir='in'``) every hop reads the destinations'
+in-edges: the base, the inserts and the tombstones all compress on the
+destination axis, so the same kernels read them; the output's ``row`` and
+``col`` are oriented as over a CSR base, as in the JAX package.
+
 The JAX sampler reads base hops through a W-wide window with a static
 hub cap, and falls back to element reads when a snapshot's capacity slack
 is below W; the port's kernel reads every slot directly, so it has no
@@ -48,23 +53,41 @@ class StreamSampler(BaseSampler):
     num_neighbors: [K_1..K_h]; -1 = full neighbourhood inside
       ``full_neighbor_cap`` (default: the startup max degree plus
       ``delta_window``), resolved once at construction.
-    delta_window: per-row insert and delete window per hop (the JAX
-      default ``tombstone_window`` equals it). A frontier row with more
-      pending inserts (deletes) than this truncates (under-masks) until
-      compaction.
+    delta_window: per-row insert window per hop. A frontier row with more
+      pending inserts than this truncates until compaction.
+    tombstone_window: per-row delete window per hop (default:
+      ``delta_window``); a row with more pending deletes under-masks
+      until compaction.
+    edge_dir: must match the manager's layout ('out': CSR, 'in': CSC;
+      default: the layout's).
     seed: seed of the sampler's ``torch.Generator`` (default: the process
       :class:`RandomSeedManager` seed).
   """
 
   def __init__(self, manager: SnapshotManager, num_neighbors: Sequence[int],
                *, delta_window: int = 8,
+               tombstone_window: Optional[int] = None,
+               edge_dir: Optional[str] = None,
                full_neighbor_cap: Optional[int] = None,
                seed: Optional[int] = None):
     self.manager = manager
     self.device = manager.device
+    self.is_hetero = False
+    self.with_edge = False
     self.delta_window = int(delta_window)
-    if self.delta_window < 0:
-      raise ValueError('the delta window must be >= 0')
+    self.tombstone_window = int(delta_window if tombstone_window is None
+                                else tombstone_window)
+    if self.delta_window < 0 or self.tombstone_window < 0:
+      raise ValueError('the delta windows must be >= 0')
+    layout_dir = 'out' if manager.layout == 'CSR' else 'in'
+    if edge_dir is None:
+      edge_dir = layout_dir
+    if edge_dir != layout_dir:
+      raise ValueError(
+          f'edge_dir {edge_dir!r} needs a '
+          f'{"CSR" if edge_dir == "out" else "CSC"} base, manager holds '
+          f'{manager.layout}')
+    self.edge_dir = edge_dir
     base = manager.current().topo
     self._base_fanouts: List[int] = []
     for f in num_neighbors:
@@ -86,6 +109,7 @@ class StreamSampler(BaseSampler):
     #: effective hop widths: every hop appends the insert window
     self.num_neighbors = [abs(f) + self.delta_window
                           for f in self._base_fanouts]
+    self.num_hops = len(self._base_fanouts)
     self.generator = make_generator(
         seed if seed is not None
         else RandomSeedManager.getInstance().getSeed(), self.device)
@@ -93,11 +117,18 @@ class StreamSampler(BaseSampler):
 
   # -- live-update hooks ---------------------------------------------------
 
+  def set_overlay(self, overlay: dict) -> None:
+    """Install freshly built delta overlays (``manager.build_overlay``);
+    the next sample call reads them, in-flight calls finish on the ones
+    they captured."""
+    self._overlay = overlay
+
   def refresh_overlay(self, buffer) -> None:
-    """Install the overlays of ``buffer``'s pending set
-    (``manager.build_overlay``); the next sample call reads them,
-    in-flight calls finish on the ones they captured."""
-    self._overlay = self.manager.build_overlay(buffer)
+    """Install the overlays of ``buffer``'s pending set."""
+    self.set_overlay(self.manager.build_overlay(buffer))
+
+  def clear_overlay(self) -> None:
+    self.set_overlay(self.manager.empty_overlay())
 
   # -- sampling --------------------------------------------------------------
 
@@ -154,7 +185,7 @@ class StreamSampler(BaseSampler):
             a['indptr'], a['indices'], a['ins_indptr'], a['ins_indices'],
             a['del_indptr'], a['del_indices'], ids, self._base_fanouts[h],
             u, mask, ins_window=self.delta_window,
-            del_window=self.delta_window)
+            del_window=self.tombstone_window)
 
       out = multihop_sample_sorted(one_hop, seeds, n_valid,
                                    self.num_neighbors, uniforms)

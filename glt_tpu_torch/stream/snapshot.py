@@ -2,8 +2,9 @@
 (counterpart of glt_tpu/stream/snapshot.py).
 
 A :class:`Snapshot` is one immutable ``(Topology, Feature)`` version plus
-its device CSR with ``indices`` padded to a fixed edge capacity (-1 past
-the live edges). The padding keeps the JAX package's geometry: the slots
+its device CSR (or CSC: the base's layout, kept through every compaction)
+with ``indices`` padded to a fixed edge capacity (-1 past the live
+edges). The padding keeps the JAX package's geometry: the slots
 of a uniform hop clip to the capacity, and a compaction that stays inside
 it keeps every shape. The snapshot's Topology reads its live edges as a
 view of the padded array, so each version holds its neighbour array on
@@ -52,11 +53,14 @@ def _padded_csr(indptr: torch.Tensor, indices: torch.Tensor, capacity: int,
 
 
 def _delta_csr(src: np.ndarray, dst: np.ndarray, num_rows: int,
-               num_cols: int, capacity: int, device: torch.device) -> tuple:
-  """One capacity-padded overlay CSR over the base's rows from (src, dst)
-  pairs, sorted by (row, col) like the base."""
-  row = torch.as_tensor(src, dtype=torch.int64, device=device)
-  col = torch.as_tensor(dst, dtype=torch.int64, device=device)
+               num_cols: int, capacity: int, layout: str,
+               device: torch.device) -> tuple:
+  """One capacity-padded overlay over the base's pointer axis from (src,
+  dst) pairs: rows are the sources of a CSR base and the destinations of
+  a CSC one, sorted by (row, col) like the base."""
+  row, col = (src, dst) if layout == 'CSR' else (dst, src)
+  row = torch.as_tensor(row, dtype=torch.int64, device=device)
+  col = torch.as_tensor(col, dtype=torch.int64, device=device)
   indptr, indices, _ = _compress(row, col, num_rows, num_cols)
   return _padded_csr(indptr, indices, capacity, device)
 
@@ -73,8 +77,9 @@ class Snapshot:
 
   Attributes:
     version: monotonically increasing snapshot id.
-    topo: the version's Topology (on the manager's device), a shallow
-      copy of the one given whose ``indices`` are ``arrays['indices'][:E]``.
+    topo: the version's Topology (on the manager's device, in the base's
+      layout), a shallow copy of the one given whose ``indices`` are
+      ``arrays['indices'][:E]``.
     feature: its node Feature (None when the stream is topology-only);
       shared with the previous snapshot when a compaction carried no
       feature updates.
@@ -93,6 +98,7 @@ class Snapshot:
     self.arrays: Dict[str, torch.Tensor] = {'indptr': indptr,
                                             'indices': indices}
     self._refs = 0
+    self._retired = False
     self._freed = False
     self._flipped: Optional[Topology] = None
     #: read by samplers per call to detect full-window truncation
@@ -107,7 +113,7 @@ class Snapshot:
     return self._freed
 
   def _free(self) -> None:
-    """Drop the device arrays and the in-edge CSR (manager-internal: once
+    """Drop the device arrays and the flipped view (manager-internal: once
     retired and released by its last reader; the manager drops the
     snapshot with them, and with it the padded array its Topology views).
     The Feature stays: the successor may share it."""
@@ -116,19 +122,18 @@ class Snapshot:
     self._flipped = None
 
   def flipped_topo(self) -> Topology:
-    """The in-edge CSR (the JAX ``flip_layout`` of a CSR base: rows are
-    destinations, sorted by (dst, src)), built once per snapshot, for
-    reverse-adjacency cache invalidation."""
+    """The opposite-layout view (``Topology.flip_layout``: the CSC of a
+    CSR base, the CSR of a CSC one), built once per snapshot on its
+    device, for reverse-adjacency cache invalidation."""
     if self._flipped is None:
-      src, dst, eids = self.topo.to_coo()
-      self._flipped = Topology(torch.stack([dst, src]), edge_ids=eids,
-                               num_rows=self.topo.num_cols,
-                               num_cols=self.topo.num_rows)
+      self._flipped = self.topo.flip_layout()
     return self._flipped
 
   def expand_affected(self, ids) -> np.ndarray:
-    """ids ∪ their in-neighbours: every node whose sampled neighbourhood
-    can contain an id, i.e. whose cached embedding aggregates over it."""
+    """ids ∪ their reverse-layout neighbours (the in-neighbours of a CSR
+    base, the out-neighbours of a CSC one): every node whose sampled
+    neighbourhood can contain an id, i.e. whose cached embedding
+    aggregates over it."""
     ids = as_numpy(ids).astype(np.int64).reshape(-1)
     flip = self.flipped_topo()
     valid = torch.as_tensor(ids[(ids >= 0) & (ids < flip.num_rows)],
@@ -146,7 +151,8 @@ class SnapshotManager:
   """Owns the snapshot chain, the delta overlays and compaction.
 
   Args:
-    topo: the startup Topology (version 0 base).
+    topo: the startup Topology (version 0 base), CSR or CSC; every
+      compaction keeps its layout.
     feature: the startup node Feature (optional).
     delta_capacity: overlay width = max pending delta ops; the
       EdgeDeltaBuffer feeding this manager must not exceed it.
@@ -177,18 +183,32 @@ class SnapshotManager:
     self._next_edge_id = int(eids.max()) + 1 if eids.numel() else 0
     self._empty_overlay: Optional[dict] = None
     self._overlay_cache = None  # ((buffer id, seq, version), overlay)
+    self.compactions = 0
     self.capacity_growths = 0
+    self.last_compaction_s = 0.0
 
   # -- geometry ----------------------------------------------------------
 
   @property
+  def num_nodes(self) -> int:
+    t = self.current().topo
+    return max(t.num_rows, t.num_cols)
+
+  @property
   def num_src_nodes(self) -> int:
-    """Bound of edge-delta src endpoints (the CSR's rows)."""
-    return self.current().topo.num_rows
+    """Bound of edge-delta src endpoints: the row axis of a CSR base, the
+    column axis of a CSC one."""
+    t = self.current().topo
+    return t.num_rows if t.layout == 'CSR' else t.num_cols
 
   @property
   def num_dst_nodes(self) -> int:
-    return self.current().topo.num_cols
+    t = self.current().topo
+    return t.num_cols if t.layout == 'CSR' else t.num_rows
+
+  @property
+  def layout(self) -> str:
+    return self.current().topo.layout
 
   # -- RCU read path -----------------------------------------------------
 
@@ -226,9 +246,11 @@ class SnapshotManager:
 
   def _overlay(self, cut: EdgeDeltaCut, topo: Topology) -> dict:
     ip, ix = _delta_csr(cut.ins_src, cut.ins_dst, topo.num_rows,
-                        topo.num_cols, self.delta_capacity, self.device)
+                        topo.num_cols, self.delta_capacity, topo.layout,
+                        self.device)
     dp, dx = _delta_csr(cut.del_src, cut.del_dst, topo.num_rows,
-                        topo.num_cols, self.delta_capacity, self.device)
+                        topo.num_cols, self.delta_capacity, topo.layout,
+                        self.device)
     return {'ins_indptr': ip, 'ins_indices': ix,
             'del_indptr': dp, 'del_indices': dx}
 
@@ -269,10 +291,13 @@ class SnapshotManager:
     """Merge a drained delta into a fresh snapshot and swap it in.
 
     Returns (new_snapshot, info). ``info['touched']`` is the node-id set
-    whose cached embeddings the merge staled: src endpoints of inserted
-    and deleted edges plus feature-updated ids. ``info['capacity_grown']``
-    flags an edge-capacity growth. Concurrent compactions are serialized
-    (readers are never blocked).
+    whose cached embeddings the merge staled: the row-axis endpoints of
+    inserted and deleted edges (sources on a CSR base, destinations on a
+    CSC one: their sampled neighbourhood changed) plus feature-updated
+    ids. ``info['capacity_grown']`` flags an edge-capacity growth. The new
+    snapshot keeps the base's layout and edge weights (inserts weigh 1.0,
+    as in the JAX package). Concurrent compactions are serialized (readers
+    are never blocked).
     """
     with self._compact_serial:
       return self._compact_locked(edge_cut, feat_cut)
@@ -281,8 +306,12 @@ class SnapshotManager:
     t0 = time.perf_counter()
     old = self._current
     topo = old.topo
+    layout = topo.layout
     dev = topo.indices.device
-    src, dst, eids = topo.to_coo()
+    # the base edge list in (src, dst) orientation, ids and weights aligned
+    ptr_axis, other, eids = topo.to_coo()
+    src, dst = (ptr_axis, other) if layout == 'CSR' else (other, ptr_axis)
+    weights = topo.edge_weights
     touched: List[np.ndarray] = []
     if edge_cut is not None and edge_cut.del_src.size:
       space = max(topo.num_rows, topo.num_cols,
@@ -292,7 +321,10 @@ class SnapshotManager:
                        torch.as_tensor(edge_cut.del_dst, device=dev), space)
       keep = ~torch.isin(_pair_key(src, dst, space), dels)
       src, dst, eids = src[keep], dst[keep], eids[keep]
-      touched.append(edge_cut.del_src)
+      if weights is not None:
+        weights = weights[keep]
+      touched.append(edge_cut.del_src if layout == 'CSR'
+                     else edge_cut.del_dst)
     if edge_cut is not None and edge_cut.ins_src.size:
       n_ins = edge_cut.ins_src.shape[0]
       new_ids = torch.arange(self._next_edge_id, self._next_edge_id + n_ins,
@@ -301,8 +333,13 @@ class SnapshotManager:
       src = torch.cat([src, torch.as_tensor(edge_cut.ins_src, device=dev)])
       dst = torch.cat([dst, torch.as_tensor(edge_cut.ins_dst, device=dev)])
       eids = torch.cat([eids, new_ids])
-      touched.append(edge_cut.ins_src)
+      if weights is not None:
+        weights = torch.cat([weights, torch.ones(n_ins, dtype=weights.dtype,
+                                                 device=dev)])
+      touched.append(edge_cut.ins_src if layout == 'CSR'
+                     else edge_cut.ins_dst)
     new_topo = Topology(torch.stack([src, dst]), edge_ids=eids,
+                        edge_weights=weights, layout=layout,
                         num_rows=topo.num_rows, num_cols=topo.num_cols)
 
     feature = old.feature
@@ -329,8 +366,11 @@ class SnapshotManager:
     with self._lock:
       self.edge_capacity = capacity
       self._current = snap
+      old._retired = True
       self._retired.append(old)
       self._reap_locked()
+    self.compactions += 1
+    self.last_compaction_s = time.perf_counter() - t0
     info = {
         'version': snap.version,
         'num_edges': snap.num_edges,
@@ -338,6 +378,6 @@ class SnapshotManager:
                     else np.zeros(0, np.int64)),
         'capacity_grown': grown,
         'edge_capacity': capacity,
-        'compaction_s': time.perf_counter() - t0,
+        'compaction_s': self.last_compaction_s,
     }
     return snap, info

@@ -940,6 +940,76 @@ def test_stream_engine_serves_through_the_kernels(dev):
   assert not np.allclose(eng.infer([1])[0], out[1])
 
 
+def test_csc_stream_hop_matches_plain(dev):
+  """A CSC base sampled along in-edges: each hop's B2 and its two B3
+  overlay reads against their plain versions on the same uniforms, before
+  and after a compaction that keeps the layout."""
+  rng = np.random.default_rng(5)
+  n, e = 4000, 60_000
+  ei = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])
+  ds = Dataset(edge_dir='in').init_graph(ei, num_nodes=n, device=dev)
+  mgr = SnapshotManager(ds.get_graph().topo, None, delta_capacity=512,
+                        device=dev)
+  sampler = StreamSampler(mgr, [6, 4], edge_dir='in', seed=1)
+  ing = StreamIngestor(mgr, sampler=sampler, policy=CompactionPolicy(
+      occupancy_threshold=2.0, max_staleness_s=0))
+  seeds = torch.as_tensor(rng.integers(0, n, 64), device=dev)
+  ing.insert_edges(rng.integers(0, n, 200), seeds[:50].cpu().numpy()
+                   .repeat(4))
+  src, dst = ei[0, :100], ei[1, :100]
+  ing.delete_edges(src, dst)
+  fields = ('node', 'node_count', 'row', 'col', 'edge_mask', 'batch')
+  for state in ('overlay', 'compacted'):
+    u = sampler.hop_uniforms(64)
+    before = (K.sample_hop.launches, K.gather_windows.launches)
+    got = sampler.sample_from_nodes(seeds, uniforms=u)
+    assert (K.sample_hop.launches - before[0],
+            K.gather_windows.launches - before[1]) == (2, 4), state
+    real = K.sample_hop, K.gather_windows
+    K.sample_hop, K.gather_windows = K.sample_hop_plain, \
+        K.gather_windows_plain
+    try:
+      want = sampler.sample_from_nodes(seeds, uniforms=u)
+    finally:
+      K.sample_hop, K.gather_windows = real
+    for f in fields:
+      assert torch.equal(getattr(got, f), getattr(want, f)), (state, f)
+    if state == 'overlay':
+      info = ing.flush()
+      assert info['version'] == 1 and mgr.layout == 'CSC'
+      # touched: the inserts' and deletes' destinations (the CSC rows)
+      want_touched = np.unique(np.concatenate([
+          dst, seeds[:50].cpu().numpy()]))
+      np.testing.assert_array_equal(info['touched'], want_touched)
+
+
+def test_dist_server_apply_delta_on_the_card(dev):
+  from glt_tpu_torch.channel import pack_message, unpack_message
+  from glt_tpu_torch.distributed import DistServer
+  rng = np.random.default_rng(6)
+  n, e = 3000, 40_000
+  ds = Dataset().init_graph(np.stack([rng.integers(0, n, e),
+                                      rng.integers(0, n, e)]),
+                            num_nodes=n, device=dev)
+  ds.init_node_features(rng.standard_normal((n, 100)).astype(np.float32),
+                        device=dev)
+  srv = DistServer(ds)
+  rows = np.full((8, 100), 3.25, np.float32)
+  ids = np.arange(100, 108, dtype=np.int64)
+  out = srv.apply_delta(pack_message({
+      'ins': np.array([[0, 1, 2], [7, 8, 9]], np.int64),
+      'dels': np.stack([ds.get_graph().topo.to_coo()[0][:2].cpu().numpy(),
+                        ds.get_graph().topo.to_coo()[1][:2].cpu().numpy()]),
+      'feat_ids': ids, 'feat_rows': rows, 'compact': np.ones(1, np.int8)}))
+  assert out['compacted'] and out['version'] == 1 and out['pending'] == 0
+  assert srv._stream_ingestor().manager.device.type == 'cuda'
+  assert ds.get_node_feature().device.type == 'cuda'
+  before = K.gather_rows.launches
+  feats = unpack_message(srv.get_node_feature(pack_message({'ids': ids})))
+  assert K.gather_rows.launches == before + 1
+  np.testing.assert_array_equal(feats['feats'].numpy(), rows)
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.int32])
 @pytest.mark.parametrize('base', [0, 1])
 def test_gather_windows_matches_plain(dev, dtype, base):

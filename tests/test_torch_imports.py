@@ -13,7 +13,8 @@ negative sampler and the two distributed examples, and the server-client
 slice's channels, shared-memory ring, resilience, rpc fabric, contexts,
 options, event loop, producers, server, client, channel loaders and its
 two examples, and the serving front ends' observability layer, env knobs,
-timer, checkpoints, metrics, batcher, server, fleet and serving example)
+timer, checkpoints, metrics, batcher, server, fleet and serving example,
+and the live-update slice's fault injection and stream example)
 and ``chip_smoke`` pulls in neither JAX, ``ml_dtypes`` nor
 the JAX package, and touches no card; the shared-memory ring the port
 loads is its own build."""
@@ -117,6 +118,9 @@ print('FRONTEND', all(m in sys.modules for m in (
     'glt_tpu_torch.serving.batcher', 'glt_tpu_torch.serving.server',
     'glt_tpu_torch.serving.fleet',
     'glt_tpu_torch.examples.serve_sage_products')))
+print('STREAM_REST', all(m in sys.modules for m in (
+    'glt_tpu_torch.resilience.chaos',
+    'glt_tpu_torch.examples.stream_updates')))
 from glt_tpu_torch.channel import shm
 lib = shm.get_lib()
 maps = [ln.split(None, 5)[-1].strip() for ln in open('/proc/self/maps')
@@ -148,5 +152,6 @@ def test_port_and_chip_smoke_import_no_jax():
   assert 'DIST_HOMO True' in out.stdout, out.stdout
   assert 'SERVER_CLIENT True' in out.stdout, out.stdout
   assert 'FRONTEND True' in out.stdout, out.stdout
+  assert 'STREAM_REST True' in out.stdout, out.stdout
   assert 'SHM_LIB True' in out.stdout, out.stdout
   assert 'CUDA_INIT False' in out.stdout, out.stdout

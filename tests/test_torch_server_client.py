@@ -178,8 +178,14 @@ def test_data_plane_answers_as_jax(servers):
   ping = request_server(0, 'ping')
   assert ping['ok'] and ping['partition_idx'] == 0
   assert ping['obs_tracing'] is False      # the server's tracer is off
-  with pytest.raises(NotImplementedError, match='A6'):
-    request_server(0, 'apply_delta', b'')
+  # apply_delta stages into the server's stream and replies as JAX's
+  # DistServer does to the same payload (staged, not compacted: the graph
+  # the later tests read stays as it was)
+  payload = {'ins': np.array([[0, 1], [6, 7]], np.int64)}
+  got = request_server(0, 'apply_delta', pack_message(payload))
+  assert got == jsrv.apply_delta(jpack(payload))
+  assert got == {'applied': {'inserts': 2, 'deletes': 0, 'feature_rows': 0},
+                 'version': 0, 'pending': 2, 'compacted': False}
 
 
 def test_remote_loader_matches_jax(servers):
