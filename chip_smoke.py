@@ -98,7 +98,7 @@ points through their main functions, and checks what comes out:
   graph against their plain versions; DistHeteroTrainStep (RGAT 1024 ->
   512 x 4 -> 19, [15, 10, 5] on every edge type, batch 64, Adam 1e-3) 2
   warm-up and 10 timed steps on seeds of split_indices, 3 eval batches,
-  one batch against the plain versions, then two windows of 8 through
+  one batch against the plain versions, then two windows of 4 through
   the per-batch engine and through the superstep (eager and captured,
   then a replay) on the same seeds and uniforms;
 - partitioned homogeneous training (examples/distributed/
@@ -152,6 +152,24 @@ points through their main functions, and checks what comes out:
   card (init_server, init_client) taking apply_delta over rpc, one
   through a ChaosTcpProxy that drops its first reply; each compacted
   graph held against numpy's merge of the base and the delta;
+- the partitioned sampler's weighted and full hops: the
+  igbh-rgat partition above carries float32 edge weights in (0, 1] on
+  every edge type, and DistHeteroTrainStep(with_weight=True) at the
+  same width trains 2 + 10 steps through each owner's weighted hop (B3
+  reads the weight window, a Gumbel top-k picks, B2 reads the picks),
+  one batch against the plain versions and B3 and B2 timed at its
+  shapes; over the partitioned products graph with its weights, a
+  DistNeighborSampler(with_weight=True, with_edge=True) batch of 1,024 at
+  [15, 10, 5] and a [-1, -1] one in a window of the store's max_degree
+  (B3 over the neighbour ids and over the edge ids), each against its
+  plain twin, their B3 and B2 reads timed in turns with torch.take;
+- the partition hot cache: NeighborSampler.sample_prob on the card over
+  the products graph from each half of the training split, against a
+  float64 numpy push; FrequencyPartitioner (two parts, cache_ratio 0.05)
+  writing the layout; DistDataset.load of part 0 on the card (its cached
+  rows, then its owned ones, the rewritten book) and a one-rank
+  DistFeature lookup of cached ids through K3;
+- hetero link prediction (examples/hetero/bipartite_sage_unsup.py at
   Taobao's counts): 987,994 users, 4,161,138 items in 9,439 categories,
   101 user-item links a user inside one category (99.8M) and their
   reverse, 4 same-category item neighbours an item (16.6M), float32 x 32
@@ -409,6 +427,54 @@ def time_picks(torch, np, K, label, hops):
           ratios=list(rounds['kernel'] / rounds['take']))
   verdict(f'sample_hop summed over a {label}\'s {len(hops)} hops in a CUDA '
           'graph', row['graph_ms'], row['library_graph_ms'])
+  return row
+
+
+def time_windows(torch, np, K, label, calls):
+  """B3 at each recorded read ``(arr, starts, width)``: equal to plain,
+  its time against torch.take over the same clipped slots (in turns), its
+  plain time, bound and host enqueue; returns the row of sums."""
+  row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
+  rounds = {'kernel': 0.0, 'take': 0.0}
+  for h, (arr, starts, width) in enumerate(calls):
+    got = K.gather_windows(arr, starts, width)
+    want = K.gather_windows_plain(arr, starts, width)
+    if not torch.equal(got, want):
+      raise AssertionError(f'gather_windows {label} read {h + 1} differs '
+                           'from plain')
+    row['err'] = max(row['err'], float((got.double() - want.double()).abs()
+                                       .max()))
+    slots = (starts.long()[:, None] + torch.arange(
+        width, device=starts.device)).clamp(0, arr.numel() - 1)
+    fns = {'kernel': lambda: K.gather_windows(arr, starts, width),
+           'take': lambda: torch.take(arr, slots)}
+    per_round = in_turns_ms(torch, np, fns)
+    t = {n: float(np.median(v)) for n, v in per_round.items()}
+    for n in rounds:
+      rounds[n] = rounds[n] + per_round[n]
+    host = in_turns_host_us(torch, np, fns)
+    plain = cuda_ms(torch, lambda i=0: K.gather_windows_plain(
+        arr, starts, width), 20)
+    # bytes the read must move: a start per row, per lane one element in
+    # and one out
+    s = starts.numel()
+    bound = bytes_ms(4 * s + 8 * s * width)
+    for key, v in (('ms', t['kernel']), ('plain_ms', plain),
+                   ('library_ms', t['take']), ('bound_ms', bound)):
+      row[key] += v
+    print(f'gather_windows {label} read {h + 1} [{s}, {width}] '
+          f'{str(arr.dtype)[6:]} over {arr.numel()} slots: equal to plain; '
+          f'{t["kernel"]:.4f} ms (torch.take {t["take"]:.4f} ms, in turns, '
+          f'medians of {ROUNDS}; plain {plain:.4f} ms; bound {bound:.6f} ms, '
+          f'{bound / t["kernel"] * 100:.1f}% of it); host enqueue '
+          f'{host["kernel"]:.2f} us a call (torch.take {host["take"]:.2f} '
+          'us)')
+  print(f'gather_windows per {label} ({len(calls)} reads): {row["ms"]:.4f} '
+        f'ms (plain {row["plain_ms"]:.4f} ms, torch.take '
+        f'{row["library_ms"]:.4f} ms, bound {row["bound_ms"]:.6f} ms)')
+  verdict(f'gather_windows summed over a {label}\'s {len(calls)} reads',
+          row['ms'], row['library_ms'],
+          ratios=list(rounds['kernel'] / rounds['take']))
   return row
 
 
@@ -2911,8 +2977,9 @@ def superstep_phases(torch, np, K, ds, dev, seed, smi):
 
 # partitioned hetero training (examples/igbh/dist_train_rgnn.py) at
 # igbh-rgat's width on a one-rank mesh: warm-up and timed per-batch steps,
-# eval batches, a window of DIST_K batches as one CUDA graph
-DIST_WARMUP, DIST_STEPS, DIST_EVAL, DIST_K = 2, 10, 3, 8
+# eval batches, a window of DIST_K batches as one CUDA graph (four, which
+# keeps the whole script inside half its time limit)
+DIST_WARMUP, DIST_STEPS, DIST_EVAL, DIST_K = 2, 10, 3, 4
 DIST_FIELDS = ('node_dict', 'node_count_dict', 'row_dict', 'col_dict',
                'edge_mask_dict', 'x_dict', 'y_dict')
 
@@ -2944,6 +3011,12 @@ def dist_phases(torch, np, K, dev, seed, k3, rows, smi):
     gen = torch.Generator(device=dev).manual_seed(seed + 20)
     edges = {e: ei.cpu().numpy() for e, ei in
              igbh_edges(torch, IGBH_NODES, gen, dev).items()}
+    # float32 edge weights in (0, 1] on every edge type, from their own
+    # stream: the weighted path's (the uniform trainers ignore them)
+    wgen = torch.Generator(device=dev).manual_seed(seed + 24)
+    weights = {e: (1.0 - torch.rand(ei.shape[1], generator=wgen,
+                                    device=dev)).cpu().numpy()
+               for e, ei in edges.items()}
     feats, w = {}, torch.randn((IGBH_FEAT, IGBH_CLASSES), generator=gen,
                                device=dev)
     for tp, n in IGBH_NODES.items():
@@ -2960,13 +3033,13 @@ def dist_phases(torch, np, K, dev, seed, k3, rows, smi):
     try:
       RandomPartitioner(root, num_parts=1, num_nodes=dict(IGBH_NODES),
                         edge_index=edges, node_feat=feats,
-                        seed=seed).partition()
+                        edge_weights=weights, seed=seed).partition()
       t.append(time.perf_counter())
       disk = sum(os.path.getsize(os.path.join(d, f))
                  for d, _, fs in os.walk(root) for f in fs)
       feat_bytes = sum(f.nbytes for f in feats.values())
       n_edges = sum(e.shape[1] for e in edges.values())
-      del feats, edges
+      del feats, edges, weights
       mesh = make_mesh(device=dev)
       dg = DistHeteroGraph.from_dataset_partitions(mesh, root)
       torch.cuda.synchronize()
@@ -2988,9 +3061,10 @@ def dist_phases(torch, np, K, dev, seed, k3, rows, smi):
                 for f in dfeats.values())
     graph_bytes = sum(sum(getattr(st, f).numel() * getattr(st, f).element_size()
                           for f in ('indptr', 'indices', 'edge_ids',
-                                    'local_row', 'node_pb'))
+                                    'edge_weights', 'local_row', 'node_pb'))
                       for st in dg.graphs.values())
-    print(f'dist data: {n_edges} edges over {len(dg.graphs)} types, '
+    print(f'dist data: {n_edges} edges over {len(dg.graphs)} types '
+          '(float32 weights in (0, 1] on each), '
           f'{IGBH_NODES}; synthesised on the card and copied to the host '
           f'{secs[0]:.3f} s ({feat_bytes} B of float32 features); partitioned '
           f'(RandomPartitioner, one part) {secs[1]:.3f} s, {disk} B on disk; '
@@ -3241,9 +3315,144 @@ def dist_phases(torch, np, K, dev, seed, k3, rows, smi):
           f'(tolerance {EPOCH_LOSS_TOL}); launches {launches}: eager {eager},'
           f' by graph replays {replayed}; on {smi}')
     ss_launches = (launches, replayed)
-    del a, dfeats, dg
+    del a
     torch.cuda.empty_cache()
-  return dist_launches, ss_launches
+
+  weighted_launches = dist_weighted_phases(
+      torch, np, K, dev, seed, rows, smi, dg, dfeats, labels, keys, order)
+  del dfeats, dg
+  torch.cuda.empty_cache()
+  return dist_launches, ss_launches, weighted_launches
+
+
+# the partitioned hetero trainer's weighted hops (DistHeteroTrainStep(
+# with_weight=True) at igbh-rgat's width): a weight window a hop larger
+# than WINDOW_BYTES_MAX bytes is capped through max_weighted_degree
+WINDOW_BYTES_MAX = 4 * 2 ** 30
+
+
+def dist_weighted_phases(torch, np, K, dev, seed, rows, smi, dg, dfeats,
+                         labels, keys, order):
+  """The slice's main path: DistHeteroTrainStep(with_weight=True) over
+  the igbh-rgat partition of dist_phases (its float32 weights, its bf16
+  stores), RGAT at igbh-rgat's width, [15, 10, 5], batch 64: each owner's
+  weighted hop reads its weight window through B3, picks by Gumbel top-k
+  and reads the picks through B2. Returns the launches of its timed
+  steps."""
+  from glt_tpu_torch.distributed import (DistHeteroNeighborSampler,
+                                         DistHeteroTrainStep)
+  from glt_tpu_torch.models import RGNN
+  from glt_tpu_torch.parallel import sage_loss
+
+  fanouts = list(FANOUTS)
+  with Phase('dist weighted path'):
+    windows = {e[1]: st.max_degree for e, st in dg.graphs.items()}
+    probe = DistHeteroNeighborSampler(dg, fanouts, with_weight=True,
+                                      seed=seed)
+    shapes = probe.uniform_shapes(HTRAIN_BATCH, 'paper')
+    big = max((sh for hop in shapes for sh in hop), key=lambda x: x[0] * x[1])
+    mwd = None
+    if 4 * big[0] * big[1] > WINDOW_BYTES_MAX:
+      mwd = max(max(fanouts), WINDOW_BYTES_MAX // (4 * big[0]))
+      probe = DistHeteroNeighborSampler(dg, fanouts, with_weight=True,
+                                        max_weighted_degree=mwd, seed=seed)
+      shapes = probe.uniform_shapes(HTRAIN_BATCH, 'paper')
+    segs = sum(len(h) for h in shapes)
+    print(f'dist weighted: windows (max_degree by relation) {windows}; the '
+          f'largest hop\'s window [{big[0]}, {big[1]}] float32 '
+          f'{4 * big[0] * big[1]} B, so max_weighted_degree {mwd} (None: '
+          f'each relation\'s max_degree); {segs} weighted segments a step '
+          f'(hop: [world * F, W]) {shapes}')
+
+    def trainer():
+      torch.manual_seed(seed)
+      model = RGNN(keys, IGBH_FEAT, IGBH_HIDDEN, IGBH_CLASSES,
+                   num_layers=len(fanouts), conv='rgat', heads=IGBH_HEADS,
+                   node_types=list(IGBH_NODES)).to(dev)
+      return DistHeteroTrainStep(dg, dfeats, model, {'paper': labels},
+                                 fanouts, HTRAIN_BATCH, 'paper', lr=LR,
+                                 seed=seed, with_weight=True,
+                                 max_weighted_degree=mwd)
+    step = trainer()
+    if not step.sampler.with_weight:
+      raise AssertionError('the weighted trainer samples uniformly')
+    one = np.ones(1, np.int64) * HTRAIN_BATCH
+
+    def batch_seeds(i):
+      return order[i * HTRAIN_BATCH:(i + 1) * HTRAIN_BATCH][None]
+    for i in range(DIST_WARMUP):
+      step(batch_seeds(i), one)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(DIST_WARMUP, DIST_WARMUP + DIST_STEPS):
+      losses.append(step(batch_seeds(i), one))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / DIST_STEPS
+    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [float(v) for v in losses]
+    want = dict(sample_hop=segs * DIST_STEPS, gather_windows=segs * DIST_STEPS,
+                gather_rows=len(IGBH_NODES) * DIST_STEPS)
+    for n, v in want.items():
+      if launches[n] != v:
+        raise AssertionError(f'{n}: {launches[n]} launches over '
+                             f'{DIST_STEPS} weighted steps, expected {v}')
+    if not np.isfinite(losses).all():
+      raise AssertionError(f'weighted dist training: non-finite loss {losses}')
+    wall, busy = profile_stages(
+        torch, lambda: [step(batch_seeds(i), one) for i in range(2)], 2,
+        (), 'step')
+    print(f'dist weighted training (one rank, batch {HTRAIN_BATCH}, '
+          f'{fanouts}, RGAT {IGBH_FEAT} -> {IGBH_HIDDEN} x {IGBH_HEADS} -> '
+          f'{IGBH_CLASSES}): {DIST_STEPS} steps after {DIST_WARMUP} '
+          f'warm-up, {ms:.3f} ms a step, {HTRAIN_BATCH / ms * 1e3:.1f} '
+          f'seeds/s; device busy {busy / wall * 100:.1f}% over 2 profiled '
+          f'steps ({wall:.3f} ms wall, {busy:.3f} busy); peak '
+          f'{peak / 2**30:.3f} GiB above {base / 2**30:.3f} GiB resident; '
+          'losses ' + ', '.join(f'{v:.4f}' for v in losses)
+          + f'; launches {launches} ({segs} B2, {segs} B3 and '
+          f'{len(IGBH_NODES)} K3 a step); on {smi}')
+
+  with Phase('dist weighted path vs plain'):
+    s0 = torch.as_tensor(order[-HTRAIN_BATCH:], device=dev, dtype=torch.int32)
+    n0 = torch.tensor(HTRAIN_BATCH - 5, device=dev, dtype=torch.int32)
+    u0 = step.sampler.draw_uniforms(HTRAIN_BATCH, 'paper')
+    with torch.no_grad():
+      bk = step.make_batch(s0, n0, u0)
+      lk = float(sage_loss(step.model, bk))
+      with recorded_calls(K, ('sample_hop', 'gather_windows',
+                              'gather_rows')) as calls:
+        bp = step.make_batch(s0, n0, u0)
+        lp = float(sage_loss(step.model, bp))
+    f = differing_field(torch, bk, bp, DIST_FIELDS)
+    if f is not None:
+      raise AssertionError(f'weighted dist batch.{f} differs between kernels '
+                           'and plain')
+    if not abs(lk - lp) <= LOSS_TOL * max(1.0, abs(lp)):
+      raise AssertionError(f'weighted dist loss {lk} vs plain {lp}')
+    if (len(calls['sample_hop']), len(calls['gather_windows'])) != (segs,
+                                                                   segs):
+      raise AssertionError(f'{len(calls["sample_hop"])} B2 and '
+                           f'{len(calls["gather_windows"])} B3 reads in a '
+                           f'weighted batch, expected {segs} each')
+    print(f'weighted dist batch {HTRAIN_BATCH} ({int(n0)} real seeds): '
+          'samples and rows bit-identical ('
+          f'{sum(int(c) for c in bk.node_count_dict.values())} nodes, '
+          f'{sum(int(m.sum()) for m in bk.edge_mask_dict.values())} edges), '
+          f'loss {lk:.6f} vs plain {lp:.6f} (|diff| {abs(lk - lp):.3e}, '
+          f'tolerance {LOSS_TOL})')
+    label = f'weighted dist batch ({segs} hops)'
+    rows['gather_windows'].setdefault('shapes', {})[label] = time_windows(
+        torch, np, K, 'weighted dist batch', calls['gather_windows'])
+    rows['sample_hop']['shapes'][label] = time_picks(
+        torch, np, K, 'weighted dist batch', calls['sample_hop'])
+    del bk, bp, step, calls
+    torch.cuda.empty_cache()
+  return launches
 
 
 # partitioned homogeneous training (examples/distributed/dist_train_sage.py
@@ -3296,6 +3505,8 @@ def homo_dist_phases(torch, np, K, ds, dev, seed, rows, k3, mixed, smi):
     src, dst, _ = ds.get_graph().topo.to_coo()
     edge_index = torch.stack([src, dst]).cpu().numpy()
     del src, dst
+    # the training phases' float32 weights, in the same CSR slot order
+    weights = ds.get_graph().edge_weights.cpu().numpy()
     feats = ds.get_node_feature().table.cpu().numpy()
     labels = np.asarray(ds.node_labels)
     train_idx = ds.get_split(Split.train)
@@ -3304,11 +3515,11 @@ def homo_dist_phases(torch, np, K, ds, dev, seed, rows, k3, mixed, smi):
     try:
       RandomPartitioner(root, num_parts=1, num_nodes=NUM_NODES,
                         edge_index=edge_index, node_feat=feats,
-                        seed=seed).partition()
+                        edge_weights=weights, seed=seed).partition()
       t.append(time.perf_counter())
       disk = sum(os.path.getsize(os.path.join(d, f))
                  for d, _, fs in os.walk(root) for f in fs)
-      del feats
+      del feats, weights
       dg = DistGraph.from_dataset_partitions(mesh, root)
       torch.cuda.synchronize()
       t.append(time.perf_counter())
@@ -3340,8 +3551,8 @@ def homo_dist_phases(torch, np, K, ds, dev, seed, rows, k3, mixed, smi):
       raise AssertionError(f'the stores hold {card_b} B on the card, not '
                            'their rows\' bytes')
     graph_b = sum(getattr(dg, f).numel() * getattr(dg, f).element_size()
-                  for f in ('indptr', 'indices', 'edge_ids', 'local_row',
-                            'node_pb'))
+                  for f in ('indptr', 'indices', 'edge_ids', 'edge_weights',
+                            'local_row', 'node_pb'))
     print(f'homo dist data: {edge_index.shape[1]} edges, {NUM_NODES} nodes; '
           f'the graph and features copied to the host {secs[0]:.3f} s; '
           f'partitioned (RandomPartitioner, one part) {secs[1]:.3f} s, '
@@ -3487,6 +3698,10 @@ def homo_dist_phases(torch, np, K, ds, dev, seed, rows, k3, mixed, smi):
             f'{int(bk.edge_mask.sum())} edges), loss {lk:.6f} vs plain '
             f'{lp:.6f} (|diff| {abs(lk - lp):.3e}, tolerance {LOSS_TOL})')
       del step, bk, bp
+
+  with Phase('homo dist weighted checks'):
+    paths.update(homo_weighted_checks(torch, np, K, dg, order, dev, seed,
+                                      rows))
 
   with Phase('homo dist link path'):
     pools = unsup.positive_pools(edge_index, dg.node_pb, 1)
@@ -3684,6 +3899,208 @@ def homo_dist_phases(torch, np, K, ds, dev, seed, rows, k3, mixed, smi):
     del sdg, snf, sef, bk, bp, calls
     torch.cuda.empty_cache()
   return paths
+
+
+def homo_weighted_checks(torch, np, K, dg, order, dev, seed, rows):
+  """The owner's weighted and full hops over the partitioned products
+  graph (its float32 weights), batch 1024 with edge ids:
+  DistNeighborSampler(with_weight=True) at [15, 10, 5] (B3 reads each
+  served row's weight window, B2 the Gumbel top-k's picks and their edge
+  ids) and DistNeighborSampler([-1, -1]) in a window of the store's
+  max_degree (B3 over the neighbour ids and over the edge ids), each batch
+  bit-equal to its plain twin on the same draws, B3 and B2 timed at these
+  shapes in turns with torch.take. Returns the launches of each kernel
+  run."""
+  from glt_tpu_torch.distributed import DistNeighborSampler
+  seeds = torch.as_tensor(order[:TRAIN_BATCH].astype(np.int32), device=dev)
+  n_valid = TRAIN_BATCH - 3
+  cap = dg.max_degree
+  paths = {}
+  for path, fanouts, kw, want in (
+      ('dist_homo_weighted', list(FANOUTS), dict(with_weight=True),
+       dict(gather_windows=len(FANOUTS), sample_hop=len(FANOUTS))),
+      ('dist_homo_full', [-1, -1], dict(full_neighbor_cap=cap),
+       dict(gather_windows=4, sample_hop=0))):
+    s = DistNeighborSampler(dg, fanouts, with_edge=True, seed=seed, **kw)
+    u = s.own_uniforms(None, TRAIN_BATCH)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = s.sample_local(seeds, n_valid, u)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    paths[path] = {fn.__name__: fn.launches for fn in K.KERNELS}
+    for n, v in want.items():
+      if paths[path][n] != v:
+        raise AssertionError(f'{path}: {paths[path][n]} {n} launches, '
+                             f'expected {v}')
+    with recorded_calls(K, ('gather_windows', 'sample_hop')) as calls:
+      plain = s.sample_local(seeds, n_valid, u)
+    f = differing_field(torch, out, plain, sorted(out))
+    if f is not None:
+      raise AssertionError(f'{path} batch {f} differs between kernels and '
+                           'plain')
+    em, eids = out['edge_mask'], out['edge']
+    if not (bool((eids[em] >= 0).all()) and bool((eids[~em] == -1).all())):
+      raise AssertionError(f'{path}: edge ids not set exactly on the valid '
+                           'lanes')
+    print(f'{path} ({TRAIN_BATCH} seeds, {int(n_valid)} real, fanouts '
+          f'{s.num_neighbors}' + (f', the -1 cap {cap} = the store\'s '
+                                  'max_degree' if path.endswith('full')
+                                  else f', weight window '
+                                  f'{s.max_weighted_degree}')
+          + f'): {ms:.3f} ms (host clock, one sample); '
+          f'{int(out["node_count"])} nodes, {int(em.sum())} valid edges of '
+          f'{em.numel()} slots, bit-identical to plain with edge ids; '
+          f'launches {paths[path]}')
+    label = f'{path[5:]} batch ({len(calls["gather_windows"])} reads)'
+    rows['gather_windows'].setdefault('shapes', {})[label] = time_windows(
+        torch, np, K, path[5:] + ' batch', calls['gather_windows'])
+    if calls['sample_hop']:
+      rows['sample_hop']['shapes'][
+          f'{path[5:]} batch ({len(calls["sample_hop"])} hops, eids)'] = \
+          time_picks(torch, np, K, path[5:] + ' batch', calls['sample_hop'])
+    del out, plain, calls, u, s
+    torch.cuda.empty_cache()
+  return paths
+
+
+# the partition hot cache (FrequencyPartitioner's): two parts, each caching
+# its hottest 5% of the nodes it does not own
+CACHE_PARTS, CACHE_RATIO, PROB_TOL = 2, 0.05, 1e-5
+
+
+def numpy_probs(np, indptr, indices, seeds, fanouts, n):
+  """NeighborSampler.sample_prob's push in float64 numpy: the seeds at 1,
+  each hop adding p(u) * min(fanout / deg(u), 1) to every out-neighbour
+  of u (1 for a -1 hop), the sums clipped to 1, then kept in a running
+  sum clipped to 1."""
+  deg = np.diff(indptr)
+  probs = np.zeros(n)
+  probs[seeds] = 1.0
+  acc = probs
+  for k in fanouts:
+    rate = (np.where(deg > 0, 1.0, 0.0) if k < 0 else
+            np.where(deg > 0, np.minimum(k / np.maximum(deg, 1), 1.0), 0.0))
+    acc = np.minimum(np.bincount(indices, weights=np.repeat(acc * rate, deg),
+                                 minlength=n), 1.0)
+    probs = np.minimum(probs + acc, 1.0)
+  return probs
+
+
+def hot_cache_phases(torch, np, K, ds, dev, seed, smi):
+  """The partition hot cache over the products graph (``ds``, its training
+  split): NeighborSampler.sample_prob on the card from each half of the
+  training seeds, against numpy's float64 push; FrequencyPartitioner
+  (two parts, cache_ratio 0.05) writing the layout; DistDataset.load of
+  part 0 on the card (its cached rows first, then its owned rows) and a
+  one-rank DistFeature over it whose lookups of cached ids are answered by
+  this rank's K3. Returns the lookup's launches."""
+  import os
+  import shutil
+  import tempfile
+  from glt_tpu_torch.distributed import DistDataset, DistFeature
+  from glt_tpu_torch.parallel import make_mesh
+  from glt_tpu_torch.partition import FrequencyPartitioner
+  from glt_tpu_torch.sampler import NeighborSampler
+  from glt_tpu_torch.typing import Split
+
+  with Phase('hot cache path'):
+    g = ds.get_graph()
+    train_idx = ds.get_split(Split.train)
+    halves = np.array_split(train_idx, CACHE_PARTS)
+    sampler = NeighborSampler(g, list(FANOUTS), device=dev)
+    indptr, indices = g.indptr.cpu().numpy(), g.indices.cpu().numpy()
+    probs, ms = [], []
+    for h in halves:
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      p = sampler.sample_prob(h, NUM_NODES)
+      torch.cuda.synchronize()
+      ms.append((time.perf_counter() - t0) * 1e3)
+      p = p.cpu().numpy()
+      want = numpy_probs(np, indptr, indices, h, FANOUTS, NUM_NODES)
+      err = float(np.abs(p - want).max())
+      if not err <= PROB_TOL:
+        raise AssertionError(f'sample_prob differs from numpy float64 by '
+                             f'{err}')
+      probs.append(p)
+      print(f'sample_prob ({h.size} seeds, {list(FANOUTS)}): '
+            f'{ms[-1]:.3f} ms on the card (host clock around it, synced); '
+            f'{int((p > 0).sum())} nodes reached, mean {p.mean():.6f}; '
+            f'max |diff| to float64 numpy {err:.3e} (tolerance {PROB_TOL})')
+    del indptr, indices
+    src, dst, _ = g.topo.to_coo()
+    edge_index = torch.stack([src, dst]).cpu().numpy()
+    del src, dst
+    feats = ds.get_node_feature().table.cpu().numpy()
+    root = tempfile.mkdtemp(prefix='glt_cache_parts_')
+    try:
+      t0 = time.perf_counter()
+      FrequencyPartitioner(root, num_parts=CACHE_PARTS, num_nodes=NUM_NODES,
+                           edge_index=edge_index, node_feat=feats,
+                           probs=np.stack(probs),
+                           cache_ratio=CACHE_RATIO).partition()
+      part_s = time.perf_counter() - t0
+      del edge_index
+      with np.load(os.path.join(root, 'part0', 'node_feat',
+                                'data.npz')) as z:
+        cache_ids, own_ids = z['cache_ids'], z['ids']
+      t0 = time.perf_counter()
+      ds0 = DistDataset.load(root, 0, device=dev)
+      torch.cuda.synchronize()
+      load_s = time.perf_counter() - t0
+    finally:
+      shutil.rmtree(root, ignore_errors=True)
+    f = ds0.get_node_feature()
+    held = np.concatenate([cache_ids, own_ids])
+    table = torch.as_tensor(feats[held], device=dev)
+    book = ds0.get_node_feat_pb().table
+    graph_book = ds0.get_node_pb().table
+    if not (torch.equal(f.table, table)
+            and (f._id2index[held] == np.arange(held.size)).all()
+            and (book[cache_ids] == 0).all()
+            and (graph_book[cache_ids] != 0).all()
+            and (book[own_ids] == 0).all()):
+      raise AssertionError('part 0 does not hold its cached rows, then its '
+                           'owned rows, with the rewritten book')
+    if cache_ids.size != int(NUM_NODES * CACHE_RATIO):
+      raise AssertionError(f'{cache_ids.size} cached rows, expected '
+                           f'{int(NUM_NODES * CACHE_RATIO)}')
+    print(f'FrequencyPartitioner ({CACHE_PARTS} parts, cache_ratio '
+          f'{CACHE_RATIO}): {part_s:.3f} s; part 0 owns {own_ids.size} nodes '
+          f'and caches {cache_ids.size} of part 1\'s; DistDataset.load(part '
+          f'0) on the card {load_s:.3f} s: {f.table.shape[0]} rows (cached '
+          f'first, then owned), id2index over both, the feature book routes '
+          f'the cached ids to part 0 (the graph book to part 1)')
+    # one rank over part 0: its owned and cached ids answered by its K3,
+    # part 1's other ids ask nothing (rank 1 is not in this mesh)
+    mesh = make_mesh(device=dev)
+    store = DistFeature.from_dist_datasets(mesh, {0: ds0})
+    rng = np.random.default_rng(seed + 40)
+    remote = np.nonzero(book != 0)[0]
+    ids = np.concatenate([rng.choice(cache_ids, 4096),
+                          rng.choice(own_ids, 4096),
+                          rng.choice(remote, 1024)])
+    K.reset_launch_counts()
+    got = store.lookup(ids)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    want = torch.as_tensor(feats[ids], device=dev)
+    local = torch.as_tensor(book[ids] == 0, device=dev)
+    if not (torch.equal(got[local], want[local])
+            and not got[~local].any() and launches['gather_rows'] == 1):
+      raise AssertionError(f'the cached lookup read wrong rows or launched '
+                           f'{launches}')
+    n_local = int(local.sum())
+    print(f'hot cache lookup, one rank over part 0: {ids.size} ids '
+          f'({n_local} answered here, 4096 of them cached rows of part 1, '
+          f'by one K3 launch; {ids.size - n_local} owned by rank 1 ask '
+          f'nothing); rows equal to the table\'s; launches {launches}; on '
+          f'{smi}')
+    del store, ds0, f, table, got, want, feats, probs, sampler
+    torch.cuda.empty_cache()
+  return {'hot_cache': launches}
 
 
 def host_phase_check(torch, np, K, trainer, dfs, dfh, order, mixed, smi):
@@ -5972,11 +6389,14 @@ def main() -> int:
   torch.cuda.empty_cache()
   ss_paths = superstep_phases(torch, np, K, ds, dev, opts.seed, smi)
   torch.cuda.empty_cache()
-  dist_launches, ss_paths['dist_hetero_superstep'] = dist_phases(
-      torch, np, K, dev, opts.seed, k3, rows, smi)
+  (dist_launches, ss_paths['dist_hetero_superstep'],
+   weighted_launches) = dist_phases(torch, np, K, dev, opts.seed, k3, rows,
+                                    smi)
   torch.cuda.empty_cache()
   homo_paths = homo_dist_phases(torch, np, K, ds, dev, opts.seed, rows, k3,
                                 mixed, smi)
+  torch.cuda.empty_cache()
+  homo_paths.update(hot_cache_phases(torch, np, K, ds, dev, opts.seed, smi))
   torch.cuda.empty_cache()
   sc_paths = server_client_phases(torch, np, K, ds, dev, opts.seed, k3,
                                   mixed, walk, smi)
@@ -6033,6 +6453,7 @@ def main() -> int:
              'train_uniform': uniform_launches, 'link': link_launches,
              'subgraph': sub_launches, 'seal': seal_launches,
              'split': split_launches, 'dist_hetero': dist_launches,
+             'dist_weighted': weighted_launches,
              'hetero_link': hlink_launches, 'hgt': hgt_launches,
              **homo_paths, **sc_paths, **fe_paths, **stream_paths,
              **{p: v[0] for p, v in ss_paths.items()},

@@ -38,9 +38,10 @@ class Dataset:
                  num_nodes=None, device=None) -> 'Dataset':
     """Build the CSR (``edge_dir='out'``) or CSC (``'in'``) from a [2, E]
     COO ``edge_index`` on ``device`` (default: the card), with optional
-    per-edge ``edge_weights`` (homogeneous; weighted sampling reads
-    them). Hetero: ``edge_index`` (and ``edge_ids``) are dicts keyed by
-    EdgeType, and each edge type compresses into a rectangular graph
+    per-edge ``edge_weights`` (weighted sampling reads them). Hetero:
+    ``edge_index`` (and ``edge_ids`` and ``edge_weights``, an edge type
+    without an entry unweighted) are dicts keyed by EdgeType, and each
+    edge type compresses into a rectangular graph
     over its (src, dst) node counts. ``num_nodes`` is then a dict keyed
     by NodeType (an edge type either of whose ends it names reads both
     ends from it), a dict keyed by EdgeType (a square count for that
@@ -54,8 +55,6 @@ class Dataset:
                       layout=layout, device=device)
       self.graph = Graph(topo, device=device)
       return self
-    if edge_weights is not None:
-      raise NotImplementedError('hetero edge weights are not ported')
     self.graph = {}
     for etype, ei in edge_index.items():
       src_t, _, dst_t = etype
@@ -66,10 +65,12 @@ class Dataset:
       else:
         n_src = n_dst = num_nodes.get(etype)
       eid = edge_ids.get(etype) if isinstance(edge_ids, dict) else None
+      ew = (edge_weights.get(etype) if isinstance(edge_weights, dict)
+            else None)
       # the pointer axis: src of a CSR, dst of a CSC
       n_rows, n_cols = (n_src, n_dst) if layout == 'CSR' else (n_dst, n_src)
-      topo = Topology(ei, edge_ids=eid, num_rows=n_rows, num_cols=n_cols,
-                      layout=layout, device=device)
+      topo = Topology(ei, edge_ids=eid, edge_weights=ew, num_rows=n_rows,
+                      num_cols=n_cols, layout=layout, device=device)
       self.graph[etype] = Graph(topo, device=device)
     return self
 

@@ -12,11 +12,13 @@ a host phase, over rpc from another process's partition. Traced requests
 carry their trace context over the fabric (``glt_tpu_torch.obs``).
 
 A sampling server takes live updates of its partition through
-``apply_delta``.
+``apply_delta``. The partitioned samplers take weighted and
+full-neighbourhood (``-1``) hops at the rows' owners, with edge ids, and a
+partition may hold hot-cache rows of other partitions
+(``FrequencyPartitioner``), which its rank's lookups answer locally.
 
-Not ported (ROADMAP): the weighted and full-neighbourhood partitioned
-hops, ``FrequencyPartitioner``, ``DistRandomPartitioner``,
-``DistTableDataset`` and the multihost loaders (A12b)."""
+Not ported (ROADMAP): ``DistRandomPartitioner``, ``DistTableDataset`` and
+the multihost loaders (A12b)."""
 from .channel_loader import (MpNeighborLoader, RemoteNeighborLoader,
                              message_to_batch)
 from .dist_client import (apply_delta, async_request_server, collect_obs,

@@ -2,44 +2,46 @@
 (counterpart of glt_tpu/distributed/dist_dataset.py).
 
 ``load`` reads one partition of the on-disk layout
-(``glt_tpu_torch.partition``): its edges become this dataset's graph (an
-edge type a graph for a hetero layout, over the global node counts), its
-feature rows a :class:`~glt_tpu_torch.data.Feature` whose ``id2index``
-maps a global id to its row (-1 for an id another partition holds), its
-edge feature rows (``edge_feat.npz``) likewise over global edge ids, and
-the books route ids to their owners. Not ported: hot-cache rows
-(``cat_feature_cache``) and ``DistTableDataset`` (ROADMAP A12).
+(``glt_tpu_torch.partition``): its edges, with their weights, become this
+dataset's graph (an edge type a graph for a hetero layout, over the global
+node counts), its feature rows a :class:`~glt_tpu_torch.data.Feature`
+whose ``id2index`` maps a global id to its row (-1 for an id this
+partition holds no row of), its edge feature rows (``edge_feat.npz``)
+likewise over global edge ids, and the books route ids to their owners.
+A partition's hot-cache rows (``cache_ids``, written by a
+``FrequencyPartitioner`` or ``build_partition_feature``) come first in
+its table (``cat_feature_cache``), and its feature books
+(``node_feat_pb``/``edge_feat_pb``) route its cached ids to itself, so a
+:class:`~glt_tpu_torch.distributed.DistFeature` built from it answers
+them at its own rank. Not ported: ``DistTableDataset`` (ROADMAP A12b).
 """
 from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..data import Dataset, Feature
-from ..partition import TablePartitionBook, load_partition
+from ..partition import PartitionBook, cat_feature_cache, load_partition
 from ..typing import EdgeType, FeaturePartitionData, NodeType
 
 
-def _partition_feature(f: FeaturePartitionData, pb: TablePartitionBook,
-                       dtype, device) -> Feature:
-  """A partition's rows as a Feature with its global id -> row map."""
-  if f.cache_ids is not None and len(f.cache_ids):
-    raise NotImplementedError('hot-cache rows in a partition are not ported')
-  ids = f.ids
-  max_id = int(ids.max()) + 1 if ids.size else 0
-  id2index = np.full(max(max_id, pb.table.shape[0]), -1, np.int64)
-  id2index[ids] = np.arange(ids.shape[0])
-  return Feature(f.feats, id2index=id2index, dtype=dtype, device=device)
+def _partition_feature(part: int, f: FeaturePartitionData, pb: PartitionBook,
+                       dtype, device):
+  """A partition's rows as a Feature, its cached rows first, with its
+  global id -> row map, and the feature book that routes its cached ids
+  to it (:func:`~glt_tpu_torch.partition.cat_feature_cache`)."""
+  feats, _, id2index, book = cat_feature_cache(part, f, pb)
+  return Feature(feats, id2index=id2index, dtype=dtype, device=device), book
 
 
 class DistDataset(Dataset):
   """One partition of a partitioned dataset: its graph, its node and
-  edge feature rows, ``num_partitions``, ``partition_idx`` and the
-  partition books (``node_pb`` and ``edge_pb``: one, or a dict keyed by
-  node or edge type), which also route the feature rows (a partition
-  holds no hot-cache rows). Build one with :meth:`load`."""
+  edge feature rows, ``num_partitions``, ``partition_idx``, the partition
+  books (``node_pb`` and ``edge_pb``: one, or a dict keyed by node or edge
+  type) and the feature books (``node_feat_pb``, ``edge_feat_pb``, alike),
+  which route the feature rows: the graph's books with this partition's
+  cached ids sent to itself. Build one with :meth:`load`."""
 
   @classmethod
   def load(cls, root_dir: str, partition_idx: int,
@@ -56,32 +58,36 @@ class DistDataset(Dataset):
     ds.node_pb = node_pb
     ds.edge_pb = edge_pb
     ds.edge_features = None
+    ds.node_feat_pb = ds.edge_feat_pb = None
+
+    def features(f, pb):
+      return _partition_feature(partition_idx, f, pb, feature_dtype, device)
+
     if meta['data_cls'] == 'hetero':
-      if any(g.weights is not None for g in graph.values()):
-        raise NotImplementedError('hetero edge weights are not ported')
+      weights = {e: g.weights for e, g in graph.items()
+                 if g.weights is not None}
       ds.init_graph(edge_index={e: g.edge_index for e, g in graph.items()},
                     edge_ids={e: g.eids for e, g in graph.items()},
+                    edge_weights=weights or None,
                     num_nodes={nt: pb.table.shape[0]
                                for nt, pb in node_pb.items()},
                     device=device)
       if nfeat:
-        ds.node_features = {
-            nt: _partition_feature(f, node_pb[nt], feature_dtype, device)
-            for nt, f in nfeat.items()}
+        built = {nt: features(f, node_pb[nt]) for nt, f in nfeat.items()}
+        ds.node_features = {nt: b[0] for nt, b in built.items()}
+        ds.node_feat_pb = {nt: b[1] for nt, b in built.items()}
       if efeat:
-        ds.edge_features = {
-            e: _partition_feature(f, edge_pb[e], feature_dtype, device)
-            for e, f in efeat.items()}
+        built = {e: features(f, edge_pb[e]) for e, f in efeat.items()}
+        ds.edge_features = {e: b[0] for e, b in built.items()}
+        ds.edge_feat_pb = {e: b[1] for e, b in built.items()}
     else:
       ds.init_graph(edge_index=graph.edge_index, edge_ids=graph.eids,
                     edge_weights=graph.weights,
                     num_nodes=node_pb.table.shape[0], device=device)
       if nfeat is not None:
-        ds.node_features = _partition_feature(nfeat, node_pb,
-                                              feature_dtype, device)
+        ds.node_features, ds.node_feat_pb = features(nfeat, node_pb)
       if efeat is not None:
-        ds.edge_features = _partition_feature(efeat, edge_pb,
-                                              feature_dtype, device)
+        ds.edge_features, ds.edge_feat_pb = features(efeat, edge_pb)
     return ds
 
   def get_node_pb(self, ntype: Optional[NodeType] = None):
@@ -89,7 +95,13 @@ class DistDataset(Dataset):
       return self.node_pb[ntype]
     return self.node_pb
 
-  get_node_feat_pb = get_node_pb
+  def get_node_feat_pb(self, ntype: Optional[NodeType] = None):
+    """The book that routes the node feature rows (of ``ntype`` for a
+    hetero layout): this partition's rewritten one, else the graph's."""
+    pb = self.node_feat_pb if self.node_feat_pb is not None else self.node_pb
+    if isinstance(pb, dict) and ntype is not None:
+      return pb[ntype]
+    return pb
 
   def get_edge_feature(self, etype: Optional[EdgeType] = None):
     """The edge feature rows (of ``etype`` for a hetero layout), or
@@ -99,8 +111,10 @@ class DistDataset(Dataset):
     return self.edge_features
 
   def get_edge_feat_pb(self, etype: Optional[EdgeType] = None):
-    """The edge partition book (one an edge type for a hetero layout),
-    which routes the edge feature rows."""
-    if isinstance(self.edge_pb, dict) and etype is not None:
-      return self.edge_pb[etype]
-    return self.edge_pb
+    """The book that routes the edge feature rows (of ``etype`` for a
+    hetero layout): this partition's feature book, else the edge
+    partition book."""
+    pb = self.edge_feat_pb if self.edge_feat_pb is not None else self.edge_pb
+    if isinstance(pb, dict) and etype is not None:
+      return pb[etype]
+    return pb

@@ -42,10 +42,12 @@ class DistGraph:
 
   Attributes: ``indptr`` [max_rows + 1] int32, ``indices`` [max_edges]
   int32 (column ids, global), ``edge_ids`` [max_edges] int64 (-1 past the
-  live edges), ``local_row``, ``node_pb``, and ``mesh``, ``num_nodes``
+  live edges), ``edge_weights`` [max_edges] float32 (0 past the live
+  edges) or None, ``local_row``, ``node_pb``, and ``mesh``, ``num_nodes``
   (the row id space), ``edge_dir``, ``num_partitions``, ``max_rows``,
-  ``max_edges``, ``max_degree`` (the maxima over every partition).
-  Edge weights are not kept (the weighted partitioned hop is not ported).
+  ``max_edges``, ``max_degree`` (the maxima over every partition). The
+  weights are kept when every partition has them (agreed over the mesh,
+  all or nothing), as the JAX stores keep them.
   """
 
   def __init__(self, mesh: Mesh, num_nodes: int, parts, node_pb,
@@ -110,9 +112,10 @@ def _fill_store(store: DistGraph, mesh: Mesh, part: GraphPartitionData,
   in ``[0, num_cols)`` of the column type (glt_tpu/distributed/
   dist_graph.py ``_build_partition_block`` and ``_pad_block``, and
   dist_hetero.py ``_build_etype_store`` with its two id spaces). The
-  CSR is built on the rank's device; the padding maxima are agreed over
-  the mesh (an ``all_reduce``, a collective: every rank calls this for
-  the same stores in the same order)."""
+  CSR is built on the rank's device; the padding maxima, and whether the
+  store keeps weights (every partition has them), are agreed over the
+  mesh (one ``all_reduce``, a collective: every rank calls this for the
+  same stores in the same order)."""
   dev = mesh.device
   row = torch.as_tensor(np.asarray(part.edge_index[0]), device=dev).long()
   col = torch.as_tensor(np.asarray(part.edge_index[1]), device=dev).long()
@@ -120,17 +123,20 @@ def _fill_store(store: DistGraph, mesh: Mesh, part: GraphPartitionData,
   local_of = torch.full((num_rows,), -1, dtype=torch.int32, device=dev)
   local_of[owned] = torch.arange(owned.numel(), dtype=torch.int32,
                                  device=dev)
+  weights = (None if part.weights is None else torch.as_tensor(
+      np.asarray(part.weights, np.float32), device=dev))
   topo = Topology(torch.stack([local_of[row].long(), col]),
                   edge_ids=torch.as_tensor(np.asarray(part.eids),
                                            device=dev),
-                  num_rows=owned.numel(), num_cols=num_cols, layout='CSR',
-                  device=dev)
+                  edge_weights=weights, num_rows=owned.numel(),
+                  num_cols=num_cols, layout='CSR', device=dev)
+  # the last entry is minus the weights flag: its max is minus the min
   sizes = torch.tensor([max(owned.numel(), 1), max(topo.num_edges, 1),
-                        max(topo.max_degree, 1)], dtype=torch.int64,
-                       device=dev)
+                        max(topo.max_degree, 1), -int(weights is not None)],
+                       dtype=torch.int64, device=dev)
   if mesh.world > 1:
     dist.all_reduce(sizes, op=dist.ReduceOp.MAX, group=mesh.group)
-  max_rows, max_edges, max_degree = (int(v) for v in sizes.cpu())
+  max_rows, max_edges, max_degree, no_weights = (int(v) for v in sizes.cpu())
   store.mesh = mesh
   store.num_nodes = int(num_rows)
   store.edge_dir = edge_dir
@@ -144,21 +150,26 @@ def _fill_store(store: DistGraph, mesh: Mesh, part: GraphPartitionData,
   store.edge_ids = torch.cat([topo.edge_ids.long(),
                               torch.full((pad,), -1, dtype=torch.int64,
                                          device=dev)])
+  store.edge_weights = (None if no_weights == 0 else torch.cat(
+      [topo.edge_weights.float(), torch.zeros(pad, device=dev)]))
   store.local_row = local_of
   store.node_pb = torch.as_tensor(dense_book(node_pb, num_rows),
                                   device=dev)
 
 
-def store_tensors(store: DistGraph,
-                  with_edge: bool = False) -> dict:
+def store_tensors(store: DistGraph, with_edge: bool = False,
+                  with_weight: bool = False) -> dict:
   """The arrays a one-hop reads (glt_tpu's ``graph_shards`` dict):
-  ``indptr``, ``indices``, ``local_row``, ``node_pb`` and, with
-  ``with_edge``, the edge ids narrowed to int32 (``sample_hop`` reads
-  int32 planes; a partition's edge ids fit it, as the JAX slots do)."""
+  ``indptr``, ``indices``, ``local_row``, ``node_pb``; with ``with_edge``
+  the edge ids narrowed to int32 (``sample_hop`` and ``gather_windows``
+  read int32 planes; a partition's edge ids fit it, as the JAX slots do);
+  with ``with_weight``, when the store keeps them, ``edge_weights``."""
   out = dict(indptr=store.indptr, indices=store.indices,
              local_row=store.local_row, node_pb=store.node_pb)
   if with_edge:
     out['edge_ids'] = store.edge_ids.to(torch.int32)
+  if with_weight and store.edge_weights is not None:
+    out['edge_weights'] = store.edge_weights
   return out
 
 

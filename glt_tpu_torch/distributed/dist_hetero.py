@@ -4,13 +4,16 @@ glt_tpu/distributed/dist_hetero.py).
 
 Each rank holds its partition of every edge type (:class:`DistHeteroGraph`:
 one :class:`~glt_tpu_torch.distributed.dist_graph.DistGraph` block an edge
-type, rows in the row type's id space, columns in the column type's), and
+type, rows in the row type's id space, columns in the column type's, with
+its edge weights when every partition has them), and
 :class:`DistHeteroNeighborSampler` walks from a seed type with the
-partitioned one-hop of every edge type (the ``sample_hop`` kernel, B2, on
-each owner) and one dedup a node type a hop
-(``ops.pipeline.multihop_sample_hetero_sorted``). :class:`DistHeteroTrainStep`
-adds each type's features through its
-:class:`~glt_tpu_torch.distributed.DistFeature` (K3 on each owner), the
+partitioned one-hop of every edge type (on each owner the ``sample_hop``
+kernel, B2, for a uniform hop; B3's weight window, a Gumbel top-k and B2
+for a weighted one; B3's windows for a ``-1`` hop) and one dedup a node
+type a hop (``ops.pipeline.multihop_sample_hetero_sorted``), optionally
+with each sampled edge's id. :class:`DistHeteroTrainStep` adds each type's
+features through its :class:`~glt_tpu_torch.distributed.DistFeature` (K3
+on each owner), the sampled edges' features when given edge stores, the
 RGNN's masked cross-entropy, the gradients' mean over the mesh and Adam;
 per batch, or a window of K batches as one CUDA graph on a card.
 """
@@ -35,7 +38,9 @@ from ..utils import RandomSeedManager, as_numpy, make_generator
 from ..utils.rng import seeded_state_dict
 from .dist_graph import (_check_layout, _oriented, build_store, rank_entry,
                          store_tensors)
-from .dist_neighbor_sampler import check_fanouts, make_dist_one_hop, own_block
+from .dist_neighbor_sampler import (check_fanouts, draw_hop_uniforms,
+                                    hop_uniform_shape, make_dist_one_hop,
+                                    own_block)
 
 
 class DistHeteroGraph:
@@ -93,28 +98,39 @@ class DistHeteroNeighborSampler:
   Args:
     graph: this rank's blocks.
     num_neighbors: per-hop fanouts, one list for every edge type or a dict
-      of them keyed by edge type (0 skips the type at that hop).
+      of them keyed by edge type (0 skips the type at that hop, -1 takes
+      every neighbour inside a window of ``full_neighbor_cap`` or the edge
+      type's ``max_degree``).
+    with_edge: also return each edge type's sampled edge ids (``edge``).
+    with_weight: weight-proportional positive hops, when every edge type
+      keeps weights (uniform otherwise, as in JAX).
+    max_weighted_degree: a weighted hop's window (default: each edge
+      type's ``max_degree``; never below the hop's fanout).
     seed: seed of the rank's generator (``seed + rank``; default the
       process-wide seed), which draws the uniforms a call is given none.
-
-  ``with_edge``, ``with_weight``, ``full_neighbor_cap`` and fanout -1
-  raise: not ported.
+    full_neighbor_cap: the window of a ``-1`` hop.
   """
 
   def __init__(self, graph: DistHeteroGraph, num_neighbors,
                with_edge: bool = False, with_weight: bool = False,
+               max_weighted_degree: Optional[int] = None,
                seed: Optional[int] = None,
                full_neighbor_cap: Optional[int] = None):
-    if with_edge or with_weight:
-      raise NotImplementedError('edge ids and weighted hops of a '
-                                'partitioned hetero sample are not ported')
     self.g = graph
     self.mesh = graph.mesh
     self.edge_types = list(graph.graphs)
+    self.with_edge = bool(with_edge)
+    self.with_weight = bool(with_weight) and all(
+        st.edge_weights is not None for st in graph.graphs.values())
+    #: per edge type a weighted hop's window
+    self.weight_windows = {
+        e: int(max_weighted_degree or st.max_degree)
+        for e, st in graph.graphs.items()}
     if not isinstance(num_neighbors, dict):
       num_neighbors = {e: num_neighbors for e in self.edge_types}
-    self.num_neighbors = {e: check_fanouts(v, full_neighbor_cap)
-                          for e, v in num_neighbors.items()}
+    self.num_neighbors = {
+        e: check_fanouts(v, full_neighbor_cap, graph.graphs[e].max_degree)
+        for e, v in num_neighbors.items()}
     hops = {len(v) for v in self.num_neighbors.values()}
     if len(hops) != 1:
       raise ValueError('every edge type needs the same number of hops')
@@ -123,8 +139,12 @@ class DistHeteroNeighborSampler:
             else RandomSeedManager.getInstance().getSeed())
     self.generator = make_generator(base + self.mesh.rank, self.mesh.device)
     self._one_hops = {
-        e: make_dist_one_hop(store_tensors(st), st.num_nodes,
-                             st.num_partitions, st.max_rows, self.mesh)
+        e: make_dist_one_hop(
+            store_tensors(st, with_edge=self.with_edge,
+                          with_weight=self.with_weight),
+            st.num_nodes, st.num_partitions, st.max_rows, self.mesh,
+            with_weight=self.with_weight,
+            max_weighted_degree=self.weight_windows[e])
         for e, st in graph.graphs.items()}
 
   def _trav(self) -> Dict[EdgeType, Tuple[NodeType, NodeType]]:
@@ -153,14 +173,15 @@ class DistHeteroNeighborSampler:
     trav = self._trav()
     caps, budgets = self._caps(batch_size, seed_type)
     etypes = [e for e in self.edge_types
-              if any(caps[h][trav[e][0]] * self.num_neighbors[e][h] > 0
+              if any(caps[h][trav[e][0]] * abs(self.num_neighbors[e][h]) > 0
                      for h in range(self.num_hops))]
     active = {e: trav[e] for e in etypes}
 
     def core(seeds, n_valid, u_hops):
       out = multihop_sample_hetero_sorted(
           self._one_hops, active, self.num_neighbors, self.num_hops, caps,
-          budgets, {seed_type: seeds}, {seed_type: n_valid}, u_hops)
+          budgets, {seed_type: seeds}, {seed_type: n_valid}, u_hops,
+          with_edge=self.with_edge)
       out['batch'] = out['batch'][seed_type]
       out['seed_labels'] = out['seed_labels'][seed_type]
       return out
@@ -177,10 +198,11 @@ class DistHeteroNeighborSampler:
             for e in self._make_device_core(batch_size, seed_type)[3]]
 
   def uniform_shapes(self, batch_size: int, seed_type: NodeType
-                     ) -> List[List[Tuple[int, int]]]:
+                     ) -> List[List[Optional[Tuple[int, int]]]]:
     """Per hop, per segment (the active edge types whose row type has a
-    frontier and whose fanout is not 0, in order), the ``[world * F,
-    fanout]`` draw a rank serves with."""
+    frontier and whose fanout is not 0, in order), the draw a rank serves
+    with: ``[world * F, fanout]``, ``[world * F, W]`` for a weighted hop
+    (W its window), None for a full hop."""
     caps, _ = self._caps(batch_size, seed_type)
     trav = self._trav()
     shapes = []
@@ -189,15 +211,17 @@ class DistHeteroNeighborSampler:
       for e, (row_t, _) in trav.items():
         k = self.num_neighbors[e][h]
         if caps[h][row_t] and k:
-          hop.append((self.mesh.world * caps[h][row_t], k))
+          hop.append(hop_uniform_shape(
+              self.mesh.world, caps[h][row_t], k,
+              self.weight_windows[e] if self.with_weight else None))
       shapes.append(hop)
     return shapes
 
   def draw_uniforms(self, batch_size: int, seed_type: NodeType):
     """This rank's draws of one batch from its generator, per hop and
-    segment."""
-    return [[torch.rand(s, generator=self.generator, device=self.mesh.device)
-             for s in hop]
+    segment (None for a full hop)."""
+    return [[draw_hop_uniforms(self.generator, s, self.with_weight,
+                               self.mesh.device) for s in hop]
             for hop in self.uniform_shapes(batch_size, seed_type)]
 
   def final_key(self, e: EdgeType) -> EdgeType:
@@ -208,10 +232,11 @@ class DistHeteroNeighborSampler:
                         n_valid_per_device=None, uniforms=None) -> dict:
     """``seeds_per_device [world, B]`` (or shard-major ``[world * B]``)
     of ``seed_type`` and ``n_valid_per_device [world]``, the same on
-    every rank; ``uniforms`` per hop and segment ``[world, world * F,
-    fanout]`` (rank r reads row r) or None (drawn). Returns this rank's
-    output in message-passing orientation (dist_hetero.py:474-485):
-    ``row``/``col``/``edge_mask``/``num_sampled_edges`` keyed by the
+    every rank; ``uniforms`` per hop and segment ``[world, *shape]``
+    (rank r reads row r; :meth:`uniform_shapes`, None for a full hop) or
+    None (drawn). Returns this rank's output in message-passing
+    orientation (dist_hetero.py:474-485): ``row``/``col``/``edge_mask``/
+    ``num_sampled_edges`` (and ``edge`` with ``with_edge``) keyed by the
     reversed edge types, ``row`` the child labels, plus ``input_type``."""
     mesh = self.mesh
     seeds = as_numpy(seeds_per_device).reshape(-1)
@@ -223,15 +248,17 @@ class DistHeteroNeighborSampler:
     if uniforms is None:
       u = self.draw_uniforms(b, seed_type)
     else:
-      u = [[torch.as_tensor(x)[mesh.rank].to(mesh.device, torch.float32)
+      u = [[None if x is None else
+            torch.as_tensor(x)[mesh.rank].to(mesh.device, torch.float32)
             for x in hop] for hop in uniforms]
     core = self._make_device_core(b, seed_type)[0]
     out = core(mine, n_valid, u)
     fk = self.final_key
     out['row'], out['col'] = ({fk(e): v for e, v in out['col'].items()},
                               {fk(e): v for e, v in out['row'].items()})
-    for key in ('edge_mask', 'num_sampled_edges'):
-      out[key] = {fk(e): v for e, v in out[key].items()}
+    for key in ('edge_mask', 'num_sampled_edges', 'edge'):
+      if key in out:
+        out[key] = {fk(e): v for e, v in out[key].items()}
     out['input_type'] = seed_type
     return out
 
@@ -260,14 +287,31 @@ class DistHeteroTrainStep(CapturedWindows):
     seed_type: the node type of the seeds.
     lr: Adam's learning rate (optax ``adam`` defaults otherwise).
     seed: seed of the sampler's generators.
+    edge_features: per *traversal* edge type an edge-id DistFeature; the
+      sampler then emits edge ids and the batch carries ``edge_dict`` and
+      ``edge_attr_dict`` (keyed by the message-passing keys) for the edge
+      types that sample.
+    with_weight / max_weighted_degree: weighted hops, as for
+      :class:`DistHeteroNeighborSampler`.
   """
 
   def __init__(self, graph: DistHeteroGraph, features: Dict[NodeType, object],
                model: nn.Module, labels: Dict[NodeType, np.ndarray],
                num_neighbors, batch_size_per_device: int,
-               seed_type: NodeType, lr: float = 1e-3, seed: int = 0):
+               seed_type: NodeType, lr: float = 1e-3, seed: int = 0,
+               edge_features: Optional[Dict[EdgeType, object]] = None,
+               with_weight: bool = False,
+               max_weighted_degree: Optional[int] = None):
     for t, st in features.items():
       require_device_resident(st, f'DistHeteroTrainStep features[{t!r}]')
+    edge_features = dict(edge_features or {})
+    for e, st in edge_features.items():
+      require_device_resident(st, f'DistHeteroTrainStep edge_features[{e!r}]')
+    unknown = set(edge_features) - set(graph.graphs)
+    if unknown:
+      raise ValueError(f'edge_features keys {sorted(map(str, unknown))} are '
+                       'not traversal edge types (pass the traversal type, '
+                       'not the reversed key)')
     mesh = graph.mesh
     dev = mesh.device
     if next(model.parameters()).device != dev:
@@ -278,11 +322,17 @@ class DistHeteroTrainStep(CapturedWindows):
     self.g, self.mesh, self.features, self.model = graph, mesh, features, model
     self.seed_type = seed_type
     self.bs = int(batch_size_per_device)
-    self.sampler = DistHeteroNeighborSampler(graph, num_neighbors, seed=seed)
+    self.sampler = DistHeteroNeighborSampler(
+        graph, num_neighbors, with_edge=bool(edge_features),
+        with_weight=with_weight, max_weighted_degree=max_weighted_degree,
+        seed=seed)
     self.labels = {t: torch.as_tensor(as_numpy(v)).to(dev)
                    for t, v in labels.items()}
     (self._core, self._caps, self._budgets,
      self._etypes) = self.sampler._make_device_core(self.bs, seed_type)
+    # an edge type no frontier reaches samples no edges
+    self.edge_features = {e: st for e, st in edge_features.items()
+                          if e in self._etypes}
     if mesh.world > 1:
       for p in model.parameters():
         dist.broadcast(p.data, 0, group=mesh.group)
@@ -297,10 +347,11 @@ class DistHeteroTrainStep(CapturedWindows):
     trav = self.sampler._trav()
     zeros = lambda n, dt: torch.zeros(n, dtype=dt, device=dev)
     ecaps = {e: max(1, sum(self._caps[h][trav[e][0]]
-                           * self.sampler.num_neighbors[e][h]
+                           * abs(self.sampler.num_neighbors[e][h])
                            for h in range(self.sampler.num_hops)))
              for e in self._etypes}
-    keys = {self.sampler.final_key(e): ecaps[e] for e in self._etypes}
+    fk = self.sampler.final_key
+    keys = {fk(e): ecaps[e] for e in self._etypes}
     return HeteroBatch(
         x_dict={t: torch.zeros((self._budgets[t], f.feature_dim),
                                dtype=f.dtype, device=dev)
@@ -312,6 +363,12 @@ class DistHeteroTrainStep(CapturedWindows):
                    for t in self.features},
         node_count_dict={t: zeros((), torch.int32) for t in self.features},
         y_dict={self.seed_type: zeros(self.bs, torch.int32)},
+        edge_dict=({k: zeros(n, torch.int32) for k, n in keys.items()}
+                   if self.sampler.with_edge else None),
+        edge_attr_dict=({fk(e): torch.zeros((ecaps[e], f.feature_dim),
+                                            dtype=f.dtype, device=dev)
+                         for e, f in self.edge_features.items()}
+                        or None),
         input_type=self.seed_type, batch_size=self.bs,
         metadata={'n_valid': zeros((), torch.int32)})
 
@@ -329,7 +386,8 @@ class DistHeteroTrainStep(CapturedWindows):
     """This rank's batch (dist_hetero.py:583-695): the walk from
     ``seeds [B]`` (``n_valid`` a 0-dim tensor, ``u_hops`` this rank's
     draws per hop and segment), every type's features through its
-    exchange, the seed labels, the reversed keys."""
+    exchange, the sampled edges' ids and features given edge stores, the
+    seed labels, the reversed keys."""
     dev = self.mesh.device
     out = self._core(seeds, n_valid, u_hops)
     x_dict = {}
@@ -340,11 +398,18 @@ class DistHeteroTrainStep(CapturedWindows):
     y = self.labels[self.seed_type].index_select(
         0, out['batch'].clamp(min=0).long())
     fk = self.sampler.final_key
+    edge_attr = {fk(e): f.lookup_local(
+        out['edge'][e].clamp(min=0), out['edge_mask'][e],
+        static_rounds=static_rounds)
+        for e, f in self.edge_features.items()}
     return HeteroBatch(
         x_dict=x_dict,
         row_dict={fk(e): out['col'][e] for e in self._etypes},
         col_dict={fk(e): out['row'][e] for e in self._etypes},
         edge_mask_dict={fk(e): out['edge_mask'][e] for e in self._etypes},
+        edge_dict=({fk(e): out['edge'][e] for e in self._etypes}
+                   if 'edge' in out else None),
+        edge_attr_dict=edge_attr or None,
         node_dict=out['node'], node_count_dict=out['node_count'],
         y_dict={self.seed_type: y}, input_type=self.seed_type,
         batch_size=self.bs, metadata={'n_valid': n_valid})
@@ -355,8 +420,8 @@ class DistHeteroTrainStep(CapturedWindows):
   def _own(self, seeds_stack, n_valid_stack, uniforms):
     """This rank's column of a window: seeds ``[T, B]`` and valid counts
     ``[T]`` int32 on its device, and per hop and segment uniforms ``[T,
-    world * F, fanout]`` (the given ``[T, world, ...]`` at this rank, else
-    drawn batch by batch from the generator)."""
+    *shape]`` (the given ``[T, world, ...]`` at this rank, else drawn batch
+    by batch from the generator; None for a full hop)."""
     dev, r, bs = self.mesh.device, self.mesh.rank, self.bs
     seeds = torch.as_tensor(as_numpy(seeds_stack)).reshape(
         len(seeds_stack), -1)[:, r * bs:(r + 1) * bs]
@@ -366,21 +431,25 @@ class DistHeteroTrainStep(CapturedWindows):
     if uniforms is None:
       draws = [self.sampler.draw_uniforms(bs, self.seed_type)
                for _ in range(seeds.shape[0])]
-      u = [[torch.stack([d[h][i] for d in draws])
+      u = [[None if draws[0][h][i] is None
+            else torch.stack([d[h][i] for d in draws])
             for i in range(len(draws[0][h]))]
            for h in range(len(draws[0]))]
     else:
-      u = [[torch.as_tensor(x)[:, r].to(dev, torch.float32).contiguous()
+      u = [[None if x is None else
+            torch.as_tensor(x)[:, r].to(dev, torch.float32).contiguous()
             for x in hop] for hop in uniforms]
     return seeds, n_valid, u
 
   def _one(self, seeds, n_valid_per_device, uniforms):
     """A batch's own inputs (``[0]`` of a window of one)."""
-    u = None if uniforms is None else [[torch.as_tensor(x)[None]
-                                        for x in hop] for hop in uniforms]
+    u = None if uniforms is None else [
+        [None if x is None else torch.as_tensor(x)[None] for x in hop]
+        for hop in uniforms]
     seeds, n_valid, u = self._own(as_numpy(seeds).reshape(1, -1),
                                   as_numpy(n_valid_per_device)[None], u)
-    return seeds[0], n_valid[0], [[x[0] for x in hop] for hop in u]
+    return seeds[0], n_valid[0], [[None if x is None else x[0] for x in hop]
+                                  for hop in u]
 
   def __call__(self, seeds, n_valid_per_device, uniforms=None
                ) -> torch.Tensor:

@@ -23,8 +23,19 @@ With ``with_edge`` the owner also reads each pick's global edge id (the
 ``eids`` plane of the same B2 launch), which rides back beside the
 neighbours: ``out['edge']``, -1 on invalid lanes.
 
-Not ported (each raises until a caller needs it): the full-neighbourhood
-hop (fanout -1, B3) and the weighted hop.
+The owner's other two hops (dist_neighbor_sampler.py:76-88):
+
+* weighted (``with_weight`` over a store with edge weights): B3
+  (``gather_windows``) reads each served row's ``[W]`` weight window, a
+  Gumbel top-k over the serving rank's uniforms ``[world * F, W]`` picks,
+  and B2 (``sample_hop``) reads the picks and their edge ids; ``W =
+  max(max_weighted_degree, fanout)``, so a hub row draws among its first
+  ``W`` neighbours;
+* full neighbourhood (fanout ``-w``, the resolved ``-1``): B3 windows of
+  width ``w`` over ``indices`` and, for edge ids, a second over the ids;
+  it draws nothing.
+
+Either answer rides back at the hop's width, as the uniform hop's does.
 """
 from __future__ import annotations
 
@@ -34,7 +45,9 @@ import numpy as np
 import torch
 
 from ..ops.pipeline import edge_hop_offsets, multihop_sample_sorted
-from ..ops.sample import NeighborOutput, sample_neighbors
+from ..ops.sample import (NeighborOutput, sample_full_neighbors,
+                          sample_neighbors, sample_neighbors_weighted,
+                          weighted_hop_uniforms)
 from ..parallel.collectives import all_to_all, bucket_by_owner, unbucket
 from ..parallel.mesh import Mesh
 from ..utils import RandomSeedManager, as_numpy, make_generator
@@ -43,42 +56,51 @@ from .dist_graph import DistGraph, store_tensors
 
 def make_dist_one_hop(graph_shards: Dict[str, torch.Tensor], num_nodes: int,
                       n_parts: int, rows_max: int, mesh: Mesh,
-                      with_weight: bool = False):
+                      with_weight: bool = False,
+                      max_weighted_degree: int = 0):
   """The partitioned one-hop over this rank's block (dist_neighbor_
   sampler.py:38-96).
 
   ``graph_shards``: this rank's ``indptr`` [R+1], ``indices`` [E],
   ``local_row`` [N], ``node_pb`` [N] and, for edge ids in the output,
-  int32 ``edge_ids`` [E] (:func:`~glt_tpu_torch.distributed.dist_graph.
-  store_tensors`).
+  int32 ``edge_ids`` [E], for the weighted hop ``edge_weights`` [E]
+  (:func:`~glt_tpu_torch.distributed.dist_graph.store_tensors`).
 
-  Returns ``one_hop(ids [F], fanout, u [world * F, fanout], mask [F]) ->
-  NeighborOutput`` ([F, fanout], ``eids`` given ``edge_ids``): a
-  collective, every rank calls it with the same F and fanout; ``u`` is
-  this rank's draw over the requests it serves."""
-  if with_weight:
-    raise NotImplementedError('the weighted partitioned hop is not ported')
+  Returns ``one_hop(ids [F], fanout, u, mask [F]) -> NeighborOutput``
+  ([F, |fanout|], ``eids`` given ``edge_ids``): a collective, every rank
+  calls it with the same F and fanout. ``u`` is this rank's draw over the
+  requests it serves: ``[world * F, fanout]`` for a uniform hop, ``[world
+  * F, max(max_weighted_degree, fanout)]`` for a weighted one (``with_
+  weight`` and weights in the shards), None for a full hop (fanout < 0,
+  window ``-fanout``)."""
   indptr, indices = graph_shards['indptr'], graph_shards['indices']
   local_row, node_pb = graph_shards['local_row'], graph_shards['node_pb']
   eids = graph_shards.get('edge_ids')
+  weights = graph_shards.get('edge_weights') if with_weight else None
 
-  def one_hop(ids: torch.Tensor, fanout: int, u: torch.Tensor,
+  def one_hop(ids: torch.Tensor, fanout: int, u: Optional[torch.Tensor],
               mask: torch.Tensor) -> NeighborOutput:
-    if fanout < 0:
-      raise NotImplementedError('the full-neighbourhood partitioned hop '
-                                '(fanout -1) is not ported')
-    f = ids.numel()
+    f, width = ids.numel(), abs(fanout)
     owner = node_pb.index_select(0, ids.long().clamp(0, num_nodes - 1))
     owner = torch.where(mask, owner, torch.full_like(owner, n_parts))
     req, meta = bucket_by_owner(ids.to(torch.int32), owner, n_parts)
     req_in = all_to_all(req, mesh).reshape(-1)          # [P * F]
     lrow = local_row.index_select(0, req_in.long().clamp(0, num_nodes - 1))
     ok = (req_in >= 0) & (lrow >= 0)
-    out = sample_neighbors(indptr, indices, lrow.clamp(0, rows_max - 1),
-                           fanout, u, seed_mask=ok, edge_ids=eids)
+    rows = lrow.clamp(0, rows_max - 1)
+    if fanout < 0:
+      out = sample_full_neighbors(indptr, indices, rows, width,
+                                  seed_mask=ok, edge_ids=eids)
+    elif weights is not None:
+      out = sample_neighbors_weighted(
+          indptr, indices, weights, rows, fanout, u,
+          max(max_weighted_degree, fanout), seed_mask=ok, edge_ids=eids)
+    else:
+      out = sample_neighbors(indptr, indices, rows, fanout, u, seed_mask=ok,
+                             edge_ids=eids)
 
     def back(x, invalid):
-      resp = all_to_all(x.reshape(n_parts, f, fanout), mesh)
+      resp = all_to_all(x.reshape(n_parts, f, width), mesh)
       return unbucket(resp, meta, n_parts, invalid_value=invalid)
     nbrs = back(out.nbrs, 0)
     # the validity plane travels as bytes (gloo has no bool collectives)
@@ -97,14 +119,49 @@ def own_block(x, mesh: Mesh, per_rank: int) -> np.ndarray:
   return flat[mesh.rank * per_rank:(mesh.rank + 1) * per_rank]
 
 
-def check_fanouts(fanouts: Sequence[int], full_neighbor_cap) -> List[int]:
-  """Positive (or 0) fanouts; -1 and ``full_neighbor_cap`` raise (the
-  full-neighbourhood partitioned hop is not ported)."""
-  out = [int(f) for f in fanouts]
-  if full_neighbor_cap is not None or any(f < 0 for f in out):
-    raise NotImplementedError('the full-neighbourhood partitioned hop '
-                              '(fanout -1) is not ported')
+def check_fanouts(fanouts: Sequence[int], full_neighbor_cap: Optional[int],
+                  max_degree: int) -> List[int]:
+  """Fanouts 0 or positive stay; ``-1`` becomes ``-(full_neighbor_cap or
+  max_degree)``, the full hop's static window (dist_neighbor_sampler.py:
+  110-119); any other negative fanout raises."""
+  out = []
+  for f in fanouts:
+    f = int(f)
+    if f == -1:
+      cap = int(full_neighbor_cap or max_degree)
+      if cap <= 0:
+        raise ValueError('fanout -1 needs full_neighbor_cap or a store '
+                         'with a known max_degree')
+      f = -cap
+    elif f < 0:
+      raise ValueError(f'fanout must be >= 0 or -1, got {f}')
+    out.append(f)
   return out
+
+
+def hop_uniform_shape(world: int, frontier: int, fanout: int,
+                      weight_window: Optional[int]):
+  """The draw a rank serves one hop of ``frontier`` requests a rank with:
+  ``(world * F, fanout)`` uniform, ``(world * F, max(weight_window,
+  fanout))`` weighted (``weight_window`` not None), None for a full hop
+  (``fanout < 0``)."""
+  if fanout < 0:
+    return None
+  if weight_window is not None:
+    return (world * frontier, max(weight_window, fanout))
+  return (world * frontier, fanout)
+
+
+def draw_hop_uniforms(generator: torch.Generator, shape, weighted: bool,
+                      device) -> Optional[torch.Tensor]:
+  """A hop's draw of ``shape`` (None: nothing), weighted ones mapped into
+  ``[1e-20, 1)`` as :func:`~glt_tpu_torch.ops.sample.
+  weighted_hop_uniforms` maps them."""
+  if shape is None:
+    return None
+  if weighted:
+    return weighted_hop_uniforms(generator, shape[0], shape[1], device)
+  return torch.rand(shape, generator=generator, device=device)
 
 
 class DistNeighborSampler:
@@ -114,46 +171,66 @@ class DistNeighborSampler:
 
   Args:
     dist_graph: this rank's block.
-    num_neighbors: per-hop fanouts (positive).
+    num_neighbors: per-hop fanouts, positive or ``-1`` (every neighbour,
+      inside a window of ``full_neighbor_cap`` or the store's
+      ``max_degree``).
     with_edge: also return each sampled edge's global id (``'edge'``).
+    with_weight: weight-proportional positive hops, when the store keeps
+      edge weights (uniform otherwise, as in JAX).
+    max_weighted_degree: a weighted hop's window (default the store's
+      ``max_degree``; a hop never draws from fewer than its fanout).
     seed: seed of the rank's generator (``seed + rank``; default the
       process-wide seed), which draws the uniforms a call is given none.
+    full_neighbor_cap: the window of a ``-1`` hop.
   """
 
   def __init__(self, dist_graph: DistGraph, num_neighbors: Sequence[int],
                with_edge: bool = False, with_weight: bool = False,
+               max_weighted_degree: Optional[int] = None,
                seed: Optional[int] = None,
                full_neighbor_cap: Optional[int] = None):
     self.g = dist_graph
     self.mesh = dist_graph.mesh
     self.with_edge = bool(with_edge)
-    self.num_neighbors = check_fanouts(num_neighbors, full_neighbor_cap)
+    self.with_weight = bool(with_weight) and (
+        dist_graph.edge_weights is not None)
+    self.max_weighted_degree = int(max_weighted_degree
+                                   or dist_graph.max_degree)
+    self.num_neighbors = check_fanouts(num_neighbors, full_neighbor_cap,
+                                       dist_graph.max_degree)
     self._one_hop = make_dist_one_hop(
-        store_tensors(dist_graph, with_edge=self.with_edge),
+        store_tensors(dist_graph, with_edge=self.with_edge,
+                      with_weight=self.with_weight),
         dist_graph.num_nodes,
         dist_graph.num_partitions, dist_graph.max_rows, self.mesh,
-        with_weight=with_weight)
+        with_weight=self.with_weight,
+        max_weighted_degree=self.max_weighted_degree)
     base = (seed if seed is not None
             else RandomSeedManager.getInstance().getSeed())
     self.generator = make_generator(base + self.mesh.rank, self.mesh.device)
 
-  def uniform_shapes(self, batch_size: int) -> List[Tuple[int, int]]:
-    """Per hop the ``[world * F_h, K_h]`` draw a rank serves with."""
+  def uniform_shapes(self, batch_size: int) -> List[Optional[Tuple[int, int]]]:
+    """Per hop the draw a rank serves with (:func:`hop_uniform_shape`):
+    ``[world * F_h, K_h]``, ``[world * F_h, W]`` for a weighted hop, None
+    for a full one."""
     shapes, f = [], batch_size
+    window = self.max_weighted_degree if self.with_weight else None
     for k in self.num_neighbors:
-      shapes.append((self.mesh.world * f, k))
-      f *= k
+      shapes.append(hop_uniform_shape(self.mesh.world, f, k, window))
+      f *= abs(k)
     return shapes
 
-  def own_uniforms(self, uniforms, batch_size: int) -> List[torch.Tensor]:
-    """This rank's row of per-hop ``[world, world * F_h, K_h]`` draws on
-    its device, or, for ``uniforms=None``, its own draws from its
-    generator."""
+  def own_uniforms(self, uniforms, batch_size: int
+                   ) -> List[Optional[torch.Tensor]]:
+    """This rank's row of per-hop ``[world, *shape]`` draws on its device
+    (None for a full hop), or, for ``uniforms=None``, its own draws from
+    its generator."""
     dev = self.mesh.device
     if uniforms is None:
-      return [torch.rand(s, generator=self.generator, device=dev)
+      return [draw_hop_uniforms(self.generator, s, self.with_weight, dev)
               for s in self.uniform_shapes(batch_size)]
-    return [torch.as_tensor(x)[self.mesh.rank].to(dev, torch.float32)
+    return [None if x is None
+            else torch.as_tensor(x)[self.mesh.rank].to(dev, torch.float32)
             for x in uniforms]
 
   def sample_local(self, seeds: torch.Tensor, n_valid, u_hops
@@ -171,9 +248,9 @@ class DistNeighborSampler:
                         uniforms=None) -> Dict[str, torch.Tensor]:
     """``seeds_per_device [world, B]`` (or shard-major ``[world * B]``)
     and ``n_valid_per_device [world]`` (default all B), the same on every
-    rank; ``uniforms`` per hop ``[world, world * F_h, K_h]`` (rank r
-    reads row r) or None (drawn). Returns this rank's output dict plus
-    ``edge_hop_offsets``."""
+    rank; ``uniforms`` per hop ``[world, *shape]`` (rank r reads row r;
+    :meth:`uniform_shapes`, None for a full hop) or None (drawn). Returns
+    this rank's output dict plus ``edge_hop_offsets``."""
     mesh = self.mesh
     seeds = as_numpy(seeds_per_device).reshape(-1)
     b = seeds.shape[0] // mesh.world

@@ -75,6 +75,9 @@ class HeteroBatch:
   input_type: Optional[NodeType] = None
   batch_size: int = 0
   edge_hop_offsets_dict: Optional[Dict[EdgeType, Tuple[int, ...]]] = None
+  #: per edge key the sampled edges' feature rows (a partitioned trainer
+  #: given edge stores), zero on masked lanes
+  edge_attr_dict: Optional[Dict[EdgeType, torch.Tensor]] = None
 
 
 def to_hetero_batch(out: HeteroSamplerOutput,

@@ -382,7 +382,8 @@ def multihop_sample_hetero(plan: HeteroFusedPlan, table_slots: int,
 
 
 def multihop_sample_hetero_sorted(one_hops, trav, num_neighbors, num_hops,
-                                  caps, budgets, seeds, n_valid, u_hops):
+                                  caps, budgets, seeds, n_valid, u_hops,
+                                  with_edge: bool = False):
   """The hetero per-hop loop over given one-hops (counterpart of the
   ``fused_hops()`` branch of glt_tpu/ops/pipeline.py
   ``_multihop_sample_hetero_sorted``: ``GLT_DEDUP=sort GLT_FUSED_HOP=1``),
@@ -391,7 +392,8 @@ def multihop_sample_hetero_sorted(one_hops, trav, num_neighbors, num_hops,
 
   Args:
     one_hops: per traversal edge type ``one_hop(ids [F], fanout, u, mask
-      [F]) -> NeighborOutput`` ([F, fanout]).
+      [F]) -> NeighborOutput`` ([F, |fanout|]; a negative fanout is a
+      full-neighbourhood window).
     trav: per traversal edge type ``(row_type, col_type)``; the order of
       the loop over edge types.
     num_neighbors: per edge type the fanout of each hop.
@@ -401,6 +403,8 @@ def multihop_sample_hetero_sorted(one_hops, trav, num_neighbors, num_hops,
     u_hops: ``u_hops[h][i]`` the uniforms of hop h's i-th segment (the
       edge types of ``trav`` whose row type has a frontier and whose
       fanout is not 0, in order), in the shape its one-hop takes.
+    with_edge: also return each edge type's sampled edge ids (``edge``,
+      the one-hops' ``eids`` in slot order).
 
   Seed types take the exact seed hop; every hop then dedups each node
   type's picks with :func:`sorted_hop_dedup_fused` (new ids labelled in
@@ -411,7 +415,8 @@ def multihop_sample_hetero_sorted(one_hops, trav, num_neighbors, num_hops,
   Returns the reference's dict: per type ``node``, ``node_count``,
   ``num_sampled_nodes``, ``batch`` and ``seed_labels`` (the seed types),
   per traversal edge type ``row`` (parent labels), ``col`` (child labels,
-  -1 where masked), ``edge_mask`` and ``num_sampled_edges``.
+  -1 where masked), ``edge_mask``, ``num_sampled_edges`` and, with
+  ``with_edge``, ``edge``.
   """
   dev = next(iter(seeds.values())).device
   zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -425,7 +430,7 @@ def multihop_sample_hetero_sorted(one_hops, trav, num_neighbors, num_hops,
     else:
       seen[t] = (empty, empty, zero)
       frontier[t] = _empty_frontier(max(1, caps[0][t]), dev)
-  rows_d, cols_d, mask_d = {}, {}, {}
+  rows_d, cols_d, mask_d, eid_d = {}, {}, {}, {}
   hop_nodes = {t: [seen[t][2]] for t in budgets}
   hop_edges = {}
   for h in range(num_hops):
@@ -435,12 +440,14 @@ def multihop_sample_hetero_sorted(one_hops, trav, num_neighbors, num_hops,
       k = num_neighbors[e][h]
       if caps[h][row_t] == 0 or k == 0:
         continue
+      width = abs(k)
       f_ids, f_labels, f_mask = frontier[row_t]
       out = one_hops[e](f_ids, k, u_hops[h][len(per_meta)], f_mask)
       mflat = out.mask.reshape(-1)
       per_type[col_t].append((out.nbrs.reshape(-1), mflat))
-      per_meta.append((e, col_t, torch.repeat_interleave(f_labels, k),
-                       mflat, caps[h][row_t] * k))
+      per_meta.append((e, col_t, torch.repeat_interleave(f_labels, width),
+                       mflat, out.eids.reshape(-1) if with_edge else None,
+                       caps[h][row_t] * width))
     labels_by_type = {}
     for t, chunks in per_type.items():
       if not chunks:
@@ -458,7 +465,7 @@ def multihop_sample_hetero_sorted(one_hops, trav, num_neighbors, num_hops,
       seen[t] = (d['u_ids2'], d['u_labs2'], d['count2'])
       hop_nodes[t].append(d['new_count'])
     cursor = {t: 0 for t in budgets}
-    for e, col_t, rows_parent, mask, width in per_meta:
+    for e, col_t, rows_parent, mask, eids, width in per_meta:
       s = cursor[col_t]
       cursor[col_t] += width
       lab = labels_by_type[col_t][s:s + width]
@@ -466,9 +473,11 @@ def multihop_sample_hetero_sorted(one_hops, trav, num_neighbors, num_hops,
       cols_d.setdefault(e, []).append(
           torch.where(mask, lab, torch.full_like(lab, -1)))
       mask_d.setdefault(e, []).append(mask)
+      if with_edge:
+        eid_d.setdefault(e, []).append(eids)
       hop_edges.setdefault(e, []).append(mask.sum(dtype=torch.int32))
   nodes = {t: sorted_nodes_by_label(*seen[t], budgets[t]) for t in budgets}
-  return dict(
+  out = dict(
       node=nodes, node_count={t: seen[t][2] for t in budgets},
       row={e: torch.cat(v) for e, v in rows_d.items()},
       col={e: torch.cat(v) for e, v in cols_d.items()},
@@ -477,6 +486,9 @@ def multihop_sample_hetero_sorted(one_hops, trav, num_neighbors, num_hops,
       seed_labels=seed_labels,
       num_sampled_nodes={t: torch.stack(v) for t, v in hop_nodes.items()},
       num_sampled_edges={e: torch.stack(v) for e, v in hop_edges.items()})
+  if with_edge:
+    out['edge'] = {e: torch.cat(v) for e, v in eid_d.items()}
+  return out
 
 
 def multihop_sample_hetero_many(one_hops, trav, num_neighbors, num_hops,

@@ -106,11 +106,14 @@ class NeighborOutput(NamedTuple):
   eids: Optional[torch.Tensor] = None
 
 
-def _empty_output(s: int, width: int, device) -> NeighborOutput:
-  """All-masked output of a graph with no edges."""
+def _empty_output(s: int, width: int, device,
+                  with_eids: bool = False) -> NeighborOutput:
+  """All-masked output of a graph with no edges (edge ids -1)."""
   return NeighborOutput(
       nbrs=torch.zeros((s, width), dtype=torch.int32, device=device),
-      mask=torch.zeros((s, width), dtype=torch.bool, device=device))
+      mask=torch.zeros((s, width), dtype=torch.bool, device=device),
+      eids=(torch.full((s, width), -1, dtype=torch.int32, device=device)
+            if with_eids else None))
 
 
 def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
@@ -138,31 +141,47 @@ def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
   return NeighborOutput(nbrs=nbrs, mask=mask, eids=eids)
 
 
+def _masked_eids(eids: Optional[torch.Tensor],
+                 mask: torch.Tensor) -> Optional[torch.Tensor]:
+  """Edge ids with -1 on the masked lanes (None stays None)."""
+  if eids is None:
+    return None
+  return torch.where(mask, eids, torch.full_like(eids, -1))
+
+
 def sample_full_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
                           seeds: torch.Tensor, max_degree: int,
-                          seed_mask: Optional[torch.Tensor] = None
+                          seed_mask: Optional[torch.Tensor] = None,
+                          edge_ids: Optional[torch.Tensor] = None
                           ) -> NeighborOutput:
   """Every neighbour of each seed, in adjacency order, inside a static
   ``[S, max_degree]`` window (degrees above it truncate): the JAX
   ``sample_full_neighbors`` with its ``window_gather``, one
   ``gather_windows`` launch over ``indices``. Lanes past a row's degree
-  are masked; they read what the kernel's clip gives them."""
+  are masked; they read what the kernel's clip gives them. ``edge_ids``
+  (int32, aligned with ``indices``) are read by a second launch over the
+  same windows into ``eids``, -1 on the masked lanes."""
   if max_degree <= 0:
     raise ValueError(f'max_degree must be positive, got {max_degree}')
   if indices.numel() == 0:
-    return _empty_output(seeds.numel(), max_degree, seeds.device)
+    return _empty_output(seeds.numel(), max_degree, seeds.device,
+                         edge_ids is not None)
   start, deg = _row_spans(indptr, seeds, seed_mask)
   win = torch.arange(max_degree, dtype=torch.int32,
                      device=seeds.device)[None, :]
   mask = win < deg.clamp(max=max_degree)[:, None]
   nbrs = cuda_kernels.gather_windows(indices, start, max_degree)
-  return NeighborOutput(nbrs=nbrs.to(torch.int32), mask=mask)
+  eids = (None if edge_ids is None else
+          cuda_kernels.gather_windows(edge_ids, start, max_degree))
+  return NeighborOutput(nbrs=nbrs.to(torch.int32), mask=mask,
+                        eids=_masked_eids(eids, mask))
 
 
 def sample_neighbors_weighted(indptr: torch.Tensor, indices: torch.Tensor,
                               weights: torch.Tensor, seeds: torch.Tensor,
                               fanout: int, u: torch.Tensor, max_degree: int,
-                              seed_mask: Optional[torch.Tensor] = None
+                              seed_mask: Optional[torch.Tensor] = None,
+                              edge_ids: Optional[torch.Tensor] = None
                               ) -> NeighborOutput:
   """Weight-proportional sampling of up to ``fanout`` distinct neighbours
   per seed by Gumbel-top-k (the JAX ``sample_neighbors_weighted``): one
@@ -175,12 +194,16 @@ def sample_neighbors_weighted(indptr: torch.Tensor, indices: torch.Tensor,
   ``u``: [S, max_degree] float32 in (0, 1) (:func:`weighted_hop_uniforms`
   shapes them as the JAX draw does). The mask comes from the keys, as
   ``top_valid`` does: a seed with fewer positive-weight neighbours than
-  ``fanout`` takes them all, and its other lanes are invalid."""
+  ``fanout`` takes them all, and its other lanes are invalid. ``edge_ids``
+  (int32, aligned with ``indices``) are read by the same ``sample_hop``
+  launch into ``eids``, -1 on the invalid lanes (which ``topk`` fills
+  in an order of its own)."""
   if not 0 < fanout <= max_degree:
     raise ValueError(f'fanout {fanout} must be in [1, max_degree = '
                      f'{max_degree}]')
   if indices.numel() == 0:
-    return _empty_output(seeds.numel(), fanout, seeds.device)
+    return _empty_output(seeds.numel(), fanout, seeds.device,
+                         edge_ids is not None)
   start, deg = _row_spans(indptr, seeds, seed_mask)
   win = torch.arange(max_degree, dtype=torch.int32,
                      device=seeds.device)[None, :]
@@ -191,9 +214,40 @@ def sample_neighbors_weighted(indptr: torch.Tensor, indices: torch.Tensor,
   keys = torch.where(w > 0, torch.log(w) + g,
                      torch.full_like(w, -float('inf')))
   top_keys, top = torch.topk(keys, fanout, dim=1)
-  nbrs, _ = cuda_kernels.sample_hop(indices, None, start,
-                                    top.to(torch.int32))
-  return NeighborOutput(nbrs=nbrs, mask=top_keys > -float('inf'))
+  nbrs, eids = cuda_kernels.sample_hop(indices, edge_ids, start,
+                                       top.to(torch.int32))
+  mask = top_keys > -float('inf')
+  return NeighborOutput(nbrs=nbrs, mask=mask, eids=_masked_eids(eids, mask))
+
+
+def neighbor_probs(indptr: torch.Tensor, indices: torch.Tensor,
+                   seed_probs: torch.Tensor, fanout: int,
+                   num_nodes: int) -> torch.Tensor:
+  """One hop of access probability (glt_tpu/ops/sample.py:713, the
+  reference's ``CalNbrProbKernel``): each edge ``u -> v`` of the CSR adds
+  ``p(u) * min(fanout / deg(u), 1)`` to ``v`` (rate 1 for a negative,
+  full-neighbourhood fanout), and the sums clip to 1. ``seed_probs``
+  [R] float32 over the pointer axis; returns ``[num_nodes]`` float32 on
+  its device. A row search finds each edge's row, a ``take`` its rate and
+  an ``index_add_`` sums them; slots at or past ``indptr[-1]`` (a padded
+  tail) add nothing, and negative ids add to id 0 as the JAX clip sends
+  them."""
+  indptr = indptr.long()
+  deg = (indptr[1:] - indptr[:-1]).float()
+  if fanout < 0:
+    rate = (deg > 0).float()
+  else:
+    rate = torch.where(deg > 0,
+                       torch.clamp(fanout / deg.clamp(min=1.0), max=1.0),
+                       torch.zeros_like(deg))
+  per_src = seed_probs.float() * rate
+  pos = torch.arange(indices.numel(), device=indices.device)
+  rows = torch.searchsorted(indptr, pos, right=True) - 1
+  contrib = per_src.take(rows.clamp(0, max(per_src.numel() - 1, 0)))
+  contrib = torch.where(pos < indptr[-1], contrib, torch.zeros_like(contrib))
+  out = torch.zeros(num_nodes, dtype=torch.float32, device=indices.device)
+  out.index_add_(0, indices.long().clamp(min=0), contrib)
+  return out.clamp_(max=1.0)
 
 
 def weighted_hop_uniforms(generator: Optional[torch.Generator], s: int,

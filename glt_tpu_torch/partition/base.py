@@ -11,12 +11,17 @@ what the other wrote::
       edge_pb.npy | edge_pb/<src__rel__dst>.npy
       part{i}/
         graph.npz | graph/<src__rel__dst>.npz      rows, cols, eids[, weights]
-        node_feat.npz | node_feat/<ntype>.npz      feats, ids
+        node_feat.npz | node_feat/<ntype>.npz      feats, ids[, cache_feats,
+                                                   cache_ids]
         edge_feat.npz | edge_feat/<src__rel__dst>.npz  feats, ids
 
-(homogeneous payloads are ``graph/data.npz`` and the like). Everything
-here is numpy on the host. npz holds no bfloat16: tables are written in
-their own dtype, and a store casts them when it loads them.
+(homogeneous payloads are ``graph/data.npz`` and the like). A partition's
+``cache_ids`` are hot rows other partitions own, copied to it (a
+partitioner's ``_cache_node``, or :func:`build_partition_feature`);
+:func:`cat_feature_cache` puts them in front of the owned rows when a
+partition loads. Everything here is numpy on the host. npz holds no
+bfloat16: tables are written in their own dtype, and a store casts them
+when it loads them.
 """
 from __future__ import annotations
 
@@ -29,20 +34,28 @@ import numpy as np
 from ..typing import (EdgeType, FeaturePartitionData, GraphPartitionData,
                       NodeType, as_str)
 from ..utils import as_numpy
-from .partition_book import TablePartitionBook
+from .partition_book import PartitionBook, TablePartitionBook
 
 CHUNK = 4 * 1024 * 1024
 
 
-def _write_node_feat(root_dir: str, part: int, ntype, feats, ids) -> None:
+def _write_node_feat(root_dir: str, part: int, ntype, feats, ids,
+                     cache_feats=None, cache_ids=None) -> None:
+  """A partition's node feature payload: its rows and, when it caches
+  any, the cached rows and their ids."""
+  payload = dict(feats=feats, ids=ids)
+  if cache_feats is not None and cache_ids is not None and len(cache_ids):
+    payload['cache_feats'] = cache_feats
+    payload['cache_ids'] = cache_ids
   d = os.path.join(root_dir, f'part{part}', 'node_feat')
   os.makedirs(d, exist_ok=True)
   np.savez(os.path.join(d, f'{ntype}.npz' if ntype else 'data.npz'),
-           feats=feats, ids=ids)
+           **payload)
 
 
 class PartitionerBase:
-  """Chunked offline partitioner (abstract :meth:`_partition_node`).
+  """Chunked offline partitioner (abstract :meth:`_partition_node`; a
+  subclass may cache hot rows through :meth:`_cache_node`).
 
   Args:
     output_dir: layout root.
@@ -77,6 +90,12 @@ class PartitionerBase:
   def _partition_node(self, ntype: Optional[NodeType] = None) -> np.ndarray:
     """The node partition table ``[num_nodes]`` int32."""
     raise NotImplementedError
+
+  def _cache_node(self, ntype: Optional[NodeType] = None
+                  ) -> Optional[List[np.ndarray]]:
+    """Per partition the ids of the rows it caches (rows other partitions
+    own), or None: no cache."""
+    return None
 
   def partition(self) -> None:
     os.makedirs(self.output_dir, exist_ok=True)
@@ -164,9 +183,13 @@ class PartitionerBase:
                     if isinstance(self.node_feat, dict) else self.node_feat)
     if feat is None:
       return
+    cache = self._cache_node(ntype)
     for p in range(self.num_parts):
       ids = np.nonzero(node_pb == p)[0]
-      _write_node_feat(self.output_dir, p, ntype, feat[ids], ids)
+      hot = cache[p] if cache is not None and cache[p].size else None
+      _write_node_feat(self.output_dir, p, ntype, feat[ids], ids,
+                       cache_feats=None if hot is None else feat[hot],
+                       cache_ids=hot)
 
 
 # -- loading -----------------------------------------------------------------
@@ -237,3 +260,57 @@ def load_partition(root: str, part: int):
     return meta, graph, nfeat or None, efeat or None, node_pb, edge_pb
   return (meta, graph, feat('node_feat', 'data'), feat('edge_feat', 'data'),
           node_pb, edge_pb)
+
+
+def cat_feature_cache(part: int, feat: FeaturePartitionData,
+                      pb: PartitionBook):
+  """A partition's feature rows as a store reads them (glt_tpu/partition/
+  base.py:276): the cached rows first, then the owned rows, the global id
+  -> row map over both (-1 elsewhere), and the feature book rewritten so
+  that this partition's cached ids route to itself. Returns ``(feats,
+  ids, id2index, book)``; without cached rows the rows, the map and a copy
+  of ``pb``."""
+  table = (pb.table.copy() if isinstance(pb, TablePartitionBook)
+           else pb[np.arange(pb.bounds[-1])].copy())
+  if feat.cache_feats is None or feat.cache_ids is None:
+    feats, ids = feat.feats, feat.ids
+  else:
+    feats = np.concatenate([feat.cache_feats, feat.feats])
+    ids = np.concatenate([feat.cache_ids, feat.ids])
+    table[feat.cache_ids] = part
+  max_id = int(ids.max()) + 1 if ids.size else 0
+  id2index = np.full(max(max_id, table.shape[0]), -1, np.int64)
+  id2index[ids] = np.arange(ids.shape[0])
+  return feats, ids, id2index, TablePartitionBook(table)
+
+
+def build_partition_feature(root_dir: str, node_feat, ntype=None,
+                            cache_probs=None, cache_ratio: float = 0.0
+                            ) -> None:
+  """The second stage of a two-stage partitioning (glt_tpu/partition/
+  base.py:296): over a layout whose node books are on disk, write each
+  partition's node feature rows, and, given ``cache_probs`` [N] and a
+  ``cache_ratio``, each partition's hottest rows of other partitions (at
+  most ``N * cache_ratio``, probability above 0) as its cached rows."""
+  meta = load_meta(root_dir)
+  node_feat = as_numpy(node_feat)
+  if meta['data_cls'] == 'hetero':
+    if ntype is None:
+      raise ValueError('a hetero layout needs the node type')
+    pb = np.load(os.path.join(root_dir, 'node_pb', f'{ntype}.npy'))
+  else:
+    pb = np.load(os.path.join(root_dir, 'node_pb.npy'))
+  probs = as_numpy(cache_probs)
+  cache_num = int(pb.shape[0] * cache_ratio) if cache_ratio else 0
+  for p in range(meta['num_parts']):
+    ids = np.nonzero(pb == p)[0]
+    cache_feats = cache_ids = None
+    if cache_num and probs is not None:
+      score = probs.copy()
+      score[ids] = -1.0
+      hot = np.argsort(-score)[:cache_num]
+      hot = hot[score[hot] > 0]
+      if hot.size:
+        cache_feats, cache_ids = node_feat[hot], hot
+    _write_node_feat(root_dir, p, ntype, node_feat[ids], ids,
+                     cache_feats=cache_feats, cache_ids=cache_ids)

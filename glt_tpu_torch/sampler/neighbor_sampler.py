@@ -37,9 +37,9 @@ from ..ops.pipeline import (edge_hop_offsets, hetero_edge_hop_offsets,
                             multihop_sample, multihop_sample_hetero,
                             multihop_sample_sorted, sample_budget)
 from ..ops.sample import (FusedHopPlan, HeteroFusedPlan, hetero_hop_uniforms,
-                          sample_full_neighbors, sample_neighbors,
-                          sample_neighbors_weighted, walk_hop_uniforms,
-                          weighted_hop_uniforms)
+                          neighbor_probs, sample_full_neighbors,
+                          sample_neighbors, sample_neighbors_weighted,
+                          walk_hop_uniforms, weighted_hop_uniforms)
 from ..ops.subgraph import SubGraph, induced_subgraph
 from ..typing import EdgeType, NodeType, reverse_edge_type
 from ..utils import as_numpy, make_generator, resolve_device
@@ -463,3 +463,57 @@ class NeighborSampler(BaseSampler):
         node_capacity=node_capacity or out.node.numel(),
         max_degree=self._max_degree, edge_ids=g.edge_ids,
         with_edge=self.with_edge)
+
+  # -- hotness -------------------------------------------------------------
+
+  def sample_prob(self, train_idx, node_count=None):
+    """Access probabilities from pre-sampling (glt_tpu/sampler/
+    neighbor_sampler.py:817-853, the reference's hotness estimate for
+    ``FrequencyPartitioner``): the seeds start at 1, then each hop pushes
+    the last hop's probabilities through its fanout
+    (:func:`~glt_tpu_torch.ops.sample.neighbor_probs`) and every node keeps
+    the running sum, clipped to 1. Runs on the sampler's device.
+
+    Homogeneous: ``train_idx`` ids and ``node_count`` the node count;
+    returns ``[node_count]`` float32. Hetero: ``train_idx`` a
+    ``(seed_type, ids)`` pair and ``node_count`` an optional dict of
+    counts by type (default the graph's); returns a dict of them by type,
+    each hop pushing across every traversal edge type."""
+    dev = self.device
+
+    def seeded(n, ids):
+      p = torch.zeros(n, dtype=torch.float32, device=dev)
+      p[torch.as_tensor(as_numpy(ids), device=dev).long()] = 1.0
+      return p
+
+    if self.is_hetero:
+      seed_type, ids = train_idx
+      counts = dict(node_count or self.node_counts)
+      probs = {t: torch.zeros(n, dtype=torch.float32, device=dev)
+               for t, n in counts.items()}
+      probs[seed_type] = seeded(counts[seed_type], ids)
+      acc = dict(probs)
+      trav = self._traversal_types()
+      for h in range(self.num_hops):
+        nxt = {t: torch.zeros(n, dtype=torch.float32, device=dev)
+               for t, n in counts.items()}
+        for etype, (row_t, col_t) in trav.items():
+          k = self.num_neighbors[etype][h]
+          if k == 0:
+            continue
+          g = self.graph[etype]
+          contrib = neighbor_probs(g.indptr, g.indices, acc[row_t], k,
+                                   counts[col_t])
+          nxt[col_t] = torch.clamp(nxt[col_t] + contrib, max=1.0)
+        acc = nxt
+        probs = {t: torch.clamp(probs[t] + acc[t], max=1.0) for t in counts}
+      return probs
+    if node_count is None:
+      raise ValueError('sample_prob of a homogeneous graph needs node_count')
+    g = self.graph
+    probs = seeded(int(node_count), train_idx)
+    acc = probs
+    for fanout in self.num_neighbors:
+      acc = neighbor_probs(g.indptr, g.indices, acc, fanout, int(node_count))
+      probs = torch.clamp(probs + acc, max=1.0)
+    return probs

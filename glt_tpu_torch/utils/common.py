@@ -32,3 +32,25 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     raise RuntimeError(
         'no CUDA device: pass device="cpu" to run the plain PyTorch path')
   return torch.device('cuda', torch.cuda.current_device())
+
+
+_UNITS = {
+    'k': 1024, 'm': 1024 ** 2, 'g': 1024 ** 3, 't': 1024 ** 4,
+    'kb': 1024, 'mb': 1024 ** 2, 'gb': 1024 ** 3, 'tb': 1024 ** 4,
+}
+
+
+def parse_size(size: object) -> int:
+  """A byte count from an int or a string such as ``'10GB'`` or ``'1.5m'``
+  (binary units, case-insensitive; glt_tpu/utils/common.py:35)."""
+  if isinstance(size, (int, np.integer)):
+    return int(size)
+  s = str(size).strip().lower()
+  num, unit = s, ''
+  for i, ch in enumerate(s):
+    if not (ch.isdigit() or ch == '.'):
+      num, unit = s[:i], s[i:].strip()
+      break
+  if unit and unit not in _UNITS:
+    raise ValueError(f'unknown size unit {unit!r}')
+  return int(float(num) * _UNITS.get(unit, 1))

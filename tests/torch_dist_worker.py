@@ -1,6 +1,7 @@
 """The port's side of the partitioned parity tests
 (tests/test_torch_dist_hetero.py, tests/test_torch_dist_homo.py,
-tests/test_torch_dist_link.py and tests/test_torch_dist_host_phase.py):
+tests/test_torch_dist_link.py, tests/test_torch_dist_host_phase.py,
+tests/test_torch_dist_weighted.py and tests/test_torch_hot_cache.py):
 the stores, the one-hop, both samplers, DistFeature lookups (node, edge
 and spilled stores, and the host phase over the rpc fabric), the loaders,
 DistHeteroTrainStep and DistTrainStep runs and gradients of one rank over a
@@ -361,11 +362,13 @@ DET_NODES, DET_DEGREE, DET_DIM, DET_CLASSES = 400, 3, 12, 4
 DET_FANOUTS, DET_BS, DET_STEPS = [3, 3], 16, 3
 
 
-def det_layout(root, world, seed=3):
+def det_layout(root, world, seed=3, cache_ratio=None):
   """The draw-independent graph at ``root`` in ``world`` parts (the
-  port's partitioner); returns its labels."""
+  port's RandomPartitioner, or, given ``cache_ratio``, its
+  FrequencyPartitioner over each part's share of the nodes pushed through
+  ``sample_prob``); returns its labels."""
   import numpy as np
-  from glt_tpu_torch.partition import RandomPartitioner
+  from glt_tpu_torch.partition import FrequencyPartitioner, RandomPartitioner
   rng = np.random.default_rng(seed)
   n = DET_NODES
   src = np.repeat(np.arange(n), DET_DEGREE)
@@ -373,9 +376,22 @@ def det_layout(root, world, seed=3):
                                              for _ in range(DET_DEGREE - 1)],
                  1).reshape(-1)
   feats = rng.normal(size=(n, DET_DIM)).astype('float32')
-  RandomPartitioner(root, num_parts=world, num_nodes=n,
-                    edge_index=np.stack([src, dst]), node_feat=feats,
-                    seed=seed).partition()
+  ei = np.stack([src, dst])
+  if cache_ratio is None:
+    RandomPartitioner(root, num_parts=world, num_nodes=n, edge_index=ei,
+                      node_feat=feats, seed=seed).partition()
+  else:
+    from glt_tpu_torch.data import Dataset
+    from glt_tpu_torch.sampler import NeighborSampler
+    s = NeighborSampler(Dataset().init_graph(ei, num_nodes=n,
+                                             device='cpu').graph,
+                        DET_FANOUTS, device='cpu')
+    probs = np.stack([s.sample_prob(part, n).numpy() for part in
+                      np.array_split(np.random.default_rng(seed + 1)
+                                     .permutation(n), world)])
+    FrequencyPartitioner(root, num_parts=world, num_nodes=n, edge_index=ei,
+                         node_feat=feats, probs=probs,
+                         cache_ratio=cache_ratio).partition()
   return rng.integers(0, DET_CLASSES, n).astype('int32')
 
 
@@ -389,21 +405,42 @@ def det_seeds(world, seed=4):
       world, DET_BS) for _ in range(DET_STEPS)])
 
 
-def det_train(mesh, root, labels, seeds):
+def det_train(mesh, root, labels, seeds, count=False):
   """DistTrainStep over the layout at ``root`` on ``seeds [T, world, B]``
-  (every rank passes all of them): the losses and the final weights."""
+  (every rank passes all of them): the losses and the final weights and,
+  with ``count``, the ids this rank's feature exchanges asked for
+  (``asked``) and sent to another rank (``sent``), this rank's cached ids
+  and its feature and graph books."""
   import numpy as np
-  from glt_tpu_torch.distributed import DistTrainStep
+  from glt_tpu_torch.distributed import DistTrainStep, dist_feature
   from glt_tpu_torch.models import GraphSAGE
   g = DistGraph.from_dataset_partitions(mesh, root)
-  ds = {mesh.rank: DistDataset.load(root, mesh.rank, device=mesh.device)}
-  df = DistFeature.from_dist_datasets(mesh, ds)
+  dset = DistDataset.load(root, mesh.rank, device=mesh.device)
+  df = DistFeature.from_dist_datasets(mesh, {mesh.rank: dset})
   torch.manual_seed(0)
   model = GraphSAGE(DET_DIM, 16, DET_CLASSES, num_layers=2).to(mesh.device)
   bs = seeds.shape[-1]
   step = DistTrainStep(g, df, model, labels, DET_FANOUTS, bs)
-  losses = [float(step(s, np.full(mesh.world, bs))) for s in seeds]
-  return dict(losses=losses, params=_np(model.state_dict()))
+  asked, sent = [], []
+  real = dist_feature.exchange_lookup
+
+  def counting(ids, owner, mesh_, *a, **k):
+    asked.append(_np(ids[owner < mesh_.world]))
+    sent.append(_np(ids[(owner != mesh_.rank) & (owner < mesh_.world)]))
+    return real(ids, owner, mesh_, *a, **k)
+  if count:
+    dist_feature.exchange_lookup = counting
+  try:
+    losses = [float(step(s, np.full(mesh.world, bs))) for s in seeds]
+  finally:
+    dist_feature.exchange_lookup = real
+  out = dict(losses=losses, params=_np(model.state_dict()))
+  if count:
+    book, graph_book = dset.get_node_feat_pb().table, dset.get_node_pb().table
+    out.update(asked=np.concatenate(asked), sent=np.concatenate(sent),
+               cached=np.nonzero(book != graph_book)[0], book=book,
+               graph_book=graph_book)
+  return out
 
 
 def det_case(mesh, case):
@@ -411,9 +448,10 @@ def det_case(mesh, case):
 
 
 def dist_homo_nccl_main(rank, world, store_path, root, labels_path,
-                        seeds_path, out_path):
+                        seeds_path, out_path, count=False):
   """A spawned rank on card ``rank`` of an NCCL group: det_train over the
-  layout at ``root``; results pickled to ``out_path % rank``."""
+  layout at ``root`` (counting its exchanges' ids with ``count``);
+  results pickled to ``out_path % rank``."""
   import pickle
   import numpy as np
   import torch.distributed as dist
@@ -423,7 +461,7 @@ def dist_homo_nccl_main(rank, world, store_path, root, labels_path,
                           rank=rank, world_size=world)
   try:
     res = det_train(make_mesh(device=torch.device('cuda', rank)), root,
-                    np.load(labels_path), np.load(seeds_path))
+                    np.load(labels_path), np.load(seeds_path), count=count)
     with open(out_path % rank, 'wb') as f:
       pickle.dump(res, f)
   finally:
@@ -439,7 +477,9 @@ def run_cases(mesh, cases):
              store_lookup=store_lookup_case, dist_loader=dist_loader_case,
              subgraph=subgraph_case, link=link_case, negative=negative_case,
              dist_train=dist_train_case, det=det_case,
-             host_phase=host_phase_case)
+             host_phase=host_phase_case, wsample_homo=wsample_homo_case,
+             wsample_hetero=wsample_hetero_case, wtrain=wtrain_case,
+             wsuper=wsuper_case, cache_lookup=cache_lookup_case)
   return {name: fns[case['kind']](mesh, case)
           for name, case in cases.items()}
 
@@ -449,6 +489,116 @@ def main(rank, world, store_path, in_path, out_path):
   torch_spmd_worker.run_rank(run_cases, rank, world, store_path, in_path,
                              out_path)
 
+
+
+# -- weighted, full and cached partitions (tests/test_torch_dist_weighted.py,
+# tests/test_torch_hot_cache.py) ------------------------------------------------
+
+def wsample_homo_case(mesh, case):
+  """The homogeneous sampler with the case's fanouts (``-1`` full hops),
+  weights and edge ids."""
+  g = DistGraph.from_dataset_partitions(mesh, case['root'])
+  s = DistNeighborSampler(g, case['fanouts'], with_edge=case['with_edge'],
+                          with_weight=True)
+  out = _batch_np(s.sample_from_nodes(case['seeds'], case['n_valid'],
+                                      case['u']))
+  return dict(out, shapes=s.uniform_shapes(case['seeds'].shape[1]),
+              fanouts=s.num_neighbors)
+
+
+def wsample_hetero_case(mesh, case):
+  """The hetero sampler with the case's fanouts, weights and edge ids."""
+  dg = DistHeteroGraph.from_dataset_partitions(mesh, case['root'])
+  s = DistHeteroNeighborSampler(dg, case['fanouts'],
+                                with_edge=case['with_edge'],
+                                with_weight=case['with_weight'])
+  out = s.sample_from_nodes('paper', case['seeds'], case['n_valid'],
+                            case['u'])
+  out.pop('input_type')
+  return dict(_np(out), shapes=s.uniform_shapes(case['seeds'].shape[1],
+                                                'paper'))
+
+
+def _wtrainer(mesh, case):
+  """An RSAGE over the case's weighted hetero layout and a weighted
+  DistHeteroTrainStep with the case's edge stores, from its weights."""
+  root = case['root']
+  dg = DistHeteroGraph.from_dataset_partitions(mesh, root)
+  ds = {mesh.rank: DistDataset.load(root, mesh.rank, device='cpu')}
+  feats = {t: DistFeature.from_dist_datasets(mesh, ds, ntype=t)
+           for t in dg.node_counts}
+  efeats = {e: DistFeature.from_dist_datasets(mesh, ds, ntype=e, kind='edge')
+            for e in case['edge_types']}
+  keys = DistHeteroNeighborSampler(dg, case['fanouts']).message_passing_types(
+      case['bs'], 'paper')
+  model = RGNN(keys, case['in_dim'], case['hidden'], case['classes'],
+               num_layers=len(case['fanouts']), conv='rsage',
+               node_types=list(dg.node_counts))
+  model.load_state_dict({k: torch.as_tensor(v)
+                         for k, v in case['params'].items()})
+  step = DistHeteroTrainStep(dg, feats, model, {'paper': case['labels']},
+                             case['fanouts'], case['bs'], 'paper',
+                             lr=case['lr'], edge_features=efeats,
+                             with_weight=True)
+  return model, step
+
+
+def wtrain_case(mesh, case):
+  """Per call: the batch's edge ids and edge features, then the step's
+  loss and the parameters after it."""
+  model, step = _wtrainer(mesh, case)
+  out = []
+  for call in case['calls']:
+    args = (call['seeds'], call['n_valid'], call['u'])
+    with torch.no_grad():
+      batch = step.make_batch(*step._one(*args))
+    res = _np(step(*args))
+    out.append(dict(result=res, params=_np(model.state_dict()),
+                    edge=_np(batch.edge_dict),
+                    edge_attr=_np(batch.edge_attr_dict),
+                    edge_mask=_np(batch.edge_mask_dict)))
+  return out
+
+
+def wsuper_case(mesh, case):
+  """A weighted superstep of the case's window against the same batches
+  through a twin's per-batch calls, both from the case's weights."""
+  a, b = _wtrainer(mesh, case)[1], _wtrainer(mesh, case)[1]
+  w = case['window']
+  got = _np(a.superstep(w['seeds'], w['n_valid'], w['u']))
+  want = [_np(b(w['seeds'][t], w['n_valid'][t],
+                [[None if x is None else x[t] for x in hop]
+                 for hop in w['u']]))
+          for t in range(w['seeds'].shape[0])]
+  return dict(got=got, want=want, a=_np(a.model.state_dict()),
+              b=_np(b.model.state_dict()))
+
+
+def cache_lookup_case(mesh, case):
+  """This rank's partition of a cached layout (its table, id map and
+  rewritten book) and a DistFeature lookup over it, with the ids this
+  rank sent to another rank's exchange."""
+  from glt_tpu_torch.distributed import dist_feature
+  ds = DistDataset.load(case['root'], mesh.rank, device='cpu')
+  feat = ds.get_node_feature()
+  sent = []
+  real = dist_feature.exchange_lookup
+
+  def counting(ids, owner, mesh_, *a, **k):
+    away = (owner != mesh_.rank) & (owner < mesh_.world)
+    sent.append(ids[away].numpy().copy())
+    return real(ids, owner, mesh_, *a, **k)
+  dist_feature.exchange_lookup = counting
+  try:
+    st = DistFeature.from_dist_datasets(mesh, {mesh.rank: ds})
+    rows = st.lookup(case['ids'], case['valid'])
+  finally:
+    dist_feature.exchange_lookup = real
+  import numpy as np
+  return dict(table=_np(feat.table), id2index=_np(feat._id2index),
+              book=ds.get_node_feat_pb().table.copy(),
+              graph_book=ds.get_node_pb().table.copy(), rows=_np(rows),
+              sent=np.concatenate(sent))
 
 
 # -- on a card ---------------------------------------------------------------
