@@ -10,10 +10,13 @@ through its example's run, training from a hot/cold split feature store,
 the feature bench, superstep training through SPMDSageTrainStep and the
 training bench, partitioned hetero training through DistHeteroTrainStep,
 partitioned homogeneous training through DistTrainStep and
-DistLinkNeighborLoader, the server-client mode through spawned sampling
-servers and RemoteNeighborLoader, the mp mode through MpNeighborLoader,
-feature lookups across processes through the feature_mp example, hetero
-link prediction through the hetero LinkNeighborLoader, HGT
+DistLinkNeighborLoader, table-sourced, fragment-sourced and
+online-partitioned datasets through TableDataset, load_vineyard_dataset,
+DistTableDataset and DistTableRandomPartitioner, the server-client mode
+through spawned sampling servers and RemoteNeighborLoader, the mp mode
+through MpNeighborLoader, feature lookups across processes through the
+feature_mp example, hetero link prediction through the hetero
+LinkNeighborLoader, HGT
 training through the hetero NeighborLoader, and the two benchmark entry
 points through their main functions, and checks what comes out:
 
@@ -155,7 +158,7 @@ points through their main functions, and checks what comes out:
 - the partitioned sampler's weighted and full hops: the
   igbh-rgat partition above carries float32 edge weights in (0, 1] on
   every edge type, and DistHeteroTrainStep(with_weight=True) at the
-  same width trains 2 + 10 steps through each owner's weighted hop (B3
+  same width trains 2 + 5 steps through each owner's weighted hop (B3
   reads the weight window, a Gumbel top-k picks, B2 reads the picks),
   one batch against the plain versions and B3 and B2 timed at its
   shapes; over the partitioned products graph with its weights, a
@@ -169,6 +172,24 @@ points through their main functions, and checks what comes out:
   writing the layout; DistDataset.load of part 0 on the card (its cached
   rows, then its owned ones, the rewritten book) and a one-rank
   DistFeature lookup of cached ids through K3;
+- where a dataset comes from, over products-sage's graph, rows and
+  labels streamed as odps_table_reader yields them (chunks of 1,048,576
+  records, the node records in a shuffled id order): TableDataset.load
+  on the card, bit-equal to the directly built dataset, then
+  NeighborLoader and SageTrainStep over it (batch 1024, [15, 10, 5], 2
+  warm-up and 10 timed steps; K1, K3 once a step), one batch against the
+  direct dataset's and the plain versions', and pai_table_train's main
+  at its defaults through CSV files; an InMemoryFragmentStore of four id
+  windows loaded by load_vineyard_dataset on the card, a walk and a
+  gather of 1,024 seeds against the direct dataset's and the plain
+  versions'; DistTableDataset.load_tables on one rank (the partition in
+  a temporary directory, removed after the load) and DistTrainStep over
+  it (B2, K3), 2 + 10 steps and one batch against plain; two
+  DistTableRandomPartitioner ranks on threads over loopback rpc, each
+  with half the tables, every edge and row checked at its owner and each
+  part loaded on the card; IGBH's layout synthesized at 1,000,000 papers,
+  compressed (CSC, bf16) on the card and read back by load_igbh_root,
+  against Topology's CSC and torch.bfloat16's cast;
 - hetero link prediction (examples/hetero/bipartite_sage_unsup.py at
   Taobao's counts): 987,994 users, 4,161,138 items in 9,439 categories,
   101 user-item links a user inside one category (99.8M) and their
@@ -2977,8 +2998,8 @@ def superstep_phases(torch, np, K, ds, dev, seed, smi):
 
 # partitioned hetero training (examples/igbh/dist_train_rgnn.py) at
 # igbh-rgat's width on a one-rank mesh: warm-up and timed per-batch steps,
-# eval batches, a window of DIST_K batches as one CUDA graph (four, which
-# keeps the whole script inside half its time limit)
+# eval batches, a window of DIST_K batches as one CUDA graph (four, cut
+# from eight for the script's time limit)
 DIST_WARMUP, DIST_STEPS, DIST_EVAL, DIST_K = 2, 10, 3, 4
 DIST_FIELDS = ('node_dict', 'node_count_dict', 'row_dict', 'col_dict',
                'edge_mask_dict', 'x_dict', 'y_dict')
@@ -4101,6 +4122,525 @@ def hot_cache_phases(torch, np, K, ds, dev, seed, smi):
     del store, ds0, f, table, got, want, feats, probs, sampler
     torch.cuda.empty_cache()
   return {'hot_cache': launches}
+
+
+# data sources: the readers stream products-sage's COO, rows and labels
+# in chunks of odps_table_reader's size; the vineyard store holds them as
+# contiguous id windows; IGBH's layout is compressed at igbh-rgat's papers
+READ_CHUNK, FRAGMENTS, TABLE_RANKS = 1_048_576, 4, 2
+TABLE_FIELDS = ('node', 'node_count', 'row', 'col', 'edge_mask', 'x', 'y',
+                'num_sampled_edges')
+WALK_FIELDS = ('node', 'node_count', 'row', 'col', 'edge_mask',
+               'num_sampled_nodes', 'num_sampled_edges')
+WALK_SWAPPED = ('sample_walk_dedup', 'dedup_table_insert', 'gather_rows')
+
+
+def disk_bytes(root):
+  import os
+  return sum(os.path.getsize(os.path.join(d, f))
+             for d, _, fs in os.walk(root) for f in fs)
+
+
+def table_phases(torch, np, K, ds, dev, seed, smi):
+  """Where a dataset comes from, over the products graph (``ds``, its
+  labels and split from the training phases): TableDataset from edge and
+  node readers, trained through NeighborLoader and SageTrainStep (K1, K3),
+  and pai_table_train's main over real CSV files; a vineyard fragment
+  store of four id windows loaded through load_vineyard_dataset, a walk
+  and a gather on it (K1, K3); DistTableDataset partitioning the tables
+  online on one rank and DistTrainStep over its partition (B2, K3); two
+  DistTableRandomPartitioner ranks on threads over loopback rpc; IGBH's
+  layout synthesized, compressed (CSC, bf16) and read back. Every store
+  built from a source is held bit for bit against the directly built one.
+  Returns the launches by path."""
+  import os
+  import shutil
+  import tempfile
+  import threading
+  from glt_tpu_torch.data import TableDataset
+  from glt_tpu_torch.data.vineyard_utils import (InMemoryFragmentStore,
+                                                 load_vineyard_dataset)
+  from glt_tpu_torch.distributed import (DistDataset, DistFeature, DistGraph,
+                                         DistTableDataset,
+                                         DistTableRandomPartitioner,
+                                         DistTrainStep, free_port_base)
+  from glt_tpu_torch.examples import pai_table_train
+  from glt_tpu_torch.examples.igbh import compress_graph, data as igbh
+  from glt_tpu_torch.data import Topology
+  from glt_tpu_torch.loader import NeighborLoader
+  from glt_tpu_torch.models import GraphSAGE
+  from glt_tpu_torch.parallel import SageTrainStep, make_mesh, sage_loss
+  from glt_tpu_torch.sampler import NeighborSampler
+  from glt_tpu_torch.typing import Split
+
+  paths = {}
+  g = ds.get_graph()
+  train_idx = ds.get_split(Split.train)
+
+  def counts():
+    return {fn.__name__: fn.launches for fn in K.KERNELS}
+
+  def model():
+    torch.manual_seed(seed)
+    return GraphSAGE(FEAT_DIM, HIDDEN, CLASSES, num_layers=3).to(dev)
+
+  with Phase('table data'):
+    t = [time.perf_counter()]
+    # the COO in its input order (the direct graph's edge ids are input
+    # positions), the weights beside it; the node table shuffled by id
+    ptr, other, eid = g.topo.to_coo()
+    order = torch.argsort(eid)
+    src, dst = ptr[order].cpu().numpy(), other[order].cpu().numpy()
+    w = g.topo.edge_weights[order].cpu().numpy()
+    del ptr, other, eid, order
+    feats = ds.get_node_feature().table.cpu().numpy()
+    labels = np.asarray(ds.node_labels)
+    perm = np.random.default_rng(seed + 50).permutation(NUM_NODES)
+    t.append(time.perf_counter())
+
+    def edge_reader(lo=0, hi=NUM_EDGES):
+      for a in range(lo, hi, READ_CHUNK):
+        b = min(a + READ_CHUNK, hi)
+        yield src[a:b], dst[a:b], w[a:b]
+
+    def node_reader(ids=perm):
+      for a in range(0, ids.size, READ_CHUNK):
+        sel = ids[a:a + READ_CHUNK]
+        yield sel, feats[sel], labels[sel]
+    tds = TableDataset(edge_dir='out').load(edge_reader=edge_reader(),
+                                            node_reader=node_reader(),
+                                            num_nodes=NUM_NODES)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    tg = tds.get_graph()
+    for f in ('indptr', 'indices', 'edge_ids', 'edge_weights'):
+      if not torch.equal(getattr(tg.topo, f), getattr(g.topo, f)):
+        raise AssertionError(f'the table-built graph\'s {f} differs from the '
+                             'directly built one')
+    if not (torch.equal(tds.get_node_feature().table,
+                        ds.get_node_feature().table)
+            and tds.node_labels.dtype == labels.dtype
+            and np.array_equal(tds.node_labels, labels)):
+      raise AssertionError('the table-built features or labels differ')
+    card = device_bytes([tg.indptr, tg.indptr_pad, tg.indices, tg.edge_ids,
+                         tg.edge_weights, tg.topo.indptr, tg.topo.indices,
+                         tg.topo.edge_ids, tg.topo.edge_weights,
+                         tds.get_node_feature().table])
+    print(f'table data: {NUM_EDGES} edge records (src, dst, weight) and '
+          f'{NUM_NODES} node records (id, {FEAT_DIM} float32, label) in '
+          f'chunks of {READ_CHUNK}, the node records in a shuffled id order; '
+          f'tables to the host {t[1] - t[0]:.3f} s; TableDataset.load on the '
+          f'card {t[2] - t[1]:.3f} s, {card} B on the card; indptr, indices, '
+          f'edge ids, weights, features and labels bit-equal to the directly '
+          f'built dataset')
+    tds.node_split = ds.node_split
+
+  def loader(data):
+    return NeighborLoader(data, list(FANOUTS), train_idx,
+                          batch_size=TRAIN_BATCH, shuffle=True, device=dev,
+                          seed=seed, rng=np.random.default_rng(seed))
+
+  with Phase('table main path'):
+    step = SageTrainStep(model(), lr=LR)
+    it = iter(loader(tds))
+    losses, secs, edges = [], [], []
+    K.reset_launch_counts()
+    for i in range(HDIST_WARMUP + HDIST_STEPS):
+      before = counts()
+      t0 = time.perf_counter()
+      b = next(it)
+      losses.append(step(b))
+      n_edges = b.num_sampled_edges.sum()
+      torch.cuda.synchronize()
+      secs.append(time.perf_counter() - t0)
+      edges.append(int(n_edges))
+      now = counts()
+      for n in ('sample_walk_dedup', 'gather_rows'):
+        if now[n] - before[n] != 1:
+          raise AssertionError(f'table step {i}: {now[n] - before[n]} {n} '
+                               'launches, expected 1')
+    paths['table'] = counts()
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+      raise AssertionError(f'table training: non-finite loss {losses}')
+    ms = np.array(secs[HDIST_WARMUP:]) * 1e3
+    med = float(np.median(ms))
+    print(f'table training (NeighborLoader over the TableDataset, batch '
+          f'{TRAIN_BATCH}, {list(FANOUTS)}, SageTrainStep): {HDIST_STEPS} '
+          f'steps after {HDIST_WARMUP}, median {med:.3f} ms a step '
+          f'(quartiles {np.percentile(ms, 25):.3f}-'
+          f'{np.percentile(ms, 75):.3f}, min {ms.min():.3f}, max '
+          f'{ms.max():.3f}), {TRAIN_BATCH / med * 1e3:.1f} seeds/s, '
+          f'{sum(edges[HDIST_WARMUP:]) / ms.sum() * 1e3:.1f} sampled edges/s;'
+          f' losses ' + ', '.join(f'{v:.4f}' for v in losses)
+          + f'; launches {paths["table"]}; on {smi}')
+    del step, it, b
+    # one batch: the table loader, the direct loader and the plain
+    # versions on the same seeds and uniforms
+    tl, dl = loader(tds), loader(ds)
+    u = tl.sampler.hop_uniforms(TRAIN_BATCH)
+    n_valid = TRAIN_BATCH - 1
+    seeds = np.concatenate([train_idx[:n_valid], train_idx[:1]])
+    net = model()
+
+    def batch(lo):
+      return lo._collate(lo.sampler.sample_from_nodes(seeds, n_valid,
+                                                      uniforms=u),
+                         seeds, n_valid)
+    with torch.no_grad():
+      bt, bd = batch(tl), batch(dl)
+      lt, ld = float(sage_loss(net, bt)), float(sage_loss(net, bd))
+      with swapped_to_plain(K, WALK_SWAPPED):
+        bp = batch(tl)
+        lp = float(sage_loss(net, bp))
+    for other, what in ((bd, 'the directly built dataset'),
+                        (bp, 'the plain versions')):
+      for f in TABLE_FIELDS:
+        if not torch.equal(getattr(bt, f), getattr(other, f)):
+          raise AssertionError(f'table batch.{f} differs from {what}\'s')
+    for other in (ld, lp):
+      if not abs(lt - other) <= LOSS_TOL * max(1.0, abs(other)):
+        raise AssertionError(f'table batch loss {lt} vs {other}')
+    print(f'table batch ({n_valid} real seeds): bit-identical to the directly '
+          f'built dataset\'s and to the plain versions\' '
+          f'({int(bt.node_count)} nodes, {int(bt.edge_mask.sum())} edges), '
+          f'loss {lt:.6f} (direct {ld:.6f}, plain {lp:.6f}, tolerance '
+          f'{LOSS_TOL})')
+    del tl, dl, bt, bd, bp, net, tds, tg
+    torch.cuda.empty_cache()
+    # the example at its defaults: CSV files, TableDataset on the card
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pai_table_train.main([])
+    torch.cuda.synchronize()
+    paths['pai_example'] = counts()
+    if not (len(out['losses']) == 2 and np.isfinite(out['losses']).all()
+            and paths['pai_example']['sample_walk_dedup'] > 0
+            and paths['pai_example']['gather_rows']
+            == paths['pai_example']['sample_walk_dedup']):
+      raise AssertionError(f'pai_table_train: {out}, launches '
+                           f'{paths["pai_example"]}')
+    print(f'pai_table_train.main() (2,000 nodes through CSV files, batch 256,'
+          f' [10, 5], GraphSAGE 32 -> 128 -> 8, 2 epochs): '
+          f'{time.perf_counter() - t0:.3f} s, epoch losses '
+          + ', '.join(f'{v:.4f}' for v in out['losses'])
+          + f'; launches {paths["pai_example"]}')
+
+  with Phase('vineyard path'):
+    t0 = time.perf_counter()
+    store = InMemoryFragmentStore()
+    bounds = np.linspace(0, NUM_NODES, FRAGMENTS + 1).astype(np.int64)
+    cols = [f'f{j}' for j in range(FEAT_DIM)]
+    for fid in range(FRAGMENTS):
+      lo, hi = int(bounds[fid]), int(bounds[fid + 1])
+      m = (src >= lo) & (src < hi)
+      store.add_fragment(fid, 'product', 'also_bought', offset=lo,
+                         num_vertices=hi - lo,
+                         edge_index=np.stack([src[m], dst[m]]),
+                         edge_ids=np.nonzero(m)[0],
+                         vertex_feats={c: feats[lo:hi, j]
+                                       for j, c in enumerate(cols)})
+    t1 = time.perf_counter()
+    vds = load_vineyard_dataset(store, list(range(FRAGMENTS)), 'product',
+                                'also_bought', vcols=cols)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del store
+    vg = vds.get_graph()
+    for f in ('indptr', 'indices', 'edge_ids'):
+      if not torch.equal(getattr(vg.topo, f), getattr(g.topo, f)):
+        raise AssertionError(f'the vineyard graph\'s {f} differs from the '
+                             'directly built one')
+    if not torch.equal(vds.get_node_feature().table,
+                       ds.get_node_feature().table):
+      raise AssertionError('the vineyard features differ')
+    vs = NeighborSampler(vg, list(FANOUTS), device=dev, seed=seed)
+    ds_s = NeighborSampler(g, list(FANOUTS), device=dev, seed=seed)
+    u = vs.hop_uniforms(TRAIN_BATCH)
+    seeds = train_idx[:TRAIN_BATCH]
+    K.reset_launch_counts()
+    ov = vs.sample_from_nodes(seeds, uniforms=u)
+    xv = vds.get_node_feature().device_gather(ov.node)
+    torch.cuda.synchronize()
+    paths['vineyard'] = counts()
+    od = ds_s.sample_from_nodes(seeds, uniforms=u)
+    xd = ds.get_node_feature().device_gather(od.node)
+    with swapped_to_plain(K, WALK_SWAPPED):
+      op = vs.sample_from_nodes(seeds, uniforms=u)
+      xp = vds.get_node_feature().device_gather(op.node)
+    for other, x, what in ((od, xd, 'the directly built dataset'),
+                           (op, xp, 'the plain versions')):
+      for f in WALK_FIELDS:
+        if not torch.equal(getattr(ov, f), getattr(other, f)):
+          raise AssertionError(f'vineyard walk {f} differs from {what}\'s')
+      if not torch.equal(xv, x):
+        raise AssertionError(f'vineyard gather differs from {what}\'s')
+    if (paths['vineyard']['sample_walk_dedup'],
+        paths['vineyard']['gather_rows']) != (1, 1):
+      raise AssertionError(f'vineyard walk and gather: {paths["vineyard"]}')
+    print(f'vineyard: {FRAGMENTS} fragments (contiguous id windows, the edges '
+          f'whose source lies in each with their ids, {FEAT_DIM} feature '
+          f'columns) stored {t1 - t0:.3f} s; load_vineyard_dataset on the '
+          f'card {t2 - t1:.3f} s (a CSR a fragment, then the whole graph); '
+          f'indptr, indices, edge ids and features bit-equal to the directly '
+          f'built dataset; a walk of {TRAIN_BATCH} seeds ({int(ov.node_count)}'
+          f' nodes) and its gather bit-identical to the direct dataset\'s and '
+          f'the plain versions\'; launches {paths["vineyard"]}')
+    del vds, vg, vs, ds_s, ov, od, op, xv, xd, xp
+    torch.cuda.empty_cache()
+
+  mesh = make_mesh(device=dev)
+  rng = np.random.default_rng(seed + 51)
+  order = rng.permutation(train_idx)
+  with Phase('table dist path'):
+    root = tempfile.mkdtemp(prefix='glt_table_parts_')
+    try:
+      dtd, stamps = DistTableDataset(), []
+      real_load = dtd.load
+
+      def load(*a, **k):
+        stamps.append(time.perf_counter())
+        return real_load(*a, **k)
+      dtd.load = load
+      t0 = time.perf_counter()
+      dds = dtd.load_tables(edge_reader=edge_reader(),
+                            node_reader=node_reader(), rank=0, world_size=1,
+                            num_nodes=NUM_NODES, output_dir=root,
+                            master_port=free_port_base(1), device=dev)
+      torch.cuda.synchronize()
+      t1 = time.perf_counter()
+      written = disk_bytes(root)
+      dg = DistGraph.from_dataset_partitions(mesh, root)
+      df = DistFeature.from_dist_datasets(mesh, {0: dds})
+      torch.cuda.synchronize()
+      t2 = time.perf_counter()
+    finally:
+      shutil.rmtree(root, ignore_errors=True)
+    for f in ('indptr', 'indices', 'edge_ids'):
+      if not torch.equal(getattr(dds.get_graph().topo, f),
+                         getattr(g.topo, f)):
+        raise AssertionError(f'the online partition\'s {f} differs from the '
+                             'directly built graph\'s')
+    if not torch.equal(dds.get_node_feature().table,
+                       ds.get_node_feature().table):
+      raise AssertionError('the online partition\'s rows differ')
+    print(f'table dist data: DistTableDataset.load_tables (one rank, '
+          f'DistTableRandomPartitioner pushing to itself) {stamps[0] - t0:.3f}'
+          f' s to partition, {written} B written; DistDataset.load on the '
+          f'card {t1 - stamps[0]:.3f} s; DistGraph and DistFeature '
+          f'{t2 - t1:.3f} s; its graph and rows bit-equal to the directly '
+          f'built dataset\'s (the weights and labels not partitioned)')
+
+    def trainer():
+      return DistTrainStep(dg, df, model(), labels, list(FANOUTS),
+                           TRAIN_BATCH, lr=LR, seed=seed)
+    step = trainer()
+
+    def one(i):
+      return step(order[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH][None],
+                  np.array([TRAIN_BATCH]))
+    K.reset_launch_counts()
+    losses, secs = [], []
+    for i in range(HDIST_WARMUP + HDIST_STEPS):
+      t0 = time.perf_counter()
+      losses.append(one(i))
+      torch.cuda.synchronize()
+      secs.append(time.perf_counter() - t0)
+    paths['table_dist'] = counts()
+    n = HDIST_WARMUP + HDIST_STEPS
+    for name, per in (('sample_hop', len(FANOUTS)), ('gather_rows', 1),
+                      ('gather_rows_mixed', 0)):
+      if paths['table_dist'][name] != per * n:
+        raise AssertionError(f'table dist: {paths["table_dist"][name]} '
+                             f'{name} launches over {n} steps')
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+      raise AssertionError(f'table dist: non-finite loss {losses}')
+    ms = np.array(secs[HDIST_WARMUP:]) * 1e3
+    med = float(np.median(ms))
+    print(f'table dist training (DistTrainStep over the online partition, '
+          f'one rank, batch {TRAIN_BATCH}, {list(FANOUTS)}): {HDIST_STEPS} '
+          f'steps after {HDIST_WARMUP}, median {med:.3f} ms a step '
+          f'(quartiles {np.percentile(ms, 25):.3f}-'
+          f'{np.percentile(ms, 75):.3f}, min {ms.min():.3f}, max '
+          f'{ms.max():.3f}), {TRAIN_BATCH / med * 1e3:.1f} seeds/s; losses '
+          + ', '.join(f'{v:.4f}' for v in losses)
+          + f'; launches {paths["table_dist"]}; on {smi}')
+    step = trainer()
+    inputs = step.own_inputs(order[-TRAIN_BATCH:][None],
+                             np.array([TRAIN_BATCH - 3]))
+    with torch.no_grad():
+      bk = step.make_batch(*inputs)
+      lk = float(sage_loss(step.model, bk))
+      with swapped_to_plain(K, HDIST_SWAPPED):
+        bp = step.make_batch(*inputs)
+        lp = float(sage_loss(step.model, bp))
+    f = differing_field(torch, bk, bp, HDIST_FIELDS)
+    if f is not None:
+      raise AssertionError(f'table dist batch.{f} differs between kernels '
+                           'and plain')
+    if not abs(lk - lp) <= LOSS_TOL * max(1.0, abs(lp)):
+      raise AssertionError(f'table dist loss {lk} vs plain {lp}')
+    print(f'table dist batch ({int(inputs[1])} real seeds): bit-identical to '
+          f'the plain versions ({int(bk.node_count)} nodes, '
+          f'{int(bk.edge_mask.sum())} edges), loss {lk:.6f} vs plain '
+          f'{lp:.6f} (tolerance {LOSS_TOL})')
+    del step, bk, bp, dg, df, dds
+    torch.cuda.empty_cache()
+
+  with Phase('table dist two ranks'):
+    root = tempfile.mkdtemp(prefix='glt_table_two_')
+    try:
+      half_e = NUM_EDGES // TABLE_RANKS
+      e_lo = [r * half_e for r in range(TABLE_RANKS)]
+      e_hi = e_lo[1:] + [NUM_EDGES]
+      n_ids = np.array_split(perm, TABLE_RANKS)
+      base = free_port_base(TABLE_RANKS)
+      parts, errs = [None] * TABLE_RANKS, []
+      marks = [dict() for _ in range(TABLE_RANKS)]
+      sent = [0] * TABLE_RANKS    # packed push payloads to the other rank
+
+      def run(r):
+        try:
+          p = DistTableRandomPartitioner(
+              root, rank=r, world_size=TABLE_RANKS, num_nodes=NUM_NODES,
+              edge_reader=edge_reader(e_lo[r], e_hi[r]),
+              node_reader=node_reader(n_ids[r]), edge_id_offset=e_lo[r],
+              master_port=base, seed=seed)
+          parts[r] = p
+          real = p._barrier
+
+          def barrier(key):
+            real(key)
+            marks[r][key] = time.perf_counter()
+          p._barrier = barrier
+          real_client = p._client
+
+          def client(peer):
+            c = real_client(peer)
+            if peer != r and 'request' not in vars(c):
+              real_req = c.request
+
+              def request(method, *a, **kw):
+                if method in ('push_edges', 'push_node_feat'):
+                  sent[r] += len(a[0])
+                return real_req(method, *a, **kw)
+              c.request = request
+            return c
+          p._client = client
+          marks[r]['start'] = time.perf_counter()
+          marks[r]['book'] = p.partition()
+        except Exception as e:  # noqa: BLE001 -- raised below
+          errs.append(e)
+      threads = [threading.Thread(target=run, args=(r,), daemon=True)
+                 for r in range(TABLE_RANKS)]
+      t0 = time.perf_counter()
+      for th in threads:
+        th.start()
+      for th in threads:
+        th.join(timeout=600)
+      wall = time.perf_counter() - t0
+      for p in parts:
+        if p is not None:
+          p.shutdown()
+      if errs or any(th.is_alive() for th in threads):
+        raise AssertionError(f'the two partitioner ranks failed: {errs}')
+      node_pb = marks[0]['book']
+      written = disk_bytes(root)
+      seen_e, seen_n = [], []
+      for r in range(TABLE_RANKS):
+        with np.load(os.path.join(root, f'part{r}', 'graph',
+                                  'data.npz')) as z:
+          rows, cls, eids = z['rows'], z['cols'], z['eids']
+        with np.load(os.path.join(root, f'part{r}', 'node_feat',
+                                  'data.npz')) as z:
+          ids, rws = z['ids'], z['feats']
+        if not ((node_pb[rows] == r).all() and np.array_equal(rows, src[eids])
+                and np.array_equal(cls, dst[eids])
+                and (node_pb[ids] == r).all()
+                and np.array_equal(rws, feats[ids])):
+          raise AssertionError(f'part {r} holds an edge or a row of another '
+                               'owner, or not its input')
+        seen_e.append(eids)
+        seen_n.append(ids)
+      if not (np.array_equal(np.sort(np.concatenate(seen_e)),
+                             np.arange(NUM_EDGES))
+              and np.array_equal(np.sort(np.concatenate(seen_n)),
+                                 np.arange(NUM_NODES))):
+        raise AssertionError('an edge or a row is missing or twice')
+      crossed = sum(sent)
+      push = max(m['feats_done'] for m in marks) - min(m['start']
+                                                       for m in marks)
+      for r in range(TABLE_RANKS):
+        t1 = time.perf_counter()
+        d = DistDataset.load(root, r, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        owned = np.nonzero(node_pb == r)[0]
+        f = d.get_node_feature()
+        idx = torch.as_tensor(np.asarray(f._id2index)[owned], device=dev)
+        if not (f.table.shape[0] == owned.size
+                and torch.equal(f.table[idx],
+                                torch.as_tensor(feats[owned], device=dev))
+                and d.get_graph().num_edges == seen_e[r].size):
+          raise AssertionError(f'part {r} loaded rows other than its own')
+        print(f'part {r}: {seen_e[r].size} edges, {owned.size} owned rows '
+              f'loaded on the card by DistDataset.load in {secs:.3f} s, '
+              'exactly its own')
+        del d, f, idx
+    finally:
+      shutil.rmtree(root, ignore_errors=True)
+    print(f'table dist, two ranks (threads over loopback rpc, each half of '
+          f'the edge table and of the shuffled node table, chunks of '
+          f'{READ_CHUNK}): push phases {push:.3f} s ({crossed} B of packed '
+          f'payloads sent between the ranks, rpc framing aside), {wall:.3f} s with the readers and the saves, '
+          f'{written} B written; every edge once at its source\'s owner, '
+          f'every row at its id\'s owner, equal to its input')
+    del src, dst, w, feats, perm
+    torch.cuda.empty_cache()
+
+  with Phase('compress path'):
+    root = tempfile.mkdtemp(prefix='glt_igbh_tree_')
+    try:
+      papers = IGBH_NODES['paper']
+      t = [time.perf_counter()]
+      igbh.synthesize(root, papers, seed=seed)
+      igbh.split_seeds(root)
+      t.append(time.perf_counter())
+      compress_graph.compress(root, layout='CSC', bf16=True)
+      torch.cuda.synchronize()
+      t.append(time.perf_counter())
+      counts_, edges, bfeats, *_ = igbh.load_igbh_root(root)
+      t.append(time.perf_counter())
+      written = disk_bytes(os.path.join(root, 'csc'))
+      for (s, r, d), ei in edges.items():
+        topo = Topology(torch.as_tensor(ei, device=dev), layout='CSC',
+                        num_rows=counts_[d], num_cols=counts_[s])
+        with np.load(os.path.join(root, 'csc', f'{s}__{r}__{d}',
+                                  'compressed.npz')) as z:
+          for k in ('indptr', 'indices', 'edge_ids'):
+            if not torch.equal(torch.as_tensor(z[k], device=dev),
+                               getattr(topo, k)):
+              raise AssertionError(f'compressed {s}__{r}__{d} {k} differs '
+                                   'from the CSC Topology builds')
+      for nt in counts_:
+        want = torch.as_tensor(np.load(os.path.join(
+            root, 'processed', nt, 'node_feat.npy')), device=dev).to(
+                torch.bfloat16)
+        got = bfeats[nt]
+        if not (got.dtype == torch.bfloat16
+                and torch.equal(got.to(dev).view(torch.int16),
+                                want.view(torch.int16))):
+          raise AssertionError(f'the bf16 store of {nt} is not the '
+                               'torch.bfloat16 cast')
+    finally:
+      shutil.rmtree(root, ignore_errors=True)
+    print(f'compress: IGBH layout at {papers} papers synthesized and split '
+          f'{t[1] - t[0]:.3f} s; compress(CSC, bf16) on the card '
+          f'{t[2] - t[1]:.3f} s, {written} B written; load_igbh_root '
+          f'{t[3] - t[2]:.3f} s; {len(edges)} compressed.npz equal to the '
+          f'CSC Topology builds, bf16 tables equal to torch.bfloat16\'s cast')
+  return paths
 
 
 def host_phase_check(torch, np, K, trainer, dfs, dfh, order, mixed, smi):
@@ -6397,6 +6937,8 @@ def main() -> int:
                                 mixed, smi)
   torch.cuda.empty_cache()
   homo_paths.update(hot_cache_phases(torch, np, K, ds, dev, opts.seed, smi))
+  torch.cuda.empty_cache()
+  homo_paths.update(table_phases(torch, np, K, ds, dev, opts.seed, smi))
   torch.cuda.empty_cache()
   sc_paths = server_client_phases(torch, np, K, ds, dev, opts.seed, k3,
                                   mixed, walk, smi)

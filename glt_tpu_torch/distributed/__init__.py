@@ -17,8 +17,11 @@ full-neighbourhood (``-1``) hops at the rows' owners, with edge ids, and a
 partition may hold hot-cache rows of other partitions
 (``FrequencyPartitioner``), which its rank's lookups answer locally.
 
-Not ported (ROADMAP): ``DistRandomPartitioner``, ``DistTableDataset`` and
-the multihost loaders (A12b)."""
+Tables too large for one partitioner are partitioned online
+(``DistRandomPartitioner``, ``DistTableRandomPartitioner``,
+``DistTableDataset``): each rank pushes its slices to their owners over
+the rpc fabric. The multihost builders load a rank's own partition into
+the stores under ``parallel/multihost.py``'s process group."""
 from .channel_loader import (MpNeighborLoader, RemoteNeighborLoader,
                              message_to_batch)
 from .dist_client import (apply_delta, async_request_server, collect_obs,
@@ -28,15 +31,20 @@ from .dist_client import (apply_delta, async_request_server, collect_obs,
 from .dist_context import (DistContext, DistRole, assign_server_by_order,
                            get_context, init_client_context,
                            init_server_context, init_worker_group, shutdown)
-from .dist_dataset import DistDataset
-from .dist_feature import DistFeature, resilient_cold_fetcher
-from .dist_graph import DistGraph
+from .dist_dataset import DistDataset, DistTableDataset
+from .dist_feature import (DistFeature, PartialFeature,
+                           dist_feature_from_partitions_multihost,
+                           resilient_cold_fetcher)
+from .dist_graph import DistGraph, dist_graph_from_partitions_multihost
 from .dist_hetero import (DistHeteroGraph, DistHeteroNeighborSampler,
-                          DistHeteroTrainStep)
+                          DistHeteroTrainStep,
+                          dist_hetero_graph_from_partitions_multihost)
 from .dist_link_loader import DistLinkNeighborLoader
 from .dist_loader import DistLoader, DistNeighborLoader
 from .dist_negative import DistRandomNegativeSampler, make_dist_edge_membership
 from .dist_neighbor_sampler import DistNeighborSampler, make_dist_one_hop
+from .dist_random_partitioner import (DistRandomPartitioner,
+                                      DistTableRandomPartitioner)
 from .dist_options import (CollocatedDistSamplingWorkerOptions,
                            MpDistSamplingWorkerOptions,
                            RemoteDistSamplingWorkerOptions)
@@ -64,6 +72,10 @@ __all__ = [
     'DistNeighborSampler', 'DistRandomNegativeSampler', 'DistSubGraphLoader',
     'DistTrainStep', 'make_dist_edge_membership', 'make_dist_one_hop',
     'resilient_cold_fetcher',
+    'DistRandomPartitioner', 'DistTableDataset', 'DistTableRandomPartitioner',
+    'PartialFeature', 'dist_feature_from_partitions_multihost',
+    'dist_graph_from_partitions_multihost',
+    'dist_hetero_graph_from_partitions_multihost',
     'DistContext', 'DistRole', 'assign_server_by_order', 'get_context',
     'init_client_context', 'init_server_context', 'init_worker_group',
     'shutdown',

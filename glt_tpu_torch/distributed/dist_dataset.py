@@ -13,7 +13,8 @@ A partition's hot-cache rows (``cache_ids``, written by a
 its table (``cat_feature_cache``), and its feature books
 (``node_feat_pb``/``edge_feat_pb``) route its cached ids to itself, so a
 :class:`~glt_tpu_torch.distributed.DistFeature` built from it answers
-them at its own rank. Not ported: ``DistTableDataset`` (ROADMAP A12b).
+them at its own rank. :class:`DistTableDataset` partitions table slices
+online (``dist_random_partitioner.py``) and loads this rank's partition.
 """
 from __future__ import annotations
 
@@ -118,3 +119,32 @@ class DistDataset(Dataset):
     if isinstance(pb, dict) and etype is not None:
       return pb[etype]
     return pb
+
+
+class DistTableDataset(DistDataset):
+  """A rank's partition of tables partitioned online: it streams its table
+  slices through :class:`~glt_tpu_torch.distributed.
+  dist_random_partitioner.DistTableRandomPartitioner`, then loads its own
+  partition (:meth:`DistDataset.load`)."""
+
+  def load_tables(self, edge_reader, node_reader, rank: int,
+                  world_size: int, num_nodes: int, output_dir: str,
+                  edge_id_offset: int = 0, master_addr: str = '127.0.0.1',
+                  master_port: int = 30800, peer_addrs=None,
+                  device=None) -> 'DistTableDataset':
+    """Partition this rank's slices into ``output_dir`` with the other
+    ranks (the readers' records as they come, no densification; the
+    edges' global ids ``edge_id_offset + local position``, offsets
+    disjoint across ranks) and return partition ``rank`` loaded on
+    ``device`` (default: the card)."""
+    from .dist_random_partitioner import DistTableRandomPartitioner
+    partitioner = DistTableRandomPartitioner(
+        output_dir, rank=rank, world_size=world_size, num_nodes=num_nodes,
+        edge_reader=edge_reader, node_reader=node_reader,
+        edge_id_offset=edge_id_offset, master_addr=master_addr,
+        master_port=master_port, peer_addrs=peer_addrs)
+    try:
+      partitioner.partition()
+    finally:
+      partitioner.shutdown()
+    return self.load(output_dir, rank, device=device)

@@ -42,13 +42,15 @@ and writes them into its answer on the card. The rows are the pinned
 path's, bit for bit. A training step cannot hold the host phase
 (``host_spilled``; ``require_device_resident``).
 
-Not ported (ROADMAP A12b): the multihost loader
-(``dist_feature_from_partitions_multihost``).
+:func:`dist_feature_from_partitions_multihost` builds a rank's store
+straight from the layout on disk (a rank reads only its own partition).
+A partition's contribution to a host-side lookup is a
+:data:`PartialFeature`.
 """
 from __future__ import annotations
 
 import logging
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +62,12 @@ from ..partition import dense_book
 from ..utils import as_numpy
 from ..utils.offload import pin_host
 from .dist_graph import rank_entry
+
+#: (rows [M, D], index [M]): a partition's rows of a lookup and their
+#: positions in the requesting batch (the reference's PartialFeature,
+#: dist_feature.py:37-41); it types the host side of a lookup (cold_get,
+#: a cold fetcher's answer).
+PartialFeature = Tuple[torch.Tensor, torch.Tensor]
 
 
 class DistFeature:
@@ -367,3 +375,40 @@ def resilient_cold_fetcher(fetchers, feature_dim: Optional[int] = None,
         ids, metrics, what=f'cold fetch(partition {partition})', cause=last)
 
   return fetch
+
+
+def dist_feature_from_partitions_multihost(
+    mesh: Mesh, root_dir: str, ntype=None,
+    dtype: Optional[torch.dtype] = None, kind: str = 'node',
+    split_ratio: float = 1.0, cold_fetcher=None, bucket_cap: int = 0,
+    host_offload: Optional[bool] = None) -> DistFeature:
+  """This rank's store straight from the layout at ``root_dir`` (glt_tpu/
+  distributed/dist_feature.py:513): the rank loads only its own partition
+  (to the host when ``split_ratio < 1``, else to the card) and builds
+  through :meth:`DistFeature.from_dist_datasets`; ``kind='edge'`` reads
+  the edge features (``ntype`` then names the edge type). The JAX
+  ``row_gather`` seam has no counterpart (K3 serves every store)."""
+  from ..partition import load_meta
+  from .dist_dataset import DistDataset
+  if kind not in ('node', 'edge'):
+    raise ValueError(f"kind is 'node' or 'edge', got {kind!r}")
+  meta = load_meta(root_dir)
+  if meta['num_parts'] != mesh.world:
+    raise ValueError(
+        f"mesh has {mesh.world} devices but the partition dir holds "
+        f"{meta['num_parts']} partitions")
+  spill = float(split_ratio) < 1.0
+  ds = DistDataset.load(root_dir, mesh.rank,
+                        device='cpu' if spill else mesh.device)
+  feat = (ds.get_edge_feature(ntype) if kind == 'edge'
+          else ds.get_node_feature(ntype))
+  if feat is None:
+    raise ValueError(
+        f'partition {mesh.rank} of {root_dir} holds no {kind} features '
+        f'(ntype={ntype!r}); partition with '
+        f'{"edge_feat" if kind == "edge" else "node_feat"} to use '
+        f'kind={kind!r}')
+  return DistFeature.from_dist_datasets(
+      mesh, {mesh.rank: ds}, ntype=ntype, dtype=dtype, bucket_cap=bucket_cap,
+      kind=kind, split_ratio=split_ratio if spill else None,
+      host_offload=host_offload, cold_fetcher=cold_fetcher)

@@ -181,3 +181,24 @@ def rank_entry(per_part, mesh: Mesh, what: str):
   except (IndexError, KeyError):
     raise ValueError(f'{what} has no entry for rank {mesh.rank}') from None
 
+
+
+def dist_graph_from_partitions_multihost(mesh: Mesh, root_dir: str,
+                                         edge_dir: str = 'out') -> DistGraph:
+  """This rank's DistGraph under a multi-process group (glt_tpu/
+  distributed/dist_graph.py:231): the rank loads only its own partition
+  and the ranks agree on the padding in :meth:`DistGraph.
+  from_dataset_partitions`. The JAX package's
+  ``make_array_from_process_local_data`` assembly has no counterpart: a
+  rank already holds only its own block."""
+  meta = load_meta(root_dir)
+  need = 'by_src' if edge_dir == 'out' else 'by_dst'
+  got = meta.get('edge_assign', 'by_src')
+  if got != need:
+    raise ValueError(f'edge_assign {got!r} incompatible with '
+                     f'edge_dir {edge_dir!r}')
+  if meta['num_parts'] != mesh.world:
+    raise ValueError(
+        f"mesh has {mesh.world} devices but the partition dir holds "
+        f"{meta['num_parts']} partitions — they must match")
+  return DistGraph.from_dataset_partitions(mesh, root_dir, edge_dir)

@@ -86,6 +86,29 @@ class DistHeteroGraph:
                parts, node_pbs, edge_dir=edge_dir)
 
 
+def dist_hetero_graph_from_partitions_multihost(
+    mesh: Mesh, root_dir: str, edge_dir: str = 'out') -> DistHeteroGraph:
+  """This rank's DistHeteroGraph under a multi-process group (glt_tpu/
+  distributed/dist_hetero.py:156): the rank loads only its own partition
+  and the ranks agree on each edge type's padding in
+  :meth:`DistHeteroGraph.from_dataset_partitions`."""
+  meta = load_meta(root_dir)
+  if meta['data_cls'] != 'hetero':
+    raise ValueError(f"a {meta['data_cls']} partition layout, expected "
+                     'hetero')
+  need = 'by_src' if edge_dir == 'out' else 'by_dst'
+  got = meta.get('edge_assign', 'by_src')
+  if got != need:
+    raise ValueError(
+        f'partition was edge-assigned {got!r} but edge_dir='
+        f'{edge_dir!r} sampling requires {need!r}')
+  if meta['num_parts'] != mesh.world:
+    raise ValueError(
+        f"mesh has {mesh.world} devices but the partition dir holds "
+        f"{meta['num_parts']} partitions — they must match")
+  return DistHeteroGraph.from_dataset_partitions(mesh, root_dir, edge_dir)
+
+
 def _row_col(etype: EdgeType, edge_dir: str) -> Tuple[NodeType, NodeType]:
   src_t, _, dst_t = etype
   return (src_t, dst_t) if edge_dir == 'out' else (dst_t, src_t)

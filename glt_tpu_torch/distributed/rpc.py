@@ -386,20 +386,25 @@ class RpcServer:
       return len(self._conns)
 
   def stop(self) -> None:
+    """Stop serving: no connection is accepted or served after this
+    returns. Each socket is shut down before it is closed: a bare close
+    of a socket another thread is blocked on (the accept loop, a serve
+    thread's recv) leaves it open in the kernel until that call returns,
+    so a stopped server would still accept one more connection."""
     self._stop.set()
-    try:
-      self._sock.close()
-    except OSError:
-      pass
-    # close live per-connection sockets too: serve threads unblock and
-    # exit, and the port is immediately rebindable (a bounced server
-    # can come back on the same address — the reconnect story depends
-    # on it)
     with self._lock:
       conns, self._conns = self._conns, []
-    for c in conns:
+    for sock in [self._sock] + conns:
+      # close live per-connection sockets too: serve threads unblock and
+      # exit, and the port is immediately rebindable (a bounced server
+      # can come back on the same address — the reconnect story depends
+      # on it)
       try:
-        c.close()
+        sock.shutdown(socket.SHUT_RDWR)
+      except OSError:
+        pass
+      try:
+        sock.close()
       except OSError:
         pass
 

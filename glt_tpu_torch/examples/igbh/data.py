@@ -7,6 +7,7 @@ split_seeds.py) and the reader of the tree they write::
     <root>/processed/<ntype>/node_feat.npy                [N, D] float32
     <root>/processed/paper/node_label.npy                 [N] int32
     <root>/processed/{train,val}_idx.npy, meta.txt
+    <root>/{csc,csr}/<ntype>/node_feat_bf16.npy           (compress_graph.py)
 """
 from __future__ import annotations
 
@@ -93,7 +94,10 @@ def load_meta(root: str) -> Dict[str, int]:
 
 def load_igbh_root(root: str):
   """``(counts, edges, feats, labels, train_idx, val_idx)`` of the tree;
-  ``edges`` keyed by edge type, ``feats`` by node type (float32)."""
+  ``edges`` keyed by edge type, ``feats`` by node type: a
+  ``torch.bfloat16`` tensor where compress_graph.py wrote the type's bf16
+  table (``csc`` first, then ``csr``), else float32 numpy."""
+  import torch
   proc = os.path.join(root, 'processed')
   counts = load_meta(root)
   edges = {}
@@ -102,7 +106,16 @@ def load_igbh_root(root: str):
     if os.path.exists(p):
       s, r, d = name.split('__')
       edges[(s, r, d)] = np.load(p)
-  feats = {t: np.load(os.path.join(proc, t, 'node_feat.npy')) for t in counts}
+  feats = {}
+  for t in counts:
+    bf = next((p for p in (os.path.join(root, lay, t, 'node_feat_bf16.npy')
+                           for lay in ('csc', 'csr')) if os.path.exists(p)),
+              None)
+    if bf is not None:
+      feats[t] = torch.from_numpy(np.load(bf).view(np.int16)).view(
+          torch.bfloat16)
+    else:
+      feats[t] = np.load(os.path.join(proc, t, 'node_feat.npy'))
   labels = np.load(os.path.join(proc, 'paper', 'node_label.npy'))
   train_idx = np.load(os.path.join(proc, 'train_idx.npy'))
   val_idx = np.load(os.path.join(proc, 'val_idx.npy'))

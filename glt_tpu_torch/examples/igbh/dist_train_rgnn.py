@@ -1,6 +1,7 @@
 """Partitioned hetero training on IGBH-layout data (counterpart of
 examples/igbh/dist_train_rgnn.py, its single-host path): synthesise (or
-read) the dataset, partition it with RandomPartitioner, load this rank's
+read) the dataset, its features compressed to bfloat16 (compress_graph.py),
+partition it with RandomPartitioner, load this rank's
 partition (DistHeteroGraph, DistDataset, a DistFeature a node type), train
 an RGNN through DistHeteroTrainStep a batch a step, validate with
 ``eval_step`` after each epoch, and log MLPerf's ``:::MLLOG`` lines.
@@ -107,6 +108,7 @@ def main(argv=None) -> dict:
   from glt_tpu_torch.parallel import make_mesh
   from glt_tpu_torch.partition import RandomPartitioner
   from glt_tpu_torch.utils.mlperf_logging import MLLogger
+  from .compress_graph import compress
   from .data import load_igbh_root, split_seeds, synthesize
 
   world = int(os.environ.get('WORLD_SIZE', '1'))
@@ -152,6 +154,10 @@ def main(argv=None) -> dict:
     if rank == 0:
       print(f'synthesizing IGBH-layout data at {args.papers} papers...')
       synthesize(root, args.papers, seed=args.seed)
+      # this path partitions from the COO: only compress's bf16 feature
+      # pass is read
+      compress(root, layout='CSC', bf16=args.bf16, topology=False,
+               device=device)
       split_seeds(root)
     if world > 1:
       dist.barrier()
@@ -171,8 +177,13 @@ def main(argv=None) -> dict:
   part_root = scratch(args.part_root, 'igbh_parts_')
   if rank == 0 and not os.path.exists(os.path.join(part_root, 'META.json')):
     print('partitioning...')
+    # partition files hold float32 (npz has no bfloat16); the stores
+    # below cast to bf16 again
+    part_feats = {t: f.float().numpy() if isinstance(f, torch.Tensor) else f
+                  for t, f in feats.items()}
     RandomPartitioner(part_root, num_parts=world, num_nodes=dict(counts),
-                      edge_index=edges, node_feat=feats).partition()
+                      edge_index=edges, node_feat=part_feats).partition()
+    del part_feats
   if world > 1:
     dist.barrier()
   del feats

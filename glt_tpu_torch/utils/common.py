@@ -2,7 +2,8 @@
 and the ``as_numpy`` of glt_tpu/utils/tensor.py)."""
 from __future__ import annotations
 
-from typing import Optional, Union
+import random
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -16,6 +17,28 @@ def as_numpy(x) -> Optional[np.ndarray]:
   if isinstance(x, torch.Tensor):
     return x.detach().cpu().numpy()
   return np.asarray(x)
+
+
+def seed_everything(seed: int) -> None:
+  """Seed python's ``random``, numpy's global state, torch's default
+  generators and the port's :class:`~glt_tpu_torch.utils.rng.
+  RandomSeedManager` (glt_tpu/utils/common.py:10; the JAX package has no
+  global torch state to seed, the reference's seeds torch too)."""
+  random.seed(seed)
+  np.random.seed(seed)
+  torch.manual_seed(seed)
+  from .rng import RandomSeedManager
+  RandomSeedManager.getInstance().setSeed(seed)
+
+
+def merge_dict(in_dict: Dict, out_dict: Dict) -> Dict:
+  """Append each value of ``in_dict`` to the list ``out_dict`` keeps under
+  its key (a new list for a new key); returns ``out_dict``."""
+  for k, v in in_dict.items():
+    vals = out_dict.get(k, [])
+    vals.append(v)
+    out_dict[k] = vals
+  return out_dict
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:

@@ -1712,3 +1712,48 @@ def test_two_ranks_over_nccl_train_over_a_cached_layout(dev, tmp_path):
     assert np.isin(asked, cached).any() and sent.size < would
     print(f'rank {r}: {asked.size} ids asked, {sent.size} sent to the other '
           f'rank ({would} without the cache)')
+
+
+def test_two_ranks_over_nccl_train_over_an_online_partition(dev, tmp_path):
+  """Two NCCL ranks over a two-rank online partition (two
+  DistTableRandomPartitioner ranks on threads over loopback rpc) train as
+  one rank over the one-rank online partition of the same tables on both
+  seed blocks: every row a hop takes whole, so the neighbour order inside
+  a row (the chunks' arrival order) does not change the sample."""
+  if torch.cuda.device_count() < 2:
+    pytest.skip('needs two cards')
+  import pickle
+  import torch_dist_worker as worker
+  from glt_tpu_torch.parallel import make_mesh
+  roots = [str(tmp_path / f'parts{w}') for w in (1, 2)]
+  labels = [worker.det_layout(roots[0], 1, online=True),
+            worker.det_layout(roots[1], 2, online=True)]
+  np.testing.assert_array_equal(labels[0], labels[1])
+  seeds = worker.det_seeds(2)
+  np.save(tmp_path / 'labels.npy', labels[1])
+  np.save(tmp_path / 'seeds.npy', seeds)
+  ctx = torch.multiprocessing.get_context('spawn')
+  out = str(tmp_path / 'rank%d.pkl')
+  procs = [ctx.Process(target=worker.dist_homo_nccl_main,
+                       args=(r, 2, str(tmp_path / 'store'), roots[1],
+                             str(tmp_path / 'labels.npy'),
+                             str(tmp_path / 'seeds.npy'), out))
+           for r in range(2)]
+  for p in procs:
+    p.start()
+  for p in procs:
+    p.join(300)
+  hung = [p for p in procs if p.is_alive()]
+  for p in hung:
+    p.kill()
+  assert not hung and all(p.exitcode == 0 for p in procs)
+  want = worker.det_train(make_mesh(device=dev), roots[0], labels[0],
+                          seeds.reshape(seeds.shape[0], 1, -1))
+  for r in range(2):
+    with open(out % r, 'rb') as f:
+      res = pickle.load(f)
+    np.testing.assert_allclose(res['losses'], want['losses'], rtol=1e-5)
+    for k, v in want['params'].items():
+      np.testing.assert_allclose(res['params'][k], v, rtol=0, atol=1e-5,
+                                 err_msg=k)
+  print(f'two ranks over the online partition: losses {res["losses"]}')

@@ -14,7 +14,9 @@ slice's channels, shared-memory ring, resilience, rpc fabric, contexts,
 options, event loop, producers, server, client, channel loaders and its
 two examples, and the serving front ends' observability layer, env knobs,
 timer, checkpoints, metrics, batcher, server, fleet and serving example,
-and the live-update slice's fault injection and stream example)
+and the live-update slice's fault injection and stream example, and the
+data sources' table dataset, fragment loaders, online partitioners,
+multihost builders, row-index helpers and their two examples)
 and ``chip_smoke`` pulls in neither JAX, ``ml_dtypes`` nor
 the JAX package, and touches no card; the shared-memory ring the port
 loads is its own build."""
@@ -121,6 +123,12 @@ print('FRONTEND', all(m in sys.modules for m in (
 print('STREAM_REST', all(m in sys.modules for m in (
     'glt_tpu_torch.resilience.chaos',
     'glt_tpu_torch.examples.stream_updates')))
+print('DATA_SOURCES', all(m in sys.modules for m in (
+    'glt_tpu_torch.data.table_dataset', 'glt_tpu_torch.data.vineyard_utils',
+    'glt_tpu_torch.distributed.dist_random_partitioner',
+    'glt_tpu_torch.parallel.multihost', 'glt_tpu_torch.utils.tensor',
+    'glt_tpu_torch.examples.pai_table_train',
+    'glt_tpu_torch.examples.igbh.compress_graph')))
 from glt_tpu_torch.channel import shm
 lib = shm.get_lib()
 maps = [ln.split(None, 5)[-1].strip() for ln in open('/proc/self/maps')
@@ -153,5 +161,6 @@ def test_port_and_chip_smoke_import_no_jax():
   assert 'SERVER_CLIENT True' in out.stdout, out.stdout
   assert 'FRONTEND True' in out.stdout, out.stdout
   assert 'STREAM_REST True' in out.stdout, out.stdout
+  assert 'DATA_SOURCES True' in out.stdout, out.stdout
   assert 'SHM_LIB True' in out.stdout, out.stdout
   assert 'CUDA_INIT False' in out.stdout, out.stdout

@@ -79,6 +79,24 @@ def test_port_server_ignores_a_trace_context():
     srv.stop()
 
 
+def test_stopped_port_server_accepts_no_connection():
+  """Once ``stop`` returns, the port's server is unreachable even when its
+  accept loop was blocked in ``accept`` at the time (a bare close left the
+  listening socket open until that accept took one more connection)."""
+  srv = _server('port', add=lambda a, b: a + b)
+  cli = port_rpc.RpcClient(srv.host, srv.port)
+  try:
+    assert cli.request('add', 1, 2) == 3   # the loop is back in accept
+    srv.stop()
+    srv._accept_thread.join(timeout=30)
+    assert not srv._accept_thread.is_alive()
+    with pytest.raises(ConnectionRefusedError):
+      socket.create_connection((srv.host, srv.port), timeout=5).close()
+  finally:
+    cli.close()
+    srv.stop()
+
+
 def _drop_replies(monkeypatch, mod, n):
   """The next ``n`` replies ``mod``'s servers send are lost: the server
   shuts the connection instead (the callee has run)."""
@@ -93,6 +111,23 @@ def _drop_replies(monkeypatch, mod, n):
       raise ConnectionError('reply lost (scripted)')
     return real(sock, obj)
   monkeypatch.setattr(mod, '_send_msg', send)
+
+
+def _kill(srv):
+  """Stop ``srv`` and return once it accepts nothing more. A JAX server's
+  ``stop`` closes its listening socket under an accept loop blocked in
+  another thread, which keeps it listening until that accept returns (the
+  port's shuts it down first): give that accept a connection of its own,
+  so that the loop sees the stop and ends, then join it. Without this a
+  dead peer took the client's next dial whenever the loop was back in
+  accept before ``stop``."""
+  srv.stop()
+  try:
+    socket.create_connection((srv.host, srv.port), timeout=5).close()
+  except OSError:
+    pass
+  srv._accept_thread.join(timeout=30)
+  assert not srv._accept_thread.is_alive()
 
 
 def _scenario(monkeypatch, client, server, what):
@@ -129,8 +164,7 @@ def _scenario(monkeypatch, client, server, what):
         except Exception as e:
           outcomes.append(type(e).__name__)
     else:   # a dead peer: the breaker opens after 3 failures
-      srv.stop()
-      time.sleep(0.1)
+      _kill(srv)
       for _ in range(3):
         try:
           cli.request('get_node_feature', 1, _rpc_timeout=5)

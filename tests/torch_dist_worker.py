@@ -362,11 +362,73 @@ DET_NODES, DET_DEGREE, DET_DIM, DET_CLASSES = 400, 3, 12, 4
 DET_FANOUTS, DET_BS, DET_STEPS = [3, 3], 16, 3
 
 
-def det_layout(root, world, seed=3, cache_ratio=None):
+def run_on_threads(fns, join_s=60):
+  """``fns[r]()`` for each rank r on a thread of this process, each joined
+  within ``join_s``; their results, or a RuntimeError if a rank raised or
+  did not finish."""
+  import threading
+  out, errs = [None] * len(fns), []
+
+  def run(r):
+    try:
+      out[r] = fns[r]()
+    except Exception as e:  # noqa: BLE001 -- raised below
+      errs.append(e)
+  threads = [threading.Thread(target=run, args=(r,), daemon=True)
+             for r in range(len(fns))]
+  for t in threads:
+    t.start()
+  for t in threads:
+    t.join(timeout=join_s)
+  if errs or any(t.is_alive() for t in threads):
+    raise RuntimeError(f'a rank failed or did not finish: {errs}')
+  return out
+
+
+def partition_on_threads(makers, join_s=60):
+  """One partitioner a rank (``makers[r]()`` builds rank r's), each
+  partitioning on a thread of this process (``run_on_threads``); every
+  server is stopped after. Returns the partitioners."""
+  parts = [None] * len(makers)
+
+  def run(r):
+    parts[r] = makers[r]()
+    parts[r].partition()
+  try:
+    run_on_threads([lambda r=r: run(r) for r in range(len(makers))], join_s)
+  finally:
+    for p in parts:
+      if p is not None:
+        p.shutdown()
+  return parts
+
+
+def online_partition(root, world, ei, feats, seed=0, join_s=60):
+  """``ei`` and ``feats`` partitioned at ``root`` by ``world``
+  DistTableRandomPartitioner ranks over loopback rpc
+  (``partition_on_threads``), rank r reading the r-th contiguous block of
+  the edge table (its edge ids their positions) and of the node table."""
+  import numpy as np
+  from glt_tpu_torch.distributed import (DistTableRandomPartitioner,
+                                         free_port_base)
+  base = free_port_base(world)
+  e_sl = np.array_split(np.arange(ei.shape[1]), world)
+  n_sl = np.array_split(np.arange(feats.shape[0]), world)
+  partition_on_threads([
+      (lambda r=r: DistTableRandomPartitioner(
+          root, rank=r, world_size=world, num_nodes=feats.shape[0],
+          edge_reader=[(ei[0][e_sl[r]], ei[1][e_sl[r]])],
+          node_reader=[(n_sl[r], feats[n_sl[r]])],
+          edge_id_offset=int(e_sl[r][0]), master_port=base, seed=seed))
+      for r in range(world)], join_s)
+
+
+def det_layout(root, world, seed=3, cache_ratio=None, online=False):
   """The draw-independent graph at ``root`` in ``world`` parts (the
-  port's RandomPartitioner, or, given ``cache_ratio``, its
+  port's RandomPartitioner; given ``cache_ratio``, its
   FrequencyPartitioner over each part's share of the nodes pushed through
-  ``sample_prob``); returns its labels."""
+  ``sample_prob``; with ``online``, ``world`` DistTableRandomPartitioner
+  ranks over rpc); returns its labels."""
   import numpy as np
   from glt_tpu_torch.partition import FrequencyPartitioner, RandomPartitioner
   rng = np.random.default_rng(seed)
@@ -377,7 +439,9 @@ def det_layout(root, world, seed=3, cache_ratio=None):
                  1).reshape(-1)
   feats = rng.normal(size=(n, DET_DIM)).astype('float32')
   ei = np.stack([src, dst])
-  if cache_ratio is None:
+  if online:
+    online_partition(root, world, ei, feats, seed=seed)
+  elif cache_ratio is None:
     RandomPartitioner(root, num_parts=world, num_nodes=n, edge_index=ei,
                       node_feat=feats, seed=seed).partition()
   else:
