@@ -190,6 +190,33 @@ points through their main functions, and checks what comes out:
   part loaded on the card; IGBH's layout synthesized at 1,000,000 papers,
   compressed (CSC, bf16) on the card and read back by load_igbh_root,
   against Topology's CSC and torch.bfloat16's cast;
+- the IGBH trainer beyond the resident store (examples/igbh/
+  dist_train_rgnn.py --split-ratio, --ckpt-dir/--resume, --coordinator):
+  the igbh-rgat partition above loaded to the host and served from split
+  0.2 bf16 stores (a fifth of each type's rows on the card, the rest
+  pinned; each owner reads both blocks in one K3 mixed launch), their
+  card bytes against the resident stores', one batch against the
+  resident stores' and the plain versions', 2 + 10 steps beside the
+  resident step, K3 mixed a type timed against its bound and the
+  resident K3, the first 8 of those steps again as two windows of 4, the
+  second a CUDA-graph replay (K3 mixed inside); a checkpoint after 2 steps restored into
+  a fresh trainer, its state and the state 2 steps later against the
+  uninterrupted trainer's (those steps under
+  torch.use_deterministic_algorithms); the example itself at 10,000
+  papers with --split-ratio 0.2 --ckpt-steps 1, then --resume, then in
+  its multihost mode (--coordinator, one rank) over the
+  same trees, counting the files it opens against the trees' bytes; then
+  the single-device weighted hetero NeighborLoader over the same graph
+  with its float32 weights (each edge type's weighted hop: B3's weight
+  window, a Gumbel top-k, B2's picks), RGAT at igbh-rgat's width, 2 + 5
+  steps, one batch against the plain versions with B3 and B2 timed at
+  its shapes, a [-1, -1] batch in windows of 8 and a batch seeded with
+  papers and authors (K2's two-type init, B1) against their plain
+  versions;
+- NeighborLoader's options over products-sage: a weighted per-hop batch
+  with edge ids and a [-1, 10, 5] per-hop batch with replacement against
+  the plain versions, as_pyg_v1 and prefetch_depth=2 loaders over three
+  batches against the loader without them;
 - hetero link prediction (examples/hetero/bipartite_sage_unsup.py at
   Taobao's counts): 987,994 users, 4,161,138 items in 9,439 categories,
   101 user-item links a user inside one category (99.8M) and their
@@ -279,6 +306,9 @@ LOSS_TOL = 1e-4   # same batch bit for bit; index_add_ atomics again
 # a bf16 feature store) over the igbh-rgat graph, a seeded 60% of the
 # papers to train on (examples/igbh/split_seeds.py)
 HTRAIN_BATCH, HTRAIN_WARMUP, HTRAIN_STEPS, HTRAIN_FRAC = 64, 3, 10, 0.6
+#: the hetero train main path's median step (ms), which the weighted
+#: single-device hetero path prints beside its own
+HTRAIN_MEDIAN = {}
 # B2 and B3 against torch.take: timed in turns (kernel, take, kernel, ...)
 # over ROUNDS rounds, medians reported; host enqueue over HOST_CALLS calls
 ROUNDS, HOST_CALLS = 11, 200
@@ -1939,6 +1969,7 @@ def hetero_train_phases(torch, np, K, graphs, feats, ds, dev, seed, k3,
     meter = ThroughputMeter('edges')
     meter.update(n_timed, timed.sum() / 1e3)
     median_ms = float(np.median(timed))
+    HTRAIN_MEDIAN['ms'] = median_ms
     print(f'hetero training: {len(losses)} steps, losses '
           + ', '.join(f'{v:.4f}' for v in losses))
     print(f'hetero training steps {HTRAIN_WARMUP + 1}-{len(losses)}: median '
@@ -3005,14 +3036,18 @@ DIST_FIELDS = ('node_dict', 'node_count_dict', 'row_dict', 'col_dict',
                'edge_mask_dict', 'x_dict', 'y_dict')
 
 
-def dist_phases(torch, np, K, dev, seed, k3, rows, smi):
+def dist_phases(torch, np, K, dev, seed, k3, rows, mixed, smi):
   """The partitioned hetero trainer: the igbh-rgat graph synthesised on the
   card, partitioned on disk by the port's RandomPartitioner (one part: one
   rank), loaded back through DistHeteroGraph, DistDataset and a bf16
   DistFeature a node type, then trained by DistHeteroTrainStep a batch a
-  step and a window at a time. Returns the launches of the per-batch path
-  and, for the superstep path, its launches (eager plus graph replays) and
-  those its replays made, by wrapper name."""
+  step and a window at a time; then over spilled stores of the same
+  partition, through a checkpoint and a resume, and the single-device
+  weighted hetero loader over the same graph (igbh_split_phases,
+  hetero_weighted_phases). Returns the launches of the per-batch path,
+  for the superstep paths their launches (eager plus graph replays) and
+  those their replays made, by wrapper name, the weighted path's, and
+  the launches of the new paths by path name."""
   import os
   import shutil
   import tempfile
@@ -3060,19 +3095,22 @@ def dist_phases(torch, np, K, dev, seed, k3, rows, smi):
                  for d, _, fs in os.walk(root) for f in fs)
       feat_bytes = sum(f.nbytes for f in feats.values())
       n_edges = sum(e.shape[1] for e in edges.values())
+      # the graph, its weights and float32 features stay on the host for
+      # the single-device weighted loader (hetero weighted path)
+      igbh_host = dict(edges=edges, weights=weights, feats=feats)
       del feats, edges, weights
       mesh = make_mesh(device=dev)
       dg = DistHeteroGraph.from_dataset_partitions(mesh, root)
       torch.cuda.synchronize()
       t.append(time.perf_counter())
-      dss = {0: DistDataset.load(root, 0, feature_dtype=torch.bfloat16,
-                                   device=dev)}
-      torch.cuda.synchronize()
+      # the partition loaded to the host once: the resident stores copy
+      # it to the card, igbh split path's spilled stores split it
+      dss_host = {0: DistDataset.load(root, 0, feature_dtype=torch.bfloat16,
+                                      device='cpu')}
       t.append(time.perf_counter())
-      dfeats = {tp: DistFeature.from_dist_datasets(mesh, dss, ntype=tp,
+      dfeats = {tp: DistFeature.from_dist_datasets(mesh, dss_host, ntype=tp,
                                                    dtype=torch.bfloat16)
                 for tp in IGBH_NODES}
-      del dss
       torch.cuda.synchronize()
       t.append(time.perf_counter())
     finally:
@@ -3090,9 +3128,10 @@ def dist_phases(torch, np, K, dev, seed, k3, rows, smi):
           f'{secs[0]:.3f} s ({feat_bytes} B of float32 features); partitioned '
           f'(RandomPartitioner, one part) {secs[1]:.3f} s, {disk} B on disk; '
           f'DistHeteroGraph {secs[2]:.3f} s ({graph_bytes} B on the card); '
-          f'DistDataset.load (bf16 Feature) {secs[3]:.3f} s; '
-          f'DistFeature.from_dist_datasets {secs[4]:.3f} s ({store} B of '
-          f'bf16 rows on the card); {train_idx.size} training and '
+          f'DistDataset.load to the host (bf16 Feature) {secs[3]:.3f} s; '
+          f'DistFeature.from_dist_datasets, copied to the card, '
+          f'{secs[4]:.3f} s ({store} B of bf16 rows on the card); '
+          f'{train_idx.size} training and '
           f'{val_idx.size} validation papers (split_indices)')
 
     sampler = DistHeteroNeighborSampler(dg, fanouts, seed=seed)
@@ -3205,6 +3244,7 @@ def dist_phases(torch, np, K, dev, seed, k3, rows, smi):
       losses.append(step(batch_seeds(i), one))
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / DIST_STEPS
+    dist_ms = ms
     dist_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
     peak = torch.cuda.max_memory_allocated() - base
     losses = [float(v) for v in losses]
@@ -3339,11 +3379,733 @@ def dist_phases(torch, np, K, dev, seed, k3, rows, smi):
     del a
     torch.cuda.empty_cache()
 
+  paths, split_ss = igbh_split_phases(
+      torch, np, K, dev, seed, smi, mesh, dg, dfeats, dss_host, labels,
+      keys, order, store, dist_ms, mixed)
+  del dss_host
+  torch.cuda.empty_cache()
   weighted_launches = dist_weighted_phases(
       torch, np, K, dev, seed, rows, smi, dg, dfeats, labels, keys, order)
   del dfeats, dg
   torch.cuda.empty_cache()
-  return dist_launches, ss_launches, weighted_launches
+  paths.update(hetero_weighted_phases(torch, np, K, dev, seed, rows, k3, smi,
+                                      igbh_host, labels, train_idx))
+  return dist_launches, (ss_launches, split_ss), weighted_launches, paths
+
+
+# the IGBH trainer beyond the resident store (examples/igbh/
+# dist_train_rgnn.py --split-ratio, --ckpt-dir/--resume, --coordinator):
+# the partition of dist_phases loaded to the host and served from split
+# 0.2 stores, a checkpoint after DIST_WARMUP steps restored into a fresh
+# trainer, the example itself at IGBH_EXAMPLE_PAPERS papers with those
+# flags and in its multihost mode
+IGBH_SPLIT = 0.2
+IGBH_EXAMPLE_PAPERS = 10_000
+WINDOW_LOSS_TOL = 1e-4   # a captured window's losses against per-batch
+RESUME_TOL = 1e-5        # a resumed trainer's parameters, if not bit-equal
+# the single-device weighted hetero loader over the igbh-rgat graph: 2 + 5
+# steps; a [-1, -1] batch in windows of HW_FULL_CAP; a batch seeded with
+# HW_AUTHORS authors beside the papers
+HW_WARMUP, HW_STEPS, HW_FULL_CAP, HW_AUTHORS = 2, 5, 8, 32
+# the loader options over products-sage: the prefetch and as_pyg_v1
+# loaders' epoch of LOADER_BATCHES batches
+LOADER_BATCHES = 3
+
+
+def cpu_tree(torch, x):
+  """``x`` (tensors in dicts, lists and tuples) with every tensor copied
+  to the host."""
+  if isinstance(x, torch.Tensor):
+    return x.detach().cpu().clone()
+  if isinstance(x, dict):
+    return {k: cpu_tree(torch, v) for k, v in x.items()}
+  if isinstance(x, (list, tuple)):
+    return type(x)(cpu_tree(torch, v) for v in x)
+  return x
+
+
+def differing_leaf(torch, a, b, path=''):
+  """The path of the first leaf that differs between trees ``a`` and
+  ``b`` (tensors compared bit for bit on the host), else None."""
+  if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+    same = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+            and torch.equal(a.cpu(), b.cpu()))
+    return None if same else path
+  if isinstance(a, dict) and isinstance(b, dict):
+    if set(map(str, a)) != set(map(str, b)):
+      return path + '/<keys>'
+    for k in a:
+      d = differing_leaf(torch, a[k], b[k], f'{path}/{k}')
+      if d is not None:
+        return d
+    return None
+  if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+    if len(a) != len(b):
+      return path + '/<len>'
+    for i, (x, y) in enumerate(zip(a, b)):
+      d = differing_leaf(torch, x, y, f'{path}/{i}')
+      if d is not None:
+        return d
+    return None
+  return None if a == b else path
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+  """While open, ``torch.use_deterministic_algorithms`` (warn only: the
+  names of the ops that have no deterministic version collect in the
+  yielded set) without filling new memory, and the cuBLAS workspace
+  setting it asks for."""
+  import os
+  import warnings
+  env = os.environ.get('CUBLAS_WORKSPACE_CONFIG')
+  os.environ['CUBLAS_WORKSPACE_CONFIG'] = ':4096:8'
+  det = getattr(torch.utils, 'deterministic', None)
+  fill = getattr(det, 'fill_uninitialized_memory', None)
+  if fill is not None:
+    det.fill_uninitialized_memory = False
+  ops = set()
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  try:
+    with warnings.catch_warnings(record=True) as caught:
+      warnings.simplefilter('always')
+      yield ops
+    ops.update(str(w.message).split(' does not have a deterministic')[0]
+               for w in caught if 'deterministic' in str(w.message))
+  finally:
+    torch.use_deterministic_algorithms(False)
+    if fill is not None:
+      det.fill_uninitialized_memory = fill
+    if env is None:
+      os.environ.pop('CUBLAS_WORKSPACE_CONFIG', None)
+    else:
+      os.environ['CUBLAS_WORKSPACE_CONFIG'] = env
+
+
+def igbh_split_phases(torch, np, K, dev, seed, smi, mesh, dg, dfeats,
+                      dss_host, labels, keys, order, store, dist_ms, mixed):
+  """DistHeteroTrainStep at igbh-rgat's width over spilled stores of the
+  dist_phases partition (``dss_host``, on the host): each type's owner
+  serves its hot and cold rows in one K3 mixed launch. Card bytes against
+  the resident stores' (``store``), one batch against the resident
+  stores', 2 + 10 steps beside ``dist main path``'s (``dist_ms``), mixed
+  K3 a type against its bound (rows into ``mixed``), two windows of
+  DIST_K as one CUDA graph against the per-batch steps; a checkpoint after
+  DIST_WARMUP steps restored into a fresh trainer, then the example with
+  --split-ratio, --ckpt-dir, --resume and in its multihost mode. Every
+  step's uniforms are ``step_uniforms(seed, global step)``. Returns the
+  paths' launches by path and the superstep path's (eager plus graph
+  replays, replays)."""
+  import builtins
+  import io
+  import os
+  import shutil
+  import socket
+  import tempfile
+  import torch.distributed as dist
+  from glt_tpu_torch.distributed import DistFeature, DistHeteroTrainStep
+  from glt_tpu_torch.examples.igbh import dist_train_rgnn as example
+  from glt_tpu_torch.models import RGNN
+  from glt_tpu_torch.parallel import sage_loss
+  from glt_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+
+  fanouts = list(FANOUTS)
+  paths = {}
+  one = np.ones(1, np.int64) * HTRAIN_BATCH
+
+  def trainer(stores):
+    torch.manual_seed(seed)
+    model = RGNN(keys, IGBH_FEAT, IGBH_HIDDEN, IGBH_CLASSES,
+                 num_layers=len(fanouts), conv='rgat', heads=IGBH_HEADS,
+                 node_types=list(IGBH_NODES)).to(dev)
+    return DistHeteroTrainStep(dg, stores, model, {'paper': labels},
+                               fanouts, HTRAIN_BATCH, 'paper', lr=LR,
+                               seed=seed)
+
+  def seeds_of(i):
+    return order[i * HTRAIN_BATCH:(i + 1) * HTRAIN_BATCH][None]
+
+  def state(step):
+    return cpu_tree(torch, dict(params=step.model.state_dict(),
+                                opt_state=step.optimizer.state_dict()))
+
+  with Phase('igbh split path'):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dfs = {tp: DistFeature.from_dist_datasets(
+        mesh, dss_host, ntype=tp, dtype=torch.bfloat16,
+        split_ratio=IGBH_SPLIT) for tp in IGBH_NODES}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    card = {tp: f.array.numel() * f.array.element_size()
+            for tp, f in dfs.items()}
+    pinned = {tp: f.cold_array.numel() * f.cold_array.element_size()
+              for tp, f in dfs.items()}
+    if any(f.cold_pinned is None for f in dfs.values()):
+      raise AssertionError('a spilled store has no pinned cold block')
+    if not sum(card.values()) < store:
+      raise AssertionError(f'split stores hold {sum(card.values())} B on '
+                           f'the card, the resident ones {store} B')
+    print(f'igbh split {IGBH_SPLIT}: DistFeature.from_dist_datasets over the '
+          f'host partition {build_s:.3f} s; on the card {card} B, '
+          f'{sum(card.values())} B in all against the resident stores\' '
+          f'{store} B ({sum(card.values()) / store * 100:.1f}%); pinned '
+          f'cold blocks {pinned} B')
+
+    # one batch from the resident and the split stores, same weights,
+    # seeds and uniforms; then its mixed K3 serves recorded (through the
+    # plain twin, as the kernel's inputs) and timed a type
+    res, a = trainer(dfeats), trainer(dfs)
+    s0 = torch.as_tensor(order[-HTRAIN_BATCH:], device=dev,
+                         dtype=torch.int32)
+    n0 = torch.tensor(HTRAIN_BATCH - 5, device=dev, dtype=torch.int32)
+    u0 = [[None if x is None else x[mesh.rank] for x in hop]
+          for hop in example.step_uniforms(a, seed, 10 ** 6)]
+    served = []
+
+    def record_mixed(hot, cold, rows):
+      served.append((hot, cold, rows))
+      return K.gather_rows_mixed_plain(hot, cold, rows)
+    with torch.no_grad():
+      br = res.make_batch(s0, n0, u0)
+      yr = res.model(br)
+      lr_ = float(sage_loss(res.model, br))
+      bs_ = a.make_batch(s0, n0, u0)
+      ys = a.model(bs_)
+      ls = float(sage_loss(a.model, bs_))
+      real = K.gather_rows_mixed
+      K.gather_rows_mixed = record_mixed
+      try:
+        bp = a.make_batch(s0, n0, u0)
+      finally:
+        K.gather_rows_mixed = real
+    for label, other in (('resident', br), ('plain', bp)):
+      f = differing_field(torch, bs_, other, DIST_FIELDS)
+      if f is not None:
+        raise AssertionError(f'igbh split batch.{f} differs from the '
+                             f'{label} one')
+    diff = float((ys - yr).abs().max())
+    if not (torch.allclose(ys, yr, rtol=LOGIT_TOL, atol=LOGIT_TOL)
+            and abs(ls - lr_) <= LOSS_TOL * max(1.0, abs(lr_))):
+      raise AssertionError(f'igbh split logits differ from the resident '
+                           f'ones by {diff}, loss {ls} vs {lr_}')
+    if len(served) != len(IGBH_NODES):
+      raise AssertionError(f'{len(served)} mixed K3 serves in a batch, '
+                           f'expected {len(IGBH_NODES)}')
+    print(f'igbh split batch {HTRAIN_BATCH} ({int(n0)} real seeds): every '
+          'field bit-identical to the resident stores\' and the plain '
+          f'versions\' ({sum(int(c) for c in bs_.node_count_dict.values())} '
+          f'nodes); logits {"bit-equal" if torch.equal(ys, yr) else "differ"}'
+          f' (max |diff| {diff:.3e}, tolerance {LOGIT_TOL}), loss '
+          f'{ls:.6f} vs {lr_:.6f}')
+    rate = link_rate(torch, dfs['paper'].cold_array, dev)
+    by_block = {f.array.data_ptr(): tp for tp, f in dfs.items()}
+    for hot, cold, rows in served:
+      tp = by_block[hot.data_ptr()]
+      label = f'igbh bfloat16 x 1024 {tp} split {IGBH_SPLIT}'
+      mixed[label] = time_mixed(torch, np, K, label, hot, cold, rows, rate,
+                                resident=dfeats[tp].array)
+    del res, br, yr, bs_, ys, bp, served
+    torch.cuda.empty_cache()
+
+    # 2 + 10 steps a batch a step, each synced and timed
+    b = trainer(dfs)
+    shapes = b.sampler.uniform_shapes(HTRAIN_BATCH, 'paper')
+    b2_per_step = sum(len(h) for h in shapes)
+    losses, secs = [], []
+    for i in range(DIST_WARMUP + DIST_STEPS):
+      if i == DIST_WARMUP:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+      t0 = time.perf_counter()
+      losses.append(b(seeds_of(i), one, example.step_uniforms(b, seed, i)))
+      torch.cuda.synchronize()
+      secs.append(time.perf_counter() - t0)
+    paths['igbh_split'] = {fn.__name__: fn.launches for fn in K.KERNELS}
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [float(v) for v in losses]
+    want = dict(sample_hop=b2_per_step * DIST_STEPS,
+                gather_rows_mixed=len(IGBH_NODES) * DIST_STEPS,
+                gather_rows=0)
+    for n, v in want.items():
+      if paths['igbh_split'][n] != v:
+        raise AssertionError(f'igbh split: {paths["igbh_split"][n]} {n} '
+                             f'launches over {DIST_STEPS} steps, expected {v}')
+    if not np.isfinite(losses).all():
+      raise AssertionError(f'igbh split training: non-finite loss {losses}')
+    timed = np.array(secs[DIST_WARMUP:]) * 1e3
+    med = float(np.median(timed))
+    print(f'igbh split training (one rank, batch {HTRAIN_BATCH}, {fanouts}, '
+          f'split {IGBH_SPLIT}): {DIST_STEPS} steps after {DIST_WARMUP} '
+          f'warm-up, median {med:.3f} ms a step (mean {timed.mean():.3f}, '
+          f'quartiles {np.percentile(timed, 25):.3f}-'
+          f'{np.percentile(timed, 75):.3f}, min {timed.min():.3f}, max '
+          f'{timed.max():.3f}), {HTRAIN_BATCH / med * 1e3:.1f} seeds/s; the '
+          f'resident dist main path {dist_ms:.3f} ms a step (mean), split/'
+          f'resident {med / dist_ms:.4f} (median), '
+          f'{timed.mean() / dist_ms:.4f} (mean); peak {peak / 2**30:.3f} GiB '
+          f'above {base / 2**30:.3f} GiB resident; losses '
+          + ', '.join(f'{v:.4f}' for v in losses)
+          + f'; launches {paths["igbh_split"]}; on {smi}')
+    del b
+    torch.cuda.empty_cache()
+
+    # the first 2 * DIST_K of those steps through trainer a as two windows
+    # of DIST_K: the first eager and captured, the second a replay of the
+    # CUDA graph
+    K.reset_launch_counts()
+    window_losses = []
+    start = 0
+    for w in range(2):
+      idx = range(start + w * DIST_K, start + (w + 1) * DIST_K)
+      us = [example.step_uniforms(a, seed, i) for i in idx]
+      u = [[None if us[0][h][j] is None else
+            torch.stack([x[h][j] for x in us])
+            for j in range(len(us[0][h]))] for h in range(len(us[0]))]
+      window_losses.append(a.superstep(
+          np.concatenate([seeds_of(i) for i in idx]),
+          np.full((DIST_K, 1), HTRAIN_BATCH), u))
+    eager, replayed, launches = path_launches(K, a)
+    got = torch.cat(window_losses).cpu().numpy()
+    per_batch = np.array(losses[start:start + 2 * DIST_K])
+    diffs = np.abs(got - per_batch)
+    if (a.superstep_captures, a.graph_replays) != (1, 1) or not (
+        diffs.max() <= WINDOW_LOSS_TOL):
+      raise AssertionError(f'igbh split superstep: captures '
+                           f'{a.superstep_captures}, replays '
+                           f'{a.graph_replays}, losses differ from the '
+                           f'per-batch steps by up to {diffs.max()}')
+    per = len(IGBH_NODES) * DIST_K
+    if (eager['gather_rows_mixed'], replayed.get('gather_rows_mixed', 0)
+        ) != (per, per):
+      raise AssertionError(f'igbh split superstep: mixed K3 {eager} eager, '
+                           f'{replayed} by replays')
+    print_windows(a)
+    print(f'igbh split superstep, two windows of {DIST_K} (steps '
+          f'{start + 1}-{start + 2 * DIST_K}): the first eager '
+          f'and captured ({a.capture_seconds[0] * 1e3:.1f} ms to capture), '
+          'the second a replay of the CUDA graph, K3 mixed inside it; '
+          f'losses against the per-batch steps: the eager window max |diff| '
+          f'{diffs[:DIST_K].max():.3e}, the replayed one '
+          f'{diffs[DIST_K:].max():.3e} (tolerance {WINDOW_LOSS_TOL}); '
+          f'launches {launches}: eager {eager}, by graph replays {replayed};'
+          f' on {smi}')
+    split_ss = (launches, replayed)
+    del a, window_losses
+    torch.cuda.empty_cache()
+
+  with Phase('igbh resume path'):
+    # uninterrupted: DIST_WARMUP steps, a checkpoint, 2 more steps; then a
+    # fresh trainer restored from the checkpoint takes the same 2 steps.
+    # Both under torch.use_deterministic_algorithms: the step's index_add_
+    # otherwise sums in another order from run to run, and Adam turns
+    # float noise in a near-zero gradient into a move of up to lr
+    d = trainer(dfs)
+    with deterministic(torch) as nondet:
+      for i in range(DIST_WARMUP):
+        d(seeds_of(i), one, example.step_uniforms(d, seed, i))
+      saved = state(d)
+      ckpt = tempfile.mkdtemp(prefix='glt_igbh_ckpt_')
+      t0 = time.perf_counter()
+      save_checkpoint(ckpt, DIST_WARMUP, d.model.state_dict(),
+                      opt_state=d.optimizer.state_dict())
+      save_s = time.perf_counter() - t0
+      for i in range(DIST_WARMUP, DIST_WARMUP + 2):
+        d(seeds_of(i), one, example.step_uniforms(d, seed, i))
+    uninterrupted = state(d)
+    del d
+    torch.cuda.empty_cache()
+    c = trainer(dfs)
+    t0 = time.perf_counter()
+    got_step, payload = restore_checkpoint(
+        ckpt, template={'params': c.model.state_dict()})
+    c.model.load_state_dict(payload['params'])
+    c.optimizer.load_state_dict(payload['opt_state'])
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    leaf = differing_leaf(torch, state(c), saved)
+    if got_step != DIST_WARMUP or leaf is not None:
+      raise AssertionError(f'restored step {got_step}, state differs from '
+                           f'the saved one at {leaf}')
+    with deterministic(torch) as nondet_c:
+      for i in range(DIST_WARMUP, DIST_WARMUP + 2):
+        c(seeds_of(i), one, example.step_uniforms(c, seed, i))
+    after = state(c)
+    leaf = differing_leaf(torch, after, uninterrupted)
+    pdiff = max(float((after['params'][k] - v).abs().max())
+                for k, v in uninterrupted['params'].items())
+    if pdiff > RESUME_TOL:
+      raise AssertionError(f'resumed parameters differ from the '
+                           f'uninterrupted run by {pdiff}')
+    print(f'igbh resume: checkpoint at step {DIST_WARMUP} saved in '
+          f'{save_s:.3f} s, restored into a fresh trainer in '
+          f'{restore_s:.3f} s, its model and Adam state bit-equal to the '
+          f'saved ones; 2 more steps: model and Adam state '
+          + ('bit-equal to' if leaf is None else
+             f'first differ at {leaf}, parameters by up to {pdiff:.3e} '
+             f'(tolerance {RESUME_TOL}) from')
+          + f' the uninterrupted run\'s after {DIST_WARMUP + 2} steps '
+          '(torch.use_deterministic_algorithms on for these steps; ops '
+          f'without a deterministic version: {sorted(nondet | nondet_c)})')
+    del c, dfs, saved, uninterrupted, after
+    torch.cuda.empty_cache()
+
+    # the example itself on the card: spilled stores, checkpoints every 2
+    # steps, then resumed from the last one
+    work = tempfile.mkdtemp(prefix='glt_igbh_example_')
+    data, part = os.path.join(work, 'data'), os.path.join(work, 'parts')
+    ck = os.path.join(work, 'ckpt')
+    args = ['--papers', str(IGBH_EXAMPLE_PAPERS), '--data-root', data,
+            '--part-root', part, '--split-ratio', str(IGBH_SPLIT),
+            '--ckpt-dir', ck, '--ckpt-steps', '1', '--steps-per-epoch', '2',
+            '--batch-size', str(HTRAIN_BATCH), '--fanout',
+            ','.join(map(str, fanouts)), '--val-batches', '1', '--seed',
+            str(seed)]
+    runs = []
+    for extra in ([], ['--resume']):
+      K.reset_launch_counts()
+      log = io.StringIO()
+      t0 = time.perf_counter()
+      with contextlib.redirect_stdout(log):
+        out = example.main(args + extra)
+      runs.append((out, time.perf_counter() - t0,
+                   {fn.__name__: fn.launches for fn in K.KERNELS},
+                   sorted(os.listdir(ck)), log.getvalue()))
+    (first, s1, l1, ck1, log1), (second, s2, l2, ck2, log2) = runs
+    last = restore_checkpoint(ck)[1]['params']
+    if not ((first['start_step'], first['steps'], ck1)
+            == (0, 2, ['1', '2'])
+            and (second['start_step'], second['steps'], ck2)
+            == (2, 4, ['2', '3', '4'])
+            and all(first['spilled'].values())
+            and 'resumed from checkpoint step 2' in log2
+            and all(torch.equal(last[k], v.cpu())
+                    for k, v in second['params'].items())
+            and np.isfinite(first['losses'] + second['losses']).all()):
+      raise AssertionError(f'igbh example: {first["start_step"]}-'
+                           f'{first["steps"]} {ck1}, {second["start_step"]}-'
+                           f'{second["steps"]} {ck2}; {log2[-2000:]}')
+    paths['igbh_example'] = {n: l1[n] + l2[n] for n in l1}
+    print(f'igbh example at {IGBH_EXAMPLE_PAPERS} papers (--split-ratio '
+          f'{IGBH_SPLIT} --ckpt-steps 1, 2 steps): {s1:.3f} s with the '
+          f'synthesis and partition, checkpoints {ck1}, cold blocks '
+          f'{first["spilled"]}; --resume: from step {second["start_step"]} '
+          f'to {second["steps"]} in {s2:.3f} s, checkpoints {ck2}, the last '
+          f'one bit-equal to the run\'s parameters; launches '
+          f'{paths["igbh_example"]}')
+
+  with Phase('igbh multihost path'):
+    # the example's multihost mode over the same trees, one rank, in this
+    # process; the files it opens recorded as it opens them
+    with socket.socket() as sock:
+      sock.bind(('127.0.0.1', 0))
+      port = sock.getsockname()[1]
+    argv = ['--data-root', data, '--part-root', part, '--split-ratio',
+            str(IGBH_SPLIT), '--steps-per-epoch', '1', '--batch-size',
+            str(HTRAIN_BATCH), '--fanout', ','.join(map(str, fanouts)),
+            '--val-batches', '1', '--seed', str(seed), '--coordinator',
+            f'127.0.0.1:{port}', '--nprocs', '1', '--rank', '0']
+    opened = set()
+    real_open = builtins.open
+
+    def recording(file, *a, **k):
+      if isinstance(file, (str, os.PathLike)):
+        opened.add(os.path.abspath(os.fspath(file)))
+      return real_open(file, *a, **k)
+    K.reset_launch_counts()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    builtins.open = recording
+    try:
+      with contextlib.redirect_stdout(log):
+        got = example.main(argv)
+    finally:
+      builtins.open = real_open
+      if dist.is_initialized():      # the example ends its group itself
+        dist.destroy_process_group()
+    secs = time.perf_counter() - t0
+    paths['igbh_multihost'] = {fn.__name__: fn.launches for fn in K.KERNELS}
+    roots = (os.path.abspath(data), os.path.abspath(part))
+    opened = sorted(p for p in opened if p.startswith(roots))
+    read = sum(os.path.getsize(p) for p in opened if os.path.isfile(p))
+    tree = disk_bytes(data) + disk_bytes(part)
+    loaded_feats = [p for p in opened if p.startswith(roots[0]) and
+                    ('node_feat' in p or 'edge_index' in p)]
+    if (loaded_feats or got['steps'] != 1 or not all(got['spilled'].values())
+        or not np.isfinite(got['losses']).all()):
+      raise AssertionError(f'multihost rank: {got["steps"]} steps, spilled '
+                           f'{got["spilled"]}, read {loaded_feats}; '
+                           f'{log.getvalue()[-2000:]}')
+    print(f'igbh multihost (--coordinator 127.0.0.1:{port} --nprocs 1 '
+          f'--rank 0, split {IGBH_SPLIT}): {secs:.3f} s; it opened '
+          f'{len(opened)} files of the two trees, {read} B, against the '
+          f'trees\' {tree} B ({read / tree * 100:.1f}%), no feature table or '
+          f'edge payload of the data tree; losses {got["losses"]}; launches '
+          f'{paths["igbh_multihost"]}')
+    shutil.rmtree(work, ignore_errors=True)
+  return paths, split_ss
+
+
+def hetero_weighted_phases(torch, np, K, dev, seed, rows, k3, smi, host,
+                           labels, train_idx):
+  """The single-device hetero NeighborLoader(with_weight=True) over the
+  igbh-rgat graph of dist_phases with its float32 weights (``host``:
+  edges, weights and float32 features on the host, emptied here), RGAT
+  at igbh-rgat's width on a bf16 store and Adam: each edge type's weighted
+  hop reads its weight window through B3, picks by Gumbel top-k and reads
+  the picks through B2 (the per-hop loop). 2 + 5 steps, one batch against
+  the plain versions with B3 and B2 timed at its shapes; a [-1, -1] batch
+  in windows of HW_FULL_CAP and a batch seeded with papers and authors
+  (the uniform walk: K2's init for both types, B1 a hop), each against
+  its plain versions. Returns the launches by path."""
+  from glt_tpu_torch.data import Dataset
+  from glt_tpu_torch.data.feature import gather_features
+  from glt_tpu_torch.loader import NeighborLoader
+  from glt_tpu_torch.models import RGNN
+  from glt_tpu_torch.parallel import SageTrainStep, sage_loss
+  from glt_tpu_torch.sampler import NeighborSampler
+  from glt_tpu_torch.sampler.base import NodeSamplerInput
+  from glt_tpu_torch.typing import reverse_edge_type
+
+  paths = {}
+  sample_fields = ('node', 'node_count', 'row', 'col', 'edge_mask',
+                   'num_sampled_nodes', 'num_sampled_edges')
+  with Phase('hetero weighted path'):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hds = Dataset().init_graph(host['edges'], edge_weights=host['weights'],
+                               num_nodes=IGBH_NODES, device=dev)
+    hds.init_node_features(host['feats'], dtype=torch.bfloat16, device=dev)
+    hds.init_node_labels({'paper': labels})
+    host.clear()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    etypes = hds.get_edge_types()
+    mp_etypes = [reverse_edge_type(e) for e in etypes]
+    loader = NeighborLoader(hds, list(FANOUTS), ('paper', train_idx),
+                            batch_size=HTRAIN_BATCH, shuffle=True,
+                            with_weight=True, device=dev, seed=seed,
+                            rng=np.random.default_rng(seed))
+    sampler = loader.sampler
+    if sampler._weighted_types != set(etypes):
+      raise AssertionError(f'weighted edge types {sampler._weighted_types}')
+    caps = sampler._hetero_caps({'paper': HTRAIN_BATCH})[0]
+    segs = sum(1 for h in range(len(FANOUTS))
+               for e, (row_t, _) in sampler._traversal_types().items()
+               if caps[h][row_t])
+    print(f'hetero weighted: the igbh-rgat graph and bf16 store on the card '
+          f'in {build_s:.3f} s; weight windows (max degree by relation) '
+          f'{ {e[1]: sampler._max_degrees[e] for e in etypes} }; {segs} '
+          'weighted segments a batch')
+
+    def model():
+      torch.manual_seed(seed)
+      return RGNN(mp_etypes, IGBH_FEAT, IGBH_HIDDEN, IGBH_CLASSES,
+                  num_layers=len(FANOUTS), conv='rgat',
+                  heads=IGBH_HEADS).to(dev)
+    net = model()
+    step = SageTrainStep(net, lr=LR)
+    per_step = dict(sample_hop=segs, gather_windows=segs,
+                    gather_rows=len(IGBH_NODES), sample_hop_dedup=0,
+                    sample_walk_dedup=0)
+    it = iter(loader)
+    losses, secs = [], []
+    for i in range(HW_WARMUP + HW_STEPS):
+      if i == HW_WARMUP:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+      before = {n: getattr(K, n).launches for n in per_step}
+      t0 = time.perf_counter()
+      losses.append(step(next(it)))
+      torch.cuda.synchronize()
+      secs.append(time.perf_counter() - t0)
+      for n, want in per_step.items():
+        if getattr(K, n).launches - before[n] != want:
+          raise AssertionError(
+              f'hetero weighted step {i}: {getattr(K, n).launches - before[n]}'
+              f' {n} launches, expected {want}')
+    paths['hetero_weighted'] = {fn.__name__: fn.launches for fn in K.KERNELS}
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+      raise AssertionError(f'hetero weighted: non-finite loss {losses}')
+    timed = np.array(secs[HW_WARMUP:]) * 1e3
+    med = float(np.median(timed))
+    base = HTRAIN_MEDIAN.get('ms')
+    print(f'hetero weighted training (one card, batch {HTRAIN_BATCH}, '
+          f'{list(FANOUTS)}, RGAT {IGBH_FEAT} -> {IGBH_HIDDEN} x {IGBH_HEADS} '
+          f'-> {IGBH_CLASSES}, bf16 store): {HW_STEPS} steps after '
+          f'{HW_WARMUP} warm-up, median {med:.3f} ms a step (min '
+          f'{timed.min():.3f}, max {timed.max():.3f}), '
+          f'{HTRAIN_BATCH / med * 1e3:.1f} seeds/s; hetero train main path '
+          f'(uniform, B1) median {base if base is None else f"{base:.3f}"} '
+          'ms; losses ' + ', '.join(f'{v:.4f}' for v in losses)
+          + f'; launches {paths["hetero_weighted"]}; on {smi}')
+
+    n_valid = HTRAIN_BATCH - 1
+    seeds = np.concatenate([train_idx[:n_valid],
+                            np.full(HTRAIN_BATCH - n_valid, train_idx[0])])
+    u = sampler.hop_uniforms(HTRAIN_BATCH, 'paper')
+
+    def one_batch():
+      out = sampler.sample_from_nodes(NodeSamplerInput(seeds, 'paper'),
+                                      n_valid, uniforms=u)
+      return loader._collate(out, seeds, n_valid)
+    with torch.no_grad():
+      bk = one_batch()
+      lk = float(sage_loss(net, bk))
+      with recorded_calls(K, ('sample_hop', 'gather_windows',
+                              'gather_rows')) as calls:
+        bp = one_batch()
+        lp = float(sage_loss(net, bp))
+    f = differing_field(torch, bk, bp, HETERO_BATCH_FIELDS)
+    if f is not None:
+      raise AssertionError(f'hetero weighted batch.{f} differs between '
+                           'kernels and plain')
+    if not abs(lk - lp) <= LOSS_TOL * max(1.0, abs(lp)):
+      raise AssertionError(f'hetero weighted loss {lk} vs plain {lp}')
+    print(f'hetero weighted batch {HTRAIN_BATCH} ({n_valid} real seeds): '
+          'bit-identical ('
+          f'{sum(int(c) for c in bk.node_count_dict.values())} nodes, '
+          f'{sum(int(m.sum()) for m in bk.edge_mask_dict.values())} edges), '
+          f'loss {lk:.6f} vs plain {lp:.6f} (|diff| {abs(lk - lp):.3e}, '
+          f'tolerance {LOSS_TOL})')
+    label = f'hetero weighted batch ({segs} hops)'
+    rows['gather_windows'].setdefault('shapes', {})[label] = time_windows(
+        torch, np, K, 'hetero weighted batch', calls['gather_windows'])
+    rows['sample_hop'].setdefault('shapes', {})[label] = time_picks(
+        torch, np, K, 'hetero weighted batch', calls['sample_hop'])
+    del bk, bp, calls, it, step, net
+    torch.cuda.empty_cache()
+
+    # a [-1, -1] batch in windows of HW_FULL_CAP, and one seeded with
+    # papers and authors through the uniform walk, each against plain
+    full = NeighborSampler(hds.graph, [-1, -1], device=dev,
+                           full_neighbor_cap=HW_FULL_CAP, seed=seed)
+    types = NeighborSampler(hds.graph, list(FANOUTS), device=dev, seed=seed)
+    authors = np.arange(HW_AUTHORS) * (IGBH_NODES['author'] // HW_AUTHORS)
+    cases = (
+        ('full', full, NodeSamplerInput(seeds, 'paper'), None,
+         full.hop_uniforms(HTRAIN_BATCH, 'paper'),
+         ('gather_windows', 'gather_rows')),
+        ('types', types, {'paper': seeds, 'author': authors}, 'author',
+         types.hop_uniforms({'paper': HTRAIN_BATCH, 'author': HW_AUTHORS}),
+         ('sample_hop_dedup', 'dedup_table_init', 'dedup_table_init_types',
+          'gather_rows')))
+    for name, smp, inputs, seed_type, uu, swapped in cases:
+      def sample():
+        out = smp.sample_from_nodes(inputs, uniforms=uu, seed_type=seed_type)
+        x = {t: gather_features(hds.get_node_feature(t), n)
+             for t, n in out.node.items()}
+        return out, x
+      K.reset_launch_counts()
+      ok, xk = sample()
+      torch.cuda.synchronize()
+      paths[f'hetero_{name}'] = {fn.__name__: fn.launches
+                                 for fn in K.KERNELS}
+      with swapped_to_plain(K, swapped):
+        op, xp = sample()
+      f = differing_field(torch, ok, op, sample_fields)
+      if f is not None or any(not torch.equal(xk[t], xp[t]) for t in xk):
+        raise AssertionError(f'hetero {name} sample.{f} (or its rows) '
+                             'differs between kernels and plain')
+      print(f'hetero {name} sample (seeds {dict((t, int(v.numel())) for t, v in ok.batch.items())}): '
+            f'bit-identical to plain with its rows ('
+            f'{sum(int(c) for c in ok.node_count.values())} nodes, '
+            f'{sum(int(m.sum()) for m in ok.edge_mask.values())} edges, '
+            f'input type {ok.input_type}); launches '
+            f'{ {k: v for k, v in paths[f"hetero_{name}"].items() if v} }')
+    del hds, loader, sampler, full, types
+    torch.cuda.empty_cache()
+  return paths
+
+
+def loader_option_checks(torch, np, K, ds, dev, seed, smi):
+  """NeighborLoader's options over products-sage (its weights, labels and
+  split from train_phases): a weighted per-hop batch with edge ids and a
+  [-1, 10, 5] per-hop batch with replacement, each against the plain
+  versions; as_pyg_v1 and prefetch_depth=2 loaders over an epoch of
+  LOADER_BATCHES batches through the walk, against the loader without
+  them. Returns the launches by path."""
+  from glt_tpu_torch.loader import NeighborLoader, to_pyg_v1
+  from glt_tpu_torch.typing import Split
+
+  paths = {}
+  train_idx = ds.get_split(Split.train)
+  fields = ('node', 'node_count', 'row', 'col', 'edge_mask', 'edge', 'x',
+            'y', 'num_sampled_nodes', 'num_sampled_edges')
+
+  def loader(fanouts, n=None, **kw):
+    return NeighborLoader(ds, fanouts, train_idx[:n], batch_size=TRAIN_BATCH,
+                          shuffle=True, device=dev, seed=seed,
+                          rng=np.random.default_rng(seed), **kw)
+  with Phase('loader options checks'):
+    for path, label, fanouts, kw in (
+        ('loader_weighted_edges', 'weighted, with edge ids', list(FANOUTS),
+         dict(with_weight=True, with_edge=True)),
+        ('loader_replace', 'with replacement, with edge ids',
+         [-1] + list(FANOUTS[1:]), dict(replace=True, with_edge=True))):
+      K.reset_launch_counts()
+      bk = next(iter(loader(fanouts, **kw)))
+      torch.cuda.synchronize()
+      paths[path] = {fn.__name__: fn.launches for fn in K.KERNELS}
+      with swapped_to_plain(K, ('sample_hop', 'gather_windows',
+                                'gather_rows')):
+        bp = next(iter(loader(fanouts, **kw)))
+      f = differing_field(torch, bk, bp, fields)
+      if f is not None:
+        raise AssertionError(f'loader ({label}) batch.{f} differs between '
+                             'kernels and plain')
+      if not (paths[path]['sample_hop'] and paths[path]['gather_windows']):
+        raise AssertionError(f'loader ({label}) launched {paths[path]}')
+      print(f'per-hop loader {fanouts} ({label}): batch of {TRAIN_BATCH} '
+            f'bit-identical to plain ({int(bk.node_count)} nodes, '
+            f'{int(bk.edge_mask.sum())} edges); launches '
+            f'{ {k: v for k, v in paths[path].items() if v} }')
+    n = LOADER_BATCHES * TRAIN_BATCH
+    want = list(loader(list(FANOUTS), n, with_edge=True))
+    K.reset_launch_counts()
+    pyg = list(loader(list(FANOUTS), n, with_edge=True, as_pyg_v1=True))
+    torch.cuda.synchronize()
+    paths['loader_pyg_v1'] = {fn.__name__: fn.launches for fn in K.KERNELS}
+    for b, (bs, n_id, adjs) in zip(want, pyg):
+      ws, wn, wa = to_pyg_v1(b)
+      if not (bs == ws and torch.equal(n_id, wn) and len(adjs) == len(wa)
+              and all(x.size == y.size
+                      and torch.equal(x.edge_index, y.edge_index)
+                      and torch.equal(x.e_id, y.e_id)
+                      for x, y in zip(adjs, wa))):
+        raise AssertionError('an as_pyg_v1 batch differs from the plain '
+                             'loader\'s')
+    K.reset_launch_counts()
+    pre = NeighborLoader(ds, list(FANOUTS), train_idx[:n],
+                         batch_size=TRAIN_BATCH, shuffle=True, device=dev,
+                         seed=seed, rng=np.random.default_rng(seed),
+                         with_edge=True, prefetch_depth=2)
+    got = list(pre)
+    torch.cuda.synchronize()
+    paths['loader_prefetch'] = {fn.__name__: fn.launches for fn in K.KERNELS}
+    worker = pre._prefetcher.worker_thread
+    if len(got) != len(want) or worker is None or worker.is_alive():
+      raise AssertionError(f'the prefetching loader gave {len(got)} batches')
+    for i, (x, y) in enumerate(zip(got, want)):
+      f = differing_field(torch, x, y, fields)
+      if f is not None:
+        raise AssertionError(f'prefetched batch {i}.{f} differs from the '
+                             'plain loader\'s')
+    for path in ('loader_pyg_v1', 'loader_prefetch'):
+      if paths[path]['sample_walk_dedup'] != LOADER_BATCHES:
+        raise AssertionError(f'{path}: launches {paths[path]}')
+    print(f'as_pyg_v1 and prefetch_depth=2 loaders over {LOADER_BATCHES} '
+          f'batches of {TRAIN_BATCH} ({list(FANOUTS)}, with edge ids): equal '
+          'to the plain loader\'s batches (as_pyg_v1: n_id, each hop\'s '
+          'edge_index, e_id and size); the prefetch worker joined; launches '
+          f'pyg {paths["loader_pyg_v1"]}, prefetch '
+          f'{paths["loader_prefetch"]}; on {smi}')
+    del want, pyg, got, pre
+  return paths
 
 
 # the partitioned hetero trainer's weighted hops (DistHeteroTrainStep(
@@ -6929,9 +7691,10 @@ def main() -> int:
   torch.cuda.empty_cache()
   ss_paths = superstep_phases(torch, np, K, ds, dev, opts.seed, smi)
   torch.cuda.empty_cache()
-  (dist_launches, ss_paths['dist_hetero_superstep'],
-   weighted_launches) = dist_phases(torch, np, K, dev, opts.seed, k3, rows,
-                                    smi)
+  (dist_launches, (ss_paths['dist_hetero_superstep'],
+                   ss_paths['igbh_split_superstep']),
+   weighted_launches, igbh_paths) = dist_phases(torch, np, K, dev, opts.seed,
+                                                k3, rows, mixed, smi)
   torch.cuda.empty_cache()
   homo_paths = homo_dist_phases(torch, np, K, ds, dev, opts.seed, rows, k3,
                                 mixed, smi)
@@ -6952,6 +7715,9 @@ def main() -> int:
   torch.cuda.empty_cache()
   hgt_launches = hgt_phases(torch, np, K, dev, opts.seed, rows, k3, host_us,
                             smi)
+  torch.cuda.empty_cache()
+  igbh_paths.update(loader_option_checks(torch, np, K, ds, dev, opts.seed,
+                                         smi))
   torch.cuda.empty_cache()
   rows['sample_walk_dedup'] = dict(
       walk[256], shapes={f'B={b}' if isinstance(b, int) else b: row
@@ -6998,6 +7764,7 @@ def main() -> int:
              'dist_weighted': weighted_launches,
              'hetero_link': hlink_launches, 'hgt': hgt_launches,
              **homo_paths, **sc_paths, **fe_paths, **stream_paths,
+             **igbh_paths,
              **{p: v[0] for p, v in ss_paths.items()},
              'probe': probe_launches,
              'microbench': micro_launches}

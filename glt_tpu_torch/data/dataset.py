@@ -35,10 +35,15 @@ class Dataset:
     self.node_split = None   # (train_idx, val_idx, test_idx)
 
   def init_graph(self, edge_index, edge_ids=None, edge_weights=None,
-                 num_nodes=None, device=None) -> 'Dataset':
+                 num_nodes=None, device=None, layout: str = 'COO'
+                 ) -> 'Dataset':
     """Build the CSR (``edge_dir='out'``) or CSC (``'in'``) from a [2, E]
     COO ``edge_index`` on ``device`` (default: the card), with optional
-    per-edge ``edge_weights`` (weighted sampling reads them). Hetero:
+    per-edge ``edge_weights`` (weighted sampling reads them). With
+    ``layout='CSR'`` or ``'CSC'`` an ``edge_index`` is a compressed
+    ``(indptr, indices)`` pair of that layout instead, flipped when the
+    dataset's ``edge_dir`` wants the other one (glt_tpu/data/dataset.py
+    :44-70). Hetero:
     ``edge_index`` (and ``edge_ids`` and ``edge_weights``, an edge type
     without an entry unweighted) are dicts keyed by EdgeType, and each
     edge type compresses into a rectangular graph
@@ -48,12 +53,30 @@ class Dataset:
     type), or one int for every type, as in the JAX package. An axis
     with no count is one past its largest id."""
     device = resolve_device(device)
-    layout = 'CSR' if self.edge_dir == 'out' else 'CSC'
+    target = 'CSR' if self.edge_dir == 'out' else 'CSC'
+    given = layout.upper()
+    if given not in ('COO', 'CSR', 'CSC'):
+      raise ValueError(f'unsupported layout {layout!r}')
+
+    def build(ei, eid, ew, n_src, n_dst):
+      # the pointer axis of the chosen layout: src of a CSR, dst of a CSC
+      n_rows, n_cols = (n_src, n_dst) if target == 'CSR' else (n_dst, n_src)
+      if given == 'COO':
+        topo = Topology(ei, edge_ids=eid, edge_weights=ew, num_rows=n_rows,
+                        num_cols=n_cols, layout=target, device=device)
+      else:
+        in_rows, in_cols = ((n_src, n_dst) if given == 'CSR'
+                            else (n_dst, n_src))
+        topo = Topology(indptr=ei[0], indices=ei[1], edge_ids=eid,
+                        edge_weights=ew, num_rows=in_rows, num_cols=in_cols,
+                        layout=given, device=device)
+        if topo.layout != target:
+          topo = topo.flip_layout()
+      return Graph(topo, device=device)
+
     if not isinstance(edge_index, dict):
-      topo = Topology(edge_index, edge_ids=edge_ids,
-                      edge_weights=edge_weights, num_nodes=num_nodes,
-                      layout=layout, device=device)
-      self.graph = Graph(topo, device=device)
+      self.graph = build(edge_index, edge_ids, edge_weights, num_nodes,
+                         num_nodes)
       return self
     self.graph = {}
     for etype, ei in edge_index.items():
@@ -67,11 +90,7 @@ class Dataset:
       eid = edge_ids.get(etype) if isinstance(edge_ids, dict) else None
       ew = (edge_weights.get(etype) if isinstance(edge_weights, dict)
             else None)
-      # the pointer axis: src of a CSR, dst of a CSC
-      n_rows, n_cols = (n_src, n_dst) if layout == 'CSR' else (n_dst, n_src)
-      topo = Topology(ei, edge_ids=eid, edge_weights=ew, num_rows=n_rows,
-                      num_cols=n_cols, layout=layout, device=device)
-      self.graph[etype] = Graph(topo, device=device)
+      self.graph[etype] = build(ei, eid, ew, n_src, n_dst)
     return self
 
   def init_node_features(self, node_feature_data, sort_func=None,
@@ -83,9 +102,13 @@ class Dataset:
     :class:`Feature` with ``split_ratio`` of its rows on the card and
     the rest in host memory (pinned unless ``host_offload=False``).
     ``sort_func`` (e.g. :func:`~glt_tpu_torch.data.reorder.
-    sort_by_in_degree`) reorders a homogeneous table over the graph's
-    topology, hottest rows first, and its old -> new map becomes the
-    Feature's ``id2index``, so lookups keep taking the original ids."""
+    sort_by_in_degree`) reorders a table over a topology, hottest rows
+    first, and its old -> new map becomes the Feature's ``id2index``, so
+    lookups keep taking the original ids: a homogeneous table over the
+    graph's, a node type's over the first edge type whose pointer type
+    it is (the JAX ``_topo_for_node_type``; for a CSR that counts the
+    in-degrees of the edge type's other end), a type without one
+    unsorted."""
     def build(feats, topo=None):
       id2index = None
       if sort_func is not None and topo is not None:
@@ -94,13 +117,7 @@ class Dataset:
                      device=device, dtype=dtype, host_offload=host_offload)
 
     if isinstance(node_feature_data, dict):
-      if sort_func is not None:
-        # the JAX package sorts a type by the first edge type whose
-        # pointer type it is (_topo_for_node_type), which for a CSR counts
-        # the in-degrees of the edge type's other end; no ported caller
-        raise NotImplementedError('sorting hetero feature tables is not '
-                                  'ported')
-      self.node_features = {t: build(f)
+      self.node_features = {t: build(f, self._topo_for_node_type(t))
                             for t, f in node_feature_data.items()}
     else:
       self.node_features = build(
@@ -142,20 +159,31 @@ class Dataset:
     """(train, val, test) id arrays from one ``default_rng(seed)``
     permutation of the nodes, the JAX package's split exactly: the first
     ``num_val`` permuted ids validate, the next ``num_test`` test, the
-    rest train; a float is a fraction of the nodes. Homogeneous only (no
-    ported caller splits a hetero dataset)."""
+    rest train; a float is a fraction of the nodes. Hetero: one such
+    split a node type, over its :meth:`node_count`, each from its own
+    ``default_rng(seed)``."""
+    def split_one(n):
+      perm = np.random.default_rng(seed).permutation(n)
+      nv = int(num_val * n) if isinstance(num_val, float) else num_val
+      nt = int(num_test * n) if isinstance(num_test, float) else num_test
+      return (perm[nv + nt:], perm[:nv], perm[nv:nv + nt])
+
     if self.is_hetero:
-      raise NotImplementedError('hetero node splits are not ported')
-    n = self.graph.num_nodes
-    perm = np.random.default_rng(seed).permutation(n)
-    nv = int(num_val * n) if isinstance(num_val, float) else num_val
-    nt = int(num_test * n) if isinstance(num_test, float) else num_test
-    self.node_split = (perm[nv + nt:], perm[:nv], perm[nv:nv + nt])
+      self.node_split = {t: split_one(self.node_count(t))
+                         for t in self.get_node_types()}
+    else:
+      self.node_split = split_one(self.graph.num_nodes)
     return self
 
-  def get_split(self, split: Split) -> np.ndarray:
-    return self.node_split[{Split.train: 0, Split.valid: 1,
-                            Split.test: 2}[Split(split)]]
+  def get_split(self, split: Split, ntype: Optional[NodeType] = None
+                ) -> np.ndarray:
+    """One split's ids; of node type ``ntype`` for a hetero split."""
+    s = self.node_split
+    if isinstance(s, dict):
+      if ntype is None:
+        raise ValueError('a hetero split needs the node type')
+      s = s[ntype]
+    return s[{Split.train: 0, Split.valid: 1, Split.test: 2}[Split(split)]]
 
   @property
   def is_hetero(self) -> bool:
@@ -179,6 +207,16 @@ class Dataset:
 
   def get_edge_types(self):
     return list(self.graph) if self.is_hetero else None
+
+  def _topo_for_node_type(self, ntype: NodeType) -> Optional[Topology]:
+    """The topology of the first edge type whose pointer type is
+    ``ntype`` (src of a CSR, dst of a CSC), or None."""
+    if not self.is_hetero:
+      return None
+    for (src, _, dst), g in self.graph.items():
+      if (src if g.layout == 'CSR' else dst) == ntype:
+        return g.topo
+    return None
 
   def node_count(self, ntype: Optional[NodeType] = None) -> int:
     """Node count of ``ntype``: the largest axis any edge type gives it

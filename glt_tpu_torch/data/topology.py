@@ -25,7 +25,11 @@ def _as_tensor(x, device=None) -> Optional[torch.Tensor]:
 class Topology:
   """CSR ('out' edges, indptr over src) or CSC ('in' edges, indptr over
   dst) built from a [2, E] COO ``edge_index`` (row=src, col=dst);
-  ``layout`` is the one to build.
+  ``layout`` is the one to build. Or from a given compressed ``indptr``
+  and ``indices`` of that ``layout`` (glt_tpu/data/topology.py:90-106):
+  each row's columns are sorted (ties in their given order), ``edge_ids``
+  and ``edge_weights`` (aligned with the given slots) follow them, and
+  ``indptr`` is padded to ``num_rows`` rows when it is shorter.
 
   Bipartite edge types compress with independent axis sizes:
   ``num_rows`` (the pointer axis of the layout: the src type of a CSR,
@@ -43,21 +47,27 @@ class Topology:
   ``edge_index`` is).
   """
 
-  def __init__(self, edge_index, edge_ids=None, edge_weights=None,
+  def __init__(self, edge_index=None, edge_ids=None, edge_weights=None,
                num_nodes: Optional[int] = None,
                num_rows: Optional[int] = None,
                num_cols: Optional[int] = None, layout: str = 'CSR',
-               device=None):
+               device=None, indptr=None, indices=None):
     if layout not in ('CSR', 'CSC'):
       raise ValueError(f'unsupported layout {layout!r}')
     self.layout = layout
+    if num_nodes is not None:
+      num_rows = num_nodes if num_rows is None else num_rows
+      num_cols = num_nodes if num_cols is None else num_cols
+    if edge_index is None:
+      if indptr is None or indices is None:
+        raise ValueError('provide either edge_index or indptr+indices')
+      self._from_compressed(indptr, indices, edge_ids, edge_weights,
+                            num_rows, num_cols, device)
+      return
     edge_index = _as_tensor(edge_index, device).long().reshape(2, -1)
     row, col = edge_index[0], edge_index[1]
     if layout == 'CSC':
       row, col = col, row
-    if num_nodes is not None:
-      num_rows = num_nodes if num_rows is None else num_rows
-      num_cols = num_nodes if num_cols is None else num_cols
     self.num_rows = int(num_rows) if num_rows is not None else (
         int(row.max()) + 1 if row.numel() else 0)
     self.num_cols = int(num_cols) if num_cols is not None else (
@@ -67,6 +77,30 @@ class Topology:
     edge_ids = _as_tensor(edge_ids, row.device)
     self.edge_ids = edge_ids.long()[perm] if edge_ids is not None else perm
     w = _as_tensor(edge_weights, row.device)
+    self.edge_weights = w[perm] if w is not None else None
+
+  def _from_compressed(self, indptr, indices, edge_ids, edge_weights,
+                       num_rows, num_cols, device):
+    indptr = _as_tensor(indptr, device).long().reshape(-1)
+    indices = _as_tensor(indices, indptr.device).long().reshape(-1)
+    self.num_rows = (int(num_rows) if num_rows is not None
+                     else indptr.numel() - 1)
+    self.num_cols = int(num_cols) if num_cols is not None else (
+        int(indices.max()) + 1 if indices.numel() else 0)
+    deg = indptr[1:] - indptr[:-1]
+    row = torch.repeat_interleave(
+        torch.arange(indptr.numel() - 1, device=indptr.device), deg)
+    # the JAX package's np.lexsort((indices, row)): stable in given order
+    width = int(indices.max()) + 1 if indices.numel() else 1
+    perm = torch.sort(row * width + indices, stable=True).indices
+    self.indices = indices[perm].to(torch.int32)
+    if indptr.numel() - 1 < self.num_rows:
+      indptr = torch.cat([indptr, indptr[-1:].expand(
+          self.num_rows + 1 - indptr.numel())])
+    self.indptr = indptr
+    edge_ids = _as_tensor(edge_ids, indptr.device)
+    self.edge_ids = edge_ids.long()[perm] if edge_ids is not None else perm
+    w = _as_tensor(edge_weights, indptr.device)
     self.edge_weights = w[perm] if w is not None else None
 
   @property

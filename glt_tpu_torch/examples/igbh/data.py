@@ -92,22 +92,27 @@ def load_meta(root: str) -> Dict[str, int]:
   return counts
 
 
-def load_igbh_root(root: str):
+def load_igbh_root(root: str, load_feats: bool = True,
+                   load_edges: bool = True):
   """``(counts, edges, feats, labels, train_idx, val_idx)`` of the tree;
   ``edges`` keyed by edge type, ``feats`` by node type: a
   ``torch.bfloat16`` tensor where compress_graph.py wrote the type's bf16
-  table (``csc`` first, then ``csr``), else float32 numpy."""
+  table (``csc`` first, then ``csr``), else float32 numpy.
+  ``load_feats=False`` and ``load_edges=False`` leave the feature tables
+  and the edge payloads on disk (empty dicts): the multihost mode of
+  dist_train_rgnn.py builds its stores from a rank's own partition and
+  reads the edge types from the partition's META."""
   import torch
   proc = os.path.join(root, 'processed')
   counts = load_meta(root)
   edges = {}
-  for name in sorted(os.listdir(proc)):
+  for name in sorted(os.listdir(proc)) if load_edges else ():
     p = os.path.join(proc, name, 'edge_index.npy')
     if os.path.exists(p):
       s, r, d = name.split('__')
       edges[(s, r, d)] = np.load(p)
   feats = {}
-  for t in counts:
+  for t in counts if load_feats else ():
     bf = next((p for p in (os.path.join(root, lay, t, 'node_feat_bf16.npy')
                            for lay in ('csc', 'csr')) if os.path.exists(p)),
               None)

@@ -4,9 +4,11 @@ of glt_tpu/loader/node_loader.py).
 The host only shuffles and pads seed ids (numpy); sampling, dedup and the
 feature gather run on the sampler's device. The last ragged batch is
 padded to the batch size, ``metadata['n_valid']`` counting its real
-seeds, or dropped with ``drop_last``. The port's feature store is fully
-device-resident, so collation has no host phase and the loader no
-prefetch thread (the JAX default is depth 0 for such stores too).
+seeds, or dropped with ``drop_last``. ``prefetch_depth`` > 0 makes the
+next batches on a worker thread (``utils.prefetch``) while the caller
+works on the current one; by default a loader prefetches 2 batches where
+a feature store has a host phase (spilled rows with
+``host_offload=False``) and none otherwise, as the JAX loader does.
 Sampling and the feature gather carry ``torch.profiler`` ranges named as
 the serving engine's stages (``sample.multihop``, ``gather.features``).
 """
@@ -23,6 +25,7 @@ from ..data.feature import gather_features
 from ..sampler import (BaseSampler, HeteroSamplerOutput, NodeSamplerInput,
                        SamplerOutput)
 from ..utils import as_numpy
+from ..utils.prefetch import prefetch
 from .device_epoch import pad_seed_batch
 from .transform import Batch, HeteroBatch, to_batch, to_hetero_batch
 
@@ -38,6 +41,8 @@ class NodeLoader:
     shuffle: a fresh permutation of the seeds every epoch.
     drop_last: skip the last batch when it is ragged.
     collect_features: gather the nodes' feature rows into the batch.
+    prefetch_depth: batches made ahead on a worker thread (None: 2 where
+      a feature store has a host phase, else 0).
     rng: numpy Generator for shuffling (default ``default_rng(0)``, so
       the epoch order is the JAX loader's).
   """
@@ -45,6 +50,7 @@ class NodeLoader:
   def __init__(self, data: Dataset, sampler: BaseSampler, input_nodes,
                batch_size: int = 512, shuffle: bool = False,
                drop_last: bool = False, collect_features: bool = True,
+               prefetch_depth: Optional[int] = None,
                rng: Optional[np.random.Generator] = None):
     self.data = data
     self.sampler = sampler
@@ -57,6 +63,11 @@ class NodeLoader:
     self.shuffle = shuffle
     self.drop_last = drop_last
     self.collect_features = collect_features
+    if prefetch_depth is None:
+      prefetch_depth = 2 if collect_features and _has_host_phase(data) else 0
+    self.prefetch_depth = int(prefetch_depth)
+    #: the last epoch's PrefetchIterator (None without prefetching)
+    self._prefetcher = None
     self.rng = rng or np.random.default_rng(0)
 
   def __len__(self):
@@ -66,6 +77,12 @@ class NodeLoader:
     return (n + self.batch_size - 1) // self.batch_size
 
   def __iter__(self) -> Iterator[Union[Batch, HeteroBatch]]:
+    if self.prefetch_depth > 0:
+      self._prefetcher = prefetch(self._epoch_iter(), self.prefetch_depth)
+      return iter(self._prefetcher)
+    return self._epoch_iter()
+
+  def _epoch_iter(self) -> Iterator[Union[Batch, HeteroBatch]]:
     order = (self.rng.permutation(self.seeds.shape[0])
              if self.shuffle else np.arange(self.seeds.shape[0]))
     n = order.shape[0]
@@ -123,3 +140,18 @@ class NodeLoader:
                             batch_size=self.batch_size)
     batch.metadata['n_valid'] = n_valid
     return batch
+
+
+def _has_host_phase(data: Dataset) -> bool:
+  """True when a node or edge feature store of ``data`` gathers its cold
+  rows in a host phase (spilled, ``host_offload=False``): per batch host
+  work a prefetch thread can hide (glt_tpu/loader/node_loader.py:73-99).
+  A pinned cold block is read inside the gather's one launch."""
+  stores = []
+  for feats in (data.node_features, data.edge_features):
+    if isinstance(feats, dict):
+      stores.extend(feats.values())
+    elif feats is not None:
+      stores.append(feats)
+  return any(not f.fully_device_resident and f.cold_array is None
+             for f in stores)

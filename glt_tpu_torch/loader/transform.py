@@ -1,9 +1,10 @@
 """Batch structures and sampler output -> batch (counterpart of
-glt_tpu/loader/transform.py): the fields PyG models read, padded."""
+glt_tpu/loader/transform.py): the fields PyG models read, padded, and the
+PyG-v1 ``(batch_size, n_id, adjs)`` view of a batch (:func:`to_pyg_v1`)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -106,3 +107,43 @@ def to_hetero_batch(out: HeteroSamplerOutput,
             if out.input_type in (out.batch or {}) else 0),
       edge_hop_offsets_dict={k: tuple(v) for k, v in offs.items()}
       if offs else None)
+
+
+class EdgeIndex(NamedTuple):
+  """A PyG-v1 ``EdgeIndex`` adjacency (glt_tpu/loader/transform.py:138,
+  vendored there as here, so the v1 training-loop idiom works without
+  torch_geometric): ``edge_index [2, m]`` in message-flow orientation,
+  ``e_id [m]`` the global edge ids or None, ``size`` (src count, dst
+  count)."""
+  edge_index: torch.Tensor
+  e_id: Optional[torch.Tensor]
+  size: Tuple[int, int]
+
+  def to(self, device) -> 'EdgeIndex':
+    return EdgeIndex(self.edge_index.to(device),
+                     None if self.e_id is None else self.e_id.to(device),
+                     self.size)
+
+
+def to_pyg_v1(batch: Batch):
+  """The PyG-v1 ``(batch_size, n_id, adjs)`` view of a homogeneous batch
+  (glt_tpu/loader/transform.py:154-178, the reference's ``as_pyg_v1``
+  mode): ``n_id`` the batch's ``node_count`` global ids, ``adjs`` one
+  :class:`EdgeIndex` a hop, outermost hop first, each holding that hop's
+  valid edges and its ``(nodes up to this hop, nodes before it)`` size.
+  Tensors stay on the batch's device; the counts are read on the host.
+  Needs the batch's ``edge_hop_offsets``."""
+  if batch.edge_hop_offsets is None:
+    raise ValueError('to_pyg_v1 needs the batch edge_hop_offsets')
+  offs = batch.edge_hop_offsets
+  counts = batch.num_sampled_nodes.tolist()
+  n_id = batch.node[:int(batch.node_count)]
+  adjs = []
+  for h in range(len(offs) - 1):
+    sl = slice(offs[h], offs[h + 1])
+    keep = batch.edge_mask[sl]
+    edge_index = torch.stack([batch.row[sl][keep], batch.col[sl][keep]])
+    e_id = None if batch.edge is None else batch.edge[sl][keep]
+    adjs.append(EdgeIndex(edge_index, e_id,
+                          (int(sum(counts[:h + 2])), int(sum(counts[:h + 1])))))
+  return batch.batch_size, n_id, list(reversed(adjs))

@@ -18,7 +18,7 @@ the ``gather_windows`` kernel, as the JAX package reads them under
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -119,13 +119,15 @@ def _empty_output(s: int, width: int, device,
 def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
                      seeds: torch.Tensor, fanout: int, u: torch.Tensor,
                      seed_mask: Optional[torch.Tensor] = None,
-                     edge_ids: Optional[torch.Tensor] = None
-                     ) -> NeighborOutput:
+                     edge_ids: Optional[torch.Tensor] = None,
+                     replace: bool = False) -> NeighborOutput:
   """Uniformly sample up to ``fanout`` distinct neighbours per seed of a
   CSR: the draw of ``glt_tpu.ops.sample._draw_hop`` without replacement
   on the injected uniforms ``u`` ([S, fanout]: drawn ``(fanout, S)`` and
   transposed), then one ``sample_hop`` launch reads ``indices`` at the
-  drawn slots. Bit-identical on valid lanes to the JAX element, window
+  drawn slots. With ``replace`` each lane draws its own offset from
+  ``u`` ([S, fanout] drawn as it is), every lane of a seed with a
+  neighbour valid. Bit-identical on valid lanes to the JAX element, window
   and ``pallas`` engines; a seed of degree <= fanout is taken whole, in
   adjacency order. ``indices`` may be padded past the live edges (a
   snapshot's capacity): slots clip to its length, as ``_slots_i32`` clips
@@ -136,7 +138,7 @@ def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
   if indices.numel() == 0:
     return _empty_output(seeds.numel(), fanout, seeds.device)
   start, deg = _row_spans(indptr, seeds, seed_mask)
-  offsets, mask = draw_offsets(deg, u, fanout, replace=False)
+  offsets, mask = draw_offsets(deg, u, fanout, replace=replace)
   nbrs, eids = cuda_kernels.sample_hop(indices, edge_ids, start, offsets)
   return NeighborOutput(nbrs=nbrs, mask=mask, eids=eids)
 
@@ -280,21 +282,33 @@ def walk_hop_uniforms(generator: Optional[torch.Generator],
 
 
 def hetero_hop_uniforms(generator: Optional[torch.Generator], trav,
-                        num_neighbors, caps, replace: bool, device):
+                        num_neighbors, caps, replace: bool, device,
+                        weight_windows: Optional[Dict] = None):
   """Per hop, per segment, the uniforms of a hetero walk, drawn from
   ``generator`` on ``device``. A segment is one traversal edge type
   whose frontier type has rows at that hop (``caps[h][row_t] > 0``) and
   whose fanout is non-zero, in traversal order -- exactly the segments
   that take a ``split`` of the JAX key sequence (an edge type with no
-  edges still takes one). Each is ``[S, K]`` float32, ``S =
+  edges still takes one). A uniform segment is ``[S, K]`` float32, ``S =
   caps[h][row_t]``: drawn ``(K, S)`` and transposed without replacement,
-  ``(S, K)`` with, as the JAX draw shapes them."""
+  ``(S, K)`` with, as the JAX draw shapes them. The per-hop loop's other
+  segments: a full hop (``K < 0``) draws nothing (None), and a weighted
+  one of an edge type in ``weight_windows`` ``[S, max(W, K)]``
+  (:func:`weighted_hop_uniforms`, W the type's window)."""
+  weight_windows = weight_windows or {}
   out = []
   for h in range(len(caps) - 1):
     hop = []
     for e, (row_t, _) in trav.items():
       k, s = int(num_neighbors[e][h]), int(caps[h][row_t])
       if s == 0 or k == 0:
+        continue
+      if k < 0:
+        hop.append(None)
+        continue
+      if e in weight_windows:
+        hop.append(weighted_hop_uniforms(
+            generator, s, max(int(weight_windows[e]), k), device))
         continue
       if replace:
         u = torch.rand((s, k), generator=generator, device=device)

@@ -1,15 +1,17 @@
 """NeighborSampler: multi-hop sampling on the device (counterpart of
 glt_tpu/sampler/neighbor_sampler.py).
 
-Homogeneous uniform positive fanouts run the walk
-(``ops.pipeline.multihop_sample``); weighted sampling and ``-1``
+Uniform positive fanouts run the walk: homogeneous
+``ops.pipeline.multihop_sample``, hetero one ``sample_hop_dedup`` per hop
+(``ops.pipeline.multihop_sample_hetero``). Weighted sampling and ``-1``
 (full-neighbourhood) fanouts run the per-hop loop
-(``ops.pipeline.multihop_sample_sorted``), as the JAX sampler demotes
-them from its fused engine to the ``pallas`` per-hop engine: a weighted
-hop reads its weight window and a full hop its neighbour window through
-``gather_windows``, a uniform hop of a mixed list reads through
-``sample_hop``. Heterogeneous graphs take uniform positive fanouts, one
-``sample_hop_dedup`` per hop (``ops.pipeline.multihop_sample_hetero``).
+(``ops.pipeline.multihop_sample_sorted``, hetero
+``ops.pipeline.multihop_sample_hetero_sorted`` over one in-memory one-hop
+an edge type), as the JAX sampler demotes them from its fused engine to
+the ``pallas`` per-hop engine: a weighted hop reads its weight window
+and a full hop its neighbour window through ``gather_windows``, a
+uniform hop of a mixed list reads through ``sample_hop``, each with its
+edge ids when asked and, for a uniform hop, with replacement when asked.
 Link sampling (:meth:`NeighborSampler.sample_from_edges`) sends the
 endpoints of the positive and the sampled negative edges through the same
 loops as seeds, on a hetero graph both endpoint types of an edge type in
@@ -35,6 +37,7 @@ from ..data import Graph, hetero_node_counts
 from ..ops.cuda_kernels import walk_table_slots
 from ..ops.pipeline import (edge_hop_offsets, hetero_edge_hop_offsets,
                             multihop_sample, multihop_sample_hetero,
+                            multihop_sample_hetero_sorted,
                             multihop_sample_sorted, sample_budget)
 from ..ops.sample import (FusedHopPlan, HeteroFusedPlan, hetero_hop_uniforms,
                           neighbor_probs, sample_full_neighbors,
@@ -56,29 +59,36 @@ class NeighborSampler(BaseSampler):
     graph: a :class:`Graph`, or a dict of them keyed by EdgeType
       (hetero), on ``device``.
     num_neighbors: fanout per hop, e.g. ``[15, 10, 5]``; ``-1`` expands
-      every neighbour inside a static window of the graph's max degree
-      (exact; the frontier grows by the window per ``-1`` hop). Hetero:
-      positive fanouts, one list for every edge type or a dict keyed by
-      EdgeType, every list of the same length.
+      every neighbour inside a static window (``full_neighbor_cap``, by
+      default the graph's max degree, which makes it exact; the frontier
+      grows by the window per ``-1`` hop). Hetero: one list for every
+      edge type or a dict keyed by EdgeType, every list of the same
+      length.
     device: where sampling runs (default: the card; raises when there is
       none). The graph must already live there.
-    with_edge: also emit the sampled edges' ids (the walk and the hetero
-      path only).
+    with_edge: also emit the sampled edges' ids.
     with_weight: edge-weight-biased sampling of positive hops (Gumbel
-      top-k over each row's neighbours, in a window of the graph's max
-      degree and never below the hop's fanout) on a graph with
-      ``edge_weights``; without them the hops stay uniform, as in JAX.
-    replace: sample with replacement (the walk and the hetero path only).
+      top-k over each row's neighbours, in a window of
+      ``max_weighted_degree`` and never below the hop's fanout) on a
+      graph (hetero: an edge type) with ``edge_weights``; without them
+      the hops stay uniform, as in JAX.
+    replace: sample uniform hops with replacement.
     edge_dir: ``'out'`` samples out-neighbours of CSR graphs, ``'in'``
       in-neighbours of CSC graphs (``Dataset.edge_dir``).
     seed: seed of the sampler's ``torch.Generator``; defaults to the
       process :class:`RandomSeedManager` seed.
+    max_weighted_degree: a weighted hop's window (default: the graph's,
+      hetero each edge type's, max degree).
+    full_neighbor_cap: the window of a ``-1`` hop (default: the max
+      degree).
   """
 
   def __init__(self, graph: Union[Graph, Dict[EdgeType, Graph]],
                num_neighbors, device=None, with_edge: bool = False,
                with_weight: bool = False, replace: bool = False,
-               edge_dir: str = 'out', seed: Optional[int] = None):
+               edge_dir: str = 'out', seed: Optional[int] = None,
+               max_weighted_degree: Optional[int] = None,
+               full_neighbor_cap: Optional[int] = None):
     self.device = resolve_device(device)
     self.is_hetero = isinstance(graph, dict)
     if edge_dir not in ('out', 'in'):
@@ -93,11 +103,22 @@ class NeighborSampler(BaseSampler):
       if g.layout != layout:
         raise ValueError(f'edge_dir={edge_dir!r} samples a {layout} graph, '
                          f'got a {g.layout}')
+    self.graph = graph
+    self.with_edge = with_edge
+    self.replace = replace
+    self.with_weight = with_weight
+    self.max_weighted_degree = max_weighted_degree
+    self.full_neighbor_cap = full_neighbor_cap
+    #: each graph's max degree (one device read a graph), None: homogeneous
+    self._max_degrees = {e: g.topo.max_degree for e, g in
+                         (graph.items() if self.is_hetero
+                          else ((None, graph),))}
     if self.is_hetero:
       self.edge_types = list(graph)
       if not isinstance(num_neighbors, dict):
         num_neighbors = {e: num_neighbors for e in self.edge_types}
-      self.num_neighbors = {e: [int(f) for f in num_neighbors[e]]
+      self.num_neighbors = {e: [self._resolve_fanout(f, e)
+                                for f in num_neighbors[e]]
                             for e in self.edge_types}
       fanouts = sum(self.num_neighbors.values(), [])
       hops = {len(v) for v in self.num_neighbors.values()}
@@ -105,26 +126,24 @@ class NeighborSampler(BaseSampler):
         raise ValueError('all edge types need the same hop count')
       self.num_hops = hops.pop()
       self.node_counts = hetero_node_counts(graph)
-      if with_weight or any(f <= 0 for f in fanouts):
-        raise NotImplementedError(
-            'hetero sampling in the port takes uniform positive fanouts')
     else:
-      self.num_neighbors = [self._resolve_fanout(f, graph)
+      self.num_neighbors = [self._resolve_fanout(f, None)
                             for f in num_neighbors]
+      fanouts = self.num_neighbors
       self.num_hops = len(self.num_neighbors)
-    self.graph = graph
-    self.with_edge = with_edge
-    self.replace = replace
-    self.with_weight = with_weight
     #: weighted or full hops run the per-hop loop; uniform positive
     #: fanouts the walk
-    self._per_hop = not self.is_hetero and (
-        with_weight or any(f < 0 for f in self.num_neighbors))
-    if self._per_hop and (with_edge or replace):
-      raise NotImplementedError(
-          'with_edge and replace are not ported for weighted or -1 hops')
-    self._weighted = (self._per_hop and with_weight
-                      and graph.edge_weights is not None)
+    self._per_hop = with_weight or any(f < 0 for f in fanouts)
+    #: the weighted edge types (None: the homogeneous graph)
+    self._weighted_types = {
+        e for e, g in (graph.items() if self.is_hetero
+                       else ((None, graph),))
+        if self._per_hop and with_weight and g.edge_weights is not None}
+    self._weighted = None in self._weighted_types
+    #: the per-hop loop's int32 edge ids, one an edge type
+    self._eids = ({e: g.edge_ids.to(torch.int32) for e, g in
+                   (graph.items() if self.is_hetero else ((None, graph),))}
+                  if self._per_hop and with_edge else {})
     self.generator = make_generator(
         seed if seed is not None
         else RandomSeedManager.getInstance().getSeed(), self.device)
@@ -132,7 +151,7 @@ class NeighborSampler(BaseSampler):
     #: link sampling's negatives, one sampler an edge type (None: the
     #: homogeneous graph), made at first use
     self._neg_samplers = {}
-    if self.is_hetero:
+    if self.is_hetero and not self._per_hop:
       # the flat edge-type plane depends on the graph alone; only the
       # table size, capacities and budgets change with the batch shape
       self._hetero_plan = HeteroFusedPlan(
@@ -141,14 +160,13 @@ class NeighborSampler(BaseSampler):
 
   # -- homogeneous --------------------------------------------------------
 
-  @staticmethod
-  def _resolve_fanout(fanout, g: Graph) -> int:
+  def _resolve_fanout(self, fanout, etype: Optional[EdgeType]) -> int:
     """Positive fanouts stay; ``-1`` becomes ``-window``, the full hop's
-    static window (capacity math uses ``abs``), as the JAX sampler
-    encodes it."""
+    static window (``full_neighbor_cap`` or the graph's max degree;
+    capacity math uses ``abs``), as the JAX sampler encodes it."""
     fanout = int(fanout)
     if fanout == -1:
-      cap = int(g.topo.max_degree)
+      cap = int(self.full_neighbor_cap or self._max_degrees[etype])
       if cap <= 0:
         raise ValueError('graph has no edges; fanout -1 is meaningless')
       return -cap
@@ -156,22 +174,32 @@ class NeighborSampler(BaseSampler):
       raise ValueError(f'fanout must be positive or -1, got {fanout}')
     return fanout
 
-  def _weight_window(self, fanout: int) -> int:
-    return max(self.graph.topo.max_degree, fanout)
+  def _weight_window(self, fanout: int,
+                     etype: Optional[EdgeType] = None) -> int:
+    """A weighted hop's window: ``max_weighted_degree`` (default the
+    graph's max degree), never below the hop's fanout."""
+    return max(int(self.max_weighted_degree or self._max_degrees[etype]),
+               fanout)
 
-  def _one_hop(self, h, ids, mask, u):
-    """One hop of the per-hop loop: full, weighted or uniform (the JAX
-    sampler's ``_one_hop`` dispatch)."""
-    g, fanout = self.graph, self.num_neighbors[h]
+  def _hop(self, g: Graph, etype: Optional[EdgeType], fanout: int, ids,
+           mask, u):
+    """One hop of the per-hop loop on ``g``: full, weighted or uniform
+    (the JAX sampler's ``_one_hop`` dispatch)."""
+    eids = self._eids.get(etype)
     if fanout < 0:
       return sample_full_neighbors(g.indptr, g.indices, ids, -fanout,
-                                   seed_mask=mask)
-    if self._weighted:
+                                   seed_mask=mask, edge_ids=eids)
+    if etype in self._weighted_types:
       return sample_neighbors_weighted(
           g.indptr, g.indices, g.edge_weights, ids, fanout, u,
-          self._weight_window(fanout), seed_mask=mask)
+          self._weight_window(fanout, etype), seed_mask=mask, edge_ids=eids)
     return sample_neighbors(g.indptr, g.indices, ids, fanout, u,
-                            seed_mask=mask)
+                            seed_mask=mask, edge_ids=eids,
+                            replace=self.replace)
+
+  def _one_hop(self, h, ids, mask, u):
+    """Hop ``h`` of the homogeneous per-hop loop."""
+    return self._hop(self.graph, None, self.num_neighbors[h], ids, mask, u)
 
   def _fused_plan(self, batch_size: int) -> FusedHopPlan:
     if batch_size not in self._plans:
@@ -191,15 +219,16 @@ class NeighborSampler(BaseSampler):
       sizes = (batch_size if isinstance(batch_size, dict)
                else {input_type: batch_size})
       caps = self._hetero_geometry(sizes)[1]
-      return hetero_hop_uniforms(self.generator, self._traversal_types(),
-                                 self.num_neighbors, caps, self.replace,
-                                 self.device)
+      return hetero_hop_uniforms(
+          self.generator, self._traversal_types(), self.num_neighbors, caps,
+          self.replace, self.device,
+          {e: self._weight_window(0, e) for e in self._weighted_types})
     if not self._per_hop:
       return walk_hop_uniforms(self.generator, batch_size,
                                self.num_neighbors, self.replace, self.device)
     # the per-hop loop's draws, shaped as the JAX hops draw them from
-    # their keys: a uniform hop (K, S_h) transposed, a weighted hop
-    # (S_h, window); a full hop draws nothing
+    # their keys: a uniform hop (K, S_h) transposed ((S_h, K) with
+    # replacement), a weighted hop (S_h, window); a full hop draws nothing
     us, s = [], batch_size
     for f in self.num_neighbors:
       if f < 0:
@@ -207,6 +236,9 @@ class NeighborSampler(BaseSampler):
       elif self._weighted:
         us.append(weighted_hop_uniforms(self.generator, s,
                                         self._weight_window(f), self.device))
+      elif self.replace:
+        us.append(torch.rand((s, f), generator=self.generator,
+                             device=self.device))
       else:
         us.append(torch.rand((f, s), generator=self.generator,
                              device=self.device).T.contiguous())
@@ -218,17 +250,28 @@ class NeighborSampler(BaseSampler):
       return x.to(self.device, torch.int32)
     return torch.as_tensor(as_numpy(x).astype(np.int32), device=self.device)
 
-  def sample_from_nodes(self, inputs, n_valid=None, uniforms=None):
+  def sample_from_nodes(self, inputs, n_valid=None, uniforms=None,
+                        seed_type: Optional[NodeType] = None):
     """Multi-hop sampling from seed nodes; seeds past ``n_valid`` are
     padding. ``uniforms`` injects the draws (default: the next ones of
     the sampler's generator, :meth:`hop_uniforms`). Hetero ``inputs``
-    are a :class:`NodeSamplerInput` with its ``input_type``, and the
-    result a :class:`HeteroSamplerOutput`."""
+    are a :class:`NodeSamplerInput` with its ``input_type``, a
+    ``(node_type, seeds)`` pair, or a dict of seeds by node type (several
+    seed types in one walk; ``seed_type`` names the output's
+    ``input_type``, default the first), ``n_valid`` one count for every
+    seed type or a dict of them; the result is a
+    :class:`HeteroSamplerOutput` (glt_tpu/sampler/neighbor_sampler.py
+    :619-634)."""
     if self.is_hetero:
-      if not isinstance(inputs, NodeSamplerInput):
+      if isinstance(inputs, tuple) and len(inputs) == 2 and isinstance(
+          inputs[0], str):
+        inputs = NodeSamplerInput(inputs[1], inputs[0])
+      if not isinstance(inputs, (NodeSamplerInput, dict)):
         raise ValueError('hetero sampling takes a NodeSamplerInput with the '
-                         'seeds\' node type')
-      return self._hetero_sample_from_nodes(inputs, n_valid, uniforms)
+                         'seeds\' node type, a (node type, seeds) pair or a '
+                         'dict of seeds by node type')
+      return self._hetero_sample_from_nodes(inputs, n_valid, uniforms,
+                                            seed_type=seed_type)
     if isinstance(inputs, NodeSamplerInput):
       inputs = inputs.node
     seeds = self._seeds(inputs)
@@ -238,7 +281,8 @@ class NeighborSampler(BaseSampler):
       uniforms = self.hop_uniforms(batch_size)
     if self._per_hop:
       out = multihop_sample_sorted(self._one_hop, seeds, n_valid,
-                                   self.num_neighbors, uniforms)
+                                   self.num_neighbors, uniforms,
+                                   with_edge=self.with_edge)
     else:
       out = multihop_sample(self._fused_plan(batch_size), seeds, n_valid,
                             self.num_neighbors, u_hops=uniforms,
@@ -268,7 +312,7 @@ class NeighborSampler(BaseSampler):
     for h in range(self.num_hops):
       nxt = {t: 0 for t in self.node_counts}
       for e, (row_t, col_t) in self._traversal_types().items():
-        nxt[col_t] += caps[h][row_t] * self.num_neighbors[e][h]
+        nxt[col_t] += caps[h][row_t] * abs(self.num_neighbors[e][h])
       caps.append(nxt)
     budgets = {t: max(1, sum(c[t] for c in caps))
                for t in self.node_counts}
@@ -285,6 +329,13 @@ class NeighborSampler(BaseSampler):
       self._plans[key] = (walk_table_slots(sum(budgets.values())), caps,
                           budgets, offs)
     return self._plans[key]
+
+  def _hetero_one_hops(self):
+    """Per edge type the in-memory one-hop of the per-hop loop,
+    ``one_hop(ids, fanout, u, mask)`` (the JAX ``_build_hetero_fn``'s
+    ``one_hops``)."""
+    return {e: (lambda ids, fanout, u, mask, _e=e: self._hop(
+        self.graph[_e], _e, fanout, ids, mask, u)) for e in self.edge_types}
 
   def _hetero_sample_from_nodes(self, inputs, n_valid, uniforms,
                                 seed_type: Optional[NodeType] = None
@@ -310,9 +361,15 @@ class NeighborSampler(BaseSampler):
     if uniforms is None:   # one seed type: hop_uniforms(batch size, type)
       uniforms = (self.hop_uniforms(sizes[seed_type], seed_type)
                   if list(sizes) == [seed_type] else self.hop_uniforms(sizes))
-    out = multihop_sample_hetero(self._hetero_plan, slots, self.num_neighbors,
-                                 self.num_hops, caps, budgets, seeds,
-                                 n_valid, uniforms, with_edge=self.with_edge)
+    if self._per_hop:
+      out = multihop_sample_hetero_sorted(
+          self._hetero_one_hops(), self._traversal_types(),
+          self.num_neighbors, self.num_hops, caps, budgets, seeds, n_valid,
+          uniforms, with_edge=self.with_edge)
+    else:
+      out = multihop_sample_hetero(
+          self._hetero_plan, slots, self.num_neighbors, self.num_hops, caps,
+          budgets, seeds, n_valid, uniforms, with_edge=self.with_edge)
     # message-flow keys: row carries child labels (the walk's cols), col
     # parent labels (the walk's rows); 'out' reverses the traversal type
     rev = reverse_edge_type if self.edge_dir == 'out' else (lambda e: e)

@@ -1757,3 +1757,253 @@ def test_two_ranks_over_nccl_train_over_an_online_partition(dev, tmp_path):
       np.testing.assert_allclose(res['params'][k], v, rtol=0, atol=1e-5,
                                  err_msg=k)
   print(f'two ranks over the online partition: losses {res["losses"]}')
+
+
+# -- the single-device sampler's last options and the IGBH trainer beyond
+# the resident store ------------------------------------------------------------
+
+def _hetero_weighted_dataset(dev, seed=5):
+  """A small IGBH-shaped hetero dataset on the card with float32 weights
+  on every edge type and bf16 x 1024 features."""
+  g = torch.Generator(device=dev).manual_seed(seed)
+  counts = {'paper': 4000, 'author': 2000, 'institute': 80}
+  draw = lambda n, hi: torch.randint(0, hi, (n,), generator=g, device=dev)
+  ei = {('paper', 'cites', 'paper'): torch.stack([draw(40_000, 4000),
+                                                   draw(40_000, 4000)]),
+        ('author', 'writes', 'paper'): torch.stack([draw(12_000, 2000),
+                                                    draw(12_000, 4000)]),
+        ('author', 'affiliated', 'institute'): torch.stack(
+            [torch.arange(2000, device=dev), draw(2000, 80)])}
+  for (s, r, d), e in list(ei.items()):
+    if s != d:
+      ei[(d, f'rev_{r}', s)] = e.flip(0)
+  w = {e: 1.0 - torch.rand(x.shape[1], generator=g, device=dev)
+       for e, x in ei.items()}
+  ds = Dataset().init_graph(ei, edge_weights=w, num_nodes=counts)
+  ds.init_node_features({t: torch.randn((n, 1024), generator=g, device=dev)
+                         for t, n in counts.items()}, dtype=torch.bfloat16)
+  return ds
+
+
+def _swapped(names):
+  import contextlib
+
+  @contextlib.contextmanager
+  def swap():
+    real = {n: getattr(K, n) for n in names}
+    try:
+      for n in names:
+        setattr(K, n, getattr(K, n + '_plain'))
+      yield
+    finally:
+      for n, fn in real.items():
+        setattr(K, n, fn)
+  return swap()
+
+
+def _same_sample(a, b):
+  for f in ('node', 'node_count', 'row', 'col', 'edge_mask', 'edge',
+            'num_sampled_nodes', 'num_sampled_edges'):
+    x, y = getattr(a, f), getattr(b, f)
+    if x is None:
+      assert y is None, f
+      continue
+    assert set(x) == set(y), f
+    for k in x:
+      assert torch.equal(x[k], y[k]), (f, k)
+
+
+@pytest.mark.parametrize('fanouts,kw,names', [
+    ([4, 3, 2], dict(with_weight=True, with_edge=True),
+     ('sample_hop', 'gather_windows')),
+    ([-1, -1], dict(full_neighbor_cap=6, with_edge=True),
+     ('gather_windows',)),
+    ([3, 2], dict(replace=True, with_weight=True, max_weighted_degree=12),
+     ('sample_hop', 'gather_windows')),
+])
+def test_hetero_per_hop_sampler_matches_plain(dev, fanouts, kw, names):
+  """The single-device hetero per-hop loop on the card (B3's windows, the
+  Gumbel top-k, B2's picks; B3 over neighbour and edge ids for -1 hops)
+  bit-identical to the plain versions, its rows too, and launching each
+  kernel once a segment."""
+  from glt_tpu_torch.sampler import NeighborSampler
+  from glt_tpu_torch.sampler.base import NodeSamplerInput
+  ds = _hetero_weighted_dataset(dev)
+  s = NeighborSampler(ds.graph, fanouts, device=dev, seed=1, **kw)
+  assert s._per_hop
+  seeds = NodeSamplerInput(np.arange(0, 4000, 125), 'paper')
+  u = s.hop_uniforms(32, 'paper')
+  K.reset_launch_counts()
+  got = s.sample_from_nodes(seeds, uniforms=u)
+  xk = {t: gather_features(ds.get_node_feature(t), n)
+        for t, n in got.node.items()}
+  torch.cuda.synchronize()
+  for n in names:
+    assert getattr(K, n).launches > 0, n
+  assert K.sample_hop_dedup.launches == K.sample_walk_dedup.launches == 0
+  with _swapped(names + ('gather_rows',)):
+    want = s.sample_from_nodes(seeds, uniforms=u)
+    xp = {t: gather_features(ds.get_node_feature(t), n)
+          for t, n in want.node.items()}
+  _same_sample(got, want)
+  for t in xk:
+    assert torch.equal(xk[t], xp[t]), t
+  assert sum(int(m.sum()) for m in got.edge_mask.values()) > 0
+
+
+def test_hetero_several_seed_types_match_plain(dev):
+  """A public sample_from_nodes seeded with papers and authors: the walk
+  (K2's init for both types in one launch, B1 a hop) against the plain
+  versions."""
+  from glt_tpu_torch.sampler import NeighborSampler
+  ds = _hetero_weighted_dataset(dev)
+  s = NeighborSampler(ds.graph, [5, 3], device=dev, seed=2)
+  inputs = {'paper': np.arange(0, 4000, 100), 'author': np.arange(0, 2000, 90)}
+  u = s.hop_uniforms({'paper': 40, 'author': 23})
+  K.reset_launch_counts()
+  got = s.sample_from_nodes(inputs, uniforms=u, seed_type='author')
+  torch.cuda.synchronize()
+  assert (K.dedup_table_insert.launches, K.sample_hop_dedup.launches) == (1, 2)
+  with _swapped(('sample_hop_dedup', 'dedup_table_init',
+                 'dedup_table_init_types')):
+    want = s.sample_from_nodes(inputs, uniforms=u, seed_type='author')
+  _same_sample(got, want)
+  assert got.input_type == 'author'
+
+
+def test_gather_rows_mixed_bf16_1024_matches_plain_and_in_a_graph(dev):
+  """K3 mixed over a split bf16 x 1024 store (2,048-byte rows, the pinned
+  cold block): equal to the plain twin and to K3 over the resident table,
+  back to back and replayed in a CUDA graph."""
+  g = torch.Generator(device=dev).manual_seed(9)
+  table = torch.randn((5000, 1024), generator=g, device=dev).to(
+      torch.bfloat16)
+  hot = table[:1000].clone()
+  cold = pin_host(table[1000:].cpu().contiguous(), dev)
+  rows = torch.randint(0, 5000, (7000,), generator=g, device=dev,
+                       dtype=torch.int32)
+  got = K.gather_rows_mixed(hot, cold, rows)
+  assert torch.equal(got, K.gather_rows_mixed_plain(hot, cold, rows))
+  assert torch.equal(got, K.gather_rows(table, rows))
+  static = torch.empty_like(got)
+  side = torch.cuda.Stream(dev)
+  side.wait_stream(torch.cuda.current_stream(dev))
+  with torch.cuda.stream(side):
+    static.copy_(K.gather_rows_mixed(hot, cold, rows))
+  torch.cuda.current_stream(dev).wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    static.copy_(K.gather_rows_mixed(hot, cold, rows))
+  static.zero_()
+  graph.replay()
+  torch.cuda.synchronize()
+  assert torch.equal(static, got)
+  del graph
+
+
+def test_spilled_hetero_trainer_window_replays_in_a_cuda_graph(dev, tmp_path):
+  """DistHeteroTrainStep over split 0.2 bf16 stores on the card: the
+  stores hold a fifth of the rows, one batch equals the resident stores',
+  and two windows of 3 (the second a CUDA-graph replay with K3 mixed
+  inside) land within 1e-4 of the same batches a batch a step."""
+  import torch_dist_worker as worker
+  from glt_tpu_torch.distributed import (DistDataset, DistFeature,
+                                         DistHeteroGraph,
+                                         DistHeteroNeighborSampler,
+                                         DistHeteroTrainStep)
+  from glt_tpu_torch.examples.igbh.dist_train_rgnn import step_uniforms
+  from glt_tpu_torch.parallel import make_mesh
+  root = str(tmp_path / 'layout')
+  labels = worker.card_layout(root, 1)
+  mesh = make_mesh(device=dev)
+  dg = DistHeteroGraph.from_dataset_partitions(mesh, root)
+  host = {0: DistDataset.load(root, 0, device='cpu')}
+  stores = {s: {t: DistFeature.from_dist_datasets(
+      mesh, host, ntype=t, dtype=torch.bfloat16, split_ratio=s)
+      for t in dg.node_counts} for s in (None, 0.2)}
+  split = stores[0.2]
+  assert all(f.cold_pinned is not None for f in split.values())
+  assert sum(f.array.numel() for f in split.values()) < sum(
+      f.array.numel() for f in stores[None].values()) / 4
+  fanouts = [4, 3, 2]
+  keys = DistHeteroNeighborSampler(dg, fanouts).message_passing_types(
+      16, 'paper')
+
+  def trainer(feats):
+    torch.manual_seed(0)
+    model = RGNN(keys, worker.CARD_DIM, 32, worker.CARD_CLASSES,
+                 num_layers=3, conv='rgat', heads=2,
+                 node_types=list(dg.node_counts)).to(dev)
+    return DistHeteroTrainStep(dg, feats, model, {'paper': labels}, fanouts,
+                               16, 'paper', lr=1e-3)
+  a, b, r = trainer(split), trainer(split), trainer(stores[None])
+  rng = np.random.default_rng(0)
+  seeds = rng.integers(0, 4000, (6, 16))
+  one = np.full(1, 16)
+  u0 = [[x[0] for x in hop] for hop in step_uniforms(a, 0, 99)]
+  s0 = torch.as_tensor(seeds[0], device=dev, dtype=torch.int32)
+  n0 = torch.tensor(16, device=dev, dtype=torch.int32)
+  with torch.no_grad():
+    x_split = a.make_batch(s0, n0, u0).x_dict
+    x_res = r.make_batch(s0, n0, u0).x_dict
+  assert all(torch.equal(x_split[t], x_res[t]) for t in x_res)
+  want = [float(b(seeds[i][None], one, step_uniforms(b, 0, i)))
+          for i in range(6)]
+  got = []
+  for w in range(2):
+    idx = range(3 * w, 3 * w + 3)
+    us = [step_uniforms(a, 0, i) for i in idx]
+    u = [[torch.stack([x[h][j] for x in us]) for j in range(len(us[0][h]))]
+         for h in range(len(us[0]))]
+    got.extend(a.superstep(seeds[3 * w:3 * w + 3], np.full((3, 1), 16),
+                           u).tolist())
+  assert (a.superstep_captures, a.graph_replays) == (1, 1)
+  np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_per_hop_loader_options_match_plain(dev):
+  """NeighborLoader on the card: a weighted per-hop batch with edge ids
+  and a [-1, 4, 3] per-hop batch with replacement, each bit-identical to
+  the plain versions; a prefetching loader's batches equal the plain
+  loader's."""
+  g = torch.Generator(device=dev).manual_seed(4)
+  n, e = 20_000, 300_000
+  ei = torch.stack([torch.randint(0, n, (e,), generator=g, device=dev),
+                    torch.randint(0, n, (e,), generator=g, device=dev)])
+  ds = Dataset().init_graph(ei, edge_weights=1.0 - torch.rand(
+      e, generator=g, device=dev), num_nodes=n)
+  ds.init_node_features(torch.randn((n, 100), generator=g, device=dev))
+  seeds = np.arange(0, n, 7)
+
+  def loader(fanouts, **kw):
+    return NeighborLoader(ds, fanouts, seeds, batch_size=512, shuffle=True,
+                          seed=3, rng=np.random.default_rng(3), **kw)
+  names = ('sample_hop', 'gather_windows', 'gather_rows')
+  for fanouts, kw in (([6, 4, 3], dict(with_weight=True, with_edge=True)),
+                      ([-1, 4, 3], dict(replace=True, with_edge=True))):
+    got = next(iter(loader(fanouts, **kw)))
+    with _swapped(names):
+      want = next(iter(loader(fanouts, **kw)))
+    for f in ('node', 'node_count', 'row', 'col', 'edge_mask', 'edge', 'x'):
+      assert torch.equal(getattr(got, f), getattr(want, f)), (fanouts, f)
+  plain = list(loader([6, 4, 3]))
+  pre = loader([6, 4, 3], prefetch_depth=2)
+  for x, y in zip(list(pre), plain):
+    for f in ('node', 'row', 'col', 'x'):
+      assert torch.equal(getattr(x, f), getattr(y, f)), f
+  assert not pre._prefetcher.worker_thread.is_alive()
+
+
+def test_igbh_example_multihost_two_ranks_on_two_cards(dev, tmp_path):
+  """The IGBH example's multihost mode as two NCCL ranks, one a card,
+  over a two-part layout (split 0.2 stores): each rank opens only its own
+  partition's blocks and no feature table or edge payload of the data
+  tree, and both see the mesh's mean loss."""
+  if torch.cuda.device_count() < 2:
+    pytest.skip('needs two cards')
+  import torch_dist_worker as worker
+  data, part = worker.igbh_tree(tmp_path, papers=2000, parts=2, device=dev)
+  res = worker.run_multihost(data, part, tmp_path, ['--split-ratio', '0.2'],
+                             timeout=600)
+  worker.check_own_blocks(res, data, part)
+  assert res[0]['losses'] == res[1]['losses']

@@ -236,16 +236,18 @@ def test_init_node_features_sorts_and_splits_as_jax():
   np.testing.assert_array_equal(ds.get_node_label(), jds.get_node_label())
   for s in Split:
     np.testing.assert_array_equal(ds.get_split(s), jds.get_split(s.value))
-  # hetero tables split without a sort; a hetero sort is not ported
+  # hetero tables split without a sort, and sort over the topology of the
+  # first edge type they are the pointer type of (JAX's
+  # _topo_for_node_type; tests/test_torch_sampler_options.py holds it)
   hds = Dataset().init_graph({('a', 'to', 'b'): np.array([[0, 1], [1, 2]])},
                              device='cpu')
   hds.init_node_features({'a': np.ones((4, 2), np.float32)}, split_ratio=0.5,
                          device='cpu')
   assert hds.get_node_feature('a').hot_count == 2
-  with pytest.raises(NotImplementedError):
-    hds.init_node_features({'a': np.ones((4, 2), np.float32)},
-                           sort_func=sort_by_in_degree, split_ratio=0.5,
-                           device='cpu')
+  hds.init_node_features({'a': np.ones((4, 2), np.float32)},
+                         sort_func=sort_by_in_degree, split_ratio=0.5,
+                         device='cpu')
+  assert hds.get_node_feature('a').id2index is not None
 
 
 def _split_data():

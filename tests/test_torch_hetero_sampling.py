@@ -321,5 +321,8 @@ def test_hetero_sampler_draws_from_its_own_generator():
   assert int(oa.node_count['item']) > 0
   with pytest.raises(ValueError, match='node type'):
     a.sample_from_nodes(NodeSamplerInput(np.arange(5)))
+  # a dict of seeds by type is the several-type form of the JAX sampler
+  # (tests/test_torch_sampler_options.py holds it to JAX's)
+  assert a.sample_from_nodes({'user': np.arange(5)}).input_type == 'user'
   with pytest.raises(ValueError, match='node type'):
-    a.sample_from_nodes({'user': np.arange(5)})
+    a.sample_from_nodes(np.arange(5))

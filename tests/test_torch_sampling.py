@@ -208,9 +208,9 @@ def test_sampler_draws_from_its_own_generator():
   for _ in range(2):
     oa, ob = a.sample_from_nodes(seeds), b.sample_from_nodes(seeds)
     assert torch.equal(oa.node, ob.node) and torch.equal(oa.row, ob.row)
-  # -1 hops run the per-hop loop, which samples no edge ids yet
-  with pytest.raises(NotImplementedError):
-    NeighborSampler(ds.get_graph(), [-1], device='cpu', with_edge=True)
+  # -1 hops run the per-hop loop, which samples edge ids too
+  full = NeighborSampler(ds.get_graph(), [-1], device='cpu', with_edge=True)
+  assert full.sample_from_nodes(seeds).edge is not None
   # without injected uniforms multihop_sample draws from the generator
   plan = a._fused_plan(8)
   outs = [multihop_sample(plan, torch.arange(8, dtype=torch.int32), 8,

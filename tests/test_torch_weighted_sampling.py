@@ -231,9 +231,12 @@ def test_sampler_refuses_what_is_not_ported():
   ei, w = _graph(5)
   g = Dataset().init_graph(ei, edge_weights=w, num_nodes=N,
                            device='cpu').get_graph()
+  # with_edge and replace are served by the per-hop loop since the
+  # single-device options came across (tests/test_torch_sampler_options.py)
   for kw in (dict(with_edge=True), dict(replace=True)):
-    with pytest.raises(NotImplementedError):
-      NeighborSampler(g, [3, 2], device='cpu', with_weight=True, **kw)
+    s = NeighborSampler(g, [3, 2], device='cpu', with_weight=True, **kw)
+    out = s.sample_from_nodes(np.arange(4))
+    assert s._per_hop and (out.edge is not None) == ('with_edge' in kw)
   with pytest.raises(ValueError, match='positive or -1'):
     NeighborSampler(g, [3, -2], device='cpu')
   # without weights a weighted sampler's hops stay uniform (per-hop loop)

@@ -79,11 +79,12 @@ def sample_hetero_case(mesh, case):
                                                 case['seed_type']))
 
 
-def _features(mesh, root, dtype=None, bucket_cap=0):
+def _features(mesh, root, dtype=None, bucket_cap=0, split_ratio=None):
   ds = {mesh.rank: DistDataset.load(root, mesh.rank, device='cpu')}
   types = ds[mesh.rank].node_features
   return {t: DistFeature.from_dist_datasets(mesh, ds, ntype=t, dtype=dtype,
-                                            bucket_cap=bucket_cap)
+                                            bucket_cap=bucket_cap,
+                                            split_ratio=split_ratio)
           for t in types}
 
 
@@ -99,7 +100,7 @@ def _trainer(mesh, case):
   DistHeteroTrainStep over the case's layout."""
   root = case['hetero']
   dg = DistHeteroGraph.from_dataset_partitions(mesh, root)
-  feats = _features(mesh, root)
+  feats = _features(mesh, root, split_ratio=case.get('split_ratio'))
   keys = DistHeteroNeighborSampler(dg, case['fanouts']).message_passing_types(
       case['bs'], 'paper')
   model = RGNN(keys, case['in_dim'], case['hidden'], case['classes'],
@@ -130,6 +131,30 @@ def train_case(mesh, case):
       res = _np(step(*args))
     out.append(dict(result=res, params=_np(model.state_dict())))
   return out
+
+
+def split_super_case(mesh, case):
+  """Over the case's spilled stores: a window as one superstep, an eval
+  step, and each per-batch step's loss and parameters; over resident
+  twins the same batches a batch a step and the eval."""
+  a = _trainer(mesh, case)[1]
+  b = _trainer(mesh, dict(case, split_ratio=None))[1]
+  c = _trainer(mesh, case)[1]
+  w = case['window']
+  calls = [(w['seeds'][t], w['n_valid'][t],
+            [[x[t] for x in hop] for hop in w['u']])
+           for t in range(w['seeds'].shape[0])]
+  super_losses = _np(a.superstep(w['seeds'], w['n_valid'], w['u']))
+  split_losses = [_np(c(*call)) for call in calls]
+  resident_losses = [_np(b(*call)) for call in calls]
+  ev = case['eval']
+  evals = [s.eval_step(ev['seeds'], ev['n_valid'], ev['u'])
+           for s in (a, b)]
+  return dict(spilled={t: f.cold_array is not None
+                       for t, f in a.features.items()},
+              super=super_losses, split=split_losses,
+              resident=resident_losses, evals=evals,
+              params=[_np(s.model.state_dict()) for s in (a, c, b)])
 
 
 def grads_case(mesh, case):
@@ -543,7 +568,8 @@ def run_cases(mesh, cases):
              dist_train=dist_train_case, det=det_case,
              host_phase=host_phase_case, wsample_homo=wsample_homo_case,
              wsample_hetero=wsample_hetero_case, wtrain=wtrain_case,
-             wsuper=wsuper_case, cache_lookup=cache_lookup_case)
+             wsuper=wsuper_case, cache_lookup=cache_lookup_case,
+             split_super=split_super_case)
   return {name: fns[case['kind']](mesh, case)
           for name, case in cases.items()}
 
@@ -788,3 +814,102 @@ def dist_nccl_main(rank, world, store_path, root, labels_path, out_path):
       pickle.dump(res, f)
   finally:
     dist.destroy_process_group()
+
+
+# -- the IGBH example's modes (tests/test_torch_igbh_flags.py, and on two
+# cards tests/test_torch_cuda.py) ----------------------------------------------
+
+def igbh_tree(tmp_path, papers=600, parts=None, device='cpu'):
+  """A synthesised IGBH tree with bf16 features and its split, and a
+  partition layout of ``parts`` parts when asked."""
+  from glt_tpu_torch.examples.igbh.compress_graph import compress
+  from glt_tpu_torch.examples.igbh import dist_train_rgnn
+  from glt_tpu_torch.examples.igbh.data import split_seeds, synthesize
+  data = str(tmp_path / 'data')
+  synthesize(data, papers, seed=0)
+  compress(data, layout='CSC', bf16=True, topology=False, device=device)
+  split_seeds(data)
+  part = str(tmp_path / 'parts')
+  if parts:
+    dist_train_rgnn.partition(data, part, parts)
+  return data, part
+
+
+_RANK = r'''
+import builtins, json, sys
+sys.path.insert(0, sys.argv[1])
+opened = []
+real_open = builtins.open
+def counting(file, *a, **k):
+  opened.append(str(file))
+  return real_open(file, *a, **k)
+builtins.open = counting
+from glt_tpu_torch.examples.igbh import dist_train_rgnn
+res = dist_train_rgnn.main(json.loads(sys.argv[2]))
+with real_open(sys.argv[3], 'w') as f:
+  json.dump(dict(opened=opened, steps=res['steps'],
+                 losses=res['losses']), f)
+'''
+
+
+def free_port():
+  import socket
+  with socket.socket() as s:
+    s.bind(('127.0.0.1', 0))
+    return s.getsockname()[1]
+
+
+def run_multihost(data, part, tmp_path, device_args, world=2, timeout=240):
+  """The example's multihost mode in ``world`` processes; per rank the
+  files it opened, its steps and losses."""
+  import json
+  import os
+  import subprocess
+  import sys
+  port = free_port()
+  repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+  procs, outs = [], []
+  for r in range(world):
+    out = str(tmp_path / f'rank{r}.json')
+    argv = device_args + ['--steps-per-epoch', '2', '--batch-size', '8',
+                          '--fanout', '3,2', '--hidden', '16',
+                          '--val-batches', '1', '--data-root', data,
+                          '--part-root', part, '--coordinator',
+                          f'127.0.0.1:{port}', '--nprocs', str(world),
+                          '--rank', str(r)]
+    procs.append(subprocess.Popen(
+        [sys.executable, '-c', _RANK, repo, json.dumps(argv), out],
+        cwd=repo, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE))
+    outs.append(out)
+  errs = []
+  for p in procs:
+    try:
+      errs.append(p.communicate(timeout=timeout)[1])
+    finally:
+      p.kill()
+  assert all(p.returncode == 0 for p in procs), [e.decode()[-2000:]
+                                                   for e in errs]
+  res = []
+  for out in outs:
+    with open(out) as f:
+      res.append(json.load(f))
+  return res
+
+
+def check_own_blocks(res, data, part):
+  """Each rank opened its own partition's blocks and none of another's,
+  and neither a feature table nor an edge payload of the tree."""
+  import os
+  import re
+  import numpy as np
+  for r, got in enumerate(res):
+    blocks = [os.path.relpath(p, part).split(os.sep)[0]
+              for p in got['opened'] if p.startswith(part + os.sep)]
+    blocks = {b for b in blocks if re.fullmatch(r'part\d+', b)}
+    assert blocks == {f'part{r}'}, (r, blocks)
+    tree = [p for p in got['opened'] if p.startswith(data)]
+    assert not [p for p in tree
+                if 'node_feat' in p or 'edge_index' in p], (r, tree)
+    assert got['steps'] == 2 and all(np.isfinite(got['losses']))
+
+
