@@ -217,6 +217,26 @@ points through their main functions, and checks what comes out:
   with edge ids and a [-1, 10, 5] per-hop batch with replacement against
   the plain versions, as_pyg_v1 and prefetch_depth=2 loaders over three
   batches against the loader without them;
+- the link loader's options over products-sage, after the link main
+  path: LinkNeighborLoader(with_weight=True, with_edge=True) at the link
+  batch's shapes (batch 512, one binary negative each, [15, 10, 5]; each
+  hop's weight window read by B3, a Gumbel top-k, the picks and their
+  edge ids read by B2, then K3), one batch against the plain versions,
+  every valid lane's edge id checked against its endpoints in the CSR,
+  and 3 + 10 steps of GraphSAGE.embed 100 -> 256 -> 256 -> 64 ->
+  link_bce_loss -> Adam(3e-3) beside the uniform link step; a uniform
+  replace=True link batch (K1 with replacement) against the plain
+  versions and one step; a SubGraphLoader(with_edge=True) batch against
+  the plain versions, its induced edges' ids checked;
+- the trim example's two trajectories (glt_tpu_torch.examples.
+  train_sage_with_trim at GraphSAGE 100 -> 256 -> 256 -> 47, batch 1024,
+  [15, 10, 5], 10 steps each, identically seeded), their step medians,
+  accuracies over 1,024 test nodes and edge slots a layer; the GPT on
+  graphs example at 2,000 papers, its 3 prompts against the plain
+  versions'; the measured ceilings (obs.device_ceilings: the device
+  memory's stream rate and the float32 GEMM rate) beside the data
+  sheet's; sharded_segment_mean and its scattered form over a one-rank
+  NCCL group against one index_add_ mean;
 - hetero link prediction (examples/hetero/bipartite_sage_unsup.py at
   Taobao's counts): 987,994 users, 4,161,138 items in 9,439 categories,
   101 user-item links a user inside one category (99.8M) and their
@@ -289,6 +309,7 @@ NUM_NODES, NUM_EDGES, FEAT_DIM = 2_450_000, 62_000_000, 100
 HIDDEN, CLASSES, FANOUTS, BUCKETS = 256, 47, (15, 10, 5), (8, 64, 256)
 REQUESTS = (1, 7, 64, 200, 256)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
+FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 LINK_BYTES_PER_S = 64e9       # the host link's peak one way: PCIe Gen5 x16
 LOGIT_TOL = 1e-4  # same batch bit for bit; index_add_ float atomics
                   # sum in another order from run to run
@@ -2068,6 +2089,9 @@ LINK_FIELDS = ('node', 'node_count', 'row', 'col', 'edge_mask', 'x',
 SEAL_NODES, SEAL_CHORDS, SEAL_TRAIN, SEAL_EVAL = 2708, 2570, 256, 64
 SEAL_CHECK = 32   # positive (and as many negative) links re-extracted
 SUBGRAPH_FANOUTS, SUBGRAPH_BATCH = (10, 5), 64
+#: the link main path's median step (ms), which the weighted link path
+#: prints beside its own
+LINK_MEDIAN = {}
 
 
 def link_batch_vs_plain(torch, K, loader, label, props, u, seeds_idx,
@@ -2222,7 +2246,7 @@ def link_phases(torch, np, K, ds, dev, seed, k3, walks, host_us, smi):
     n_timed = sum(int(e) for e in edges[LINK_WARMUP:])
     meter = ThroughputMeter('edges')
     meter.update(n_timed, timed.sum() / 1e3)
-    link_median = float(np.median(timed))
+    link_median = LINK_MEDIAN['uniform'] = float(np.median(timed))
     print(f'link training ({len(data)} batches an epoch over '
           f'{g.num_edges} seed edges; {pairs} labelled pairs and '
           f'{2 * pairs} seeds a batch): loss {losses[0]:.4f} at step 1, '
@@ -2351,6 +2375,329 @@ def link_phases(torch, np, K, ds, dev, seed, k3, walks, host_us, smi):
           f'validation AUC {res["val_auc"][-1]:.4f}, test AUC '
           f'{res["test_auc"]:.4f}; launches {seal_launches}; on {smi}')
   return link_launches, sub_launches, seal_launches
+
+
+def edge_ids_name_lanes(torch, g, node, row, col, mask, eids):
+  """Whether every valid lane's edge id names an edge of ``g`` from the
+  lane's parent (``node[col]``) to its child (``node[row]``): the id's CSR
+  slot (the inverse of ``g.edge_ids``) lies in the parent's row and holds
+  the child. Returns (ok, the number of valid lanes)."""
+  m = mask.bool()
+  e = eids[m].long()
+  inv = torch.empty(g.edge_ids.numel(), dtype=torch.long,
+                    device=g.edge_ids.device)
+  inv[g.edge_ids.long()] = torch.arange(g.edge_ids.numel(),
+                                        device=inv.device)
+  slot = inv[e]
+  del inv
+  parent, child = node[col[m].long()].long(), node[row[m].long()].long()
+  ptr = g.indptr.long()
+  ok = ((slot >= ptr[parent]) & (slot < ptr[parent + 1])
+        & (g.indices[slot].long() == child))
+  return bool(ok.all()), int(m.sum())
+
+
+# the link loader's options (LinkNeighborLoader(with_weight=, with_edge=,
+# replace=), SubGraphLoader(with_edge=)) at the link main path's shapes:
+# batch 512, one binary negative each, [15, 10, 5]
+LINK_OPTION_FIELDS = LINK_FIELDS + ('edge',)
+
+
+def link_option_phases(torch, np, K, ds, dev, seed, smi):
+  """The link loader's options over products-sage (its weights from
+  ``data``): a weighted link batch with edge ids through B3, B2 and K3
+  held against the plain versions, then 3 + 10 weighted link steps; a
+  uniform link batch with replacement through K1 and K3 held against
+  them, and one step; a SubGraphLoader batch with edge ids. Returns the
+  launches by path."""
+  from glt_tpu_torch.examples import graph_sage_unsup as unsup
+  from glt_tpu_torch.loader import (LinkNeighborLoader, SubGraphLoader,
+                                    get_edge_label_index)
+  from glt_tpu_torch.models import GraphSAGE
+  from glt_tpu_torch.ops.negative import negative_proposals
+  from glt_tpu_torch.parallel import SageTrainStep, link_bce_loss
+  from glt_tpu_torch.sampler import NegativeSampling
+
+  paths = {}
+  g = ds.get_graph()
+  every_edge = get_edge_label_index(ds)[1]
+
+  def loader(**kw):
+    return LinkNeighborLoader(
+        ds, list(FANOUTS), edge_label_index=every_edge,
+        batch_size=LINK_BATCH, shuffle=True,
+        neg_sampling=NegativeSampling('binary', 1), device=dev, seed=seed,
+        rng=np.random.default_rng(seed), **kw)
+
+  def vs_plain(ld, label, names):
+    # one batch at fixed edge positions, through the kernels and through
+    # their plain versions on the same proposals and uniforms
+    sampler = ld.sampler
+    num_neg = ld.neg_sampling.sample_size(LINK_BATCH)
+    props = negative_proposals(sampler.generator, num_neg, 5, NUM_NODES,
+                               NUM_NODES, dev)
+    u = sampler.hop_uniforms(2 * (LINK_BATCH + num_neg))
+    pos = torch.randint(0, g.num_edges, (LINK_BATCH,),
+                        generator=torch.Generator().manual_seed(seed + 13))
+    return link_batch_vs_plain(torch, K, ld, label, props, u, pos.numpy(),
+                               names=names, fields=LINK_OPTION_FIELDS)[0]
+
+  def steps(ld, n_steps, warmup):
+    torch.manual_seed(seed)
+    net = GraphSAGE(FEAT_DIM, HIDDEN, LINK_EMBED, num_layers=3).to(dev)
+    step = SageTrainStep(net, lr=unsup.LR, loss=link_bce_loss)
+    it = iter(ld)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    losses, secs = [], []
+    for _ in range(n_steps):
+      t0 = time.perf_counter()
+      losses.append(step(next(it)))
+      torch.cuda.synchronize()
+      secs.append(time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+      raise AssertionError(f'non-finite link loss {losses}')
+    return launches, losses, np.array(secs[warmup:]) * 1e3
+
+  with Phase('link weighted path'):
+    weighted = loader(with_weight=True, with_edge=True)
+    if not (weighted.sampler._per_hop and weighted.sampler._weighted):
+      raise AssertionError('the weighted link loader does not run the '
+                           'weighted per-hop loop')
+    bk = vs_plain(weighted, 'weighted', ('sample_hop', 'gather_windows',
+                                         'gather_rows'))
+    ok, lanes = edge_ids_name_lanes(torch, g, bk.node, bk.row, bk.col,
+                                    bk.edge_mask, bk.edge)
+    if not ok or not lanes:
+      raise AssertionError('a weighted link batch\'s edge id names no edge '
+                           'between its lane\'s endpoints')
+    if bool((bk.edge[~bk.edge_mask.bool()] != -1).any()):
+      raise AssertionError('a masked lane of a window hop holds an edge id')
+    print(f'weighted link batch ({LINK_BATCH} positives, {LINK_BATCH} '
+          f'binary negatives, {4 * LINK_BATCH} seeds, window '
+          f'{weighted.sampler._weight_window(FANOUTS[0])}): '
+          f'{int(bk.node_count)} nodes, {lanes} edges; bit-identical to '
+          'plain on every field, edge id and label; every valid lane\'s '
+          'edge id names an edge between its endpoints, every masked '
+          'lane\'s is -1')
+    del bk
+    n_steps = LINK_WARMUP + LINK_STEPS
+    paths['link_weighted'], losses, timed = steps(weighted, n_steps,
+                                                  LINK_WARMUP)
+    per = paths['link_weighted']
+    want = dict(sample_hop=3 * n_steps, gather_windows=3 * n_steps,
+                gather_rows=n_steps, sample_walk_dedup=0,
+                dedup_table_insert=0)
+    for name, n in want.items():
+      if per[name] != n:
+        raise AssertionError(f'{name}: {per[name]} launches on the '
+                             f'weighted link path, expected {n}')
+    median = float(np.median(timed))
+    uniform = LINK_MEDIAN['uniform']
+    print(f'weighted link training: loss {losses[0]:.4f} at step 1, '
+          f'{losses[-1]:.4f} at step {n_steps}; steps {LINK_WARMUP + 1}-'
+          f'{n_steps}: median {median:.3f} ms (quartiles '
+          f'{np.percentile(timed, 25):.3f}-{np.percentile(timed, 75):.3f}, '
+          f'min {timed.min():.3f}, max {timed.max():.3f}) beside the uniform '
+          f'link step\'s {uniform:.3f} ms ({median / uniform:.4f}x; link '
+          f'main path, this call); launches '
+          f'{ {k: v for k, v in per.items() if v} }; on {smi}')
+    del weighted
+
+  with Phase('link replace path'):
+    rep = loader(replace=True)
+    if rep.sampler._per_hop or not rep.sampler.replace:
+      raise AssertionError('the replace link loader does not run the walk '
+                           'with replacement')
+    bk = vs_plain(rep, 'replace', ('sample_walk_dedup', 'gather_rows'))
+    print(f'uniform link batch with replacement: {int(bk.node_count)} '
+          f'nodes, {int(bk.edge_mask.sum())} edges; bit-identical to plain '
+          'on every field and label')
+    del bk
+    paths['link_replace'], losses, _ = steps(rep, 1, 0)
+    per = paths['link_replace']
+    if (per['sample_walk_dedup'], per['gather_rows'],
+        per['sample_hop']) != (1, 1, 0):
+      raise AssertionError(f'the replace link step launched {per}')
+    print(f'one replace link step: loss {losses[0]:.4f}; launches '
+          f'{ {k: v for k, v in per.items() if v} }')
+    del rep
+
+  with Phase('subgraph edge check'):
+    sub_loader = SubGraphLoader(ds, list(SUBGRAPH_FANOUTS),
+                                np.arange(NUM_NODES),
+                                batch_size=SUBGRAPH_BATCH, shuffle=True,
+                                with_edge=True, device=dev, seed=seed,
+                                rng=np.random.default_rng(seed))
+    sampler = sub_loader.sampler
+    u = sampler.hop_uniforms(SUBGRAPH_BATCH)
+    real = sampler.subgraph
+    sampler.subgraph = lambda s: real(s, uniforms=u)
+    seeds = np.random.default_rng(seed + 14).choice(
+        NUM_NODES, SUBGRAPH_BATCH, replace=False)
+    K.reset_launch_counts()
+    sk = sub_loader._make_batch(seeds, SUBGRAPH_BATCH)
+    torch.cuda.synchronize()
+    paths['subgraph_edge'] = {fn.__name__: fn.launches for fn in K.KERNELS}
+    with swapped_to_plain(K, ('sample_walk_dedup', 'gather_rows')):
+      sp = sub_loader._make_batch(seeds, SUBGRAPH_BATCH)
+    f = differing_field(torch, sk, sp, ('x', 'row', 'col', 'edge_mask',
+                                        'node', 'node_count', 'edge'))
+    if f is not None:
+      raise AssertionError(f'subgraph batch.{f} differs between kernels and '
+                           'plain')
+    # the subgraph's rows are the message sources: an edge runs col -> row
+    ok, lanes = edge_ids_name_lanes(torch, g, sk.node, sk.row, sk.col,
+                                    sk.edge_mask, sk.edge)
+    if not ok or not lanes or bool((sk.edge[~sk.edge_mask] != -1).any()):
+      raise AssertionError('a subgraph edge id names no induced edge')
+    print(f'SubGraphLoader(with_edge=True) batch of {SUBGRAPH_BATCH} seeds: '
+          f'{lanes} induced edges, each id naming its CSR edge, -1 on the '
+          f'masked slots; bit-identical to plain, ids included; launches '
+          f'{ {k: v for k, v in paths["subgraph_edge"].items() if v} }')
+    del sk, sp, sub_loader, sampler, real
+  del every_edge
+  return paths
+
+
+# the trim example (examples/train_sage_with_trim.py) at products-sage's
+# width: TRIM_STEPS steps a trajectory, accuracy over the first TRIM_EVAL
+# test nodes; GPT on graphs at its default 2,000 papers
+TRIM_STEPS, TRIM_EVAL = 10, 1024
+GPT_PAPERS = 2_000
+# the sharded segment means on the card: SEG_ROWS message rows of SEG_DIM
+# into SEG_SEGMENTS segments, held to SEG_TOL of one index_add_ mean
+SEG_ROWS, SEG_DIM, SEG_SEGMENTS, SEG_TOL = 1_000_000, 64, 100_000, 1e-6
+
+
+def example_phases(torch, np, K, ds, dev, seed, smi):
+  """The trim A/B and the GPT prompts on the card (their launches by
+  path), the measured ceilings, and the two sharded segment means over a
+  one-rank NCCL group against a single-device ``index_add_`` mean."""
+  import io
+  import socket
+  import tempfile
+  import torch.distributed as dist
+  from glt_tpu_torch.examples import gpt_on_graphs as gpt
+  from glt_tpu_torch.examples import train_sage_with_trim as trim_example
+  from glt_tpu_torch.obs import device_ceilings, get_registry
+  from glt_tpu_torch.parallel import (sharded_segment_mean,
+                                      sharded_segment_mean_scattered)
+
+  paths = {}
+  with Phase('trim path'):
+    K.reset_launch_counts()
+    res = trim_example.trim_ab(ds, CLASSES, list(FANOUTS), TRAIN_BATCH, dev,
+                               hidden=HIDDEN, max_steps=TRIM_STEPS,
+                               eval_nodes=TRIM_EVAL, seed=seed)
+    torch.cuda.synchronize()
+    paths['trim'] = {fn.__name__: fn.launches for fn in K.KERNELS}
+    t, f = res[True], res[False]
+    for run in (t, f):
+      if len(run['step_ms']) != TRIM_STEPS or not np.isfinite(run['loss']):
+        raise AssertionError(f'trim run: {run}')
+    if not abs(t['acc'] - f['acc']) < 0.15:
+      raise AssertionError(f'trim accuracies {t["acc"]}, {f["acc"]}')
+    if not (paths['trim']['sample_walk_dedup']
+            and paths['trim']['gather_rows']):
+      raise AssertionError(f'trim path launched {paths["trim"]}')
+    mt, mf = (float(np.median(r['step_ms'])) for r in (t, f))
+    print(f'trim A/B (GraphSAGE {FEAT_DIM} -> {HIDDEN} -> {HIDDEN} -> '
+          f'{CLASSES}, batch {TRAIN_BATCH}, {list(FANOUTS)}, {TRIM_STEPS} '
+          f'steps each): edge buffer {res["slots"]} slots, hop offsets '
+          f'{res["offsets"]}; edge slots a layer trim=True '
+          f'{t["layer_slots"]} ({sum(t["layer_slots"])}), trim=False '
+          f'{f["layer_slots"]} ({sum(f["layer_slots"])}); step median '
+          f'trim=True {mt:.3f} ms, trim=False {mf:.3f} ms ({mt / mf:.4f}x); '
+          f'loss {t["loss"]:.4f} / {f["loss"]:.4f}; accuracy over '
+          f'{TRIM_EVAL} test nodes {t["acc"]:.4f} / {f["acc"]:.4f}; '
+          f'launches {paths["trim"]}; on {smi}')
+
+  with Phase('gpt prompt path'):
+    argv = ['--device', str(dev), '--papers', str(GPT_PAPERS)]
+    out = io.StringIO()
+    K.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+      prompts = gpt.main(argv)
+    torch.cuda.synchronize()
+    paths['gpt_prompt'] = {fn.__name__: fn.launches for fn in K.KERNELS}
+    # the loader's sampler and shuffle are seeded: a second run draws the
+    # same proposals, uniforms and order
+    with swapped_to_plain(K, ('sample_walk_dedup', 'gather_rows')), \
+        contextlib.redirect_stdout(io.StringIO()):
+      plain = gpt.main(argv)
+    if len(prompts) != 3 or prompts != plain:
+      raise AssertionError('the GPT prompts differ between kernels and '
+                           'plain')
+    if (paths['gpt_prompt']['sample_walk_dedup'],
+        paths['gpt_prompt']['gather_rows']) != (3, 0):
+      raise AssertionError(f'gpt prompt path launched {paths["gpt_prompt"]}')
+    sizes = [(p.count('"'), p.count('->')) for p in prompts]
+    print(f'gpt on graphs ({GPT_PAPERS} papers, [12, 6], batch 2 with '
+          f'binary negatives): 3 prompts equal to the plain versions\' '
+          f'(title quotes and citations each: {sizes}; '
+          f'{len(out.getvalue())} characters printed); launches '
+          f'{paths["gpt_prompt"]}')
+
+  with Phase('rooflines'):
+    K.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+      c = device_ceilings(dev, refresh=True,
+                          cache_path=f'{tmp}/roofline.json')
+    paths['rooflines'] = {fn.__name__: fn.launches for fn in K.KERNELS}
+    gauges = {k: v for k, v in get_registry().snapshot()['gauges'].items()
+              if k.startswith('roofline_')}
+    if len(gauges) != 2 or c['platform'] != 'cuda':
+      raise AssertionError(f'ceilings {c}, gauges {gauges}')
+    bw, fl = c['hbm_bytes_per_sec'], c['flops_per_sec']
+    print(f'measured ceilings of {c["device_kind"]}: device memory stream '
+          f'(2 * x + y over 256 MiB float32 arrays, 12 B an element, best '
+          f'of 5) {bw / 1e12:.4f} TB/s, {bw / HBM_BYTES_PER_S * 100:.1f}% of '
+          f'the data sheet\'s {HBM_BYTES_PER_S / 1e12:.2f} TB/s that the '
+          f'kernel table\'s bounds use; float32 GEMM (2048 x 2048, TF32 off, '
+          f'best of 5) {fl / 1e12:.3f} TFLOP/s, {fl / FP32_FLOPS * 100:.1f}% '
+          f'of the data sheet\'s {FP32_FLOPS / 1e12:.0f} TFLOP/s; gauges '
+          f'{sorted(gauges)}; on {smi}')
+
+  with Phase('segment mean'):
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    msgs = torch.randn((SEG_ROWS, SEG_DIM), generator=gen, device=dev)
+    targets = torch.randint(0, SEG_SEGMENTS, (SEG_ROWS,), generator=gen,
+                            device=dev, dtype=torch.int32)
+    mask = torch.rand(SEG_ROWS, generator=gen, device=dev) < 0.9
+    with socket.socket() as sock:
+      sock.bind(('127.0.0.1', 0))
+      port = sock.getsockname()[1]
+    dist.init_process_group('nccl', init_method=f'tcp://127.0.0.1:{port}',
+                            world_size=1, rank=0)
+    K.reset_launch_counts()
+    try:
+      full = sharded_segment_mean(msgs, targets, mask, SEG_SEGMENTS)
+      scat = sharded_segment_mean_scattered(msgs, targets, mask,
+                                            SEG_SEGMENTS)
+      torch.cuda.synchronize()
+    finally:
+      dist.destroy_process_group()
+    # no kernel of the port: index_add_ sums, NCCL reduces
+    paths['segment_mean'] = {fn.__name__: fn.launches for fn in K.KERNELS}
+    seg = targets.long()[mask]
+    ref = torch.zeros((SEG_SEGMENTS, SEG_DIM), device=dev).index_add_(
+        0, seg, msgs[mask])
+    cnt = torch.zeros(SEG_SEGMENTS, device=dev).index_add_(
+        0, seg, torch.ones_like(seg, dtype=torch.float32))
+    ref = ref / cnt.clamp(min=1.0)[:, None]
+    errs = [float((x - ref).abs().max()) for x in (full, scat)]
+    if max(errs) > SEG_TOL:
+      raise AssertionError(f'sharded segment means off by {errs}')
+    print(f'sharded_segment_mean and sharded_segment_mean_scattered over a '
+          f'one-rank NCCL group ({SEG_ROWS} rows x {SEG_DIM}, '
+          f'{SEG_SEGMENTS} segments, {int(mask.sum())} valid rows): max '
+          f'|diff| {errs[0]:.3e} and {errs[1]:.3e} against one index_add_ '
+          f'mean (tolerance {SEG_TOL})')
+    del msgs, targets, mask, full, scat, ref, cnt, seg
+  return paths
 
 
 # the hot/cold feature tier: examples/train_sage_products.py --split-ratio
@@ -7687,6 +8034,10 @@ def main() -> int:
   link_launches, sub_launches, seal_launches = link_phases(
       torch, np, K, ds, dev, opts.seed, k3, walk, host_us, smi)
   torch.cuda.empty_cache()
+  slice_paths = link_option_phases(torch, np, K, ds, dev, opts.seed, smi)
+  torch.cuda.empty_cache()
+  slice_paths.update(example_phases(torch, np, K, ds, dev, opts.seed, smi))
+  torch.cuda.empty_cache()
   split_launches, mixed = split_phases(torch, np, K, ds, dev, opts.seed, smi)
   torch.cuda.empty_cache()
   ss_paths = superstep_phases(torch, np, K, ds, dev, opts.seed, smi)
@@ -7764,7 +8115,7 @@ def main() -> int:
              'dist_weighted': weighted_launches,
              'hetero_link': hlink_launches, 'hgt': hgt_launches,
              **homo_paths, **sc_paths, **fe_paths, **stream_paths,
-             **igbh_paths,
+             **igbh_paths, **slice_paths,
              **{p: v[0] for p, v in ss_paths.items()},
              'probe': probe_launches,
              'microbench': micro_launches}

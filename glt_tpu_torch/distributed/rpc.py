@@ -259,7 +259,9 @@ class RpcServer:
     while not self._stop.is_set():
       try:
         conn, _ = self._sock.accept()
-      except OSError:
+      # accept() raising OSError means stop() closed the listening
+      # socket: breaking is the orderly shutdown
+      except OSError:  # gltlint: disable=GLT006
         break
       _nodelay(conn)
       t = threading.Thread(target=self._serve_conn, args=(conn,),
@@ -318,14 +320,16 @@ class RpcServer:
       # on every recovery) would otherwise grow _conns — and the dead
       # per-connection Thread objects — without bound
       me = threading.current_thread()
+      # list.remove if present (under self._lock): a ValueError means
+      # another path already pruned the entry
       with self._lock:
         try:
           self._conns.remove(conn)
-        except ValueError:
+        except ValueError:  # gltlint: disable=GLT006
           pass
         try:
           self._threads.remove(me)
-        except ValueError:
+        except ValueError:  # gltlint: disable=GLT006
           pass
 
   def _serve_conn_loop(self, conn: socket.socket) -> None:

@@ -123,18 +123,30 @@ class LinkLoader(NodeLoader):
 
 class LinkNeighborLoader(LinkLoader):
   """:class:`LinkLoader` over a :class:`NeighborSampler` of ``data.graph``
-  with ``num_neighbors`` and ``seed``, in the dataset's ``edge_dir``, on
-  ``device`` (default: the card)."""
+  with ``num_neighbors``, ``with_edge``, ``with_weight``, ``replace`` and
+  ``seed``, in the dataset's ``edge_dir``, on ``device`` (default: the
+  card).
+
+  A weighted sampler (``with_weight`` over a graph with edge weights) and
+  ``-1`` fanouts run the per-hop loop: each hop's weight window read by
+  ``gather_windows``, a Gumbel top-k, the picks (and their edge ids) read
+  by ``sample_hop``. Uniform positive fanouts run the walk, with
+  replacement when ``replace``. ``with_edge`` puts the sampled edges' ids
+  in ``batch.edge`` (``edge_dict`` over a hetero dataset); as in the JAX
+  loader no edge features are gathered."""
 
   def __init__(self, data: Dataset, num_neighbors, edge_label_index=None,
                edge_label=None,
                neg_sampling: Optional[NegativeSampling] = None,
                batch_size: int = 512, shuffle: bool = False,
-               drop_last: bool = False, collect_features: bool = True,
-               seed: Optional[int] = None, device=None,
-               rng: Optional[np.random.Generator] = None):
+               drop_last: bool = False, with_edge: bool = False,
+               with_weight: bool = False, collect_features: bool = True,
+               replace: bool = False, seed: Optional[int] = None,
+               device=None, rng: Optional[np.random.Generator] = None):
     sampler = NeighborSampler(data.graph, num_neighbors, device=device,
-                              edge_dir=data.edge_dir, seed=seed)
+                              with_edge=with_edge, with_weight=with_weight,
+                              replace=replace, edge_dir=data.edge_dir,
+                              seed=seed)
     super().__init__(data, sampler, edge_label_index=edge_label_index,
                      edge_label=edge_label, neg_sampling=neg_sampling,
                      batch_size=batch_size, shuffle=shuffle,

@@ -21,15 +21,17 @@ class SubGraphLoader(NodeLoader):
   """:class:`NodeLoader` whose batches are the subgraphs induced on the
   seeds' sampled neighbourhood (``NeighborSampler.subgraph``), over a
   NeighborSampler of ``data.graph`` with ``num_neighbors``, on ``device``
-  (default: the card)."""
+  (default: the card). ``with_edge`` puts each induced edge's id in
+  ``batch.edge`` (-1 on masked slots)."""
 
   def __init__(self, data: Dataset, num_neighbors, input_nodes,
                batch_size: int = 512, shuffle: bool = False,
-               drop_last: bool = False, collect_features: bool = True,
-               seed: Optional[int] = None,
+               drop_last: bool = False, with_edge: bool = False,
+               collect_features: bool = True, seed: Optional[int] = None,
                device=None, rng: Optional[np.random.Generator] = None):
     sampler = NeighborSampler(data.graph, num_neighbors, device=device,
-                              edge_dir=data.edge_dir, seed=seed)
+                              with_edge=with_edge, edge_dir=data.edge_dir,
+                              seed=seed)
     super().__init__(data, sampler, input_nodes, batch_size=batch_size,
                      shuffle=shuffle, drop_last=drop_last,
                      collect_features=collect_features, rng=rng)

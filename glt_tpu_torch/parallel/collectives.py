@@ -12,12 +12,14 @@ the per-owner counts here are a ``scatter_add_`` into ``n_shards + 1``
 slots; the gathers and scatters go through flat ``index_select`` and
 ``index_copy_``/``scatter_`` for the same reason.
 
-Not ported: ``sharded_segment_mean`` and its scattered variant, which no
-ported caller uses (ROADMAP A12).
+The sharded segment means (:func:`sharded_segment_mean`,
+:func:`sharded_segment_mean_scattered`) aggregate messages whose rows are
+spread over the ranks: each rank sums its rows by segment, and the sums
+and counts are reduced over the group.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Union
 
 import torch
 import torch.distributed as dist
@@ -162,3 +164,83 @@ def all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
   out = torch.empty_like(x)
   dist.all_to_all_single(out, x, group=mesh.group)
   return out
+
+
+def _group_of(group: Union[Mesh, 'dist.ProcessGroup', None]):
+  """``(process group, world size, reduce)`` of a :class:`Mesh`, a process
+  group or None (the default group): ``reduce`` is False only when
+  ``torch.distributed`` has no group, where the result is this process's
+  own."""
+  if isinstance(group, Mesh):
+    group = group.group
+  if dist.is_available() and dist.is_initialized():
+    return group, dist.get_world_size(group), True
+  if group is not None:
+    raise ValueError('a process group needs torch.distributed initialised')
+  return None, 1, False
+
+
+def _local_segment_sums(msgs: torch.Tensor, targets: torch.Tensor,
+                        mask: torch.Tensor, num_segments: int):
+  """This rank's masked ``(sum [S, D], count [S])`` per segment; masked
+  rows go to a sink segment ``S``, cut off."""
+  seg = torch.where(mask, targets.long(),
+                    torch.full_like(targets, num_segments, dtype=torch.long))
+  rows = torch.where(mask[:, None], msgs, torch.zeros_like(msgs))
+  total = torch.zeros((num_segments + 1,) + tuple(msgs.shape[1:]),
+                      dtype=msgs.dtype, device=msgs.device)
+  total.index_add_(0, seg, rows)
+  cnt = torch.zeros(num_segments + 1, dtype=msgs.dtype, device=msgs.device)
+  cnt.index_add_(0, seg, mask.to(msgs.dtype))
+  return total[:num_segments], cnt[:num_segments]
+
+
+def sharded_segment_mean(msgs: torch.Tensor, targets: torch.Tensor,
+                         mask: torch.Tensor, num_segments: int,
+                         group: Union[Mesh, 'dist.ProcessGroup', None] = None
+                         ) -> torch.Tensor:
+  """Mean of the valid message rows by destination segment, the rows
+  spread over the ranks of ``group`` (a :class:`Mesh`, a process group, or
+  None for the default group): each rank sums its rows, one ``all_reduce``
+  (sum) adds the sums and one the counts. An empty segment's mean is 0.
+
+  Args:
+    msgs: ``[M, D]`` this rank's message rows.
+    targets: ``[M]`` each row's segment.
+    mask: ``[M]`` bool, the valid rows.
+    num_segments: the global segment count.
+
+  Returns ``[num_segments, D]``, the same on every rank."""
+  pg, _, reduce = _group_of(group)
+  total, cnt = _local_segment_sums(msgs, targets, mask, num_segments)
+  if reduce:
+    dist.all_reduce(total, group=pg)
+    dist.all_reduce(cnt, group=pg)
+  return total / cnt.clamp(min=1.0)[:, None]
+
+
+def sharded_segment_mean_scattered(
+    msgs: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+    num_segments: int, group: Union[Mesh, 'dist.ProcessGroup', None] = None
+) -> torch.Tensor:
+  """:func:`sharded_segment_mean` whose result stays sharded: rank ``i``
+  gets only its block of segments ``[i * S / P, (i + 1) * S / P)``, the
+  sums and counts reduced and scattered in one ``reduce_scatter`` each, so
+  a rank holds and receives ``1 / P`` of the output.
+
+  Raises ValueError unless ``num_segments`` divides by the group size.
+  Returns ``[num_segments / P, D]``."""
+  pg, world, reduce = _group_of(group)
+  if num_segments % world:
+    raise ValueError(f'num_segments ({num_segments}) must divide by the '
+                     f'group size ({world}) for the scattered layout')
+  total, cnt = _local_segment_sums(msgs, targets, mask, num_segments)
+  if reduce:
+    per = num_segments // world
+    blk = torch.empty((per,) + tuple(total.shape[1:]), dtype=total.dtype,
+                      device=total.device)
+    dist.reduce_scatter(blk, list(total.contiguous().split(per)), group=pg)
+    cblk = torch.empty(per, dtype=cnt.dtype, device=cnt.device)
+    dist.reduce_scatter(cblk, list(cnt.split(per)), group=pg)
+    total, cnt = blk, cblk
+  return total / cnt.clamp(min=1.0)[:, None]

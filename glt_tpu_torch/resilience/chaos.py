@@ -184,7 +184,9 @@ class ChaosTcpProxy:
     while not self._stop.is_set():
       try:
         client, _ = self._sock.accept()
-      except OSError:
+      # the proxy severs its own sockets on purpose: an OSError here is
+      # the injected fault, not a failure to surface
+      except OSError:  # gltlint: disable=GLT006
         return
       try:
         server = socket.create_connection(self.upstream, timeout=10)
@@ -241,14 +243,17 @@ class ChaosTcpProxy:
             dst.sendall(hdr + payload[:max(n // 2, 1)])
             break
           dst.sendall(hdr + payload)
-        except OSError:
+        # the injected fault severs this socket on purpose
+        except OSError:  # gltlint: disable=GLT006
           break
     finally:
       closed.set()
+      # the proxy severs its own sockets on purpose: closing one the
+      # fault already closed raises nothing worth surfacing
       for s in (src, dst):
         try:
           s.close()
-        except OSError:
+        except OSError:  # gltlint: disable=GLT006
           pass
 
   def close(self) -> None:

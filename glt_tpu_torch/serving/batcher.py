@@ -339,7 +339,7 @@ class MicroBatcher:
           get_recorder().trip(
               'engine_stall', stall_timeout_s=self.stall_timeout,
               victims=len(victims), error=str(err))
-        except Exception:
+        except Exception:  # gltlint: disable=GLT006
           pass  # the recorder itself failed; nothing left to record to
 
   def _dispatch(self, batch: List[_Request]) -> None:

@@ -118,6 +118,9 @@ class InferenceEngine:
     self._snapshot_version = 0
     self._out_dim: Optional[int] = None
     self._lock = threading.Lock()
+    #: guards bucket_runs alone and is never held across device work, so
+    #: a stats read neither tears nor waits on a request in flight
+    self._stats_lock = threading.Lock()
 
   def warmup(self) -> None:
     """Run every bucket once on distinct dummy seeds (builds the kernels
@@ -130,22 +133,24 @@ class InferenceEngine:
       for b in self.buckets:
         seeds = np.unique(np.arange(b) % n)
         self._run_bucket(seeds, seeds.size, b)
-      self.bucket_runs = {b: 0 for b in self.buckets}
+      with self._stats_lock:
+        self.bucket_runs = {b: 0 for b in self.buckets}
 
   def run_stats(self) -> dict:
     """Execution counters (the port's stand-in for the JAX engine's
     ``compile_stats``, which counts traces: the port traces nothing).
-    Lock-free, as JAX's: ``infer`` holds the engine lock across the
-    device work, and a stats scrape must not hang on a wedged request.
-    The counters are GIL-atomic ints; a read racing an increment is off
-    by at most one."""
-    runs = dict(self.bucket_runs)
+    Read under the counters' own lock, not the engine lock: ``infer``
+    holds that across the device work, and a stats scrape must not hang
+    on a wedged request."""
+    with self._stats_lock:
+      runs = dict(self.bucket_runs)
     return {'forward_calls': sum(runs.values()), 'bucket_runs': runs}
 
   @property
   def forward_calls(self) -> int:
     """Executed bucket runs since the warm-up (not cached answers)."""
-    return sum(self.bucket_runs.values())
+    with self._stats_lock:
+      return sum(self.bucket_runs.values())
 
   @property
   def output_dim(self) -> Optional[int]:
@@ -226,7 +231,8 @@ class InferenceEngine:
       with _stage(tracer, 'serve.forward', bucket=bucket):
         emb = self.model(batch)
         rows = emb[:n_valid].cpu().numpy()
-    self.bucket_runs[bucket] = self.bucket_runs.get(bucket, 0) + 1
+    with self._stats_lock:
+      self.bucket_runs[bucket] = self.bucket_runs.get(bucket, 0) + 1
     if self._out_dim is None:
       self._out_dim = int(rows.shape[1])
     return rows

@@ -213,7 +213,10 @@ class SnapshotManager:
   # -- RCU read path -----------------------------------------------------
 
   def current(self) -> Snapshot:
-    return self._current
+    # RCU: a swap is one reference assignment under the lock, a reader one
+    # GIL-atomic reference load; readers that pin use acquire(), which
+    # locks
+    return self._current  # gltlint: disable=GLT002
 
   def acquire(self) -> Snapshot:
     with self._lock:
@@ -259,8 +262,11 @@ class SnapshotManager:
     argument between delta refreshes)."""
     if self._empty_overlay is None:
       zero = np.zeros(0, np.int64)
+      # an RCU reference load (as in current()): the empty overlay depends
+      # only on the row and column counts, which swaps keep
+      cur = self._current  # gltlint: disable=GLT002
       self._empty_overlay = self._overlay(EdgeDeltaCut(zero, zero, zero, zero),
-                                          self._current.topo)
+                                          cur.topo)
     return self._empty_overlay
 
   def build_overlay(self, buffer: EdgeDeltaBuffer) -> dict:
@@ -272,8 +278,8 @@ class SnapshotManager:
       raise ValueError(f'buffer capacity {buffer.capacity} exceeds the '
                        f'overlay capacity {self.delta_capacity}')
     # one reference load: the key's version and the geometry come from the
-    # same snapshot even if compact() swaps mid-call
-    cur = self._current
+    # same snapshot even if compact() swaps mid-call (GLT002)
+    cur = self._current  # gltlint: disable=GLT002
     key = (id(buffer), buffer.mutation_seq, cur.version)
     if self._overlay_cache is not None and self._overlay_cache[0] == key:
       return self._overlay_cache[1]

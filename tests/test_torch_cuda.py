@@ -2007,3 +2007,127 @@ def test_igbh_example_multihost_two_ranks_on_two_cards(dev, tmp_path):
                              timeout=600)
   worker.check_own_blocks(res, data, part)
   assert res[0]['losses'] == res[1]['losses']
+
+
+# -- the link loader's options and the sharded segment means -------------------
+
+def test_weighted_link_batch_matches_plain(dev, monkeypatch):
+  """LinkNeighborLoader(with_weight=True, with_edge=True): one batch of
+  256 positives and 256 binary negatives through B3, B2 and K3 equal to
+  their plain versions on the same proposals and uniforms, edge ids
+  included (-1 on masked lanes)."""
+  from glt_tpu_torch.loader import LinkNeighborLoader
+  from glt_tpu_torch.ops.negative import negative_proposals
+  n, e = 6000, 90_000
+  g = torch.Generator(device=dev).manual_seed(43)
+  ei = torch.stack([torch.randint(0, n, (e,), generator=g, device=dev),
+                    torch.randint(0, n, (e,), generator=g, device=dev)])
+  w = 1.0 - torch.rand(e, generator=g, device=dev)
+  ds = Dataset().init_graph(ei, edge_weights=w, num_nodes=n, device=dev)
+  ds.init_node_features(torch.randn((n, 100), generator=g, device=dev),
+                        device=dev)
+  loader = LinkNeighborLoader(ds, [6, 4, 3], batch_size=256, shuffle=True,
+                              neg_sampling=('binary', 1), with_weight=True,
+                              with_edge=True, device=dev, seed=0)
+  sampler = loader.sampler
+  assert sampler._per_hop and sampler._weighted
+  props = negative_proposals(sampler.generator, 256, 5, n, n, dev)
+  u = sampler.hop_uniforms(1024)
+  real = sampler.sample_from_edges
+  sampler.sample_from_edges = lambda inputs: real(inputs, proposals=props,
+                                                  uniforms=u)
+  pos = np.arange(0, 256 * 7, 7)
+  K.reset_launch_counts()
+  got = loader._make_batch(pos, 256)
+  assert (K.gather_windows.launches, K.sample_hop.launches,
+          K.gather_rows.launches, K.sample_walk_dedup.launches) == (3, 3, 1,
+                                                                    0)
+  for name in ('sample_hop', 'gather_windows', 'gather_rows'):
+    monkeypatch.setattr(K, name, getattr(K, name + '_plain'))
+  want = loader._make_batch(pos, 256)
+  for f in ('node', 'node_count', 'row', 'col', 'edge_mask', 'edge', 'x'):
+    assert torch.equal(getattr(got, f), getattr(want, f)), f
+  for f in ('edge_label_index', 'edge_label', 'seed_labels'):
+    assert torch.equal(got.metadata[f], want.metadata[f]), f
+  m = got.edge_mask.bool()
+  assert bool(m.any()) and bool((got.edge[~m] == -1).all())
+  # a valid lane's edge id is an edge between the lane's endpoints
+  node = got.node.long()
+  eids = got.edge[m].long()
+  assert torch.equal(ei[0, eids], node[got.col[m].long()])
+  assert torch.equal(ei[1, eids], node[got.row[m].long()])
+
+
+def _segment_inputs(rank, dev, rows=50_000, dim=32, segments=1000):
+  g = torch.Generator(device=dev).manual_seed(100 + rank)
+  msgs = torch.randn((rows, dim), generator=g, device=dev)
+  targets = torch.randint(0, segments, (rows,), generator=g, device=dev,
+                          dtype=torch.int32)
+  mask = torch.rand(rows, generator=g, device=dev) < 0.9
+  return msgs, targets, mask
+
+
+def segment_mean_rank(rank, world, store, out):
+  """A spawned NCCL rank on card ``rank``: both sharded means of its own
+  rows, pickled to ``out % rank``."""
+  import pickle
+  import torch.distributed as dist
+  from glt_tpu_torch.parallel import (make_mesh, sharded_segment_mean,
+                                      sharded_segment_mean_scattered)
+  torch.cuda.set_device(rank)
+  dev = torch.device('cuda', rank)
+  dist.init_process_group('nccl', init_method=f'file://{store}', rank=rank,
+                          world_size=world)
+  try:
+    args = _segment_inputs(rank, dev)
+    mesh = make_mesh(device=dev)
+    res = {'full': sharded_segment_mean(*args, 1000, mesh).cpu(),
+           'scattered': sharded_segment_mean_scattered(*args, 1000,
+                                                       mesh).cpu()}
+    try:
+      sharded_segment_mean_scattered(*args, 1001, mesh)
+    except ValueError as e:
+      res['error'] = str(e)
+    with open(out % rank, 'wb') as f:
+      pickle.dump(res, f)
+  finally:
+    dist.destroy_process_group()
+
+
+def test_two_ranks_over_nccl_segment_means(dev, tmp_path):
+  """sharded_segment_mean and sharded_segment_mean_scattered over two
+  NCCL ranks, each holding its own message rows: every rank's mean and
+  each rank's block of the scattered one within 1e-6 of one index_add_
+  mean over both ranks' rows."""
+  if torch.cuda.device_count() < 2:
+    pytest.skip('needs two cards')
+  import pickle
+  ctx = torch.multiprocessing.get_context('spawn')
+  out = str(tmp_path / 'rank%d.pkl')
+  procs = [ctx.Process(target=segment_mean_rank,
+                       args=(r, 2, str(tmp_path / 'store'), out))
+           for r in range(2)]
+  for p in procs:
+    p.start()
+  for p in procs:
+    p.join(300)
+  hung = [p for p in procs if p.is_alive()]
+  for p in hung:
+    p.kill()
+  assert not hung and all(p.exitcode == 0 for p in procs)
+  res = []
+  for r in range(2):
+    with open(out % r, 'rb') as f:
+      res.append(pickle.load(f))
+  msgs, targets, mask = (torch.cat(x) for x in zip(
+      *(_segment_inputs(r, dev) for r in range(2))))
+  seg = targets.long()[mask]
+  ref = torch.zeros((1000, 32), device=dev).index_add_(0, seg, msgs[mask])
+  cnt = torch.zeros(1000, device=dev).index_add_(
+      0, seg, torch.ones_like(seg, dtype=torch.float32))
+  ref = (ref / cnt.clamp(min=1.0)[:, None]).cpu()
+  for r, got in enumerate(res):
+    torch.testing.assert_close(got['full'], ref, rtol=0, atol=1e-6)
+    torch.testing.assert_close(got['scattered'],
+                               ref[r * 500:(r + 1) * 500], rtol=0, atol=1e-6)
+    assert 'must divide by the group size (2)' in got['error']
