@@ -264,7 +264,11 @@ points through their main functions, and checks what comes out:
 - the compile probe's ladder (glt_tpu_torch.benchmarks.probe_compile:
   seven rungs, five kernels of csrc/probes.cu, gather_windows and the
   shared-memory gather of csrc/take2d.cu), its kernels first held against
-  their plain versions and timed beside their library calls;
+  their plain versions and timed beside their library calls; the
+  redesigned take2d and row copy also at their edge shapes (probe_edge_
+  checks), in turns with their library calls, their bound shares against
+  the data sheet and the stream rate measured in the same call, the row
+  copy also at 153,600 rows of 512 B beside index_select and K3;
 - the gather microbench (glt_tpu_torch.benchmarks.microbench_gather) at
   its published sizes: torch.take, index_select and gather_rows,
   gather_windows, and the shared-memory gather.
@@ -1117,20 +1121,88 @@ def guard_cost(torch, np, K):
   return med
 
 
-def probe_checks(torch, np, P, dev, seed, rows, host_us):
+#: the redesigned probe gathers' edge shapes: take2d's table words and
+#: index counts, the row copy's row bytes and row counts
+TAKE_EDGES = ((1, 4_097, 8_192), (1, 3, 30_720, 768_001))
+ROW_EDGES = ((16, 512, 16_384), (1, 16, 153_600))
+#: the row copy at the microbench's row shape: 153,600 rows of a
+#: [1,000,000, 128] float32 table
+WIDE_ROWS, WIDE_TABLE = 153_600, (1_000_000, 128)
+
+
+def probe_edge_checks(torch, P, dev, gen):
+  """take2d (vt and vmem_take) and the row copy (prefetch_grid) bit-equal
+  to their plain versions and library calls at their edge shapes: a
+  one-word table, a tail word, the largest table; one index, a ragged
+  count, the rung's 30,720 and a ragged 768,001, idx and out one element
+  past a 16-byte boundary (the element loop); rows of 16 B, 512 B and
+  16 KB at 1, 16 and 153,600 rows, clipped at both ends."""
+  checked = 0
+  for n in TAKE_EDGES[0]:
+    tab = torch.randint(-(1 << 30), 1 << 30, (n,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    for m in TAKE_EDGES[1]:
+      idx = torch.randint(-n - 5, 2 * n + 5, (m + 1,), generator=gen,
+                          device=dev, dtype=torch.int32)
+      want = P.vmem_take_plain(tab, idx)
+      if not torch.equal(want, torch.take(tab, idx.long().clamp(0, n - 1))):
+        raise AssertionError(f'take2d n={n} m={m}: plain differs from take')
+      out = torch.full((m + 1,), 7, dtype=torch.int32, device=dev)
+      P._check(P.glt_take2d(tab.data_ptr(), n, idx.data_ptr(), m,
+                            out[1:].data_ptr(), None, *P._where(dev)),
+               'take2d')
+      for fn in (P.vmem_take, P.vt):
+        if not (torch.equal(fn(tab, idx[:m]), want[:m])
+                and torch.equal(fn(tab, idx[1:]), want[1:])
+                and torch.equal(out[1:], want[:m])):
+          raise AssertionError(f'{fn.__name__} n={n} m={m} differs')
+      checked += 1
+  for row_bytes in ROW_EDGES[0]:
+    tab = torch.randn((300, row_bytes // 4), generator=gen, device=dev)
+    for b in ROW_EDGES[1]:
+      rows = torch.randint(-3, 303, (b,), generator=gen, device=dev,
+                           dtype=torch.int32)
+      rows[0], rows[-1] = -1, 300
+      got = P.prefetch_grid(tab, rows)
+      if not (torch.equal(got, P.prefetch_grid_plain(tab, rows))
+              and torch.equal(got, torch.index_select(
+                  tab, 0, rows.long().clamp(0, 299)))):
+        raise AssertionError(f'prefetch_grid {row_bytes} B x {b} differs')
+      checked += 1
+  print(f'probe edge shapes: take2d at tables of {TAKE_EDGES[0]} words x '
+        f'{TAKE_EDGES[1]} indices (aligned and one element off), the row '
+        f'copy at rows of {ROW_EDGES[0]} B x {ROW_EDGES[1]}: {checked} '
+        'shapes equal to plain and to torch.take or index_select')
+
+
+def probe_checks(torch, np, K, P, dev, seed, rows, host_us):
   """Each kernel of the probe ladder and the microbench held bit-equal to
   its plain version at the TPU rungs' shapes (vmem_take also at the
   microbench's [200, 3840]) and timed beside its library call, where one
   PyTorch call computes the same function, its byte bound and its host
-  enqueue time."""
+  enqueue time. The redesigned take2d (vt, vmem_take) and row copy
+  (prefetch_grid) are also held at their edge shapes, timed in turns with
+  their library calls (medians of ROUNDS rounds), and their bound shares
+  taken against the data sheet's 3.35 TB/s and against the stream rate
+  measured in this call; the row copy also at 153,600 rows of 512 B, in
+  turns with index_select and K3 gather_rows."""
   from glt_tpu_torch.benchmarks import probe_compile
+  from glt_tpu_torch.obs.perf import measure_hbm_bandwidth
   t = {k: torch.as_tensor(v, device=dev)
        for k, v in probe_compile.draw_inputs(seed).items()}
   gen = torch.Generator(device=dev).manual_seed(seed + 10)
   big_idx = torch.randint(0, 8192, (200, 3840), generator=gen, device=dev,
                           dtype=torch.int32)
+  probe_edge_checks(torch, P, dev, gen)
+  rate = measure_hbm_bandwidth(dev)
+  print(f'measured stream rate {rate / 1e12:.4f} TB/s '
+        f'({rate / HBM_BYTES_PER_S * 100:.1f}% of the data sheet\'s)')
   x, s, big, st = t['x'], t['s'], t['big'], t['st']
   idx_long = (t['idx'].long(), big_idx.long())   # torch.take's index type
+  wide = torch.randn(WIDE_TABLE, generator=gen, device=dev)
+  wide_rows = torch.randint(0, WIDE_TABLE[0], (WIDE_ROWS,), generator=gen,
+                            device=dev, dtype=torch.int32)
+  wide_distinct = int(torch.unique(wide_rows).numel())
   # name: (wrapper, arguments, library call or None, bytes moved)
   cases = {
       'vmem_id': ('vmem_id', (x,), lambda: x.clone(), 2 * x.numel() * 4),
@@ -1148,7 +1220,14 @@ def probe_checks(torch, np, P, dev, seed, rows, host_us):
       'vmem_take': ('vmem_take', (t['tab2d'], big_idx),
                     lambda: torch.take(t['tab2d'], idx_long[1]),
                     8 * big_idx.numel() + 4 * t['tab2d'].numel()),
+      # the row copy where its design matters; its bound reads each
+      # distinct row once, as K3's does
+      f'prefetch_grid {WIDE_ROWS:,} x 512 B': (
+          'prefetch_grid', (wide, wide_rows),
+          lambda: torch.index_select(wide, 0, wide_rows),
+          (wide_distinct + WIDE_ROWS) * 512 + 4 * WIDE_ROWS),
   }
+  redesigned = ('prefetch_grid', 'vt', 'vmem_take')
   for name, (fn, args, lib, nbytes) in cases.items():
     kernel, plain = getattr(P, fn), getattr(P, fn + '_plain')
     got, want = kernel(*args), plain(*args)
@@ -1156,29 +1235,66 @@ def probe_checks(torch, np, P, dev, seed, rows, host_us):
       raise AssertionError(f'{name} differs from its plain version')
     if lib is not None and not torch.equal(got, lib()):
       raise AssertionError(f'{name} differs from its library call')
-    ms = cuda_ms(torch, lambda i=0: kernel(*args), 200)
-    plain_ms = cuda_ms(torch, lambda i=0: plain(*args), 200)
-    lib_ms = cuda_ms(torch, lambda i=0: lib(), 200) if lib else None
     fns = {'kernel': lambda: kernel(*args)}
     if lib:
       fns['library'] = lib
+    wide_case = name.startswith('prefetch_grid ')
+    if wide_case:
+      fns['gather_rows'] = lambda: K.gather_rows(wide, wide_rows)
+    if fn in redesigned:
+      per_round = in_turns_ms(torch, np, fns, iters=200, abba=True)
+      ms, lib_ms = (float(np.median(per_round.get(k, [np.nan])))
+                    for k in ('kernel', 'library'))
+    else:
+      ms = cuda_ms(torch, lambda i=0: kernel(*args), 200)
+      lib_ms = cuda_ms(torch, lambda i=0: lib(), 200) if lib else None
+    plain_ms = cuda_ms(torch, lambda i=0: plain(*args),
+                       20 if wide_case else 200)
     host = host_us(fns)
-    dev_ms = {n: graph_ms(torch, f) for n, f in fns.items()}
+    dev_ms = {n: graph_ms(torch, f, calls=20 if wide_case else 50)
+              for n, f in fns.items()}
     bound = bytes_ms(nbytes)
-    rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                      bound_ms=bound, err=float(
-                          (got.double() - want.double()).abs().max()),
-                      host_us=host['kernel'], graph_ms=dev_ms['kernel'],
-                      library_graph_ms=dev_ms.get('library'))
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+               err=float((got.double() - want.double()).abs().max()),
+               host_us=host['kernel'], graph_ms=dev_ms['kernel'],
+               library_graph_ms=dev_ms.get('library'),
+               library_host_us=host.get('library'))
     shapes = [tuple(a.shape) if hasattr(a, 'shape') else a for a in args]
-    print(f'{name} {shapes}: equal to plain'
-          f'{" and its library call" if lib else ""}; {ms:.4f} ms a launch '
-          f'back to back (plain {plain_ms:.4f}, library '
-          f'{"none" if lib is None else f"{lib_ms:.4f}"}, bound {bound:.3e} '
-          f'ms); in a CUDA graph {dev_ms["kernel"]:.4f} ms'
-          + (f' (library {dev_ms["library"]:.4f})' if lib else '')
-          + f'; host enqueue {host["kernel"]:.2f} us a call'
-          + (f' (library {host["library"]:.2f} us)' if lib else ''))
+    line = (f'{name} {shapes}: equal to plain'
+            f'{" and its library call" if lib else ""}; {ms:.4f} ms a launch '
+            f'back to back (plain {plain_ms:.4f}, library '
+            f'{"none" if lib is None else f"{lib_ms:.4f}"}, bound {bound:.3e} '
+            f'ms); in a CUDA graph {dev_ms["kernel"]:.4f} ms'
+            + (f' (library {dev_ms["library"]:.4f})' if lib else '')
+            + f'; host enqueue {host["kernel"]:.2f} us a call'
+            + (f' (library {host["library"]:.2f} us)' if lib else ''))
+    if fn in redesigned:
+      row.update(bound_share=bound / dev_ms['kernel'],
+                 ceiling_share=nbytes / rate * 1e3 / dev_ms['kernel'],
+                 ratios=list(per_round['kernel'] / per_round['library']))
+      line += (f'; in turns, medians of {ROUNDS}; in a graph '
+               f'{row["bound_share"] * 100:.1f}% of its bound at 3.35 TB/s, '
+               f'{row["ceiling_share"] * 100:.1f}% at the measured '
+               f'{rate / 1e12:.4f} TB/s')
+    if wide_case:
+      k3_ms = float(np.median(per_round['gather_rows']))
+      row.update(rows=WIDE_ROWS, distinct=wide_distinct, k3_ms=k3_ms,
+                 k3_graph_ms=dev_ms['gather_rows'],
+                 k3_host_us=host['gather_rows'])
+      line += (f'; K3 gather_rows {k3_ms:.4f} ms, graph '
+               f'{dev_ms["gather_rows"]:.4f} ms, host '
+               f'{host["gather_rows"]:.2f} us ({ms / k3_ms:.3f}x K3 back to '
+               f'back, {dev_ms["kernel"] / dev_ms["gather_rows"]:.3f}x in a '
+               f'graph); {wide_distinct} distinct rows')
+      rows['prefetch_grid']['shapes'] = {name: row}
+    else:
+      rows[name] = row
+    print(line)
+    if fn in redesigned:
+      verdict(name, ms, lib_ms,
+              label='torch.take' if fn != 'prefetch_grid' else 'index_select',
+              ratios=row['ratios'])
+    del got, want
 
 
 def igbh_edges(torch, counts, gen, dev):
@@ -8078,7 +8194,7 @@ def main() -> int:
     guard_cost(torch, np, K)
 
   with Phase('probe kernel checks'):
-    probe_checks(torch, np, P, dev, opts.seed, rows, host_us)
+    probe_checks(torch, np, K, P, dev, opts.seed, rows, host_us)
 
   def launches():
     return {fn.__name__: fn.launches for fn in K.KERNELS + P.KERNELS}

@@ -1,6 +1,6 @@
 // The host side every kernel source shares: its Python entry points and
-// a launch through cuLaunchKernel, or a cooperative one through
-// cuLaunchKernelEx (libcuda).
+// a launch through cuLaunchKernel, or a cooperative or clustered one
+// through cuLaunchKernelEx (libcuda).
 //
 // Each csrc/<name>.cu builds into a Python extension module _glt_<name>
 // (Python's C API only, no PyTorch headers: a build takes seconds) whose
@@ -88,7 +88,8 @@ template <typename... A, int (*Fn)(A...)> struct Entry<Fn> {
 
 // One launch of a __global__ function through cuLaunchKernel on
 // `device`, the card of the caller's tensors. Every entry point of csrc/
-// launches this way (or through CoopLaunch below) and returns the
+// launches this way (or through CoopLaunch or ClusterLaunch below) and
+// returns the
 // CUresult, 0 when the launch was enqueued (a refused configuration shows
 // here, with no cudaGetLastError to call).
 // A CUfunction belongs to one device's context, so the handle is looked
@@ -121,6 +122,15 @@ struct DeviceGuard {
     if (switched) cudaSetDevice(current);
   }
 };
+
+// `device`'s SM count, read once per device (0 <= device < kMaxDevices).
+inline int sm_count(int device) {
+  static int counts[kMaxDevices];
+  if (!counts[device])
+    cudaDeviceGetAttribute(&counts[device], cudaDevAttrMultiProcessorCount,
+                           device);
+  return counts[device] > 0 ? counts[device] : 1;
+}
 
 // The kernel's handle in `device`'s context (current), null if missing.
 template <auto Kernel> CUfunction kernel_handle(int device) {
@@ -200,6 +210,74 @@ struct CoopLaunch<Kernel, Threads> {
     cfg.hStream = static_cast<CUstream>(stream);
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
+    void* params[] = {&args...};
+    return static_cast<int>(cuLaunchKernelEx(&cfg, fn, params, nullptr));
+  }
+};
+
+// A launch of `Kernel` in blocks of `Threads` threads grouped into
+// thread-block clusters of `cluster` blocks along x (cuLaunchKernelEx with
+// CU_LAUNCH_ATTRIBUTE_CLUSTER_DIMENSION; `grid` a multiple of `cluster`,
+// which is at most 8), so the kernel may multicast bulk copies to the
+// blocks of its cluster. The device guard and the handle cache are
+// Launch's.
+//
+// clusters(device, cluster) is the most clusters of that size that can
+// be resident together on `device` (cuOccupancyMaxActiveClusters, cached
+// per device and size), or a negative CUresult: a grid of at most that
+// many clusters runs in one wave.
+template <auto Kernel, int Threads> struct ClusterLaunch;
+template <typename... P, void (*Kernel)(P...), int Threads>
+struct ClusterLaunch<Kernel, Threads> {
+  static constexpr int kMaxCluster = 8;
+
+  static CUlaunchConfig config(CUlaunchAttribute* attr, int grid,
+                               int cluster, void* stream) {
+    attr->id = CU_LAUNCH_ATTRIBUTE_CLUSTER_DIMENSION;
+    attr->value.clusterDim.x = static_cast<unsigned>(cluster);
+    attr->value.clusterDim.y = attr->value.clusterDim.z = 1;
+    CUlaunchConfig cfg = {};
+    cfg.gridDimX = static_cast<unsigned>(grid);
+    cfg.gridDimY = cfg.gridDimZ = 1;
+    cfg.blockDimX = Threads;
+    cfg.blockDimY = cfg.blockDimZ = 1;
+    cfg.hStream = static_cast<CUstream>(stream);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
+  }
+
+  static int clusters(int device, int cluster) {
+    static std::atomic<int> cached[kMaxDevices][kMaxCluster + 1];
+    if (device < 0 || device >= kMaxDevices)
+      return -CUDA_ERROR_INVALID_DEVICE;
+    if (cluster < 1 || cluster > kMaxCluster)
+      return -CUDA_ERROR_INVALID_VALUE;
+    int n = cached[device][cluster].load(std::memory_order_relaxed);
+    if (n > 0) return n;
+    DeviceGuard guard(device);
+    if (guard.err != CUDA_SUCCESS) return -guard.err;
+    CUfunction fn = kernel_handle<Kernel>(device);
+    if (!fn) return -CUDA_ERROR_NOT_FOUND;
+    CUlaunchAttribute attr;
+    const CUlaunchConfig cfg = config(&attr, cluster, cluster, nullptr);
+    int err = cuOccupancyMaxActiveClusters(&n, fn, &cfg);
+    if (err != CUDA_SUCCESS) return -err;
+    if (n <= 0) return -CUDA_ERROR_INVALID_VALUE;
+    cached[device][cluster].store(n, std::memory_order_relaxed);
+    return n;
+  }
+
+  static int run(int grid, int cluster, int device, void* stream,
+                 P... args) {
+    if (cluster < 1 || cluster > kMaxCluster || grid % cluster)
+      return CUDA_ERROR_INVALID_VALUE;
+    DeviceGuard guard(device);
+    if (guard.err != CUDA_SUCCESS) return guard.err;
+    CUfunction fn = kernel_handle<Kernel>(device);
+    if (!fn) return CUDA_ERROR_NOT_FOUND;
+    CUlaunchAttribute attr;
+    const CUlaunchConfig cfg = config(&attr, grid, cluster, stream);
     void* params[] = {&args...};
     return static_cast<int>(cuLaunchKernelEx(&cfg, fn, params, nullptr));
   }

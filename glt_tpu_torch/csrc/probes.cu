@@ -18,13 +18,16 @@
 //                                       -> window_kernel<true>: the start
 //                 read from device memory, the same bulk copy;
 //   prefetch_grid (:125, :138)  a row gather steered by scalar-prefetched
-//                 indices               -> row_copy_kernel: one block per
-//                 output row reads its index and bulk-copies that row
-//                 through shared memory.
+//                 indices               -> row_copy_kernel: a warp per
+//                 group of rows, the rows moved as 16-byte vectors.
 //
 // Bound on this card: every rung moves at most 64 KB, a few hundredths
 // of a microsecond of the 3.35 TB/s, so each is bound by the launch and
 // the latency of one dependent read chain, not by bytes or arithmetic.
+// The row copy is also a row gather of any size, bound by bytes there:
+// 153,600 random rows of 512 B from a 512 MB table read about 142,000
+// distinct rows (73 MB), write 79 MB and read 0.6 MB of indices, about
+// 152 MB: 45.4 us of the 3.35 TB/s.
 // Design notes:
 // - A bulk copy moves whole 16-byte units between 16-byte-aligned
 //   addresses. The window kernel copies the 16-byte-aligned cover of
@@ -35,8 +38,19 @@
 //   from the end and the start is then clamped to [0, n - w], as
 //   lax.dynamic_slice treats pl.ds in the TPU rung's interpret mode (a
 //   TPU DMA never leaves its array either).
-// - One thread arms the mbarrier and issues the copy; a __syncthreads
-//   publishes the barrier's init, and every thread waits on phase 0.
+// - In the window kernel one thread arms the mbarrier and issues the
+//   copy; a __syncthreads publishes the barrier's init, and every thread
+//   waits on phase 0.
+// - The row copy: a warp takes groups of up to 32 rows; lane j reads
+//   row j's index and clamps it, and the warp's lanes take the group's
+//   16-byte units in turn, each lane reading its row's index from lane j
+//   (__shfl_sync). A lane loads kUnitsInFlight units before it stores
+//   any, so several rows' reads are in flight at once, and the rows go
+//   straight from registers to the output. Up to one wave of warps share
+//   the rows evenly: a row a warp for the rung's 16 rows, 36-37 for
+//   153,600 rows. Rows go through registers, not by bulk copies into
+//   shared memory and bulk stores out: at 512-byte rows the card timed
+//   the vector copy faster (PERF.md §6).
 #include "entry.cuh"
 #include <cstdint>
 
@@ -45,6 +59,9 @@ namespace {
 constexpr int kStageThreads = 256;   // one 16-byte unit a thread
 constexpr int kMaxWindow = 1024;     // words a window copy holds
 constexpr int kMaxRowBytes = 16384;  // bytes a row copy holds
+constexpr int kRowWarps = 8;         // warps a row-copy block
+constexpr int kRowBlocksPerSm = 4;   // row-copy blocks an SM holds
+constexpr int kUnitsInFlight = 8;    // 16-byte units a lane loads at once
 
 __device__ __forceinline__ uint32_t smem(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -128,24 +145,45 @@ __global__ void window_kernel(const int* __restrict__ big, int n, int start,
   for (int j = threadIdx.x; j < w; j += blockDim.x) out[j] = buf[shift + j];
 }
 
-__global__ void row_copy_kernel(const unsigned char* __restrict__ table,
-                                int64_t n, int row_bytes,
-                                const int* __restrict__ rows,
-                                unsigned char* __restrict__ out) {
-  __shared__ __align__(16) unsigned char buf[kMaxRowBytes];
-  __shared__ __align__(8) uint64_t bar;
-  if (threadIdx.x == 0) {
-    int64_t r = rows[blockIdx.x];
-    r = r < 0 ? 0 : (r >= n ? n - 1 : r);
-    bulk_copy_armed(buf, table + r * row_bytes,
-                    static_cast<uint32_t>(row_bytes), &bar);
+__global__ void __launch_bounds__(32 * kRowWarps, kRowBlocksPerSm)
+row_copy_kernel(const uint4* __restrict__ table, int64_t n, int row_units,
+                const int* __restrict__ rows, int share, int extra,
+                uint4* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int warp = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  // this warp's rows, in groups of up to 32: share of them, one more for
+  // the first `extra` warps (no 64-bit division on the card)
+  const int64_t begin = static_cast<int64_t>(warp) * share
+                        + (warp < extra ? warp : extra);
+  const int64_t end = begin + share + (warp < extra);
+  for (int64_t g0 = begin; g0 < end; g0 += 32) {
+    const int here = end - g0 < 32 ? static_cast<int>(end - g0) : 32;
+    int64_t r = 0;   // lane j: row j of the group, clamped
+    if (lane < here) {
+      r = __ldg(rows + g0 + lane);
+      r = r < 0 ? 0 : (r >= n ? n - 1 : r);
+    }
+    // the group's units f = j * row_units + u, also their places in out
+    const int total = here * row_units;
+    uint4* dst = out + g0 * row_units;
+    for (int f0 = 0; f0 < total; f0 += 32 * kUnitsInFlight) {
+      uint4 v[kUnitsInFlight];
+#pragma unroll
+      for (int k = 0; k < kUnitsInFlight; ++k) {
+        if (f0 + 32 * k >= total) break;   // the same for the whole warp
+        const int f = f0 + 32 * k + lane;
+        const int j = min(f / row_units, here - 1);
+        const int64_t rj = __shfl_sync(0xffffffffu, r, j);
+        if (f < total) v[k] = __ldg(table + rj * row_units + f - j * row_units);
+      }
+#pragma unroll
+      for (int k = 0; k < kUnitsInFlight; ++k) {
+        const int f = f0 + 32 * k + lane;
+        if (f0 + 32 * k >= total) break;
+        if (f < total) dst[f] = v[k];
+      }
+    }
   }
-  __syncthreads();
-  wait_phase0(&bar);
-  uint4* dst = reinterpret_cast<uint4*>(
-      out + static_cast<int64_t>(blockIdx.x) * row_bytes);
-  for (int u = threadIdx.x; u < row_bytes / 16; u += blockDim.x)
-    dst[u] = reinterpret_cast<const uint4*>(buf)[u];
 }
 
 }  // namespace
@@ -195,17 +233,24 @@ extern "C" int glt_probe_window(const void* big, int n, int start,
 }
 
 // out[b] = table[clamp(rows[b], 0, n - 1)], rows of row_bytes (a multiple
-// of 16, at most 16384), table 16-byte aligned.
+// of 16, at most 16384), table and out 16-byte aligned, b < 2^31.
 extern "C" int glt_probe_row_copy(const void* table, int64_t n, int row_bytes,
-                                  const void* rows, int b, void* out,
+                                  const void* rows, int64_t b, void* out,
                                   int device, void* stream) {
   if (b <= 0) return 0;
-  if (row_bytes <= 0 || row_bytes % 16 || row_bytes > kMaxRowBytes || n <= 0)
+  if (row_bytes <= 0 || row_bytes % 16 || row_bytes > kMaxRowBytes || n <= 0
+      || b > INT32_MAX || device < 0 || device >= glt::kMaxDevices)
     return CUDA_ERROR_INVALID_VALUE;
+  // a warp a row, up to one wave of warps, each an even share of the rows
+  const int64_t wave = static_cast<int64_t>(glt::sm_count(device))
+                       * kRowBlocksPerSm * kRowWarps;
+  const int64_t blocks = ((b < wave ? b : wave) - 1) / kRowWarps + 1;
+  const int64_t warps = blocks * kRowWarps;
   return glt::Launch<row_copy_kernel>::run(
-      dim3(b), dim3(32), device, stream,
-      static_cast<const unsigned char*>(table), n, row_bytes,
-      static_cast<const int*>(rows), static_cast<unsigned char*>(out));
+      dim3(static_cast<unsigned>(blocks)), dim3(32 * kRowWarps), device,
+      stream, static_cast<const uint4*>(table), n, row_bytes / 16,
+      static_cast<const int*>(rows), static_cast<int>(b / warps),
+      static_cast<int>(b % warps), static_cast<uint4*>(out));
 }
 
 GLT_MODULE(probes,

@@ -11,89 +11,199 @@
 //
 // Bound on this card: bytes. Each index is read once and each output
 // written once (8 B an element, 6.1 MB at 768,000 elements: 1.8 us of
-// the 3.35 TB/s); the table is 32 KB. At these sizes the launch and one
-// table load per block are most of the time.
-// Design: every block loads the whole table (at most 8192 words, 32 KB of
-// static shared memory, so no dynamic shared memory is needed) with
-// 16-byte loads, then walks the indices four at a time (16-byte loads and
-// stores) over a grid-stride loop, each output a shared-memory read. The
-// grid is at most two blocks an SM (1024 threads and 32 KB each), so a
-// table load serves as many indices as the card's 132 SMs allow, instead
-// of one (8, 3840) block of the TPU's grid per load. Indices or outputs
-// that are not 16-byte aligned take the element loop.
+// the 3.35 TB/s); the table is 32 KB. At these sizes the launch, the
+// table's arrival in every block and the first index read are most of
+// the time, and they are latencies.
+// Design:
+// - Each thread first issues the loads of up to kHeld of its index units
+//   (16 bytes each, or one element where idx or out is not 16-byte
+//   aligned), so the index reads are in flight while the table comes.
+// - The table arrives by TMA bulk copy on an mbarrier armed for all its
+//   bytes (expect_tx). Blocks run in thread-block clusters of up to
+//   kCluster: each block of a cluster copies its share of the table with
+//   one cp.async.bulk .multicast::cluster into the shared memory of every
+//   block of the cluster, so one L2 read of each byte feeds several SMs.
+//   Each block arms its own barrier, and a cluster barrier orders every
+//   block's arming before any copy can land in it. The table's last
+//   n % 4 words come by plain loads.
+// - The grid is at most one wave: one block an SM (1024 threads), rounded
+//   down to the cluster size and to the clusters that fit together. A
+//   thread walks its units grid-stride, so every table fill serves all
+//   the indices its block can take.
+// - On the H100 a clustered launch costs about 0.7 us more device time
+//   than a plain one, whatever the cluster size (1 included), which is
+//   more than the multicast saves at a 32 KB table (PERF.md §6).
 #include "entry.cuh"
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int kTableWords = 8192;
 constexpr int kThreads = 1024;
-constexpr int kBlocksPerSm = 2;
+constexpr int kHeld = 4;      // index units a thread loads before the table
+constexpr int kCluster = 4;   // blocks one multicast of the table feeds
+
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster; orders shared memory
+// writes and mbarrier inits before it against reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_phase0(uint64_t* bar) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem(bar)), "r"(0u) : "memory");
+  }
+}
+
+__device__ __forceinline__ int pick(const int* tab, int i, int hi) {
+  return tab[min(max(i, 0), hi)];
+}
+
+__device__ __forceinline__ int4 pick(const int* tab, int4 i, int hi) {
+  return make_int4(pick(tab, i.x, hi), pick(tab, i.y, hi),
+                   pick(tab, i.z, hi), pick(tab, i.w, hi));
+}
 
 template <bool kVector>
-__global__ void take2d_kernel(const int* __restrict__ table, int n,
-                              const int* __restrict__ idx, int64_t m,
-                              int* __restrict__ out) {
-  __shared__ __align__(16) int tab[kTableWords];
+__global__ void __launch_bounds__(kThreads, 1)
+take2d_kernel(const int* __restrict__ table, int n,
+              const int* __restrict__ idx, int64_t m, int* __restrict__ out,
+              int* __restrict__ cluster_seen) {
+  using Unit = typename std::conditional<kVector, int4, int>::type;
+  __shared__ __align__(128) int tab[kTableWords];
+  __shared__ __align__(8) uint64_t bar;
   const int n4 = n / 4;
-  for (int t = threadIdx.x; t < n4; t += kThreads)
-    reinterpret_cast<int4*>(tab)[t] =
-        __ldg(reinterpret_cast<const int4*>(table) + t);
-  for (int t = 4 * n4 + threadIdx.x; t < n; t += kThreads)
-    tab[t] = __ldg(table + t);
-  __syncthreads();
-  const int hi = n - 1;
+  const int64_t units = kVector ? m / 4 : m;
+  const Unit* in = reinterpret_cast<const Unit*>(idx);
+  Unit* dst = reinterpret_cast<Unit*>(out);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads
                         + threadIdx.x;
-  int64_t done = 0;
-  if (kVector) {
-    const int64_t m4 = m / 4;
-    for (int64_t q = first; q < m4; q += stride) {
-      const int4 i = __ldg(reinterpret_cast<const int4*>(idx) + q);
-      int4 o;
-      o.x = tab[min(max(i.x, 0), hi)];
-      o.y = tab[min(max(i.y, 0), hi)];
-      o.z = tab[min(max(i.z, 0), hi)];
-      o.w = tab[min(max(i.w, 0), hi)];
-      reinterpret_cast<int4*>(out)[q] = o;
-    }
-    done = 4 * m4;
+
+  // the first index units in flight while the table comes
+  Unit held[kHeld];
+#pragma unroll
+  for (int k = 0; k < kHeld; ++k) {
+    const int64_t q = first + k * stride;
+    if (q < units) held[k] = __ldg(in + q);
   }
-  for (int64_t e = done + first; e < m; e += stride)
-    out[e] = tab[min(max(__ldg(idx + e), 0), hi)];
+
+  // this block's barrier armed for the whole table's 16-byte units; the
+  // last n % 4 words by plain loads
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 ::"r"(smem(&bar)), "r"(1u) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 ::"r"(smem(&bar)), "r"(static_cast<uint32_t>(16 * n4))
+                 : "memory");
+  }
+  for (int t = 4 * n4 + threadIdx.x; t < n; t += kThreads)
+    tab[t] = __ldg(table + t);
+  cluster_sync();   // every barrier of the cluster armed before a copy
+
+  if (threadIdx.x == 0) {
+    const uint32_t size = cluster_size(), rank = cluster_rank();
+    const int lo = n4 * static_cast<int>(rank) / static_cast<int>(size);
+    const int hi = n4 * static_cast<int>(rank + 1) / static_cast<int>(size);
+    if (hi > lo) {
+      const uint32_t bytes = static_cast<uint32_t>(16 * (hi - lo));
+      if (size == 1) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes [%0], [%1], %2, [%3];"
+            ::"r"(smem(tab + 4 * lo)), "l"(table + 4 * lo), "r"(bytes),
+              "r"(smem(&bar)) : "memory");
+      } else {
+        const uint16_t mask = static_cast<uint16_t>((1u << size) - 1);
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes.multicast::cluster [%0], [%1], %2, [%3], %4;"
+            ::"r"(smem(tab + 4 * lo)), "l"(table + 4 * lo), "r"(bytes),
+              "r"(smem(&bar)), "h"(mask) : "memory");
+      }
+    }
+    if (cluster_seen != nullptr && blockIdx.x == 0)
+      *cluster_seen = static_cast<int>(size);
+  }
+  wait_phase0(&bar);
+
+  const int last = n - 1;
+#pragma unroll
+  for (int k = 0; k < kHeld; ++k) {
+    const int64_t q = first + k * stride;
+    if (q < units) dst[q] = pick(tab, held[k], last);
+  }
+  for (int64_t q = first + kHeld * stride; q < units; q += stride)
+    dst[q] = pick(tab, __ldg(in + q), last);
+  if (kVector) {   // the last m % 4 elements
+    const int64_t e = 4 * units + first;
+    if (e < m) out[e] = pick(tab, __ldg(idx + e), last);
+  }
 }
 
-int sm_count(int device) {
-  static int counts[glt::kMaxDevices];
-  if (!counts[device])
-    cudaDeviceGetAttribute(&counts[device], cudaDevAttrMultiProcessorCount,
-                           device);
-  return counts[device] > 0 ? counts[device] : 1;
+template <bool kVector>
+int launch(const int* t, int n, const int* i, int64_t m, int* o, int* seen,
+           int device, void* stream) {
+  using L = glt::ClusterLaunch<take2d_kernel<kVector>, kThreads>;
+  const int64_t units = kVector ? (m + 3) / 4 : m;
+  const int64_t want = (units - 1) / kThreads + 1;   // a unit a thread
+  int cluster = 1;
+  while (cluster < kCluster && 2 * cluster <= want) cluster *= 2;
+  const int fit = L::clusters(device, cluster);
+  if (fit < 0) return -fit;
+  int64_t cap = glt::sm_count(device) / cluster;
+  if (cap > fit) cap = fit;
+  if (cap < 1) cap = 1;
+  int64_t clusters = (want + cluster - 1) / cluster;
+  if (clusters > cap) clusters = cap;
+  return L::run(static_cast<int>(clusters * cluster), cluster, device,
+                stream, t, n, i, m, o, seen);
 }
 
 }  // namespace
 
 // Returns the launch's CUresult (entry.cuh), or CUDA_ERROR_INVALID_VALUE
 // for a table of more than 8192 words; table 16-byte aligned.
+// cluster_seen (NULL, or one int on the card) receives the cluster size
+// the card launched with, to check that the launch honoured it.
 extern "C" int glt_take2d(const void* table, int n, const void* idx,
-                          int64_t m, void* out, int device, void* stream) {
+                          int64_t m, void* out, void* cluster_seen,
+                          int device, void* stream) {
   if (m <= 0) return 0;
   if (n <= 0 || n > kTableWords || device < 0 || device >= glt::kMaxDevices)
     return CUDA_ERROR_INVALID_VALUE;
   const bool vector = reinterpret_cast<uintptr_t>(idx) % 16 == 0
                       && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int64_t units = vector ? (m + 3) / 4 : m;
-  const int64_t want = (units - 1) / kThreads + 1;
-  const int64_t cap = static_cast<int64_t>(kBlocksPerSm) * sm_count(device);
-  const dim3 grid(static_cast<unsigned>(want < cap ? want : cap));
   const auto* t = static_cast<const int*>(table);
   const auto* i = static_cast<const int*>(idx);
   auto* o = static_cast<int*>(out);
-  return vector ? glt::Launch<take2d_kernel<true>>::run(
-                      grid, dim3(kThreads), device, stream, t, n, i, m, o)
-                : glt::Launch<take2d_kernel<false>>::run(
-                      grid, dim3(kThreads), device, stream, t, n, i, m, o);
+  auto* seen = static_cast<int*>(cluster_seen);
+  return vector ? launch<true>(t, n, i, m, o, seen, device, stream)
+                : launch<false>(t, n, i, m, o, seen, device, stream);
 }
 
 GLT_MODULE(take2d,

@@ -29,7 +29,7 @@ from typing import Tuple
 import torch
 
 from .build import lazy_entry
-from .cuda_kernels import _check, _raw_stream, count_launch
+from .cuda_kernels import _check, _where, count_launch
 
 glt_probe_stage_copy = lazy_entry(globals(), 'glt_probe_stage_copy')
 glt_probe_scale = lazy_entry(globals(), 'glt_probe_scale')
@@ -43,19 +43,11 @@ MAX_WINDOW = 1024
 MAX_ROW_BYTES = 16384
 #: words of a shared-memory table (csrc/take2d.cu kTableWords)
 MAX_TABLE_WORDS = 8192
+_I32 = torch.int32
+_F32 = torch.float32
 
-
-def _need(ok: bool, what: str) -> None:
-  if not ok:
-    raise ValueError(what)
-
-
-def _aligned(*ts: torch.Tensor) -> bool:
-  return all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts)
-
-
-def _same_card(ref: torch.Tensor, *ts: torch.Tensor) -> bool:
-  return all(t.device == ref.device for t in ts)
+# Every wrapper's checks on the card are plain attribute reads, and its
+# message is formatted only when it raises (as in ops/cuda_kernels.py).
 
 
 # -- rung 1: vmem_id -----------------------------------------------------------
@@ -71,15 +63,15 @@ def vmem_id(x: torch.Tensor) -> torch.Tensor:
   number of 16-byte units."""
   if not x.is_cuda:
     return vmem_id_plain(x)
-  nbytes = x.numel() * x.element_size()
-  _need(_aligned(x) and nbytes % 16 == 0,
+  nbytes, ptr = x.numel() * x.element_size(), x.data_ptr()
+  if not (nbytes % 16 == 0 and ptr % 16 == 0 and x.is_contiguous()):
+    raise ValueError(
         f'vmem_id copies 16-byte units of an aligned contiguous tensor, got '
-        f'{nbytes} bytes at {x.data_ptr() % 16} past 16')
+        f'{nbytes} bytes at {ptr % 16} past 16')
   out = torch.empty_like(x)
   if nbytes:
-    dev = x.get_device()
-    _check(glt_probe_stage_copy(x.data_ptr(), out.data_ptr(), nbytes, dev,
-                                _raw_stream(dev)), 'vmem_id')
+    _check(glt_probe_stage_copy(ptr, out.data_ptr(), nbytes,
+                                *_where(x.device)), 'vmem_id')
     count_launch(vmem_id)
   return out
 
@@ -97,16 +89,17 @@ def smem_scalar(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
   16-byte aligned and of a multiple of 4 elements; ``s`` int32."""
   if not x.is_cuda:
     return smem_scalar_plain(x, s)
-  _need(x.dtype == torch.float32 and s.dtype == torch.int32
-        and s.numel() >= 1 and s.is_contiguous() and _aligned(x)
-        and x.numel() % 4 == 0 and _same_card(x, s),
+  dev, n, ptr = x.device, x.numel(), x.data_ptr()
+  if not (x.dtype is _F32 and s.dtype is _I32 and s.numel() >= 1
+          and s.is_contiguous() and ptr % 16 == 0 and x.is_contiguous()
+          and n % 4 == 0 and s.device == dev):
+    raise ValueError(
         f'smem_scalar takes an aligned float32 x of 4k elements and an int32 '
         f's on one card, got {x.dtype} {tuple(x.shape)}, {s.dtype}')
   out = torch.empty_like(x)
-  if x.numel():
-    dev = x.get_device()
-    _check(glt_probe_scale(x.data_ptr(), s.data_ptr(), out.data_ptr(),
-                           x.numel(), dev, _raw_stream(dev)), 'smem_scalar')
+  if n:
+    _check(glt_probe_scale(ptr, s.data_ptr(), out.data_ptr(), n,
+                           *_where(dev)), 'smem_scalar')
     count_launch(smem_scalar)
   return out
 
@@ -133,9 +126,11 @@ def dma_fixed_plain(big: torch.Tensor, start: int = 256,
 
 
 def _check_window(big: torch.Tensor, width: int, what: str) -> None:
-  _need(big.dtype == torch.int32 and big.dim() == 1 and _aligned(big)
-        and big.numel() % 4 == 0 and 0 < width <= min(MAX_WINDOW,
-                                                      big.numel()),
+  n = big.numel()
+  if not (big.dtype is _I32 and big.dim() == 1 and n % 4 == 0
+          and big.data_ptr() % 16 == 0 and big.is_contiguous()
+          and 0 < width <= min(MAX_WINDOW, n)):
+    raise ValueError(
         f'{what} copies up to {MAX_WINDOW} words of an aligned 1-D int32 '
         f'array of 4k elements, got {big.dtype} {tuple(big.shape)}, width '
         f'{width}')
@@ -151,9 +146,8 @@ def dma_fixed(big: torch.Tensor, start: int = 256,
     return dma_fixed_plain(big, start, width)
   _check_window(big, width, 'dma_fixed')
   out = big.new_empty(width)
-  dev = big.get_device()
   _check(glt_probe_window(big.data_ptr(), big.numel(), int(start), None,
-                          width, out.data_ptr(), dev, _raw_stream(dev)),
+                          width, out.data_ptr(), *_where(big.device)),
          'dma_fixed')
   count_launch(dma_fixed)
   return out
@@ -175,14 +169,15 @@ def dma_dynamic(big: torch.Tensor, st: torch.Tensor,
   if not big.is_cuda:
     return dma_dynamic_plain(big, st, width)
   _check_window(big, width, 'dma_dynamic')
-  _need(st.dtype == torch.int32 and st.numel() >= 1 and st.is_contiguous()
-        and _same_card(big, st),
+  dev = big.device
+  if not (st.dtype is _I32 and st.numel() >= 1 and st.is_contiguous()
+          and st.device == dev):
+    raise ValueError(
         f'dma_dynamic reads its start from an int32 tensor on the card, got '
         f'{st.dtype} on {st.device}')
   out = big.new_empty(width)
-  dev = big.get_device()
   _check(glt_probe_window(big.data_ptr(), big.numel(), 0, st.data_ptr(),
-                          width, out.data_ptr(), dev, _raw_stream(dev)),
+                          width, out.data_ptr(), *_where(dev)),
          'dma_dynamic')
   count_launch(dma_dynamic)
   return out
@@ -198,26 +193,27 @@ def prefetch_grid_plain(tab: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 def prefetch_grid(tab: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
   """Rows of ``tab`` (``[N, ...]``) steered by ``rows`` (int32, clipped
-  into ``[0, N - 1]``): one block per output row reads its index and
-  bulk-copies that row through shared memory. On the card a row is a
+  into ``[0, N - 1]``): a warp per group of output rows reads their
+  indices and copies the rows as 16-byte vectors. On the card a row is a
   whole number of 16-byte units, at most 16 KB."""
   if not tab.is_cuda:
     return prefetch_grid_plain(tab, rows)
+  dev, ptr = tab.device, tab.data_ptr()
   n = tab.shape[0] if tab.dim() else 0
   row_bytes = (tab.numel() // n if n else 0) * tab.element_size()
-  _need(n > 0 and _aligned(tab) and row_bytes % 16 == 0
-        and 0 < row_bytes <= MAX_ROW_BYTES and rows.dtype == torch.int32
-        and rows.is_contiguous() and _same_card(tab, rows),
+  if not (n > 0 and row_bytes % 16 == 0 and 0 < row_bytes <= MAX_ROW_BYTES
+          and ptr % 16 == 0 and tab.is_contiguous()
+          and rows.dtype is _I32 and rows.is_contiguous()
+          and rows.device == dev):
+    raise ValueError(
         f'prefetch_grid copies aligned rows of 16k bytes (at most '
-        f'{MAX_ROW_BYTES}) by int32 rows on one card, got {tuple(tab.shape)} '
-        f'{tab.dtype}, rows {rows.dtype}')
+        f'{MAX_ROW_BYTES}) by int32 rows on one card, got '
+        f'{tuple(tab.shape)} {tab.dtype}, rows {rows.dtype}')
   b = rows.numel()
-  out = tab.new_empty((b,) + tuple(tab.shape[1:]))
+  out = tab.new_empty((b,) + tab.shape[1:])
   if b:
-    dev = tab.get_device()
-    _check(glt_probe_row_copy(tab.data_ptr(), n, row_bytes, rows.data_ptr(),
-                              b, out.data_ptr(), dev, _raw_stream(dev)),
-           'prefetch_grid')
+    _check(glt_probe_row_copy(ptr, n, row_bytes, rows.data_ptr(), b,
+                              out.data_ptr(), *_where(dev)), 'prefetch_grid')
     count_launch(prefetch_grid)
   return out
 
@@ -230,34 +226,35 @@ def vmem_take_plain(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _take2d(tab: torch.Tensor, idx: torch.Tensor,
-            what: str) -> Tuple[torch.Tensor, bool]:
-  """The shared-memory gather of ``vt`` and ``vmem_take`` on the card, and
-  whether it launched (not for an empty ``idx``)."""
-  n = tab.numel()
-  _need(tab.dtype == torch.int32 and _aligned(tab)
-        and 0 < n <= MAX_TABLE_WORDS and idx.dtype == torch.int32
-        and idx.is_contiguous() and _same_card(tab, idx),
+            what: str) -> Tuple[torch.Tensor, int]:
+  """The shared-memory gather of ``vt`` and ``vmem_take`` on the card and
+  the count of indices (a launch when there are any)."""
+  dev, n, ptr = tab.device, tab.numel(), tab.data_ptr()
+  if not (tab.dtype is _I32 and idx.dtype is _I32
+          and 0 < n <= MAX_TABLE_WORDS and ptr % 16 == 0
+          and tab.is_contiguous() and idx.is_contiguous()
+          and idx.device == dev):
+    raise ValueError(
         f'{what} reads an aligned int32 table of 1 to {MAX_TABLE_WORDS} '
         f'words by contiguous int32 indices on one card, got '
         f'{tuple(tab.shape)} {tab.dtype}, idx {idx.dtype}')
   out = torch.empty_like(idx)
-  if not idx.numel():
-    return out, False
-  dev = tab.get_device()
-  _check(glt_take2d(tab.data_ptr(), n, idx.data_ptr(), idx.numel(),
-                    out.data_ptr(), dev, _raw_stream(dev)), what)
-  return out, True
+  m = idx.numel()
+  if m:
+    _check(glt_take2d(ptr, n, idx.data_ptr(), m, out.data_ptr(), None,
+                      *_where(dev)), what)
+  return out, m
 
 
 def vmem_take(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
   """``take(tab.ravel(), idx, mode='clip')`` from a table of at most 8192
-  int32 words that every block holds in shared memory (the microbench's
-  gather). On the card ``tab`` is int32, contiguous and 16-byte aligned;
-  ``idx`` int32 and contiguous."""
+  int32 words that every block holds in shared memory, multicast to the
+  blocks of a cluster (the microbench's gather). On the card ``tab`` is
+  int32, contiguous and 16-byte aligned; ``idx`` int32 and contiguous."""
   if not tab.is_cuda:
     return vmem_take_plain(tab, idx)
-  out, launched = _take2d(tab, idx, 'vmem_take')
-  count_launch(vmem_take, launched)
+  out, m = _take2d(tab, idx, 'vmem_take')
+  count_launch(vmem_take, m > 0)
   return out
 
 
@@ -269,8 +266,8 @@ def vt(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
   that the probe's launches and the microbench's stay apart."""
   if not tab.is_cuda:
     return vt_plain(tab, idx)
-  out, launched = _take2d(tab, idx, 'vt')
-  count_launch(vt, launched)
+  out, m = _take2d(tab, idx, 'vt')
+  count_launch(vt, m > 0)
   return out
 
 

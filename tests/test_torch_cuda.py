@@ -1234,6 +1234,120 @@ def test_vmem_take_matches_plain(dev, shape):
   assert torch.equal(P.vmem_take(tab, unaligned), got)
 
 
+def _take2d_raw(tab, idx, out, seen=None):
+  """glt_take2d straight, for an ``out`` the wrapper would not allocate
+  (a view past a 16-byte boundary) and to read the cluster size the card
+  launched with; counted nowhere."""
+  K._check(P.glt_take2d(tab.data_ptr(), tab.numel(), idx.data_ptr(),
+                        idx.numel(), out.data_ptr(),
+                        None if seen is None else seen.data_ptr(),
+                        *K._where(tab.device)), 'glt_take2d')
+
+
+@pytest.mark.parametrize('n', [1, 4_097, 8_192])
+@pytest.mark.parametrize('m', [1, 3, 30_720, 768_001])
+def test_take2d_matches_plain_at_its_edges(dev, n, m):
+  # a one-word table, a tail word past the table's last 16-byte unit
+  # (plain loads beside the multicast), the largest table; one index, a
+  # ragged count, the rung's 30,720, a ragged 768,001; indices negative
+  # and past the end; idx and out one element past a 16-byte boundary
+  # (the element loop)
+  g = torch.Generator(device=dev).manual_seed(n + m)
+  tab = torch.randint(-(1 << 30), 1 << 30, (n,), generator=g, device=dev,
+                      dtype=torch.int32)
+  idx = torch.randint(-n - 5, 2 * n + 5, (m + 1,), generator=g, device=dev,
+                      dtype=torch.int32)
+  want = P.vmem_take_plain(tab, idx)
+  assert torch.equal(want, torch.take(tab, idx.long().clamp(0, n - 1)))
+  for fn in (P.vmem_take, P.vt):
+    before = fn.launches
+    assert torch.equal(fn(tab, idx[:m]), want[:m])
+    assert torch.equal(fn(tab, idx[1:]), want[1:])         # element loop
+    assert fn.launches == before + 2
+  out = torch.full((m + 1,), 7, dtype=torch.int32, device=dev)
+  _take2d_raw(tab, idx[:m], out[1:])                      # out unaligned
+  assert torch.equal(out[1:], want[:m]) and int(out[0]) == 7
+
+
+def test_take2d_launches_its_clusters(dev):
+  # the rung's 30,720 indices take 8 blocks in clusters of 4; the
+  # microbench's 768,000 one wave in clusters of 4; a lone index one
+  # block; each block's table arrives whole
+  g = torch.Generator(device=dev).manual_seed(43)
+  tab = torch.randint(0, 1 << 20, (64, 128), generator=g, device=dev,
+                      dtype=torch.int32)
+  for m, cluster in ((30_720, 4), (768_000, 4), (1, 1), (3_000, 1),
+                     (5_000, 2)):
+    idx = torch.randint(-9, 8200, (m,), generator=g, device=dev,
+                        dtype=torch.int32)
+    out = torch.empty_like(idx)
+    seen = torch.zeros(1, dtype=torch.int32, device=dev)
+    _take2d_raw(tab, idx, out, seen)
+    assert int(seen) == cluster, m
+    assert torch.equal(out, P.vmem_take_plain(tab, idx)), m
+
+
+@pytest.mark.parametrize('row_bytes', [16, 512, 16_384])
+@pytest.mark.parametrize('b', [1, 16, 153_600])
+def test_prefetch_grid_matches_plain_at_its_edges(dev, row_bytes, b):
+  # rows of one 16-byte unit, the rung's 512 B and the largest 16 KB; one
+  # row, the rung's 16 (a row a warp), the microbench's 153,600 (groups
+  # of 32 rows a warp); rows clipped at both ends
+  g = torch.Generator(device=dev).manual_seed(row_bytes + b)
+  n = 300
+  tab = torch.randn((n, row_bytes // 4), generator=g, device=dev)
+  rows = torch.randint(-3, n + 3, (b,), generator=g, device=dev,
+                       dtype=torch.int32)
+  rows[0] = -1
+  if b > 1:
+    rows[-1] = n
+  before = P.prefetch_grid.launches
+  got = P.prefetch_grid(tab, rows)
+  assert P.prefetch_grid.launches == before + 1
+  assert torch.equal(got, P.prefetch_grid_plain(tab, rows))
+  assert torch.equal(got, torch.index_select(tab, 0,
+                                             rows.long().clamp(0, n - 1)))
+
+
+def test_probe_gathers_reject_what_they_do_not_take(dev):
+  # a table past a 16-byte boundary, a wrong type, a second tensor on
+  # another device: ValueError, with the message they always gave
+  tab = torch.zeros(8200, dtype=torch.int32, device=dev)
+  idx = torch.zeros(16, dtype=torch.int32, device=dev)
+  for fn in (P.vmem_take, P.vt):
+    name = fn.__name__
+    with pytest.raises(ValueError, match=f'^{name} reads an aligned int32'):
+      fn(tab[1:8193], idx)
+    with pytest.raises(ValueError, match=f'^{name} reads'):
+      fn(tab[:64].float(), idx)
+    with pytest.raises(ValueError, match=f'^{name} reads'):
+      fn(tab[:64], idx.long())
+    with pytest.raises(ValueError, match=f'^{name} reads'):
+      fn(tab[:64], idx.cpu())
+  rows = torch.zeros(4, dtype=torch.int32, device=dev)
+  wide = torch.zeros((9, 128), device=dev)
+  with pytest.raises(ValueError, match='^prefetch_grid copies aligned rows'):
+    P.prefetch_grid(torch.zeros((8, 3), device=dev), rows)   # 12-byte rows
+  with pytest.raises(ValueError, match='^prefetch_grid copies'):
+    P.prefetch_grid(wide.view(-1)[1:1025].view(8, 128), rows)
+  with pytest.raises(ValueError, match='^prefetch_grid copies'):
+    P.prefetch_grid(wide, rows.long())
+  with pytest.raises(ValueError, match='^prefetch_grid copies'):
+    P.prefetch_grid(wide, rows.cpu())
+
+
+def test_probe_gathers_reject_a_table_on_another_card(dev):
+  if torch.cuda.device_count() < 2:
+    pytest.skip('needs two cards')
+  other = torch.device('cuda', 1)
+  idx = torch.zeros(16, dtype=torch.int32, device=dev)
+  for fn in (P.vmem_take, P.vt):
+    with pytest.raises(ValueError, match=f'^{fn.__name__} reads'):
+      fn(torch.zeros(64, dtype=torch.int32, device=other), idx)
+  with pytest.raises(ValueError, match='^prefetch_grid copies'):
+    P.prefetch_grid(torch.zeros((8, 128), device=other), idx)
+
+
 def test_kernels_launch_on_the_device_of_their_tensors(dev):
   # the launch switches to the tensors' card when it is not the current
   # one (csrc/entry.cuh), and back

@@ -185,3 +185,40 @@ def test_vmem_take_matches_the_microbench_pallas_kernel():
   got = P.vmem_take(torch.as_tensor(table2d), torch.as_tensor(ib))
   np.testing.assert_array_equal(np.asarray(want), got.numpy())
   assert P.vmem_take.launches == 0
+
+
+@pytest.mark.parametrize('n,m', [(1, 1), (1, 30_720), (4_097, 3),
+                                 (4_097, 30_720), (8_192, 1),
+                                 (8_192, 768_001)])
+def test_vmem_take_plain_matches_take_at_the_kernels_edges(n, m):
+  # the card kernel's edge shapes: a one-word table, a tail word past the
+  # last 16-byte unit (4,097), the largest table; one index, a ragged
+  # count (3, 768,001) and the rung's 30,720; indices negative and past
+  # the end
+  rng = np.random.default_rng(n + m)
+  tab = rng.integers(-(1 << 30), 1 << 30, n, dtype=np.int32)
+  idx = rng.integers(-n - 5, 2 * n + 5, m, dtype=np.int32)
+  want = np.asarray(jnp.take(jnp.asarray(tab), jnp.asarray(idx),
+                             mode='clip'))
+  got = P.vmem_take(torch.as_tensor(tab), torch.as_tensor(idx))
+  np.testing.assert_array_equal(want, got.numpy())
+  np.testing.assert_array_equal(want, P.vt(torch.as_tensor(tab),
+                                           torch.as_tensor(idx)).numpy())
+
+
+@pytest.mark.parametrize('row_bytes,b', [(16, 1), (16, 153_600), (512, 1),
+                                         (512, 16), (512, 153_600),
+                                         (16_384, 16)])
+def test_prefetch_grid_plain_matches_take_at_the_kernels_edges(row_bytes, b):
+  # rows of one 16-byte unit, of the rung's 512 B and of the largest
+  # 16 KB, at one row, the rung's 16 and the microbench's 153,600, rows
+  # clipped at both ends
+  rng = np.random.default_rng(row_bytes + b)
+  n = 64 if row_bytes == 16_384 else 1_000
+  tab = rng.normal(size=(n, row_bytes // 4)).astype(np.float32)
+  rows = rng.integers(-3, n + 3, b, dtype=np.int32)
+  rows[:2] = [-1, n][:b]
+  want = np.asarray(jnp.take(jnp.asarray(tab), jnp.asarray(rows), axis=0,
+                             mode='clip'))
+  got = P.prefetch_grid(torch.as_tensor(tab), torch.as_tensor(rows))
+  np.testing.assert_array_equal(want, got.numpy())

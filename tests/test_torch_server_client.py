@@ -16,12 +16,17 @@ the fanout 2, so a sample does not depend on its draws):
   never a hang (tests/test_server_client.py:129, :392, :422);
 - ``message_to_batch`` slices as the in-process ``to_batch`` does;
 - the server_client_mode example trains over its own servers;
+- a fetch slower than one rpc attempt still arrives, and one past the
+  whole budget is taken for a lost server, in both packages' rpc; a
+  sampling worker that starts late within the loader's budget loses no
+  batch (ROADMAP C8);
 - a server lost mid-run degrades the epoch to the survivor.
 
 Ports come from the OS, every spawned process is joined with a timeout
 (killed past it), and the servers' rings go with their processes.
 """
 import collections
+import contextlib
 import multiprocessing as mp
 import queue
 import time
@@ -42,6 +47,17 @@ from glt_tpu_torch.distributed import (MpDistSamplingWorkerOptions,
 FIELDS = ('x', 'y', 'row', 'col', 'edge_mask', 'node', 'node_count', 'edge',
           'edge_attr', 'num_sampled_nodes', 'num_sampled_edges')
 JOIN_S = 60
+#: The lost-server test's loader budget (``rpc_timeout``). A fetch that
+#: blocks past a loader's budget takes a live server for a lost one and
+#: ends its share of the epoch without an error, in the JAX package too
+#: (ROADMAP C8). An epoch's first fetch waits for a freshly spawned
+#: sampling worker, which on a loaded machine has taken longer than the
+#: 20 s this test once gave it. A killed server is found at once (its
+#: connection is refused), whatever the budget.
+DEGRADE_RPC_TIMEOUT = 120.0
+#: How late the held server's sampling worker starts: past the 20 s the
+#: lost-server test once gave its loader.
+HOLD_S = 21.0
 
 
 def jax_ring():
@@ -116,22 +132,24 @@ def jax_env():
     yield
 
 
-@pytest.fixture(scope='module')
-def servers(jax_env):
-  """Two spawned port servers over the ring and this process's client."""
+@contextlib.contextmanager
+def spawned_servers(holds=(0.0, 0.0)):
+  """Spawned port servers over the ring, one a hold (its sampling workers
+  start that many seconds late), and this process's client session."""
   ctx = mp.get_context('spawn')
-  port = free_port_base(2)
-  readies = [ctx.Event() for _ in range(2)]
-  dones = [ctx.Event() for _ in range(2)]
+  n = len(holds)
+  port = free_port_base(n)
+  readies = [ctx.Event() for _ in range(n)]
+  dones = [ctx.Event() for _ in range(n)]
   procs = [ctx.Process(target=torch_server_worker.server_main,
-                       args=(r, 2, port, readies[r], dones[r]))
-           for r in range(2)]
+                       args=(r, n, port, readies[r], dones[r], holds[r]))
+           for r in range(n)]
   for p in procs:
     p.start()
   try:
     for e in readies:
       assert e.wait(timeout=120), 'a server did not come up'
-    init_client(num_servers=2, num_clients=1, client_rank=0,
+    init_client(num_servers=n, num_clients=1, client_rank=0,
                 master_port=port, health_interval_s=None)
     yield procs
     shutdown_client()
@@ -147,6 +165,24 @@ def servers(jax_env):
         p.join(10)
 
 
+@pytest.fixture(scope='module')
+def servers(jax_env):
+  """Two spawned port servers over the ring and this process's client."""
+  with spawned_servers() as procs:
+    yield procs
+
+
+def degrade_loader(worker_key, rpc_timeout=DEGRADE_RPC_TIMEOUT):
+  """The lost-server test's loader: ring seeds 0-19 from server 0 and
+  20-39 from server 1, four batches each, a lost server degrading the
+  epoch."""
+  return RemoteNeighborLoader(
+      [2], [np.arange(20), np.arange(20, 40)], batch_size=5, seed=3,
+      device='cpu', worker_options=RemoteDistSamplingWorkerOptions(
+          server_rank=[0, 1], prefetch_size=2, worker_key=worker_key,
+          rpc_timeout=rpc_timeout))
+
+
 def test_server_client_example_trains():
   """First in the module: the example runs its own servers and client
   session, before the module's servers start theirs."""
@@ -157,6 +193,57 @@ def test_server_client_example_trains():
        '--max-steps', '2', '--prefetch', '2'])
   assert len(out['losses']) == 4 and np.isfinite(out['losses']).all()
   assert out['exitcodes'] == [0, 0]
+
+
+@pytest.mark.parametrize('package', ['port', 'jax'])
+def test_a_fetch_past_its_budget_fails_as_in_jax(package):
+  """The rpc beneath a loader's fetch, in both packages. A reply slower
+  than one attempt's share of the budget still arrives: the retry waits
+  on the server for the original execution (request-id dedup). A reply
+  slower than the whole budget raises a timeout, which both packages'
+  loaders take for a lost server; the server's execution still runs and
+  pops a batch that nobody reads."""
+  if package == 'port':
+    from glt_tpu_torch.distributed.rpc import RpcClient, RpcServer
+  else:
+    from glt_tpu.distributed.rpc import RpcClient, RpcServer
+  calls = []
+
+  def slow_fetch(hold_s):
+    calls.append(hold_s)
+    time.sleep(hold_s)
+    return b'batch'
+  srv = RpcServer()
+  srv.register('fetch_one_sampled_message', slow_fetch)
+  cli = RpcClient(srv.host, srv.port)
+  try:
+    # four attempts of 1 s each, the reply after 1.5 s
+    assert cli.request('fetch_one_sampled_message', 1.5,
+                       _rpc_timeout=4.0) == b'batch'
+    assert calls == [1.5] and cli.retries >= 1
+    with pytest.raises(OSError):     # socket.timeout is an OSError
+      cli.request('fetch_one_sampled_message', 1.5, _rpc_timeout=1.0)
+    time.sleep(1.0)
+    assert calls == [1.5, 1.5]
+  finally:
+    cli.close()
+    srv.stop()
+
+
+def test_slow_worker_start_is_not_a_lost_server(jax_env):
+  """Before the module's servers: a server pair of its own, server 1's
+  sampling worker starting HOLD_S late while both stay alive. The
+  lost-server test's loader keeps all 8 batches of the first epoch; at
+  the 20 s budget it once had, server 1 was taken for lost and its share
+  dropped (4 batches), whatever the machine's load."""
+  with spawned_servers(holds=(0.0, HOLD_S)):
+    loader = degrade_loader('held')
+    t0 = time.monotonic()
+    got = [int(b.batch[0]) >= 20 for b in loader]
+    assert time.monotonic() - t0 > HOLD_S
+    assert len(got) == 8 and sum(got) == 4
+    assert loader.degraded_servers == set()
+    assert fabric_stats()['dropouts'] == []
 
 
 def test_data_plane_answers_as_jax(servers):
@@ -326,12 +413,7 @@ def test_message_to_batch_slices_as_to_batch():
 def test_lost_server_degrades_the_epoch(servers):
   """Server 1 is killed: the next epoch finishes with server 0's batches
   and the client records the dropout (degrade_on_server_failure)."""
-  per_server = [np.arange(20), np.arange(20, 40)]
-  loader = RemoteNeighborLoader(
-      [2], per_server, batch_size=5, seed=3, device='cpu',
-      worker_options=RemoteDistSamplingWorkerOptions(
-          server_rank=[0, 1], prefetch_size=2, worker_key='degrade',
-          rpc_timeout=20.0))
+  loader = degrade_loader('degrade')
   assert sum(1 for _ in loader) == 8
   servers[1].kill()
   servers[1].join(timeout=JOIN_S)

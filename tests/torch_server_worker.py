@@ -37,13 +37,25 @@ def build_ring_dataset():
   return ring_dataset()
 
 
-def server_main(rank, num_servers, port, ready, done):
-  """A spawned port server over the ring: serves until a client's exit."""
+def held_ring_dataset(hold_s: float):
+  """``build_ring_dataset`` after ``hold_s`` seconds: a sampling worker
+  that starts late, as a freshly spawned one does on a loaded machine."""
+  import time
+  time.sleep(hold_s)
+  return build_ring_dataset()
+
+
+def server_main(rank, num_servers, port, ready, done, hold_s=0.0):
+  """A spawned port server over the ring: serves until a client's exit.
+  With ``hold_s`` its sampling workers start that many seconds late."""
+  import functools
   from glt_tpu_torch.distributed import init_server, wait_and_shutdown_server
   torch.set_num_threads(1)
+  builder = (functools.partial(held_ring_dataset, hold_s) if hold_s
+             else build_ring_dataset)
   init_server(num_servers=num_servers, num_clients=1, server_rank=rank,
               dataset=ring_dataset(), master_port=port,
-              dataset_builder=build_ring_dataset, device='cpu')
+              dataset_builder=builder, device='cpu')
   ready.set()
   wait_and_shutdown_server(poll_s=0.05)
   done.set()
