@@ -264,11 +264,12 @@ points through their main functions, and checks what comes out:
 - the compile probe's ladder (glt_tpu_torch.benchmarks.probe_compile:
   seven rungs, five kernels of csrc/probes.cu, gather_windows and the
   shared-memory gather of csrc/take2d.cu), its kernels first held against
-  their plain versions and timed beside their library calls; the
-  redesigned take2d and row copy also at their edge shapes (probe_edge_
-  checks), in turns with their library calls, their bound shares against
-  the data sheet and the stream rate measured in the same call, the row
-  copy also at 153,600 rows of 512 B beside index_select and K3;
+  their plain versions and timed beside their library calls and the
+  card's launch floor (a one-element zero_); the redesigned kernels in
+  turns with their library calls, their bound shares against the data
+  sheet and the stream rate measured in the same call; take2d and the
+  row copy also at their edge shapes (probe_edge_checks), the row copy
+  also at 153,600 rows of 512 B beside index_select and K3;
 - the gather microbench (glt_tpu_torch.benchmarks.microbench_gather) at
   its published sizes: torch.take, index_select and gather_rows,
   gather_windows, and the shared-memory gather.
@@ -1149,8 +1150,7 @@ def probe_edge_checks(torch, P, dev, gen):
         raise AssertionError(f'take2d n={n} m={m}: plain differs from take')
       out = torch.full((m + 1,), 7, dtype=torch.int32, device=dev)
       P._check(P.glt_take2d(tab.data_ptr(), n, idx.data_ptr(), m,
-                            out[1:].data_ptr(), None, *P._where(dev)),
-               'take2d')
+                            out[1:].data_ptr(), *P._where(dev)), 'take2d')
       for fn in (P.vmem_take, P.vt):
         if not (torch.equal(fn(tab, idx[:m]), want[:m])
                 and torch.equal(fn(tab, idx[1:]), want[1:])
@@ -1175,17 +1175,32 @@ def probe_edge_checks(torch, P, dev, gen):
         'shapes equal to plain and to torch.take or index_select')
 
 
+def launch_floor(torch, dev, host_us):
+  """The card's launch floor, the yardstick of the probe kernels, whose
+  work is far below a launch: a one-element ``zero_`` back to back, in a
+  CUDA graph and by host enqueue, printed once."""
+  one = torch.empty(1, device=dev)
+  ms = cuda_ms(torch, lambda i=0: one.zero_(), 200)
+  graph = graph_ms(torch, one.zero_)
+  host = host_us({'zero_': one.zero_})['zero_']
+  print(f'launch floor (a one-element zero_): {ms:.4f} ms a launch back to '
+        f'back, in a CUDA graph {graph:.4f} ms, host enqueue {host:.2f} us')
+  return dict(ms=ms, graph_ms=graph, host_us=host)
+
+
 def probe_checks(torch, np, K, P, dev, seed, rows, host_us):
   """Each kernel of the probe ladder and the microbench held bit-equal to
   its plain version at the TPU rungs' shapes (vmem_take also at the
   microbench's [200, 3840]) and timed beside its library call, where one
   PyTorch call computes the same function, its byte bound and its host
-  enqueue time. The redesigned take2d (vt, vmem_take) and row copy
-  (prefetch_grid) are also held at their edge shapes, timed in turns with
-  their library calls (medians of ROUNDS rounds), and their bound shares
-  taken against the data sheet's 3.35 TB/s and against the stream rate
-  measured in this call; the row copy also at 153,600 rows of 512 B, in
-  turns with index_select and K3 gather_rows."""
+  enqueue time, beside the card's launch floor. The redesigned kernels
+  (smem_scalar, dma_fixed, dma_dynamic, the row copy prefetch_grid and
+  take2d's vt and vmem_take) are timed in turns with their library calls
+  (medians of ROUNDS rounds) and their bound shares taken against the
+  data sheet's 3.35 TB/s and against the stream rate measured in this
+  call; take2d and the row copy are also held at their edge shapes, the
+  row copy also at 153,600 rows of 512 B, in turns with index_select and
+  K3 gather_rows."""
   from glt_tpu_torch.benchmarks import probe_compile
   from glt_tpu_torch.obs.perf import measure_hbm_bandwidth
   t = {k: torch.as_tensor(v, device=dev)
@@ -1227,7 +1242,11 @@ def probe_checks(torch, np, K, P, dev, seed, rows, host_us):
           lambda: torch.index_select(wide, 0, wide_rows),
           (wide_distinct + WIDE_ROWS) * 512 + 4 * WIDE_ROWS),
   }
-  redesigned = ('prefetch_grid', 'vt', 'vmem_take')
+  redesigned = ('smem_scalar', 'dma_fixed', 'dma_dynamic', 'prefetch_grid',
+                'vt', 'vmem_take')
+  labels = {'smem_scalar': 'torch.mul', 'dma_fixed': 'clone',
+            'prefetch_grid': 'index_select'}
+  launch_floor(torch, dev, host_us)
   for name, (fn, args, lib, nbytes) in cases.items():
     kernel, plain = getattr(P, fn), getattr(P, fn + '_plain')
     got, want = kernel(*args), plain(*args)
@@ -1243,8 +1262,8 @@ def probe_checks(torch, np, K, P, dev, seed, rows, host_us):
       fns['gather_rows'] = lambda: K.gather_rows(wide, wide_rows)
     if fn in redesigned:
       per_round = in_turns_ms(torch, np, fns, iters=200, abba=True)
-      ms, lib_ms = (float(np.median(per_round.get(k, [np.nan])))
-                    for k in ('kernel', 'library'))
+      ms = float(np.median(per_round['kernel']))
+      lib_ms = float(np.median(per_round['library'])) if lib else None
     else:
       ms = cuda_ms(torch, lambda i=0: kernel(*args), 200)
       lib_ms = cuda_ms(torch, lambda i=0: lib(), 200) if lib else None
@@ -1271,7 +1290,8 @@ def probe_checks(torch, np, K, P, dev, seed, rows, host_us):
     if fn in redesigned:
       row.update(bound_share=bound / dev_ms['kernel'],
                  ceiling_share=nbytes / rate * 1e3 / dev_ms['kernel'],
-                 ratios=list(per_round['kernel'] / per_round['library']))
+                 ratios=(list(per_round['kernel'] / per_round['library'])
+                         if lib else None))
       line += (f'; in turns, medians of {ROUNDS}; in a graph '
                f'{row["bound_share"] * 100:.1f}% of its bound at 3.35 TB/s, '
                f'{row["ceiling_share"] * 100:.1f}% at the measured '
@@ -1290,9 +1310,8 @@ def probe_checks(torch, np, K, P, dev, seed, rows, host_us):
     else:
       rows[name] = row
     print(line)
-    if fn in redesigned:
-      verdict(name, ms, lib_ms,
-              label='torch.take' if fn != 'prefetch_grid' else 'index_select',
+    if fn in redesigned and lib:
+      verdict(name, ms, lib_ms, label=labels.get(fn, 'torch.take'),
               ratios=row['ratios'])
     del got, want
 

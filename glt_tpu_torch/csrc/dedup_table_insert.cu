@@ -188,6 +188,6 @@ extern "C" int glt_dedup_table_insert(void* keys, void* vals, int slots,
 }
 
 GLT_MODULE(dedup_table_insert,
-           GLT_ENTRY(glt_dedup_table_insert),
-           GLT_ENTRY(glt_dedup_table_init),
-           GLT_ENTRY(glt_dedup_table_init_types))
+           GLT_LAUNCH(glt_dedup_table_insert),
+           GLT_LAUNCH(glt_dedup_table_init),
+           GLT_LAUNCH(glt_dedup_table_init_types))

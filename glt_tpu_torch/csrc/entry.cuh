@@ -1,25 +1,34 @@
 // The host side every kernel source shares: its Python entry points and
-// a launch through cuLaunchKernel, or a cooperative or clustered one
-// through cuLaunchKernelEx (libcuda).
+// a launch through cuLaunchKernel, or a cooperative one through
+// cuLaunchKernelEx (libcuda).
 //
 // Each csrc/<name>.cu builds into a Python extension module _glt_<name>
 // (Python's C API only, no PyTorch headers: a build takes seconds) whose
 // functions are the source's extern "C" entry points, called with plain
 // Python ints for pointers (None is NULL) and sizes:
 //
-//   GLT_MODULE(sample_hop, GLT_ENTRY(glt_sample_hop))
+//   GLT_MODULE(sample_hop, GLT_LAUNCH(glt_sample_hop))
 //
 // An entry's arguments are parsed by the C types of its own parameters,
 // so there is no second list of signatures to keep in step. A call costs
 // a fast-call parse, not ctypes' per-argument conversion: on the H100
 // machine's host ctypes took 1.1-2.4 us more per launch of the same
 // library (PERF.md).
+//
+// An entry that launches (GLT_LAUNCH) ends in (int device, void* stream)
+// and also reads that stream's capture state (cuStreamIsCapturing) in the
+// same call, before it launches: it returns 0 when its kernels were
+// enqueued to run, kRecorded when the stream was capturing a CUDA graph
+// (the launch was recorded into the graph, not run), else the CUresult of
+// the failed query or launch. The wrappers count launches by that return
+// (ops/cuda_kernels.py count_launch), with no capture query of their own.
 #pragma once
 #include <Python.h>
 
 #include <atomic>
 #include <cstdint>
 #include <tuple>
+#include <type_traits>
 #include <utility>
 
 #include <cuda.h>
@@ -67,29 +76,9 @@ template <int N> struct Ints {
   }
 };
 
-template <auto Fn> struct Entry;
-template <typename... A, int (*Fn)(A...)> struct Entry<Fn> {
-  static PyObject* call(PyObject*, PyObject* const* args, Py_ssize_t n) {
-    if (n != static_cast<Py_ssize_t>(sizeof...(A))) {
-      PyErr_Format(PyExc_TypeError, "takes %d arguments, got %d",
-                   static_cast<int>(sizeof...(A)), static_cast<int>(n));
-      return nullptr;
-    }
-    return parse(args, std::index_sequence_for<A...>{});
-  }
-  template <size_t... I>
-  static PyObject* parse(PyObject* const* args, std::index_sequence<I...>) {
-    // braced initialisers evaluate left to right
-    std::tuple<A...> v{from_py<A>(args[I])...};
-    if (PyErr_Occurred()) return nullptr;
-    return PyLong_FromLong(std::apply(Fn, v));
-  }
-};
-
 // One launch of a __global__ function through cuLaunchKernel on
 // `device`, the card of the caller's tensors. Every entry point of csrc/
-// launches this way (or through CoopLaunch or ClusterLaunch below) and
-// returns the
+// launches this way (or through CoopLaunch below) and returns the
 // CUresult, 0 when the launch was enqueued (a refused configuration shows
 // here, with no cudaGetLastError to call).
 // A CUfunction belongs to one device's context, so the handle is looked
@@ -215,79 +204,79 @@ struct CoopLaunch<Kernel, Threads> {
   }
 };
 
-// A launch of `Kernel` in blocks of `Threads` threads grouped into
-// thread-block clusters of `cluster` blocks along x (cuLaunchKernelEx with
-// CU_LAUNCH_ATTRIBUTE_CLUSTER_DIMENSION; `grid` a multiple of `cluster`,
-// which is at most 8), so the kernel may multicast bulk copies to the
-// blocks of its cluster. The device guard and the handle cache are
-// Launch's.
-//
-// clusters(device, cluster) is the most clusters of that size that can
-// be resident together on `device` (cuOccupancyMaxActiveClusters, cached
-// per device and size), or a negative CUresult: a grid of at most that
-// many clusters runs in one wave.
-template <auto Kernel, int Threads> struct ClusterLaunch;
-template <typename... P, void (*Kernel)(P...), int Threads>
-struct ClusterLaunch<Kernel, Threads> {
-  static constexpr int kMaxCluster = 8;
+// What a launching entry returns when its stream was capturing a CUDA
+// graph: its kernels were recorded into the graph, not run. Every other
+// return is a CUresult, which is never negative.
+constexpr int kRecorded = -1;
 
-  static CUlaunchConfig config(CUlaunchAttribute* attr, int grid,
-                               int cluster, void* stream) {
-    attr->id = CU_LAUNCH_ATTRIBUTE_CLUSTER_DIMENSION;
-    attr->value.clusterDim.x = static_cast<unsigned>(cluster);
-    attr->value.clusterDim.y = attr->value.clusterDim.z = 1;
-    CUlaunchConfig cfg = {};
-    cfg.gridDimX = static_cast<unsigned>(grid);
-    cfg.gridDimY = cfg.gridDimZ = 1;
-    cfg.blockDimX = Threads;
-    cfg.blockDimY = cfg.blockDimZ = 1;
-    cfg.hStream = static_cast<CUstream>(stream);
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return cfg;
+// The capture state of `stream`, a stream of `device`, as a launching
+// entry returns it: 0 (not capturing), kRecorded (capturing), or the
+// CUresult of a query that failed -- such as
+// CUDA_ERROR_STREAM_CAPTURE_IMPLICIT for the legacy stream while another
+// stream captures in global mode -- or CUDA_ERROR_STREAM_CAPTURE_
+// INVALIDATED for a capture already broken. A failed query is never taken
+// for "not capturing". The legacy stream (0) is the current context's, so
+// `device` is made current for the query.
+inline int capture_state(int device, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != CUDA_SUCCESS) return guard.err;
+  CUstreamCaptureStatus status;
+  const CUresult err =
+      cuStreamIsCapturing(static_cast<CUstream>(stream), &status);
+  if (err != CUDA_SUCCESS) return err;
+  if (status == CU_STREAM_CAPTURE_STATUS_NONE) return CUDA_SUCCESS;
+  if (status == CU_STREAM_CAPTURE_STATUS_ACTIVE) return kRecorded;
+  return CUDA_ERROR_STREAM_CAPTURE_INVALIDATED;
+}
+
+// The Python function of entry point Fn; kLaunches adds the capture
+// state of Fn's stream, read before Fn runs (see the header).
+template <auto Fn, bool kLaunches> struct Entry;
+template <typename... A, int (*Fn)(A...), bool kLaunches>
+struct Entry<Fn, kLaunches> {
+  static PyObject* call(PyObject*, PyObject* const* args, Py_ssize_t n) {
+    if (n != static_cast<Py_ssize_t>(sizeof...(A))) {
+      PyErr_Format(PyExc_TypeError, "takes %d arguments, got %d",
+                   static_cast<int>(sizeof...(A)), static_cast<int>(n));
+      return nullptr;
+    }
+    return parse(args, std::index_sequence_for<A...>{});
   }
-
-  static int clusters(int device, int cluster) {
-    static std::atomic<int> cached[kMaxDevices][kMaxCluster + 1];
-    if (device < 0 || device >= kMaxDevices)
-      return -CUDA_ERROR_INVALID_DEVICE;
-    if (cluster < 1 || cluster > kMaxCluster)
-      return -CUDA_ERROR_INVALID_VALUE;
-    int n = cached[device][cluster].load(std::memory_order_relaxed);
-    if (n > 0) return n;
-    DeviceGuard guard(device);
-    if (guard.err != CUDA_SUCCESS) return -guard.err;
-    CUfunction fn = kernel_handle<Kernel>(device);
-    if (!fn) return -CUDA_ERROR_NOT_FOUND;
-    CUlaunchAttribute attr;
-    const CUlaunchConfig cfg = config(&attr, cluster, cluster, nullptr);
-    int err = cuOccupancyMaxActiveClusters(&n, fn, &cfg);
-    if (err != CUDA_SUCCESS) return -err;
-    if (n <= 0) return -CUDA_ERROR_INVALID_VALUE;
-    cached[device][cluster].store(n, std::memory_order_relaxed);
-    return n;
-  }
-
-  static int run(int grid, int cluster, int device, void* stream,
-                 P... args) {
-    if (cluster < 1 || cluster > kMaxCluster || grid % cluster)
-      return CUDA_ERROR_INVALID_VALUE;
-    DeviceGuard guard(device);
-    if (guard.err != CUDA_SUCCESS) return guard.err;
-    CUfunction fn = kernel_handle<Kernel>(device);
-    if (!fn) return CUDA_ERROR_NOT_FOUND;
-    CUlaunchAttribute attr;
-    const CUlaunchConfig cfg = config(&attr, grid, cluster, stream);
-    void* params[] = {&args...};
-    return static_cast<int>(cuLaunchKernelEx(&cfg, fn, params, nullptr));
+  template <size_t... I>
+  static PyObject* parse(PyObject* const* args, std::index_sequence<I...>) {
+    // braced initialisers evaluate left to right
+    std::tuple<A...> v{from_py<A>(args[I])...};
+    if (PyErr_Occurred()) return nullptr;
+    if constexpr (kLaunches) {
+      constexpr size_t k = sizeof...(A);
+      using Args = std::tuple<A...>;
+      static_assert(k >= 2
+                    && std::is_same_v<std::tuple_element_t<k - 2, Args>, int>
+                    && std::is_same_v<std::tuple_element_t<k - 1, Args>,
+                                      void*>,
+                    "a launching entry ends in (int device, void* stream)");
+      const int state = capture_state(std::get<k - 2>(v), std::get<k - 1>(v));
+      if (state > 0) return PyLong_FromLong(state);
+      const int err = std::apply(Fn, v);
+      return PyLong_FromLong(err != CUDA_SUCCESS ? err : state);
+    } else {
+      return PyLong_FromLong(std::apply(Fn, v));
+    }
   }
 };
 
 }  // namespace glt
 
+// An entry point that launches nothing (a query, a host registration).
 #define GLT_ENTRY(fn)                                                      \
-  {#fn, reinterpret_cast<PyCFunction>(                                     \
-            reinterpret_cast<void (*)(void)>(glt::Entry<fn>::call)),       \
+  {#fn, reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)(void)>(    \
+            glt::Entry<fn, false>::call)),                                 \
+   METH_FASTCALL, nullptr}
+
+// An entry point that launches on its (int device, void* stream).
+#define GLT_LAUNCH(fn)                                                     \
+  {#fn, reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)(void)>(    \
+            glt::Entry<fn, true>::call)),                                  \
    METH_FASTCALL, nullptr}
 
 #define GLT_MODULE(name, ...)                                              \

@@ -439,7 +439,7 @@ extern "C" int glt_host_unregister(const void* ptr, int device) {
 }
 
 GLT_MODULE(gather_rows,
-           GLT_ENTRY(glt_gather_rows),
-           GLT_ENTRY(glt_gather_rows_mixed),
+           GLT_LAUNCH(glt_gather_rows),
+           GLT_LAUNCH(glt_gather_rows_mixed),
            GLT_ENTRY(glt_host_register),
            GLT_ENTRY(glt_host_unregister))

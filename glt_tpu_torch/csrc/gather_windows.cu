@@ -242,4 +242,4 @@ extern "C" int glt_gather_windows(const void* arr, int64_t len,
 }
 
 GLT_MODULE(gather_windows,
-           GLT_ENTRY(glt_gather_windows))
+           GLT_LAUNCH(glt_gather_windows))

@@ -1,5 +1,8 @@
-// probes: the rungs of the compile probe, one kernel each, every one
-// built on the Hopper construct that stands where its TPU rung's does.
+// probes: the rungs of the compile probe, one kernel each. Each TPU rung
+// probed a construct of the TPU (VMEM, SMEM, a DMA under a semaphore, a
+// scalar-prefetched grid); each kernel here computes the rung's function
+// with what is fastest on this card, which is not always the construct
+// that stands where the TPU's does.
 //
 // Replaces: benchmarks/probe_pallas_compile.py's rungs 1-5 (rung 6 is
 // gather_windows.cu, rung 7 take2d.cu):
@@ -7,40 +10,46 @@
 //                 through VMEM          -> stage_copy_kernel: cp.async
 //                 16-byte copies into shared memory, then stored out;
 //   smem_scalar   (:65, :71)  the block times a [1, 1] int32 read from
-//                 SMEM                  -> scale_kernel: the scalar read
-//                 once per block into shared memory, then x * (float)s;
+//                 SMEM                  -> scale_kernel: every thread loads
+//                 its data and the scalar together, x * (float)s;
 //   dma_fixed     (:83, :93)  big[256:384] by make_async_copy and a DMA
-//                 semaphore             -> window_kernel<false>: one 1-D
-//                 bulk async copy (cp.async.bulk ... complete_tx) into
-//                 shared memory, completed on an mbarrier (arrive.expect_tx,
-//                 try_wait.parity), then stored out;
+//                 semaphore             -> window_kernel<false>: every
+//                 thread computes the clamped start and copies its word
+//                 straight from device memory to the output;
 //   dma_dynamic   (:102, :115)  the same from a start read on the device
-//                                       -> window_kernel<true>: the start
-//                 read from device memory, the same bulk copy;
+//                                       -> window_kernel<true>: every
+//                 thread reads the start (one address for the warp), then
+//                 its word;
 //   prefetch_grid (:125, :138)  a row gather steered by scalar-prefetched
 //                 indices               -> row_copy_kernel: a warp per
 //                 group of rows, the rows moved as 16-byte vectors.
 //
 // Bound on this card: every rung moves at most 64 KB, a few hundredths
 // of a microsecond of the 3.35 TB/s, so each is bound by the launch and
-// the latency of one dependent read chain, not by bytes or arithmetic.
-// The row copy is also a row gather of any size, bound by bytes there:
-// 153,600 random rows of 512 B from a 512 MB table read about 142,000
-// distinct rows (73 MB), write 79 MB and read 0.6 MB of indices, about
-// 152 MB: 45.4 us of the 3.35 TB/s.
+// the latency of its chain of dependent reads, not by bytes or
+// arithmetic: the designs keep that chain as short as the function
+// allows. The row copy is also a row gather of any size, bound by bytes
+// there: 153,600 random rows of 512 B from a 512 MB table read about
+// 142,000 distinct rows (73 MB), write 79 MB and read 0.6 MB of indices,
+// about 152 MB: 45.4 us of the 3.35 TB/s.
 // Design notes:
-// - A bulk copy moves whole 16-byte units between 16-byte-aligned
-//   addresses. The window kernel copies the 16-byte-aligned cover of
-//   [st, st + w) (at most 3 words more on each side; the wrapper asks for
-//   a 16-byte-aligned array whose length is a multiple of 4 words, so the
-//   cover stays inside it) and selects the w words from shared memory,
-//   as gather_windows.cu realigns its windows. A negative start counts
-//   from the end and the start is then clamped to [0, n - w], as
-//   lax.dynamic_slice treats pl.ds in the TPU rung's interpret mode (a
-//   TPU DMA never leaves its array either).
-// - In the window kernel one thread arms the mbarrier and issues the
-//   copy; a __syncthreads publishes the barrier's init, and every thread
-//   waits on phase 0.
+// - The scale: the TPU rung puts the scalar in SMEM for the scalar unit.
+//   Here a scalar read into shared memory by one thread, then a
+//   __syncthreads, then the data reads, puts two memory latencies in
+//   series. Every thread instead issues its 16-byte data load and an
+//   __ldg of s together (one address: one transaction serves the warp),
+//   so the block waits one latency. __int2float_rn and __fmul_rn keep the
+//   result bit-equal to x * float32(s).
+// - The window: the TPU rung is a DMA into VMEM awaited on a semaphore;
+//   its counterpart here, a bulk async copy into shared memory on an
+//   mbarrier, put a start, an arming, the copy's issue-to-complete
+//   latency and a shared-memory pass in series, which costs more than it
+//   saves for a window of at most 4 KB. Every thread instead computes
+//   the start itself -- negative counts from the end, then clamped to
+//   [0, n - w], as lax.dynamic_slice treats pl.ds in the TPU rung's
+//   interpret mode (a TPU DMA never leaves its array either) -- and
+//   copies word j of the window through a register: one read (two for
+//   dma_dynamic, whose start lives on the card), coalesced, then a store.
 // - The row copy: a warp takes groups of up to 32 rows; lane j reads
 //   row j's index and clamps it, and the warp's lanes take the group's
 //   16-byte units in turn, each lane reading its row's index from lane j
@@ -57,6 +66,7 @@
 namespace {
 
 constexpr int kStageThreads = 256;   // one 16-byte unit a thread
+constexpr int kScaleThreads = 256;   // one 16-byte unit a thread
 constexpr int kMaxWindow = 1024;     // words a window copy holds
 constexpr int kMaxRowBytes = 16384;  // bytes a row copy holds
 constexpr int kRowWarps = 8;         // warps a row-copy block
@@ -65,33 +75,6 @@ constexpr int kUnitsInFlight = 8;    // 16-byte units a lane loads at once
 
 __device__ __forceinline__ uint32_t smem(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// An mbarrier expecting one arrival (the arming thread's expect_tx),
-// then `bytes` of the bulk copy issued against it.
-__device__ __forceinline__ void bulk_copy_armed(void* dst, const void* src,
-                                                uint32_t bytes,
-                                                uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               ::"r"(smem(bar)), "r"(1u) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(smem(bar)), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      ::"r"(smem(dst)), "l"(src), "r"(bytes), "r"(smem(bar)) : "memory");
-}
-
-__device__ __forceinline__ void wait_phase0(uint64_t* bar) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem(bar)), "r"(0u) : "memory");
-  }
 }
 
 __global__ void stage_copy_kernel(const uint4* __restrict__ src,
@@ -110,13 +93,12 @@ __global__ void stage_copy_kernel(const uint4* __restrict__ src,
 __global__ void scale_kernel(const float4* __restrict__ x,
                              const int* __restrict__ s,
                              float4* __restrict__ out, int64_t units) {
-  __shared__ float scale;
-  if (threadIdx.x == 0) scale = __int2float_rn(*s);
-  __syncthreads();
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kScaleThreads
                     + threadIdx.x;
   if (i >= units) return;
-  float4 v = x[i];
+  const int si = __ldg(s);    // issued beside the data load, not before it
+  float4 v = __ldg(x + i);
+  const float scale = __int2float_rn(si);
   v.x = __fmul_rn(v.x, scale);
   v.y = __fmul_rn(v.y, scale);
   v.z = __fmul_rn(v.z, scale);
@@ -124,25 +106,17 @@ __global__ void scale_kernel(const float4* __restrict__ x,
   out[i] = v;
 }
 
+// out[j] = big[st + j] for j < w, one word a thread of one block
 template <bool kDynamic>
 __global__ void window_kernel(const int* __restrict__ big, int n, int start,
                               const int* __restrict__ start_on_device,
                               int w, int* __restrict__ out) {
-  __shared__ __align__(16) int buf[kMaxWindow + 8];
-  __shared__ __align__(8) uint64_t bar;
-  __shared__ int shift;
-  if (threadIdx.x == 0) {
-    int st = kDynamic ? *start_on_device : start;
-    st = st < 0 ? st + n : st;   // lax.dynamic_slice counts these from the end
-    st = st < 0 ? 0 : (st > n - w ? n - w : st);
-    const int lo = st & ~3;
-    const int hi = min((st + w + 3) & ~3, n);
-    shift = st - lo;
-    bulk_copy_armed(buf, big + lo, static_cast<uint32_t>(hi - lo) * 4, &bar);
-  }
-  __syncthreads();
-  wait_phase0(&bar);
-  for (int j = threadIdx.x; j < w; j += blockDim.x) out[j] = buf[shift + j];
+  const int j = threadIdx.x;
+  if (j >= w) return;
+  int st = kDynamic ? __ldg(start_on_device) : start;
+  st = st < 0 ? st + n : st;   // lax.dynamic_slice counts these from the end
+  st = st < 0 ? 0 : (st > n - w ? n - w : st);
+  out[j] = __ldg(big + st + j);
 }
 
 __global__ void __launch_bounds__(32 * kRowWarps, kRowBlocksPerSm)
@@ -208,28 +182,28 @@ extern "C" int glt_probe_scale(const void* x, const void* s, void* out,
                                int64_t n, int device, void* stream) {
   const int64_t units = n / 4;
   if (units <= 0) return 0;
-  const int threads = 256;
   return glt::Launch<scale_kernel>::run(
-      dim3(static_cast<unsigned>((units - 1) / threads + 1)), dim3(threads),
-      device, stream, static_cast<const float4*>(x),
+      dim3(static_cast<unsigned>((units - 1) / kScaleThreads + 1)),
+      dim3(kScaleThreads), device, stream, static_cast<const float4*>(x),
       static_cast<const int*>(s), static_cast<float4*>(out), units);
 }
 
 // out[j] = big[st + j], j < w, st the start (*start_on_device, else start)
 // as lax.dynamic_slice takes it: + n when negative, then clamped to
-// [0, n - w]; big 16-byte aligned, n a multiple of 4, w <= 1024.
+// [0, n - w]; w <= 1024 words, one block of w threads rounded up to a warp.
 extern "C" int glt_probe_window(const void* big, int n, int start,
                                 const void* start_on_device, int w, void* out,
                                 int device, void* stream) {
   if (w <= 0) return 0;
-  if (w > kMaxWindow || w > n || n % 4) return CUDA_ERROR_INVALID_VALUE;
+  if (w > kMaxWindow || w > n) return CUDA_ERROR_INVALID_VALUE;
   const auto* a = static_cast<const int*>(big);
   const auto* d = static_cast<const int*>(start_on_device);
   auto* o = static_cast<int*>(out);
+  const dim3 threads((w + 31) / 32 * 32);
   return d ? glt::Launch<window_kernel<true>>::run(
-                 dim3(1), dim3(128), device, stream, a, n, 0, d, w, o)
+                 dim3(1), threads, device, stream, a, n, 0, d, w, o)
            : glt::Launch<window_kernel<false>>::run(
-                 dim3(1), dim3(128), device, stream, a, n, start, d, w, o);
+                 dim3(1), threads, device, stream, a, n, start, d, w, o);
 }
 
 // out[b] = table[clamp(rows[b], 0, n - 1)], rows of row_bytes (a multiple
@@ -254,7 +228,7 @@ extern "C" int glt_probe_row_copy(const void* table, int64_t n, int row_bytes,
 }
 
 GLT_MODULE(probes,
-           GLT_ENTRY(glt_probe_stage_copy),
-           GLT_ENTRY(glt_probe_scale),
-           GLT_ENTRY(glt_probe_window),
-           GLT_ENTRY(glt_probe_row_copy))
+           GLT_LAUNCH(glt_probe_stage_copy),
+           GLT_LAUNCH(glt_probe_scale),
+           GLT_LAUNCH(glt_probe_window),
+           GLT_LAUNCH(glt_probe_row_copy))

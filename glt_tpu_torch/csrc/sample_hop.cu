@@ -108,4 +108,4 @@ extern "C" int glt_sample_hop(const void* indices, const void* eids,
 }
 
 GLT_MODULE(sample_hop,
-           GLT_ENTRY(glt_sample_hop))
+           GLT_LAUNCH(glt_sample_hop))

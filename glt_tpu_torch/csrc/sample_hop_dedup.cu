@@ -211,4 +211,4 @@ extern "C" int glt_hop_dedup(const void* indices_flat, const void* eids_flat,
 
 GLT_MODULE(sample_hop_dedup,
            GLT_ENTRY(glt_hop_dedup_blocks),
-           GLT_ENTRY(glt_hop_dedup))
+           GLT_LAUNCH(glt_hop_dedup))

@@ -340,4 +340,4 @@ extern "C" int glt_walk_dedup(const void* indptr_pad, int num_nodes,
 
 GLT_MODULE(sample_walk_dedup,
            GLT_ENTRY(glt_walk_dedup_blocks),
-           GLT_ENTRY(glt_walk_dedup))
+           GLT_LAUNCH(glt_walk_dedup))

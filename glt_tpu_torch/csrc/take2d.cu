@@ -18,21 +18,16 @@
 // - Each thread first issues the loads of up to kHeld of its index units
 //   (16 bytes each, or one element where idx or out is not 16-byte
 //   aligned), so the index reads are in flight while the table comes.
-// - The table arrives by TMA bulk copy on an mbarrier armed for all its
-//   bytes (expect_tx). Blocks run in thread-block clusters of up to
-//   kCluster: each block of a cluster copies its share of the table with
-//   one cp.async.bulk .multicast::cluster into the shared memory of every
-//   block of the cluster, so one L2 read of each byte feeds several SMs.
-//   Each block arms its own barrier, and a cluster barrier orders every
-//   block's arming before any copy can land in it. The table's last
-//   n % 4 words come by plain loads.
-// - The grid is at most one wave: one block an SM (1024 threads), rounded
-//   down to the cluster size and to the clusters that fit together. A
+// - Each block's table arrives by one TMA bulk copy on the block's own
+//   mbarrier, armed for all its 16-byte units (expect_tx); the last n % 4
+//   words come by plain loads. The card timed it faster than a fill by
+//   16-byte loads through registers (PERF.md §6). The launch is a plain
+//   one: on the H100 any thread-block cluster costs about 0.7 us more
+//   device time a launch, more than sharing one read of a 32 KB table
+//   among a cluster's blocks saves.
+// - The grid is at most one wave: one block an SM (1024 threads). A
 //   thread walks its units grid-stride, so every table fill serves all
 //   the indices its block can take.
-// - On the H100 a clustered launch costs about 0.7 us more device time
-//   than a plain one, whatever the cluster size (1 included), which is
-//   more than the multicast saves at a 32 KB table (PERF.md §6).
 #include "entry.cuh"
 #include <cstdint>
 #include <type_traits>
@@ -42,29 +37,9 @@ namespace {
 constexpr int kTableWords = 8192;
 constexpr int kThreads = 1024;
 constexpr int kHeld = 4;      // index units a thread loads before the table
-constexpr int kCluster = 4;   // blocks one multicast of the table feeds
 
 __device__ __forceinline__ uint32_t smem(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
-  return r;
-}
-
-// Every thread of every block of the cluster; orders shared memory
-// writes and mbarrier inits before it against reads after it.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 __device__ __forceinline__ void wait_phase0(uint64_t* bar) {
@@ -90,8 +65,7 @@ __device__ __forceinline__ int4 pick(const int* tab, int4 i, int hi) {
 template <bool kVector>
 __global__ void __launch_bounds__(kThreads, 1)
 take2d_kernel(const int* __restrict__ table, int n,
-              const int* __restrict__ idx, int64_t m, int* __restrict__ out,
-              int* __restrict__ cluster_seen) {
+              const int* __restrict__ idx, int64_t m, int* __restrict__ out) {
   using Unit = typename std::conditional<kVector, int4, int>::type;
   __shared__ __align__(128) int tab[kTableWords];
   __shared__ __align__(8) uint64_t bar;
@@ -111,44 +85,26 @@ take2d_kernel(const int* __restrict__ table, int n,
     if (q < units) held[k] = __ldg(in + q);
   }
 
-  // this block's barrier armed for the whole table's 16-byte units; the
-  // last n % 4 words by plain loads
+  // the table's 16-byte units by one bulk copy on this block's barrier,
+  // its last n % 4 words by plain loads; the __syncthreads publishes
+  // those words and the barrier's init before anyone waits on it
   if (threadIdx.x == 0) {
+    const uint32_t bytes = static_cast<uint32_t>(16 * n4);
     asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
                  ::"r"(smem(&bar)), "r"(1u) : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 ::"r"(smem(&bar)), "r"(static_cast<uint32_t>(16 * n4))
-                 : "memory");
+                 ::"r"(smem(&bar)), "r"(bytes) : "memory");
+    if (bytes)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+          "bytes [%0], [%1], %2, [%3];"
+          ::"r"(smem(tab)), "l"(table), "r"(bytes), "r"(smem(&bar))
+          : "memory");
   }
   for (int t = 4 * n4 + threadIdx.x; t < n; t += kThreads)
     tab[t] = __ldg(table + t);
-  cluster_sync();   // every barrier of the cluster armed before a copy
-
-  if (threadIdx.x == 0) {
-    const uint32_t size = cluster_size(), rank = cluster_rank();
-    const int lo = n4 * static_cast<int>(rank) / static_cast<int>(size);
-    const int hi = n4 * static_cast<int>(rank + 1) / static_cast<int>(size);
-    if (hi > lo) {
-      const uint32_t bytes = static_cast<uint32_t>(16 * (hi - lo));
-      if (size == 1) {
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
-            "bytes [%0], [%1], %2, [%3];"
-            ::"r"(smem(tab + 4 * lo)), "l"(table + 4 * lo), "r"(bytes),
-              "r"(smem(&bar)) : "memory");
-      } else {
-        const uint16_t mask = static_cast<uint16_t>((1u << size) - 1);
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
-            "bytes.multicast::cluster [%0], [%1], %2, [%3], %4;"
-            ::"r"(smem(tab + 4 * lo)), "l"(table + 4 * lo), "r"(bytes),
-              "r"(smem(&bar)), "h"(mask) : "memory");
-      }
-    }
-    if (cluster_seen != nullptr && blockIdx.x == 0)
-      *cluster_seen = static_cast<int>(size);
-  }
+  __syncthreads();
   wait_phase0(&bar);
 
   const int last = n - 1;
@@ -166,33 +122,22 @@ take2d_kernel(const int* __restrict__ table, int n,
 }
 
 template <bool kVector>
-int launch(const int* t, int n, const int* i, int64_t m, int* o, int* seen,
-           int device, void* stream) {
-  using L = glt::ClusterLaunch<take2d_kernel<kVector>, kThreads>;
+int launch(const int* t, int n, const int* i, int64_t m, int* o, int device,
+           void* stream) {
   const int64_t units = kVector ? (m + 3) / 4 : m;
   const int64_t want = (units - 1) / kThreads + 1;   // a unit a thread
-  int cluster = 1;
-  while (cluster < kCluster && 2 * cluster <= want) cluster *= 2;
-  const int fit = L::clusters(device, cluster);
-  if (fit < 0) return -fit;
-  int64_t cap = glt::sm_count(device) / cluster;
-  if (cap > fit) cap = fit;
-  if (cap < 1) cap = 1;
-  int64_t clusters = (want + cluster - 1) / cluster;
-  if (clusters > cap) clusters = cap;
-  return L::run(static_cast<int>(clusters * cluster), cluster, device,
-                stream, t, n, i, m, o, seen);
+  const int64_t wave = glt::sm_count(device);        // one block an SM
+  return glt::Launch<take2d_kernel<kVector>>::run(
+      dim3(static_cast<unsigned>(want < wave ? want : wave)), dim3(kThreads),
+      device, stream, t, n, i, m, o);
 }
 
 }  // namespace
 
 // Returns the launch's CUresult (entry.cuh), or CUDA_ERROR_INVALID_VALUE
 // for a table of more than 8192 words; table 16-byte aligned.
-// cluster_seen (NULL, or one int on the card) receives the cluster size
-// the card launched with, to check that the launch honoured it.
 extern "C" int glt_take2d(const void* table, int n, const void* idx,
-                          int64_t m, void* out, void* cluster_seen,
-                          int device, void* stream) {
+                          int64_t m, void* out, int device, void* stream) {
   if (m <= 0) return 0;
   if (n <= 0 || n > kTableWords || device < 0 || device >= glt::kMaxDevices)
     return CUDA_ERROR_INVALID_VALUE;
@@ -201,10 +146,9 @@ extern "C" int glt_take2d(const void* table, int n, const void* idx,
   const auto* t = static_cast<const int*>(table);
   const auto* i = static_cast<const int*>(idx);
   auto* o = static_cast<int*>(out);
-  auto* seen = static_cast<int*>(cluster_seen);
-  return vector ? launch<true>(t, n, i, m, o, seen, device, stream)
-                : launch<false>(t, n, i, m, o, seen, device, stream);
+  return vector ? launch<true>(t, n, i, m, o, device, stream)
+                : launch<false>(t, n, i, m, o, device, stream);
 }
 
 GLT_MODULE(take2d,
-           GLT_ENTRY(glt_take2d))
+           GLT_LAUNCH(glt_take2d))

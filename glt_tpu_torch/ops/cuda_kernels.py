@@ -9,7 +9,9 @@ kernel launches in ``<wrapper>.launches``, a plain int, so a run can show
 that it went through the kernels. A call made while the current stream
 records a CUDA graph launches nothing: it counts in ``<wrapper>.recorded``
 instead, and each replay of that graph launches the kernel once more (the
-graph's owner multiplies, e.g. ``SPMDSageTrainStep.graph_launches``).
+graph's owner multiplies, e.g. ``SPMDSageTrainStep.graph_launches``). The
+entry point itself reads its stream's capture state in the call that
+launches (csrc/entry.cuh), and the wrapper counts by what it returns.
 
 ============================  ================================  ==========
 wrapper                       replaces (glt_tpu/ops/...)        source
@@ -62,11 +64,12 @@ def make_dedup_table(slots: int, device) -> Tuple[torch.Tensor, ...]:
           torch.full((slots,), BIG, dtype=torch.int32, device=device))
 
 
-def count_launch(fn, n: int = 1) -> None:
+def count_launch(fn, recorded: bool, n: int = 1) -> None:
   """Counts ``n`` launches of wrapper ``fn``'s kernel: in ``fn.launches``,
-  or in ``fn.recorded`` while the current stream records a CUDA graph,
-  where the call launches nothing."""
-  if torch.cuda.is_current_stream_capturing():
+  or in ``fn.recorded`` when the entry point found its stream recording a
+  CUDA graph (``recorded``, as :func:`_check` returns it), where the call
+  launched nothing."""
+  if recorded:
     fn.recorded += n
   else:
     fn.launches += n
@@ -115,11 +118,22 @@ def _where(device: torch.device) -> Tuple[int, int]:
   return device.index, _raw_stream(device.index)
 
 
-def _check(err: int, what: str) -> None:
-  """Raises on a launch's CUresult (every entry point launches through
-  cuLaunchKernel, csrc/entry.cuh)."""
-  if err != 0:
-    raise RuntimeError(f'{what}: CUDA launch failed with CUresult {err}')
+#: what a launching entry point returns when its stream was recording a
+#: CUDA graph: the launch was recorded, not run (csrc/entry.cuh kRecorded)
+RECORDED = -1
+
+
+def _check(state: int, what: str) -> bool:
+  """Whether a launch was recorded into a CUDA graph, from its entry
+  point's return (csrc/entry.cuh): 0 enqueued to run, ``RECORDED``
+  recorded. Anything else is the CUresult of a launch, or of the capture
+  query before it, that failed, and raises: a failed query is never
+  taken for "not capturing"."""
+  if state == 0:
+    return False
+  if state == RECORDED:
+    return True
+  raise RuntimeError(f'{what}: CUDA launch failed with CUresult {state}')
 
 
 def _on(t: torch.Tensor, dtype: torch.dtype,
@@ -164,10 +178,9 @@ def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
   if b and d:
     row_bytes, ptr = d * table.element_size(), table.data_ptr()
     lay = _layout(row_bytes, ptr % 16)
-    _check(glt_gather_rows(
+    count_launch(gather_rows, _check(glt_gather_rows(
         ptr, rows.data_ptr(), out.data_ptr(), n, row_bytes, b, lay.lanes,
-        int(lay.realign), lay.passes, *_where(table.device)), 'gather_rows')
-    count_launch(gather_rows)
+        int(lay.realign), lay.passes, *_where(table.device)), 'gather_rows'))
   return out
 
 
@@ -227,11 +240,10 @@ def gather_rows_mixed(hot: torch.Tensor, cold,
     # an empty block takes no part in the layout
     lay = _layout(row_bytes, ((hot.data_ptr() if h else 0)
                               | (cold_ptr if c else 0)) % 16)
-    _check(glt_gather_rows_mixed(
+    count_launch(gather_rows_mixed, _check(glt_gather_rows_mixed(
         hot.data_ptr(), h, cold_ptr, c, rows.data_ptr(), out.data_ptr(),
         row_bytes, b, lay.lanes, int(lay.realign), lay.passes, *_where(dev)),
-        'gather_rows_mixed')
-    count_launch(gather_rows_mixed)
+        'gather_rows_mixed'))
   return out
 
 
@@ -320,10 +332,9 @@ def dedup_table_insert(keys: torch.Tensor, vals: torch.Tensor,
   valid = _on(valid, torch.bool, dev)
   m = ids.numel()
   if m:
-    _check(glt_dedup_table_insert(
+    count_launch(dedup_table_insert, _check(glt_dedup_table_insert(
         _ptr(keys), _ptr(vals), slots, _ptr(ids), _ptr(labs), _ptr(valid),
-        m, *_where(dev)), 'dedup_table_insert')
-    count_launch(dedup_table_insert)
+        m, *_where(dev)), 'dedup_table_insert'))
 
 
 def dedup_table_init_plain(slots: int, ids: torch.Tensor, labs: torch.Tensor,
@@ -396,11 +407,10 @@ def dedup_table_init(slots: int, ids: torch.Tensor, labs: torch.Tensor,
   dev, [(ids, labs, new_head, base)] = _init_segments(
       slots, [(ids, labs, new_head, base)], device)
   planes = torch.empty(3 * slots, dtype=torch.int32, device=dev)
-  _check(glt_dedup_table_init(
+  count_launch(dedup_table_insert, _check(glt_dedup_table_init(
       planes.data_ptr(), slots, ids.data_ptr(), labs.data_ptr(),
       new_head.data_ptr(), base, ids.numel(), *_where(dev)),
-      'dedup_table_init')
-  count_launch(dedup_table_insert)
+      'dedup_table_init'))
   return planes.split(slots)
 
 
@@ -428,12 +438,11 @@ def dedup_table_init_types(slots: int, segments, device
     return dedup_table_init_types_plain(slots, segments, device)
   dev, segs = _init_segments(slots, segments, device)
   planes = torch.empty(3 * slots, dtype=torch.int32, device=dev)
-  _check(glt_dedup_table_init_types(
+  count_launch(dedup_table_insert, _check(glt_dedup_table_init_types(
       planes.data_ptr(), slots, [s[0].data_ptr() for s in segs],
       [s[1].data_ptr() for s in segs], [s[2].data_ptr() for s in segs],
       [s[3] for s in segs], [s[0].numel() for s in segs], *_where(dev)),
-      'dedup_table_init_types')
-  count_launch(dedup_table_insert)
+      'dedup_table_init_types'))
   return planes.split(slots)
 
 
@@ -603,12 +612,11 @@ def sample_walk_dedup(indptr_pad, indices, seed_ids, seed_ok, stab_ids,
                base + slots if with_slots else 0, base + mask,
                sbase + tslot, base + labels, base + new_head,
                base + new_count)
-  _check(glt_walk_dedup(
+  count_launch(sample_walk_dedup, _check(glt_walk_dedup(
       indptr_pad.data_ptr(), num_nodes, indices.data_ptr(), seeds.data_ptr(),
       seed_ok.data_ptr(), stab_ids.data_ptr(), stab_labs.data_ptr(),
       seeds.numel(), count.data_ptr(), int(replace), sbase, table_slots,
-      words, planes, *_where(dev)), 'sample_walk_dedup')
-  count_launch(sample_walk_dedup)
+      words, planes, *_where(dev)), 'sample_walk_dedup'))
   ints = buf.split_with_sizes(lay.int_sizes)
   flags = ints[-1].view(torch.bool).split_with_sizes(lay.flag_sizes)
   new_counts = ints[0].unbind()
@@ -814,7 +822,7 @@ def sample_hop_dedup(indices_flat, eids_flat, starts, offsets, valid, keys,
   scratch = torch.empty(2 * words + blocks + m, dtype=torch.int32,
                         device=dev)
   sbase = scratch.data_ptr()
-  _check(glt_hop_dedup(
+  count_launch(sample_hop_dedup, _check(glt_hop_dedup(
       indices_flat.data_ptr(), _ptr(eids_flat), starts.data_ptr(),
       offsets.data_ptr(), valid.data_ptr(), s, k, keys.data_ptr(),
       vals.data_ptr(), first.data_ptr(), slots, type_bounds.data_ptr(),
@@ -822,8 +830,7 @@ def sample_hop_dedup(indices_flat, eids_flat, starts, offsets, valid, keys,
       picks.data_ptr(), eid_picks.data_ptr() if n_eid else None,
       sbase + 4 * (2 * words + blocks), labels.data_ptr(),
       new_head.data_ptr(), counts_out.data_ptr(), *_where(dev)),
-      'sample_hop_dedup')
-  count_launch(sample_hop_dedup)
+      'sample_hop_dedup'))
   return dict(picks=picks.view(s, k),
               eid_picks=eid_picks.view(s, k) if n_eid else None,
               labels=labels, new_head=new_head, counts=counts_out)
@@ -900,11 +907,10 @@ def sample_hop(indices: torch.Tensor, eids: Optional[torch.Tensor],
     eid_picks = torch.empty_like(offsets)
     eids_ptr, eid_picks_ptr = eids.data_ptr(), eid_picks.data_ptr()
   if m:
-    _check(glt_sample_hop(
+    count_launch(sample_hop, _check(glt_sample_hop(
         indices.data_ptr(), eids_ptr, n, starts.data_ptr(),
         offsets.data_ptr(), shape[0], shape[1], picks.data_ptr(),
-        eid_picks_ptr, dev, _raw_stream(dev)), 'sample_hop')
-    count_launch(sample_hop)
+        eid_picks_ptr, dev, _raw_stream(dev)), 'sample_hop'))
   return picks, eid_picks
 
 
@@ -981,10 +987,9 @@ def gather_windows(arr: torch.Tensor, starts: torch.Tensor,
     _refuse_windows(arr, starts, width)
   out = arr.new_empty(s, width)
   if s:
-    _check(glt_gather_windows(
+    count_launch(gather_windows, _check(glt_gather_windows(
         arr.data_ptr(), n, starts.data_ptr(), s, width, out.data_ptr(),
-        dev, _raw_stream(dev)), 'gather_windows')
-    count_launch(gather_windows)
+        dev, _raw_stream(dev)), 'gather_windows'))
   return out
 
 

@@ -8,7 +8,9 @@ As in ops/cuda_kernels.py: a wrapper runs its plain version only for
 tensors on the CPU; for CUDA tensors it launches its kernel (built on
 first use by ops/build.py) on the card's current stream or raises
 ``ValueError`` for what the kernel does not take; nothing falls back.
-Each wrapper counts its launches in ``<wrapper>.launches``.
+Each wrapper counts its launches in ``<wrapper>.launches`` (or
+``<wrapper>.recorded`` inside a CUDA graph's capture), by what its entry
+point returns.
 
 =================  ==========================================  ==============
 wrapper            replaces (benchmarks/...)                   source
@@ -23,8 +25,6 @@ wrapper            replaces (benchmarks/...)                   source
 =================  ==========================================  ==============
 """
 from __future__ import annotations
-
-from typing import Tuple
 
 import torch
 
@@ -70,9 +70,8 @@ def vmem_id(x: torch.Tensor) -> torch.Tensor:
         f'{nbytes} bytes at {ptr % 16} past 16')
   out = torch.empty_like(x)
   if nbytes:
-    _check(glt_probe_stage_copy(ptr, out.data_ptr(), nbytes,
-                                *_where(x.device)), 'vmem_id')
-    count_launch(vmem_id)
+    count_launch(vmem_id, _check(glt_probe_stage_copy(
+        ptr, out.data_ptr(), nbytes, *_where(x.device)), 'vmem_id'))
   return out
 
 
@@ -84,9 +83,10 @@ def smem_scalar_plain(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def smem_scalar(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-  """``x * float32(s[0, 0])``, the int32 scalar read on the card once per
-  block into shared memory. On the card ``x`` is float32, contiguous,
-  16-byte aligned and of a multiple of 4 elements; ``s`` int32."""
+  """``x * float32(s[0, 0])``: every thread of the kernel loads 16 bytes
+  of ``x`` and the int32 scalar together. On the card ``x`` is float32,
+  contiguous, 16-byte aligned and of a multiple of 4 elements; ``s``
+  int32."""
   if not x.is_cuda:
     return smem_scalar_plain(x, s)
   dev, n, ptr = x.device, x.numel(), x.data_ptr()
@@ -98,9 +98,8 @@ def smem_scalar(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         f's on one card, got {x.dtype} {tuple(x.shape)}, {s.dtype}')
   out = torch.empty_like(x)
   if n:
-    _check(glt_probe_scale(ptr, s.data_ptr(), out.data_ptr(), n,
-                           *_where(dev)), 'smem_scalar')
-    count_launch(smem_scalar)
+    count_launch(smem_scalar, _check(glt_probe_scale(
+        ptr, s.data_ptr(), out.data_ptr(), n, *_where(dev)), 'smem_scalar'))
   return out
 
 
@@ -126,30 +125,26 @@ def dma_fixed_plain(big: torch.Tensor, start: int = 256,
 
 
 def _check_window(big: torch.Tensor, width: int, what: str) -> None:
-  n = big.numel()
-  if not (big.dtype is _I32 and big.dim() == 1 and n % 4 == 0
-          and big.data_ptr() % 16 == 0 and big.is_contiguous()
-          and 0 < width <= min(MAX_WINDOW, n)):
+  if not (big.dtype is _I32 and big.dim() == 1 and big.is_contiguous()
+          and 0 < width <= min(MAX_WINDOW, big.numel())):
     raise ValueError(
-        f'{what} copies up to {MAX_WINDOW} words of an aligned 1-D int32 '
-        f'array of 4k elements, got {big.dtype} {tuple(big.shape)}, width '
-        f'{width}')
+        f'{what} copies up to {MAX_WINDOW} words of a contiguous 1-D int32 '
+        f'array, got {big.dtype} {tuple(big.shape)}, width {width}')
 
 
 def dma_fixed(big: torch.Tensor, start: int = 256,
               width: int = 128) -> torch.Tensor:
-  """``big[start:start + width]`` by one bulk async copy into shared
-  memory, completed on an mbarrier; the start is a launch argument, as
-  the TPU rung's ``pl.ds(256, 128)`` is static; taken as
-  ``lax.dynamic_slice`` takes it."""
+  """``big[start:start + width]``, a word a thread read straight from
+  device memory; the start is a launch argument, as the TPU rung's
+  ``pl.ds(256, 128)`` is static; taken as ``lax.dynamic_slice`` takes
+  it."""
   if not big.is_cuda:
     return dma_fixed_plain(big, start, width)
   _check_window(big, width, 'dma_fixed')
   out = big.new_empty(width)
-  _check(glt_probe_window(big.data_ptr(), big.numel(), int(start), None,
-                          width, out.data_ptr(), *_where(big.device)),
-         'dma_fixed')
-  count_launch(dma_fixed)
+  count_launch(dma_fixed, _check(glt_probe_window(
+      big.data_ptr(), big.numel(), int(start), None, width, out.data_ptr(),
+      *_where(big.device)), 'dma_fixed'))
   return out
 
 
@@ -163,9 +158,8 @@ def dma_dynamic_plain(big: torch.Tensor, st: torch.Tensor,
 def dma_dynamic(big: torch.Tensor, st: torch.Tensor,
                 width: int = 128) -> torch.Tensor:
   """``big[st:st + width]``, the start read from the int32 tensor ``st``
-  on the card (taken as ``lax.dynamic_slice`` takes it); one bulk async copy of
-  the 16-byte-aligned cover of the window, the window selected from
-  shared memory."""
+  on the card by every thread of the kernel (taken as
+  ``lax.dynamic_slice`` takes it), then a word a thread."""
   if not big.is_cuda:
     return dma_dynamic_plain(big, st, width)
   _check_window(big, width, 'dma_dynamic')
@@ -176,10 +170,9 @@ def dma_dynamic(big: torch.Tensor, st: torch.Tensor,
         f'dma_dynamic reads its start from an int32 tensor on the card, got '
         f'{st.dtype} on {st.device}')
   out = big.new_empty(width)
-  _check(glt_probe_window(big.data_ptr(), big.numel(), 0, st.data_ptr(),
-                          width, out.data_ptr(), *_where(dev)),
-         'dma_dynamic')
-  count_launch(dma_dynamic)
+  count_launch(dma_dynamic, _check(glt_probe_window(
+      big.data_ptr(), big.numel(), 0, st.data_ptr(), width, out.data_ptr(),
+      *_where(dev)), 'dma_dynamic'))
   return out
 
 
@@ -212,9 +205,9 @@ def prefetch_grid(tab: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
   b = rows.numel()
   out = tab.new_empty((b,) + tab.shape[1:])
   if b:
-    _check(glt_probe_row_copy(ptr, n, row_bytes, rows.data_ptr(), b,
-                              out.data_ptr(), *_where(dev)), 'prefetch_grid')
-    count_launch(prefetch_grid)
+    count_launch(prefetch_grid, _check(glt_probe_row_copy(
+        ptr, n, row_bytes, rows.data_ptr(), b, out.data_ptr(), *_where(dev)),
+        'prefetch_grid'))
   return out
 
 
@@ -225,37 +218,35 @@ def vmem_take_plain(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
   return torch.take(tab, idx.long().clamp(0, max(tab.numel() - 1, 0)))
 
 
-def _take2d(tab: torch.Tensor, idx: torch.Tensor,
-            what: str) -> Tuple[torch.Tensor, int]:
-  """The shared-memory gather of ``vt`` and ``vmem_take`` on the card and
-  the count of indices (a launch when there are any)."""
+def _take2d(fn, tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+  """The shared-memory gather of ``vt`` and ``vmem_take`` on the card, a
+  launch counted for wrapper ``fn`` when there are indices."""
   dev, n, ptr = tab.device, tab.numel(), tab.data_ptr()
   if not (tab.dtype is _I32 and idx.dtype is _I32
           and 0 < n <= MAX_TABLE_WORDS and ptr % 16 == 0
           and tab.is_contiguous() and idx.is_contiguous()
           and idx.device == dev):
     raise ValueError(
-        f'{what} reads an aligned int32 table of 1 to {MAX_TABLE_WORDS} '
-        f'words by contiguous int32 indices on one card, got '
-        f'{tuple(tab.shape)} {tab.dtype}, idx {idx.dtype}')
+        f'{fn.__name__} reads an aligned int32 table of 1 to '
+        f'{MAX_TABLE_WORDS} words by contiguous int32 indices on one card, '
+        f'got {tuple(tab.shape)} {tab.dtype}, idx {idx.dtype}')
   out = torch.empty_like(idx)
   m = idx.numel()
   if m:
-    _check(glt_take2d(ptr, n, idx.data_ptr(), m, out.data_ptr(), None,
-                      *_where(dev)), what)
-  return out, m
+    count_launch(fn, _check(glt_take2d(
+        ptr, n, idx.data_ptr(), m, out.data_ptr(), *_where(dev)),
+        fn.__name__))
+  return out
 
 
 def vmem_take(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
   """``take(tab.ravel(), idx, mode='clip')`` from a table of at most 8192
-  int32 words that every block holds in shared memory, multicast to the
-  blocks of a cluster (the microbench's gather). On the card ``tab`` is
-  int32, contiguous and 16-byte aligned; ``idx`` int32 and contiguous."""
+  int32 words that every block of the kernel fills into its shared memory
+  (the microbench's gather). On the card ``tab`` is int32, contiguous and
+  16-byte aligned; ``idx`` int32 and contiguous."""
   if not tab.is_cuda:
     return vmem_take_plain(tab, idx)
-  out, m = _take2d(tab, idx, 'vmem_take')
-  count_launch(vmem_take, m > 0)
-  return out
+  return _take2d(vmem_take, tab, idx)
 
 
 vt_plain = vmem_take_plain
@@ -266,9 +257,7 @@ def vt(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
   that the probe's launches and the microbench's stay apart."""
   if not tab.is_cuda:
     return vt_plain(tab, idx)
-  out, m = _take2d(tab, idx, 'vt')
-  count_launch(vt, m > 0)
-  return out
+  return _take2d(vt, tab, idx)
 
 
 KERNELS = (vmem_id, smem_scalar, dma_fixed, dma_dynamic, prefetch_grid, vt,

@@ -1181,6 +1181,28 @@ def test_probe_kernels_match_plain(dev):
     P.vmem_id(x[:, 1:])
 
 
+@pytest.mark.parametrize('n', [4, 16_384, 1 << 20])
+def test_smem_scalar_matches_plain_at_its_edges(dev, n):
+  # one 16-byte unit, the rung's 16,384 elements, 1 << 20; scalars that
+  # zero, flip the sign, round (16,777,217 -> 16,777,216 as float32) and
+  # the int32 minimum; x holding +-inf, NaN, -0.0 and subnormals. Bit
+  # patterns are compared: torch.equal counts NaN unequal to itself
+  g = torch.Generator(device=dev).manual_seed(n)
+  x = torch.randn(n, generator=g, device=dev)
+  special = torch.tensor([float('inf'), float('-inf'), float('nan'), -0.0,
+                          1e-40, -3e-45, 1.1754942e-38, 3.4e38],
+                         device=dev)
+  x[:min(n, 8)] = special[:min(n, 8)]
+  if n > 8:
+    x[-8:] = special.flip(0)
+  for sv in (0, 3, -7, 16_777_217, -2 ** 31):
+    s = torch.tensor([[sv]], dtype=torch.int32, device=dev)
+    got, want = P.smem_scalar(x, s), P.smem_scalar_plain(x, s)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), sv
+    assert torch.equal(got.view(torch.int32),
+                       torch.mul(x, s).reshape(n).view(torch.int32)), sv
+
+
 @pytest.mark.parametrize('start', [512, 513, 4090, 256, 0, 3, -5, 9000])
 def test_dma_windows_match_plain(dev, start):
   # aligned (512, 256) and unaligned (513, 3) starts, one near the end
@@ -1196,8 +1218,21 @@ def test_dma_windows_match_plain(dev, start):
     assert torch.equal(P.dma_fixed(big, start, width),
                        P.dma_fixed_plain(big, start, width)), width
     assert torch.equal(got, P.dma_fixed_plain(big, start, width))
+  # a 4-word array at every width, and a window as wide as its array
+  small = torch.tensor([5, -6, 7, -8], dtype=torch.int32, device=dev)
+  for width in (1, 2, 3, 4):
+    assert torch.equal(P.dma_dynamic(small, st, width),
+                       P.dma_dynamic_plain(small, st, width)), width
+    assert torch.equal(P.dma_fixed(small, start, width),
+                       P.dma_fixed_plain(small, start, width)), width
+  whole = big[:1024]
+  assert torch.equal(P.dma_dynamic(whole, st, 1024), whole)
+  assert torch.equal(P.dma_fixed(whole, start, 1024), whole)
+  odd = big[1:]                       # past a 16-byte boundary
+  assert torch.equal(P.dma_dynamic(odd, st, 7),
+                     P.dma_dynamic_plain(odd, st, 7))
   with pytest.raises(ValueError):
-    P.dma_dynamic(big[1:], st)          # not 16-byte aligned
+    P.dma_dynamic(big.long(), st)       # not int32
   with pytest.raises(ValueError):
     P.dma_fixed(big, 0, 2048)           # wider than a window holds
 
@@ -1234,24 +1269,22 @@ def test_vmem_take_matches_plain(dev, shape):
   assert torch.equal(P.vmem_take(tab, unaligned), got)
 
 
-def _take2d_raw(tab, idx, out, seen=None):
+def _take2d_raw(tab, idx, out):
   """glt_take2d straight, for an ``out`` the wrapper would not allocate
-  (a view past a 16-byte boundary) and to read the cluster size the card
-  launched with; counted nowhere."""
+  (a view past a 16-byte boundary); counted nowhere."""
   K._check(P.glt_take2d(tab.data_ptr(), tab.numel(), idx.data_ptr(),
-                        idx.numel(), out.data_ptr(),
-                        None if seen is None else seen.data_ptr(),
-                        *K._where(tab.device)), 'glt_take2d')
+                        idx.numel(), out.data_ptr(), *K._where(tab.device)),
+           'glt_take2d')
 
 
 @pytest.mark.parametrize('n', [1, 4_097, 8_192])
 @pytest.mark.parametrize('m', [1, 3, 30_720, 768_001])
 def test_take2d_matches_plain_at_its_edges(dev, n, m):
   # a one-word table, a tail word past the table's last 16-byte unit
-  # (plain loads beside the multicast), the largest table; one index, a
-  # ragged count, the rung's 30,720, a ragged 768,001; indices negative
-  # and past the end; idx and out one element past a 16-byte boundary
-  # (the element loop)
+  # (plain loads beside the 16-byte table fill), the largest table; one
+  # index, a ragged count, the rung's 30,720 (8 blocks), a ragged 768,001
+  # (one wave, grid-stride); indices negative and past the end; idx and
+  # out one element past a 16-byte boundary (the element loop)
   g = torch.Generator(device=dev).manual_seed(n + m)
   tab = torch.randint(-(1 << 30), 1 << 30, (n,), generator=g, device=dev,
                       dtype=torch.int32)
@@ -1269,22 +1302,41 @@ def test_take2d_matches_plain_at_its_edges(dev, n, m):
   assert torch.equal(out[1:], want[:m]) and int(out[0]) == 7
 
 
-def test_take2d_launches_its_clusters(dev):
-  # the rung's 30,720 indices take 8 blocks in clusters of 4; the
-  # microbench's 768,000 one wave in clusters of 4; a lone index one
-  # block; each block's table arrives whole
-  g = torch.Generator(device=dev).manual_seed(43)
+def test_launches_inside_a_cuda_graph_count_as_recorded(dev):
+  # each entry point reads its stream's capture state (csrc/entry.cuh): a
+  # call outside a capture counts in .launches, one inside
+  # torch.cuda.graph in .recorded (it launched nothing), and a replay
+  # computes what the eager call did without counting
+  g = torch.Generator(device=dev).manual_seed(47)
+  table = torch.randn((1000, 100), generator=g, device=dev)
+  rows = torch.randint(-3, 1003, (256,), generator=g, device=dev,
+                       dtype=torch.int32)
+  x = torch.randn((128, 128), generator=g, device=dev)
+  s = torch.tensor([[3]], dtype=torch.int32, device=dev)
   tab = torch.randint(0, 1 << 20, (64, 128), generator=g, device=dev,
                       dtype=torch.int32)
-  for m, cluster in ((30_720, 4), (768_000, 4), (1, 1), (3_000, 1),
-                     (5_000, 2)):
-    idx = torch.randint(-9, 8200, (m,), generator=g, device=dev,
-                        dtype=torch.int32)
-    out = torch.empty_like(idx)
-    seen = torch.zeros(1, dtype=torch.int32, device=dev)
-    _take2d_raw(tab, idx, out, seen)
-    assert int(seen) == cluster, m
-    assert torch.equal(out, P.vmem_take_plain(tab, idx)), m
+  idx = torch.randint(-9, 8200, (8, 3840), generator=g, device=dev,
+                      dtype=torch.int32)
+  calls = {K.gather_rows: (table, rows), P.smem_scalar: (x, s),
+           P.vt: (tab, idx)}
+  K.reset_launch_counts()
+  P.reset_launch_counts()
+  eager = {fn: fn(*a) for fn, a in calls.items()}
+  assert {fn.__name__: (fn.launches, fn.recorded) for fn in calls} == {
+      fn.__name__: (1, 0) for fn in calls}
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    outs = {fn: fn(*a) for fn, a in calls.items()}
+  assert {fn.__name__: (fn.launches, fn.recorded) for fn in calls} == {
+      fn.__name__: (1, 1) for fn in calls}
+  for out in outs.values():
+    out.zero_()
+  graph.replay()
+  torch.cuda.synchronize()
+  for fn in calls:
+    assert torch.equal(outs[fn], eager[fn]), fn.__name__
+  assert {fn.__name__: (fn.launches, fn.recorded) for fn in calls} == {
+      fn.__name__: (1, 1) for fn in calls}
 
 
 @pytest.mark.parametrize('row_bytes', [16, 512, 16_384])

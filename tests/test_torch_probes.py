@@ -222,3 +222,62 @@ def test_prefetch_grid_plain_matches_take_at_the_kernels_edges(row_bytes, b):
                              mode='clip'))
   got = P.prefetch_grid(torch.as_tensor(tab), torch.as_tensor(rows))
   np.testing.assert_array_equal(want, got.numpy())
+
+
+#: x values whose products the scale kernel must keep bit for bit: +-inf,
+#: NaN, -0.0, subnormals, the smallest normal and a large finite value
+_SCALE_SPECIALS = np.array([np.inf, -np.inf, np.nan, -0.0, 1e-40, -3e-45,
+                            1.1754942e-38, 3.4e38], np.float32)
+
+
+@pytest.mark.parametrize('s', [0, 3, -7, 16_777_217, -2 ** 31])
+def test_smem_scalar_plain_matches_the_jax_rungs_expression(s):
+  # rung 2's own expression, x * s[0, 0].astype(float32), bit patterns
+  # compared (NaN is unequal to itself); 16,777,217 rounds to 16,777,216
+  # as a float32, the int32 minimum is exact. XLA on the CPU, as the TPU,
+  # flushes float32 subnormals to zero; the port keeps them as torch.mul
+  # does (and the card kernel with it), so a lane whose x or product is
+  # subnormal is held to numpy's IEEE product and JAX gives the zero of
+  # the same sign there
+  rng = np.random.default_rng(11)
+  x = rng.normal(size=(128, 128)).astype(np.float32)
+  x.reshape(-1)[:8] = _SCALE_SPECIALS
+  x.reshape(-1)[-8:] = _SCALE_SPECIALS[::-1]
+  sv = np.array([[s]], np.int32)
+  want = np.asarray(jax.jit(lambda x, s: x * s[0, 0].astype(jnp.float32))(
+      jnp.asarray(x), jnp.asarray(sv)))
+  got = P.smem_scalar(torch.as_tensor(x), torch.as_tensor(sv)).numpy()
+  with np.errstate(all='ignore'):
+    ieee = x * np.float32(s)
+  np.testing.assert_array_equal(ieee.view(np.int32), got.view(np.int32))
+  tiny = np.finfo(np.float32).tiny
+  sub = lambda a: (a != 0) & (np.abs(a) < tiny)
+  flushed = sub(x) | sub(ieee)
+  assert flushed.sum() == 6   # the subnormal x values, twice each
+  np.testing.assert_array_equal(want[~flushed].view(np.int32),
+                                got[~flushed].view(np.int32))
+  assert np.all(want[flushed] == 0)
+  np.testing.assert_array_equal(np.signbit(want[flushed]),
+                                np.signbit(got[flushed]))
+
+
+def test_count_launch_counts_by_the_capture_state_it_is_given():
+  # the state comes from the entry point (csrc/entry.cuh): 0 launched,
+  # RECORDED recorded into a CUDA graph; any other value is a CUresult
+  # that raises, never a launch taken as not captured
+  P.reset_launch_counts()
+  assert K._check(0, 'smem_scalar') is False
+  assert K._check(K.RECORDED, 'smem_scalar') is True
+  for err in (1, 906, 901):   # invalid value, capture implicit, invalidated
+    with pytest.raises(RuntimeError, match=f'CUresult {err}$'):
+      K._check(err, 'smem_scalar')
+  K.count_launch(P.smem_scalar, K._check(0, 'smem_scalar'))
+  K.count_launch(P.smem_scalar, K._check(K.RECORDED, 'smem_scalar'))
+  K.count_launch(P.smem_scalar, False, 3)
+  K.count_launch(P.vt, True, 2)
+  assert (P.smem_scalar.launches, P.smem_scalar.recorded) == (4, 1)
+  assert (P.vt.launches, P.vt.recorded) == (0, 2)
+  assert all(fn.launches == fn.recorded == 0 for fn in P.KERNELS
+             if fn not in (P.smem_scalar, P.vt))
+  P.reset_launch_counts()
+  assert all(fn.launches == fn.recorded == 0 for fn in P.KERNELS)

@@ -382,19 +382,16 @@ def test_stage_cold_rows_of_one_block_equals_its_slice_of_the_stack():
     sf.stage_cold_rows(nodes, np.ones((3, 3), np.int64))
 
 
-def test_a_call_recorded_in_a_capture_counts_apart(monkeypatch):
+def test_a_call_recorded_in_a_capture_counts_apart():
   from glt_tpu_torch.ops import cuda_kernels as CK
   from glt_tpu_torch.ops import probe_kernels as PK
   CK.reset_launch_counts()
   PK.reset_launch_counts()
-  capturing = [False]
-  monkeypatch.setattr(torch.cuda, 'is_current_stream_capturing',
-                      lambda: capturing[0])
-  CK.count_launch(CK.gather_rows)
-  capturing[0] = True
-  CK.count_launch(CK.gather_rows)
-  CK.count_launch(CK.sample_walk_dedup)
-  CK.count_launch(PK.vt, True)
+  # the capture state as the entry point returns it (csrc/entry.cuh)
+  CK.count_launch(CK.gather_rows, CK._check(0, 'gather_rows'))
+  CK.count_launch(CK.gather_rows, CK._check(CK.RECORDED, 'gather_rows'))
+  CK.count_launch(CK.sample_walk_dedup, True)
+  CK.count_launch(PK.vt, True, 1)
   assert (CK.gather_rows.launches, CK.gather_rows.recorded) == (1, 1)
   assert (CK.sample_walk_dedup.launches,
           CK.sample_walk_dedup.recorded) == (0, 1)
