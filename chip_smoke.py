@@ -327,6 +327,11 @@ DELTA_WINDOW, DELTA_CAPACITY, OCCUPANCY = 8, 4096, 0.5
 N_INSERTS, N_DELETES, N_FEATURE_ROWS = 1000, 500, 256
 # training: examples/train_sage_products.py (batch 1024, Adam 1e-3)
 TRAIN_BATCH, TRAIN_STEPS, UNIFORM_STEPS, LR = 1024, 30, 10, 1e-3
+# GraphSAGE's options at that width: (label, conv, SAGE aggregation,
+# dropout), each trained VARIANT_STEPS steps; the engine serves the first
+VARIANTS = (('gat', 'gat', None, 0.0), ('gcn', 'gcn', None, 0.0),
+            ('sage max, dropout 0.5', 'sage', 'max', 0.5))
+VARIANT_STEPS, VARIANT_REQUESTS = 5, 8
 LOSS_TOL = 1e-4   # same batch bit for bit; index_add_ atomics again
 # hetero training: examples/igbh/dist_train_rgnn.py (batch 64, Adam 1e-3,
 # a bf16 feature store) over the igbh-rgat graph, a seeded 60% of the
@@ -1129,6 +1134,8 @@ ROW_EDGES = ((16, 512, 16_384), (1, 16, 153_600))
 #: the row copy at the microbench's row shape: 153,600 rows of a
 #: [1,000,000, 128] float32 table
 WIDE_ROWS, WIDE_TABLE = 153_600, (1_000_000, 128)
+#: the copy (vmem_id) where bytes set its pace: 256 MiB of float32
+COPY_SHAPE = (524_288, 128)
 
 
 def probe_edge_checks(torch, P, dev, gen):
@@ -1200,7 +1207,8 @@ def probe_checks(torch, np, K, P, dev, seed, rows, host_us):
   data sheet's 3.35 TB/s and against the stream rate measured in this
   call; take2d and the row copy are also held at their edge shapes, the
   row copy also at 153,600 rows of 512 B, in turns with index_select and
-  K3 gather_rows."""
+  K3 gather_rows, and vmem_id's copy at 256 MiB, where bytes set its
+  pace, in turns with clone."""
   from glt_tpu_torch.benchmarks import probe_compile
   from glt_tpu_torch.obs.perf import measure_hbm_bandwidth
   t = {k: torch.as_tensor(v, device=dev)
@@ -1218,7 +1226,9 @@ def probe_checks(torch, np, K, P, dev, seed, rows, host_us):
   wide_rows = torch.randint(0, WIDE_TABLE[0], (WIDE_ROWS,), generator=gen,
                             device=dev, dtype=torch.int32)
   wide_distinct = int(torch.unique(wide_rows).numel())
-  # name: (wrapper, arguments, library call or None, bytes moved)
+  copy_x = torch.randn(COPY_SHAPE, generator=gen, device=dev)
+  # name: (wrapper, arguments, library call or None, bytes moved); a name
+  # other than its wrapper's is a shape of that wrapper's row
   cases = {
       'vmem_id': ('vmem_id', (x,), lambda: x.clone(), 2 * x.numel() * 4),
       'smem_scalar': ('smem_scalar', (x, s), lambda: torch.mul(x, s),
@@ -1241,11 +1251,15 @@ def probe_checks(torch, np, K, P, dev, seed, rows, host_us):
           'prefetch_grid', (wide, wide_rows),
           lambda: torch.index_select(wide, 0, wide_rows),
           (wide_distinct + WIDE_ROWS) * 512 + 4 * WIDE_ROWS),
+      # the copy where bytes, not the launch, set its pace
+      f'vmem_id {copy_x.numel() * 4 >> 20} MiB': (
+          'vmem_id', (copy_x,), lambda: copy_x.clone(),
+          2 * copy_x.numel() * 4),
   }
-  redesigned = ('smem_scalar', 'dma_fixed', 'dma_dynamic', 'prefetch_grid',
-                'vt', 'vmem_take')
-  labels = {'smem_scalar': 'torch.mul', 'dma_fixed': 'clone',
-            'prefetch_grid': 'index_select'}
+  redesigned = ('vmem_id', 'smem_scalar', 'dma_fixed', 'dma_dynamic',
+                'prefetch_grid', 'vt', 'vmem_take')
+  labels = {'vmem_id': 'clone', 'smem_scalar': 'torch.mul',
+            'dma_fixed': 'clone', 'prefetch_grid': 'index_select'}
   launch_floor(torch, dev, host_us)
   for name, (fn, args, lib, nbytes) in cases.items():
     kernel, plain = getattr(P, fn), getattr(P, fn + '_plain')
@@ -1257,8 +1271,8 @@ def probe_checks(torch, np, K, P, dev, seed, rows, host_us):
     fns = {'kernel': lambda: kernel(*args)}
     if lib:
       fns['library'] = lib
-    wide_case = name.startswith('prefetch_grid ')
-    if wide_case:
+    wide_case = name != fn
+    if fn == 'prefetch_grid' and wide_case:
       fns['gather_rows'] = lambda: K.gather_rows(wide, wide_rows)
     if fn in redesigned:
       per_round = in_turns_ms(torch, np, fns, iters=200, abba=True)
@@ -1296,7 +1310,7 @@ def probe_checks(torch, np, K, P, dev, seed, rows, host_us):
                f'{row["bound_share"] * 100:.1f}% of its bound at 3.35 TB/s, '
                f'{row["ceiling_share"] * 100:.1f}% at the measured '
                f'{rate / 1e12:.4f} TB/s')
-    if wide_case:
+    if 'gather_rows' in fns:
       k3_ms = float(np.median(per_round['gather_rows']))
       row.update(rows=WIDE_ROWS, distinct=wide_distinct, k3_ms=k3_ms,
                  k3_graph_ms=dev_ms['gather_rows'],
@@ -1306,7 +1320,8 @@ def probe_checks(torch, np, K, P, dev, seed, rows, host_us):
                f'{host["gather_rows"]:.2f} us ({ms / k3_ms:.3f}x K3 back to '
                f'back, {dev_ms["kernel"] / dev_ms["gather_rows"]:.3f}x in a '
                f'graph); {wide_distinct} distinct rows')
-      rows['prefetch_grid']['shapes'] = {name: row}
+    if wide_case:
+      rows[fn].setdefault('shapes', {})[name] = row
     else:
       rows[name] = row
     print(line)
@@ -1701,10 +1716,93 @@ def stream_phases(torch, np, K, ds, dev, seed, rows):
   return launches
 
 
+def sage_variants_phase(torch, np, K, ds, dev, seed, loader, smi):
+  """GraphSAGE's other convolutions and options (VARIANTS) at full width,
+  each trained VARIANT_STEPS steps from ``loader(False)`` (the walk: K1
+  and K3 once a step), then the engine serving the GAT model (K1, K3 once
+  a computed bucket), its last request's logits held against the model's
+  own eval() forward on that batch; returns the launches by kernel."""
+  from glt_tpu_torch.models import GraphSAGE
+  from glt_tpu_torch.parallel import SageTrainStep
+  from glt_tpu_torch.serving import InferenceEngine
+
+  with Phase('sage variants path'):
+    K.reset_launch_counts()
+    nets = {}
+    for label, conv, aggr, dropout in VARIANTS:
+      torch.manual_seed(seed)
+      net = GraphSAGE(FEAT_DIM, HIDDEN, CLASSES, num_layers=3, conv=conv,
+                      dropout=dropout).to(dev).train()
+      if aggr is not None:
+        for c in net.convs:
+          c.aggr = aggr
+      step = SageTrainStep(net, lr=LR)
+      k1, k3 = K.sample_walk_dedup.launches, K.gather_rows.launches
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      losses, secs, it = [], [], iter(loader(False))
+      for _ in range(VARIANT_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(next(it)))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+      losses = [float(v) for v in losses]
+      peak = torch.cuda.max_memory_allocated()
+      if not all(np.isfinite(losses)):
+        raise AssertionError(f'{label}: non-finite loss {losses}')
+      for name, before in (('sample_walk_dedup', k1), ('gather_rows', k3)):
+        n = getattr(K, name).launches - before
+        if n != VARIANT_STEPS:
+          raise AssertionError(f'{label}: {n} {name} launches in '
+                               f'{VARIANT_STEPS} steps')
+      print(f'GraphSAGE {label}: {VARIANT_STEPS} steps, loss '
+            f'{losses[0]:.4f} -> {losses[-1]:.4f}; median step '
+            f'{np.median(secs[1:]) * 1e3:.3f} ms (first '
+            f'{secs[0] * 1e3:.3f}); peak memory {peak / 2**30:.3f} GiB '
+            f'({peak} bytes); on {smi}')
+      nets[label] = net
+    gat = nets[VARIANTS[0][0]]
+    engine = InferenceEngine(ds, gat, None, FANOUTS, device=dev, seed=seed)
+    made = []   # the batches the engine makes, the last request's last
+
+    def record(*a, **kw):
+      made.append(InferenceEngine.make_batch(engine, *a, **kw))
+      return made[-1]
+    engine.make_batch = record
+    # distinct ids across requests: every request computes all of its ids
+    requests = torch.randperm(NUM_NODES, generator=torch.Generator(
+        ).manual_seed(seed + 25))[:200 * VARIANT_REQUESTS].view(
+            VARIANT_REQUESTS, 200).numpy()
+    check = per_request_launches(K, {'sample_walk_dedup': 1,
+                                     'gather_rows': 1})
+    for ids in requests:
+      calls0 = engine.forward_calls
+      logits = engine.infer(ids)
+      check(engine.forward_calls - calls0)
+    with torch.no_grad():
+      own = gat.eval()(made[-1])[:ids.size].cpu()
+    order = np.argsort(np.argsort(ids))   # infer computes sorted ids
+    diff = float((own[order] - torch.as_tensor(logits)).abs().max())
+    if not torch.allclose(own[order], torch.as_tensor(logits),
+                          rtol=LOGIT_TOL, atol=LOGIT_TOL):
+      raise AssertionError(f'GAT engine logits differ from the model\'s '
+                           f'eval() forward by {diff}')
+    variant_launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    if variant_launches['gather_windows'] or variant_launches['sample_hop']:
+      raise AssertionError('the variants path read windows or picks')
+    print(f'GAT engine: {VARIANT_REQUESTS} requests of 200 ids; the last '
+          f'request\'s logits equal the model\'s eval() forward on its batch '
+          f'(max |diff| {diff:.3e}, tolerance {LOGIT_TOL}); launches '
+          f'{variant_launches}')
+    del nets, gat, engine, made, net, step
+  return variant_launches
+
+
 def train_phases(torch, np, K, ds, dev, seed, rows, smi):
   """The training path over the homogeneous graph and features (with the
   edge weights drawn in the data phase); returns its launches by kernel,
-  weighted and uniform. ``smi`` names the card and its power limit."""
+  weighted, uniform and of GraphSAGE's variants. ``smi`` names the card
+  and its power limit."""
   from glt_tpu_torch.loader import NeighborLoader
   from glt_tpu_torch.models import GraphSAGE
   from glt_tpu_torch.parallel import SageTrainStep, sage_loss
@@ -1927,6 +2025,9 @@ def train_phases(torch, np, K, ds, dev, seed, rows, smi):
       raise AssertionError('the uniform training path read windows')
     print(f'launches {uniform_launches}')
 
+  variant_launches = sage_variants_phase(torch, np, K, ds, dev, seed,
+                                         loader, smi)
+
   with Phase('full-neighbour check'):
     full = NeighborSampler(g, [10, -1], device=dev, seed=seed)
     seeds = train_idx[:256]
@@ -1967,7 +2068,7 @@ def train_phases(torch, np, K, ds, dev, seed, rows, smi):
     print(f'train profile: device busy {busy:.3f} ms a step is '
           f'{busy / median_ms * 100:.1f}% of the unsynchronised median step '
           f'({median_ms:.3f} ms, train main path)')
-  return launches, uniform_launches
+  return launches, uniform_launches, variant_launches
 
 
 HETERO_BATCH_FIELDS = ('node_dict', 'node_count_dict', 'row_dict',
@@ -3324,15 +3425,19 @@ def superstep_phases(torch, np, K, ds, dev, seed, smi):
     del many, one, node, x, want, step, capped
 
   with Phase('superstep main path'):
-    # (1) a captured window against its batches a call at a time
-    a, b = trainer(), trainer()
-    got, want = [], []
-    for w in range(2):
-      seeds, nv, u = window()
-      got.append(a.superstep(seeds, nv, u))
-      want.append(torch.stack([b(seeds[t], nv[t], [x[t] for x in u])
-                               for t in range(SS_K)]))
-    got, want = torch.cat(got).cpu(), torch.cat(want).cpu()
+    # (1) a captured window against its batches a call at a time, with
+    # deterministic algorithms: index_add_'s float atomics sum in another
+    # order from run to run, and 16 Adam steps carried that noise to
+    # 0.24-1.08 of the tolerance (PERF.md §6)
+    with deterministic(torch) as ops:
+      a, b = trainer(), trainer()
+      got, want = [], []
+      for w in range(2):
+        seeds, nv, u = window()
+        got.append(a.superstep(seeds, nv, u))
+        want.append(torch.stack([b(seeds[t], nv[t], [x[t] for x in u])
+                                 for t in range(SS_K)]))
+      got, want = torch.cat(got).cpu(), torch.cat(want).cpu()
     diff = float((got - want).abs().max())
     if (a.superstep_captures, a.graph_replays) != (1, 1) or \
         not diff <= LOSS_TOL:
@@ -3340,8 +3445,10 @@ def superstep_phases(torch, np, K, ds, dev, seed, smi):
                            f'{a.superstep_captures}, replays '
                            f'{a.graph_replays}, losses differ by {diff}')
     print(f'two windows of {SS_K} (eager + capture, then a replay) against '
-          f'{2 * SS_K} per-batch calls: losses within {diff:.3e} (tolerance '
-          f'{LOSS_TOL}); capture {a.capture_seconds[0] * 1e3:.1f} ms')
+          f'{2 * SS_K} per-batch calls, deterministic algorithms on (ops '
+          f'without a deterministic version: {sorted(ops) or "none"}): '
+          f'losses within {diff:.3e} (tolerance {LOSS_TOL}); capture '
+          f'{a.capture_seconds[0] * 1e3:.1f} ms')
     del a, b
     torch.cuda.empty_cache()
     # (2) run_epoch: two epochs, every launch counted from here
@@ -8163,8 +8270,8 @@ def main() -> int:
 
   stream_launches = stream_phases(torch, np, K, ds, dev, opts.seed, rows)
   torch.cuda.empty_cache()
-  train_launches, uniform_launches = train_phases(torch, np, K, ds, dev,
-                                                  opts.seed, rows, smi)
+  train_launches, uniform_launches, variant_launches = train_phases(
+      torch, np, K, ds, dev, opts.seed, rows, smi)
   torch.cuda.empty_cache()
   link_launches, sub_launches, seal_launches = link_phases(
       torch, np, K, ds, dev, opts.seed, k3, walk, host_us, smi)
@@ -8244,7 +8351,8 @@ def main() -> int:
   by_path = {'homogeneous': homo_launches, 'hetero': hetero_launches,
              'hetero_train': htrain_launches, 'csc': csc_launches,
              'stream': stream_launches, 'train': train_launches,
-             'train_uniform': uniform_launches, 'link': link_launches,
+             'train_uniform': uniform_launches,
+             'sage_variants': variant_launches, 'link': link_launches,
              'subgraph': sub_launches, 'seal': seal_launches,
              'split': split_launches, 'dist_hetero': dist_launches,
              'dist_weighted': weighted_launches,

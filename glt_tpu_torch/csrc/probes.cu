@@ -7,8 +7,9 @@
 // Replaces: benchmarks/probe_pallas_compile.py's rungs 1-5 (rung 6 is
 // gather_windows.cu, rung 7 take2d.cu):
 //   vmem_id       (:55, pallas_call :58)  copy a [128, 128] float32 block
-//                 through VMEM          -> stage_copy_kernel: cp.async
-//                 16-byte copies into shared memory, then stored out;
+//                 through VMEM          -> copy_kernel: a 16-byte unit a
+//                 thread, loaded into a register and stored straight out,
+//                 no staging;
 //   smem_scalar   (:65, :71)  the block times a [1, 1] int32 read from
 //                 SMEM                  -> scale_kernel: every thread loads
 //                 its data and the scalar together, x * (float)s;
@@ -31,8 +32,22 @@
 // allows. The row copy is also a row gather of any size, bound by bytes
 // there: 153,600 random rows of 512 B from a 512 MB table read about
 // 142,000 distinct rows (73 MB), write 79 MB and read 0.6 MB of indices,
-// about 152 MB: 45.4 us of the 3.35 TB/s.
+// about 152 MB: 45.4 us of the 3.35 TB/s. The copy is a device copy of
+// any size, bound by bytes there: 256 MiB read and 256 MiB written take
+// 160.3 us.
 // Design notes:
+// - The copy: rung 1 probed a round trip through VMEM, the TPU's
+//   software-managed memory, which every TPU kernel's data passes
+//   through. Here nothing has to: staging a unit in shared memory (a
+//   cp.async, its wait, a shared-memory read) puts a second latency
+//   between the load and the store and reuses nothing. So each thread
+//   loads its 16-byte unit into a register and stores it, and the grid
+//   follows the unit count: the rung's 4,096 units are 16 blocks, the
+//   scale's shape, and 256 MiB is 65,536 blocks, whose resident warps
+//   keep enough loads in flight to stream at clone's rate. A grid-stride
+//   loop over one wave of blocks with 4 or 8 units in flight a thread
+//   (streaming hints or not) was timed 6% slower at 256 MiB and up to
+//   12% slower at the rung (PERF.md §6).
 // - The scale: the TPU rung puts the scalar in SMEM for the scalar unit.
 //   Here a scalar read into shared memory by one thread, then a
 //   __syncthreads, then the data reads, puts two memory latencies in
@@ -65,7 +80,7 @@
 
 namespace {
 
-constexpr int kStageThreads = 256;   // one 16-byte unit a thread
+constexpr int kCopyThreads = 256;    // one 16-byte unit a thread
 constexpr int kScaleThreads = 256;   // one 16-byte unit a thread
 constexpr int kMaxWindow = 1024;     // words a window copy holds
 constexpr int kMaxRowBytes = 16384;  // bytes a row copy holds
@@ -73,21 +88,11 @@ constexpr int kRowWarps = 8;         // warps a row-copy block
 constexpr int kRowBlocksPerSm = 4;   // row-copy blocks an SM holds
 constexpr int kUnitsInFlight = 8;    // 16-byte units a lane loads at once
 
-__device__ __forceinline__ uint32_t smem(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__global__ void stage_copy_kernel(const uint4* __restrict__ src,
-                                  uint4* __restrict__ dst, int64_t units) {
-  __shared__ uint4 tile[kStageThreads];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kStageThreads
+__global__ void copy_kernel(const uint4* __restrict__ src,
+                            uint4* __restrict__ dst, int64_t units) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kCopyThreads
                     + threadIdx.x;
-  if (i >= units) return;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-               ::"r"(smem(tile + threadIdx.x)), "l"(src + i) : "memory");
-  asm volatile("cp.async.commit_group;" ::: "memory");
-  asm volatile("cp.async.wait_all;" ::: "memory");
-  dst[i] = tile[threadIdx.x];   // each thread stores the unit it staged
+  if (i < units) dst[i] = __ldg(src + i);
 }
 
 __global__ void scale_kernel(const float4* __restrict__ x,
@@ -166,15 +171,18 @@ row_copy_kernel(const uint4* __restrict__ table, int64_t n, int row_units,
 // CUDA_ERROR_INVALID_VALUE for a shape its kernel does not hold; the
 // wrappers (ops/probe_kernels.py) check alignment and sizes first.
 
-// dst = src, `bytes` a multiple of 16, both 16-byte aligned.
-extern "C" int glt_probe_stage_copy(const void* src, void* dst, int64_t bytes,
-                                    int device, void* stream) {
+// dst = src, `bytes` a multiple of 16, both 16-byte aligned: a unit a
+// thread.
+extern "C" int glt_probe_copy(const void* src, void* dst, int64_t bytes,
+                              int device, void* stream) {
   const int64_t units = bytes / 16;
   if (units <= 0) return 0;
-  return glt::Launch<stage_copy_kernel>::run(
-      dim3(static_cast<unsigned>((units - 1) / kStageThreads + 1)),
-      dim3(kStageThreads), device, stream, static_cast<const uint4*>(src),
-      static_cast<uint4*>(dst), units);
+  const int64_t blocks = (units - 1) / kCopyThreads + 1;
+  if (blocks > INT32_MAX) return CUDA_ERROR_INVALID_VALUE;
+  return glt::Launch<copy_kernel>::run(
+      dim3(static_cast<unsigned>(blocks)), dim3(kCopyThreads), device,
+      stream, static_cast<const uint4*>(src), static_cast<uint4*>(dst),
+      units);
 }
 
 // out = x * (float)s[0], x of n float32 (n a multiple of 4).
@@ -228,7 +236,7 @@ extern "C" int glt_probe_row_copy(const void* table, int64_t n, int row_bytes,
 }
 
 GLT_MODULE(probes,
-           GLT_LAUNCH(glt_probe_stage_copy),
+           GLT_LAUNCH(glt_probe_copy),
            GLT_LAUNCH(glt_probe_scale),
            GLT_LAUNCH(glt_probe_window),
            GLT_LAUNCH(glt_probe_row_copy))

@@ -52,6 +52,12 @@ class Graph:
   def num_edges(self) -> int:
     return self.topo.num_edges
 
+  def degree(self, ids) -> torch.Tensor:
+    """The degree of each of ``ids`` (pointer-axis ids, in range) along
+    the layout's axis, read from the card's ``indptr``."""
+    ids = torch.as_tensor(ids, device=self.device).long()
+    return self.indptr[ids + 1] - self.indptr[ids]
+
 
 def hetero_node_counts(graphs: Dict[EdgeType, Graph]) -> Dict[NodeType, int]:
   """Per node type, the largest axis any edge type's graph gives it (rows

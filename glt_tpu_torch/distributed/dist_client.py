@@ -104,6 +104,17 @@ def init_client(num_servers: int, num_clients: int, client_rank: int,
     _health.start()
 
 
+def get_health() -> Optional[HealthMonitor]:
+  """This client's monitor of the servers' health (None before
+  :func:`init_client`)."""
+  return _health
+
+
+def get_metrics():
+  """This client's ServingMetrics (None before :func:`init_client`)."""
+  return _metrics
+
+
 def set_replicas(mapping: Dict[int, List[int]]) -> None:
   """Replica servers a partition server: a failed lookup on ``rank``
   fails over, in order, to ``mapping[rank]`` (servers holding a copy of

@@ -1,6 +1,8 @@
 """Batch structures and sampler output -> batch (counterpart of
-glt_tpu/loader/transform.py): the fields PyG models read, padded, and the
-PyG-v1 ``(batch_size, n_id, adjs)`` view of a batch (:func:`to_pyg_v1`)."""
+glt_tpu/loader/transform.py): the fields PyG models read, padded, the
+PyG-v1 ``(batch_size, n_id, adjs)`` view of a batch (:func:`to_pyg_v1`)
+and a PyG ``Data`` of its valid slots (:func:`to_torch_data`, when
+torch_geometric is installed)."""
 from __future__ import annotations
 
 import dataclasses
@@ -33,6 +35,16 @@ class Batch:
   metadata: Optional[Dict[str, Any]] = None
 
   @property
+  def edge_index(self) -> torch.Tensor:
+    """``[2, edge_cap]``: ``row`` over ``col``, masked slots included."""
+    return torch.stack([self.row, self.col])
+
+  @property
+  def num_nodes(self) -> int:
+    """The node capacity (``node``'s length; ``node_count`` are valid)."""
+    return self.node.shape[0]
+
+  @property
   def batch(self) -> torch.Tensor:
     """Global ids of the seed nodes (the first ``batch_size`` labels)."""
     return self.node[:self.batch_size]
@@ -40,10 +52,12 @@ class Batch:
 
 def to_batch(out: SamplerOutput, x: Optional[torch.Tensor] = None,
              y: Optional[torch.Tensor] = None,
+             edge_attr: Optional[torch.Tensor] = None,
              batch_size: Optional[int] = None) -> Batch:
   """Assemble a Batch from a SamplerOutput (+ gathered payloads)."""
   return Batch(
-      x=x, y=y, row=out.row, col=out.col, edge_mask=out.edge_mask,
+      x=x, y=y, edge_attr=edge_attr, row=out.row, col=out.col,
+      edge_mask=out.edge_mask,
       node=out.node, node_count=out.node_count, edge=out.edge,
       num_sampled_nodes=out.num_sampled_nodes,
       num_sampled_edges=out.num_sampled_edges, metadata=out.metadata,
@@ -79,6 +93,17 @@ class HeteroBatch:
   #: per edge key the sampled edges' feature rows (a partitioned trainer
   #: given edge stores), zero on masked lanes
   edge_attr_dict: Optional[Dict[EdgeType, torch.Tensor]] = None
+
+  def edge_index_dict(self) -> Dict[EdgeType, torch.Tensor]:
+    """Per edge key, ``[2, edge_cap]``: ``row`` over ``col``."""
+    return {k: torch.stack([self.row_dict[k], self.col_dict[k]])
+            for k in self.row_dict}
+
+  @property
+  def batch(self) -> torch.Tensor:
+    """Global ids of the seed type's seeds (its first ``batch_size``
+    labels)."""
+    return self.node_dict[self.input_type][:self.batch_size]
 
 
 def to_hetero_batch(out: HeteroSamplerOutput,
@@ -147,3 +172,23 @@ def to_pyg_v1(batch: Batch):
     adjs.append(EdgeIndex(edge_index, e_id,
                           (int(sum(counts[:h + 2])), int(sum(counts[:h + 1])))))
   return batch.batch_size, n_id, list(reversed(adjs))
+
+
+def to_torch_data(batch: Batch):
+  """A PyG ``Data`` of the batch's valid slots, field for field as
+  glt_tpu/loader/transform.py builds it: ``x`` and ``node`` of the
+  ``node_count`` valid nodes, ``edge_index`` of the valid edges (int64),
+  ``y``, ``batch_size`` and the per-hop counts as lists. Tensors stay on
+  the batch's device. Needs torch_geometric (ImportError without it)."""
+  from torch_geometric.data import Data
+  em = batch.edge_mask
+  nc = int(batch.node_count)
+  data = Data(x=None if batch.x is None else batch.x[:nc],
+              edge_index=torch.stack([batch.row[em], batch.col[em]]).long(),
+              y=batch.y)
+  data.node = batch.node[:nc]
+  data.batch_size = batch.batch_size
+  if batch.num_sampled_nodes is not None:
+    data.num_sampled_nodes = batch.num_sampled_nodes.tolist()
+    data.num_sampled_edges = batch.num_sampled_edges.tolist()
+  return data

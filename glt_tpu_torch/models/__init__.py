@@ -1,4 +1,5 @@
-from .conv import GATConv, GCNConv, SAGEConv, segment_mean
+from .conv import (GATConv, GCNConv, SAGEConv, segment_max_masked,
+                   segment_mean, segment_sum_masked)
 from .convert import (dgcnn_params_from_flax, gat_conv_params_from_flax,
                       gcn_conv_params_from_flax, hgt_params_from_flax,
                       rgnn_params_from_flax, sage_conv_params_from_flax,
@@ -13,4 +14,4 @@ __all__ = ['DGCNN', 'GATConv', 'GCNConv', 'GraphSAGE', 'HGT', 'HGTConv',
            'gat_conv_params_from_flax', 'gcn_conv_params_from_flax',
            'hgt_params_from_flax', 'rgnn_params_from_flax',
            'sage_conv_params_from_flax', 'sage_params_from_flax',
-           'segment_mean']
+           'segment_max_masked', 'segment_mean', 'segment_sum_masked']

@@ -1,7 +1,8 @@
 """GNN convolution layers over padded edge lists (counterpart of
 glt_tpu/models/conv.py): invalid edge slots route to a sink segment, so
 aggregation is one masked ``index_add_`` (a segment max one
-``scatter_reduce``). :class:`GCNConv` also takes a leading batch
+``scatter_reduce``): the mean, the sum or the max (``SAGEConv(aggr=)``).
+:class:`GCNConv` also takes a leading batch
 dimension (a batch of padded subgraphs, each its own node space). These are plain PyTorch: the JAX convolutions are
 XLA and reach no Pallas kernel.
 
@@ -16,26 +17,59 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def _sink(targets: torch.Tensor, mask: torch.Tensor,
+          num_segments: int) -> torch.Tensor:
+  """Each slot's segment, int64; an invalid slot's is num_segments."""
+  return torch.where(mask, targets,
+                     torch.full_like(targets, num_segments)).long()
+
+
+def segment_sum_masked(msgs: torch.Tensor, targets: torch.Tensor,
+                       mask: torch.Tensor, num_segments: int) -> torch.Tensor:
+  """Masked sum aggregation: invalid slots go to segment num_segments."""
+  msgs = torch.where(mask[:, None], msgs, torch.zeros_like(msgs))
+  total = msgs.new_zeros((num_segments + 1, msgs.shape[1]))
+  return total.index_add_(0, _sink(targets, mask, num_segments),
+                          msgs)[:num_segments]
+
+
 def segment_mean(msgs: torch.Tensor, targets: torch.Tensor,
                  mask: torch.Tensor, num_segments: int) -> torch.Tensor:
   """Masked mean aggregation: invalid slots go to segment num_segments."""
-  seg = torch.where(mask, targets, torch.full_like(targets, num_segments))
-  seg = seg.long()
-  msgs = torch.where(mask[:, None], msgs, torch.zeros_like(msgs))
-  total = msgs.new_zeros((num_segments + 1, msgs.shape[1]))
-  total.index_add_(0, seg, msgs)
-  cnt = msgs.new_zeros(num_segments + 1)
-  cnt.index_add_(0, seg, mask.to(msgs.dtype))
-  return total[:num_segments] / torch.clamp(cnt[:num_segments, None],
-                                            min=1.0)
+  cnt = msgs.new_zeros(num_segments + 1).index_add_(
+      0, _sink(targets, mask, num_segments), mask.to(msgs.dtype))
+  return (segment_sum_masked(msgs, targets, mask, num_segments)
+          / torch.clamp(cnt[:num_segments, None], min=1.0))
+
+
+def segment_max_masked(msgs: torch.Tensor, targets: torch.Tensor,
+                       mask: torch.Tensor, num_segments: int) -> torch.Tensor:
+  """Masked max aggregation; a segment with no valid slot (its max -inf)
+  reads 0."""
+  seg = _sink(targets, mask, num_segments)
+  msgs = torch.where(mask[:, None], msgs,
+                     torch.full_like(msgs, float('-inf')))
+  out = msgs.new_full((num_segments + 1, msgs.shape[1]), float('-inf'))
+  out = out.scatter_reduce(0, seg[:, None].expand_as(msgs), msgs,
+                           'amax')[:num_segments]
+  return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+
+
+_AGGRS = {'mean': segment_mean, 'sum': segment_sum_masked,
+          'max': segment_max_masked}
 
 
 class SAGEConv(nn.Module):
-  """GraphSAGE convolution: W_root x + b + W_nbr mean(x[children])."""
+  """GraphSAGE convolution: W_root x + b + W_nbr aggr(x[children]), the
+  aggregation ``aggr`` 'mean', 'sum' or 'max' over each parent's valid
+  children."""
 
   def __init__(self, in_features: int, out_features: int,
-               bias: bool = True):
+               aggr: str = 'mean', bias: bool = True):
     super().__init__()
+    if aggr not in _AGGRS:
+      raise ValueError(f"aggr must be one of {sorted(_AGGRS)}, got {aggr!r}")
+    self.aggr = aggr
     self.lin_root = nn.Linear(in_features, out_features, bias=bias)
     self.lin_nbr = nn.Linear(in_features, out_features, bias=False)
 
@@ -45,20 +79,24 @@ class SAGEConv(nn.Module):
     n = x.shape[0]
     msgs = x.index_select(0, row.long().clamp(0, n - 1))
     ok = edge_mask & (row >= 0) & (col >= 0)
-    agg = segment_mean(msgs, col.clamp(0, n - 1), ok, n)
+    agg = _AGGRS[self.aggr](msgs, col.clamp(0, n - 1), ok, n)
     return self.lin_root(x) + self.lin_nbr(agg)
 
 
 class GATConv(nn.Module):
-  """Graph attention (GATv1): per-edge logits (leaky ReLU, slope 0.2)
-  softmax-normalised over each parent's valid incoming edges, multi-head,
-  the heads (each ``out_features`` wide) averaged -- the reference's
-  ``concat=False``, the only form its RGAT layers use. Parameters:
-  ``proj`` (no bias), ``att_src`` and ``att_dst`` [heads, out_features]."""
+  """Graph attention (GATv1): per-edge logits (leaky ReLU of slope
+  ``negative_slope``) softmax-normalised over each parent's valid
+  incoming edges, multi-head, each head ``out_features`` wide: with
+  ``concat`` the heads side by side, ``[n, heads * out_features]``,
+  else their mean, ``[n, out_features]`` (the form the RGAT layers use).
+  Parameters: ``proj`` (no bias), ``att_src`` and ``att_dst`` [heads,
+  out_features]."""
 
-  def __init__(self, in_features: int, out_features: int, heads: int = 1):
+  def __init__(self, in_features: int, out_features: int, heads: int = 1,
+               concat: bool = True, negative_slope: float = 0.2):
     super().__init__()
     self.heads, self.out_features = heads, out_features
+    self.concat, self.negative_slope = concat, negative_slope
     self.proj = nn.Linear(in_features, heads * out_features, bias=False)
     self.att_src = nn.Parameter(torch.empty(heads, out_features))
     self.att_dst = nn.Parameter(torch.empty(heads, out_features))
@@ -77,7 +115,7 @@ class GATConv(nn.Module):
     a_dst = (proj * self.att_dst).sum(-1)
     r = row.long().clamp(0, n - 1)
     logit = F.leaky_relu(a_src[r] + a_dst[col.long().clamp(0, n - 1)],
-                         0.2)                                     # [E, h]
+                         self.negative_slope)                     # [E, h]
     seg = torch.where(ok, col.long(), torch.full_like(col, n, dtype=torch.long))
     # numerically stable masked segment softmax over each parent; a
     # segment with no valid edge has max -inf, read as 0
@@ -94,7 +132,7 @@ class GATConv(nn.Module):
     alpha = z / torch.clamp(denom[seg], min=1e-16)
     out = proj.new_zeros((n + 1, h, f)).index_add_(
         0, seg, proj[r] * alpha[:, :, None])[:n]
-    return out.mean(1)
+    return out.reshape(n, h * f) if self.concat else out.mean(1)
 
 
 class GCNConv(nn.Module):

@@ -29,13 +29,17 @@ def sage_conv_params_from_flax(conv: Mapping,
 
 def sage_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
   """A flax GraphSAGE tree (``{'params': {'conv0': ..., ...}}`` or its
-  inner dict) -> :class:`~glt_tpu_torch.models.GraphSAGE` state_dict."""
+  inner dict) -> :class:`~glt_tpu_torch.models.GraphSAGE` state_dict,
+  each conv a SAGEConv, a GCNConv or a GATConv by its fields."""
   params = tree.get('params', tree)
   out = {}
   i = 0
   while f'conv{i}' in params:
-    out.update(sage_conv_params_from_flax(params[f'conv{i}'],
-                                          prefix=f'convs.{i}.'))
+    conv = params[f'conv{i}']
+    convert = (gat_conv_params_from_flax if 'proj' in conv
+               else gcn_conv_params_from_flax if 'lin' in conv
+               else sage_conv_params_from_flax)
+    out.update(convert(conv, prefix=f'convs.{i}.'))
     i += 1
   return out
 

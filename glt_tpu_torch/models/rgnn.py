@@ -24,17 +24,17 @@ class HeteroConvLayer(nn.Module):
 
   The GAT relation is the reference's ``GATConv(out_features, heads,
   concat=False)``: every head is ``out_features`` wide and the heads are
-  averaged (the port's :class:`GATConv` has only that form). A node
-  type that is the destination of none of ``edge_types`` keeps a
-  transformed self-embedding (``self_<type>``); ``node_types`` names the
-  types that need one."""
+  averaged. A node type that is the destination of none of
+  ``edge_types`` keeps a transformed self-embedding (``self_<type>``);
+  ``node_types`` names the types that need one."""
 
   def __init__(self, edge_types: Sequence[EdgeType], in_features: int,
                out_features: int, conv: str = 'sage', heads: int = 1,
                node_types: Sequence[NodeType] = ()):
     super().__init__()
     self.edge_types = [tuple(e) for e in edge_types]
-    make = ((lambda: GATConv(in_features, out_features, heads=heads))
+    make = ((lambda: GATConv(in_features, out_features, heads=heads,
+                             concat=False))
             if conv == 'gat'
             else (lambda: SAGEConv(in_features, out_features)))
     self.convs = nn.ModuleDict({as_str(e): make() for e in self.edge_types})
@@ -79,14 +79,18 @@ class RGNN(nn.Module):
 
   With ``trim`` and a batch that carries ``edge_hop_offsets_dict``, layer
   i reads only the edge slots of hops ``[0, num_hops - i)`` per edge type
-  (the reference's trim_to_layer, as static slices; at least one slot)."""
+  (the reference's trim_to_layer, as static slices; at least one slot).
+  ``dropout`` follows each hidden layer's ReLU, active under
+  ``model.train()`` (the reference's ``train=True``)."""
 
   def __init__(self, edge_types: Sequence[EdgeType], in_features: int,
                hidden_features: int, out_features: int, num_layers: int = 2,
                conv: str = 'rsage', heads: int = 4, trim: bool = True,
-               node_types: Optional[Sequence[NodeType]] = None):
+               node_types: Optional[Sequence[NodeType]] = None,
+               dropout: float = 0.0):
     super().__init__()
     self.num_layers, self.trim = num_layers, trim
+    self.dropout = nn.Dropout(dropout) if dropout > 0 else None
     dims = ([in_features] + [hidden_features] * (num_layers - 1)
             + [out_features])
     kind = 'gat' if conv == 'rgat' else 'sage'
@@ -116,6 +120,8 @@ class RGNN(nn.Module):
       x_dict = layer(x_dict, row_d, col_d, mask_d)
       if i < self.num_layers - 1:
         x_dict = {t: torch.relu(v) for t, v in x_dict.items()}
+        if self.dropout is not None:
+          x_dict = {t: self.dropout(v) for t, v in x_dict.items()}
     if return_all:
       return x_dict
     return x_dict[batch.input_type][:batch.batch_size]

@@ -9,22 +9,36 @@ import torch
 from torch import nn
 
 from ..loader.transform import Batch
-from .conv import SAGEConv
+from .conv import GATConv, GCNConv, SAGEConv
+
+#: the reference's convolutions by name (glt_tpu/models/sage.py _CONVS)
+_CONVS = {
+    'sage': lambda i, o: SAGEConv(i, o),
+    'gcn': lambda i, o: GCNConv(i, o),
+    'gat': lambda i, o: GATConv(i, o, heads=1),
+}
 
 
 class GraphSAGE(nn.Module):
-  """``num_layers`` of SAGEConv + relu, logits read off the seed rows.
-  The reference topology for ogbn-products: 3 layers, hidden 256."""
+  """``num_layers`` of ``conv`` ('sage', 'gcn' or 'gat' with one head) +
+  relu + dropout, logits read off the seed rows. The reference topology
+  for ogbn-products: 3 SAGE layers, hidden 256. ``dropout`` follows each
+  hidden ReLU and is active under ``model.train()`` (the reference's
+  ``train=True``)."""
 
   def __init__(self, in_features: int, hidden_features: int,
-               out_features: int, num_layers: int = 3, trim: bool = True):
+               out_features: int, num_layers: int = 3, conv: str = 'sage',
+               dropout: float = 0.0, trim: bool = True):
     super().__init__()
+    if conv not in _CONVS:
+      raise ValueError(f'conv must be one of {sorted(_CONVS)}, got {conv!r}')
     self.num_layers = num_layers
     self.trim = trim
     dims = ([in_features] + [hidden_features] * (num_layers - 1)
             + [out_features])
     self.convs = nn.ModuleList(
-        SAGEConv(dims[i], dims[i + 1]) for i in range(num_layers))
+        _CONVS[conv](dims[i], dims[i + 1]) for i in range(num_layers))
+    self.dropout = nn.Dropout(dropout) if dropout > 0 else None
 
   def forward(self, batch: Batch, return_all: bool = False) -> torch.Tensor:
     x = batch.x
@@ -42,6 +56,8 @@ class GraphSAGE(nn.Module):
       x = conv(x, r, c, m)
       if i < self.num_layers - 1:
         x = torch.relu(x)
+        if self.dropout is not None:
+          x = self.dropout(x)
     return x if return_all else x[:batch.batch_size]
 
   def embed(self, batch: Batch) -> torch.Tensor:

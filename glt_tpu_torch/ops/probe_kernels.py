@@ -31,7 +31,7 @@ import torch
 from .build import lazy_entry
 from .cuda_kernels import _check, _where, count_launch
 
-glt_probe_stage_copy = lazy_entry(globals(), 'glt_probe_stage_copy')
+glt_probe_copy = lazy_entry(globals(), 'glt_probe_copy')
 glt_probe_scale = lazy_entry(globals(), 'glt_probe_scale')
 glt_probe_window = lazy_entry(globals(), 'glt_probe_window')
 glt_probe_row_copy = lazy_entry(globals(), 'glt_probe_row_copy')
@@ -58,9 +58,10 @@ def vmem_id_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def vmem_id(x: torch.Tensor) -> torch.Tensor:
-  """A copy of ``x`` staged through shared memory by 16-byte ``cp.async``
-  copies. On the card ``x`` is contiguous, 16-byte aligned and a whole
-  number of 16-byte units."""
+  """A copy of ``x``: each thread of the kernel loads a 16-byte unit into
+  a register and stores it, the grid as many blocks as the units need.
+  On the card ``x`` is contiguous, 16-byte aligned and a whole number of
+  16-byte units."""
   if not x.is_cuda:
     return vmem_id_plain(x)
   nbytes, ptr = x.numel() * x.element_size(), x.data_ptr()
@@ -70,7 +71,7 @@ def vmem_id(x: torch.Tensor) -> torch.Tensor:
         f'{nbytes} bytes at {ptr % 16} past 16')
   out = torch.empty_like(x)
   if nbytes:
-    count_launch(vmem_id, _check(glt_probe_stage_copy(
+    count_launch(vmem_id, _check(glt_probe_copy(
         ptr, out.data_ptr(), nbytes, *_where(x.device)), 'vmem_id'))
   return out
 

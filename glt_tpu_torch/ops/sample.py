@@ -105,6 +105,11 @@ class NeighborOutput(NamedTuple):
   mask: torch.Tensor
   eids: Optional[torch.Tensor] = None
 
+  @property
+  def nbrs_num(self) -> torch.Tensor:
+    """Valid neighbours a seed, ``[S]``."""
+    return self.mask.sum(dim=-1)
+
 
 def _empty_output(s: int, width: int, device,
                   with_eids: bool = False) -> NeighborOutput:

@@ -27,6 +27,11 @@ class NodeSamplerInput:
   def __getitem__(self, index) -> 'NodeSamplerInput':
     return NodeSamplerInput(np.asarray(self.node)[index], self.input_type)
 
+  def share_memory(self) -> 'NodeSamplerInput':
+    """Itself: the seeds are a process-local numpy array, as in the
+    reference."""
+    return self
+
 
 @dataclasses.dataclass
 class NegativeSampling:
@@ -90,6 +95,10 @@ class EdgeSamplerInput:
         np.asarray(self.label)[index] if self.label is not None else None,
         self.input_type, self.neg_sampling)
 
+  def share_memory(self) -> 'EdgeSamplerInput':
+    """Itself, as :meth:`NodeSamplerInput.share_memory`."""
+    return self
+
 
 @dataclasses.dataclass
 class SamplerOutput:
@@ -120,6 +129,11 @@ class SamplerOutput:
   edge_hop_offsets: Optional[List[int]] = None
   metadata: Optional[Dict] = None
 
+  @property
+  def batch_size(self) -> Optional[int]:
+    """The number of seeds (None without ``batch``)."""
+    return None if self.batch is None else int(self.batch.shape[0])
+
 
 @dataclasses.dataclass
 class HeteroSamplerOutput:
@@ -140,6 +154,10 @@ class HeteroSamplerOutput:
   num_sampled_edges: Optional[Dict[EdgeType, torch.Tensor]] = None
   input_type: Optional[NodeType] = None
   metadata: Optional[Dict] = None
+
+  def get_edge_index(self) -> Dict[EdgeType, torch.Tensor]:
+    """Per edge key, ``[2, edge_capacity]``: ``row`` over ``col``."""
+    return {k: torch.stack([self.row[k], self.col[k]]) for k in self.row}
 
 
 class SamplingType(enum.Enum):
@@ -173,3 +191,8 @@ class BaseSampler:
 
   def sample_from_edges(self, inputs: EdgeSamplerInput, **kwargs):
     raise NotImplementedError
+
+  @property
+  def edge_permutation(self):
+    """None: the samplers keep the graph's own edge order."""
+    return None

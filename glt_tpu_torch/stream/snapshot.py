@@ -105,6 +105,10 @@ class Snapshot:
     self.max_degree = topo.max_degree
 
   @property
+  def num_rows(self) -> int:
+    return self.topo.num_rows
+
+  @property
   def num_edges(self) -> int:
     return self.topo.num_edges
 

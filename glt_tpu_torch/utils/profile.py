@@ -1,7 +1,10 @@
-"""Timing and throughput accounting (counterpart of
-glt_tpu/utils/profile.py's ``Timer`` and ``ThroughputMeter``)."""
+"""Timing, throughput accounting and profiler traces (counterpart of
+glt_tpu/utils/profile.py: ``Timer``, ``ThroughputMeter``, ``trace``,
+``annotate``)."""
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 
@@ -76,3 +79,27 @@ class ThroughputMeter:
     if r >= 1e3:
       return f'{r / 1e3:.2f}K {self.unit}/s'
     return f'{r:.2f} {self.unit}/s'
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+  """A ``torch.profiler`` session over the block (the host and, where
+  there is one, the card), written into ``log_dir`` as a Chrome trace
+  (``trace.json``; chrome://tracing or Perfetto read it)."""
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  acts = [ProfilerActivity.CPU]
+  if torch.cuda.is_available():
+    acts.append(ProfilerActivity.CUDA)
+  os.makedirs(log_dir, exist_ok=True)
+  with profile(activities=acts) as prof:
+    yield
+  prof.export_chrome_trace(os.path.join(log_dir, 'trace.json'))
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+  """A named range inside a trace (``torch.profiler.record_function``)."""
+  from torch.profiler import record_function
+  with record_function(name):
+    yield

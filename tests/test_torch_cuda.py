@@ -1147,6 +1147,43 @@ def test_weighted_loader_trains_through_the_kernels(dev, sync_stages):
   assert K.sample_walk_dedup.launches == 0
 
 
+def test_gat_graphsage_loss_matches_plain(dev):
+  # one uniform batch of a 'gat' GraphSAGE through K1 and K3, then through
+  # their plain versions with the same seeds and draws: the same batch,
+  # the same loss within 1e-4 (index_add_ atomics sum in any order)
+  from glt_tpu_torch.parallel import sage_loss
+  graph, g = _weighted_csr(dev, seed=37)
+  n = graph.num_nodes
+  x = torch.randn((n, 32), generator=g, device=dev)
+  y = torch.argmax(x @ torch.randn((32, 5), generator=g, device=dev), 1)
+  ds = Dataset(graph=graph)
+  ds.init_node_features(x, device=dev)
+  ds.init_node_labels(y.cpu())
+  ds.random_node_split(0.1, 0.1)
+  loader = NeighborLoader(ds, [10, 5], ds.get_split('train'), batch_size=256,
+                          device=dev, seed=0)
+  seeds = ds.get_split('train')[:256]
+  u = loader.sampler.hop_uniforms(256)
+  torch.manual_seed(0)
+  model = GraphSAGE(32, 64, 5, num_layers=2, conv='gat').to(dev).eval()
+
+  def loss():
+    b = loader._collate(loader.sampler.sample_from_nodes(seeds, 256,
+                                                         uniforms=u),
+                        seeds, 256)
+    with torch.no_grad():
+      return b, float(sage_loss(model, b))
+  k1, k3 = K.sample_walk_dedup.launches, K.gather_rows.launches
+  bk, lk = loss()
+  assert (K.sample_walk_dedup.launches, K.gather_rows.launches) == (k1 + 1,
+                                                                     k3 + 1)
+  with _swapped(('sample_walk_dedup', 'gather_rows')):
+    bp, lp = loss()
+  for f in ('node', 'row', 'col', 'edge_mask', 'x', 'y'):
+    assert torch.equal(getattr(bk, f), getattr(bp, f)), f
+  assert np.isfinite(lk) and abs(lk - lp) <= 1e-4 * max(1.0, abs(lp))
+
+
 def test_probe_ladder_passes_on_the_card(dev):
   # every rung's kernel equal to its plain version and the TPU rung's
   # reference, each launched once; the microbench's vmem_take not at all
@@ -1164,6 +1201,12 @@ def test_probe_kernels_match_plain(dev):
   assert torch.equal(P.vmem_id(x), x)
   big = torch.randn((1 << 20,), generator=g, device=dev)
   assert torch.equal(P.vmem_id(big), big)           # 256 blocks
+  # the copy at 1, 4,095 and 4,097 16-byte units (a ragged last block)
+  # and at 64 MiB (16,384 blocks)
+  for units in (1, 4_095, 4_097, 1 << 22):
+    y = torch.randn((units, 4), generator=g, device=dev)
+    assert torch.equal(P.vmem_id(y), P.vmem_id_plain(y))
+    assert torch.equal(P.vmem_id(y), y)
   for s in (3, -7, 1 << 20):
     st = torch.tensor([[s]], dtype=torch.int32, device=dev)
     assert torch.equal(P.smem_scalar(x, st), P.smem_scalar_plain(x, st))

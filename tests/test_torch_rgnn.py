@@ -21,6 +21,7 @@ from glt_tpu.models.rgnn import RGNN as JaxRGNN
 from glt_tpu_torch.loader import HeteroBatch
 from glt_tpu_torch.models import (RGNN, GATConv, gat_conv_params_from_flax,
                                   rgnn_params_from_flax)
+from test_torch_models import check_train_dropout
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 U2I = ('user', 'u2i', 'item')
@@ -53,11 +54,30 @@ def test_gat_conv_matches_flax(heads):
   args = tuple(jnp.asarray(a) for a in (x, row, col, mask))
   params = jax.jit(conv.init)(jax.random.key(0), *args)
   want = jax.jit(conv.apply)(params, *args)
-  port = GATConv(16, 6, heads=heads)
+  port = GATConv(16, 6, heads=heads, concat=False)
   port.load_state_dict(gat_conv_params_from_flax(_np_tree(params)['params']))
   with torch.no_grad():
     got = port(*(torch.as_tensor(a) for a in (x, row, col, mask)))
   assert got.shape == (40, 6)
+  np.testing.assert_allclose(np.asarray(want), got.numpy(), **TOL)
+
+
+@pytest.mark.parametrize('concat', [True, False])
+def test_gat_conv_concat_and_slope_match_flax(concat):
+  """Two heads side by side or averaged, a leaky slope of 0.01."""
+  rng = np.random.default_rng(3)
+  x = rng.standard_normal((40, 16)).astype(np.float32)
+  row, col, mask = _padded_edges(rng, 40, 40, 150)
+  col[:5] = 7
+  conv = JaxGATConv(6, heads=2, concat=concat, negative_slope=0.01)
+  args = tuple(jnp.asarray(a) for a in (x, row, col, mask))
+  params = jax.jit(conv.init)(jax.random.key(2), *args)
+  want = jax.jit(conv.apply)(params, *args)
+  port = GATConv(16, 6, heads=2, concat=concat, negative_slope=0.01)
+  port.load_state_dict(gat_conv_params_from_flax(_np_tree(params)['params']))
+  with torch.no_grad():
+    got = port(*(torch.as_tensor(a) for a in (x, row, col, mask)))
+  assert got.shape == ((40, 12) if concat else (40, 6))
   np.testing.assert_allclose(np.asarray(want), got.numpy(), **TOL)
 
 
@@ -123,3 +143,41 @@ def test_rgnn_needs_a_self_layer_for_an_unreached_type():
                       for k, v in fields.items()})
   with pytest.raises(ValueError, match="'tag'"):
     model(pb)
+
+
+def _batches(fields, offs):
+  jb = JaxHeteroBatch(
+      input_type='user', batch_size=4, edge_hop_offsets_dict=offs,
+      **{k: {kk: jnp.asarray(vv) for kk, vv in v.items()}
+         for k, v in fields.items()})
+  pb = HeteroBatch(
+      input_type='user', batch_size=4, edge_hop_offsets_dict=offs,
+      **{k: {kk: torch.as_tensor(vv) for kk, vv in v.items()}
+         for k, v in fields.items()})
+  return jb, pb
+
+
+def test_rgnn_dropout_eval_matches_flax_deterministic():
+  # eval() is flax's train=False: dropout at p = 0.5 passes values through
+  fields, offs = _hetero_batch(np.random.default_rng(5))
+  etypes = [I2U, I2I, U2I]
+  jb, pb = _batches(fields, offs)
+  jmodel = JaxRGNN(edge_types=etypes, hidden_features=16, out_features=7,
+                   num_layers=2, conv='rsage', dropout=0.5)
+  params = jax.jit(jmodel.init)(jax.random.key(6), jb)
+  want = jax.jit(jmodel.apply)(params, jb)
+  port = RGNN(etypes, 12, 16, 7, num_layers=2, conv='rsage', dropout=0.5,
+              node_types=['user', 'item', 'tag']).eval()
+  port.load_state_dict(rgnn_params_from_flax(_np_tree(params)))
+  with torch.no_grad():
+    got = port(pb)
+  np.testing.assert_allclose(np.asarray(want), got.numpy(), **TOL)
+
+
+def test_rgnn_dropout_trains_at_its_rate():
+  fields, offs = _hetero_batch(np.random.default_rng(7))
+  _, pb = _batches(fields, offs)
+  torch.manual_seed(2)
+  model = RGNN([I2U, I2I, U2I], 12, 256, 7, num_layers=2, conv='rsage',
+               dropout=0.5, node_types=['user', 'item', 'tag'])
+  check_train_dropout(model, lambda: model(pb), 0.5)
